@@ -1,0 +1,451 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; no phase swallows its own failure):
+
+1. build   — compile the hand-written CUDA kernels (csrc/butterfly.cu) with
+             nvcc from this checkout and load them.
+2. kernels — hold each kernel against its plain PyTorch version on the card:
+             both kernels, batched and B = 1, at n in {16, 48} on tables of
+             small port fits, R = 130 signal rows (a ragged tile edge), at
+             every ladder cut including 0.
+3. main    — the port's main path at a realistic size, through the CLI entry
+             point: ``python -m repro_torch.launch.serve --fgft`` with B = 64
+             community graphs, n = 256, g = 2 n log2 n = 4096, R = 256,
+             tiers full/balanced/draft.  Launch counters are zeroed just
+             before and read just after; both batched entry points must
+             have launched.  The full tier's relative error must be < 0.05
+             and equal the dense ||L - U diag(s) U^T||^2 / ||L||^2 within
+             1e-3 relative, and the served output must match the plain
+             version.
+4. fgft    — the single-graph path at the same width: ``build_fgft`` on one
+             community graph (n = 256, g = 4096), then ``FGFT.analysis``,
+             ``synthesis`` and ``project`` (the single-matrix entry points,
+             launched as B = 1).  Counters are zeroed just before and read
+             just after; both single-matrix entry points must have
+             launched.  Relative error < 0.05, synthesis(analysis(x)) = x.
+5. shapes  — each kernel held against its plain version at the two paths'
+             shapes (every cut), then timed.
+
+Tolerance of every kernel-vs-plain check: max|dy| <= 1e-4 * max(1, max|y|):
+the kernel and the plain version round their FMA contractions differently
+across about 2S stages.
+
+Output: progress lines, a {"kernels": [...]} line, the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
+F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+TOL = 1e-4
+DEVICE = "cuda"
+MAIN = dict(graphs=64, n=256, signals=256, steps=5,
+            tiers="full:1.0,balanced:0.5,draft:0.25")
+REPLACES = {
+    "batched_sym_operator_apply": "src/repro/kernels/butterfly.py:169",
+    "batched_butterfly_apply": "src/repro/kernels/butterfly.py:209",
+    "sym_operator_apply": "src/repro/kernels/butterfly.py:240",
+    "butterfly_apply": "src/repro/kernels/butterfly.py:102",
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# comparisons and timing
+# ---------------------------------------------------------------------------
+
+def max_err(got, want) -> tuple:
+    import torch
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    scale = max(1.0, float(want.abs().max()) if want.numel() else 0.0)
+    check(bool(torch.isfinite(got).all()), "kernel output is not finite")
+    return err, scale
+
+
+def compare(name, got, want, errs) -> None:
+    err, scale = max_err(got, want)
+    check(err <= TOL * scale,
+          f"{name}: max|dy| {err:.3e} > {TOL} * {scale:.3e}")
+    errs[name] = max(errs.get(name, 0.0), err)
+
+
+def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Median over rounds of the mean time of ``reps`` calls (CUDA events)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def real_pairs(staged, num_stages, keep) -> int:
+    """Real (non-pad) pairs a leg holds at a cut, over the batch."""
+    s_tot = staged.idx_i.shape[-2]
+    k = s_tot if num_stages is None else num_stages
+    sl = slice(0, k) if keep == "head" else slice(s_tot - k, s_tot)
+    return int((staged.idx_i[..., sl, :] < staged.n).sum())
+
+
+def bound_ms(x, legs, with_diag: bool) -> tuple:
+    """Least time on the card for the function itself: x read once, y
+    written once, each leg's real pairs (2 int32 + 3 f32 = 20 B each)
+    read once, the spectrum read once; 6 flops per real pair per signal
+    row (paper Table 1) plus n per row for the diagonal.  Pad entries of
+    the (S, P) layout are not counted: the function does not need them,
+    the layout is the kernel's choice.  Returns (ms, "bytes" |
+    "operations")."""
+    bsz, rows, n = (1,) * (3 - x.dim()) + tuple(x.shape)
+    nbytes = 2 * x.numel() * 4
+    flops = 0
+    for pairs in legs:
+        nbytes += pairs * 20
+        flops += 6 * pairs * rows
+    if with_diag:
+        nbytes += bsz * n * 4
+        flops += bsz * rows * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_build() -> None:
+    from repro_torch.kernels import build
+    nvcc = build.find_nvcc()
+    version = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+    log(f"[build] {nvcc}: {version.splitlines()[-1] if version else '?'}")
+    t0 = time.perf_counter()
+    build.library()
+    log(f"[build] kernels built and loaded in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def lowpass(lam):
+    """The low-pass response 1 / (1 + lambda) of the smoke run's filters."""
+    return 1.0 / (1.0 + lam)
+
+
+def cut_list(staged) -> list:
+    return sorted({0, *staged.cuts[:, 0].tolist()})
+
+
+def check_tables(tag, fwd, adj, diag, x, errs) -> int:
+    """Both kernels (batched if the tables are) against the plain
+    versions at every cut; returns the number of comparisons."""
+    from repro_torch.kernels import butterfly as bf
+    from repro_torch.kernels import ref
+    batched = fwd.idx_i.dim() == 3
+    chain = bf.batched_butterfly_apply if batched else bf.butterfly_apply
+    chain_ref = ref.batched_g_apply if batched else ref.staged_g_apply
+    op = (bf.batched_sym_operator_apply if batched
+          else bf.sym_operator_apply)
+    op_ref = (ref.batched_sym_operator_apply if batched
+              else ref.sym_operator_apply)
+    chain_name = "batched_butterfly_apply" if batched else "butterfly_apply"
+    op_name = ("batched_sym_operator_apply" if batched
+               else "sym_operator_apply")
+    count = 0
+    for k in cut_list(fwd):
+        for staged, keep in ((fwd, "tail"), (adj, "head")):
+            compare(chain_name, chain(staged, x, k, keep),
+                    chain_ref(staged, x, k, keep), errs)
+            count += 1
+        compare(op_name, op(fwd, adj, diag, x, k),
+                op_ref(fwd, adj, diag, x, k), errs)
+        count += 1
+    log(f"[kernels] {tag}: {count} kernel-vs-plain checks at cuts "
+        f"{cut_list(fwd)} passed")
+    return count
+
+
+def tables_for(basis, b: int):
+    """B = 1 tables of matrix b of a batched basis (packed by the port)."""
+    from repro_torch.core.staging import pack_g_pair
+    from repro_torch.core.types import GFactors
+    f = GFactors(*(t[b] for t in basis.factors))
+    return pack_g_pair(f, n=basis.n, device=basis.device)
+
+
+def phase_kernels(errs) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.core import ApproxEigenbasis, laplacian
+    from repro_torch.graphs import community_graph
+    dev = torch.device(DEVICE)
+    for n in (16, 48):
+        g = int(2 * n * np.log2(n))
+        laps = np.stack([laplacian(community_graph(n, seed=s))
+                         for s in range(4)])
+        basis = ApproxEigenbasis.fit(laps, g, n_iter=1, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(n)
+        x = torch.randn((4, 130, n), generator=gen, device=dev)
+        check_tables(f"n={n} B=4 R=130", basis.fwd, basis.bwd,
+                     basis.spectrum, x, errs)
+        sfwd, sadj = tables_for(basis, 1)
+        check_tables(f"n={n} B=1 R=130", sfwd, sadj, basis.spectrum[1],
+                     x[1].contiguous(), errs)
+    torch.cuda.synchronize()
+
+
+def phase_main() -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core.gtransform import g_to_dense
+    from repro_torch.kernels import butterfly as bf
+    from repro_torch.kernels.plan import ApplyPlan
+    from repro_torch.launch import serve
+    argv = ["--fgft", "--graphs", str(MAIN["graphs"]),
+            "--graph-n", str(MAIN["n"]), "--signals", str(MAIN["signals"]),
+            "--filter-steps", str(MAIN["steps"]), "--tiers", MAIN["tiers"],
+            "--device", DEVICE]
+    bf.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bf.entry_launch_counts()
+    log(f"[main] serve --fgft {' '.join(argv[1:])}: {wall:.1f}s "
+        f"(fit {out['fit_s']:.1f}s); launches {launches}")
+    for entry in ("batched_sym_operator_apply", "batched_butterfly_apply"):
+        check(launches[entry] > 0, f"main path never launched {entry}")
+    engine, laps = out["engine"], out["laps"]
+    basis = engine.basis
+    n = basis.n
+    lap_t = torch.from_numpy(laps).to(basis.device)
+    u = g_to_dense(basis.factors, n)
+    recon = u @ torch.diag_embed(basis.spectrum) @ u.transpose(1, 2)
+    dense = (((lap_t - recon) ** 2).sum((1, 2))
+             / (lap_t ** 2).sum((1, 2))).cpu().numpy()
+    rel = np.asarray(out["rel_error"], np.float64)
+    mean_rel, mean_dense = float(rel.mean()), float(dense.mean())
+    log(f"[main] full-tier relative error: mean {mean_rel:.6f} from the "
+        f"fit objective, {mean_dense:.6f} recomputed densely")
+    check(bool(np.isfinite(rel).all()), "non-finite relative error")
+    check(mean_rel < 0.05, f"mean relative error {mean_rel} >= 0.05")
+    check(abs(mean_dense - mean_rel) <= 1e-3 * mean_rel,
+          f"dense relative error {mean_dense} != objective {mean_rel}")
+    for name, ts in out["tiers"].items():
+        log(f"[main] tier {name}: {ts['transforms_per_s']:.1f} "
+            f"graph-transforms/s, {ts['num_transforms']} components, "
+            f"{ts['num_stages']} stages")
+    x = out["signals"]
+    y = engine.step(x, lowpass, tier="full")
+    plain = ApplyPlan(family="sym", mode="operator", n=n, batched=True,
+                      backend="torch", device=DEVICE).program()
+    spec = engine.tiers["full"]["spectrum"]
+    y_ref = plain(engine._live.fwd, engine._live.bwd, lowpass(spec), x)
+    check(tuple(y.shape) == tuple(x.shape), f"served shape {tuple(y.shape)}")
+    err, scale = max_err(y, y_ref)
+    check(err <= TOL * scale, f"served full tier max|dy| {err:.3e}")
+    log(f"[main] served full tier vs plain version: max|dy| {err:.3e} "
+        f"(scale {scale:.3e})")
+    torch.cuda.synchronize()
+    return {"out": out, "launches": launches, "wall_s": wall,
+            "mean_rel": mean_rel, "mean_rel_dense": mean_dense,
+            "served_err": err}
+
+
+def phase_fgft(errs) -> dict:
+    """The single-graph entry points at the main path's width."""
+    import numpy as np
+    import torch
+    from repro_torch.core import build_fgft, laplacian, relative_error
+    from repro_torch.graphs import community_graph
+    from repro_torch.kernels import butterfly as bf
+    from repro_torch.kernels import ref
+    n = MAIN["n"]
+    g = int(2 * n * np.log2(n))
+    lap = laplacian(community_graph(n, seed=0))
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    x = torch.randn((MAIN["signals"], n), generator=gen, device=DEVICE)
+    bf.reset_launch_counts()
+    t0 = time.perf_counter()
+    f = build_fgft(lap, g, n_iter=3, device=DEVICE)
+    fit_s = time.perf_counter() - t0
+    xh = f.analysis(x)
+    xr = f.synthesis(xh)
+    y = f.project(x, lowpass)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bf.entry_launch_counts()
+    log(f"[single] build_fgft n={n} g={g} + analysis/synthesis/project of "
+        f"R={x.shape[0]}: {wall:.1f}s (fit {fit_s:.1f}s); launches "
+        f"{launches}")
+    for entry in ("sym_operator_apply", "butterfly_apply"):
+        check(launches[entry] > 0, f"single-graph path never launched {entry}")
+    rel = relative_error(lap, f)
+    log(f"[single] relative error {rel:.6f}, {f.fwd.idx_i.shape[0]} stages "
+        f"of {f.fwd.idx_i.shape[1]} pairs")
+    check(np.isfinite(rel) and rel < 0.05, f"relative error {rel} >= 0.05")
+    compare("butterfly_apply", xh, ref.staged_g_apply(f.bwd, x), errs)
+    compare("butterfly_apply", xr, ref.staged_g_apply(f.fwd, xh, None,
+                                                      "tail"), errs)
+    compare("sym_operator_apply", y, ref.sym_operator_apply(
+        f.fwd, f.bwd, lowpass(f.spectrum), x), errs)
+    err, scale = max_err(xr, x)
+    check(err <= TOL * scale, f"synthesis(analysis(x)) != x: {err:.3e}")
+    log(f"[single] synthesis(analysis(x)) vs x: max|dx| {err:.3e}")
+    return {"fgft": f, "launches": launches, "signals": x}
+
+
+def phase_main_shapes(main, single, errs) -> list:
+    """Kernel vs plain at the two paths' shapes, then timings."""
+    import torch
+    from repro_torch.kernels import butterfly as bf
+    from repro_torch.kernels import ref
+    engine = main["out"]["engine"]
+    basis = engine.basis
+    n, bsz = basis.n, basis.spectrum.shape[0]
+    x = main["out"]["signals"]
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    ragged = torch.randn((bsz, 130, n), generator=gen, device=DEVICE)
+    eye = torch.eye(n, device=DEVICE).expand(bsz, n, n).contiguous()
+    check_tables(f"main n={n} B={bsz} R={x.shape[1]}", basis.fwd, basis.bwd,
+                 basis.spectrum, x, errs)
+    check_tables(f"main n={n} B={bsz} R=130", basis.fwd, basis.bwd,
+                 basis.spectrum, ragged, errs)
+    for name in ("balanced", "draft"):
+        k = engine.tiers[name]["num_stages"]
+        compare("batched_butterfly_apply",
+                bf.batched_butterfly_apply(basis.fwd, eye, k, "tail"),
+                ref.batched_g_apply(basis.fwd, eye, k, "tail"), errs)
+    f = single["fgft"]
+    sfwd, sadj, sspec, x0 = f.fwd, f.bwd, f.spectrum, single["signals"]
+    check_tables(f"fgft n={n} B=1 R={x0.shape[0]}", sfwd, sadj, sspec, x0,
+                 errs)
+    torch.cuda.synchronize()
+
+    # timings at the main path's shapes (full chain)
+    spec = basis.spectrum
+    ut = bf.batched_butterfly_apply(basis.fwd, eye)        # rows: Ubar^T
+    u = ut.transpose(1, 2).contiguous()
+    dense_op = u @ torch.diag_embed(spec) @ u.transpose(1, 2)
+    su = bf.butterfly_apply(sfwd, torch.eye(n, device=DEVICE)).T.contiguous()
+    sdense = su @ torch.diag(sspec) @ su.T
+    fwd_legs = [real_pairs(basis.fwd, None, "tail")]
+    op_legs = [real_pairs(basis.bwd, None, "head")] + fwd_legs
+    single_fwd = [real_pairs(sfwd, None, "tail")]
+    single_op = [real_pairs(sadj, None, "head")] + single_fwd
+    cases = [
+        ("g_operator_kernel", "batched_sym_operator_apply", x, op_legs, True,
+         lambda: bf.batched_sym_operator_apply(basis.fwd, basis.bwd, spec, x),
+         lambda: ref.batched_sym_operator_apply(basis.fwd, basis.bwd, spec,
+                                                x),
+         lambda: torch.bmm(x, dense_op.transpose(1, 2))),
+        ("g_chain_kernel", "batched_butterfly_apply", eye, fwd_legs, False,
+         lambda: bf.batched_butterfly_apply(basis.fwd, eye),
+         lambda: ref.batched_g_apply(basis.fwd, eye),
+         lambda: torch.bmm(eye, u.transpose(1, 2))),
+        ("g_operator_kernel", "sym_operator_apply", x0, single_op, True,
+         lambda: bf.sym_operator_apply(sfwd, sadj, sspec, x0),
+         lambda: ref.sym_operator_apply(sfwd, sadj, sspec, x0),
+         lambda: torch.mm(x0, sdense.T)),
+        ("g_chain_kernel", "butterfly_apply", x0, single_fwd, False,
+         lambda: bf.butterfly_apply(sfwd, x0),
+         lambda: ref.staged_g_apply(sfwd, x0),
+         lambda: torch.mm(x0, su.T)),
+    ]
+    rows = []
+    for kernel, entry, xin, legs, diag, fn, plain, lib in cases:
+        ms = time_ms(fn)
+        plain_ms = time_ms(plain, reps=2, rounds=3)
+        lib_ms = time_ms(lib)
+        b_ms, b_by = bound_ms(xin, legs, diag)
+        batched = entry.startswith("batched")
+        path = main if batched else single
+        tables = basis.fwd if batched else sfwd
+        rows.append({
+            "name": kernel if batched else f"{kernel}[B=1]",
+            "entry": entry, "route": "cuda",
+            "source": "src/repro_torch/csrc/butterfly.cu",
+            "replaces": REPLACES[entry],
+            "launches": path["launches"][entry],
+            "max_abs_err": errs[entry], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "shape": list(xin.shape),
+            "stages": int(tables.idx_i.shape[-2]),
+            "pairs_per_stage": int(tables.idx_i.shape[-1]),
+            "real_pairs": legs})
+        log(f"[time] {entry} ({kernel}) at {list(xin.shape)}: {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bmm/mm {lib_ms:.4f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}), real pairs per leg {legs} of "
+            f"{tables.idx_i.numel()} table entries")
+    return rows
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs an NVIDIA card", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    card = card_line()
+    log(f"[card] {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    phase_build()
+    errs: dict = {}
+    phase_kernels(errs)
+    main_rec = phase_main()
+    single = phase_fgft(errs)
+    kernels = phase_main_shapes(main_rec, single, errs)
+    torch.cuda.synchronize()
+    log(f"[done] {time.perf_counter() - t_start:.1f}s in all")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,216 @@
+"""Declarative execution plans: ONE way to run every staged-table apply.
+
+An ``ApplyPlan`` names a computation over staged tables — family, mode
+(plain transform apply or fused ``Ubar diag(d) Ubar^T`` operator),
+batching, anytime ladder cut, device and backend — and ``program()``
+returns the ONE cached callable that runs it.  Programs take the staged
+tables as arguments, so a basis swap with the same shapes reuses the
+program.
+
+Program signatures (``tables`` = ``core/staging.py::table_arrays``):
+
+  * mode "apply":     ``program(tables, x)``
+  * mode "operator":  ``program(fwd_tables, bwd_tables, diag, x)``
+
+Backends: ``"cuda"`` runs the hand-written kernels of
+kernels/butterfly.py (on a CPU tensor their wrappers use the plain
+version); ``"torch"`` runs the plain PyTorch versions of kernels/ref.py
+on any device.  A plan defaults to ``"cuda"`` on a CUDA device and to
+``"torch"`` on the CPU; ``"torch"`` on a CUDA device exists so that the
+kernels can be compared with their plain versions on the card.
+
+``fused=False`` compiles the operator to the three-pass baseline
+(analysis apply, diagonal scale, synthesis apply as separate calls), the
+parity oracle of the fused path.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, replace
+from typing import Optional
+
+import torch
+
+from repro_torch.core.staging import StagedG, table_arrays
+from . import butterfly as _bf
+from . import ref as _ref
+
+PLAN_FAMILIES = ("sym",)
+PLAN_MODES = ("apply", "operator")
+PLAN_BACKENDS = ("cuda", "torch")
+PLAN_PRECISIONS = ("f32",)
+
+
+def leg_orientation(family: str) -> tuple:
+    """(analysis_keep, synthesis_keep) cut orientation of a family's
+    operator legs: the significant G stages sit at the HEAD of the
+    adjoint tables and the TAIL of the forward tables."""
+    return ("head", "tail") if family == "sym" else ("tail", "head")
+
+
+def _not_ported(what: str, slice_name: str) -> ValueError:
+    return ValueError(f"{what} is not ported yet: it comes with the "
+                      f"{slice_name} slice of repro_torch")
+
+
+@dataclass(frozen=True)
+class ApplyPlan:
+    """One declarative execution plan (hashable: it IS the cache key).
+
+    ``family``: "sym".  ``mode``: "apply" | "operator".  ``n``: table
+    width.  ``num_stages``: anytime ladder cut ("apply" also takes
+    ``keep``; operator legs use ``leg_orientation``).  ``device``: where
+    the tables and signals live.  ``backend``: None resolves from the
+    device (see module docstring)."""
+
+    family: str
+    mode: str
+    n: int
+    batched: bool = False
+    backend: Optional[str] = None
+    num_stages: Optional[int] = None
+    keep: str = "head"
+    precision: str = "f32"
+    fused: bool = True
+    device: str = "cuda"
+    #: not ported yet (each raises when set): mesh placement, tile size
+    placement: Optional[object] = None
+    block_b: Optional[int] = None
+
+    def __post_init__(self):
+        if self.family == "general":
+            raise _not_ported("family='general'", "directed (T-transform)")
+        if self.mode == "bank":
+            raise _not_ported("mode='bank'", "filter-bank")
+        if self.precision == "bf16":
+            raise _not_ported("precision='bf16'", "precision")
+        if self.placement is not None:
+            raise _not_ported("placement=", "multi-GPU placement")
+        if self.block_b is not None:
+            raise _not_ported("block_b= (tile autotune)", "autotune")
+        if self.family not in PLAN_FAMILIES:
+            raise ValueError(f"family must be one of {PLAN_FAMILIES}, "
+                             f"got {self.family!r}")
+        if self.mode not in PLAN_MODES:
+            raise ValueError(f"mode must be one of {PLAN_MODES}, "
+                             f"got {self.mode!r}")
+        if self.precision not in PLAN_PRECISIONS:
+            raise ValueError(f"precision must be one of {PLAN_PRECISIONS}, "
+                             f"got {self.precision!r}")
+        if self.keep not in ("head", "tail"):
+            raise ValueError(f"keep must be 'head' or 'tail', "
+                             f"got {self.keep!r}")
+        if self.n <= 0:
+            raise ValueError(f"n must be positive, got {self.n}")
+        dev = torch.device(self.device)
+        object.__setattr__(self, "device", str(dev))
+        if self.backend is None:
+            object.__setattr__(self, "backend",
+                               "cuda" if dev.type == "cuda" else "torch")
+        if self.backend not in PLAN_BACKENDS:
+            raise ValueError(f"backend must be one of {PLAN_BACKENDS}, "
+                             f"got {self.backend!r}")
+        if self.mode != "apply" and self.keep != "head":
+            # operator legs derive their own orientation; canonical
+            # keep="head" keeps equivalent plans on one cache entry
+            object.__setattr__(self, "keep", "head")
+
+    @classmethod
+    def for_staged(cls, staged: StagedG, mode: str = "apply",
+                   **kwargs) -> "ApplyPlan":
+        """Infer width, batching and device from a StagedG."""
+        kwargs.setdefault("device", str(staged.idx_i.device))
+        return cls(family="sym", mode=mode, n=staged.n,
+                   batched=staged.idx_i.dim() == 3, **kwargs)
+
+    # -- tables and programs ---------------------------------------------
+
+    def prepare(self, staged: StagedG) -> tuple:
+        """The table tuple a program takes, on the plan's device."""
+        dev = torch.device(self.device)
+        return tuple(t.to(dev) for t in table_arrays(staged))
+
+    def program(self):
+        """The plan's program: ONE process-wide cache entry per plan."""
+        return _compile(self)
+
+    def apply(self, staged: StagedG, x: torch.Tensor) -> torch.Tensor:
+        return self.program()(self.prepare(staged), x)
+
+    def operator(self, fwd: StagedG, bwd: StagedG, diag: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+        return self.program()(self.prepare(fwd), self.prepare(bwd), diag, x)
+
+    # -- dispatch ----------------------------------------------------------
+
+    def _staged(self, tables: tuple) -> StagedG:
+        return StagedG(*tables, None, self.n)
+
+    def _dispatch(self):
+        """tables -> tensors map implementing the plan: the ONE place
+        where kernel entry points, reshapes and cut orientations meet."""
+        cut, keep, n = self.num_stages, self.keep, self.n
+        if self.mode == "apply":
+            if self.backend == "torch":
+                fn = (_ref.batched_g_apply if self.batched
+                      else _ref.staged_g_apply)
+                return lambda t, x: fn(self._staged(t), x, cut, keep)
+            if self.batched:
+                return lambda t, x: _bf.batched_butterfly_apply(
+                    self._staged(t),
+                    x.reshape(x.shape[0], -1, n).contiguous(),
+                    cut, keep).reshape(x.shape)
+            return lambda t, x: _bf.butterfly_apply(
+                self._staged(t), x.reshape(-1, n).contiguous(),
+                cut, keep).reshape(x.shape)
+        if self.backend == "torch":
+            fn = (_ref.batched_sym_operator_apply if self.batched
+                  else _ref.sym_operator_apply)
+            return lambda ft, bt, d, x: fn(self._staged(ft),
+                                           self._staged(bt), d, x, cut)
+        if self.batched:
+            return lambda ft, bt, d, x: _bf.batched_sym_operator_apply(
+                self._staged(ft), self._staged(bt), d,
+                x.reshape(x.shape[0], -1, n).contiguous(),
+                cut).reshape(x.shape)
+        return lambda ft, bt, d, x: _bf.sym_operator_apply(
+            self._staged(ft), self._staged(bt), d,
+            x.reshape(-1, n).contiguous(), cut).reshape(x.shape)
+
+    def _three_pass(self):
+        """The UNFUSED operator: analysis, diagonal scale and synthesis
+        as separate calls through cached "apply" plans."""
+        a_keep, s_keep = leg_orientation(self.family)
+        analysis = replace(self, mode="apply", keep=a_keep,
+                           fused=True).program()
+        synthesis = replace(self, mode="apply", keep=s_keep,
+                            fused=True).program()
+        batched = self.batched
+
+        def three_pass(fwd_t, bwd_t, d, x):
+            xh = analysis(bwd_t, x)
+            if batched:                   # d (B, n) against xh (B, ..., n)
+                d = d.reshape(d.shape[:1] + (1,) * (xh.dim() - 2)
+                              + d.shape[-1:])
+            return synthesis(fwd_t, xh * d.to(xh.dtype))
+        return three_pass
+
+
+@functools.lru_cache(maxsize=None)
+def _compile(plan: ApplyPlan):
+    """THE plan cache: every tier/refit/core program lives here."""
+    if plan.mode == "operator" and not plan.fused:
+        return plan._three_pass()
+    return plan._dispatch()
+
+
+def plan_cache_stats() -> dict:
+    """Hit/miss/size counters of the plan cache."""
+    info = _compile.cache_info()
+    return {"hits": int(info.hits), "misses": int(info.misses),
+            "currsize": int(info.currsize)}
+
+
+def clear_plan_cache() -> None:
+    """Drop every cached plan program (and reset the counters)."""
+    _compile.cache_clear()

@@ -1,0 +1,109 @@
+"""Plain PyTorch versions of the staged G-chain kernels.
+
+These are the semantics of record inside the port: kernels/butterfly.py
+holds each CUDA kernel to them on the card, and the tests hold them to
+the JAX package's ``repro.kernels.ref`` on the CPU.  They also serve
+every CPU tensor (kernels/butterfly.py dispatches by device).
+
+Padding entries carry the out-of-bounds index ``n``.  The JAX reference
+clips such reads and drops such writes; torch has neither, so the signal
+gets one zero dummy column ``n`` exactly as the fused kernels do: a pad
+entry (c=1, s=0, sigma=1) reads and rewrites the dummy column with its
+own value, a structural no-op, and the dummy is cropped at the end.  The
+operator pads the spectrum with 1.0 at the dummy column.
+
+Every function takes ``num_stages`` (None = the full chain, else an
+anytime cut applied to the tables before the walk); plain applies also
+take ``keep`` ("head"/"tail"), while the operators cut the adjoint head
+and the forward tail (core/staging.py orientation).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.staging import StagedG, truncate_staged
+
+
+def _walk(tables, xp: torch.Tensor) -> torch.Tensor:
+    """Apply (B, S, P) stage tables in order to ``xp`` (B, M, n+1), in
+    place; pads touch only the dummy column."""
+    ii, jj, cc, ss, sg = tables
+    bsz, m, _ = xp.shape
+    for st in range(ii.shape[1]):
+        i = ii[:, st].long().unsqueeze(1).expand(bsz, m, -1)
+        j = jj[:, st].long().unsqueeze(1).expand(bsz, m, -1)
+        c = cc[:, st].to(xp.dtype).unsqueeze(1)
+        s = ss[:, st].to(xp.dtype).unsqueeze(1)
+        g = sg[:, st].to(xp.dtype).unsqueeze(1)
+        xi = torch.gather(xp, 2, i)
+        xj = torch.gather(xp, 2, j)
+        xp.scatter_(2, i, c * xi + s * xj)
+        xp.scatter_(2, j, g * (-s * xi + c * xj))
+    return xp
+
+
+def _pad_dummy(x: torch.Tensor, bsz: int, n: int) -> torch.Tensor:
+    """(B, ..., n) -> fresh (B, M, n+1) with a zero dummy column."""
+    x3 = x.reshape(bsz, -1, n)
+    xp = x3.new_zeros(x3.shape[:2] + (n + 1,))
+    xp[..., :n] = x3
+    return xp
+
+
+def _batched_tables(staged: StagedG):
+    return (staged.idx_i, staged.idx_j, staged.c, staged.s, staged.sigma)
+
+
+def _single_tables(staged: StagedG):
+    return tuple(t.unsqueeze(0) for t in _batched_tables(staged))
+
+
+def batched_g_apply(staged: StagedG, x: torch.Tensor,
+                    num_stages: Optional[int] = None,
+                    keep: str = "head") -> torch.Tensor:
+    """Per-matrix Ubar_b x_b: tables (B, S, P), x (B, ..., n)."""
+    staged = truncate_staged(staged, num_stages, keep)
+    n = x.shape[-1]
+    xp = _walk(_batched_tables(staged), _pad_dummy(x, x.shape[0], n))
+    return xp[..., :n].reshape(x.shape)
+
+
+def staged_g_apply(staged: StagedG, x: torch.Tensor,
+                   num_stages: Optional[int] = None,
+                   keep: str = "head") -> torch.Tensor:
+    """Ubar x for x (..., n) with (S, P) tables."""
+    staged = truncate_staged(staged, num_stages, keep)
+    n = x.shape[-1]
+    xp = _walk(_single_tables(staged), _pad_dummy(x, 1, n))
+    return xp[..., :n].reshape(x.shape)
+
+
+def batched_sym_operator_apply(fwd: StagedG, adj: StagedG,
+                               diag: torch.Tensor, x: torch.Tensor,
+                               num_stages: Optional[int] = None
+                               ) -> torch.Tensor:
+    """y_b = Ubar_b diag(d_b) Ubar_b^T x_b: diag (B, n), x (B, ..., n)."""
+    adj = truncate_staged(adj, num_stages, "head")
+    fwd = truncate_staged(fwd, num_stages, "tail")
+    bsz, n = x.shape[0], x.shape[-1]
+    xp = _walk(_batched_tables(adj), _pad_dummy(x, bsz, n))
+    dp = torch.ones((bsz, n + 1), dtype=xp.dtype, device=xp.device)
+    dp[:, :n] = diag.reshape(bsz, n)
+    xp = _walk(_batched_tables(fwd), xp * dp.unsqueeze(1))
+    return xp[..., :n].reshape(x.shape)
+
+
+def sym_operator_apply(fwd: StagedG, adj: StagedG, diag: torch.Tensor,
+                       x: torch.Tensor,
+                       num_stages: Optional[int] = None) -> torch.Tensor:
+    """Sbar x = Ubar diag(sbar) Ubar^T x for x (..., n), tables (S, P)."""
+    adj = truncate_staged(adj, num_stages, "head")
+    fwd = truncate_staged(fwd, num_stages, "tail")
+    n = x.shape[-1]
+    xp = _walk(_single_tables(adj), _pad_dummy(x, 1, n))
+    dp = torch.ones((n + 1,), dtype=xp.dtype, device=xp.device)
+    dp[:n] = diag
+    xp = _walk(_single_tables(fwd), xp * dp)
+    return xp[..., :n].reshape(x.shape)

@@ -1,0 +1,108 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on
+the card.  Every test here is marked ``cuda`` and skips without a card;
+the module imports neither JAX nor the JAX package, so it also runs on a
+machine that has only torch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerance: ``1e-4 * max(1, max|y|)`` — the kernel and the plain version
+round their FMA contractions differently across about 2S stages."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import staging as tst
+from repro_torch.core.types import GFactors
+from repro_torch.kernels import butterfly as bf
+from repro_torch.kernels import ref
+from repro_torch.kernels.plan import ApplyPlan
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (and nvcc to build the kernels)")
+    return torch.device("cuda")
+
+
+def _tables(n, batch, g, device):
+    rng = np.random.default_rng(n)
+    a = rng.integers(0, n, (batch, g))
+    b = (a + rng.integers(1, n, (batch, g))) % n
+    theta = rng.uniform(-np.pi, np.pi, (batch, g))
+    f = GFactors(np.minimum(a, b).astype(np.int32),
+                 np.maximum(a, b).astype(np.int32),
+                 np.cos(theta).astype(np.float32),
+                 np.sin(theta).astype(np.float32),
+                 rng.choice([-1.0, 1.0], (batch, g)).astype(np.float32))
+    fwd, adj = tst.pack_g_batch_pair(f, n, device=device)
+    sfwd, sadj = tst.pack_g_pair(GFactors(*(t[0] for t in f)), n=n,
+                                 device=device)
+    diag = torch.from_numpy(rng.uniform(0.0, 2.0 * n, (batch, n)).astype(
+        np.float32)).to(device)
+    return fwd, adj, sfwd, sadj, diag
+
+
+def _close(got, want):
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("n,batch,g", [(16, 3, 64), (48, 2, 200),
+                                       (256, 2, 4096)])
+def test_kernels_match_plain_versions_at_every_cut(cuda, n, batch, g):
+    fwd, adj, sfwd, sadj, diag = _tables(n, batch, g, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((batch, 130, n), generator=gen, device=cuda)
+    for k in sorted({0, *fwd.cuts[:, 0].tolist()}):
+        for keep in ("head", "tail"):
+            _close(bf.batched_butterfly_apply(fwd, x, k, keep),
+                   ref.batched_g_apply(fwd, x, k, keep))
+        _close(bf.batched_sym_operator_apply(fwd, adj, diag, x, k),
+               ref.batched_sym_operator_apply(fwd, adj, diag, x, k))
+    x1 = x[0].contiguous()
+    for k in sorted({0, *sfwd.cuts[:, 0].tolist()}):
+        _close(bf.butterfly_apply(sfwd, x1, k, "tail"),
+               ref.staged_g_apply(sfwd, x1, k, "tail"))
+        _close(bf.sym_operator_apply(sfwd, sadj, diag[0], x1, k),
+               ref.sym_operator_apply(sfwd, sadj, diag[0], x1, k))
+    torch.cuda.synchronize()
+
+
+def test_cuda_plans_launch_the_kernels(cuda):
+    fwd, adj, _, _, diag = _tables(32, 2, 160, cuda)
+    x = torch.randn((2, 5, 7, 32), device=cuda)
+    bf.reset_launch_counts()
+    op = ApplyPlan.for_staged(fwd, "operator")
+    assert op.backend == "cuda"
+    y = op.operator(fwd, adj, diag, x)
+    y_plain = ApplyPlan.for_staged(fwd, "operator", backend="torch"
+                                   ).operator(fwd, adj, diag, x)
+    _close(y, y_plain)
+    ApplyPlan.for_staged(fwd, "apply", keep="tail").apply(fwd, x)
+    assert bf.launch_counts() == {"g_chain_kernel": 1,
+                                  "g_operator_kernel": 1}
+    assert bf.entry_launch_counts() == {"batched_butterfly_apply": 1,
+                                        "butterfly_apply": 0,
+                                        "batched_sym_operator_apply": 1,
+                                        "sym_operator_apply": 0}
+
+
+def test_cuda_wrapper_validation(cuda):
+    fwd, adj, _, _, diag = _tables(16, 2, 64, cuda)
+    x = torch.randn((2, 4, 16), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        bf.batched_butterfly_apply(fwd, x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        bf.batched_butterfly_apply(fwd, x.transpose(1, 2).contiguous()
+                                   .transpose(1, 2))
+    with pytest.raises(ValueError, match="do not match"):
+        bf.batched_butterfly_apply(fwd, torch.randn((3, 4, 16), device=cuda))
+    with pytest.raises(ValueError, match="diag shape"):
+        bf.batched_sym_operator_apply(fwd, adj, diag[:, :8], x)
+    cpu_fwd = tst.StagedG(*(t.cpu() for t in fwd[:5]), fwd.cuts, fwd.n)
+    with pytest.raises(ValueError, match="on cpu"):
+        bf.batched_butterfly_apply(cpu_fwd, x)
