@@ -4,12 +4,15 @@
 
 Phases (any failure exits non-zero; no phase swallows its own failure):
 
-1. build   — compile the hand-written CUDA kernels (csrc/butterfly.cu) with
-             nvcc from this checkout and load them.
+1. build   — compile the hand-written CUDA kernels (every csrc/*.cu, one
+             nvcc process per source, all started together) from this
+             checkout and load them.
 2. kernels — hold each kernel against its plain PyTorch version on the card:
-             both kernels, batched and B = 1, at n in {16, 48} on tables of
-             small port fits, R = 130 signal rows (a ragged tile edge), at
-             every ladder cut including 0.
+             the G kernels (csrc/butterfly.cu) and the T kernels
+             (csrc/shear.cu), batched and B = 1, at n in {16, 48} on tables
+             of small port fits (symmetric and directed), R = 130 signal
+             rows (a ragged tile edge), at every ladder cut including 0, the
+             chains at both keeps.
 3. main    — the port's main path at a realistic size, through the CLI entry
              point: ``python -m repro_torch.launch.serve --fgft`` with B = 64
              community graphs, n = 256, g = 2 n log2 n = 4096, R = 256,
@@ -25,12 +28,30 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              launched as B = 1).  Counters are zeroed just before and read
              just after; both single-matrix entry points must have
              launched.  Relative error < 0.05, synthesis(analysis(x)) = x.
-5. shapes  — each kernel held against its plain version at the two paths'
-             shapes (every cut), then timed.
+5. main-directed — the directed main path, through the CLI entry point:
+             ``serve --fgft --directed`` with B = 64 directed community
+             graphs, n = 256, g = 4096, R = 256, the same tiers.  Counters
+             are zeroed just before; then ``basis.apply(x, inverse=True)``
+             and ``basis.apply(.)`` round-trip the signals; counters are
+             read just after: ``batched_gen_operator_apply`` and
+             ``batched_shear_apply`` must have launched.  Mean full-tier
+             relative error < 0.05 and equal to the dense
+             ||L - T diag(c) T^-1||^2 / ||L||^2 (T from ``t_to_dense``, plain
+             torch) within 1e-3 relative; the served output equals the plain
+             version bitwise; the round trip returns x within a tolerance derived
+             from cond(Tbar) (printed with it).
+6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
+             graph (n = 256, g = 4096, n_iter = 3), then analysis, synthesis
+             and project; ``shear_apply`` and ``gen_operator_apply`` must
+             have launched; relative error < 0.05.
+7. shapes  — each of the 8 entry points held against its plain version at
+             the paths' shapes (every cut), then timed.
 
-Tolerance of every kernel-vs-plain check: max|dy| <= 1e-4 * max(1, max|y|):
-the kernel and the plain version round their FMA contractions differently
-across about 2S stages.
+Tolerance of the kernel-vs-plain checks: for the G kernels max|dy| <= 1e-4 *
+max(1, max|y|), since they and their plain versions round their FMA
+contractions differently across about 2S stages; for the T kernels max|dy|
+== 0, since they round every entry as their plain versions do (no FMA
+contraction).
 
 Output: progress lines, a {"kernels": [...]} line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -58,7 +79,17 @@ REPLACES = {
     "batched_butterfly_apply": "src/repro/kernels/butterfly.py:209",
     "sym_operator_apply": "src/repro/kernels/butterfly.py:240",
     "butterfly_apply": "src/repro/kernels/butterfly.py:102",
+    "shear_apply": "src/repro/kernels/shear.py:84",
+    "gen_operator_apply": "src/repro/kernels/shear.py:115",
+    "batched_shear_apply": "src/repro/kernels/shear.py:153",
+    "batched_gen_operator_apply": "src/repro/kernels/shear.py:207",
 }
+#: per real table entry of each kind: bytes the function reads (the indices
+#: and values it needs) and flops per signal row — a G pair (i, j, c, s,
+#: sigma) 20 B and 6 flops (paper Table 1), a T shear y_i = x_i + beta x_j
+#: (i, j, beta) 12 B and 2 flops, a T scaling y_i = alpha x_i (i, alpha) 8 B
+#: and 1 flop
+ENTRY_COST = {"pair": (20, 6), "shear": (12, 2), "scaling": (8, 1)}
 
 
 class SmokeFailure(RuntimeError):
@@ -95,10 +126,18 @@ def max_err(got, want) -> tuple:
     return err, scale
 
 
+def tolerance(entry: str) -> float:
+    """Relative kernel-vs-plain tolerance of an entry point: 0 (bitwise)
+    for the T kernels, TOL for the G kernels (module docstring)."""
+    from repro_torch.kernels import launcher
+    return 0.0 if launcher.KERNEL_OF[entry].startswith("t_") else TOL
+
+
 def compare(name, got, want, errs) -> None:
     err, scale = max_err(got, want)
-    check(err <= TOL * scale,
-          f"{name}: max|dy| {err:.3e} > {TOL} * {scale:.3e}")
+    tol = tolerance(name)
+    check(err <= tol * scale,
+          f"{name}: max|dy| {err:.3e} > {tol} * {scale:.3e}")
     errs[name] = max(errs.get(name, 0.0), err)
 
 
@@ -120,28 +159,36 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def real_pairs(staged, num_stages, keep) -> int:
-    """Real (non-pad) pairs a leg holds at a cut, over the batch."""
+def real_entries(staged, num_stages, keep) -> dict:
+    """Real (non-pad) entries a leg holds at a cut, over the batch, by
+    kind: G pairs, or T shears (j != i) and scalings (j == i)."""
+    from repro_torch.core.staging import StagedT
     s_tot = staged.idx_i.shape[-2]
     k = s_tot if num_stages is None else num_stages
     sl = slice(0, k) if keep == "head" else slice(s_tot - k, s_tot)
-    return int((staged.idx_i[..., sl, :] < staged.n).sum())
+    ii, jj = staged.idx_i[..., sl, :], staged.idx_j[..., sl, :]
+    real = ii < staged.n
+    if not isinstance(staged, StagedT):
+        return {"pair": int(real.sum())}
+    return {"shear": int((real & (jj != ii)).sum()),
+            "scaling": int((real & (jj == ii)).sum())}
 
 
 def bound_ms(x, legs, with_diag: bool) -> tuple:
     """Least time on the card for the function itself: x read once, y
-    written once, each leg's real pairs (2 int32 + 3 f32 = 20 B each)
-    read once, the spectrum read once; 6 flops per real pair per signal
-    row (paper Table 1) plus n per row for the diagonal.  Pad entries of
-    the (S, P) layout are not counted: the function does not need them,
-    the layout is the kernel's choice.  Returns (ms, "bytes" |
-    "operations")."""
+    written once, each leg's real entries read once at their kind's
+    ENTRY_COST bytes and flops per signal row, the spectrum read once and
+    n flops per row for the diagonal.  Pad entries of the (S, P) layout
+    are not counted: the function does not need them, the layout is the
+    kernel's choice.  Returns (ms, "bytes" | "operations")."""
     bsz, rows, n = (1,) * (3 - x.dim()) + tuple(x.shape)
     nbytes = 2 * x.numel() * 4
     flops = 0
-    for pairs in legs:
-        nbytes += pairs * 20
-        flops += 6 * pairs * rows
+    for leg in legs:
+        for kind, count in leg.items():
+            per_bytes, per_flops = ENTRY_COST[kind]
+            nbytes += count * per_bytes
+            flops += per_flops * count * rows
     if with_diag:
         nbytes += bsz * n * 4
         flops += bsz * rows * n
@@ -213,6 +260,52 @@ def tables_for(basis, b: int):
     return pack_g_pair(f, n=basis.n, device=basis.device)
 
 
+def check_t_tables(tag, fwd, inv, diag, x, errs) -> int:
+    """Both T kernels (batched if the tables are) against the plain
+    versions at every cut, the chain on both table sets at both keeps;
+    returns the number of comparisons."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import shear as sh
+    batched = fwd.idx_i.dim() == 3
+    chain = sh.batched_shear_apply if batched else sh.shear_apply
+    chain_ref = ref.batched_t_apply if batched else ref.staged_t_apply
+    op = sh.batched_gen_operator_apply if batched else sh.gen_operator_apply
+    op_ref = (ref.batched_gen_operator_apply if batched
+              else ref.gen_operator_apply)
+    chain_name = "batched_shear_apply" if batched else "shear_apply"
+    op_name = "batched_gen_operator_apply" if batched else "gen_operator_apply"
+    count = 0
+    for k in cut_list(fwd):
+        for staged in (fwd, inv):
+            for keep in ("head", "tail"):
+                compare(chain_name, chain(staged, x, k, keep),
+                        chain_ref(staged, x, k, keep), errs)
+                count += 1
+        compare(op_name, op(fwd, inv, diag, x, k),
+                op_ref(fwd, inv, diag, x, k), errs)
+        count += 1
+    log(f"[kernels] {tag}: {count} T kernel-vs-plain checks at cuts "
+        f"{cut_list(fwd)} passed")
+    return count
+
+
+def t_tables_for(basis, b: int):
+    """B = 1 T tables of matrix b of a batched general basis."""
+    from repro_torch.core.staging import pack_t_pair
+    from repro_torch.core.types import TFactors
+    f = TFactors(*(t[b] for t in basis.factors))
+    return pack_t_pair(f, basis.n, device=basis.device)
+
+
+def directed_laps(n: int, count: int):
+    import numpy as np
+    from repro_torch.core import laplacian
+    from repro_torch.graphs import community_graph, directed_variant
+    return np.stack([laplacian(directed_variant(community_graph(n, seed=s),
+                                                seed=s))
+                     for s in range(count)])
+
+
 def phase_kernels(errs) -> None:
     import numpy as np
     import torch
@@ -231,6 +324,13 @@ def phase_kernels(errs) -> None:
         sfwd, sadj = tables_for(basis, 1)
         check_tables(f"n={n} B=1 R=130", sfwd, sadj, basis.spectrum[1],
                      x[1].contiguous(), errs)
+        tbasis = ApproxEigenbasis.fit(directed_laps(n, 4), g, n_iter=1,
+                                      kind="general", device=dev)
+        check_t_tables(f"n={n} B=4 R=130", tbasis.fwd, tbasis.bwd,
+                       tbasis.spectrum, x, errs)
+        sfwd, sinv = t_tables_for(tbasis, 1)
+        check_t_tables(f"n={n} B=1 R=130", sfwd, sinv, tbasis.spectrum[1],
+                       x[1].contiguous(), errs)
     torch.cuda.synchronize()
 
 
@@ -238,19 +338,19 @@ def phase_main() -> dict:
     import numpy as np
     import torch
     from repro_torch.core.gtransform import g_to_dense
-    from repro_torch.kernels import butterfly as bf
+    from repro_torch.kernels import launcher
     from repro_torch.kernels.plan import ApplyPlan
     from repro_torch.launch import serve
     argv = ["--fgft", "--graphs", str(MAIN["graphs"]),
             "--graph-n", str(MAIN["n"]), "--signals", str(MAIN["signals"]),
             "--filter-steps", str(MAIN["steps"]), "--tiers", MAIN["tiers"],
             "--device", DEVICE]
-    bf.reset_launch_counts()
+    launcher.reset_launch_counts()
     t0 = time.perf_counter()
     out = serve.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = bf.entry_launch_counts()
+    launches = launcher.entry_launch_counts()
     log(f"[main] serve --fgft {' '.join(argv[1:])}: {wall:.1f}s "
         f"(fit {out['fit_s']:.1f}s); launches {launches}")
     for entry in ("batched_sym_operator_apply", "batched_butterfly_apply"):
@@ -298,14 +398,13 @@ def phase_fgft(errs) -> dict:
     import torch
     from repro_torch.core import build_fgft, laplacian, relative_error
     from repro_torch.graphs import community_graph
-    from repro_torch.kernels import butterfly as bf
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import launcher, ref
     n = MAIN["n"]
     g = int(2 * n * np.log2(n))
     lap = laplacian(community_graph(n, seed=0))
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     x = torch.randn((MAIN["signals"], n), generator=gen, device=DEVICE)
-    bf.reset_launch_counts()
+    launcher.reset_launch_counts()
     t0 = time.perf_counter()
     f = build_fgft(lap, g, n_iter=3, device=DEVICE)
     fit_s = time.perf_counter() - t0
@@ -314,7 +413,7 @@ def phase_fgft(errs) -> dict:
     y = f.project(x, lowpass)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = bf.entry_launch_counts()
+    launches = launcher.entry_launch_counts()
     log(f"[single] build_fgft n={n} g={g} + analysis/synthesis/project of "
         f"R={x.shape[0]}: {wall:.1f}s (fit {fit_s:.1f}s); launches "
         f"{launches}")
@@ -369,10 +468,10 @@ def phase_main_shapes(main, single, errs) -> list:
     dense_op = u @ torch.diag_embed(spec) @ u.transpose(1, 2)
     su = bf.butterfly_apply(sfwd, torch.eye(n, device=DEVICE)).T.contiguous()
     sdense = su @ torch.diag(sspec) @ su.T
-    fwd_legs = [real_pairs(basis.fwd, None, "tail")]
-    op_legs = [real_pairs(basis.bwd, None, "head")] + fwd_legs
-    single_fwd = [real_pairs(sfwd, None, "tail")]
-    single_op = [real_pairs(sadj, None, "head")] + single_fwd
+    fwd_legs = [real_entries(basis.fwd, None, "tail")]
+    op_legs = [real_entries(basis.bwd, None, "head")] + fwd_legs
+    single_fwd = [real_entries(sfwd, None, "tail")]
+    single_op = [real_entries(sadj, None, "head")] + single_fwd
     cases = [
         ("g_operator_kernel", "batched_sym_operator_apply", x, op_legs, True,
          lambda: bf.batched_sym_operator_apply(basis.fwd, basis.bwd, spec, x),
@@ -392,6 +491,16 @@ def phase_main_shapes(main, single, errs) -> list:
          lambda: ref.staged_g_apply(sfwd, x0),
          lambda: torch.mm(x0, su.T)),
     ]
+    return timed_rows(cases, main, single, basis.fwd, sfwd, errs, "sym")
+
+
+def timed_rows(cases, main, single, tables_b, tables_1, errs,
+               family: str) -> list:
+    """Time each case (kernel, plain version, library yardstick) and
+    build its row of the ``kernels`` line; batched entries report the
+    batched path's launches, B = 1 entries the single-graph path's."""
+    source = ("src/repro_torch/csrc/butterfly.cu" if family == "sym"
+              else "src/repro_torch/csrc/shear.cu")
     rows = []
     for kernel, entry, xin, legs, diag, fn, plain, lib in cases:
         ms = time_ms(fn)
@@ -400,11 +509,10 @@ def phase_main_shapes(main, single, errs) -> list:
         b_ms, b_by = bound_ms(xin, legs, diag)
         batched = entry.startswith("batched")
         path = main if batched else single
-        tables = basis.fwd if batched else sfwd
+        tables = tables_b if batched else tables_1
         rows.append({
             "name": kernel if batched else f"{kernel}[B=1]",
-            "entry": entry, "route": "cuda",
-            "source": "src/repro_torch/csrc/butterfly.cu",
+            "entry": entry, "route": "cuda", "source": source,
             "replaces": REPLACES[entry],
             "launches": path["launches"][entry],
             "max_abs_err": errs[entry], "ms": ms, "plain_ms": plain_ms,
@@ -412,12 +520,197 @@ def phase_main_shapes(main, single, errs) -> list:
             "shape": list(xin.shape),
             "stages": int(tables.idx_i.shape[-2]),
             "pairs_per_stage": int(tables.idx_i.shape[-1]),
-            "real_pairs": legs})
+            "real_entries": legs})
         log(f"[time] {entry} ({kernel}) at {list(xin.shape)}: {ms:.4f} ms, "
             f"plain {plain_ms:.3f} ms, bmm/mm {lib_ms:.4f} ms, bound "
-            f"{b_ms:.5f} ms ({b_by}), real pairs per leg {legs} of "
+            f"{b_ms:.5f} ms ({b_by}), real entries per leg {legs} of "
             f"{tables.idx_i.numel()} table entries")
     return rows
+
+
+def check_round_trip(tag, xr, x, t_dense, num_stages: int) -> float:
+    """synthesis(analysis(x)) == x for a T basis.  Tbar is not
+    orthogonal: the round trip is exact only up to f32 rounding across
+    the 2S stages, amplified by cond(Tbar).  Tolerance
+    4 eps cond(Tbar) sqrt(2S) max(1, max|x|), with cond(Tbar) < 1e4
+    required (printed with it).  Returns max|dx|."""
+    import numpy as np
+    import torch
+    cond = float(torch.linalg.cond(t_dense.double()).max())
+    stages = 2 * num_stages
+    tol = 4 * float(np.finfo(np.float32).eps) * cond * stages ** 0.5
+    err, scale = max_err(xr, x)
+    log(f"[{tag}] synthesis(analysis(x)) vs x: max|dx| {err:.3e}, "
+        f"tolerance {tol:.3e} * {scale:.3e} (max cond(Tbar) {cond:.1f}, "
+        f"{stages} stages)")
+    check(cond < 1e4, f"{tag}: cond(Tbar) {cond} >= 1e4")
+    check(err <= tol * scale, f"{tag}: round trip max|dx| {err:.3e}")
+    return err
+
+
+def phase_main_directed() -> dict:
+    """The directed main path through the CLI, then an analysis /
+    synthesis round trip through ``ApproxEigenbasis.apply``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ttransform import t_to_dense
+    from repro_torch.kernels import launcher
+    from repro_torch.kernels.plan import ApplyPlan
+    from repro_torch.launch import serve
+    argv = ["--fgft", "--directed", "--graphs", str(MAIN["graphs"]),
+            "--graph-n", str(MAIN["n"]), "--signals", str(MAIN["signals"]),
+            "--filter-steps", str(MAIN["steps"]), "--tiers", MAIN["tiers"],
+            "--device", DEVICE]
+    launcher.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.main(argv)
+    basis = out["engine"].basis
+    x = out["signals"]
+    xr = basis.apply(basis.apply(x, inverse=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launcher.entry_launch_counts()
+    log(f"[main-directed] serve --fgft {' '.join(argv[1:])} + apply round "
+        f"trip: {wall:.1f}s (fit {out['fit_s']:.1f}s); launches {launches}")
+    for entry in ("batched_gen_operator_apply", "batched_shear_apply"):
+        check(launches[entry] > 0, f"directed path never launched {entry}")
+    check(basis.kind == "general", f"directed fleet fitted as {basis.kind}")
+    engine, laps = out["engine"], out["laps"]
+    n = basis.n
+    lap_t = torch.from_numpy(laps).to(basis.device)
+    t_dense = t_to_dense(basis.factors, n)
+    t_inv = t_to_dense(basis.factors, n, inverse=True)
+    recon = t_dense @ torch.diag_embed(basis.spectrum) @ t_inv
+    dense = (((lap_t - recon) ** 2).sum((1, 2))
+             / (lap_t ** 2).sum((1, 2))).cpu().numpy()
+    rel = np.asarray(out["rel_error"], np.float64)
+    mean_rel, mean_dense = float(rel.mean()), float(dense.mean())
+    log(f"[main-directed] full-tier relative error: mean {mean_rel:.6f} "
+        f"from the fit objective, {mean_dense:.6f} recomputed densely")
+    check(bool(np.isfinite(rel).all()), "non-finite relative error")
+    check(mean_rel < 0.05, f"mean relative error {mean_rel} >= 0.05")
+    check(abs(mean_dense - mean_rel) <= 1e-3 * mean_rel,
+          f"dense relative error {mean_dense} != objective {mean_rel}")
+    trip_err = check_round_trip("main-directed", xr, x, t_dense,
+                                basis.fwd.num_stages)
+    for name, ts in out["tiers"].items():
+        log(f"[main-directed] tier {name}: {ts['transforms_per_s']:.1f} "
+            f"graph-transforms/s, {ts['num_transforms']} components, "
+            f"{ts['num_stages']} stages")
+    y = engine.step(x, lowpass, tier="full")
+    plain = ApplyPlan(family="general", mode="operator", n=n, batched=True,
+                      backend="torch", device=DEVICE).program()
+    spec = engine.tiers["full"]["spectrum"]
+    y_ref = plain(engine._live.fwd, engine._live.bwd, lowpass(spec), x)
+    check(tuple(y.shape) == tuple(x.shape), f"served shape {tuple(y.shape)}")
+    err, scale = max_err(y, y_ref)
+    check(err == 0.0, f"served full tier max|dy| {err:.3e} (want 0)")
+    log(f"[main-directed] served full tier vs plain version: max|dy| "
+        f"{err:.3e} (scale {scale:.3e})")
+    return {"out": out, "launches": launches, "wall_s": wall,
+            "mean_rel": mean_rel, "mean_rel_dense": mean_dense,
+            "served_err": err, "round_trip_err": trip_err}
+
+
+def phase_fgft_directed(errs) -> dict:
+    """The single-graph T entry points at the main path's width."""
+    import numpy as np
+    import torch
+    from repro_torch.core import build_fgft, relative_error
+    from repro_torch.core.ttransform import t_to_dense
+    from repro_torch.kernels import launcher, ref
+    n = MAIN["n"]
+    g = int(2 * n * np.log2(n))
+    lap = directed_laps(n, 1)[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    x = torch.randn((MAIN["signals"], n), generator=gen, device=DEVICE)
+    launcher.reset_launch_counts()
+    t0 = time.perf_counter()
+    f = build_fgft(lap, g, directed=True, n_iter=3, device=DEVICE)
+    fit_s = time.perf_counter() - t0
+    xh = f.analysis(x)
+    xr = f.synthesis(xh)
+    y = f.project(x, lowpass)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launcher.entry_launch_counts()
+    log(f"[single-directed] build_fgft(directed) n={n} g={g} + "
+        f"analysis/synthesis/project of R={x.shape[0]}: {wall:.1f}s (fit "
+        f"{fit_s:.1f}s); launches {launches}")
+    for entry in ("gen_operator_apply", "shear_apply"):
+        check(launches[entry] > 0,
+              f"directed single-graph path never launched {entry}")
+    rel = relative_error(lap, f)
+    log(f"[single-directed] relative error {rel:.6f}, "
+        f"{f.fwd.idx_i.shape[0]} stages of {f.fwd.idx_i.shape[1]} entries")
+    check(np.isfinite(rel) and rel < 0.05, f"relative error {rel} >= 0.05")
+    compare("shear_apply", xh, ref.staged_t_apply(f.bwd, x, None, "tail"),
+            errs)
+    compare("shear_apply", xr, ref.staged_t_apply(f.fwd, xh), errs)
+    compare("gen_operator_apply", y, ref.gen_operator_apply(
+        f.fwd, f.bwd, lowpass(f.spectrum), x), errs)
+    check_round_trip("single-directed", xr, x,
+                     t_to_dense(f.t_factors, n), f.fwd.num_stages)
+    return {"fgft": f, "launches": launches, "signals": x}
+
+
+def phase_directed_shapes(main, single, errs) -> list:
+    """T kernels vs plain at the directed paths' shapes (every cut),
+    then timings."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import shear as sh
+    basis = main["out"]["engine"].basis
+    n, bsz = basis.n, basis.spectrum.shape[0]
+    x = main["out"]["signals"]
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    ragged = torch.randn((bsz, 130, n), generator=gen, device=DEVICE)
+    check_t_tables(f"main-directed n={n} B={bsz} R={x.shape[1]}", basis.fwd,
+                   basis.bwd, basis.spectrum, x, errs)
+    check_t_tables(f"main-directed n={n} B={bsz} R=130", basis.fwd,
+                   basis.bwd, basis.spectrum, ragged, errs)
+    f = single["fgft"]
+    sfwd, sinv, sspec, x0 = f.fwd, f.bwd, f.spectrum, single["signals"]
+    check_t_tables(f"fgft-directed n={n} B=1 R={x0.shape[0]}", sfwd, sinv,
+                   sspec, x0, errs)
+    torch.cuda.synchronize()
+
+    # timings at the paths' shapes (full chain); dense yardsticks from
+    # the kernels' own output
+    eye = torch.eye(n, device=DEVICE)
+    tt_rows = sh.batched_shear_apply(
+        basis.fwd, eye.expand(bsz, n, n).contiguous())     # rows: Tbar^T
+    t_dense = tt_rows.transpose(1, 2).contiguous()
+    spec = basis.spectrum
+    dense_op = sh.batched_gen_operator_apply(
+        basis.fwd, basis.bwd, spec,
+        eye.expand(bsz, n, n).contiguous()).transpose(1, 2).contiguous()
+    st = sh.shear_apply(sfwd, eye).T.contiguous()
+    sdense = sh.gen_operator_apply(sfwd, sinv, sspec, eye).T.contiguous()
+    fwd_legs = [real_entries(basis.fwd, None, "head")]
+    op_legs = [real_entries(basis.bwd, None, "tail")] + fwd_legs
+    single_fwd = [real_entries(sfwd, None, "head")]
+    single_op = [real_entries(sinv, None, "tail")] + single_fwd
+    cases = [
+        ("t_operator_kernel", "batched_gen_operator_apply", x, op_legs, True,
+         lambda: sh.batched_gen_operator_apply(basis.fwd, basis.bwd, spec, x),
+         lambda: ref.batched_gen_operator_apply(basis.fwd, basis.bwd, spec,
+                                                x),
+         lambda: torch.bmm(x, dense_op.transpose(1, 2))),
+        ("t_chain_kernel", "batched_shear_apply", x, fwd_legs, False,
+         lambda: sh.batched_shear_apply(basis.fwd, x),
+         lambda: ref.batched_t_apply(basis.fwd, x),
+         lambda: torch.bmm(x, t_dense.transpose(1, 2))),
+        ("t_operator_kernel", "gen_operator_apply", x0, single_op, True,
+         lambda: sh.gen_operator_apply(sfwd, sinv, sspec, x0),
+         lambda: ref.gen_operator_apply(sfwd, sinv, sspec, x0),
+         lambda: torch.mm(x0, sdense.T)),
+        ("t_chain_kernel", "shear_apply", x0, single_fwd, False,
+         lambda: sh.shear_apply(sfwd, x0),
+         lambda: ref.staged_t_apply(sfwd, x0),
+         lambda: torch.mm(x0, st.T)),
+    ]
+    return timed_rows(cases, main, single, basis.fwd, sfwd, errs, "general")
 
 
 def main() -> int:
@@ -437,6 +730,11 @@ def main() -> int:
     main_rec = phase_main()
     single = phase_fgft(errs)
     kernels = phase_main_shapes(main_rec, single, errs)
+    main_dir = phase_main_directed()
+    single_dir = phase_fgft_directed(errs)
+    kernels += phase_directed_shapes(main_dir, single_dir, errs)
+    check(len(kernels) == len(REPLACES),
+          f"{len(kernels)} kernel rows for {len(REPLACES)} entry points")
     torch.cuda.synchronize()
     log(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels}))

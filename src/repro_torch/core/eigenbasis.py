@@ -1,16 +1,16 @@
-"""ApproxEigenbasis: the batched facade over the symmetric factorization.
+"""ApproxEigenbasis: the batched facade over both factorization families.
 
-``fit`` runs Algorithm 1 for a whole stack of B symmetric matrices at once
-(the B greedy chains advance in lockstep on one device, core/gtransform.py)
-and packs the (B, S, P) staged tables of the chains (core/staging.py).
-``apply`` and ``project`` route through one ``ApplyPlan``
-(kernels/plan.py): on a CUDA device that is the hand-written CUDA
-kernels, on the CPU their plain PyTorch versions.  Everything also works
-unbatched ((n, n) input).
+``fit`` runs Algorithm 1 for a whole stack of B matrices at once — G
+transforms for symmetric matrices (core/gtransform.py), scaling/shear T
+transforms for general ones (core/ttransform.py); the B greedy chains
+advance in lockstep on one device — and packs the (B, S, P) staged
+tables of the chains (core/staging.py).  ``apply`` and ``project``
+route through one ``ApplyPlan`` (kernels/plan.py): on a CUDA device
+that is the hand-written CUDA kernels, on the CPU their plain PyTorch
+versions.  Everything also works unbatched ((n, n) input).
 
-Only the symmetric (G-transform) family is ported; ``kind="general"``
-and ragged ``sizes=`` raise ``NotImplementedError`` naming the later
-slice of the port that brings them.
+Ragged ``sizes=`` raise ``NotImplementedError`` naming the later slice
+of the port that brings them.
 """
 from __future__ import annotations
 
@@ -21,8 +21,9 @@ import numpy as np
 import torch
 
 from . import gtransform as gt
-from .staging import StagedG, pack_g_batch_pair, pack_g_pair, select_cut
-from .types import GFactors
+from . import ttransform as tt
+from .staging import (pack_g_batch_pair, pack_g_pair, pack_t_batch_pair,
+                      pack_t_pair, select_cut)
 
 SYMMETRIC = "sym"
 GENERAL = "general"
@@ -42,12 +43,13 @@ class ApproxEigenbasis:
     """A fitted fast approximate eigenbasis (single matrix or a batch).
 
     Attributes:
-      kind: "sym".
+      kind: "sym" (G-transforms) or "general" (T-transforms).
       n: matrix side.
       batched: True when ``factors``/``spectrum`` carry a leading batch.
-      factors: GFactors with (g,) or (B, g) tensors.
+      factors: GFactors / TFactors with (g,) or (B, g) tensors.
       spectrum: estimated eigenvalues, (n,) or (B, n) f32.
-      fwd / bwd: staged Ubar / Ubar^T tables, (S, P) or (B, S, P).
+      fwd / bwd: staged Ubar / Ubar^T (or Tbar / Tbar^{-1}) tables,
+        (S, P) or (B, S, P).
       objective: final ||M - reconstruction||_F^2, scalar or (B,).
       info: fit diagnostics (objective history, iteration counts, score).
       sizes: always None here (ragged fleets are a later slice).
@@ -56,10 +58,10 @@ class ApproxEigenbasis:
     kind: str
     n: int
     batched: bool
-    factors: GFactors
+    factors: Any
     spectrum: torch.Tensor
-    fwd: StagedG
-    bwd: StagedG
+    fwd: Any
+    bwd: Any
     objective: Optional[torch.Tensor] = None
     info: Dict[str, Any] = field(default_factory=dict)
     sizes: Optional[Any] = None
@@ -80,9 +82,11 @@ class ApproxEigenbasis:
         """Factor one matrix (n, n) or a batch (B, n, n) — Algorithm 1.
 
         The B greedy factorizations advance in lockstep on ``device``.
-        ``kind="auto"`` resolves to "sym" for symmetric input; the
-        general family is a later slice.  ``score``/``spectrum`` as in
-        ``gtransform.approximate_symmetric``.  ``stage_pad``: optional
+        ``kind="auto"`` resolves to "sym" for symmetric input and to
+        "general" otherwise; pass ``kind="sym"``/``"general"`` to force
+        a family.  ``score``/``spectrum`` as in
+        ``gtransform.approximate_symmetric`` (``score`` applies to the
+        symmetric family only).  ``stage_pad``: optional
         (depth_quantum, width_quantum) staged-table shape quantization
         for batched fits."""
         if sizes is not None:
@@ -101,11 +105,13 @@ class ApproxEigenbasis:
                              f"{tuple(mats.shape)}")
         if kind == "auto":
             kind = SYMMETRIC if _is_symmetric(mats) else GENERAL
-        if kind == GENERAL:
-            raise _later("the general (T-transform) family",
-                         "directed (T-transform)")
-        if kind != SYMMETRIC:
+        if kind not in (SYMMETRIC, GENERAL):
             raise ValueError(f"unknown kind {kind!r}")
+        if kind == GENERAL and score is not None:
+            raise ValueError(
+                f"score={score!r} applies to the symmetric (G-transform) "
+                "family only; the general (T-transform) greedy has no "
+                "score variant")
         if spectrum is not None:
             spectrum = torch.as_tensor(spectrum, dtype=torch.float32).to(dev)
             want = tuple(mats.shape[:-2]) + (n,)
@@ -113,29 +119,41 @@ class ApproxEigenbasis:
                 raise ValueError(
                     f"spectrum shape {tuple(spectrum.shape)} does not match "
                     f"the fitted batch: expected {want}")
-        if score is None:
-            score = "paper" if spectrum is not None else "gamma"
-        sbar0 = spectrum if spectrum is not None else gt.default_sbar(mats)
         stack = mats if batched else mats.unsqueeze(0)
-        factors, sbar, obj, hist, iters = gt._approx_sym_core(
-            stack, sbar0.reshape(stack.shape[:2]), num_transforms, n_iter,
-            update_spectrum, eps, score)
-        if batched:
-            fwd, bwd = pack_g_batch_pair(factors, n, pad=stage_pad,
-                                         device=dev)
+        info = {"stage_pad": stage_pad}
+        if kind == SYMMETRIC:
+            if score is None:
+                score = "paper" if spectrum is not None else "gamma"
+            sbar0 = (spectrum if spectrum is not None
+                     else gt.default_sbar(mats))
+            factors, sbar, obj, hist, iters = gt._approx_sym_core(
+                stack, sbar0.reshape(stack.shape[:2]), num_transforms,
+                n_iter, update_spectrum, eps, score)
+            info["score"] = score
         else:
-            factors = GFactors(*(f[0] for f in factors))
+            cbar0 = (spectrum if spectrum is not None
+                     else tt.default_cbar(mats))
+            factors, sbar, obj, hist, iters = tt._approx_gen_core(
+                stack, cbar0.reshape(stack.shape[:2]), num_transforms,
+                n_iter, update_spectrum, eps)
+        sym = kind == SYMMETRIC
+        if batched:
+            pack = pack_g_batch_pair if sym else pack_t_batch_pair
+            fwd, bwd = pack(factors, n, pad=stage_pad, device=dev)
+        else:
+            factors = type(factors)(*(f[0] for f in factors))
             sbar, obj, hist, iters = sbar[0], obj[0], hist[0], iters[0]
-            fwd, bwd = pack_g_pair(factors, n=n, device=dev)
-        return cls(kind=SYMMETRIC, n=n, batched=batched, factors=factors,
+            pack = pack_g_pair if sym else pack_t_pair
+            fwd, bwd = pack(factors, n=n, device=dev)
+        info.update(history=hist, iterations=iters)
+        return cls(kind=kind, n=n, batched=batched, factors=factors,
                    spectrum=sbar, fwd=fwd, bwd=bwd, objective=obj,
-                   info={"history": hist, "iterations": iters,
-                         "score": score, "stage_pad": stage_pad})
+                   info=info)
 
     @property
     def num_transforms(self) -> int:
         """Number of fitted fundamental components g (per matrix)."""
-        return int(self.factors.i.shape[-1])
+        return int(self.factors[0].shape[-1])
 
     @property
     def stage_cuts(self) -> np.ndarray:
@@ -167,10 +185,11 @@ class ApproxEigenbasis:
     def apply(self, x, inverse: bool = False, backend: Optional[str] = None,
               num_stages: Optional[int] = None,
               precision: str = "f32") -> torch.Tensor:
-        """y = Ubar x; ``inverse=True`` applies Ubar^T (graph Fourier
-        ANALYSIS; forward is SYNTHESIS).  ``x``: (..., n), with a leading
-        (B, ...) batch when ``batched``.  ``num_stages`` runs an anytime
-        prefix (pick one with ``select_tier``)."""
+        """y = Ubar x (or Tbar x); ``inverse=True`` applies Ubar^T /
+        Tbar^{-1} (graph Fourier ANALYSIS; forward is SYNTHESIS).
+        ``x``: (..., n), with a leading (B, ...) batch when ``batched``.
+        ``num_stages`` runs an anytime prefix (pick one with
+        ``select_tier``)."""
         from repro_torch.kernels.plan import leg_orientation
         staged = self.bwd if inverse else self.fwd
         keep = leg_orientation(self.kind)[0 if inverse else 1]
@@ -181,7 +200,8 @@ class ApproxEigenbasis:
                 backend: Optional[str] = None,
                 num_stages: Optional[int] = None, precision: str = "f32",
                 fused: bool = True) -> torch.Tensor:
-        """y = Ubar diag(h(spectrum)) Ubar^T x (``h`` defaults to the
+        """y = Ubar diag(h(spectrum)) Ubar^T x, or Tbar diag(h(spectrum))
+        Tbar^{-1} x for the general family (``h`` defaults to the
         identity: the approximated matrix itself).  One fused kernel
         launch on the card; ``fused=False`` is the three-pass baseline."""
         d = self.spectrum if h is None else h(self.spectrum)
@@ -196,14 +216,15 @@ class ApproxEigenbasis:
         return eye.contiguous()
 
     def to_dense(self, num_stages: Optional[int] = None) -> torch.Tensor:
-        """Materialize Ubar as (n, n) or (B, n, n) (``num_stages``: the
-        anytime prefix basis)."""
+        """Materialize Ubar (or Tbar) as (n, n) or (B, n, n)
+        (``num_stages``: the anytime prefix basis)."""
         # staged apply acts on row vectors: row r of the result is
         # (basis e_r), i.e. the transpose of the basis matrix
         return self.apply(self._eye(), num_stages=num_stages).transpose(-1, -2)
 
     def reconstruct(self) -> torch.Tensor:
-        """Dense Ubar diag(s) Ubar^T as (n, n) or (B, n, n)."""
+        """Dense Ubar diag(s) Ubar^T (or Tbar diag(c) Tbar^{-1}) as (n, n)
+        or (B, n, n)."""
         return self.project(self._eye()).transpose(-1, -2)
 
     def frobenius_error(self, mats) -> torch.Tensor:

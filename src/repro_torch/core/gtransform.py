@@ -39,16 +39,19 @@ def _arange(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(x.shape[0], device=x.device)
 
 
-def _long(factors: GFactors) -> GFactors:
+def _long(factors):
+    """Factors (GFactors or TFactors) with int64 ``i``/``j`` for
+    indexing."""
     return factors._replace(i=factors.i.long(), j=factors.j.long())
 
 
-def _single_to_batch(s_mat: torch.Tensor, factors: Optional[GFactors]):
-    """(n, n) + (g,) factors -> B = 1 views; returns (s, factors, single)."""
+def _single_to_batch(s_mat: torch.Tensor, factors):
+    """(n, n) + (g,) factors (GFactors or TFactors) -> B = 1 views;
+    returns (s, factors, single)."""
     if s_mat.dim() == 3:
         return s_mat, factors, False
     if factors is not None:
-        factors = GFactors(*(f.unsqueeze(0) for f in factors))
+        factors = type(factors)(*(f.unsqueeze(0) for f in factors))
     return s_mat.unsqueeze(0), factors, True
 
 

@@ -1,4 +1,4 @@
-"""Conflict-free stage packing of G-transform chains.
+"""Conflict-free stage packing of G- and T-transform chains.
 
 The paper applies its g transforms one after another.  Disjoint 2x2
 transforms commute, so the ordered factor list is packed greedily (ASAP
@@ -15,11 +15,14 @@ are the ``cuts`` metadata.  Adjoint tables are stage-MIRRORS of the
 forward tables, so one ``num_stages`` cuts both directions.  For the G
 family discovery order is the reverse of application order, so the
 significant stages sit at the TAIL of the forward (synthesis) tables and
-at the HEAD of the adjoint (analysis) tables.
+at the HEAD of the adjoint (analysis) tables.  For the T family
+discovery order IS application order: the significant stages sit at the
+HEAD of the forward tables and at the TAIL of the inverse tables.
 
 Padding entries carry the OUT-OF-BOUNDS index ``n`` with (c=1, s=0,
-sigma=1): the kernels give the signal one dummy column ``n`` (or skip
-the entry), so a pad is a structural no-op.
+sigma=1) for G and (alpha=1, beta=0) for T: the kernels give the signal
+one dummy column ``n`` (or skip the entry), so a pad is a structural
+no-op.
 
 Packing happens on the host in numpy, once per factorization; only the
 finished tables become torch tensors on the requested device.  For the
@@ -32,7 +35,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .types import GFactors
+from .types import SCALE, GFactors, TFactors
 
 DEFAULT_NUM_CHUNKS = 4
 
@@ -59,13 +62,38 @@ class StagedG(NamedTuple):
         return self.idx_i.shape[-2]
 
 
+class StagedT(NamedTuple):
+    """T-transforms packed into stages.  Unified per-entry action
+    y_i = alpha x_i + beta x_j (only i is written) with (alpha, beta) =
+    (1, a) for shears and (a, 0) for scalings (j == i).  Padding:
+    (alpha=1, beta=0) at the out-of-bounds index ``n``.  Layout, dtypes
+    and ``cuts`` as in ``StagedG``."""
+
+    idx_i: torch.Tensor   # written coordinate
+    idx_j: torch.Tensor   # read coordinate
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    cuts: Optional[np.ndarray]
+    n: int
+
+    @property
+    def num_stages(self) -> int:
+        return self.idx_i.shape[-2]
+
+
 _G_TABLE_FIELDS = ("idx_i", "idx_j", "c", "s", "sigma")
+_T_TABLE_FIELDS = ("idx_i", "idx_j", "alpha", "beta")
 
 
-def table_arrays(staged: StagedG) -> Tuple[torch.Tensor, ...]:
-    """The device tables of a StagedG without the host ``cuts``/``n``
-    tail — what plan programs take as their table arguments."""
-    return tuple(staged[:len(_G_TABLE_FIELDS)])
+def _table_fields(staged) -> Tuple[str, ...]:
+    return _T_TABLE_FIELDS if isinstance(staged, StagedT) else _G_TABLE_FIELDS
+
+
+def table_arrays(staged) -> Tuple[torch.Tensor, ...]:
+    """The device tables of a StagedG/StagedT without the host
+    ``cuts``/``n`` tail — what plan programs take as their table
+    arguments."""
+    return tuple(staged[:len(_table_fields(staged))])
 
 
 # ---------------------------------------------------------------------------
@@ -81,8 +109,7 @@ def default_cut_ladder(num_transforms: int,
     return np.asarray(sorted(ks | {0, num_transforms}), np.int64)
 
 
-def truncate_staged(staged: StagedG, num_stages: Optional[int],
-                    keep: str = "head") -> StagedG:
+def truncate_staged(staged, num_stages: Optional[int], keep: str = "head"):
     """Cut staged tables at a stage boundary: keep the first (``head``)
     or last (``tail``) ``num_stages`` stages (views, not copies).  Exact
     whenever ``num_stages`` is one of ``staged.cuts``."""
@@ -99,13 +126,13 @@ def truncate_staged(staged: StagedG, num_stages: Optional[int],
         sl = slice(s_tot - num_stages, s_tot)
     else:
         raise ValueError(f"keep must be 'head' or 'tail', got {keep!r}")
-    upd = {f: getattr(staged, f)[..., sl, :] for f in _G_TABLE_FIELDS}
+    upd = {f: getattr(staged, f)[..., sl, :] for f in _table_fields(staged)}
     if isinstance(staged.cuts, np.ndarray):
         upd["cuts"] = staged.cuts[staged.cuts[:, 0] <= num_stages]
     return staged._replace(**upd)
 
 
-def select_cut(staged: StagedG, num_transforms: Optional[int] = None,
+def select_cut(staged, num_transforms: Optional[int] = None,
                fraction: Optional[float] = None) -> Tuple[int, int]:
     """The ladder entry ``(num_stages, num_components)`` whose component
     count is nearest a target (``num_transforms`` or ``fraction`` of the
@@ -250,10 +277,47 @@ def _infer_n_g(factors: GFactors, n: Optional[int] = None) -> int:
     return int(n)
 
 
-def _staged(tables, cut, n, device) -> StagedG:
+def _staged(tables, cut, n, device, cls=StagedG):
     dev = torch.device(device)
-    return StagedG(*(torch.from_numpy(np.ascontiguousarray(t)).to(dev)
-                     for t in tables), cut, n)
+    return cls(*(torch.from_numpy(np.ascontiguousarray(t)).to(dev)
+                 for t in tables), cut, n)
+
+
+def _pack_t_np(factors: TFactors, n: int, cuts: Optional[Sequence[int]]):
+    fk, fi, fj, fa = (_host(f) for f in factors)
+    m = fk.shape[0]
+    # a scaling touches i; a shear reads j too, so no entry of a stage
+    # writes a coordinate that another entry of the stage reads
+    touch = [(int(fi[k]),) if fk[k] == SCALE else (int(fi[k]), int(fj[k]))
+             for k in range(m)]
+    bounds = _chunk_bounds(m, cuts, significance_tail=False)
+    stage_of, n_stages, stage_bounds = _chunked_schedule(touch, bounds)
+    slot, width = _pad_layout(stage_of, n_stages)
+    n_stages = max(n_stages, 1)
+
+    ii = np.full((n_stages, width), n, dtype=np.int32)
+    jj = ii.copy()
+    al = np.ones((n_stages, width), fa.dtype)
+    be = np.zeros((n_stages, width), fa.dtype)
+    is_scale = fk == SCALE
+    ii[stage_of, slot] = fi
+    jj[stage_of, slot] = np.where(is_scale, fi, fj)
+    al[stage_of, slot] = np.where(is_scale, fa, 1.0)
+    be[stage_of, slot] = np.where(is_scale, 0.0, fa)
+    cut = _cut_table(stage_bounds, bounds, m, n_stages,
+                     significance_tail=False)
+    return (ii, jj, al, be), cut, stage_bounds
+
+
+def _mirror_t_np(tables):
+    """Stage-mirror of forward T tables: Tbar^{-1} (reverse stage order;
+    per entry (alpha, beta) -> (1/alpha, -beta/alpha), which inverts
+    shears, scalings and fixes pads (1, 0))."""
+    ii, jj, al, be = tables
+    inv_al = 1.0 / al
+    inv_be = -be / al
+    return (ii[::-1].copy(), jj[::-1].copy(), inv_al[::-1].copy(),
+            inv_be[::-1].copy())
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +349,32 @@ def pack_g_pair(factors: GFactors, cuts: Optional[Sequence[int]] = None,
     tables, cut, _ = _pack_g_np(factors, n, cuts)
     return (_staged(tables, cut, n, device),
             _staged(_mirror_g_np(tables), cut, n, device))
+
+
+def pack_t(factors: TFactors, n: int, cuts: Optional[Sequence[int]] = None,
+           device="cuda") -> StagedT:
+    """Stage a T-chain (forward direction, Tbar); significant components
+    land in the HEAD stages."""
+    tables, cut, _ = _pack_t_np(factors, n, cuts)
+    return _staged(tables, cut, n, device, StagedT)
+
+
+def pack_t_inverse(factors: TFactors, n: int,
+                   cuts: Optional[Sequence[int]] = None,
+                   device="cuda") -> StagedT:
+    """Staged Tbar^{-1}: the stage-mirror of ``pack_t(factors)``
+    (significant components in the TAIL stages)."""
+    tables, cut, _ = _pack_t_np(factors, n, cuts)
+    return _staged(_mirror_t_np(tables), cut, n, device, StagedT)
+
+
+def pack_t_pair(factors: TFactors, n: int,
+                cuts: Optional[Sequence[int]] = None, device="cuda"
+                ) -> Tuple[StagedT, StagedT]:
+    """(forward, inverse) staged forms from ONE scheduling pass."""
+    tables, cut, _ = _pack_t_np(factors, n, cuts)
+    return (_staged(tables, cut, n, device, StagedT),
+            _staged(_mirror_t_np(tables), cut, n, device, StagedT))
 
 
 # ---------------------------------------------------------------------------
@@ -377,3 +467,52 @@ def pack_g_batch_pair(factors: GFactors, n: int,
     stacked, cut, n = _pack_g_batch_np(factors, n, cuts, pad)
     return (_staged(stacked, cut, n, device),
             _staged(_mirror_g_batch_np(stacked), cut, n, device))
+
+
+def _pack_t_batch_np(factors: TFactors, n: int,
+                     cuts: Optional[Sequence[int]],
+                     pad: Optional[Tuple[int, int]] = None):
+    host = TFactors(*(_host(f) for f in factors))
+    batch, m = host.kind.shape
+    per, sbs = [], []
+    for b in range(batch):
+        tables, _, sb = _pack_t_np(TFactors(*(f[b] for f in host)), n, cuts)
+        per.append(tables)
+        sbs.append(sb)
+    pads = (np.int32(n), np.int32(n), 1.0, 0.0)
+    stacked, offs = _stack_chunked(per, sbs, pads, n, pad)
+    bounds = _chunk_bounds(m, cuts, significance_tail=False)
+    n_stages = int(offs[-1]) if offs[-1] > 0 else 1
+    cut = _cut_table(offs, bounds, m, n_stages, significance_tail=False)
+    return stacked, cut
+
+
+def _mirror_t_batch_np(stacked):
+    """Batched stage-mirror (Tbar^{-1} per matrix)."""
+    al, be = stacked[2], stacked[3]
+    out = [stacked[0], stacked[1], 1.0 / al, -be / al]
+    return [np.ascontiguousarray(a[:, ::-1]) for a in out]
+
+
+def pack_t_batch(factors: TFactors, n: int, inverse: bool = False,
+                 cuts: Optional[Sequence[int]] = None,
+                 pad: Optional[Tuple[int, int]] = None,
+                 device="cuda") -> StagedT:
+    """Pack a batch of T chains ((B, m) fields) into one StagedT with
+    (B, S, P) tables sharing one cut ladder (``inverse=True`` mirrors
+    the stages into Tbar^{-1} per matrix)."""
+    stacked, cut = _pack_t_batch_np(factors, n, cuts, pad)
+    if inverse:
+        stacked = _mirror_t_batch_np(stacked)
+    return _staged(stacked, cut, n, device, StagedT)
+
+
+def pack_t_batch_pair(factors: TFactors, n: int,
+                      cuts: Optional[Sequence[int]] = None,
+                      pad: Optional[Tuple[int, int]] = None,
+                      device="cuda") -> Tuple[StagedT, StagedT]:
+    """(forward, inverse) batched staged forms from ONE scheduling +
+    stacking pass."""
+    stacked, cut = _pack_t_batch_np(factors, n, cuts, pad)
+    return (_staged(stacked, cut, n, device, StagedT),
+            _staged(_mirror_t_batch_np(stacked), cut, n, device, StagedT))

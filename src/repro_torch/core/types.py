@@ -10,8 +10,7 @@ j > i::
 so that  y_i = c x_i + s x_j ;  y_j = sigma * (-s x_i + c x_j).
 
 T-transforms (eq. 8-10): kind=SHEAR at ordered (i, j) is x_i += a x_j,
-kind=SCALE at (i, i) scales coordinate i by a.  The T family is carried
-as a plain container only: its fit is not ported yet.
+kind=SCALE at (i, i) scales coordinate i by a.
 
 Factors are stored in APPLICATION order: factor 0 is applied first, i.e.
 ``Ubar = G_{g-1} ... G_1 G_0``.  Fields hold torch tensors (or numpy
@@ -43,7 +42,7 @@ class GFactors(NamedTuple):
 
 
 class TFactors(NamedTuple):
-    """A sequence of m scaling / shear transforms (container only)."""
+    """A sequence of m scaling / shear transforms: (m,) or (B, m) fields."""
 
     kind: torch.Tensor   # int32 in {SCALE, SHEAR}
     i: torch.Tensor      # int32
@@ -64,4 +63,14 @@ def gfactors_identity(g: int, dtype=torch.float32,
         c=torch.ones((g,), dtype=dtype, device=device),
         s=torch.zeros((g,), dtype=dtype, device=device),
         sigma=torch.ones((g,), dtype=dtype, device=device),
+    )
+
+
+def tfactors_identity(m: int, dtype=torch.float32,
+                      device="cuda") -> TFactors:
+    """m identity T-transforms: scalings by 1 at index 0."""
+    z = torch.zeros((m,), dtype=torch.int32, device=device)
+    return TFactors(
+        kind=torch.full((m,), SCALE, dtype=torch.int32, device=device),
+        i=z, j=z.clone(), a=torch.ones((m,), dtype=dtype, device=device),
     )

@@ -15,12 +15,10 @@
 // dummy-padded spectrum, then runs the forward leg, in one launch.
 //
 // Design.  One CTA owns one (matrix b, tile of `rows` signal rows).  The tile
-// (rows x ld floats, ld = n+1 rounded up to an odd count) sits in dynamic
-// shared memory for the whole chain: x is read from device memory once and y
-// written once, also across both legs of the operator.  A stage is a loop
-// over (pair, row) work items, row fastest, so the 32 lanes of a warp read
-// one table entry (a broadcast) and touch 32 rows at an odd stride (no bank
-// conflicts).  A __syncthreads() separates consecutive stages.
+// sits in dynamic shared memory for the whole chain: x is read from device
+// memory once and y written once, also across both legs of the operator.
+// The body (chain.cuh) is shared with the T kernels; this file supplies the
+// stage action GPair.  A __syncthreads() separates consecutive stages.
 //
 // Bound on this card.  Stages are narrow (at n = 256, g = 4096 a batched fit
 // packs S = 440 stages of P = 63 slots, of which only ~9 per stage are real
@@ -34,117 +32,53 @@
 // count) per leg: no recompilation, and a count of 0 is a valid cut.
 #include <cuda_runtime.h>
 
+#include "chain.cuh"
+
 namespace {
 
-struct Leg {
+// A G pair (i, j) with values (c, s, sigma), applied to one signal row.
+struct GPair {
   const int* ii;
   const int* jj;
   const float* c;
   const float* s;
   const float* sg;
-  long long bstride;  // elements between consecutive matrices' tables (0: shared)
-  int P;              // pairs per stage
-  int s0;             // first stage to run
-  int ns;             // number of stages to run
+
+  __device__ __forceinline__ void operator()(float* row, long long e,
+                                             int n) const {
+    const int i = __ldg(ii + e);
+    const int j = __ldg(jj + e);
+    if (i < n && j < n) {
+      const float ce = __ldg(c + e);
+      const float se = __ldg(s + e);
+      const float ge = __ldg(sg + e);
+      const float xi = row[i];
+      const float xj = row[j];
+      row[i] = ce * xi + se * xj;
+      row[j] = ge * (-se * xi + ce * xj);
+    }
+  }
 };
 
-__device__ __forceinline__ void run_leg(float* tile, int ld, int rows, int n,
-                                        int b, const Leg& leg) {
-  const long long base = (long long)b * leg.bstride;
-  const int items = rows * leg.P;
-  for (int st = leg.s0; st < leg.s0 + leg.ns; ++st) {
-    const long long off = base + (long long)st * leg.P;
-    for (int w = threadIdx.x; w < items; w += blockDim.x) {
-      const int p = w / rows;
-      const int r = w - p * rows;
-      const int i = __ldg(leg.ii + off + p);
-      const int j = __ldg(leg.jj + off + p);
-      if (i < n && j < n) {
-        const float c = __ldg(leg.c + off + p);
-        const float s = __ldg(leg.s + off + p);
-        const float g = __ldg(leg.sg + off + p);
-        float* row = tile + r * ld;
-        const float xi = row[i];
-        const float xj = row[j];
-        row[i] = c * xi + s * xj;
-        row[j] = g * (-s * xi + c * xj);
-      }
-    }
-    __syncthreads();
-  }
+using GLeg = Leg<GPair>;
+
+__global__ void g_chain_kernel(int R, int n, int ld, int rows_per_tile,
+                               const float* __restrict__ x,
+                               float* __restrict__ y, GLeg leg) {
+  chain_tile(R, n, ld, rows_per_tile, x, y, leg);
 }
 
-__device__ __forceinline__ void load_tile(float* tile, int ld, const float* x,
-                                          int rows, int n) {
-  for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
-    const int r = e / n;
-    const int col = e - r * n;
-    tile[r * ld + col] = x[(long long)r * n + col];
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void store_tile(float* y, const float* tile, int ld,
-                                           int rows, int n) {
-  for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
-    const int r = e / n;
-    const int col = e - r * n;
-    y[(long long)r * n + col] = tile[r * ld + col];
-  }
-}
-
-__global__ void g_chain_kernel(const float* __restrict__ x,
-                               float* __restrict__ y, int R, int n, int ld,
-                               int rows_per_tile, Leg leg) {
-  extern __shared__ float tile[];
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * rows_per_tile;
-  const int rows = min(rows_per_tile, R - r0);
-  const long long xoff = ((long long)b * R + r0) * n;
-  load_tile(tile, ld, x + xoff, rows, n);
-  run_leg(tile, ld, rows, n, b, leg);
-  store_tile(y + xoff, tile, ld, rows, n);
-}
-
-__global__ void g_operator_kernel(const float* __restrict__ x,
+__global__ void g_operator_kernel(int R, int n, int ld, int rows_per_tile,
+                                  const float* __restrict__ x,
                                   float* __restrict__ y,
-                                  const float* __restrict__ d, int R, int n,
-                                  int ld, int rows_per_tile, Leg adj,
-                                  Leg fwd) {
-  extern __shared__ float tile[];
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * rows_per_tile;
-  const int rows = min(rows_per_tile, R - r0);
-  const long long xoff = ((long long)b * R + r0) * n;
-  load_tile(tile, ld, x + xoff, rows, n);
-  run_leg(tile, ld, rows, n, b, adj);
-  const float* db = d + (long long)b * (n + 1);
-  for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
-    const int r = e / n;
-    const int col = e - r * n;
-    tile[r * ld + col] *= db[col];
-  }
-  __syncthreads();
-  run_leg(tile, ld, rows, n, b, fwd);
-  store_tile(y + xoff, tile, ld, rows, n);
+                                  const float* __restrict__ d, GLeg adj,
+                                  GLeg fwd) {
+  operator_tile(R, n, ld, rows_per_tile, x, y, d, adj, fwd);
 }
 
-inline int odd_stride(int n) { return (n + 1) | 1; }
-
-inline Leg make_leg(const int* ii, const int* jj, const float* c,
-                    const float* s, const float* sg, long long bstride, int P,
-                    int s0, int ns) {
-  Leg leg;
-  leg.ii = ii;
-  leg.jj = jj;
-  leg.c = c;
-  leg.s = s;
-  leg.sg = sg;
-  leg.bstride = bstride;
-  leg.P = P;
-  leg.s0 = s0;
-  leg.ns = ns;
-  return leg;
+inline GLeg g_leg(const int* ii, const int* jj, const float* c, const float* s,
+                  const float* sg, long long bstride, int P, int s0, int ns) {
+  return GLeg{GPair{ii, jj, c, s, sg}, bstride, P, s0, ns};
 }
 
 }  // namespace
@@ -173,17 +107,8 @@ int g_chain_launch(const float* x, float* y, int B, int R, int n,
                    const float* s, const float* sg, long long bstride, int P,
                    int s0, int ns, int rows_per_tile, int threads,
                    void* stream) {
-  if (B == 0 || R == 0) return 0;
-  const int ld = odd_stride(n);
-  const size_t smem = (size_t)rows_per_tile * ld * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      g_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((R + rows_per_tile - 1) / rows_per_tile, B);
-  g_chain_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      x, y, R, n, ld, rows_per_tile,
-      make_leg(ii, jj, c, s, sg, bstride, P, s0, ns));
-  return (int)cudaGetLastError();
+  return launch_tiled(g_chain_kernel, B, R, n, rows_per_tile, threads, stream,
+                      x, y, g_leg(ii, jj, c, s, sg, bstride, P, s0, ns));
 }
 
 // y[b] = Ubar_b diag(d[b]) Ubar_b^T x[b]: the adjoint leg runs stages
@@ -196,19 +121,10 @@ int g_operator_launch(const float* x, float* y, const float* d, int B, int R,
                       const float* fc, const float* fs, const float* fsg,
                       long long fbstride, int fP, int f0, int nf,
                       int rows_per_tile, int threads, void* stream) {
-  if (B == 0 || R == 0) return 0;
-  const int ld = odd_stride(n);
-  const size_t smem = (size_t)rows_per_tile * ld * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      g_operator_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((R + rows_per_tile - 1) / rows_per_tile, B);
-  g_operator_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      x, y, d, R, n, ld, rows_per_tile,
-      make_leg(aii, ajj, ac, as, asg, abstride, aP, a0, na),
-      make_leg(fii, fjj, fc, fs, fsg, fbstride, fP, f0, nf));
-  return (int)cudaGetLastError();
+  return launch_tiled(g_operator_kernel, B, R, n, rows_per_tile, threads,
+                      stream, x, y, d,
+                      g_leg(aii, ajj, ac, as, asg, abstride, aP, a0, na),
+                      g_leg(fii, fjj, fc, fs, fsg, fbstride, fP, f0, nf));
 }
 
 }  // extern "C"

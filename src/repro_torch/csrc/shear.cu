@@ -1,0 +1,115 @@
+// Staged T-chain (scaling / shear) kernels for Hopper (sm_90a), plain C
+// interface.
+//
+// Replaces the JAX package's Pallas TPU kernels in
+// src/repro/kernels/shear.py:
+//   t_chain_kernel     <- batched_shear_apply (_batched_shear_kernel)
+//                         and shear_apply (_shear_kernel) as B = 1
+//   t_operator_kernel  <- batched_gen_operator_apply
+//                         (_batched_fused_gen_kernel) and gen_operator_apply
+//                         (_fused_gen_kernel) as B = 1
+//
+// Semantics (the plain PyTorch versions in src/repro_torch/kernels/ref.py):
+// a stage st holds P entries (i, j, alpha, beta); per signal row it computes
+// y_i = alpha x_i + beta x_j and writes only i (a scaling has j == i and
+// beta = 0, a shear alpha = 1).  The packer puts j into a shear's touch set,
+// so within a stage no entry writes a coordinate that another entry reads or
+// writes: every work item's reads and its write are its own, and one
+// __syncthreads() between stages orders the stages.  Pad entries carry the
+// out-of-bounds index n and are skipped.  The operator runs the inverse leg,
+// scales by the (n+1)-wide dummy-padded spectrum, then runs the forward leg,
+// in one launch.  Each entry is computed as round(round(alpha x_i) +
+// round(beta x_j)), without FMA contraction, so the kernel rounds exactly as
+// the plain version does: T is not orthogonal, and rounding differences
+// would otherwise grow with cond(Tbar) along the chain.
+//
+// Design.  The G-chain kernels' body (chain.cuh), with the stage action
+// TEntry: one CTA owns one (matrix b, tile of `rows` signal rows); the tile
+// sits in dynamic shared memory for the whole chain, so x is read from device
+// memory once and y written once, also across both legs of the operator.
+//
+// Bound on this card.  Stages are narrow (a T stage has at most n/2 shears or
+// n scalings, and most slots of the padded (S, P) layout are pads): a stage
+// is at most ~rows*P*2 flops between two barriers (2 per shear and row, 1 per
+// scaling), so the kernel is bound by the stage barriers and the per-stage
+// table reads, not by arithmetic or by the single HBM pass over x and y.
+// The design answers with many rows per CTA and several CTAs per SM (see
+// kernels/launcher.py::rows_per_tile), so the
+// barrier stalls of one CTA overlap another's work.  The anytime cut is a
+// runtime (first stage, stage count) per leg: no recompilation, and a count
+// of 0 is a valid cut.
+#include <cuda_runtime.h>
+
+#include "chain.cuh"
+
+namespace {
+
+// A T entry (i, j, alpha, beta), applied to one signal row: only i written.
+struct TEntry {
+  const int* ii;
+  const int* jj;
+  const float* al;
+  const float* be;
+
+  __device__ __forceinline__ void operator()(float* row, long long e,
+                                             int n) const {
+    const int i = __ldg(ii + e);
+    const int j = __ldg(jj + e);
+    if (i < n && j < n) {
+      row[i] = __fadd_rn(__fmul_rn(__ldg(al + e), row[i]),
+                         __fmul_rn(__ldg(be + e), row[j]));
+    }
+  }
+};
+
+using TLeg = Leg<TEntry>;
+
+__global__ void t_chain_kernel(int R, int n, int ld, int rows_per_tile,
+                               const float* __restrict__ x,
+                               float* __restrict__ y, TLeg leg) {
+  chain_tile(R, n, ld, rows_per_tile, x, y, leg);
+}
+
+__global__ void t_operator_kernel(int R, int n, int ld, int rows_per_tile,
+                                  const float* __restrict__ x,
+                                  float* __restrict__ y,
+                                  const float* __restrict__ d, TLeg inv,
+                                  TLeg fwd) {
+  operator_tile(R, n, ld, rows_per_tile, x, y, d, inv, fwd);
+}
+
+inline TLeg t_leg(const int* ii, const int* jj, const float* al,
+                  const float* be, long long bstride, int P, int s0, int ns) {
+  return TLeg{TEntry{ii, jj, al, be}, bstride, P, s0, ns};
+}
+
+}  // namespace
+
+extern "C" {
+
+// y[b] = Tbar_b x[b] over stages [s0, s0 + ns) of tables (B, S, P) with
+// matrix stride `bstride` (0 for one shared table set).  x, y: (B, R, n).
+int t_chain_launch(const float* x, float* y, int B, int R, int n,
+                   const int* ii, const int* jj, const float* al,
+                   const float* be, long long bstride, int P, int s0, int ns,
+                   int rows_per_tile, int threads, void* stream) {
+  return launch_tiled(t_chain_kernel, B, R, n, rows_per_tile, threads, stream,
+                      x, y, t_leg(ii, jj, al, be, bstride, P, s0, ns));
+}
+
+// y[b] = Tbar_b diag(d[b]) Tbar_b^{-1} x[b]: the inverse leg runs stages
+// [i0, i0 + ni) of the inverse tables, the forward leg [f0, f0 + nf) of the
+// forward tables; d is (B, n + 1) with 1.0 in the dummy column n.
+int t_operator_launch(const float* x, float* y, const float* d, int B, int R,
+                      int n, const int* iii, const int* ijj, const float* ial,
+                      const float* ibe, long long ibstride, int iP, int i0,
+                      int ni, const int* fii, const int* fjj, const float* fal,
+                      const float* fbe, long long fbstride, int fP, int f0,
+                      int nf, int rows_per_tile, int threads, void* stream) {
+  return launch_tiled(t_operator_kernel, B, R, n, rows_per_tile, threads,
+                      stream, x, y, d,
+                      t_leg(iii, ijj, ial, ibe, ibstride, iP, i0, ni),
+                      t_leg(fii, fjj, fal, fbe, fbstride, fP, f0, nf));
+}
+
+}  // extern "C"

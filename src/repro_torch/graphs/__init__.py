@@ -1,1 +1,1 @@
-from .generators import community_graph
+from .generators import community_graph, directed_variant

@@ -4,7 +4,8 @@ A fit is this system's "weights".  ``basis_from_numpy`` takes the factor
 chain and spectrum of a fit as numpy arrays — ``np.asarray`` of the JAX
 ``ApproxEigenbasis.factors`` fields — and returns the port's
 ``ApproxEigenbasis`` with tables repacked by the port's own packer, which
-are bitwise the JAX package's tables for the same factors.
+are bitwise the JAX package's tables for the same factors.  Both
+families: G chains (``kind="sym"``) and T chains (``kind="general"``).
 """
 from __future__ import annotations
 
@@ -14,10 +15,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.eigenbasis import ApproxEigenbasis
-from repro_torch.core.staging import pack_g_batch_pair, pack_g_pair
-from repro_torch.core.types import GFactors
+from repro_torch.core.staging import (pack_g_batch_pair, pack_g_pair,
+                                     pack_t_batch_pair, pack_t_pair)
+from repro_torch.core.types import GFactors, TFactors
 
-_FIELDS = ("i", "j", "c", "s", "sigma")
+#: kind -> (factor container, its int32 fields; the others are f32)
+_LAYOUT = {"sym": (GFactors, ("i", "j")),
+           "general": (TFactors, ("kind", "i", "j"))}
 
 
 def basis_from_numpy(kind: str, n: int, factors: Mapping[str, np.ndarray],
@@ -27,20 +31,20 @@ def basis_from_numpy(kind: str, n: int, factors: Mapping[str, np.ndarray],
                      device="cuda") -> ApproxEigenbasis:
     """A port basis from host arrays.
 
-    ``factors``: dict of ``i, j, c, s, sigma`` arrays, (g,) or (B, g);
+    ``kind``: "sym" or "general"; ``factors``: dict of the family's
+    fields (``i, j, c, s, sigma`` or ``kind, i, j, a``), (g,) or (B, g);
     ``spectrum``: (n,) or (B, n); ``cuts``: the component ladder to pack
     (default: the quarters ladder); ``stage_pad``: batched shape quanta.
     """
-    if kind != "sym":
-        raise NotImplementedError(f"kind={kind!r} is not ported yet: the "
-                                  "general family comes with the directed "
-                                  "slice of repro_torch")
-    missing = [f for f in _FIELDS if f not in factors]
+    if kind not in _LAYOUT:
+        raise ValueError(f"kind must be one of {sorted(_LAYOUT)}, got "
+                         f"{kind!r}")
+    cls, int_fields = _LAYOUT[kind]
+    missing = [f for f in cls._fields if f not in factors]
     if missing:
         raise ValueError(f"factors lack fields {missing}")
-    host = GFactors(
-        *(np.asarray(factors[f], np.int32) for f in ("i", "j")),
-        *(np.asarray(factors[f], np.float32) for f in ("c", "s", "sigma")))
+    host = cls(**{f: np.asarray(factors[f], np.int32 if f in int_fields
+                                else np.float32) for f in cls._fields})
     batched = host.i.ndim == 2
     if host.i.ndim not in (1, 2) or any(f.shape != host.i.shape
                                         for f in host):
@@ -51,15 +55,17 @@ def basis_from_numpy(kind: str, n: int, factors: Mapping[str, np.ndarray],
     if spec.shape != want:
         raise ValueError(f"spectrum shape {spec.shape} != {want}")
     dev = torch.device(device)
+    sym = kind == "sym"
     if batched:
-        fwd, bwd = pack_g_batch_pair(host, n, cuts=cuts, pad=stage_pad,
-                                     device=dev)
+        pack = pack_g_batch_pair if sym else pack_t_batch_pair
+        fwd, bwd = pack(host, n, cuts=cuts, pad=stage_pad, device=dev)
     else:
-        fwd, bwd = pack_g_pair(host, cuts=cuts, n=n, device=dev)
-    tensors = GFactors(*(torch.from_numpy(f.copy()).to(dev) for f in host))
+        pack = pack_g_pair if sym else pack_t_pair
+        fwd, bwd = pack(host, cuts=cuts, n=n, device=dev)
+    tensors = cls(*(torch.from_numpy(f.copy()).to(dev) for f in host))
     obj = (None if objective is None
            else torch.from_numpy(np.array(objective, np.float32)).to(dev))
-    return ApproxEigenbasis(kind="sym", n=n, batched=batched,
+    return ApproxEigenbasis(kind=kind, n=n, batched=batched,
                             factors=tensors,
                             spectrum=torch.from_numpy(spec.copy()).to(dev),
                             fwd=fwd, bwd=bwd, objective=obj,

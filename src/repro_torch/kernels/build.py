@@ -1,10 +1,12 @@
 """Builds the hand-written CUDA kernels at first use and binds them.
 
-``csrc/butterfly.cu`` has a plain C interface: ``nvcc`` compiles it for
-Hopper (``sm_90a``) into a shared library under the build directory, and
-``ctypes`` loads it.  The library's file name carries the source's hash,
-so an edited source is rebuilt and an unchanged one is reused.  The
-build directory is ``build/repro_torch_kernels/`` at the repository root
+Every ``csrc/*.cu`` has a plain C interface: ``nvcc`` compiles each for
+Hopper (``sm_90a``) into an object file, all sources at once in parallel
+processes, and links the objects into ONE shared library under the build
+directory, which ``ctypes`` loads.  The library's file name carries the
+hash of every source and header under ``csrc/``, so an edited source is
+rebuilt and an unchanged set is reused.  The build directory is
+``build/repro_torch_kernels/`` at the repository root
 (``$REPRO_TORCH_BUILD_DIR`` overrides it).
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
@@ -20,9 +22,9 @@ import shutil
 import subprocess
 import threading
 
-SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "butterfly.cu"
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -32,7 +34,20 @@ def build_dir() -> pathlib.Path:
     env = os.environ.get("REPRO_TORCH_BUILD_DIR")
     if env:
         return pathlib.Path(env)
-    return SOURCE.parents[3] / "build" / "repro_torch_kernels"
+    return CSRC.parents[2] / "build" / "repro_torch_kernels"
+
+
+def sources() -> list:
+    """The kernel sources, one translation unit each."""
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
 
 
 def find_nvcc() -> str:
@@ -53,29 +68,48 @@ def find_nvcc() -> str:
                        "repro_torch cannot be built")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands as parallel processes; raise with the compiler's
+    output if any failed (after all have ended)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+    bad = [(c, o, rc) for c, o, rc in outs if rc != 0]
+    if bad:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"({rc}) {' '.join(c)}\n{o}" for c, o, rc in bad))
+
+
 def _compile(out: pathlib.Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.parent / f"{src.stem}_{out.stem}.{tag}.o" for src in sources()]
+    tmp = out.with_suffix(f".{tag}.so")
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources(), objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    tables = [p, p, p, p, p]
-    lib.g_chain_launch.argtypes = ([p, p, i, i, i] + tables
-                                   + [ll, i, i, i, i, i, p])
-    lib.g_chain_launch.restype = i
-    lib.g_operator_launch.argtypes = ([p, p, p, i, i, i]
-                                      + tables + [ll, i, i, i]
-                                      + tables + [ll, i, i, i]
-                                      + [i, i, p])
-    lib.g_operator_launch.restype = i
+    for family, tables in (("g", 5), ("t", 4)):
+        leg = [p] * tables + [ll, i, i, i]   # tables, stride, P, s0, ns
+        tail = [i, i, p]                     # rows per tile, threads, stream
+        chain = getattr(lib, f"{family}_chain_launch")
+        chain.argtypes = [p, p, i, i, i] + leg + tail
+        chain.restype = i
+        op = getattr(lib, f"{family}_operator_launch")
+        op.argtypes = [p, p, p, i, i, i] + leg + leg + tail
+        op.restype = i
     lib.repro_max_smem_optin.argtypes = []
     lib.repro_max_smem_optin.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
@@ -88,8 +122,7 @@ def library() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-            out = build_dir() / f"libbutterfly_{digest}.so"
+            out = build_dir() / f"librepro_torch_kernels_{_digest()}.so"
             if not out.is_file():
                 _compile(out)
             _LIB = _bind(ctypes.CDLL(str(out)))

@@ -1,7 +1,9 @@
 """Declarative execution plans: ONE way to run every staged-table apply.
 
-An ``ApplyPlan`` names a computation over staged tables — family, mode
-(plain transform apply or fused ``Ubar diag(d) Ubar^T`` operator),
+An ``ApplyPlan`` names a computation over staged tables — family
+("sym": G-transforms, "general": T-transforms), mode (plain transform
+apply or fused ``Ubar diag(d) Ubar^T`` / ``Tbar diag(d) Tbar^{-1}``
+operator),
 batching, anytime ladder cut, device and backend — and ``program()``
 returns the ONE cached callable that runs it.  Programs take the staged
 tables as arguments, so a basis swap with the same shapes reuses the
@@ -13,11 +15,12 @@ Program signatures (``tables`` = ``core/staging.py::table_arrays``):
   * mode "operator":  ``program(fwd_tables, bwd_tables, diag, x)``
 
 Backends: ``"cuda"`` runs the hand-written kernels of
-kernels/butterfly.py (on a CPU tensor their wrappers use the plain
-version); ``"torch"`` runs the plain PyTorch versions of kernels/ref.py
-on any device.  A plan defaults to ``"cuda"`` on a CUDA device and to
-``"torch"`` on the CPU; ``"torch"`` on a CUDA device exists so that the
-kernels can be compared with their plain versions on the card.
+kernels/butterfly.py and kernels/shear.py (on a CPU tensor their
+wrappers use the plain version); ``"torch"`` runs the plain PyTorch
+versions of kernels/ref.py on any device.  A plan defaults to
+``"cuda"`` on a CUDA device and to ``"torch"`` on the CPU; ``"torch"``
+on a CUDA device exists so that the kernels can be compared with their
+plain versions on the card.
 
 ``fused=False`` compiles the operator to the three-pass baseline
 (analysis apply, diagonal scale, synthesis apply as separate calls), the
@@ -31,21 +34,16 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.staging import StagedG, table_arrays
+from repro_torch.core.staging import StagedG, StagedT, table_arrays
 from . import butterfly as _bf
+from .launcher import leg_orientation
 from . import ref as _ref
+from . import shear as _sh
 
-PLAN_FAMILIES = ("sym",)
+PLAN_FAMILIES = ("sym", "general")
 PLAN_MODES = ("apply", "operator")
 PLAN_BACKENDS = ("cuda", "torch")
 PLAN_PRECISIONS = ("f32",)
-
-
-def leg_orientation(family: str) -> tuple:
-    """(analysis_keep, synthesis_keep) cut orientation of a family's
-    operator legs: the significant G stages sit at the HEAD of the
-    adjoint tables and the TAIL of the forward tables."""
-    return ("head", "tail") if family == "sym" else ("tail", "head")
 
 
 def _not_ported(what: str, slice_name: str) -> ValueError:
@@ -57,11 +55,11 @@ def _not_ported(what: str, slice_name: str) -> ValueError:
 class ApplyPlan:
     """One declarative execution plan (hashable: it IS the cache key).
 
-    ``family``: "sym".  ``mode``: "apply" | "operator".  ``n``: table
-    width.  ``num_stages``: anytime ladder cut ("apply" also takes
-    ``keep``; operator legs use ``leg_orientation``).  ``device``: where
-    the tables and signals live.  ``backend``: None resolves from the
-    device (see module docstring)."""
+    ``family``: "sym" | "general".  ``mode``: "apply" | "operator".
+    ``n``: table width.  ``num_stages``: anytime ladder cut ("apply"
+    also takes ``keep``; operator legs use ``leg_orientation``).
+    ``device``: where the tables and signals live.  ``backend``: None
+    resolves from the device (see module docstring)."""
 
     family: str
     mode: str
@@ -78,8 +76,6 @@ class ApplyPlan:
     block_b: Optional[int] = None
 
     def __post_init__(self):
-        if self.family == "general":
-            raise _not_ported("family='general'", "directed (T-transform)")
         if self.mode == "bank":
             raise _not_ported("mode='bank'", "filter-bank")
         if self.precision == "bf16":
@@ -116,16 +112,18 @@ class ApplyPlan:
             object.__setattr__(self, "keep", "head")
 
     @classmethod
-    def for_staged(cls, staged: StagedG, mode: str = "apply",
+    def for_staged(cls, staged, mode: str = "apply",
                    **kwargs) -> "ApplyPlan":
-        """Infer width, batching and device from a StagedG."""
+        """Infer family, width, batching and device from a
+        StagedG/StagedT."""
         kwargs.setdefault("device", str(staged.idx_i.device))
-        return cls(family="sym", mode=mode, n=staged.n,
+        family = "general" if isinstance(staged, StagedT) else "sym"
+        return cls(family=family, mode=mode, n=staged.n,
                    batched=staged.idx_i.dim() == 3, **kwargs)
 
     # -- tables and programs ---------------------------------------------
 
-    def prepare(self, staged: StagedG) -> tuple:
+    def prepare(self, staged) -> tuple:
         """The table tuple a program takes, on the plan's device."""
         dev = torch.device(self.device)
         return tuple(t.to(dev) for t in table_arrays(staged))
@@ -134,46 +132,44 @@ class ApplyPlan:
         """The plan's program: ONE process-wide cache entry per plan."""
         return _compile(self)
 
-    def apply(self, staged: StagedG, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, staged, x: torch.Tensor) -> torch.Tensor:
         return self.program()(self.prepare(staged), x)
 
-    def operator(self, fwd: StagedG, bwd: StagedG, diag: torch.Tensor,
+    def operator(self, fwd, bwd, diag: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
         return self.program()(self.prepare(fwd), self.prepare(bwd), diag, x)
 
     # -- dispatch ----------------------------------------------------------
 
-    def _staged(self, tables: tuple) -> StagedG:
-        return StagedG(*tables, None, self.n)
+    def _staged(self, tables: tuple):
+        cls = StagedT if self.family == "general" else StagedG
+        return cls(*tables, None, self.n)
 
     def _dispatch(self):
         """tables -> tensors map implementing the plan: the ONE place
         where kernel entry points, reshapes and cut orientations meet."""
         cut, keep, n = self.num_stages, self.keep, self.n
+        fn = _ENTRY[(self.family, self.mode, self.backend, self.batched)]
         if self.mode == "apply":
             if self.backend == "torch":
-                fn = (_ref.batched_g_apply if self.batched
-                      else _ref.staged_g_apply)
                 return lambda t, x: fn(self._staged(t), x, cut, keep)
             if self.batched:
-                return lambda t, x: _bf.batched_butterfly_apply(
+                return lambda t, x: fn(
                     self._staged(t),
                     x.reshape(x.shape[0], -1, n).contiguous(),
                     cut, keep).reshape(x.shape)
-            return lambda t, x: _bf.butterfly_apply(
+            return lambda t, x: fn(
                 self._staged(t), x.reshape(-1, n).contiguous(),
                 cut, keep).reshape(x.shape)
         if self.backend == "torch":
-            fn = (_ref.batched_sym_operator_apply if self.batched
-                  else _ref.sym_operator_apply)
             return lambda ft, bt, d, x: fn(self._staged(ft),
-                                           self._staged(bt), d, x, cut)
+                                            self._staged(bt), d, x, cut)
         if self.batched:
-            return lambda ft, bt, d, x: _bf.batched_sym_operator_apply(
+            return lambda ft, bt, d, x: fn(
                 self._staged(ft), self._staged(bt), d,
                 x.reshape(x.shape[0], -1, n).contiguous(),
                 cut).reshape(x.shape)
-        return lambda ft, bt, d, x: _bf.sym_operator_apply(
+        return lambda ft, bt, d, x: fn(
             self._staged(ft), self._staged(bt), d,
             x.reshape(-1, n).contiguous(), cut).reshape(x.shape)
 
@@ -194,6 +190,27 @@ class ApplyPlan:
                               + d.shape[-1:])
             return synthesis(fwd_t, xh * d.to(xh.dtype))
         return three_pass
+
+
+#: (family, mode, backend, batched) -> the entry point a plan dispatches to
+_ENTRY = {
+    ("sym", "apply", "torch", True): _ref.batched_g_apply,
+    ("sym", "apply", "torch", False): _ref.staged_g_apply,
+    ("sym", "apply", "cuda", True): _bf.batched_butterfly_apply,
+    ("sym", "apply", "cuda", False): _bf.butterfly_apply,
+    ("sym", "operator", "torch", True): _ref.batched_sym_operator_apply,
+    ("sym", "operator", "torch", False): _ref.sym_operator_apply,
+    ("sym", "operator", "cuda", True): _bf.batched_sym_operator_apply,
+    ("sym", "operator", "cuda", False): _bf.sym_operator_apply,
+    ("general", "apply", "torch", True): _ref.batched_t_apply,
+    ("general", "apply", "torch", False): _ref.staged_t_apply,
+    ("general", "apply", "cuda", True): _sh.batched_shear_apply,
+    ("general", "apply", "cuda", False): _sh.shear_apply,
+    ("general", "operator", "torch", True): _ref.batched_gen_operator_apply,
+    ("general", "operator", "torch", False): _ref.gen_operator_apply,
+    ("general", "operator", "cuda", True): _sh.batched_gen_operator_apply,
+    ("general", "operator", "cuda", False): _sh.gen_operator_apply,
+}
 
 
 @functools.lru_cache(maxsize=None)

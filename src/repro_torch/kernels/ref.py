@@ -1,21 +1,24 @@
-"""Plain PyTorch versions of the staged G-chain kernels.
+"""Plain PyTorch versions of the staged G- and T-chain kernels.
 
-These are the semantics of record inside the port: kernels/butterfly.py
-holds each CUDA kernel to them on the card, and the tests hold them to
-the JAX package's ``repro.kernels.ref`` on the CPU.  They also serve
-every CPU tensor (kernels/butterfly.py dispatches by device).
+These are the semantics of record inside the port: chip_smoke.py and
+tests/test_torch_cuda.py hold each CUDA kernel to them on the card, and
+the tests hold them to the JAX package's ``repro.kernels.ref`` on the
+CPU.  They also serve every CPU tensor (kernels/launcher.py dispatches
+by device).
 
 Padding entries carry the out-of-bounds index ``n``.  The JAX reference
 clips such reads and drops such writes; torch has neither, so the signal
 gets one zero dummy column ``n`` exactly as the fused kernels do: a pad
-entry (c=1, s=0, sigma=1) reads and rewrites the dummy column with its
-own value, a structural no-op, and the dummy is cropped at the end.  The
-operator pads the spectrum with 1.0 at the dummy column.
+entry (c=1, s=0, sigma=1 for G; alpha=1, beta=0 for T) reads and
+rewrites the dummy column with its own value, a structural no-op, and
+the dummy is cropped at the end.  The operators pad the spectrum with
+1.0 at the dummy column.
 
 Every function takes ``num_stages`` (None = the full chain, else an
 anytime cut applied to the tables before the walk); plain applies also
-take ``keep`` ("head"/"tail"), while the operators cut the adjoint head
-and the forward tail (core/staging.py orientation).
+take ``keep`` ("head"/"tail"), while the operators know their own
+orientation (core/staging.py): the G operator cuts the adjoint head and
+the forward tail, the T operator the inverse tail and the forward head.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.staging import StagedG, truncate_staged
+from repro_torch.core.staging import (StagedG, StagedT, table_arrays,
+                                      truncate_staged)
 
 
 def _walk(tables, xp: torch.Tensor) -> torch.Tensor:
@@ -44,6 +48,24 @@ def _walk(tables, xp: torch.Tensor) -> torch.Tensor:
     return xp
 
 
+def _walk_t(tables, xp: torch.Tensor) -> torch.Tensor:
+    """Apply (B, S, P) T stage tables in order to ``xp`` (B, M, n+1), in
+    place: y_i = alpha x_i + beta x_j, only i written.  Within a stage no
+    entry writes a coordinate another entry reads (the packer's touch
+    sets), so every read happens before the stage's writes."""
+    ii, jj, al, be = tables
+    bsz, m, _ = xp.shape
+    for st in range(ii.shape[1]):
+        i = ii[:, st].long().unsqueeze(1).expand(bsz, m, -1)
+        j = jj[:, st].long().unsqueeze(1).expand(bsz, m, -1)
+        a = al[:, st].to(xp.dtype).unsqueeze(1)
+        b = be[:, st].to(xp.dtype).unsqueeze(1)
+        xi = torch.gather(xp, 2, i)
+        xj = torch.gather(xp, 2, j)
+        xp.scatter_(2, i, a * xi + b * xj)
+    return xp
+
+
 def _pad_dummy(x: torch.Tensor, bsz: int, n: int) -> torch.Tensor:
     """(B, ..., n) -> fresh (B, M, n+1) with a zero dummy column."""
     x3 = x.reshape(bsz, -1, n)
@@ -52,12 +74,8 @@ def _pad_dummy(x: torch.Tensor, bsz: int, n: int) -> torch.Tensor:
     return xp
 
 
-def _batched_tables(staged: StagedG):
-    return (staged.idx_i, staged.idx_j, staged.c, staged.s, staged.sigma)
-
-
-def _single_tables(staged: StagedG):
-    return tuple(t.unsqueeze(0) for t in _batched_tables(staged))
+def _single_tables(staged):
+    return tuple(t.unsqueeze(0) for t in table_arrays(staged))
 
 
 def batched_g_apply(staged: StagedG, x: torch.Tensor,
@@ -66,7 +84,7 @@ def batched_g_apply(staged: StagedG, x: torch.Tensor,
     """Per-matrix Ubar_b x_b: tables (B, S, P), x (B, ..., n)."""
     staged = truncate_staged(staged, num_stages, keep)
     n = x.shape[-1]
-    xp = _walk(_batched_tables(staged), _pad_dummy(x, x.shape[0], n))
+    xp = _walk(table_arrays(staged), _pad_dummy(x, x.shape[0], n))
     return xp[..., :n].reshape(x.shape)
 
 
@@ -88,10 +106,10 @@ def batched_sym_operator_apply(fwd: StagedG, adj: StagedG,
     adj = truncate_staged(adj, num_stages, "head")
     fwd = truncate_staged(fwd, num_stages, "tail")
     bsz, n = x.shape[0], x.shape[-1]
-    xp = _walk(_batched_tables(adj), _pad_dummy(x, bsz, n))
+    xp = _walk(table_arrays(adj), _pad_dummy(x, bsz, n))
     dp = torch.ones((bsz, n + 1), dtype=xp.dtype, device=xp.device)
     dp[:, :n] = diag.reshape(bsz, n)
-    xp = _walk(_batched_tables(fwd), xp * dp.unsqueeze(1))
+    xp = _walk(table_arrays(fwd), xp * dp.unsqueeze(1))
     return xp[..., :n].reshape(x.shape)
 
 
@@ -106,4 +124,59 @@ def sym_operator_apply(fwd: StagedG, adj: StagedG, diag: torch.Tensor,
     dp = torch.ones((n + 1,), dtype=xp.dtype, device=xp.device)
     dp[:n] = diag
     xp = _walk(_single_tables(fwd), xp * dp)
+    return xp[..., :n].reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# T family (scaling / shear chains)
+# ---------------------------------------------------------------------------
+
+def batched_t_apply(staged: StagedT, x: torch.Tensor,
+                    num_stages: Optional[int] = None,
+                    keep: str = "head") -> torch.Tensor:
+    """Per-matrix Tbar_b x_b: tables (B, S, P), x (B, ..., n)."""
+    staged = truncate_staged(staged, num_stages, keep)
+    n = x.shape[-1]
+    xp = _walk_t(table_arrays(staged), _pad_dummy(x, x.shape[0], n))
+    return xp[..., :n].reshape(x.shape)
+
+
+def staged_t_apply(staged: StagedT, x: torch.Tensor,
+                   num_stages: Optional[int] = None,
+                   keep: str = "head") -> torch.Tensor:
+    """Tbar x for x (..., n) with (S, P) tables."""
+    staged = truncate_staged(staged, num_stages, keep)
+    n = x.shape[-1]
+    xp = _walk_t(_single_tables(staged), _pad_dummy(x, 1, n))
+    return xp[..., :n].reshape(x.shape)
+
+
+def batched_gen_operator_apply(fwd: StagedT, inv: StagedT,
+                               diag: torch.Tensor, x: torch.Tensor,
+                               num_stages: Optional[int] = None
+                               ) -> torch.Tensor:
+    """y_b = Tbar_b diag(d_b) Tbar_b^{-1} x_b: diag (B, n), x (B, ..., n).
+    ``num_stages`` cuts the inverse tables' tail and the forward head."""
+    inv = truncate_staged(inv, num_stages, "tail")
+    fwd = truncate_staged(fwd, num_stages, "head")
+    bsz, n = x.shape[0], x.shape[-1]
+    xp = _walk_t(table_arrays(inv), _pad_dummy(x, bsz, n))
+    dp = torch.ones((bsz, n + 1), dtype=xp.dtype, device=xp.device)
+    dp[:, :n] = diag.reshape(bsz, n)
+    xp = _walk_t(table_arrays(fwd), xp * dp.unsqueeze(1))
+    return xp[..., :n].reshape(x.shape)
+
+
+def gen_operator_apply(fwd: StagedT, inv: StagedT, diag: torch.Tensor,
+                       x: torch.Tensor,
+                       num_stages: Optional[int] = None) -> torch.Tensor:
+    """Cbar x = Tbar diag(cbar) Tbar^{-1} x for x (..., n), tables (S, P)
+    (the directed FGFT projection)."""
+    inv = truncate_staged(inv, num_stages, "tail")
+    fwd = truncate_staged(fwd, num_stages, "head")
+    n = x.shape[-1]
+    xp = _walk_t(_single_tables(inv), _pad_dummy(x, 1, n))
+    dp = torch.ones((n + 1,), dtype=xp.dtype, device=xp.device)
+    dp[:n] = diag
+    xp = _walk_t(_single_tables(fwd), xp * dp)
     return xp[..., :n].reshape(x.shape)

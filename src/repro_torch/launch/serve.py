@@ -1,18 +1,22 @@
 """Batched fast-graph-Fourier-transform service (the port's --fgft path).
 
-The engine fits a whole fleet of B undirected graph Laplacians in one
-batched Algorithm-1 run (core/eigenbasis.py), then serves spectral-filter
-steps for all graphs at once: every step is ONE launch of the fused
-``Ubar diag(d) Ubar^T`` CUDA kernel over a (B, R, n) signal block.
-Named quality TIERS map to anytime prefixes of the staged tables; each
-tier refits its spectrum by Lemma 1 on its prefix basis (through the
-batched apply kernel) and binds one cached operator plan over the cut.
+The engine fits a whole fleet of B graph Laplacians in one batched
+Algorithm-1 run (core/eigenbasis.py), then serves spectral-filter steps
+for all graphs at once: every step is ONE launch of the fused operator
+CUDA kernel — ``Ubar diag(d) Ubar^T`` for undirected graphs,
+``Tbar diag(d) Tbar^{-1}`` for directed ones (``--directed``) — over a
+(B, R, n) signal block.  Named quality TIERS map to anytime prefixes of
+the staged tables and bind one cached operator plan over the cut each;
+an undirected tier refits its spectrum by Lemma 1 on its prefix basis
+(through the batched apply kernel), a directed tier serves the full
+fit's spectrum (Lemma 1 holds only for an orthogonal basis).
 
     python -m repro_torch.launch.serve --fgft --graphs 64 --graph-n 256 \\
-        --tiers full:1.0,balanced:0.5,draft:0.25 --filter-steps 20
+        --tiers full:1.0,balanced:0.5,draft:0.25 --filter-steps 20 \\
+        [--directed]
 
-Only the uniform, static, undirected subset of the JAX package's service
-is ported; its other flags exit with an error naming the later slice.
+Only the uniform, static subset of the JAX package's service is ported;
+its other flags exit with an error naming the later slice.
 """
 from __future__ import annotations
 
@@ -35,7 +39,6 @@ _LATER_FLAGS = {
     "--ragged": "the ragged/masked fit", "--graph-sizes":
     "the ragged/masked fit",
     "--precision": "the precision (bf16)",
-    "--directed": "the directed (T-transform)",
     "--filter": "the filter-bank",
     "--dynamic": "the dynamic maintenance",
     "--update-rounds": "the dynamic maintenance",
@@ -90,15 +93,17 @@ def _sync(device: torch.device) -> None:
 
 
 class FGFTServeEngine:
-    """Batched spectral-filter serving over a fleet of undirected graphs,
-    with anytime quality tiers.
+    """Batched spectral-filter serving over a fleet of graphs, with
+    anytime quality tiers.
 
     One ``ApproxEigenbasis.fit`` factorizes all B Laplacians (or a prefit
     ``basis`` is served as given); every ``step`` then filters a
     (B, R, n) signal block with one fused operator dispatch.  ``tiers``
     maps tier names to component fractions; each resolves to the nearest
     exact stage cut and binds one cached plan over the cut tables, with
-    its spectrum refit by Lemma 1 on the prefix basis.  ``backend``:
+    its spectrum refit by Lemma 1 on the prefix basis (a general-family
+    tier serves the full fit's spectrum).  ``kind``: "auto", "sym" or
+    "general", as in ``ApproxEigenbasis.fit``.  ``backend``:
     None (the device's default: the CUDA kernels on a card), "cuda" or
     "torch"."""
 
@@ -139,7 +144,9 @@ class FGFTServeEngine:
         for name, frac in self._tier_spec.items():
             n_stages, n_comp = basis.select_tier(fraction=frac)
             cut = None if n_stages >= full_stages else n_stages
-            spec = (basis.spectrum if cut is None
+            # Lemma 1 is exact only for an orthogonal (G) basis; a T
+            # tier keeps the full fit's spectrum, as the JAX engine does
+            spec = (basis.spectrum if cut is None or basis.kind != "sym"
                     else prefix_spectrum(basis, laps, cut))
             tiers[name] = {"num_stages": n_stages,
                            "num_transforms": n_comp, "spectrum": spec}
@@ -207,19 +214,26 @@ class FGFTServeEngine:
 
 
 def serve_fgft(args) -> dict:
-    """Build B community-graph Laplacians, fit them in one batched run,
-    serve filter steps at every configured quality tier."""
+    """Build B community-graph Laplacians (their directed variants with
+    ``--directed``), fit them in one batched run, serve filter steps at
+    every configured quality tier."""
     from repro_torch.core.fgft import laplacian
-    from repro_torch.graphs import community_graph
+    from repro_torch.graphs import community_graph, directed_variant
 
     device = torch.device(args.device)
     b, n = args.graphs, args.graph_n
     g = args.transforms or int(2 * n * np.log2(n))
-    laps = np.stack([laplacian(community_graph(n, seed=s))
-                     for s in range(b)])
+    adjs = [community_graph(n, seed=s) for s in range(b)]
+    if args.directed:
+        adjs = [directed_variant(a, seed=s) for s, a in enumerate(adjs)]
+    laps = np.stack([laplacian(a) for a in adjs])
+    # --directed pins the T family: a numerically symmetric directed
+    # Laplacian must not reroute through the G path
+    kind = "general" if args.directed else "auto"
     t0 = time.perf_counter()
-    engine = FGFTServeEngine(laps, g, backend=args.backend, tiers=args.tier_map,
-                             fused=args.fused, device=device)
+    engine = FGFTServeEngine(laps, g, backend=args.backend, kind=kind,
+                             tiers=args.tier_map, fused=args.fused,
+                             device=device)
     _sync(device)
     fit_s = time.perf_counter() - t0
     denom = (laps * laps).sum((1, 2))
@@ -266,7 +280,10 @@ def serve_fgft(args) -> dict:
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="Batched FGFT service of the PyTorch/CUDA port.")
+        description="Batched FGFT service of the PyTorch/CUDA port.",
+        # no prefix matching: a later slice's --filter must not be read
+        # as --filter-steps
+        allow_abbrev=False)
     ap.add_argument("--fgft", action="store_true",
                     help="serve batched graph Fourier transforms (the only "
                          "mode this port serves so far)")
@@ -289,6 +306,9 @@ def parse_args(argv=None):
                     default=True,
                     help="serve through the fused one-launch operator "
                          "(default); --no-fused runs three passes")
+    ap.add_argument("--directed", action="store_true",
+                    help="serve directed graphs through the T-transform "
+                         "(scaling/shear) family")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to fit and serve on")

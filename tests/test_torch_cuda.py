@@ -5,15 +5,19 @@ machine that has only torch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: ``1e-4 * max(1, max|y|)`` — the kernel and the plain version
-round their FMA contractions differently across about 2S stages."""
+Tolerance: ``1e-4 * max(1, max|y|)`` — the G kernels and their plain
+versions round their FMA contractions differently across about 2S
+stages.  The T kernels round each entry as their plain versions do (no
+FMA contraction) and are held to bitwise equality."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import staging as tst
-from repro_torch.core.types import GFactors
+from repro_torch.core.types import GFactors, TFactors
 from repro_torch.kernels import butterfly as bf
+from repro_torch.kernels import launcher
+from repro_torch.kernels import shear as sh
 from repro_torch.kernels import ref
 from repro_torch.kernels.plan import ApplyPlan
 
@@ -75,7 +79,7 @@ def test_kernels_match_plain_versions_at_every_cut(cuda, n, batch, g):
 def test_cuda_plans_launch_the_kernels(cuda):
     fwd, adj, _, _, diag = _tables(32, 2, 160, cuda)
     x = torch.randn((2, 5, 7, 32), device=cuda)
-    bf.reset_launch_counts()
+    launcher.reset_launch_counts()
     op = ApplyPlan.for_staged(fwd, "operator")
     assert op.backend == "cuda"
     y = op.operator(fwd, adj, diag, x)
@@ -83,12 +87,15 @@ def test_cuda_plans_launch_the_kernels(cuda):
                                    ).operator(fwd, adj, diag, x)
     _close(y, y_plain)
     ApplyPlan.for_staged(fwd, "apply", keep="tail").apply(fwd, x)
-    assert bf.launch_counts() == {"g_chain_kernel": 1,
-                                  "g_operator_kernel": 1}
-    assert bf.entry_launch_counts() == {"batched_butterfly_apply": 1,
-                                        "butterfly_apply": 0,
-                                        "batched_sym_operator_apply": 1,
-                                        "sym_operator_apply": 0}
+    assert launcher.launch_counts() == {"g_chain_kernel": 1,
+                                        "g_operator_kernel": 1,
+                                        "t_chain_kernel": 0,
+                                        "t_operator_kernel": 0}
+    assert launcher.entry_launch_counts() == {
+        "batched_butterfly_apply": 1, "butterfly_apply": 0,
+        "batched_sym_operator_apply": 1, "sym_operator_apply": 0,
+        "batched_shear_apply": 0, "shear_apply": 0,
+        "batched_gen_operator_apply": 0, "gen_operator_apply": 0}
 
 
 def test_cuda_wrapper_validation(cuda):
@@ -106,3 +113,78 @@ def test_cuda_wrapper_validation(cuda):
     cpu_fwd = tst.StagedG(*(t.cpu() for t in fwd[:5]), fwd.cuts, fwd.n)
     with pytest.raises(ValueError, match="on cpu"):
         bf.batched_butterfly_apply(cpu_fwd, x)
+
+
+def _t_tables(n, batch, m, device):
+    rng = np.random.default_rng(n)
+    shape = (batch, m)
+    kind = rng.integers(0, 2, shape).astype(np.int32)
+    i = rng.integers(0, n, shape).astype(np.int32)
+    j = np.where(kind == 0, i, (i + rng.integers(1, n, shape)) % n)
+    scale = rng.uniform(0.8, 1.25, shape) * rng.choice([-1.0, 1.0], shape)
+    a = np.where(kind == 0, scale, rng.uniform(-0.5, 0.5, shape))
+    f = TFactors(kind, i, j.astype(np.int32), a.astype(np.float32))
+    fwd, inv = tst.pack_t_batch_pair(f, n, device=device)
+    sfwd, sinv = tst.pack_t_pair(TFactors(*(t[0] for t in f)), n,
+                                 device=device)
+    diag = torch.from_numpy(rng.uniform(0.0, 2.0 * n, (batch, n)).astype(
+        np.float32)).to(device)
+    return fwd, inv, sfwd, sinv, diag
+
+
+@pytest.mark.parametrize("n,batch,m", [(16, 3, 64), (48, 2, 200),
+                                       (256, 2, 4096)])
+def test_t_kernels_equal_plain_versions_at_every_cut(cuda, n, batch, m):
+    fwd, inv, sfwd, sinv, diag = _t_tables(n, batch, m, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((batch, 130, n), generator=gen, device=cuda)
+    for k in sorted({0, *fwd.cuts[:, 0].tolist()}):
+        for keep in ("head", "tail"):
+            assert torch.equal(sh.batched_shear_apply(inv, x, k, keep),
+                               ref.batched_t_apply(inv, x, k, keep))
+        assert torch.equal(
+            sh.batched_gen_operator_apply(fwd, inv, diag, x, k),
+            ref.batched_gen_operator_apply(fwd, inv, diag, x, k))
+    x1 = x[0].contiguous()
+    for k in sorted({0, *sfwd.cuts[:, 0].tolist()}):
+        assert torch.equal(sh.shear_apply(sfwd, x1, k, "head"),
+                           ref.staged_t_apply(sfwd, x1, k, "head"))
+        assert torch.equal(sh.gen_operator_apply(sfwd, sinv, diag[0], x1, k),
+                           ref.gen_operator_apply(sfwd, sinv, diag[0], x1, k))
+    torch.cuda.synchronize()
+
+
+def test_cuda_general_plans_launch_the_t_kernels(cuda):
+    fwd, inv, _, _, diag = _t_tables(32, 2, 160, cuda)
+    x = torch.randn((2, 5, 7, 32), device=cuda)
+    launcher.reset_launch_counts()
+    op = ApplyPlan.for_staged(fwd, "operator")
+    assert op.family == "general" and op.backend == "cuda"
+    y = op.operator(fwd, inv, diag, x)
+    y_plain = ApplyPlan.for_staged(fwd, "operator", backend="torch"
+                                   ).operator(fwd, inv, diag, x)
+    assert torch.equal(y, y_plain)
+    ApplyPlan.for_staged(inv, "apply", keep="tail").apply(inv, x)
+    assert launcher.launch_counts() == {"g_chain_kernel": 0,
+                                        "g_operator_kernel": 0,
+                                        "t_chain_kernel": 1,
+                                        "t_operator_kernel": 1}
+    assert launcher.entry_launch_counts() == {
+        "batched_butterfly_apply": 0, "butterfly_apply": 0,
+        "batched_sym_operator_apply": 0, "sym_operator_apply": 0,
+        "batched_shear_apply": 1, "shear_apply": 0,
+        "batched_gen_operator_apply": 1, "gen_operator_apply": 0}
+
+
+def test_t_wrapper_validation(cuda):
+    fwd, inv, _, _, diag = _t_tables(16, 2, 64, cuda)
+    x = torch.randn((2, 4, 16), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        sh.batched_shear_apply(fwd, x.double())
+    with pytest.raises(ValueError, match="do not match"):
+        sh.batched_shear_apply(fwd, torch.randn((3, 4, 16), device=cuda))
+    with pytest.raises(ValueError, match="diag shape"):
+        sh.batched_gen_operator_apply(fwd, inv, diag[:, :8], x)
+    cpu_fwd = tst.StagedT(*(t.cpu() for t in fwd[:4]), fwd.cuts, fwd.n)
+    with pytest.raises(ValueError, match="on cpu"):
+        sh.batched_shear_apply(cpu_fwd, x)

@@ -20,6 +20,7 @@ from repro.graphs import community_graph as jcommunity
 from repro_torch.core import ApproxEigenbasis, gtransform as tgt
 from repro_torch.core import build_fgft, laplacian, relative_error
 from repro_torch.core.types import GFactors
+from repro_torch.kernels.plan import ApplyPlan
 from repro_torch.graphs import community_graph
 
 
@@ -164,9 +165,10 @@ def test_fit_rejects_what_is_not_ported():
     lap = _laps(16, 2)
     with pytest.raises(NotImplementedError, match="ragged"):
         ApproxEigenbasis.fit(lap, 8, sizes=[16, 12], device="cpu")
-    with pytest.raises(NotImplementedError, match="T-transform"):
-        ApproxEigenbasis.fit(np.triu(lap), 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="directed"):
-        build_fgft(lap[0], 8, directed=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ragged"):
+        ApproxEigenbasis.fit([np.triu(lap[0]), np.triu(lap[1])[:12, :12]],
+                             8, kind="general", device="cpu")
+    with pytest.raises(ValueError, match="filter-bank"):
+        ApplyPlan(family="general", mode="bank", n=16, device="cpu")
     with pytest.raises(ValueError, match="spectrum shape"):
         ApproxEigenbasis.fit(lap, 8, spectrum=np.zeros(16), device="cpu")

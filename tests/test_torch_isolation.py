@@ -11,6 +11,7 @@ from repro_torch.core import staging as tst
 from repro_torch.core.types import GFactors
 from repro_torch.kernels import build
 from repro_torch.kernels import butterfly as bf
+from repro_torch.kernels import launcher
 from repro_torch.kernels.plan import (ApplyPlan, clear_plan_cache,
                                       plan_cache_stats)
 
@@ -73,7 +74,7 @@ def test_cuda_plan_resolves_to_cuda_backend():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(family="general"), "directed"),
+    (dict(family="general", mode="bank"), "filter-bank"),
     (dict(mode="bank"), "filter-bank"),
     (dict(precision="bf16"), "precision"),
     (dict(placement=object()), "placement"),
@@ -120,7 +121,8 @@ def test_non_cpu_tensor_never_gets_the_plain_result(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "_LIB", None)
     monkeypatch.setattr(build, "find_nvcc", _no_nvcc)
     with pytest.raises(RuntimeError, match="nvcc"):
-        bf._chain(meta, x, True, None, "head", "batched_butterfly_apply")
+        launcher._chain_launch("batched_butterfly_apply", meta, x, None,
+                               "head")
     with pytest.raises(RuntimeError, match="nvcc"):
         build.library()
 
@@ -140,5 +142,5 @@ def test_find_nvcc_raises_without_toolchain(monkeypatch, tmp_path):
 
 def test_wrong_dtype_signal_raises_on_the_kernel_path():
     with pytest.raises(TypeError, match="float32"):
-        bf._check_signal(torch.zeros((1, 2, 4), dtype=torch.float64,
-                                     device="meta"), 3, "t")
+        launcher._check_signal(torch.zeros((1, 2, 4), dtype=torch.float64,
+                                           device="meta"), 3, "t")

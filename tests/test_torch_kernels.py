@@ -19,6 +19,7 @@ from repro.kernels import ref as jref
 from repro_torch.core import staging as tst
 from repro_torch.core.types import GFactors
 from repro_torch.kernels import butterfly as bf
+from repro_torch.kernels import launcher
 
 SIZES = [(16, 3, 64), (48, 2, 160)]      # (n, B, g)
 
@@ -143,40 +144,40 @@ def test_plain_versions_launch_no_kernel(fitted):
     n, batch, f = fitted
     x = torch.from_numpy(_signal((batch, 4, n)))
     d = torch.from_numpy(f["diag"])
-    bf.reset_launch_counts()
+    launcher.reset_launch_counts()
     bf.batched_butterfly_apply(f["fwd"], x)
     bf.butterfly_apply(f["sfwd"], x[0])
     bf.batched_sym_operator_apply(f["fwd"], f["adj"], d, x)
     bf.sym_operator_apply(f["sfwd"], f["sadj"], d[0], x[0])
-    assert set(bf.entry_launch_counts().values()) == {0}
-    assert bf.launch_counts() == dict.fromkeys(bf.KERNELS, 0)
+    assert set(launcher.entry_launch_counts().values()) == {0}
+    assert launcher.launch_counts() == dict.fromkeys(launcher.KERNELS, 0)
 
 
 def test_argument_validation(fitted):
     n, batch, f = fitted
     s_tot = f["fwd"].num_stages
-    assert bf._leg_range(s_tot, None, "head") == (0, s_tot)
-    assert bf._leg_range(s_tot, 3, "tail") == (s_tot - 3, 3)
-    assert bf._leg_range(s_tot, 0, "tail") == (s_tot, 0)
+    assert launcher._leg_range(s_tot, None, "head") == (0, s_tot)
+    assert launcher._leg_range(s_tot, 3, "tail") == (s_tot - 3, 3)
+    assert launcher._leg_range(s_tot, 0, "tail") == (s_tot, 0)
     with pytest.raises(ValueError):
-        bf._leg_range(s_tot, s_tot + 1, "head")
+        launcher._leg_range(s_tot, s_tot + 1, "head")
     with pytest.raises(ValueError):
-        bf._leg_range(s_tot, 2, "middle")
+        launcher._leg_range(s_tot, 2, "middle")
     cpu = torch.device("cpu")
-    assert bf._check_tables(f["fwd"], cpu, batch, n, "t") == tuple(
+    assert launcher._check_tables(f["fwd"], cpu, batch, n, "t") == tuple(
         f["fwd"].idx_i.shape[1:])
     with pytest.raises(ValueError, match="do not match"):
-        bf._check_tables(f["fwd"], cpu, batch + 1, n, "t")
+        launcher._check_tables(f["fwd"], cpu, batch + 1, n, "t")
     with pytest.raises(ValueError, match="n="):
-        bf._check_tables(f["fwd"], cpu, batch, n + 1, "t")
+        launcher._check_tables(f["fwd"], cpu, batch, n + 1, "t")
     with pytest.raises(TypeError, match="int32"):
-        bf._check_tables(f["fwd"]._replace(idx_i=f["fwd"].idx_i.long()),
+        launcher._check_tables(f["fwd"]._replace(idx_i=f["fwd"].idx_i.long()),
                          cpu, batch, n, "t")
     with pytest.raises(TypeError, match="float32"):
-        bf._check_tables(f["fwd"]._replace(c=f["fwd"].c.double()),
+        launcher._check_tables(f["fwd"]._replace(c=f["fwd"].c.double()),
                          cpu, batch, n, "t")
     with pytest.raises(ValueError, match="contiguous"):
-        bf._check_tables(tst.truncate_staged(f["fwd"], 2, "tail"), cpu,
+        launcher._check_tables(tst.truncate_staged(f["fwd"], 2, "tail"), cpu,
                          batch, n, "t")
     with pytest.raises(ValueError, match="CUDA"):
-        bf._check_signal(torch.zeros(batch, 4, n), 3, "t")
+        launcher._check_signal(torch.zeros(batch, 4, n), 3, "t")

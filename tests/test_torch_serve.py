@@ -65,7 +65,9 @@ def test_carried_single_basis(carried):
     jsingle = JB(kind="sym", n=N, batched=False, factors=jf,
                  spectrum=jb.spectrum[1], fwd=jfwd, bwd=jbwd)
     _close(tb.project(x[1]), jsingle.project(jnp.asarray(x[1])))
-    with pytest.raises(NotImplementedError, match="directed"):
+    with pytest.raises(ValueError, match="kind must be"):
+        basis_from_numpy("bogus", N, factors, np.zeros(N), device="cpu")
+    with pytest.raises(ValueError, match="lack fields"):
         basis_from_numpy("general", N, factors, np.zeros(N), device="cpu")
     with pytest.raises(ValueError, match="spectrum"):
         basis_from_numpy("sym", N, factors, np.zeros(N + 1), device="cpu")
@@ -138,6 +140,7 @@ def test_cli_serves_on_cpu(capsys):
     (["--fgft", "--ragged"], "ragged"),
     (["--fgft", "--precision", "bf16"], "precision"),
     (["--fgft", "--serve-async"], "async"),
+    (["--fgft", "--directed", "--filter", "heat"], "filter-bank"),
     (["--graphs", "2"], "--fgft is required"),
     (["--fgft", "--tiers", "full:2"], "fraction"),
     (["--fgft", "--bogus"], "unrecognized"),
@@ -146,3 +149,88 @@ def test_cli_rejects_unported_flags(argv, match, capsys):
     with pytest.raises(SystemExit):
         serve.parse_args(argv + ["--device", "cpu"])
     assert match in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# directed graphs: the general (T-transform) family
+# ---------------------------------------------------------------------------
+
+def _directed_laps(n, batch):
+    from repro_torch.graphs import directed_variant
+    return np.stack([laplacian(directed_variant(community_graph(n, seed=s),
+                                                seed=s))
+                     for s in range(batch)])
+
+
+@pytest.fixture(scope="module")
+def carried_general():
+    laps = _directed_laps(N, B)
+    jb = JaxBasis.fit(jnp.asarray(laps), G, kind="general", n_iter=1)
+    factors = {k: np.asarray(getattr(jb.factors, k))
+               for k in ("kind", "i", "j", "a")}
+    tb = basis_from_numpy("general", N, factors, np.asarray(jb.spectrum),
+                          objective=np.asarray(jb.objective), device="cpu")
+    x = np.random.default_rng(1).standard_normal((B, 9, N)).astype(
+        np.float32)
+    return laps, jb, tb, x
+
+
+def test_carried_general_basis_matches_jax(carried_general):
+    """A JAX T-fit carried across: tables bitwise, and apply (both
+    directions), project (fused and three-pass), to_dense and
+    reconstruct equal the JAX package's at every cut."""
+    _, jb, tb, x = carried_general
+    assert tb.kind == "general" and tb.batched
+    for js, ts in ((jb.fwd, tb.fwd), (jb.bwd, tb.bwd)):
+        np.testing.assert_array_equal(np.asarray(js.cuts), ts.cuts)
+        for a, b in zip(js[:4], ts[:4]):
+            assert np.asarray(a).tobytes() == b.numpy().tobytes()
+    for k in [None, *tb.stage_cuts[:, 0].tolist()]:
+        for inverse in (False, True):
+            _close(tb.apply(x, inverse=inverse, num_stages=k),
+                   jb.apply(jnp.asarray(x), inverse=inverse, num_stages=k))
+        for fused in (True, False):
+            _close(tb.project(x, num_stages=k, fused=fused),
+                   jb.project(jnp.asarray(x), num_stages=k))
+    _close(tb.to_dense(), jb.to_dense())
+    _close(tb.reconstruct(), jb.reconstruct())
+    factors = {k: np.asarray(getattr(jb.factors, k))[2]
+               for k in ("kind", "i", "j", "a")}
+    single = basis_from_numpy("general", N, factors,
+                              np.asarray(jb.spectrum)[2], device="cpu")
+    assert not single.batched
+    _close(single.project(x[2]), jb.project(jnp.asarray(x))[2])
+
+
+def test_general_engine_tiers_match_jax_xla_engine(carried_general):
+    """Every tier of a directed fleet serves the full fit's spectrum (no
+    Lemma-1 prefix refit for a non-orthogonal basis) and the JAX
+    engine's answers."""
+    laps, jb, tb, x = carried_general
+    jeng = JaxEngine(jnp.asarray(laps), basis=jb, backend="xla",
+                     tiers=TIERS)
+    teng = FGFTServeEngine(laps, basis=tb, tiers=TIERS, device="cpu")
+    lowpass = lambda lam: 1.0 / (1.0 + lam)  # noqa: E731
+    for name in TIERS:
+        assert (teng.tiers[name]["num_stages"]
+                == jeng.tiers[name]["num_stages"])
+        assert torch.equal(teng.tiers[name]["spectrum"], tb.spectrum)
+        _close(teng.step(x, lowpass, tier=name),
+               jeng.step(jnp.asarray(x), lowpass, tier=name))
+
+
+def test_cli_serves_directed_on_cpu(capsys):
+    out = serve.main(["--fgft", "--directed", "--graphs", "2",
+                      "--graph-n", "16", "--signals", "4",
+                      "--filter-steps", "2", "--tiers", "full:1.0,draft:0.25",
+                      "--device", "cpu", "--backend", "torch"])
+    assert out["kind"] == "general"
+    assert set(out["tiers"]) == {"full", "draft"}
+    assert float(np.mean(out["rel_error"])) < 0.08
+    assert out["stats"]["steps"] == {"full": 2, "draft": 2}
+    eng = out["engine"]
+    y = eng.step(out["signals"], tier="full")
+    recon = torch.stack([torch.from_numpy(r) for r in np.asarray(
+        eng.basis.reconstruct())])
+    _close(y, torch.einsum("bij,brj->bri", recon, out["signals"]))
+    assert "kind=general" in capsys.readouterr().out
