@@ -9,10 +9,11 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              checkout and load them.
 2. kernels — hold each kernel against its plain PyTorch version on the card:
              the G kernels (csrc/butterfly.cu) and the T kernels
-             (csrc/shear.cu), batched and B = 1, at n in {16, 48} on tables
-             of small port fits (symmetric and directed), R = 130 signal
-             rows (a ragged tile edge), at every ladder cut including 0, the
-             chains at both keeps.
+             (csrc/shear.cu), chain, operator and bank, batched and B = 1,
+             at n in {16, 48} on tables of small port fits (symmetric and
+             directed), R = 130 signal rows (a ragged tile edge), at every
+             ladder cut including 0, the chains at both keeps, the banks at
+             F in {1, 7}.
 3. main    — the port's main path at a realistic size, through the CLI entry
              point: ``python -m repro_torch.launch.serve --fgft`` with B = 64
              community graphs, n = 256, g = 2 n log2 n = 4096, R = 256,
@@ -22,12 +23,24 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              and equal the dense ||L - U diag(s) U^T||^2 / ||L||^2 within
              1e-3 relative, and the served output must match the plain
              version.
+3b. main-filter — the filter-bank path through the CLI: ``serve --fgft
+             --filter heat,tikhonov,wavelets:4`` on the same fleet (B = 64,
+             n = 256, g = 4096, R = 256, F = 7).  Counters are zeroed just
+             before and read just after: ``batched_sym_filter_bank_apply``
+             must have launched.  The served (B, F, R, n) bank must match
+             its plain version, each filter the operator kernel with that
+             filter's gains (``engine.step``), and each filter the dense
+             ``eigh`` filtering within 2 max(Lip(h), 1) delta + 5e-3 per
+             graph (delta = sqrt(relative error); the worst ratio is
+             printed).
 4. fgft    — the single-graph path at the same width: ``build_fgft`` on one
              community graph (n = 256, g = 4096), then ``FGFT.analysis``,
-             ``synthesis`` and ``project`` (the single-matrix entry points,
+             ``synthesis``, ``project`` and the same bank through
+             ``ApplyPlan(mode="bank")`` (the single-matrix entry points,
              launched as B = 1).  Counters are zeroed just before and read
-             just after; both single-matrix entry points must have
-             launched.  Relative error < 0.05, synthesis(analysis(x)) = x.
+             just after; the three single-matrix entry points must have
+             launched.  Relative error < 0.05, synthesis(analysis(x)) = x,
+             the bank equal to its plain version.
 5. main-directed — the directed main path, through the CLI entry point:
              ``serve --fgft --directed`` with B = 64 directed community
              graphs, n = 256, g = 4096, R = 256, the same tiers.  Counters
@@ -39,12 +52,18 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              ||L - T diag(c) T^-1||^2 / ||L||^2 (T from ``t_to_dense``, plain
              torch) within 1e-3 relative; the served output equals the plain
              version bitwise; the round trip returns x within a tolerance derived
-             from cond(Tbar) (printed with it).
+             from cond(Tbar) (printed with it).  Then the directed bank on
+             the same fitted basis (no second T fit): an engine with
+             ``filters=`` and the same bank spec, counters zeroed just before
+             its steps; ``batched_gen_filter_bank_apply`` must have
+             launched, the bank must equal its plain version and each
+             filter the operator kernel, bitwise.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
-             graph (n = 256, g = 4096, n_iter = 3), then analysis, synthesis
-             and project; ``shear_apply`` and ``gen_operator_apply`` must
-             have launched; relative error < 0.05.
-7. shapes  — each of the 8 entry points held against its plain version at
+             graph (n = 256, g = 4096, n_iter = 3), then analysis, synthesis,
+             project and the bank; ``shear_apply``, ``gen_operator_apply``
+             and ``gen_filter_bank_apply`` must have launched; relative
+             error < 0.05.
+7. shapes  — each of the 12 entry points held against its plain version at
              the paths' shapes (every cut), then timed.
 
 Tolerance of the kernel-vs-plain checks: for the G kernels max|dy| <= 1e-4 *
@@ -73,7 +92,8 @@ F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 TOL = 1e-4
 DEVICE = "cuda"
 MAIN = dict(graphs=64, n=256, signals=256, steps=5,
-            tiers="full:1.0,balanced:0.5,draft:0.25")
+            tiers="full:1.0,balanced:0.5,draft:0.25",
+            filters="heat,tikhonov,wavelets:4")
 REPLACES = {
     "batched_sym_operator_apply": "src/repro/kernels/butterfly.py:169",
     "batched_butterfly_apply": "src/repro/kernels/butterfly.py:209",
@@ -83,6 +103,10 @@ REPLACES = {
     "gen_operator_apply": "src/repro/kernels/shear.py:115",
     "batched_shear_apply": "src/repro/kernels/shear.py:153",
     "batched_gen_operator_apply": "src/repro/kernels/shear.py:207",
+    "sym_filter_bank_apply": "src/repro/kernels/spectral.py:122",
+    "gen_filter_bank_apply": "src/repro/kernels/spectral.py:122",
+    "batched_sym_filter_bank_apply": "src/repro/kernels/spectral.py:142",
+    "batched_gen_filter_bank_apply": "src/repro/kernels/spectral.py:142",
 }
 #: per real table entry of each kind: bytes the function reads (the indices
 #: and values it needs) and flops per signal row — a G pair (i, j, c, s,
@@ -174,24 +198,27 @@ def real_entries(staged, num_stages, keep) -> dict:
             "scaling": int((real & (jj == ii)).sum())}
 
 
-def bound_ms(x, legs, with_diag: bool) -> tuple:
-    """Least time on the card for the function itself: x read once, y
-    written once, each leg's real entries read once at their kind's
-    ENTRY_COST bytes and flops per signal row, the spectrum read once and
-    n flops per row for the diagonal.  Pad entries of the (S, P) layout
-    are not counted: the function does not need them, the layout is the
-    kernel's choice.  Returns (ms, "bytes" | "operations")."""
+def bound_ms(x, legs, filters: int) -> tuple:
+    """Least time on the card for the function itself.  ``filters``: 0
+    for a chain (one leg, no diagonal), 1 for an operator, F for a bank.
+    x is read once and y written max(1, F) times; each leg's real entries
+    are read once at their kind's ENTRY_COST bytes; the analysis leg
+    (legs[0]) costs its ENTRY_COST flops per signal row once, the
+    synthesis leg (legs[1]) once per filter; the F diagonals (B F n
+    values) are read once and cost n flops per row and filter.  Pad
+    entries of the (S, P) layout are not counted: the function does not
+    need them, the layout is the kernel's choice.  Returns (ms, "bytes"
+    | "operations")."""
     bsz, rows, n = (1,) * (3 - x.dim()) + tuple(x.shape)
-    nbytes = 2 * x.numel() * 4
-    flops = 0
-    for leg in legs:
+    outputs = max(filters, 1)
+    nbytes = (1 + outputs) * x.numel() * 4 + filters * bsz * n * 4
+    flops = filters * bsz * rows * n
+    for pos, leg in enumerate(legs):
+        runs = outputs if pos > 0 else 1
         for kind, count in leg.items():
             per_bytes, per_flops = ENTRY_COST[kind]
             nbytes += count * per_bytes
-            flops += per_flops * count * rows
-    if with_diag:
-        nbytes += bsz * n * 4
-        flops += bsz * rows * n
+            flops += runs * per_flops * count * rows
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -297,6 +324,38 @@ def t_tables_for(basis, b: int):
     return pack_t_pair(f, basis.n, device=basis.device)
 
 
+def bank_gains(spectrum):
+    """(F, n) gains of the smoke run's bank on a single graph's spectrum
+    (n,)."""
+    import torch
+    from repro_torch.spectral import named_responses
+    return torch.stack([h(spectrum) for h in
+                        named_responses(MAIN["filters"]).values()])
+
+
+def check_bank_tables(tag, fwd, bwd, gains, x, errs) -> int:
+    """The bank kernel of the tables' family (batched if they are)
+    against its plain version at every cut, with the first filter and
+    with all of ``gains``' filters; returns the number of comparisons."""
+    from repro_torch.core.staging import StagedT
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import spectral as ksp
+    entry = (("batched_" if fwd.idx_i.dim() == 3 else "")
+             + ("gen" if isinstance(fwd, StagedT) else "sym")
+             + "_filter_bank_apply")
+    fn, plain = getattr(ksp, entry), getattr(ref, entry)
+    count = 0
+    for k in cut_list(fwd):
+        for f in sorted({1, gains.shape[-2]}):
+            g = gains[..., :f, :].contiguous()
+            compare(entry, fn(fwd, bwd, g, x, k), plain(fwd, bwd, g, x, k),
+                    errs)
+            count += 1
+    log(f"[kernels] {tag}: {count} {entry} kernel-vs-plain checks at cuts "
+        f"{cut_list(fwd)}, F in {sorted({1, gains.shape[-2]})} passed")
+    return count
+
+
 def directed_laps(n: int, count: int):
     import numpy as np
     from repro_torch.core import laplacian
@@ -319,18 +378,26 @@ def phase_kernels(errs) -> None:
         basis = ApproxEigenbasis.fit(laps, g, n_iter=1, device=dev)
         gen = torch.Generator(device=dev).manual_seed(n)
         x = torch.randn((4, 130, n), generator=gen, device=dev)
+        gains = torch.rand((4, 7, n), generator=gen, device=dev) * 2.0
+        x1, g1 = x[1].contiguous(), gains[1].contiguous()
         check_tables(f"n={n} B=4 R=130", basis.fwd, basis.bwd,
                      basis.spectrum, x, errs)
+        check_bank_tables(f"n={n} B=4 R=130", basis.fwd, basis.bwd, gains,
+                          x, errs)
         sfwd, sadj = tables_for(basis, 1)
         check_tables(f"n={n} B=1 R=130", sfwd, sadj, basis.spectrum[1],
-                     x[1].contiguous(), errs)
+                     x1, errs)
+        check_bank_tables(f"n={n} B=1 R=130", sfwd, sadj, g1, x1, errs)
         tbasis = ApproxEigenbasis.fit(directed_laps(n, 4), g, n_iter=1,
                                       kind="general", device=dev)
         check_t_tables(f"n={n} B=4 R=130", tbasis.fwd, tbasis.bwd,
                        tbasis.spectrum, x, errs)
+        check_bank_tables(f"n={n} B=4 R=130", tbasis.fwd, tbasis.bwd, gains,
+                          x, errs)
         sfwd, sinv = t_tables_for(tbasis, 1)
         check_t_tables(f"n={n} B=1 R=130", sfwd, sinv, tbasis.spectrum[1],
-                       x[1].contiguous(), errs)
+                       x1, errs)
+        check_bank_tables(f"n={n} B=1 R=130", sfwd, sinv, g1, x1, errs)
     torch.cuda.synchronize()
 
 
@@ -392,6 +459,91 @@ def phase_main() -> dict:
             "served_err": err}
 
 
+def check_bank_slices(tag, engine, yb, x, tol: float) -> float:
+    """Each filter of a served bank (B, F, R, n) against ``engine.step``
+    with that filter's response at the full tier (the operator kernel);
+    returns the largest max|dy|."""
+    worst = 0.0
+    for f, filt in enumerate(engine.bank.filters):
+        err, scale = max_err(yb[:, f], engine.step(x, filt.response))
+        check(err <= tol * scale,
+              f"{tag}: filter {filt.name} vs operator max|dy| {err:.3e}")
+        worst = max(worst, err)
+    log(f"[{tag}] each of {len(engine.bank)} filters vs the operator kernel "
+        f"with its gains: max|dy| {worst:.3e} (tolerance {tol} * scale)")
+    return worst
+
+
+def phase_main_filter(errs) -> dict:
+    """The filter-bank path through the CLI: ``serve --fgft --filter``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launcher
+    from repro_torch.kernels.plan import ApplyPlan
+    from repro_torch.launch import serve
+    from repro_torch.spectral import response_lipschitz
+    argv = ["--fgft", "--filter", MAIN["filters"], "--graphs",
+            str(MAIN["graphs"]), "--graph-n", str(MAIN["n"]), "--signals",
+            str(MAIN["signals"]), "--filter-steps", str(MAIN["steps"]),
+            "--device", DEVICE]
+    launcher.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launcher.entry_launch_counts()
+    log(f"[main-filter] serve {' '.join(argv)}: {wall:.1f}s (fit "
+        f"{out['fit_s']:.1f}s), {out['responses_per_s']:.1f} responses/s; "
+        f"launches {launches}")
+    check(launches["batched_sym_filter_bank_apply"] > 0,
+          "filter-bank path never launched batched_sym_filter_bank_apply")
+    engine, x = out["engine"], out["signals"]
+    basis, live = engine.basis, engine._live
+    bsz, rows, n = x.shape
+    nf = len(engine.bank)
+    check(out["filters"] == engine.bank.names and nf == 7,
+          f"bank filters {out['filters']}")
+    y = engine.step_bank(x)
+    check(tuple(y.shape) == (bsz, nf, rows, n), f"bank shape {tuple(y.shape)}")
+    plain = ApplyPlan(family="sym", mode="bank", n=n, batched=True,
+                      backend="torch", device=DEVICE).program()
+    err, scale = max_err(y, plain(live.fwd, live.bwd, live.bank_gains, x))
+    check(err <= TOL * scale, f"served bank max|dy| {err:.3e}")
+    errs["batched_sym_filter_bank_apply"] = max(
+        errs.get("batched_sym_filter_bank_apply", 0.0), err)
+    log(f"[main-filter] served bank {list(y.shape)} vs plain version: "
+        f"max|dy| {err:.3e} (scale {scale:.3e})")
+    check_bank_slices("main-filter", engine, y, x, TOL)
+    # each filter against dense eigh filtering, per graph, within the
+    # accuracy the fit's error implies (tests/test_spectral.py's bound)
+    lap = torch.from_numpy(out["laps"]).to(DEVICE, torch.float64)
+    lam, u = torch.linalg.eigh(lap)
+    delta = np.sqrt(np.asarray(out["rel_error"], np.float64))
+    xd = x.double()
+    worst = 0.0
+    for f, filt in enumerate(engine.bank.filters):
+        hd = filt.response(lam.float()).double()
+        dense = xd @ (u * hd[:, None, :]) @ u.transpose(1, 2)
+        err_b = (torch.linalg.norm(y[:, f].double() - dense, dim=(1, 2))
+                 / torch.linalg.norm(dense, dim=(1, 2)).clamp(min=1e-12)
+                 ).cpu().numpy()
+        lip = max(response_lipschitz(filt.response), 1.0)
+        bound = 2.0 * lip * delta + 5e-3
+        ratio = float((err_b / bound).max())
+        log(f"[main-filter] filter {filt.name}: Lip {lip:.3f}, max rel error "
+            f"vs dense eigh {float(err_b.max()):.5f}, worst error/bound "
+            f"{ratio:.4f}")
+        check(bool((err_b <= bound).all()),
+              f"filter {filt.name} exceeds its dense-eigh bound "
+              f"(error/bound {ratio:.3f})")
+        worst = max(worst, ratio)
+    log(f"[main-filter] worst error/bound over {nf} filters x {bsz} graphs: "
+        f"{worst:.4f} (mean relative error {float(delta.mean() ** 2):.6f})")
+    torch.cuda.synchronize()
+    return {"out": out, "launches": launches, "wall_s": wall,
+            "worst_ratio": worst}
+
+
 def phase_fgft(errs) -> dict:
     """The single-graph entry points at the main path's width."""
     import numpy as np
@@ -399,6 +551,7 @@ def phase_fgft(errs) -> dict:
     from repro_torch.core import build_fgft, laplacian, relative_error
     from repro_torch.graphs import community_graph
     from repro_torch.kernels import launcher, ref
+    from repro_torch.kernels.plan import ApplyPlan
     n = MAIN["n"]
     g = int(2 * n * np.log2(n))
     lap = laplacian(community_graph(n, seed=0))
@@ -411,13 +564,17 @@ def phase_fgft(errs) -> dict:
     xh = f.analysis(x)
     xr = f.synthesis(xh)
     y = f.project(x, lowpass)
+    gains = bank_gains(f.spectrum)
+    yb = ApplyPlan(family="sym", mode="bank", n=n, batched=False,
+                   device=DEVICE).bank(f.fwd, f.bwd, gains, x)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launcher.entry_launch_counts()
-    log(f"[single] build_fgft n={n} g={g} + analysis/synthesis/project of "
-        f"R={x.shape[0]}: {wall:.1f}s (fit {fit_s:.1f}s); launches "
+    log(f"[single] build_fgft n={n} g={g} + analysis/synthesis/project/bank "
+        f"of R={x.shape[0]}: {wall:.1f}s (fit {fit_s:.1f}s); launches "
         f"{launches}")
-    for entry in ("sym_operator_apply", "butterfly_apply"):
+    for entry in ("sym_operator_apply", "butterfly_apply",
+                  "sym_filter_bank_apply"):
         check(launches[entry] > 0, f"single-graph path never launched {entry}")
     rel = relative_error(lap, f)
     log(f"[single] relative error {rel:.6f}, {f.fwd.idx_i.shape[0]} stages "
@@ -428,10 +585,12 @@ def phase_fgft(errs) -> dict:
                                                       "tail"), errs)
     compare("sym_operator_apply", y, ref.sym_operator_apply(
         f.fwd, f.bwd, lowpass(f.spectrum), x), errs)
+    compare("sym_filter_bank_apply", yb, ref.sym_filter_bank_apply(
+        f.fwd, f.bwd, gains, x), errs)
     err, scale = max_err(xr, x)
     check(err <= TOL * scale, f"synthesis(analysis(x)) != x: {err:.3e}")
     log(f"[single] synthesis(analysis(x)) vs x: max|dx| {err:.3e}")
-    return {"fgft": f, "launches": launches, "signals": x}
+    return {"fgft": f, "launches": launches, "signals": x, "gains": gains}
 
 
 def phase_main_shapes(main, single, errs) -> list:
@@ -473,20 +632,20 @@ def phase_main_shapes(main, single, errs) -> list:
     single_fwd = [real_entries(sfwd, None, "tail")]
     single_op = [real_entries(sadj, None, "head")] + single_fwd
     cases = [
-        ("g_operator_kernel", "batched_sym_operator_apply", x, op_legs, True,
+        ("g_operator_kernel", "batched_sym_operator_apply", x, op_legs, 1,
          lambda: bf.batched_sym_operator_apply(basis.fwd, basis.bwd, spec, x),
          lambda: ref.batched_sym_operator_apply(basis.fwd, basis.bwd, spec,
                                                 x),
          lambda: torch.bmm(x, dense_op.transpose(1, 2))),
-        ("g_chain_kernel", "batched_butterfly_apply", eye, fwd_legs, False,
+        ("g_chain_kernel", "batched_butterfly_apply", eye, fwd_legs, 0,
          lambda: bf.batched_butterfly_apply(basis.fwd, eye),
          lambda: ref.batched_g_apply(basis.fwd, eye),
          lambda: torch.bmm(eye, u.transpose(1, 2))),
-        ("g_operator_kernel", "sym_operator_apply", x0, single_op, True,
+        ("g_operator_kernel", "sym_operator_apply", x0, single_op, 1,
          lambda: bf.sym_operator_apply(sfwd, sadj, sspec, x0),
          lambda: ref.sym_operator_apply(sfwd, sadj, sspec, x0),
          lambda: torch.mm(x0, sdense.T)),
-        ("g_chain_kernel", "butterfly_apply", x0, single_fwd, False,
+        ("g_chain_kernel", "butterfly_apply", x0, single_fwd, 0,
          lambda: bf.butterfly_apply(sfwd, x0),
          lambda: ref.staged_g_apply(sfwd, x0),
          lambda: torch.mm(x0, su.T)),
@@ -502,11 +661,11 @@ def timed_rows(cases, main, single, tables_b, tables_1, errs,
     source = ("src/repro_torch/csrc/butterfly.cu" if family == "sym"
               else "src/repro_torch/csrc/shear.cu")
     rows = []
-    for kernel, entry, xin, legs, diag, fn, plain, lib in cases:
+    for kernel, entry, xin, legs, filters, fn, plain, lib in cases:
         ms = time_ms(fn)
         plain_ms = time_ms(plain, reps=2, rounds=3)
         lib_ms = time_ms(lib)
-        b_ms, b_by = bound_ms(xin, legs, diag)
+        b_ms, b_by = bound_ms(xin, legs, filters)
         batched = entry.startswith("batched")
         path = main if batched else single
         tables = tables_b if batched else tables_1
@@ -517,15 +676,69 @@ def timed_rows(cases, main, single, tables_b, tables_1, errs,
             "launches": path["launches"][entry],
             "max_abs_err": errs[entry], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "shape": list(xin.shape),
+            "shape": list(xin.shape), "filters": filters,
             "stages": int(tables.idx_i.shape[-2]),
             "pairs_per_stage": int(tables.idx_i.shape[-1]),
             "real_entries": legs})
-        log(f"[time] {entry} ({kernel}) at {list(xin.shape)}: {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, bmm/mm {lib_ms:.4f} ms, bound "
+        log(f"[time] {entry} ({kernel}) at {list(xin.shape)}, F={filters}: "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms, "
+            f"bound "
             f"{b_ms:.5f} ms ({b_by}), real entries per leg {legs} of "
             f"{tables.idx_i.numel()} table entries")
     return rows
+
+
+def phase_bank_shapes(family: str, path: dict, engine, x, single,
+                      errs) -> list:
+    """The family's bank kernel against its plain version at the paths'
+    shapes (every cut, F in {1, 7}; the served R and a ragged R = 130),
+    then timed: batched on the served engine's tables and gains, B = 1
+    on the single-graph fit's.  The library yardstick is one
+    ``torch.matmul`` over dense per-filter operators built outside the
+    timing (from the kernel's own output on the identity)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import spectral as ksp
+    from repro_torch.kernels.launcher import leg_orientation
+    basis, gains = engine.basis, engine._live.bank_gains
+    fwd, bwd = basis.fwd, basis.bwd
+    bsz, rows, n = x.shape
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    ragged = torch.randn((bsz, 130, n), generator=gen, device=DEVICE)
+    f = single["fgft"]
+    sfwd, sbwd, x0, g0 = f.fwd, f.bwd, single["signals"], single["gains"]
+    for tag, tf, tb, g, xin in (
+            (f"B={bsz} R={rows}", fwd, bwd, gains, x),
+            (f"B={bsz} R=130", fwd, bwd, gains, ragged),
+            (f"B=1 R={x0.shape[0]}", sfwd, sbwd, g0, x0)):
+        check_bank_tables(f"{family} bank n={n} {tag}", tf, tb, g, xin, errs)
+    torch.cuda.synchronize()
+
+    entry = ("sym" if family == "sym" else "gen") + "_filter_bank_apply"
+    bank, bank1 = getattr(ksp, "batched_" + entry), getattr(ksp, entry)
+    plain, plain1 = getattr(ref, "batched_" + entry), getattr(ref, entry)
+    eye = torch.eye(n, device=DEVICE)
+    # row r of a bank's output on the identity is op e_r: transposed, the
+    # dense (B, F, n, n) / (F, n, n) operators
+    ops = bank(fwd, bwd, gains, eye.expand(bsz, n, n).contiguous()
+               ).transpose(-1, -2).contiguous()
+    ops1 = bank1(sfwd, sbwd, g0, eye).transpose(-1, -2).contiguous()
+    a_keep, s_keep = leg_orientation(family)
+    legs = [real_entries(bwd, None, a_keep), real_entries(fwd, None, s_keep)]
+    legs1 = [real_entries(sbwd, None, a_keep),
+             real_entries(sfwd, None, s_keep)]
+    kernel = "g_bank_kernel" if family == "sym" else "t_bank_kernel"
+    cases = [
+        (kernel, "batched_" + entry, x, legs, gains.shape[1],
+         lambda: bank(fwd, bwd, gains, x),
+         lambda: plain(fwd, bwd, gains, x),
+         lambda: torch.matmul(x.unsqueeze(1), ops.transpose(-1, -2))),
+        (kernel, entry, x0, legs1, g0.shape[0],
+         lambda: bank1(sfwd, sbwd, g0, x0),
+         lambda: plain1(sfwd, sbwd, g0, x0),
+         lambda: torch.matmul(x0.unsqueeze(0), ops1.transpose(-1, -2))),
+    ]
+    return timed_rows(cases, path, single, fwd, sfwd, errs, family)
 
 
 def check_round_trip(tag, xr, x, t_dense, num_stages: int) -> float:
@@ -607,9 +820,53 @@ def phase_main_directed() -> dict:
     check(err == 0.0, f"served full tier max|dy| {err:.3e} (want 0)")
     log(f"[main-directed] served full tier vs plain version: max|dy| "
         f"{err:.3e} (scale {scale:.3e})")
+    bank = directed_bank(laps, basis, x)
     return {"out": out, "launches": launches, "wall_s": wall,
             "mean_rel": mean_rel, "mean_rel_dense": mean_dense,
-            "served_err": err, "round_trip_err": trip_err}
+            "served_err": err, "round_trip_err": trip_err, "bank": bank}
+
+
+def directed_bank(laps, basis, x) -> dict:
+    """The directed filter bank on the fitted basis of the directed main
+    path (no second T fit): an engine with the bank spec serves one
+    warm-up and MAIN["steps"] bank steps with the counters zeroed just
+    before; bank and each filter are held bitwise to the plain version
+    and to the operator kernel."""
+    import torch
+    from repro_torch.kernels import launcher
+    from repro_torch.kernels.plan import ApplyPlan
+    from repro_torch.launch import serve
+    launcher.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine = serve.FGFTServeEngine(laps, basis=basis, kind="general",
+                                   filters=MAIN["filters"], device=DEVICE)
+    y = engine.step_bank(x)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(MAIN["steps"]):
+        y = engine.step_bank(x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = launcher.entry_launch_counts()
+    bsz, rows, n = x.shape
+    nf = len(engine.bank)
+    rate = MAIN["steps"] * bsz * nf / dt
+    log(f"[main-directed] bank {MAIN['filters']} on the fitted basis: "
+        f"{time.perf_counter() - t0:.1f}s, {rate:.1f} responses/s; "
+        f"launches {launches}")
+    check(launches["batched_gen_filter_bank_apply"] > 0,
+          "directed bank never launched batched_gen_filter_bank_apply")
+    check(tuple(y.shape) == (bsz, nf, rows, n), f"bank shape {tuple(y.shape)}")
+    live = engine._live
+    plain = ApplyPlan(family="general", mode="bank", n=n, batched=True,
+                      backend="torch", device=DEVICE).program()
+    err, scale = max_err(y, plain(live.fwd, live.bwd, live.bank_gains, x))
+    check(err == 0.0, f"directed bank vs plain max|dy| {err:.3e} (want 0)")
+    log(f"[main-directed] served bank {list(y.shape)} vs plain version: "
+        f"max|dy| {err:.3e} (scale {scale:.3e})")
+    check_bank_slices("main-directed", engine, y, x, 0.0)
+    return {"engine": engine, "launches": launches, "responses_per_s": rate,
+            "served_err": err}
 
 
 def phase_fgft_directed(errs) -> dict:
@@ -619,6 +876,7 @@ def phase_fgft_directed(errs) -> dict:
     from repro_torch.core import build_fgft, relative_error
     from repro_torch.core.ttransform import t_to_dense
     from repro_torch.kernels import launcher, ref
+    from repro_torch.kernels.plan import ApplyPlan
     n = MAIN["n"]
     g = int(2 * n * np.log2(n))
     lap = directed_laps(n, 1)[0]
@@ -631,13 +889,17 @@ def phase_fgft_directed(errs) -> dict:
     xh = f.analysis(x)
     xr = f.synthesis(xh)
     y = f.project(x, lowpass)
+    gains = bank_gains(f.spectrum)
+    yb = ApplyPlan(family="general", mode="bank", n=n, batched=False,
+                   device=DEVICE).bank(f.fwd, f.bwd, gains, x)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launcher.entry_launch_counts()
     log(f"[single-directed] build_fgft(directed) n={n} g={g} + "
-        f"analysis/synthesis/project of R={x.shape[0]}: {wall:.1f}s (fit "
-        f"{fit_s:.1f}s); launches {launches}")
-    for entry in ("gen_operator_apply", "shear_apply"):
+        f"analysis/synthesis/project/bank of R={x.shape[0]}: {wall:.1f}s "
+        f"(fit {fit_s:.1f}s); launches {launches}")
+    for entry in ("gen_operator_apply", "shear_apply",
+                  "gen_filter_bank_apply"):
         check(launches[entry] > 0,
               f"directed single-graph path never launched {entry}")
     rel = relative_error(lap, f)
@@ -649,9 +911,11 @@ def phase_fgft_directed(errs) -> dict:
     compare("shear_apply", xr, ref.staged_t_apply(f.fwd, xh), errs)
     compare("gen_operator_apply", y, ref.gen_operator_apply(
         f.fwd, f.bwd, lowpass(f.spectrum), x), errs)
+    compare("gen_filter_bank_apply", yb, ref.gen_filter_bank_apply(
+        f.fwd, f.bwd, gains, x), errs)
     check_round_trip("single-directed", xr, x,
                      t_to_dense(f.t_factors, n), f.fwd.num_stages)
-    return {"fgft": f, "launches": launches, "signals": x}
+    return {"fgft": f, "launches": launches, "signals": x, "gains": gains}
 
 
 def phase_directed_shapes(main, single, errs) -> list:
@@ -692,20 +956,20 @@ def phase_directed_shapes(main, single, errs) -> list:
     single_fwd = [real_entries(sfwd, None, "head")]
     single_op = [real_entries(sinv, None, "tail")] + single_fwd
     cases = [
-        ("t_operator_kernel", "batched_gen_operator_apply", x, op_legs, True,
+        ("t_operator_kernel", "batched_gen_operator_apply", x, op_legs, 1,
          lambda: sh.batched_gen_operator_apply(basis.fwd, basis.bwd, spec, x),
          lambda: ref.batched_gen_operator_apply(basis.fwd, basis.bwd, spec,
                                                 x),
          lambda: torch.bmm(x, dense_op.transpose(1, 2))),
-        ("t_chain_kernel", "batched_shear_apply", x, fwd_legs, False,
+        ("t_chain_kernel", "batched_shear_apply", x, fwd_legs, 0,
          lambda: sh.batched_shear_apply(basis.fwd, x),
          lambda: ref.batched_t_apply(basis.fwd, x),
          lambda: torch.bmm(x, t_dense.transpose(1, 2))),
-        ("t_operator_kernel", "gen_operator_apply", x0, single_op, True,
+        ("t_operator_kernel", "gen_operator_apply", x0, single_op, 1,
          lambda: sh.gen_operator_apply(sfwd, sinv, sspec, x0),
          lambda: ref.gen_operator_apply(sfwd, sinv, sspec, x0),
          lambda: torch.mm(x0, sdense.T)),
-        ("t_chain_kernel", "shear_apply", x0, single_fwd, False,
+        ("t_chain_kernel", "shear_apply", x0, single_fwd, 0,
          lambda: sh.shear_apply(sfwd, x0),
          lambda: ref.staged_t_apply(sfwd, x0),
          lambda: torch.mm(x0, st.T)),
@@ -728,11 +992,18 @@ def main() -> int:
     errs: dict = {}
     phase_kernels(errs)
     main_rec = phase_main()
+    filter_rec = phase_main_filter(errs)
     single = phase_fgft(errs)
     kernels = phase_main_shapes(main_rec, single, errs)
+    filter_out = filter_rec["out"]
+    kernels += phase_bank_shapes("sym", filter_rec, filter_out["engine"],
+                                 filter_out["signals"], single, errs)
     main_dir = phase_main_directed()
     single_dir = phase_fgft_directed(errs)
     kernels += phase_directed_shapes(main_dir, single_dir, errs)
+    bank_dir = main_dir["bank"]
+    kernels += phase_bank_shapes("general", bank_dir, bank_dir["engine"],
+                                 main_dir["out"]["signals"], single_dir, errs)
     check(len(kernels) == len(REPLACES),
           f"{len(kernels)} kernel rows for {len(REPLACES)} entry points")
     torch.cuda.synchronize()

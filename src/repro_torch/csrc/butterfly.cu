@@ -6,13 +6,19 @@
 //                         and butterfly_apply (_butterfly_kernel) as B = 1
 //   g_operator_kernel  <- batched_sym_operator_apply (_batched_fused_sym_kernel)
 //                         and sym_operator_apply (_fused_sym_kernel) as B = 1
+// and in src/repro/kernels/spectral.py:
+//   g_bank_kernel      <- batched_sym_filter_bank_apply
+//                         (_batched_bank_sym_kernel) and sym_filter_bank_apply
+//                         (_bank_sym_kernel) as B = 1
 //
 // Semantics (the plain PyTorch versions in src/repro_torch/kernels/ref.py):
 // a stage st holds P pairwise-disjoint pairs (i, j) with values (c, s, sigma);
 // per signal row it computes y_i = c x_i + s x_j, y_j = sigma (-s x_i + c x_j).
 // Pad entries carry the out-of-bounds index n and are exact no-ops, so they
 // are skipped.  The operator runs the adjoint leg, scales by the (n+1)-wide
-// dummy-padded spectrum, then runs the forward leg, in one launch.
+// dummy-padded spectrum, then runs the forward leg, in one launch.  The bank
+// runs the adjoint leg once, then for each of F filters scales a copy of the
+// coefficients by that filter's gains and runs the forward leg on it.
 //
 // Design.  One CTA owns one (matrix b, tile of `rows` signal rows).  The tile
 // sits in dynamic shared memory for the whole chain: x is read from device
@@ -30,6 +36,15 @@
 // several CTAs per SM (tiles small enough that the barrier stalls of one CTA
 // overlap another's work).  The anytime cut is a runtime (first stage, stage
 // count) per leg: no recompilation, and a count of 0 is a valid cut.
+//
+// The bank.  The function is F + 1 legs over one signal read and F output
+// writes (at B = 64, F = 7, R = n = 256 about 3.2 GFLOP against 0.14 GB:
+// operation-bound on paper), but the kernel runs (1 + F) * S stage barriers
+// per tile and stays bound by them, as the operator does.  It keeps the
+// analysis coefficients in a second shared tile, so x is read once and the
+// adjoint leg runs once per tile, not once per filter; the two tiles halve
+// the rows a CTA can hold (kernels/launcher.py::rows_per_tile).  F is a
+// runtime count: a new bank needs no rebuild.
 #include <cuda_runtime.h>
 
 #include "chain.cuh"
@@ -76,6 +91,14 @@ __global__ void g_operator_kernel(int R, int n, int ld, int rows_per_tile,
   operator_tile(R, n, ld, rows_per_tile, x, y, d, adj, fwd);
 }
 
+__global__ void g_bank_kernel(int R, int n, int ld, int rows_per_tile,
+                              const float* __restrict__ x,
+                              float* __restrict__ y,
+                              const float* __restrict__ gains, int F,
+                              GLeg adj, GLeg fwd) {
+  bank_tile(R, n, ld, rows_per_tile, x, y, gains, F, adj, fwd);
+}
+
 inline GLeg g_leg(const int* ii, const int* jj, const float* c, const float* s,
                   const float* sg, long long bstride, int P, int s0, int ns) {
   return GLeg{GPair{ii, jj, c, s, sg}, bstride, P, s0, ns};
@@ -107,8 +130,9 @@ int g_chain_launch(const float* x, float* y, int B, int R, int n,
                    const float* s, const float* sg, long long bstride, int P,
                    int s0, int ns, int rows_per_tile, int threads,
                    void* stream) {
-  return launch_tiled(g_chain_kernel, B, R, n, rows_per_tile, threads, stream,
-                      x, y, g_leg(ii, jj, c, s, sg, bstride, P, s0, ns));
+  return launch_tiled(g_chain_kernel, B, R, n, rows_per_tile, 1, threads,
+                      stream, x, y, g_leg(ii, jj, c, s, sg, bstride, P, s0,
+                                          ns));
 }
 
 // y[b] = Ubar_b diag(d[b]) Ubar_b^T x[b]: the adjoint leg runs stages
@@ -121,8 +145,24 @@ int g_operator_launch(const float* x, float* y, const float* d, int B, int R,
                       const float* fc, const float* fs, const float* fsg,
                       long long fbstride, int fP, int f0, int nf,
                       int rows_per_tile, int threads, void* stream) {
-  return launch_tiled(g_operator_kernel, B, R, n, rows_per_tile, threads,
+  return launch_tiled(g_operator_kernel, B, R, n, rows_per_tile, 1, threads,
                       stream, x, y, d,
+                      g_leg(aii, ajj, ac, as, asg, abstride, aP, a0, na),
+                      g_leg(fii, fjj, fc, fs, fsg, fbstride, fP, f0, nf));
+}
+
+// y[b, f] = Ubar_b diag(gains[b, f]) Ubar_b^T x[b] for f < F, legs as in
+// g_operator_launch; gains (B, F, n + 1) with 1.0 in the dummy column n,
+// y (B, F, R, n).  Two shared tiles of rows_per_tile rows each.
+int g_bank_launch(const float* x, float* y, const float* gains, int F, int B,
+                  int R, int n, const int* aii, const int* ajj,
+                  const float* ac, const float* as, const float* asg,
+                  long long abstride, int aP, int a0, int na, const int* fii,
+                  const int* fjj, const float* fc, const float* fs,
+                  const float* fsg, long long fbstride, int fP, int f0,
+                  int nf, int rows_per_tile, int threads, void* stream) {
+  return launch_tiled(g_bank_kernel, B, R, n, rows_per_tile, 2, threads,
+                      stream, x, y, gains, F,
                       g_leg(aii, ajj, ac, as, asg, abstride, aP, a0, na),
                       g_leg(fii, fjj, fc, fs, fsg, fbstride, fP, f0, nf));
 }

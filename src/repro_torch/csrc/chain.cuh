@@ -8,11 +8,13 @@
 // One CTA holds `rows` signal rows of width n at a row stride `ld` (n + 1
 // rounded up to an odd count, so rows fall on distinct banks), reads x from
 // device memory once and writes y once, also across both legs of an
-// operator.  A stage is a loop over (entry, row) work items, row fastest, so
-// a warp's 32 lanes read one table entry (a broadcast) and touch 32 rows at
-// an odd stride (no bank conflicts).  Within a stage the packer makes the
-// entries' touch sets disjoint, so every work item's reads and writes are
-// its own; one __syncthreads() orders consecutive stages.
+// operator.  A filter bank holds two such tiles (the analysis leg's
+// coefficients and a work tile) and writes one y per filter.  A stage is a
+// loop over (entry, row) work items, row fastest, so a warp's 32 lanes read
+// one table entry (a broadcast) and touch 32 rows at an odd stride (no bank
+// conflicts).  Within a stage the packer makes the entries' touch sets
+// disjoint, so every work item's reads and writes are its own; one
+// __syncthreads() orders consecutive stages.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -122,16 +124,50 @@ __device__ __forceinline__ void operator_tile(int R, int n, int ld,
   store_tile(y + t.off, tile, ld, t.rows, n);
 }
 
+// y[b, f] = second_b diag(gains[b, f]) first_b x[b] for every filter
+// f < F, for this CTA's tile; gains are (B, F, n + 1) with 1.0 in the dummy
+// column n, y is (B, F, R, n).  The first leg runs once: its coefficients
+// stay in the first shared tile while each filter scales a copy into the
+// second tile and runs the second leg there.  F is a runtime count.
+template <class Op>
+__device__ __forceinline__ void bank_tile(int R, int n, int ld,
+                                          int rows_per_tile, const float* x,
+                                          float* y, const float* gains, int F,
+                                          const Leg<Op>& first,
+                                          const Leg<Op>& second) {
+  extern __shared__ float tile[];
+  float* coeff = tile;
+  float* work = tile + (size_t)rows_per_tile * ld;
+  const TileSpan t = tile_span(R, n, rows_per_tile);
+  const int r0 = blockIdx.x * rows_per_tile;
+  load_tile(coeff, ld, x + t.off, t.rows, n);
+  run_leg(coeff, ld, t.rows, n, t.b, first);
+  for (int f = 0; f < F; ++f) {
+    const long long bf = (long long)t.b * F + f;
+    const float* g = gains + bf * (n + 1);
+    for (int e = threadIdx.x; e < t.rows * n; e += blockDim.x) {
+      const int r = e / n;
+      const int col = e - r * n;
+      work[r * ld + col] = coeff[r * ld + col] * g[col];
+    }
+    __syncthreads();
+    run_leg(work, ld, t.rows, n, t.b, second);
+    store_tile(y + (bf * R + r0) * n, work, ld, t.rows, n);
+    // filter f + 1 overwrites the work tile that filter f is storing
+    __syncthreads();
+  }
+}
+
 // Launch `kernel(R, n, ld, rows_per_tile, args...)` on a grid of (row
-// tiles, matrices) with the tile in dynamic shared memory.  Returns a
-// cudaError_t code (0: launched).
+// tiles, matrices) with `tiles` tiles of rows_per_tile rows in dynamic
+// shared memory.  Returns a cudaError_t code (0: launched).
 template <class... Params, class... Args>
 inline int launch_tiled(void (*kernel)(int, int, int, int, Params...), int B,
-                        int R, int n, int rows_per_tile, int threads,
-                        void* stream, Args... args) {
+                        int R, int n, int rows_per_tile, int tiles,
+                        int threads, void* stream, Args... args) {
   if (B == 0 || R == 0) return 0;
   const int ld = odd_stride(n);
-  const size_t smem = (size_t)rows_per_tile * ld * sizeof(float);
+  const size_t smem = (size_t)tiles * rows_per_tile * ld * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -8,6 +8,10 @@
 //   t_operator_kernel  <- batched_gen_operator_apply
 //                         (_batched_fused_gen_kernel) and gen_operator_apply
 //                         (_fused_gen_kernel) as B = 1
+// and in src/repro/kernels/spectral.py:
+//   t_bank_kernel      <- batched_gen_filter_bank_apply
+//                         (_batched_bank_gen_kernel) and gen_filter_bank_apply
+//                         (_bank_gen_kernel) as B = 1
 //
 // Semantics (the plain PyTorch versions in src/repro_torch/kernels/ref.py):
 // a stage st holds P entries (i, j, alpha, beta); per signal row it computes
@@ -18,7 +22,8 @@
 // __syncthreads() between stages orders the stages.  Pad entries carry the
 // out-of-bounds index n and are skipped.  The operator runs the inverse leg,
 // scales by the (n+1)-wide dummy-padded spectrum, then runs the forward leg,
-// in one launch.  Each entry is computed as round(round(alpha x_i) +
+// in one launch; the bank runs the inverse leg once and, per filter, scales
+// a copy of the coefficients and runs the forward leg.  Each entry is computed as round(round(alpha x_i) +
 // round(beta x_j)), without FMA contraction, so the kernel rounds exactly as
 // the plain version does: T is not orthogonal, and rounding differences
 // would otherwise grow with cond(Tbar) along the chain.
@@ -78,6 +83,14 @@ __global__ void t_operator_kernel(int R, int n, int ld, int rows_per_tile,
   operator_tile(R, n, ld, rows_per_tile, x, y, d, inv, fwd);
 }
 
+__global__ void t_bank_kernel(int R, int n, int ld, int rows_per_tile,
+                              const float* __restrict__ x,
+                              float* __restrict__ y,
+                              const float* __restrict__ gains, int F,
+                              TLeg inv, TLeg fwd) {
+  bank_tile(R, n, ld, rows_per_tile, x, y, gains, F, inv, fwd);
+}
+
 inline TLeg t_leg(const int* ii, const int* jj, const float* al,
                   const float* be, long long bstride, int P, int s0, int ns) {
   return TLeg{TEntry{ii, jj, al, be}, bstride, P, s0, ns};
@@ -93,8 +106,8 @@ int t_chain_launch(const float* x, float* y, int B, int R, int n,
                    const int* ii, const int* jj, const float* al,
                    const float* be, long long bstride, int P, int s0, int ns,
                    int rows_per_tile, int threads, void* stream) {
-  return launch_tiled(t_chain_kernel, B, R, n, rows_per_tile, threads, stream,
-                      x, y, t_leg(ii, jj, al, be, bstride, P, s0, ns));
+  return launch_tiled(t_chain_kernel, B, R, n, rows_per_tile, 1, threads,
+                      stream, x, y, t_leg(ii, jj, al, be, bstride, P, s0, ns));
 }
 
 // y[b] = Tbar_b diag(d[b]) Tbar_b^{-1} x[b]: the inverse leg runs stages
@@ -106,8 +119,24 @@ int t_operator_launch(const float* x, float* y, const float* d, int B, int R,
                       int ni, const int* fii, const int* fjj, const float* fal,
                       const float* fbe, long long fbstride, int fP, int f0,
                       int nf, int rows_per_tile, int threads, void* stream) {
-  return launch_tiled(t_operator_kernel, B, R, n, rows_per_tile, threads,
+  return launch_tiled(t_operator_kernel, B, R, n, rows_per_tile, 1, threads,
                       stream, x, y, d,
+                      t_leg(iii, ijj, ial, ibe, ibstride, iP, i0, ni),
+                      t_leg(fii, fjj, fal, fbe, fbstride, fP, f0, nf));
+}
+
+// y[b, f] = Tbar_b diag(gains[b, f]) Tbar_b^{-1} x[b] for f < F, legs as in
+// t_operator_launch; gains (B, F, n + 1) with 1.0 in the dummy column n,
+// y (B, F, R, n).  Two shared tiles of rows_per_tile rows each.
+int t_bank_launch(const float* x, float* y, const float* gains, int F, int B,
+                  int R, int n, const int* iii, const int* ijj,
+                  const float* ial, const float* ibe, long long ibstride,
+                  int iP, int i0, int ni, const int* fii, const int* fjj,
+                  const float* fal, const float* fbe, long long fbstride,
+                  int fP, int f0, int nf, int rows_per_tile, int threads,
+                  void* stream) {
+  return launch_tiled(t_bank_kernel, B, R, n, rows_per_tile, 2, threads,
+                      stream, x, y, gains, F,
                       t_leg(iii, ijj, ial, ibe, ibstride, iP, i0, ni),
                       t_leg(fii, fjj, fal, fbe, fbstride, fP, f0, nf));
 }

@@ -110,6 +110,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         op = getattr(lib, f"{family}_operator_launch")
         op.argtypes = [p, p, p, i, i, i] + leg + leg + tail
         op.restype = i
+        bank = getattr(lib, f"{family}_bank_launch")
+        bank.argtypes = [p, p, p, i, i, i, i] + leg + leg + tail
+        bank.restype = i
     lib.repro_max_smem_optin.argtypes = []
     lib.repro_max_smem_optin.restype = i
     lib.repro_cuda_error_string.argtypes = [i]

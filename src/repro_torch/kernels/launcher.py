@@ -1,13 +1,14 @@
 """Launching the hand-written CUDA staged-chain kernels (csrc/*.cu).
 
-One launcher serves every table family: ``chain`` and ``operator`` take
-an entry point's name, dispatch a CPU tensor to the plain PyTorch version
-they are given (kernels/ref.py), and otherwise check the arguments and
-launch the entry point's kernel on PyTorch's current stream, or raise (no
-nvcc, failed build, wrong dtype/shape/device): there is no fallback.
+One launcher serves every table family: ``chain``, ``operator`` and
+``bank`` take an entry point's name, dispatch a CPU tensor to the plain
+PyTorch version they are given (kernels/ref.py), and otherwise check the
+arguments and launch the entry point's kernel on PyTorch's current
+stream, or raise (no nvcc, failed build, wrong dtype/shape/device):
+there is no fallback.
 Signals and values are f32, indices int32; other dtypes raise.  The
 anytime cut is passed to the kernel as a runtime (first stage, count) per
-leg, each operator leg cut at its family's ``leg_orientation``.
+leg, each operator or bank leg cut at its family's ``leg_orientation``.
 
 Every launch adds one to its entry point's count, in ONE registry for all
 families: ``entry_launch_counts()`` per entry point, ``launch_counts()``
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.core.staging import StagedT, table_arrays
 from . import build
+from .ref import check_gains
 
 #: entry point -> the kernel it launches (its C launcher is
 #: ``<kernel without _kernel>_launch``)
@@ -31,7 +33,11 @@ KERNEL_OF = {"batched_butterfly_apply": "g_chain_kernel",
              "batched_shear_apply": "t_chain_kernel",
              "shear_apply": "t_chain_kernel",
              "batched_gen_operator_apply": "t_operator_kernel",
-             "gen_operator_apply": "t_operator_kernel"}
+             "gen_operator_apply": "t_operator_kernel",
+             "batched_sym_filter_bank_apply": "g_bank_kernel",
+             "sym_filter_bank_apply": "g_bank_kernel",
+             "batched_gen_filter_bank_apply": "t_bank_kernel",
+             "gen_filter_bank_apply": "t_bank_kernel"}
 KERNELS = tuple(dict.fromkeys(KERNEL_OF.values()))
 THREADS = 256
 _MAX_ROWS = 128
@@ -126,20 +132,21 @@ def _check_tables(staged, device: torch.device, batch: Optional[int],
     return shape[-2], shape[-1]
 
 
-def rows_per_tile(batch: int, rows: int, n: int,
-                  device: torch.device) -> int:
-    """Signal rows per CTA: at most 128, within the shared memory a block
-    may opt into, halved while the grid would not give every SM two
-    CTAs (barrier stalls of one CTA then overlap another's work)."""
+def rows_per_tile(batch: int, rows: int, n: int, device: torch.device,
+                  tiles: int = 1) -> int:
+    """Signal rows per CTA: at most 128, with ``tiles`` tiles of that many
+    rows within the shared memory a block may opt into (a bank holds
+    two), halved while the grid would not give every SM two CTAs
+    (barrier stalls of one CTA then overlap another's work)."""
     lib = build.library()
     ld = (n + 1) | 1
     smem = lib.repro_max_smem_optin()
     if smem <= 0:
         raise RuntimeError("cannot read the device's shared memory limit")
-    cap = smem // (ld * 4)
+    cap = smem // (tiles * ld * 4)
     if cap < 1:
-        raise ValueError(f"n={n} is too wide for one shared-memory row "
-                         f"({ld * 4} bytes > {smem})")
+        raise ValueError(f"n={n} is too wide for {tiles} shared-memory "
+                         f"row(s) ({tiles * ld * 4} bytes > {smem})")
     rpt = max(1, min(rows, _MAX_ROWS, cap))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     while rpt > 16 and batch * -(-rows // rpt) < 2 * sms:
@@ -163,6 +170,20 @@ def _padded_diag(diag: torch.Tensor, x3: torch.Tensor, batched: bool,
     return dp
 
 
+def _padded_gains(gains: torch.Tensor, x3: torch.Tensor, batched: bool,
+                  what: str) -> torch.Tensor:
+    """Validate the gains; return them (B, F, n+1) with 1.0 in the dummy
+    column n."""
+    bsz, _, n = x3.shape
+    f = check_gains(gains, x3 if batched else x3[0], batched, what)
+    if gains.device != x3.device or gains.dtype != torch.float32:
+        raise TypeError(f"{what}: gains must be float32 on the signal's "
+                        "device")
+    gp = torch.ones((bsz, f, n + 1), dtype=torch.float32, device=x3.device)
+    gp[..., :n] = gains
+    return gp
+
+
 def _leg(staged, x3: torch.Tensor, batched: bool, num_stages: Optional[int],
          keep: str, what: str) -> tuple:
     """A leg's C arguments: table pointers, matrix stride, P, first stage
@@ -175,22 +196,25 @@ def _leg(staged, x3: torch.Tensor, batched: bool, num_stages: Optional[int],
             *_leg_range(s_tot, num_stages, keep))
 
 
-def _launch(entry: str, x3: torch.Tensor, head: tuple,
-            legs: tuple) -> torch.Tensor:
+def _launch(entry: str, x3: torch.Tensor, head: tuple, legs: tuple,
+            filters: Optional[int] = None) -> torch.Tensor:
     """Launch ``entry``'s kernel on x3 (B, R, n): ``head`` holds the C
-    arguments before the signal's shape (the spectrum of an operator),
-    ``legs`` those of its legs."""
+    arguments before the signal's shape (the spectrum of an operator,
+    the gains and filter count of a bank), ``legs`` those of its legs.
+    A bank (``filters`` = F) writes (B, F, R, n) from two shared tiles."""
     bsz, r, n = x3.shape
     if bsz > 65535:
         raise ValueError(f"batch {bsz} exceeds the grid's 65535 matrices")
-    y = torch.empty_like(x3)
+    y = (torch.empty_like(x3) if filters is None
+         else x3.new_empty((bsz, filters, r, n)))
     if bsz == 0 or r == 0:
         return y
     kernel = KERNEL_OF[entry]
     lib = build.library()
     launch = getattr(lib, kernel.replace("_kernel", "_launch"))
+    tiles = 1 if filters is None else 2
     code = launch(x3.data_ptr(), y.data_ptr(), *head, bsz, r, n, *legs,
-                  rows_per_tile(bsz, r, n, x3.device), THREADS,
+                  rows_per_tile(bsz, r, n, x3.device, tiles), THREADS,
                   torch.cuda.current_stream(x3.device).cuda_stream)
     build.check(lib, code, f"{kernel} launch")
     _launches[entry] += 1
@@ -204,19 +228,37 @@ def _chain_launch(entry: str, staged, x3: torch.Tensor,
     return _launch(entry, x3, (), leg)
 
 
-def _operator_launch(entry: str, fwd, bwd, diag: torch.Tensor,
-                     x3: torch.Tensor,
-                     num_stages: Optional[int]) -> torch.Tensor:
+def _operator_legs(entry: str, fwd, bwd, x3: torch.Tensor,
+                   num_stages: Optional[int]) -> tuple:
     """bwd is the analysis leg (G adjoint, T inverse), fwd the synthesis
     leg, each cut at its family's orientation."""
     batched = entry.startswith("batched")
     kernel = KERNEL_OF[entry]
     a_keep, s_keep = leg_orientation(
         "general" if isinstance(fwd, StagedT) else "sym")
-    legs = (_leg(bwd, x3, batched, num_stages, a_keep, f"{kernel} bwd")
+    return (_leg(bwd, x3, batched, num_stages, a_keep, f"{kernel} bwd")
             + _leg(fwd, x3, batched, num_stages, s_keep, f"{kernel} fwd"))
-    dp = _padded_diag(diag, x3, batched, kernel)
+
+
+def _operator_launch(entry: str, fwd, bwd, diag: torch.Tensor,
+                     x3: torch.Tensor,
+                     num_stages: Optional[int]) -> torch.Tensor:
+    legs = _operator_legs(entry, fwd, bwd, x3, num_stages)
+    dp = _padded_diag(diag, x3, entry.startswith("batched"),
+                      KERNEL_OF[entry])
     return _launch(entry, x3, (dp.data_ptr(),), legs)
+
+
+def _bank_launch(entry: str, fwd, bwd, gains: torch.Tensor,
+                 x3: torch.Tensor,
+                 num_stages: Optional[int]) -> torch.Tensor:
+    """(B, F, R, n): the analysis leg once, then scale and synthesis per
+    filter, both legs cut as the operator's."""
+    legs = _operator_legs(entry, fwd, bwd, x3, num_stages)
+    gp = _padded_gains(gains, x3, entry.startswith("batched"),
+                       KERNEL_OF[entry])
+    return _launch(entry, x3, (gp.data_ptr(), gp.shape[1]), legs,
+                   filters=gp.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -236,16 +278,33 @@ def chain(entry: str, plain: Callable, staged, x: torch.Tensor,
     return _chain_launch(entry, staged, x.unsqueeze(0), num_stages, keep)[0]
 
 
-def operator(entry: str, plain: Callable, fwd, bwd, diag: torch.Tensor,
-             x: torch.Tensor, num_stages: Optional[int]) -> torch.Tensor:
-    """An operator entry point: ``plain`` on a CPU tensor, else the
-    fused kernel; x is (B, R, n) for a batched entry, (R, n) for a
-    B = 1 one."""
+def _two_legs(launch: Callable, entry: str, plain: Callable, fwd, bwd,
+              d: torch.Tensor, x: torch.Tensor,
+              num_stages: Optional[int]) -> torch.Tensor:
+    """An operator or bank entry point: ``plain`` on a CPU tensor, else
+    ``launch``; x is (B, R, n) for a batched entry, (R, n) for a B = 1
+    one (launched as B = 1, the batch axis dropped again)."""
     if x.device.type == "cpu":
-        return plain(fwd, bwd, diag, x, num_stages)
+        return plain(fwd, bwd, d, x, num_stages)
     if entry.startswith("batched"):
         _check_signal(x, 3, entry)
-        return _operator_launch(entry, fwd, bwd, diag, x, num_stages)
+        return launch(entry, fwd, bwd, d, x, num_stages)
     _check_signal(x, 2, entry)
-    return _operator_launch(entry, fwd, bwd, diag, x.unsqueeze(0),
-                            num_stages)[0]
+    return launch(entry, fwd, bwd, d, x.unsqueeze(0), num_stages)[0]
+
+
+def operator(entry: str, plain: Callable, fwd, bwd, diag: torch.Tensor,
+             x: torch.Tensor, num_stages: Optional[int]) -> torch.Tensor:
+    """An operator entry point: the fused operator kernel, diag (B, n)
+    or (n,)."""
+    return _two_legs(_operator_launch, entry, plain, fwd, bwd, diag, x,
+                     num_stages)
+
+
+def bank(entry: str, plain: Callable, fwd, bwd, gains: torch.Tensor,
+         x: torch.Tensor, num_stages: Optional[int]) -> torch.Tensor:
+    """A filter-bank entry point: the bank kernel, gains (B, F, n) ->
+    (B, F, R, n) for a batched entry, (F, n) -> (F, R, n) for a B = 1
+    one."""
+    return _two_legs(_bank_launch, entry, plain, fwd, bwd, gains, x,
+                     num_stages)

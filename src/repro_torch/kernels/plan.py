@@ -2,8 +2,8 @@
 
 An ``ApplyPlan`` names a computation over staged tables — family
 ("sym": G-transforms, "general": T-transforms), mode (plain transform
-apply or fused ``Ubar diag(d) Ubar^T`` / ``Tbar diag(d) Tbar^{-1}``
-operator),
+apply, fused ``Ubar diag(d) Ubar^T`` / ``Tbar diag(d) Tbar^{-1}``
+operator, or a filter bank of F such operators sharing one analysis),
 batching, anytime ladder cut, device and backend — and ``program()``
 returns the ONE cached callable that runs it.  Programs take the staged
 tables as arguments, so a basis swap with the same shapes reuses the
@@ -13,18 +13,21 @@ Program signatures (``tables`` = ``core/staging.py::table_arrays``):
 
   * mode "apply":     ``program(tables, x)``
   * mode "operator":  ``program(fwd_tables, bwd_tables, diag, x)``
+  * mode "bank":      ``program(fwd_tables, bwd_tables, gains, x)`` with
+    gains (F, n) -> (F, ..., n), or batched (B, F, n) -> (B, F, ..., n)
 
 Backends: ``"cuda"`` runs the hand-written kernels of
-kernels/butterfly.py and kernels/shear.py (on a CPU tensor their
-wrappers use the plain version); ``"torch"`` runs the plain PyTorch
-versions of kernels/ref.py on any device.  A plan defaults to
+kernels/butterfly.py, kernels/shear.py and kernels/spectral.py (on a CPU
+tensor their wrappers use the plain version); ``"torch"`` runs the plain
+PyTorch versions of kernels/ref.py on any device.  A plan defaults to
 ``"cuda"`` on a CUDA device and to ``"torch"`` on the CPU; ``"torch"``
 on a CUDA device exists so that the kernels can be compared with their
 plain versions on the card.
 
 ``fused=False`` compiles the operator to the three-pass baseline
 (analysis apply, diagonal scale, synthesis apply as separate calls), the
-parity oracle of the fused path.
+parity oracle of the fused path; a bank then runs F such three-pass
+operators, re-running the analysis per filter.
 """
 from __future__ import annotations
 
@@ -39,9 +42,10 @@ from . import butterfly as _bf
 from .launcher import leg_orientation
 from . import ref as _ref
 from . import shear as _sh
+from . import spectral as _sp
 
 PLAN_FAMILIES = ("sym", "general")
-PLAN_MODES = ("apply", "operator")
+PLAN_MODES = ("apply", "operator", "bank")
 PLAN_BACKENDS = ("cuda", "torch")
 PLAN_PRECISIONS = ("f32",)
 
@@ -55,7 +59,8 @@ def _not_ported(what: str, slice_name: str) -> ValueError:
 class ApplyPlan:
     """One declarative execution plan (hashable: it IS the cache key).
 
-    ``family``: "sym" | "general".  ``mode``: "apply" | "operator".
+    ``family``: "sym" | "general".  ``mode``: "apply" | "operator" |
+    "bank".
     ``n``: table width.  ``num_stages``: anytime ladder cut ("apply"
     also takes ``keep``; operator legs use ``leg_orientation``).
     ``device``: where the tables and signals live.  ``backend``: None
@@ -76,8 +81,6 @@ class ApplyPlan:
     block_b: Optional[int] = None
 
     def __post_init__(self):
-        if self.mode == "bank":
-            raise _not_ported("mode='bank'", "filter-bank")
         if self.precision == "bf16":
             raise _not_ported("precision='bf16'", "precision")
         if self.placement is not None:
@@ -139,6 +142,11 @@ class ApplyPlan:
                  x: torch.Tensor) -> torch.Tensor:
         return self.program()(self.prepare(fwd), self.prepare(bwd), diag, x)
 
+    def bank(self, fwd, bwd, gains: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+        return self.program()(self.prepare(fwd), self.prepare(bwd), gains,
+                              x)
+
     # -- dispatch ----------------------------------------------------------
 
     def _staged(self, tables: tuple):
@@ -164,18 +172,26 @@ class ApplyPlan:
         if self.backend == "torch":
             return lambda ft, bt, d, x: fn(self._staged(ft),
                                             self._staged(bt), d, x, cut)
+        # the kernel's (B, [F,] M, n) / ([F,] M, n) back to x's row axes;
+        # d is the spectrum of an operator, the gains of a bank
         if self.batched:
-            return lambda ft, bt, d, x: fn(
-                self._staged(ft), self._staged(bt), d,
-                x.reshape(x.shape[0], -1, n).contiguous(),
-                cut).reshape(x.shape)
-        return lambda ft, bt, d, x: fn(
-            self._staged(ft), self._staged(bt), d,
-            x.reshape(-1, n).contiguous(), cut).reshape(x.shape)
+            def batched(ft, bt, d, x):
+                y = fn(self._staged(ft), self._staged(bt), d,
+                       x.reshape(x.shape[0], -1, n).contiguous(), cut)
+                return y.reshape(y.shape[:-2] + x.shape[1:])
+            return batched
+
+        def single(ft, bt, d, x):
+            y = fn(self._staged(ft), self._staged(bt), d,
+                   x.reshape(-1, n).contiguous(), cut)
+            return y.reshape(y.shape[:-2] + x.shape)
+        return single
 
     def _three_pass(self):
         """The UNFUSED operator: analysis, diagonal scale and synthesis
-        as separate calls through cached "apply" plans."""
+        as separate calls through cached "apply" plans; the unfused bank
+        runs one such operator per filter (F analyses) and stacks them
+        on the filter axis."""
         a_keep, s_keep = leg_orientation(self.family)
         analysis = replace(self, mode="apply", keep=a_keep,
                            fused=True).program()
@@ -189,7 +205,14 @@ class ApplyPlan:
                 d = d.reshape(d.shape[:1] + (1,) * (xh.dim() - 2)
                               + d.shape[-1:])
             return synthesis(fwd_t, xh * d.to(xh.dtype))
-        return three_pass
+        if self.mode == "operator":
+            return three_pass
+
+        def three_pass_bank(fwd_t, bwd_t, gains, x):
+            axis = 1 if batched else 0
+            return torch.stack([three_pass(fwd_t, bwd_t, g, x)
+                                for g in gains.unbind(axis)], dim=axis)
+        return three_pass_bank
 
 
 #: (family, mode, backend, batched) -> the entry point a plan dispatches to
@@ -210,13 +233,21 @@ _ENTRY = {
     ("general", "operator", "torch", False): _ref.gen_operator_apply,
     ("general", "operator", "cuda", True): _sh.batched_gen_operator_apply,
     ("general", "operator", "cuda", False): _sh.gen_operator_apply,
+    ("sym", "bank", "torch", True): _ref.batched_sym_filter_bank_apply,
+    ("sym", "bank", "torch", False): _ref.sym_filter_bank_apply,
+    ("sym", "bank", "cuda", True): _sp.batched_sym_filter_bank_apply,
+    ("sym", "bank", "cuda", False): _sp.sym_filter_bank_apply,
+    ("general", "bank", "torch", True): _ref.batched_gen_filter_bank_apply,
+    ("general", "bank", "torch", False): _ref.gen_filter_bank_apply,
+    ("general", "bank", "cuda", True): _sp.batched_gen_filter_bank_apply,
+    ("general", "bank", "cuda", False): _sp.gen_filter_bank_apply,
 }
 
 
 @functools.lru_cache(maxsize=None)
 def _compile(plan: ApplyPlan):
     """THE plan cache: every tier/refit/core program lives here."""
-    if plan.mode == "operator" and not plan.fused:
+    if plan.mode != "apply" and not plan.fused:
         return plan._three_pass()
     return plan._dispatch()
 

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the staged G- and T-chain kernels.
+"""Plain PyTorch versions of the staged G- and T-chain kernels and of
+the filter banks built on them.
 
 These are the semantics of record inside the port: chip_smoke.py and
 tests/test_torch_cuda.py hold each CUDA kernel to them on the card, and
@@ -19,6 +20,7 @@ anytime cut applied to the tables before the walk); plain applies also
 take ``keep`` ("head"/"tail"), while the operators know their own
 orientation (core/staging.py): the G operator cuts the adjoint head and
 the forward tail, the T operator the inverse tail and the forward head.
+The banks cut both legs as their family's operator does.
 """
 from __future__ import annotations
 
@@ -180,3 +182,91 @@ def gen_operator_apply(fwd: StagedT, inv: StagedT, diag: torch.Tensor,
     dp[:n] = diag
     xp = _walk_t(_single_tables(fwd), xp * dp)
     return xp[..., :n].reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# filter banks: F filters share ONE analysis walk
+# ---------------------------------------------------------------------------
+
+def check_gains(gains: torch.Tensor, x: torch.Tensor, batched: bool,
+                what: str) -> int:
+    """Validate a bank's gains against the signal x ((B, ..., n) batched,
+    (..., n) else): (B, F, n) or (F, n) with F >= 1.  Returns F."""
+    n = x.shape[-1]
+    want = "(B, F, n)" if batched else "(F, n)"
+    if gains.dim() != (3 if batched else 2) or gains.shape[-1] != n or (
+            batched and gains.shape[0] != x.shape[0]):
+        raise ValueError(f"{what}: gains shape {tuple(gains.shape)} is not "
+                         f"{want} for a signal of shape {tuple(x.shape)}")
+    if gains.shape[-2] < 1:
+        raise ValueError(f"{what}: a bank needs at least one filter, got "
+                         f"gains of shape {tuple(gains.shape)}")
+    return gains.shape[-2]
+
+
+def _bank(walk, first, second, gains: torch.Tensor, x: torch.Tensor,
+          bsz: int) -> torch.Tensor:
+    """second diag(gains_f) first x for every filter f, with the filters
+    folded into the row axis: the analysis output (B, M, n+1) is scaled
+    into (B, F*M, n+1) by a plain multiply and synthesized in one walk.
+    ``first``/``second`` are (B, S, P) table tuples, ``gains`` reshapes
+    to (B, F, n).  Returns (B, F, M, n)."""
+    n = x.shape[-1]
+    xp = walk(first, _pad_dummy(x, bsz, n))
+    m = xp.shape[1]
+    f = gains.shape[-2]
+    gp = torch.ones((bsz, f, 1, n + 1), dtype=xp.dtype, device=xp.device)
+    gp[..., 0, :n] = gains.reshape(bsz, f, n)
+    yp = walk(second, (xp.unsqueeze(1) * gp).reshape(bsz, f * m, n + 1))
+    return yp[..., :n].reshape(bsz, f, m, n)
+
+
+def sym_filter_bank_apply(fwd: StagedG, adj: StagedG, gains: torch.Tensor,
+                          x: torch.Tensor,
+                          num_stages: Optional[int] = None) -> torch.Tensor:
+    """y[f] = Ubar diag(gains_f) Ubar^T x: gains (F, n), x (..., n) ->
+    (F, ..., n); the analysis runs once for all F filters."""
+    check_gains(gains, x, False, "sym_filter_bank_apply")
+    adj = truncate_staged(adj, num_stages, "head")
+    fwd = truncate_staged(fwd, num_stages, "tail")
+    y = _bank(_walk, _single_tables(adj), _single_tables(fwd), gains, x, 1)
+    return y.reshape(gains.shape[:1] + x.shape)
+
+
+def gen_filter_bank_apply(fwd: StagedT, inv: StagedT, gains: torch.Tensor,
+                          x: torch.Tensor,
+                          num_stages: Optional[int] = None) -> torch.Tensor:
+    """y[f] = Tbar diag(gains_f) Tbar^{-1} x: the directed bank."""
+    check_gains(gains, x, False, "gen_filter_bank_apply")
+    inv = truncate_staged(inv, num_stages, "tail")
+    fwd = truncate_staged(fwd, num_stages, "head")
+    y = _bank(_walk_t, _single_tables(inv), _single_tables(fwd), gains, x,
+              1)
+    return y.reshape(gains.shape[:1] + x.shape)
+
+
+def batched_sym_filter_bank_apply(fwd: StagedG, adj: StagedG,
+                                  gains: torch.Tensor, x: torch.Tensor,
+                                  num_stages: Optional[int] = None
+                                  ) -> torch.Tensor:
+    """Per-matrix banks: tables (B, S, P), gains (B, F, n), x (B, ..., n)
+    -> (B, F, ..., n)."""
+    check_gains(gains, x, True, "batched_sym_filter_bank_apply")
+    adj = truncate_staged(adj, num_stages, "head")
+    fwd = truncate_staged(fwd, num_stages, "tail")
+    y = _bank(_walk, table_arrays(adj), table_arrays(fwd), gains, x,
+              x.shape[0])
+    return y.reshape(gains.shape[:2] + x.shape[1:])
+
+
+def batched_gen_filter_bank_apply(fwd: StagedT, inv: StagedT,
+                                  gains: torch.Tensor, x: torch.Tensor,
+                                  num_stages: Optional[int] = None
+                                  ) -> torch.Tensor:
+    """Directed per-matrix banks: gains (B, F, n), x (B, ..., n)."""
+    check_gains(gains, x, True, "batched_gen_filter_bank_apply")
+    inv = truncate_staged(inv, num_stages, "tail")
+    fwd = truncate_staged(fwd, num_stages, "head")
+    y = _bank(_walk_t, table_arrays(inv), table_arrays(fwd), gains, x,
+              x.shape[0])
+    return y.reshape(gains.shape[:2] + x.shape[1:])

@@ -9,11 +9,16 @@ CUDA kernel — ``Ubar diag(d) Ubar^T`` for undirected graphs,
 the staged tables and bind one cached operator plan over the cut each;
 an undirected tier refits its spectrum by Lemma 1 on its prefix basis
 (through the batched apply kernel), a directed tier serves the full
-fit's spectrum (Lemma 1 holds only for an orthogonal basis).
+fit's spectrum (Lemma 1 holds only for an orthogonal basis).  With
+``--filter`` the engine serves a spectral filter BANK instead: every
+``step_bank`` is ONE launch of the bank CUDA kernel, which runs the
+analysis leg once and scale + synthesis for each of the F filters.
 
     python -m repro_torch.launch.serve --fgft --graphs 64 --graph-n 256 \\
         --tiers full:1.0,balanced:0.5,draft:0.25 --filter-steps 20 \\
         [--directed]
+    python -m repro_torch.launch.serve --filter heat,tikhonov,wavelets:4 \\
+        --graphs 64 --graph-n 256 [--directed]
 
 Only the uniform, static subset of the JAX package's service is ported;
 its other flags exit with an error naming the later slice.
@@ -39,7 +44,6 @@ _LATER_FLAGS = {
     "--ragged": "the ragged/masked fit", "--graph-sizes":
     "the ragged/masked fit",
     "--precision": "the precision (bf16)",
-    "--filter": "the filter-bank",
     "--dynamic": "the dynamic maintenance",
     "--update-rounds": "the dynamic maintenance",
     "--churn": "the dynamic maintenance",
@@ -64,6 +68,9 @@ class _LiveVersion:
     tiers: Dict[str, dict]
     fns: Dict[str, Any]
     version: int
+    bank: Any = None           # SpectralFilterBank over the basis, or None
+    bank_gains: Any = None     # its (B, F, n) / (F, n) gains
+    bank_fn: Any = None        # the bank plan's program
 
 
 def parse_tiers(spec: str) -> Dict[str, float]:
@@ -87,6 +94,16 @@ def parse_tiers(spec: str) -> Dict[str, float]:
     return tiers
 
 
+def _resolve(device) -> torch.device:
+    """``device`` with its index: "cuda" names the current card, so that
+    a basis fitted on "cuda" (its tensors on "cuda:0") matches an engine
+    built for "cuda"."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -105,17 +122,20 @@ class FGFTServeEngine:
     tier serves the full fit's spectrum).  ``kind``: "auto", "sym" or
     "general", as in ``ApproxEigenbasis.fit``.  ``backend``:
     None (the device's default: the CUDA kernels on a card), "cuda" or
-    "torch"."""
+    "torch".  ``filters``: a bank spec for ``named_responses`` (e.g.
+    "heat,tikhonov,wavelets:4"), served by ``step_bank``."""
 
     def __init__(self, laps, num_transforms: int = 0, n_iter: int = 3,
                  backend: Optional[str] = None, kind: str = "auto",
                  tiers: Optional[Dict[str, float]] = None, basis=None,
-                 fused: bool = True, device="cuda"):
+                 fused: bool = True, filters: Optional[str] = None,
+                 device="cuda"):
         from repro_torch.core import ApproxEigenbasis
-        self.device = torch.device(device)
+        self.device = _resolve(device)
         self.backend = backend
         self._tier_spec = dict(tiers or {"full": 1.0})
         self._fused = bool(fused)
+        self._filters = filters
         laps = torch.as_tensor(laps, dtype=torch.float32).to(self.device)
         if basis is None:
             if num_transforms <= 0:
@@ -132,8 +152,9 @@ class FGFTServeEngine:
         self._install(basis, laps)
 
     def _install(self, basis, laps):
-        """Build a COMPLETE serving version (per-tier refit spectra and
-        plan bindings) and swap it in with a single attribute store."""
+        """Build a COMPLETE serving version (per-tier refit spectra, plan
+        bindings and the filter bank's gains from the live spectrum) and
+        swap it in with a single attribute store."""
         from repro_torch.core.staging import table_arrays
         from repro_torch.dynamic.refit import prefix_spectrum
         from repro_torch.kernels.plan import ApplyPlan
@@ -155,11 +176,22 @@ class FGFTServeEngine:
                 batched=basis.batched, backend=self.backend,
                 num_stages=cut, fused=self._fused,
                 device=str(self.device)).program()
+        bank = bank_gains = bank_fn = None
+        if self._filters:
+            from repro_torch.spectral import (SpectralFilterBank,
+                                              named_responses)
+            bank = SpectralFilterBank(basis, named_responses(self._filters))
+            bank_gains = bank.gains().contiguous()
+            bank_fn = ApplyPlan(
+                family=basis.kind, mode="bank", n=basis.n,
+                batched=basis.batched, backend=self.backend,
+                fused=self._fused, device=str(self.device)).program()
         version = 0 if self._live is None else self._live.version + 1
         self._live = _LiveVersion(
             basis=basis, fwd=table_arrays(basis.fwd),
             bwd=table_arrays(basis.bwd), tiers=tiers, fns=fns,
-            version=version)
+            version=version, bank=bank, bank_gains=bank_gains,
+            bank_fn=bank_fn)
         # default tier = highest quality in the map, whatever its name
         self.default_tier = max(
             tiers, key=lambda k: tiers[k]["num_transforms"])
@@ -178,6 +210,11 @@ class FGFTServeEngine:
     def tiers(self) -> Dict[str, dict]:
         """Tier geometry + served spectra of the live version."""
         return self._live.tiers
+
+    @property
+    def bank(self):
+        """The live version's SpectralFilterBank (None without filters)."""
+        return self._live.bank
 
     def warmup(self, signals: torch.Tensor) -> torch.Tensor:
         """Run every tier once (builds the kernels on first use); warmup
@@ -212,11 +249,26 @@ class FGFTServeEngine:
         live = self._live
         return self._step_on(live, signals, h, tier), live.version
 
+    def step_bank(self, signals) -> torch.Tensor:
+        """All F bank responses on every graph at the full fit: (B, R, n)
+        -> (B, F, R, n), one bank dispatch (on the card one launch)."""
+        return self.step_bank_versioned(signals)[0]
+
+    def step_bank_versioned(self, signals) -> tuple:
+        """``step_bank`` plus the serving version that produced the
+        answer, both read from one ``_live`` snapshot."""
+        live = self._live
+        if live.bank is None:
+            raise ValueError("engine was built without filters (--filter)")
+        x = torch.as_tensor(signals, dtype=torch.float32).to(self.device)
+        return (live.bank_fn(live.fwd, live.bwd, live.bank_gains, x),
+                live.version)
+
 
 def serve_fgft(args) -> dict:
     """Build B community-graph Laplacians (their directed variants with
     ``--directed``), fit them in one batched run, serve filter steps at
-    every configured quality tier."""
+    every configured quality tier, or the filter bank of ``--filter``."""
     from repro_torch.core.fgft import laplacian
     from repro_torch.graphs import community_graph, directed_variant
 
@@ -233,7 +285,7 @@ def serve_fgft(args) -> dict:
     t0 = time.perf_counter()
     engine = FGFTServeEngine(laps, g, backend=args.backend, kind=kind,
                              tiers=args.tier_map, fused=args.fused,
-                             device=device)
+                             filters=args.filter, device=device)
     _sync(device)
     fit_s = time.perf_counter() - t0
     denom = (laps * laps).sum((1, 2))
@@ -247,6 +299,10 @@ def serve_fgft(args) -> dict:
     print(f"[fgft] fitted {b} graphs (n={n}, g={g}, "
           f"kind={engine.basis.kind}) in one batched run on {device}: "
           f"{fit_s:.1f}s, mean rel error {rel.mean():.4f}")
+    if args.filter:
+        return _serve_bank(args, engine, x, backend, {
+            "rel_error": rel, "kind": engine.basis.kind, "fit_s": fit_s,
+            "engine": engine, "laps": laps, "signals": x})
     lowpass = lambda lam: 1.0 / (1.0 + lam)  # noqa: E731
     tier_stats = {}
     for name, tier in engine.tiers.items():
@@ -277,16 +333,41 @@ def serve_fgft(args) -> dict:
             "laps": laps, "signals": x}
 
 
+def _serve_bank(args, engine, x, backend: str, out: dict) -> dict:
+    """Warm up once, then time ``--filter-steps`` bank steps."""
+    b, f = x.shape[0], len(engine.bank)
+    engine.step_bank(x)                      # warmup: not counted
+    _sync(engine.device)
+    t0 = time.perf_counter()
+    for _ in range(args.filter_steps):
+        engine.step_bank(x)
+    _sync(engine.device)
+    dt = max(time.perf_counter() - t0, 1e-9)
+    served = args.filter_steps * b * f
+    print(f"[fgft] served {served} filter responses ({f} filters x {b} "
+          f"graphs x {args.filter_steps} steps, {args.signals} signals "
+          f"each) in {dt:.2f}s — {served / dt:.1f} responses/s through the "
+          f"fused bank path [{backend}]")
+    return {**out, "responses_per_s": served / dt,
+            "filters": engine.bank.names}
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
         description="Batched FGFT service of the PyTorch/CUDA port.",
-        # no prefix matching: a later slice's --filter must not be read
-        # as --filter-steps
+        # no prefix matching: a later slice's flag must not be read as a
+        # prefix of a ported one
         allow_abbrev=False)
     ap.add_argument("--fgft", action="store_true",
                     help="serve batched graph Fourier transforms (the only "
                          "mode this port serves so far)")
+    ap.add_argument("--filter", default=None,
+                    help="serve a spectral filter BANK through the fused "
+                         "bank kernel (implies --fgft); comma-separated "
+                         "responses, e.g. 'heat:3.0,tikhonov,wavelets:4' "
+                         "(repro_torch/spectral/filters.py::"
+                         "named_responses)")
     ap.add_argument("--graphs", type=int, default=8,
                     help="number of graphs served per step (B)")
     ap.add_argument("--graph-n", type=int, default=64)
@@ -320,6 +401,14 @@ def parse_args(argv=None):
                      f"{_LATER_FLAGS[flag]} slice of repro_torch")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.filter is not None:
+        from repro_torch.spectral import named_responses
+        args.fgft = True
+        try:
+            if not named_responses(args.filter):
+                raise ValueError("empty filter bank")
+        except ValueError as e:
+            ap.error(str(e))
     if not args.fgft:
         ap.error("--fgft is required: the LM engine comes with the LM "
                  "scaffold slice of repro_torch")

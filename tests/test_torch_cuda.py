@@ -8,7 +8,9 @@ machine that has only torch:
 Tolerance: ``1e-4 * max(1, max|y|)`` — the G kernels and their plain
 versions round their FMA contractions differently across about 2S
 stages.  The T kernels round each entry as their plain versions do (no
-FMA contraction) and are held to bitwise equality."""
+FMA contraction) and are held to bitwise equality; so are the T bank
+kernel and each of its filters against the T operator kernel with that
+filter's gains (the same leg walks and multiply)."""
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from repro_torch.core.types import GFactors, TFactors
 from repro_torch.kernels import butterfly as bf
 from repro_torch.kernels import launcher
 from repro_torch.kernels import shear as sh
+from repro_torch.kernels import spectral as ksp
 from repro_torch.kernels import ref
 from repro_torch.kernels.plan import ApplyPlan
 
@@ -90,12 +93,16 @@ def test_cuda_plans_launch_the_kernels(cuda):
     assert launcher.launch_counts() == {"g_chain_kernel": 1,
                                         "g_operator_kernel": 1,
                                         "t_chain_kernel": 0,
-                                        "t_operator_kernel": 0}
+                                        "t_operator_kernel": 0,
+                                        "g_bank_kernel": 0,
+                                        "t_bank_kernel": 0}
     assert launcher.entry_launch_counts() == {
         "batched_butterfly_apply": 1, "butterfly_apply": 0,
         "batched_sym_operator_apply": 1, "sym_operator_apply": 0,
         "batched_shear_apply": 0, "shear_apply": 0,
-        "batched_gen_operator_apply": 0, "gen_operator_apply": 0}
+        "batched_gen_operator_apply": 0, "gen_operator_apply": 0,
+        "batched_sym_filter_bank_apply": 0, "sym_filter_bank_apply": 0,
+        "batched_gen_filter_bank_apply": 0, "gen_filter_bank_apply": 0}
 
 
 def test_cuda_wrapper_validation(cuda):
@@ -168,12 +175,16 @@ def test_cuda_general_plans_launch_the_t_kernels(cuda):
     assert launcher.launch_counts() == {"g_chain_kernel": 0,
                                         "g_operator_kernel": 0,
                                         "t_chain_kernel": 1,
-                                        "t_operator_kernel": 1}
+                                        "t_operator_kernel": 1,
+                                        "g_bank_kernel": 0,
+                                        "t_bank_kernel": 0}
     assert launcher.entry_launch_counts() == {
         "batched_butterfly_apply": 0, "butterfly_apply": 0,
         "batched_sym_operator_apply": 0, "sym_operator_apply": 0,
         "batched_shear_apply": 1, "shear_apply": 0,
-        "batched_gen_operator_apply": 1, "gen_operator_apply": 0}
+        "batched_gen_operator_apply": 1, "gen_operator_apply": 0,
+        "batched_sym_filter_bank_apply": 0, "sym_filter_bank_apply": 0,
+        "batched_gen_filter_bank_apply": 0, "gen_filter_bank_apply": 0}
 
 
 def test_t_wrapper_validation(cuda):
@@ -188,3 +199,136 @@ def test_t_wrapper_validation(cuda):
     cpu_fwd = tst.StagedT(*(t.cpu() for t in fwd[:4]), fwd.cuts, fwd.n)
     with pytest.raises(ValueError, match="on cpu"):
         sh.batched_shear_apply(cpu_fwd, x)
+
+
+# ---------------------------------------------------------------------------
+# filter banks: g_bank_kernel and t_bank_kernel
+# ---------------------------------------------------------------------------
+
+def _gains(shape, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=device) * 2.0
+
+
+@pytest.mark.parametrize("family", ["sym", "general"])
+@pytest.mark.parametrize("n,batch,g", [(16, 3, 64), (48, 2, 200),
+                                       (256, 2, 4096)])
+@pytest.mark.parametrize("filters", [1, 7])
+def test_bank_kernels_match_plain_versions_at_every_cut(cuda, family, n,
+                                                        batch, g, filters):
+    """Both bank kernels, batched and B = 1, at every cut: R = 130 (a
+    ragged last tile), F in {1, 7}, and n = 256, where the two shared
+    tiles halve the rows per CTA.  G within the tolerance, T bitwise."""
+    if family == "sym":
+        fwd, bwd, sfwd, sbwd, _ = _tables(n, batch, g, cuda)
+        bank, bank1 = ksp.batched_sym_filter_bank_apply, ksp.sym_filter_bank_apply
+        plain = ref.batched_sym_filter_bank_apply
+        plain1 = ref.sym_filter_bank_apply
+        check = _close
+    else:
+        fwd, bwd, sfwd, sbwd, _ = _t_tables(n, batch, g, cuda)
+        bank, bank1 = ksp.batched_gen_filter_bank_apply, ksp.gen_filter_bank_apply
+        plain = ref.batched_gen_filter_bank_apply
+        plain1 = ref.gen_filter_bank_apply
+        check = _equal
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((batch, 130, n), generator=gen, device=cuda)
+    gains = _gains((batch, filters, n), cuda, n)
+    for k in sorted({0, *fwd.cuts[:, 0].tolist()}):
+        y = bank(fwd, bwd, gains, x, k)
+        assert y.shape == (batch, filters, 130, n)
+        check(y, plain(fwd, bwd, gains, x, k))
+    x1 = x[0].contiguous()
+    for k in sorted({0, *sfwd.cuts[:, 0].tolist()}):
+        y = bank1(sfwd, sbwd, gains[0], x1, k)
+        assert y.shape == (filters, 130, n)
+        check(y, plain1(sfwd, sbwd, gains[0], x1, k))
+    torch.cuda.synchronize()
+
+
+def _equal(got, want):
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("family", ["sym", "general"])
+def test_bank_filters_equal_the_operator_kernel(cuda, family):
+    """Each filter slice of the bank kernel equals the operator kernel
+    with that filter's gains, at every cut, batched and B = 1: T
+    bitwise, G within the tolerance (the two kernels are compiled apart,
+    and nvcc may contract a pair's products into FMAs differently)."""
+    if family == "sym":
+        fwd, bwd, sfwd, sbwd, _ = _tables(256, 2, 4096, cuda)
+        bank, bank1 = ksp.batched_sym_filter_bank_apply, ksp.sym_filter_bank_apply
+        op, op1 = bf.batched_sym_operator_apply, bf.sym_operator_apply
+        check = _close
+    else:
+        fwd, bwd, sfwd, sbwd, _ = _t_tables(256, 2, 4096, cuda)
+        bank, bank1 = ksp.batched_gen_filter_bank_apply, ksp.gen_filter_bank_apply
+        op, op1 = sh.batched_gen_operator_apply, sh.gen_operator_apply
+        check = _equal
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((2, 130, 256), generator=gen, device=cuda)
+    gains = _gains((2, 7, 256), cuda, 3)
+    for k in sorted({0, *fwd.cuts[:, 0].tolist()}):
+        y = bank(fwd, bwd, gains, x, k)
+        for f in range(7):
+            check(y[:, f], op(fwd, bwd, gains[:, f].contiguous(), x, k))
+    x1 = x[0].contiguous()
+    for k in sorted({0, *sfwd.cuts[:, 0].tolist()}):
+        y = bank1(sfwd, sbwd, gains[0], x1, k)
+        for f in range(7):
+            check(y[f], op1(sfwd, sbwd, gains[0, f].contiguous(), x1, k))
+    torch.cuda.synchronize()
+
+
+def test_cuda_bank_plans_launch_the_bank_kernels(cuda):
+    fwd, adj, _, _, _ = _tables(32, 2, 160, cuda)
+    tfwd, tinv, _, _, _ = _t_tables(32, 2, 160, cuda)
+    x = torch.randn((2, 5, 7, 32), device=cuda)
+    gains = _gains((2, 3, 32), cuda, 4)
+    launcher.reset_launch_counts()
+    for f, b in ((fwd, adj), (tfwd, tinv)):
+        plan = ApplyPlan.for_staged(f, "bank")
+        assert plan.backend == "cuda"
+        y = plan.bank(f, b, gains, x)
+        assert y.shape == (2, 3, 5, 7, 32)
+        y_plain = ApplyPlan.for_staged(f, "bank", backend="torch").bank(
+            f, b, gains, x)
+        _close(y, y_plain)
+    counts = launcher.launch_counts()
+    assert counts["g_bank_kernel"] == 1 and counts["t_bank_kernel"] == 1
+    assert sum(counts.values()) == 2
+
+
+def test_bank_wrapper_validation(cuda):
+    fwd, adj, _, _, _ = _tables(16, 2, 64, cuda)
+    x = torch.randn((2, 4, 16), device=cuda)
+    gains = _gains((2, 3, 16), cuda, 5)
+    with pytest.raises(ValueError, match="gains shape"):
+        ksp.batched_sym_filter_bank_apply(fwd, adj, gains[:, :, :8], x)
+    with pytest.raises(ValueError, match="at least one filter"):
+        ksp.batched_sym_filter_bank_apply(fwd, adj, gains[:, :0], x)
+    with pytest.raises(TypeError, match="float32"):
+        ksp.batched_sym_filter_bank_apply(fwd, adj, gains.double(), x)
+    with pytest.raises(TypeError, match="float32"):
+        ksp.batched_sym_filter_bank_apply(fwd, adj, gains.cpu(), x)
+
+
+def test_engine_serves_a_basis_fitted_on_the_card(cuda):
+    """An engine built for "cuda" takes a prefit basis whose tensors lie
+    on "cuda:0" and serves its bank through the bank kernel."""
+    from repro_torch.core import ApproxEigenbasis, laplacian
+    from repro_torch.graphs import community_graph
+    from repro_torch.launch.serve import FGFTServeEngine
+    laps = np.stack([laplacian(community_graph(16, seed=s))
+                     for s in range(2)])
+    basis = ApproxEigenbasis.fit(laps, 64, n_iter=1, device="cuda")
+    assert basis.device == torch.device("cuda:0")
+    eng = FGFTServeEngine(laps, basis=basis, filters="heat,tikhonov",
+                          device="cuda")
+    x = torch.randn((2, 5, 16), device=cuda)
+    launcher.reset_launch_counts()
+    y = eng.step_bank(x)
+    assert y.shape == (2, 2, 5, 16)
+    assert launcher.entry_launch_counts()["batched_sym_filter_bank_apply"] == 1
+    _close(y[:, 1], eng.step(x, eng.bank.filters[1].response))

@@ -20,7 +20,6 @@ from repro.graphs import community_graph as jcommunity
 from repro_torch.core import ApproxEigenbasis, gtransform as tgt
 from repro_torch.core import build_fgft, laplacian, relative_error
 from repro_torch.core.types import GFactors
-from repro_torch.kernels.plan import ApplyPlan
 from repro_torch.graphs import community_graph
 
 
@@ -168,7 +167,5 @@ def test_fit_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ragged"):
         ApproxEigenbasis.fit([np.triu(lap[0]), np.triu(lap[1])[:12, :12]],
                              8, kind="general", device="cpu")
-    with pytest.raises(ValueError, match="filter-bank"):
-        ApplyPlan(family="general", mode="bank", n=16, device="cpu")
     with pytest.raises(ValueError, match="spectrum shape"):
         ApproxEigenbasis.fit(lap, 8, spectrum=np.zeros(16), device="cpu")

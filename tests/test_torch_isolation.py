@@ -74,8 +74,8 @@ def test_cuda_plan_resolves_to_cuda_backend():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(family="general", mode="bank"), "filter-bank"),
-    (dict(mode="bank"), "filter-bank"),
+    (dict(mode="bank", precision="bf16"), "precision"),
+    (dict(family="general", mode="bank", block_b=64), "autotune"),
     (dict(precision="bf16"), "precision"),
     (dict(placement=object()), "placement"),
     (dict(block_b=64), "autotune"),
@@ -85,6 +85,31 @@ def test_plan_rejects_unported_options(kwargs, match):
     base = dict(family="sym", mode="apply", n=16, device="cpu")
     with pytest.raises(ValueError, match=match):
         ApplyPlan(**{**base, **kwargs})
+
+
+@pytest.mark.parametrize("batched,gains_shape,match", [
+    (True, (1, 3, 5), "gains shape"),      # wrong width
+    (True, (2, 3, 4), "gains shape"),      # wrong batch
+    (True, (1, 0, 4), "at least one filter"),
+    (False, (0, 4), "at least one filter"),
+    (False, (1, 3, 4), "gains shape"),     # batched gains, B = 1 entry
+])
+def test_bank_rejects_bad_gains(batched, gains_shape, match):
+    """The bank's own rejections, on the CPU path (the plain version)
+    as on the kernel path (launcher._padded_gains)."""
+    fwd, adj = _tables("cpu")
+    x = torch.zeros((1, 3, 4) if batched else (3, 4))
+    if not batched:
+        fwd, adj = (tst.StagedG(*(t[0] for t in s[:5]), s.cuts, s.n)
+                    for s in (fwd, adj))
+    plan = ApplyPlan.for_staged(fwd, "bank")
+    assert plan.batched == batched
+    with pytest.raises(ValueError, match=match):
+        plan.bank(fwd, adj, torch.ones(gains_shape), x)
+    with pytest.raises(ValueError, match=match):
+        launcher._padded_gains(torch.ones(gains_shape, device="meta"),
+                               x.to("meta").reshape((-1,) + x.shape[-2:]),
+                               batched, "bank")
 
 
 def test_plan_cache_reuses_programs():

@@ -125,6 +125,16 @@ def test_engine_fits_and_warms_up():
         FGFTServeEngine(laps, 0, device="cpu")
 
 
+def test_engine_resolves_the_current_card(monkeypatch):
+    """A basis fitted on "cuda" has its tensors on "cuda:0": the engine
+    resolves "cuda" to the current card before it compares the two (it
+    compared torch.device("cuda") with "cuda:0" and refused)."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert serve._resolve("cuda") == torch.device("cuda:0")
+    assert serve._resolve(torch.device("cuda", 1)) == torch.device("cuda:1")
+    assert serve._resolve("cpu") == torch.device("cpu")
+
+
 def test_cli_serves_on_cpu(capsys):
     out = serve.main(["--fgft", "--graphs", "2", "--graph-n", "16",
                       "--signals", "4", "--filter-steps", "2",
@@ -140,7 +150,7 @@ def test_cli_serves_on_cpu(capsys):
     (["--fgft", "--ragged"], "ragged"),
     (["--fgft", "--precision", "bf16"], "precision"),
     (["--fgft", "--serve-async"], "async"),
-    (["--fgft", "--directed", "--filter", "heat"], "filter-bank"),
+    (["--fgft", "--filter", "nosuch"], "unknown filter"),
     (["--graphs", "2"], "--fgft is required"),
     (["--fgft", "--tiers", "full:2"], "fraction"),
     (["--fgft", "--bogus"], "unrecognized"),
@@ -149,6 +159,73 @@ def test_cli_rejects_unported_flags(argv, match, capsys):
     with pytest.raises(SystemExit):
         serve.parse_args(argv + ["--device", "cpu"])
     assert match in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# filter banks: step_bank and serve --filter
+# ---------------------------------------------------------------------------
+
+BANK = "heat,tikhonov,wavelets:2"
+
+
+def test_step_bank_matches_jax_engine(carried):
+    laps, jb, tb, x = carried
+    jeng = JaxEngine(jnp.asarray(laps), basis=jb, backend="xla",
+                     tiers=TIERS, filters=BANK)
+    teng = FGFTServeEngine(laps, basis=tb, tiers=TIERS, filters=BANK,
+                           device="cpu")
+    assert teng.bank.names == jeng.bank.names
+    _close(teng._live.bank_gains, jeng._live.bank_gains)
+    y, version = teng.step_bank_versioned(x)
+    assert y.shape == (B, len(teng.bank), 9, N) and version == 0
+    _close(y, jeng.step_bank(jnp.asarray(x)))
+    # each filter is the full tier's operator with that filter's gains
+    for f, filt in enumerate(teng.bank.filters):
+        _close(y[:, f], teng.step(x, filt.response))
+    three = FGFTServeEngine(laps, basis=tb, filters=BANK, fused=False,
+                            device="cpu")
+    _close(three.step_bank(x), y)
+
+
+def test_step_bank_without_filters_raises(carried):
+    laps, _, tb, x = carried
+    eng = FGFTServeEngine(laps, basis=tb, device="cpu")
+    assert eng.bank is None
+    with pytest.raises(ValueError, match="without filters"):
+        eng.step_bank(x)
+    with pytest.raises(ValueError, match="without filters"):
+        eng.step_bank_versioned(x)
+
+
+@pytest.mark.parametrize("directed", [False, True])
+def test_cli_serves_filter_bank_on_cpu(directed, capsys):
+    argv = ["--filter", "heat,wavelets:2", "--graphs", "2", "--graph-n",
+            "16", "--signals", "4", "--filter-steps", "2", "--device", "cpu",
+            "--backend", "torch"]
+    if not directed:
+        argv = ["--fgft"] + argv
+    out = serve.main(argv + ["--directed"] * directed)
+    assert out["filters"] == ["heat", "scaling", "wavelet0", "wavelet1"]
+    assert out["kind"] == ("general" if directed else "sym")
+    assert out["responses_per_s"] > 0
+    eng = out["engine"]
+    y = eng.step_bank(out["signals"])
+    assert y.shape == (2, 4, 4, 16) and bool(torch.isfinite(y).all())
+    for f, filt in enumerate(eng.bank.filters):
+        _close(y[:, f], eng.step(out["signals"], filt.response))
+    assert "responses/s through the fused bank path [torch]" in (
+        capsys.readouterr().out)
+
+
+def test_general_step_bank_matches_jax_engine(carried_general):
+    laps, jb, tb, x = carried_general
+    jeng = JaxEngine(jnp.asarray(laps), basis=jb, backend="xla",
+                     filters=BANK)
+    teng = FGFTServeEngine(laps, basis=tb, filters=BANK, device="cpu")
+    y = teng.step_bank(x)
+    _close(y, jeng.step_bank(jnp.asarray(x)))
+    for f, filt in enumerate(teng.bank.filters):
+        assert torch.equal(y[:, f], teng.step(x, filt.response))
 
 
 # ---------------------------------------------------------------------------
