@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              at n in {16, 48} on tables of small port fits (symmetric and
              directed), R = 130 signal rows (a ragged tile edge), at every
              ladder cut including 0, the chains at both keeps, the banks at
-             F in {1, 7}.
+             F in {1, 7, 33} (33 filters split into several filter groups
+             per row tile where the grid needs them; the geometry of each
+             check is printed).
 3. main    — the port's main path at a realistic size, through the CLI entry
              point: ``python -m repro_torch.launch.serve --fgft`` with B = 64
              community graphs, n = 256, g = 2 n log2 n = 4096, R = 256,
@@ -64,7 +66,16 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              and ``gen_filter_bank_apply`` must have launched; relative
              error < 0.05.
 7. shapes  — each of the 12 entry points held against its plain version at
-             the paths' shapes (every cut), then timed.
+             the paths' shapes (every cut; the banks also at F = 33 and
+             R = 130, batched at B = 64 and on two matrices, and at B = 1,
+             so that both batched and B = 1 banks run with several filter
+             groups), then timed.  Each ``[time]`` line prints the launch's
+             geometry, the card's own count of resident CTAs per SM
+             (cudaOccupancyMaxActiveBlocksPerMultiprocessor; a bank launch
+             must keep at least three) and the kernel's device time per
+             launch from a torch.profiler trace beside the CUDA-event
+             time of the whole call.  The banks' stage-extent reduction
+             (launcher.stage_extents, both legs) is timed on its own.
 
 Tolerance of the kernel-vs-plain checks: for the G kernels max|dy| <= 1e-4 *
 max(1, max|y|), since they and their plain versions round their FMA
@@ -181,6 +192,30 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, reps: int = 10, traces: int = 3):
+    """Device time per launch of ``kernel`` over ``reps`` calls of fn, from
+    torch.profiler's CUDA trace (the kernel alone, without the host's
+    launch path).  A trace now and then holds none of the launches, so up
+    to ``traces`` are taken; None when none of them holds one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if kernel in e.key]
+        count = sum(e.count for e in events)
+        if count:
+            total = sum(getattr(e, "device_time_total", None)
+                        or getattr(e, "cuda_time_total", 0.0)
+                        for e in events)
+            return total / 1e3 / count
+    return None
 
 
 def real_entries(staged, num_stages, keep) -> dict:
@@ -333,10 +368,21 @@ def bank_gains(spectrum):
                         named_responses(MAIN["filters"]).values()])
 
 
-def check_bank_tables(tag, fwd, bwd, gains, x, errs) -> int:
+def bank_groups(entry, fwd, x, filters: int) -> int:
+    """Filter groups per row tile of a bank launch at these shapes."""
+    from repro_torch.kernels import launcher
+    bsz, rows, n = (1,) * (3 - x.dim()) + tuple(x.shape)
+    geo = launcher.launch_geometry(entry, bsz, rows, n, filters,
+                                   int(fwd.idx_i.shape[-1]))
+    return -(-filters // geo["filters_per_cta"])
+
+
+def check_bank_tables(tag, fwd, bwd, gains, x, errs,
+                      filter_counts=None) -> dict:
     """The bank kernel of the tables' family (batched if they are)
     against its plain version at every cut, with the first filter and
-    with all of ``gains``' filters; returns the number of comparisons."""
+    with all of ``gains``' filters (or the leading ``filter_counts``);
+    returns {F: filter groups of its launches}."""
     from repro_torch.core.staging import StagedT
     from repro_torch.kernels import ref
     from repro_torch.kernels import spectral as ksp
@@ -344,16 +390,18 @@ def check_bank_tables(tag, fwd, bwd, gains, x, errs) -> int:
              + ("gen" if isinstance(fwd, StagedT) else "sym")
              + "_filter_bank_apply")
     fn, plain = getattr(ksp, entry), getattr(ref, entry)
+    counts = sorted(filter_counts or {1, gains.shape[-2]})
     count = 0
     for k in cut_list(fwd):
-        for f in sorted({1, gains.shape[-2]}):
+        for f in counts:
             g = gains[..., :f, :].contiguous()
             compare(entry, fn(fwd, bwd, g, x, k), plain(fwd, bwd, g, x, k),
                     errs)
             count += 1
+    groups = {f: bank_groups(entry, fwd, x, f) for f in counts}
     log(f"[kernels] {tag}: {count} {entry} kernel-vs-plain checks at cuts "
-        f"{cut_list(fwd)}, F in {sorted({1, gains.shape[-2]})} passed")
-    return count
+        f"{cut_list(fwd)}, F in {counts} (filter groups {groups}) passed")
+    return groups
 
 
 def directed_laps(n: int, count: int):
@@ -378,26 +426,28 @@ def phase_kernels(errs) -> None:
         basis = ApproxEigenbasis.fit(laps, g, n_iter=1, device=dev)
         gen = torch.Generator(device=dev).manual_seed(n)
         x = torch.randn((4, 130, n), generator=gen, device=dev)
-        gains = torch.rand((4, 7, n), generator=gen, device=dev) * 2.0
+        gains = torch.rand((4, 33, n), generator=gen, device=dev) * 2.0
         x1, g1 = x[1].contiguous(), gains[1].contiguous()
         check_tables(f"n={n} B=4 R=130", basis.fwd, basis.bwd,
                      basis.spectrum, x, errs)
         check_bank_tables(f"n={n} B=4 R=130", basis.fwd, basis.bwd, gains,
-                          x, errs)
+                          x, errs, (1, 7, 33))
         sfwd, sadj = tables_for(basis, 1)
         check_tables(f"n={n} B=1 R=130", sfwd, sadj, basis.spectrum[1],
                      x1, errs)
-        check_bank_tables(f"n={n} B=1 R=130", sfwd, sadj, g1, x1, errs)
+        check_bank_tables(f"n={n} B=1 R=130", sfwd, sadj, g1, x1, errs,
+                          (1, 7, 33))
         tbasis = ApproxEigenbasis.fit(directed_laps(n, 4), g, n_iter=1,
                                       kind="general", device=dev)
         check_t_tables(f"n={n} B=4 R=130", tbasis.fwd, tbasis.bwd,
                        tbasis.spectrum, x, errs)
         check_bank_tables(f"n={n} B=4 R=130", tbasis.fwd, tbasis.bwd, gains,
-                          x, errs)
+                          x, errs, (1, 7, 33))
         sfwd, sinv = t_tables_for(tbasis, 1)
         check_t_tables(f"n={n} B=1 R=130", sfwd, sinv, tbasis.spectrum[1],
                        x1, errs)
-        check_bank_tables(f"n={n} B=1 R=130", sfwd, sinv, g1, x1, errs)
+        check_bank_tables(f"n={n} B=1 R=130", sfwd, sinv, g1, x1, errs,
+                          (1, 7, 33))
     torch.cuda.synchronize()
 
 
@@ -660,44 +710,59 @@ def timed_rows(cases, main, single, tables_b, tables_1, errs,
     batched path's launches, B = 1 entries the single-graph path's."""
     source = ("src/repro_torch/csrc/butterfly.cu" if family == "sym"
               else "src/repro_torch/csrc/shear.cu")
+    from repro_torch.kernels import launcher
     rows = []
     for kernel, entry, xin, legs, filters, fn, plain, lib in cases:
         ms = time_ms(fn)
+        dev_ms = device_ms(fn, kernel)
         plain_ms = time_ms(plain, reps=2, rounds=3)
         lib_ms = time_ms(lib)
         b_ms, b_by = bound_ms(xin, legs, filters)
         batched = entry.startswith("batched")
         path = main if batched else single
         tables = tables_b if batched else tables_1
+        bsz, nrows, n = (1,) * (3 - xin.dim()) + tuple(xin.shape)
+        geo = launcher.launch_geometry(entry, bsz, nrows, n, max(filters, 1),
+                                       int(tables.idx_i.shape[-1]))
         rows.append({
             "name": kernel if batched else f"{kernel}[B=1]",
             "entry": entry, "route": "cuda", "source": source,
             "replaces": REPLACES[entry],
             "launches": path["launches"][entry],
-            "max_abs_err": errs[entry], "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": errs[entry], "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "shape": list(xin.shape), "filters": filters,
             "stages": int(tables.idx_i.shape[-2]),
             "pairs_per_stage": int(tables.idx_i.shape[-1]),
-            "real_entries": legs})
+            "real_entries": legs, **geo})
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         log(f"[time] {entry} ({kernel}) at {list(xin.shape)}, F={filters}: "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms, "
+            f"{ms:.4f} ms (device {dev_txt}), plain {plain_ms:.3f} ms, "
+            f"library {lib_ms:.4f} ms, "
             f"bound "
             f"{b_ms:.5f} ms ({b_by}), real entries per leg {legs} of "
-            f"{tables.idx_i.numel()} table entries")
+            f"{tables.idx_i.numel()} table entries; {geo['ctas']} CTAs of "
+            f"{geo['rows_per_cta']} rows x {geo['filters_per_cta']} "
+            f"filters, {geo['resident_per_sm']} resident per SM")
     return rows
 
 
 def phase_bank_shapes(family: str, path: dict, engine, x, single,
                       errs) -> list:
     """The family's bank kernel against its plain version at the paths'
-    shapes (every cut, F in {1, 7}; the served R and a ragged R = 130),
-    then timed: batched on the served engine's tables and gains, B = 1
-    on the single-graph fit's.  The library yardstick is one
-    ``torch.matmul`` over dense per-filter operators built outside the
-    timing (from the kernel's own output on the identity)."""
+    shapes (every cut, F in {1, 7}; the served R and a ragged R = 130,
+    there also F = 33: the served gains and 26 random filters, batched
+    at B = 64 and on the first two matrices, and at B = 1, where 33
+    filters need several filter groups), then timed: batched on the
+    served engine's tables and gains, B = 1 on the single-graph fit's,
+    and the stage-extent reduction of both legs on its own.  The library
+    yardstick is one ``torch.matmul`` over dense per-filter operators
+    built outside the timing (from the kernel's own output on the
+    identity)."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.core.staging import table_arrays
+    from repro_torch.kernels import launcher, ref
     from repro_torch.kernels import spectral as ksp
     from repro_torch.kernels.launcher import leg_orientation
     basis, gains = engine.basis, engine._live.bank_gains
@@ -709,10 +774,34 @@ def phase_bank_shapes(family: str, path: dict, engine, x, single,
     sfwd, sbwd, x0, g0 = f.fwd, f.bwd, single["signals"], single["gains"]
     for tag, tf, tb, g, xin in (
             (f"B={bsz} R={rows}", fwd, bwd, gains, x),
-            (f"B={bsz} R=130", fwd, bwd, gains, ragged),
             (f"B=1 R={x0.shape[0]}", sfwd, sbwd, g0, x0)):
         check_bank_tables(f"{family} bank n={n} {tag}", tf, tb, g, xin, errs)
+    # 33 filters: the served ones and 26 random ones, at R = 130
+    wide = torch.cat([gains, torch.rand((bsz, 26, n), generator=gen,
+                                        device=DEVICE) * 2.0], dim=1)
+    wide1 = torch.cat([g0, wide[0, 7:]], dim=0)
+
+    def first_two(staged):
+        return type(staged)(*(t[:2].contiguous()
+                              for t in table_arrays(staged)),
+                            staged.cuts, staged.n)
+    for tag, tf, tb, g, xin, split in (
+            (f"B={bsz} R=130", fwd, bwd, wide, ragged, False),
+            ("B=2 R=130", first_two(fwd), first_two(bwd), wide[:2],
+             ragged[:2].contiguous(), True),
+            ("B=1 R=130", sfwd, sbwd, wide1, x0[:130].contiguous(), True)):
+        groups = check_bank_tables(f"{family} bank n={n} {tag}", tf, tb, g,
+                                   xin, errs, (1, 7, 33))
+        check(not split or groups[33] > 1,
+              f"{family} bank {tag}: F = 33 ran in one filter group")
     torch.cuda.synchronize()
+    ext_ms = time_ms(lambda: (launcher.stage_extents(bwd),
+                              launcher.stage_extents(fwd)))
+    ext_ms1 = time_ms(lambda: (launcher.stage_extents(sbwd),
+                               launcher.stage_extents(sfwd)))
+    log(f"[time] {family} bank stage extents of both legs: {ext_ms:.4f} ms "
+        f"at {list(fwd.idx_i.shape)} x 2, {ext_ms1:.4f} ms at "
+        f"{list(sfwd.idx_i.shape)} x 2")
 
     entry = ("sym" if family == "sym" else "gen") + "_filter_bank_apply"
     bank, bank1 = getattr(ksp, "batched_" + entry), getattr(ksp, entry)
@@ -738,7 +827,12 @@ def phase_bank_shapes(family: str, path: dict, engine, x, single,
          lambda: plain1(sfwd, sbwd, g0, x0),
          lambda: torch.matmul(x0.unsqueeze(0), ops1.transpose(-1, -2))),
     ]
-    return timed_rows(cases, path, single, fwd, sfwd, errs, family)
+    out = timed_rows(cases, path, single, fwd, sfwd, errs, family)
+    for row, ms in zip(out, (ext_ms, ext_ms1)):
+        row["extent_ms"] = ms
+        check(row["resident_per_sm"] >= 3,
+              f"{row['name']}: {row['resident_per_sm']} resident CTAs per SM")
+    return out
 
 
 def check_round_trip(tag, xr, x, t_dense, num_stages: int) -> float:

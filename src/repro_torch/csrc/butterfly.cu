@@ -17,8 +17,8 @@
 // Pad entries carry the out-of-bounds index n and are exact no-ops, so they
 // are skipped.  The operator runs the adjoint leg, scales by the (n+1)-wide
 // dummy-padded spectrum, then runs the forward leg, in one launch.  The bank
-// runs the adjoint leg once, then for each of F filters scales a copy of the
-// coefficients by that filter's gains and runs the forward leg on it.
+// runs the adjoint leg once, scales one copy of the coefficients per filter
+// by that filter's gains, and runs the forward leg on all copies at once.
 //
 // Design.  One CTA owns one (matrix b, tile of `rows` signal rows).  The tile
 // sits in dynamic shared memory for the whole chain: x is read from device
@@ -39,12 +39,19 @@
 //
 // The bank.  The function is F + 1 legs over one signal read and F output
 // writes (at B = 64, F = 7, R = n = 256 about 3.2 GFLOP against 0.14 GB:
-// operation-bound on paper), but the kernel runs (1 + F) * S stage barriers
-// per tile and stays bound by them, as the operator does.  It keeps the
-// analysis coefficients in a second shared tile, so x is read once and the
-// adjoint leg runs once per tile, not once per filter; the two tiles halve
-// the rows a CTA can hold (kernels/launcher.py::rows_per_tile).  F is a
-// runtime count: a new bank needs no rebuild.
+// operation-bound on paper), and the kernel is bound by stage barriers,
+// table-entry latency and shared-memory traffic.  Its body (chain.cuh,
+// walk_leg and bank_tile) answers each: the filters are folded into the
+// synthesis rows (a CTA's F_g copies of its r analysed rows form one tile,
+// walked once: 2 S barriers, not (1 + F) S); each stage is walked only up to
+// its real extent (~9 of the 63 slots at the batched shapes); the stage's
+// entries come from a shared ring that cp.async fills three stages ahead,
+// entry-major (i, j, c, s, sigma at a 32-byte stride: one 16-byte and one
+// 4-byte broadcast read per work item); and the geometry
+// (kernels/launcher.py::bank_geometry) keeps three CTAs resident per SM
+// while giving every SM two CTAs where the work allows, splitting the
+// filters over CTAs (and re-running the analysis per group) only then.
+// F is a runtime count: a new bank needs no rebuild.
 #include <cuda_runtime.h>
 
 #include "chain.cuh"
@@ -73,9 +80,39 @@ struct GPair {
       row[j] = ge * (-se * xi + ce * xj);
     }
   }
+
+  // The bank's ring form (chain.cuh): an entry is the words
+  // (i, j, c, s, sigma) at a 32-byte stride.
+  static constexpr int kFields = 5;
+  static constexpr int kWords = 8;
+
+  __device__ __forceinline__ const float* field(int k) const {
+    switch (k) {
+      case 0: return reinterpret_cast<const float*>(ii);
+      case 1: return reinterpret_cast<const float*>(jj);
+      case 2: return c;
+      case 3: return s;
+      default: return sg;
+    }
+  }
+
+  static __device__ __forceinline__ void apply(float* row, const float* e,
+                                               int n) {
+    const int4 w = *reinterpret_cast<const int4*>(e);
+    if (w.x < n && w.y < n) {
+      const float ce = __int_as_float(w.z);
+      const float se = __int_as_float(w.w);
+      const float ge = e[4];
+      const float xi = row[w.x];
+      const float xj = row[w.y];
+      row[w.x] = ce * xi + se * xj;
+      row[w.y] = ge * (-se * xi + ce * xj);
+    }
+  }
 };
 
 using GLeg = Leg<GPair>;
+using GBankLeg = BankLeg<GPair>;
 
 __global__ void g_chain_kernel(int R, int n, int ld, int rows_per_tile,
                                const float* __restrict__ x,
@@ -91,17 +128,26 @@ __global__ void g_operator_kernel(int R, int n, int ld, int rows_per_tile,
   operator_tile(R, n, ld, rows_per_tile, x, y, d, adj, fwd);
 }
 
-__global__ void g_bank_kernel(int R, int n, int ld, int rows_per_tile,
-                              const float* __restrict__ x,
+__global__ void g_bank_kernel(int R, int n, int ld, int rows_per_cta,
+                              int filters_per_cta, int row_tiles,
+                              int slot_words, const float* __restrict__ x,
                               float* __restrict__ y,
                               const float* __restrict__ gains, int F,
-                              GLeg adj, GLeg fwd) {
-  bank_tile(R, n, ld, rows_per_tile, x, y, gains, F, adj, fwd);
+                              GBankLeg adj, GBankLeg fwd) {
+  bank_tile(R, n, ld, rows_per_cta, filters_per_cta, row_tiles, slot_words,
+            x, y, gains, F, adj, fwd);
 }
 
 inline GLeg g_leg(const int* ii, const int* jj, const float* c, const float* s,
                   const float* sg, long long bstride, int P, int s0, int ns) {
   return GLeg{GPair{ii, jj, c, s, sg}, bstride, P, s0, ns};
+}
+
+inline GBankLeg g_bank_leg(const int* ii, const int* jj, const float* c,
+                           const float* s, const float* sg, const int* ext,
+                           long long bstride, int P, int s0, int ns) {
+  return GBankLeg{GPair{ii, jj, c, s, sg}, ext, bstride,
+                  P ? bstride / P : 0, P, s0, ns};
 }
 
 }  // namespace
@@ -119,6 +165,18 @@ int repro_max_smem_optin(void) {
   return v;
 }
 
+// Shared memory of one SM on the current device (its resident blocks share
+// it, each with a reserve of its own).
+int repro_smem_per_sm(void) {
+  int dev = 0;
+  int v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                             dev) != cudaSuccess)
+    return -1;
+  return v;
+}
+
 const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -130,7 +188,7 @@ int g_chain_launch(const float* x, float* y, int B, int R, int n,
                    const float* s, const float* sg, long long bstride, int P,
                    int s0, int ns, int rows_per_tile, int threads,
                    void* stream) {
-  return launch_tiled(g_chain_kernel, B, R, n, rows_per_tile, 1, threads,
+  return launch_tiled(g_chain_kernel, B, R, n, rows_per_tile, threads,
                       stream, x, y, g_leg(ii, jj, c, s, sg, bstride, P, s0,
                                           ns));
 }
@@ -145,26 +203,46 @@ int g_operator_launch(const float* x, float* y, const float* d, int B, int R,
                       const float* fc, const float* fs, const float* fsg,
                       long long fbstride, int fP, int f0, int nf,
                       int rows_per_tile, int threads, void* stream) {
-  return launch_tiled(g_operator_kernel, B, R, n, rows_per_tile, 1, threads,
+  return launch_tiled(g_operator_kernel, B, R, n, rows_per_tile, threads,
                       stream, x, y, d,
                       g_leg(aii, ajj, ac, as, asg, abstride, aP, a0, na),
                       g_leg(fii, fjj, fc, fs, fsg, fbstride, fP, f0, nf));
 }
 
 // y[b, f] = Ubar_b diag(gains[b, f]) Ubar_b^T x[b] for f < F, legs as in
-// g_operator_launch; gains (B, F, n + 1) with 1.0 in the dummy column n,
-// y (B, F, R, n).  Two shared tiles of rows_per_tile rows each.
+// g_operator_launch plus each leg's (B, S) stage extents; gains (B, F, n + 1)
+// with 1.0 in the dummy column n, y (B, F, R, n).
 int g_bank_launch(const float* x, float* y, const float* gains, int F, int B,
                   int R, int n, const int* aii, const int* ajj,
                   const float* ac, const float* as, const float* asg,
-                  long long abstride, int aP, int a0, int na, const int* fii,
-                  const int* fjj, const float* fc, const float* fs,
-                  const float* fsg, long long fbstride, int fP, int f0,
-                  int nf, int rows_per_tile, int threads, void* stream) {
-  return launch_tiled(g_bank_kernel, B, R, n, rows_per_tile, 2, threads,
-                      stream, x, y, gains, F,
-                      g_leg(aii, ajj, ac, as, asg, abstride, aP, a0, na),
-                      g_leg(fii, fjj, fc, fs, fsg, fbstride, fP, f0, nf));
+                  const int* aext, long long abstride, int aP, int a0, int na,
+                  const int* fii, const int* fjj, const float* fc,
+                  const float* fs, const float* fsg, const int* fext,
+                  long long fbstride, int fP, int f0, int nf,
+                  int rows_per_cta, int filters_per_cta, int threads,
+                  void* stream) {
+  return launch_bank(g_bank_kernel, B, R, n, F, rows_per_cta,
+                     filters_per_cta, threads, stream, x, y, gains,
+                     g_bank_leg(aii, ajj, ac, as, asg, aext, abstride, aP, a0,
+                                na),
+                     g_bank_leg(fii, fjj, fc, fs, fsg, fext, fbstride, fP, f0,
+                                nf));
+}
+
+// Resident CTAs per SM of a G kernel (0 chain, 1 operator, 2 bank) with a
+// tile of `rows` rows of width n (a bank: all its filters' rows) and, for
+// the bank, a ring of P-slot stages; negative: a cudaError_t code.
+int g_occupancy(int kind, int rows, int n, int P, int threads) {
+  const int ld = odd_stride(n);
+  const size_t tile = (size_t)rows * ld * sizeof(float);
+  switch (kind) {
+    case 0: return resident_ctas((const void*)g_chain_kernel, tile, threads);
+    case 1:
+      return resident_ctas((const void*)g_operator_kernel, tile, threads);
+    default:
+      return resident_ctas((const void*)g_bank_kernel,
+                           bank_smem(rows, ld, P * GPair::kWords), threads);
+  }
 }
 
 }  // extern "C"

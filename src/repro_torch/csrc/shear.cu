@@ -22,11 +22,12 @@
 // __syncthreads() between stages orders the stages.  Pad entries carry the
 // out-of-bounds index n and are skipped.  The operator runs the inverse leg,
 // scales by the (n+1)-wide dummy-padded spectrum, then runs the forward leg,
-// in one launch; the bank runs the inverse leg once and, per filter, scales
-// a copy of the coefficients and runs the forward leg.  Each entry is computed as round(round(alpha x_i) +
-// round(beta x_j)), without FMA contraction, so the kernel rounds exactly as
-// the plain version does: T is not orthogonal, and rounding differences
-// would otherwise grow with cond(Tbar) along the chain.
+// in one launch; the bank runs the inverse leg once, scales one copy of the
+// coefficients per filter, and runs the forward leg on all copies at once.
+// Each entry is computed as round(round(alpha x_i) + round(beta x_j)),
+// without FMA contraction, so the kernel rounds exactly as the plain version
+// does: T is not orthogonal, and rounding differences would otherwise grow
+// with cond(Tbar) along the chain.
 //
 // Design.  The G-chain kernels' body (chain.cuh), with the stage action
 // TEntry: one CTA owns one (matrix b, tile of `rows` signal rows); the tile
@@ -43,6 +44,15 @@
 // barrier stalls of one CTA overlap another's work.  The anytime cut is a
 // runtime (first stage, stage count) per leg: no recompilation, and a count
 // of 0 is a valid cut.
+//
+// The bank has the G bank's body (chain.cuh, walk_leg and bank_tile; see
+// butterfly.cu): filters folded into the synthesis rows (2 S barriers per
+// CTA), each stage walked only up to its real extent (~14 of the 72 slots at
+// the batched shapes), entries from a shared ring filled by cp.async three
+// stages ahead ((i, j, alpha, beta) at a 16-byte stride: one broadcast read
+// per work item), and kernels/launcher.py::bank_geometry's rows and filters
+// per CTA.  The copy of the coefficients for filter f is one f32 multiply,
+// as in the plain version, so the bank stays bitwise equal to it.
 #include <cuda_runtime.h>
 
 #include "chain.cuh"
@@ -65,9 +75,33 @@ struct TEntry {
                          __fmul_rn(__ldg(be + e), row[j]));
     }
   }
+
+  // The bank's ring form (chain.cuh): an entry is the words
+  // (i, j, alpha, beta) at a 16-byte stride.
+  static constexpr int kFields = 4;
+  static constexpr int kWords = 4;
+
+  __device__ __forceinline__ const float* field(int k) const {
+    switch (k) {
+      case 0: return reinterpret_cast<const float*>(ii);
+      case 1: return reinterpret_cast<const float*>(jj);
+      case 2: return al;
+      default: return be;
+    }
+  }
+
+  static __device__ __forceinline__ void apply(float* row, const float* e,
+                                               int n) {
+    const int4 w = *reinterpret_cast<const int4*>(e);
+    if (w.x < n && w.y < n) {
+      row[w.x] = __fadd_rn(__fmul_rn(__int_as_float(w.z), row[w.x]),
+                           __fmul_rn(__int_as_float(w.w), row[w.y]));
+    }
+  }
 };
 
 using TLeg = Leg<TEntry>;
+using TBankLeg = BankLeg<TEntry>;
 
 __global__ void t_chain_kernel(int R, int n, int ld, int rows_per_tile,
                                const float* __restrict__ x,
@@ -83,17 +117,26 @@ __global__ void t_operator_kernel(int R, int n, int ld, int rows_per_tile,
   operator_tile(R, n, ld, rows_per_tile, x, y, d, inv, fwd);
 }
 
-__global__ void t_bank_kernel(int R, int n, int ld, int rows_per_tile,
-                              const float* __restrict__ x,
+__global__ void t_bank_kernel(int R, int n, int ld, int rows_per_cta,
+                              int filters_per_cta, int row_tiles,
+                              int slot_words, const float* __restrict__ x,
                               float* __restrict__ y,
                               const float* __restrict__ gains, int F,
-                              TLeg inv, TLeg fwd) {
-  bank_tile(R, n, ld, rows_per_tile, x, y, gains, F, inv, fwd);
+                              TBankLeg inv, TBankLeg fwd) {
+  bank_tile(R, n, ld, rows_per_cta, filters_per_cta, row_tiles, slot_words,
+            x, y, gains, F, inv, fwd);
 }
 
 inline TLeg t_leg(const int* ii, const int* jj, const float* al,
                   const float* be, long long bstride, int P, int s0, int ns) {
   return TLeg{TEntry{ii, jj, al, be}, bstride, P, s0, ns};
+}
+
+inline TBankLeg t_bank_leg(const int* ii, const int* jj, const float* al,
+                           const float* be, const int* ext, long long bstride,
+                           int P, int s0, int ns) {
+  return TBankLeg{TEntry{ii, jj, al, be}, ext, bstride, P ? bstride / P : 0,
+                  P, s0, ns};
 }
 
 }  // namespace
@@ -106,7 +149,7 @@ int t_chain_launch(const float* x, float* y, int B, int R, int n,
                    const int* ii, const int* jj, const float* al,
                    const float* be, long long bstride, int P, int s0, int ns,
                    int rows_per_tile, int threads, void* stream) {
-  return launch_tiled(t_chain_kernel, B, R, n, rows_per_tile, 1, threads,
+  return launch_tiled(t_chain_kernel, B, R, n, rows_per_tile, threads,
                       stream, x, y, t_leg(ii, jj, al, be, bstride, P, s0, ns));
 }
 
@@ -119,26 +162,43 @@ int t_operator_launch(const float* x, float* y, const float* d, int B, int R,
                       int ni, const int* fii, const int* fjj, const float* fal,
                       const float* fbe, long long fbstride, int fP, int f0,
                       int nf, int rows_per_tile, int threads, void* stream) {
-  return launch_tiled(t_operator_kernel, B, R, n, rows_per_tile, 1, threads,
+  return launch_tiled(t_operator_kernel, B, R, n, rows_per_tile, threads,
                       stream, x, y, d,
                       t_leg(iii, ijj, ial, ibe, ibstride, iP, i0, ni),
                       t_leg(fii, fjj, fal, fbe, fbstride, fP, f0, nf));
 }
 
 // y[b, f] = Tbar_b diag(gains[b, f]) Tbar_b^{-1} x[b] for f < F, legs as in
-// t_operator_launch; gains (B, F, n + 1) with 1.0 in the dummy column n,
-// y (B, F, R, n).  Two shared tiles of rows_per_tile rows each.
+// t_operator_launch plus each leg's (B, S) stage extents; gains
+// (B, F, n + 1) with 1.0 in the dummy column n, y (B, F, R, n).
 int t_bank_launch(const float* x, float* y, const float* gains, int F, int B,
                   int R, int n, const int* iii, const int* ijj,
-                  const float* ial, const float* ibe, long long ibstride,
-                  int iP, int i0, int ni, const int* fii, const int* fjj,
-                  const float* fal, const float* fbe, long long fbstride,
-                  int fP, int f0, int nf, int rows_per_tile, int threads,
+                  const float* ial, const float* ibe, const int* iext,
+                  long long ibstride, int iP, int i0, int ni, const int* fii,
+                  const int* fjj, const float* fal, const float* fbe,
+                  const int* fext, long long fbstride, int fP, int f0,
+                  int nf, int rows_per_cta, int filters_per_cta, int threads,
                   void* stream) {
-  return launch_tiled(t_bank_kernel, B, R, n, rows_per_tile, 2, threads,
-                      stream, x, y, gains, F,
-                      t_leg(iii, ijj, ial, ibe, ibstride, iP, i0, ni),
-                      t_leg(fii, fjj, fal, fbe, fbstride, fP, f0, nf));
+  return launch_bank(t_bank_kernel, B, R, n, F, rows_per_cta,
+                     filters_per_cta, threads, stream, x, y, gains,
+                     t_bank_leg(iii, ijj, ial, ibe, iext, ibstride, iP, i0,
+                                ni),
+                     t_bank_leg(fii, fjj, fal, fbe, fext, fbstride, fP, f0,
+                                nf));
+}
+
+// Resident CTAs per SM of a T kernel, as g_occupancy.
+int t_occupancy(int kind, int rows, int n, int P, int threads) {
+  const int ld = odd_stride(n);
+  const size_t tile = (size_t)rows * ld * sizeof(float);
+  switch (kind) {
+    case 0: return resident_ctas((const void*)t_chain_kernel, tile, threads);
+    case 1:
+      return resident_ctas((const void*)t_operator_kernel, tile, threads);
+    default:
+      return resident_ctas((const void*)t_bank_kernel,
+                           bank_smem(rows, ld, P * TEntry::kWords), threads);
+  }
 }
 
 }  // extern "C"

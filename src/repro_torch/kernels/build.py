@@ -110,11 +110,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         op = getattr(lib, f"{family}_operator_launch")
         op.argtypes = [p, p, p, i, i, i] + leg + leg + tail
         op.restype = i
+        # a bank leg adds its stage extents after the tables; the bank's
+        # geometry is (rows, filters) per CTA
+        bank_leg = [p] * (tables + 1) + [ll, i, i, i]
         bank = getattr(lib, f"{family}_bank_launch")
-        bank.argtypes = [p, p, p, i, i, i, i] + leg + leg + tail
+        bank.argtypes = ([p, p, p, i, i, i, i] + bank_leg + bank_leg
+                         + [i, i, i, p])
         bank.restype = i
-    lib.repro_max_smem_optin.argtypes = []
-    lib.repro_max_smem_optin.restype = i
+        occ = getattr(lib, f"{family}_occupancy")
+        occ.argtypes = [i, i, i, i, i]       # kind, rows, n, P, threads
+        occ.restype = i
+    for fn in (lib.repro_max_smem_optin, lib.repro_smem_per_sm):
+        fn.argtypes = []
+        fn.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -10,13 +10,28 @@ Signals and values are f32, indices int32; other dtypes raise.  The
 anytime cut is passed to the kernel as a runtime (first stage, count) per
 leg, each operator or bank leg cut at its family's ``leg_orientation``.
 
+Geometry.  The chain and operator kernels hold one tile of
+``rows_per_tile`` signal rows per CTA.  A bank CTA owns r signal rows and
+F_g filters (``bank_geometry``, a pure function of the shapes and the
+card's shared-memory and SM counts): it runs the analysis leg on its r
+rows, scales them into F_g copies and runs ONE synthesis walk over all
+F_g * r rows, so it crosses 2 S stage barriers for any F_g.  Its shared
+memory (the F_g * r rows and a ring of table stages) leaves at least
+three CTAs resident per SM; the grid (r-row tiles x filter groups,
+matrices) gives every SM two CTAs where the work allows, and otherwise
+F_g = F, so the analysis runs once.  A bank leg walks each stage only up
+to its real extent (``stage_extents``, computed on the tables' device
+and kept beside the index table until it dies or is written).
+
 Every launch adds one to its entry point's count, in ONE registry for all
 families: ``entry_launch_counts()`` per entry point, ``launch_counts()``
 summed per kernel, ``reset_launch_counts()`` zeroes both.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import functools
+import weakref
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,6 +56,14 @@ KERNEL_OF = {"batched_butterfly_apply": "g_chain_kernel",
 KERNELS = tuple(dict.fromkeys(KERNEL_OF.values()))
 THREADS = 256
 _MAX_ROWS = 128
+#: table stages in a bank CTA's shared ring, and ring words per entry
+#: (csrc/chain.cuh kRing; GPair::kWords, TEntry::kWords)
+RING_STAGES = 4
+_ENTRY_WORDS = {"g": 8, "t": 4}
+#: shared memory the card reserves for each resident block (Hopper: 1 KB),
+#: and the resident bank CTAs per SM that the geometry keeps room for
+_SMEM_RESERVED = 1024
+_MIN_RESIDENT = 3
 _launches = dict.fromkeys(KERNEL_OF, 0)
 
 
@@ -132,26 +155,177 @@ def _check_tables(staged, device: torch.device, batch: Optional[int],
     return shape[-2], shape[-1]
 
 
-def rows_per_tile(batch: int, rows: int, n: int, device: torch.device,
-                  tiles: int = 1) -> int:
-    """Signal rows per CTA: at most 128, with ``tiles`` tiles of that many
-    rows within the shared memory a block may opt into (a bank holds
-    two), halved while the grid would not give every SM two CTAs
-    (barrier stalls of one CTA then overlap another's work)."""
+def rows_per_tile(batch: int, rows: int, n: int,
+                  device: torch.device) -> int:
+    """Signal rows per CTA of a chain or operator kernel: at most 128,
+    within the shared memory a block may opt into, halved while the grid
+    would not give every SM two CTAs (barrier stalls of one CTA then
+    overlap another's work)."""
     lib = build.library()
     ld = (n + 1) | 1
     smem = lib.repro_max_smem_optin()
     if smem <= 0:
         raise RuntimeError("cannot read the device's shared memory limit")
-    cap = smem // (tiles * ld * 4)
+    cap = smem // (ld * 4)
     if cap < 1:
-        raise ValueError(f"n={n} is too wide for {tiles} shared-memory "
-                         f"row(s) ({tiles * ld * 4} bytes > {smem})")
+        raise ValueError(f"n={n} is too wide for one shared-memory row "
+                         f"({ld * 4} bytes > {smem})")
     rpt = max(1, min(rows, _MAX_ROWS, cap))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     while rpt > 16 and batch * -(-rows // rpt) < 2 * sms:
         rpt //= 2
     return rpt
+
+
+class BankGeometry(NamedTuple):
+    """A bank launch's CTAs: ``rows`` signal rows (r) and ``filters``
+    filters (F_g) each, on a grid of ``row_tiles`` x ``groups`` CTAs per
+    matrix; ``smem`` dynamic shared-memory bytes per CTA, which leave
+    ``resident`` CTAs per SM."""
+    rows: int
+    filters: int
+    row_tiles: int
+    groups: int
+    smem: int
+    resident: int
+
+
+def bank_ring_bytes(slots: int, family: str) -> int:
+    """Bytes of a bank CTA's table ring: RING_STAGES stages of ``slots``
+    entries of the family's ("g" or "t") ring words, and their extents
+    (csrc/chain.cuh::bank_smem)."""
+    return RING_STAGES * (slots * _ENTRY_WORDS[family] + 1) * 4
+
+
+@functools.lru_cache(maxsize=4096)
+def bank_geometry(batch: int, rows: int, n: int, filters: int,
+                  ring_bytes: int, smem_block: int, smem_sm: int,
+                  sms: int) -> BankGeometry:
+    """Rows and filters per bank CTA for B = ``batch`` matrices, R =
+    ``rows`` signal rows of width n and F = ``filters`` filters, on a
+    card whose blocks may take ``smem_block`` bytes of shared memory and
+    whose ``sms`` SMs hold ``smem_sm`` bytes each.  Pure: no card query.
+
+    A CTA's tile (F_g * r rows at the odd stride, 16-byte aligned) and
+    ``ring_bytes`` leave at least three CTAs resident per SM.  Among the
+    (r, F_g) that fit, the choice maximizes min(CTAs, 2 * sms), then
+    takes the fewest filter groups (F_g = F: the analysis runs once per
+    row), then the most rows.  Raises when not one row fits."""
+    if min(batch, rows, filters) < 1:
+        raise ValueError(f"bank geometry needs B, R, F >= 1, got "
+                         f"{(batch, rows, filters)}")
+    ld = (n + 1) | 1
+    per_cta = min(smem_block,
+                  smem_sm // _MIN_RESIDENT - _SMEM_RESERVED) - ring_bytes
+    max_rows = 4 * (per_cta // 16) // ld if per_cta > 0 else 0
+    if max_rows < 1:
+        raise ValueError(f"n={n} is too wide for a bank CTA: one row and "
+                         f"the table ring ({ld * 4} + {ring_bytes} bytes) "
+                         f"leave no {_MIN_RESIDENT} CTAs per SM in "
+                         f"{smem_sm} bytes")
+    target = 2 * sms
+    best, best_key = None, None
+    for groups in range(1, filters + 1):
+        fg = -(-filters // groups)
+        if -(-filters // fg) != groups:      # the same F_g as fewer groups
+            continue
+        rmax = min(rows, max_rows // fg)
+        if rmax < 1:
+            continue
+        want = -(-target // (batch * groups))    # row tiles to reach it
+        r = rmax if want <= 1 else max(1, min(rmax,
+                                              -(-rows // (want - 1)) - 1))
+        tiles = -(-rows // r)
+        r = -(-rows // tiles)                    # balanced tiles
+        key = (min(batch * groups * tiles, target), -groups, r)
+        if best_key is None or key > best_key:
+            best_key, best = key, (r, fg, tiles, groups)
+    r, fg, tiles, groups = best
+    smem = -(-r * fg * ld // 4) * 16 + ring_bytes
+    return BankGeometry(r, fg, tiles, groups, smem,
+                        smem_sm // (smem + _SMEM_RESERVED))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_limits(index: int) -> Tuple[int, int, int]:
+    """(shared memory per block, per SM, SM count) of card ``index``."""
+    lib = build.library()
+    with torch.cuda.device(index):
+        block, sm = lib.repro_max_smem_optin(), lib.repro_smem_per_sm()
+    if block <= 0 or sm <= 0:
+        raise RuntimeError("cannot read the device's shared memory limits")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return block, sm, sms
+
+
+def _bank_geometry_on(device: torch.device, batch: int, rows: int, n: int,
+                      filters: int, slots: int,
+                      family: str) -> BankGeometry:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return bank_geometry(batch, rows, n, filters,
+                         bank_ring_bytes(slots, family),
+                         *_card_limits(index))
+
+
+def launch_geometry(entry: str, batch: int, rows: int, n: int,
+                    filters: int = 1, slots: int = 1) -> dict:
+    """The CTAs a launch of ``entry`` takes on the current card at x
+    (batch, rows, n) (a bank: ``filters`` filters on tables of ``slots``
+    slots per stage), with the card's own reading of its resident CTAs
+    per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    kernel = KERNEL_OF[entry]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    family, kind = kernel[0], kernel.split("_")[1]
+    if kind == "bank":
+        geo = _bank_geometry_on(dev, batch, rows, n, filters, slots, family)
+        out = {"rows_per_cta": geo.rows, "filters_per_cta": geo.filters,
+               "ctas": batch * geo.row_tiles * geo.groups}
+        tile_rows = geo.rows * geo.filters
+    else:
+        tile_rows = rows_per_tile(batch, rows, n, dev)
+        out = {"rows_per_cta": tile_rows, "filters_per_cta": 1,
+               "ctas": batch * -(-rows // tile_rows)}
+    lib = build.library()
+    resident = getattr(lib, f"{family}_occupancy")(
+        ("chain", "operator", "bank").index(kind), tile_rows, n, slots,
+        THREADS)
+    if resident < 0:
+        build.check(lib, -resident, f"{kernel} occupancy query")
+    out["resident_per_sm"] = resident
+    return out
+
+
+def stage_extents(staged) -> torch.Tensor:
+    """(B, S) or (S,) int32 real extent of every stage: 1 + the last slot
+    whose index is below n, 0 for an all-pad stage.  The packers put a
+    stage's real entries first (core/staging.py), so this is the
+    stage's real-entry count; a bank kernel walks only those slots."""
+    ii = staged.idx_i
+    slot = torch.arange(1, ii.shape[-1] + 1, dtype=torch.int32,
+                        device=ii.device)
+    return torch.where(ii < staged.n, slot, 0).amax(-1).to(torch.int32)
+
+
+#: id(idx_i) -> (weak reference to idx_i, its version, n, its extents)
+_EXTENTS: dict = {}
+
+
+def _cached_extents(staged) -> torch.Tensor:
+    """``stage_extents`` kept beside the index table it was computed
+    from, while that tensor lives and is not written in place: a served
+    basis pays the reduction (a few small launches) once, not per bank
+    launch."""
+    ii = staged.idx_i
+    key = id(ii)
+    hit = _EXTENTS.get(key)
+    if (hit is not None and hit[0]() is ii and hit[1] == ii._version
+            and hit[2] == staged.n):
+        return hit[3]
+    ext = stage_extents(staged)
+    ref = weakref.ref(ii, lambda _, k=key: _EXTENTS.pop(k, None))
+    _EXTENTS[key] = (ref, ii._version, staged.n, ext)
+    return ext
 
 
 def _padded_diag(diag: torch.Tensor, x3: torch.Tensor, batched: bool,
@@ -196,69 +370,90 @@ def _leg(staged, x3: torch.Tensor, batched: bool, num_stages: Optional[int],
             *_leg_range(s_tot, num_stages, keep))
 
 
-def _launch(entry: str, x3: torch.Tensor, head: tuple, legs: tuple,
-            filters: Optional[int] = None) -> torch.Tensor:
-    """Launch ``entry``'s kernel on x3 (B, R, n): ``head`` holds the C
-    arguments before the signal's shape (the spectrum of an operator,
-    the gains and filter count of a bank), ``legs`` those of its legs.
-    A bank (``filters`` = F) writes (B, F, R, n) from two shared tiles."""
-    bsz, r, n = x3.shape
-    if bsz > 65535:
-        raise ValueError(f"batch {bsz} exceeds the grid's 65535 matrices")
-    y = (torch.empty_like(x3) if filters is None
-         else x3.new_empty((bsz, filters, r, n)))
-    if bsz == 0 or r == 0:
-        return y
+def _launch(entry: str, x3: torch.Tensor, y: torch.Tensor, args: tuple,
+            geometry: tuple) -> torch.Tensor:
+    """Launch ``entry``'s kernel from x3 (B, R, n) into y: ``args`` are
+    the C arguments between the two signals and the geometry (operand
+    pointers, shapes, legs), ``geometry`` its rows (and filters) per
+    CTA."""
     kernel = KERNEL_OF[entry]
     lib = build.library()
     launch = getattr(lib, kernel.replace("_kernel", "_launch"))
-    tiles = 1 if filters is None else 2
-    code = launch(x3.data_ptr(), y.data_ptr(), *head, bsz, r, n, *legs,
-                  rows_per_tile(bsz, r, n, x3.device, tiles), THREADS,
+    code = launch(x3.data_ptr(), y.data_ptr(), *args, *geometry, THREADS,
                   torch.cuda.current_stream(x3.device).cuda_stream)
     build.check(lib, code, f"{kernel} launch")
     _launches[entry] += 1
     return y
 
 
+def _tiled_launch(entry: str, x3: torch.Tensor, head: tuple,
+                  legs: tuple) -> torch.Tensor:
+    """A chain or operator kernel on x3 (B, R, n): ``head`` holds the C
+    arguments before the signal's shape (an operator's spectrum)."""
+    bsz, r, n = x3.shape
+    if bsz > 65535:
+        raise ValueError(f"batch {bsz} exceeds the grid's 65535 matrices")
+    y = torch.empty_like(x3)
+    if bsz == 0 or r == 0:
+        return y
+    return _launch(entry, x3, y, (*head, bsz, r, n, *legs),
+                   (rows_per_tile(bsz, r, n, x3.device),))
+
+
 def _chain_launch(entry: str, staged, x3: torch.Tensor,
                   num_stages: Optional[int], keep: str) -> torch.Tensor:
     leg = _leg(staged, x3, entry.startswith("batched"), num_stages, keep,
                KERNEL_OF[entry])
-    return _launch(entry, x3, (), leg)
+    return _tiled_launch(entry, x3, (), leg)
 
 
 def _operator_legs(entry: str, fwd, bwd, x3: torch.Tensor,
-                   num_stages: Optional[int]) -> tuple:
-    """bwd is the analysis leg (G adjoint, T inverse), fwd the synthesis
-    leg, each cut at its family's orientation."""
+                   num_stages: Optional[int]) -> Tuple[tuple, tuple]:
+    """(analysis leg, synthesis leg): bwd is the analysis leg (G adjoint,
+    T inverse), fwd the synthesis leg, each cut at its family's
+    orientation."""
     batched = entry.startswith("batched")
     kernel = KERNEL_OF[entry]
     a_keep, s_keep = leg_orientation(
         "general" if isinstance(fwd, StagedT) else "sym")
-    return (_leg(bwd, x3, batched, num_stages, a_keep, f"{kernel} bwd")
-            + _leg(fwd, x3, batched, num_stages, s_keep, f"{kernel} fwd"))
+    return (_leg(bwd, x3, batched, num_stages, a_keep, f"{kernel} bwd"),
+            _leg(fwd, x3, batched, num_stages, s_keep, f"{kernel} fwd"))
 
 
 def _operator_launch(entry: str, fwd, bwd, diag: torch.Tensor,
                      x3: torch.Tensor,
                      num_stages: Optional[int]) -> torch.Tensor:
-    legs = _operator_legs(entry, fwd, bwd, x3, num_stages)
+    first, second = _operator_legs(entry, fwd, bwd, x3, num_stages)
     dp = _padded_diag(diag, x3, entry.startswith("batched"),
                       KERNEL_OF[entry])
-    return _launch(entry, x3, (dp.data_ptr(),), legs)
+    return _tiled_launch(entry, x3, (dp.data_ptr(),), first + second)
 
 
 def _bank_launch(entry: str, fwd, bwd, gains: torch.Tensor,
                  x3: torch.Tensor,
                  num_stages: Optional[int]) -> torch.Tensor:
-    """(B, F, R, n): the analysis leg once, then scale and synthesis per
-    filter, both legs cut as the operator's."""
-    legs = _operator_legs(entry, fwd, bwd, x3, num_stages)
+    """(B, F, R, n): both legs cut as the operator's, each walked over
+    its stages' real extents, on the ``bank_geometry`` grid."""
+    first, second = _operator_legs(entry, fwd, bwd, x3, num_stages)
     gp = _padded_gains(gains, x3, entry.startswith("batched"),
                        KERNEL_OF[entry])
-    return _launch(entry, x3, (gp.data_ptr(), gp.shape[1]), legs,
-                   filters=gp.shape[1])
+    bsz, r, n = x3.shape
+    if bsz > 65535:
+        raise ValueError(f"batch {bsz} exceeds the grid's 65535 matrices")
+    f = gp.shape[1]
+    y = x3.new_empty((bsz, f, r, n))
+    if bsz == 0 or r == 0:
+        return y
+    nt = len(table_arrays(fwd))
+    exts = (_cached_extents(bwd), _cached_extents(fwd))
+    legs = ()
+    for leg, ext in zip((first, second), exts):
+        legs += leg[:nt] + (ext.data_ptr(),) + leg[nt:]
+    slots = max(first[nt + 1], second[nt + 1])
+    geo = _bank_geometry_on(x3.device, bsz, r, n, f, slots,
+                            KERNEL_OF[entry][0])
+    return _launch(entry, x3, y, (gp.data_ptr(), f, bsz, r, n, *legs),
+                   (geo.rows, geo.filters))
 
 
 # ---------------------------------------------------------------------------

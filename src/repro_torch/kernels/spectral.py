@@ -12,8 +12,10 @@ Four entry points, the port of the JAX package's Pallas TPU kernels in
                                                               t_bank_kernel
   ``gen_filter_bank_apply``          the same with one table set  t_bank_kernel, B = 1
 
-One launch runs the analysis leg once per (matrix, row tile) and then
-scale and synthesis for each of the F filters.  A tensor on the CPU goes
+One launch runs, per CTA of r signal rows and F_g filters, the analysis
+leg once, scales F_g copies of its coefficients and runs the synthesis
+leg once over all F_g * r rows (kernels/launcher.py::bank_geometry
+chooses r and F_g).  A tensor on the CPU goes
 to the plain PyTorch version (kernels/ref.py); a CUDA tensor launches the
 kernel or raises (kernels/launcher.py, which also keeps the launch
 counters).  Both legs are cut as the family's operator cuts them.

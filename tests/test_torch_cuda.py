@@ -213,12 +213,13 @@ def _gains(shape, device, seed):
 @pytest.mark.parametrize("family", ["sym", "general"])
 @pytest.mark.parametrize("n,batch,g", [(16, 3, 64), (48, 2, 200),
                                        (256, 2, 4096)])
-@pytest.mark.parametrize("filters", [1, 7])
+@pytest.mark.parametrize("filters", [1, 7, 33])
 def test_bank_kernels_match_plain_versions_at_every_cut(cuda, family, n,
                                                         batch, g, filters):
     """Both bank kernels, batched and B = 1, at every cut: R = 130 (a
-    ragged last tile), F in {1, 7}, and n = 256, where the two shared
-    tiles halve the rows per CTA.  G within the tolerance, T bitwise."""
+    ragged last tile), F in {1, 7, 33}, and n = 256, where 33 filters
+    split into several filter groups per row tile (launcher.bank_geometry)
+    both at B = 2 and at B = 1.  G within the tolerance, T bitwise."""
     if family == "sym":
         fwd, bwd, sfwd, sbwd, _ = _tables(n, batch, g, cuda)
         bank, bank1 = ksp.batched_sym_filter_bank_apply, ksp.sym_filter_bank_apply
