@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR [DIR ...]]
 
 Phases (any failure exits non-zero; no phase swallows its own failure):
 
@@ -74,8 +74,18 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              (cudaOccupancyMaxActiveBlocksPerMultiprocessor; a bank launch
              must keep at least three) and the kernel's device time per
              launch from a torch.profiler trace beside the CUDA-event
-             time of the whole call.  The banks' stage-extent reduction
-             (launcher.stage_extents, both legs) is timed on its own.
+             time of the whole call; an operator launch also prints its
+             lanes per row, rows per warp and warps per CTA
+             (launcher.operator_geometry).  The banks' stage-extent
+             reduction (launcher.stage_extents, both legs) is timed on its
+             own.
+8. turns   — only with ``--baseline DIR ...`` (each DIR a checkout of this
+             repository, e.g. a ``git archive`` of an earlier commit): the
+             four operator entry points of this checkout and of each DIR
+             timed in turns (this, DIR..., then the same in reverse), each
+             tree in a process of its own with its own kernel build, on
+             the main paths' tables, signals and spectra saved by this
+             run; CUDA-event and profiler device ms per call.
 
 Tolerance of the kernel-vs-plain checks: for the G kernels max|dy| <= 1e-4 *
 max(1, max|y|), since they and their plain versions round their FMA
@@ -737,6 +747,9 @@ def timed_rows(cases, main, single, tables_b, tables_1, errs,
             "pairs_per_stage": int(tables.idx_i.shape[-1]),
             "real_entries": legs, **geo})
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        lanes = (f" ({geo['warps_per_cta']} warps of {geo['rows_per_warp']} "
+                 f"rows, {geo['lanes_per_row']} lanes per row)"
+                 if "lanes_per_row" in geo else "")
         log(f"[time] {entry} ({kernel}) at {list(xin.shape)}, F={filters}: "
             f"{ms:.4f} ms (device {dev_txt}), plain {plain_ms:.3f} ms, "
             f"library {lib_ms:.4f} ms, "
@@ -744,7 +757,7 @@ def timed_rows(cases, main, single, tables_b, tables_1, errs,
             f"{b_ms:.5f} ms ({b_by}), real entries per leg {legs} of "
             f"{tables.idx_i.numel()} table entries; {geo['ctas']} CTAs of "
             f"{geo['rows_per_cta']} rows x {geo['filters_per_cta']} "
-            f"filters, {geo['resident_per_sm']} resident per SM")
+            f"filters{lanes}, {geo['resident_per_sm']} resident per SM")
     return rows
 
 
@@ -1071,7 +1084,107 @@ def phase_directed_shapes(main, single, errs) -> list:
     return timed_rows(cases, main, single, basis.fwd, sfwd, errs, "general")
 
 
+OPERATORS = {"batched_sym_operator_apply": ("sym", "g_operator_kernel"),
+             "sym_operator_apply": ("sym", "g_operator_kernel"),
+             "batched_gen_operator_apply": ("general", "t_operator_kernel"),
+             "gen_operator_apply": ("general", "t_operator_kernel")}
+
+
+def save_operator_inputs(path, main, single, main_dir, single_dir) -> None:
+    """The main paths' operator inputs, on the host: per entry point
+    both table sets, n, the spectrum and the signal."""
+    import torch
+    from repro_torch.core.staging import table_arrays
+
+    def host(staged):
+        return [t.cpu() for t in table_arrays(staged)]
+    out = {}
+    for entry, (batched, path_rec) in {
+            "batched_sym_operator_apply": (True, main),
+            "sym_operator_apply": (False, single),
+            "batched_gen_operator_apply": (True, main_dir),
+            "gen_operator_apply": (False, single_dir)}.items():
+        if batched:
+            basis = path_rec["out"]["engine"].basis
+            x = path_rec["out"]["signals"]
+            fwd, bwd, spec = basis.fwd, basis.bwd, basis.spectrum
+        else:
+            f, x = path_rec["fgft"], path_rec["signals"]
+            fwd, bwd, spec = f.fwd, f.bwd, f.spectrum
+        out[entry] = {"fwd": host(fwd), "bwd": host(bwd), "n": fwd.n,
+                      "diag": spec.cpu(), "x": x.cpu()}
+    torch.save(out, path)
+
+
+def time_operators(path) -> dict:
+    """Child of the turns phase: the four operator entry points of the
+    ``repro_torch`` on sys.path, timed on the saved inputs."""
+    import torch
+    from repro_torch.core.staging import StagedG, StagedT
+    from repro_torch.kernels import butterfly as bf
+    from repro_torch.kernels import shear as sh
+    data = torch.load(path)
+    out = {}
+    for entry, (family, kernel) in OPERATORS.items():
+        d = data[entry]
+        cls, mod = (StagedG, bf) if family == "sym" else (StagedT, sh)
+        fwd, bwd = (cls(*(t.to(DEVICE) for t in d[leg]), None, d["n"])
+                    for leg in ("fwd", "bwd"))
+        diag, x = d["diag"].to(DEVICE), d["x"].to(DEVICE)
+        fn = getattr(mod, entry)
+        call = lambda: fn(fwd, bwd, diag, x)  # noqa: E731
+        out[entry] = {"ms": time_ms(call), "device_ms": device_ms(call,
+                                                                  kernel)}
+    return out
+
+
+def phase_turns(baselines, main, single, main_dir, single_dir) -> list:
+    """This checkout's operator entry points and each baseline's, timed in
+    turns (this, baselines..., then in reverse), each tree in a process
+    of its own that builds its own kernels."""
+    import os
+    work = ROOT / "build" / "turns"
+    work.mkdir(parents=True, exist_ok=True)
+    inputs = work / "operator_inputs.pt"
+    save_operator_inputs(inputs, main, single, main_dir, single_dir)
+    trees = [("this", ROOT)] + [(f"baseline {d}", pathlib.Path(d).resolve())
+                                for d in baselines]
+    rows = []
+    for k, (tag, tree) in enumerate(trees + trees[::-1]):
+        check((tree / "src" / "repro_torch").is_dir(),
+              f"{tree} holds no src/repro_torch")
+        env = dict(os.environ, REPRO_TORCH_BUILD_DIR=str(
+            work / f"build_{trees.index((tag, tree))}"))
+        out = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--time-operators",
+             str(inputs), "--src", str(tree / "src")],
+            capture_output=True, text=True, env=env, timeout=900)
+        check(out.returncode == 0, f"turn {k} ({tag}) failed:\n"
+              f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        for entry, r in res.items():
+            dev_txt = ("not measured" if r["device_ms"] is None
+                       else f"{r['device_ms']:.4f} ms")
+            log(f"[turns] {k}: {tag}: {entry} {r['ms']:.4f} ms (device "
+                f"{dev_txt})")
+        rows.append({"turn": k, "tree": tag, **res})
+    return rows
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", nargs="+", default=[], metavar="DIR",
+                    help="checkouts whose operator entry points are timed "
+                    "in turns with this one's (phase 8)")
+    ap.add_argument("--time-operators", metavar="FILE",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--src", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.time_operators:
+        sys.path.insert(0, args.src)
+        print(json.dumps(time_operators(args.time_operators)))
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1100,6 +1213,10 @@ def main() -> int:
                                  main_dir["out"]["signals"], single_dir, errs)
     check(len(kernels) == len(REPLACES),
           f"{len(kernels)} kernel rows for {len(REPLACES)} entry points")
+    if args.baseline:
+        turns = phase_turns(args.baseline, main_rec, single, main_dir,
+                            single_dir)
+        print(json.dumps({"turns": turns}))
     torch.cuda.synchronize()
     log(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels}))

@@ -15,27 +15,39 @@
 // a stage st holds P pairwise-disjoint pairs (i, j) with values (c, s, sigma);
 // per signal row it computes y_i = c x_i + s x_j, y_j = sigma (-s x_i + c x_j).
 // Pad entries carry the out-of-bounds index n and are exact no-ops, so they
-// are skipped.  The operator runs the adjoint leg, scales by the (n+1)-wide
-// dummy-padded spectrum, then runs the forward leg, in one launch.  The bank
-// runs the adjoint leg once, scales one copy of the coefficients per filter
-// by that filter's gains, and runs the forward leg on all copies at once.
+// are skipped.  The operator runs the adjoint leg, scales by the spectrum,
+// then runs the forward leg, in one launch.  The bank runs the adjoint leg
+// once, scales one copy of the coefficients per filter by that filter's
+// gains, and runs the forward leg on all copies at once.
 //
-// Design.  One CTA owns one (matrix b, tile of `rows` signal rows).  The tile
-// sits in dynamic shared memory for the whole chain: x is read from device
-// memory once and y written once, also across both legs of the operator.
-// The body (chain.cuh) is shared with the T kernels; this file supplies the
-// stage action GPair.  A __syncthreads() separates consecutive stages.
+// Design.  The chain kernel: one CTA owns one (matrix b, tile of `rows`
+// signal rows), held in dynamic shared memory for the whole chain (x read
+// from device memory once, y written once); its body (chain.cuh, run_leg)
+// walks all P slots of every stage between two __syncthreads().  It is
+// bound by those barriers and the per-stage table reads (at n = 256,
+// g = 4096 a batched fit packs S = 440 stages of P = 63 slots, ~9 of them
+// real pairs), not by arithmetic or the single HBM pass over x and y, and
+// answers with many rows per CTA and several CTAs per SM.  This file
+// supplies the stage action GPair.  Every kernel takes the anytime cut as a
+// runtime (first stage, stage count) per leg: no recompilation, and a count
+// of 0 is a valid cut.
 //
-// Bound on this card.  Stages are narrow (at n = 256, g = 4096 a batched fit
-// packs S = 440 stages of P = 63 slots, of which only ~9 per stage are real
-// pairs; the rest are pads, read and skipped): a stage is ~rows*P*8 flops
-// between two barriers, so the kernel is bound by the stage barriers and the
-// per-stage table reads, not by arithmetic or by the single HBM pass over x
-// and y.  The design answers with
-// many rows per CTA (so a stage has enough work items per barrier) and with
-// several CTAs per SM (tiles small enough that the barrier stalls of one CTA
-// overlap another's work).  The anytime cut is a runtime (first stage, stage
-// count) per leg: no recompilation, and a count of 0 is a valid cut.
+// The operator (chain.cuh, stream_leg and operator_rows).  A warp owns its
+// signal rows of one matrix for both legs and the scaling: one lane per
+// row where the rows fill the card (B = 64, R = 256: 4 warps of 32 rows per
+// CTA), eight lanes splitting each stage's entries at B = 1
+// (kernels/launcher.py::operator_geometry).  Each leg walks only the real
+// pairs, compacted in stage order with per-stage offsets
+// (kernels/launcher.py::entry_stream, built once per table set), so no pad
+// is read and the anytime cut is an entry range; the spectrum is read as
+// given, (B, n).  There is no CTA barrier: with one lane per row nothing
+// synchronises, with several the row's lanes cross one __syncwarp() per
+// stage.  Bound on this card: the latency of one warp's walk (a stage of
+// ~9 pairs costs its chain of ring load, row load, arithmetic and store
+// plus bookkeeping, with one warp per scheduler at the batched shapes), not
+// memory and not arithmetic; the body answers with groups of up to 8 pairs
+// whose loads all precede their stores in pinned order, entries from a
+// per-warp shared ring filled two chunks ahead, and no branch per pair.
 //
 // The bank.  The function is F + 1 legs over one signal read and F output
 // writes (at B = 64, F = 7, R = n = 256 about 3.2 GFLOP against 0.14 GB:
@@ -109,6 +121,44 @@ struct GPair {
       row[w.y] = ge * (-se * xi + ce * xj);
     }
   }
+
+  // The operator's form (chain.cuh, stream_leg): an entry in registers,
+  // read from a warp's ring (the ring form) with one 16-byte and one
+  // 4-byte broadcast load.
+  struct Entry {
+    int i, j;
+    float c, s, g;
+  };
+
+  static __device__ __forceinline__ Entry entry(unsigned a) {
+    const int4 v = ld_shared4(a);
+    return Entry{v.x, v.y, __int_as_float(v.z), __int_as_float(v.w),
+                 ld_shared(a + 16)};
+  }
+
+  template <int K>
+  static __device__ __forceinline__ void apply_group(unsigned row,
+                                                     unsigned scratch,
+                                                     const Entry (&en)[K],
+                                                     const bool (&ok)[K]) {
+    unsigned ai[K], aj[K];
+    float xi[K], xj[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      ai[k] = ok[k] ? row + 4 * en[k].i : scratch;
+      aj[k] = ok[k] ? row + 4 * en[k].j : scratch;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      xi[k] = ld_shared(ai[k]);
+      xj[k] = ld_shared(aj[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      st_shared(ai[k], en[k].c * xi[k] + en[k].s * xj[k]);
+      st_shared(aj[k], en[k].g * (-en[k].s * xi[k] + en[k].c * xj[k]));
+    }
+  }
 };
 
 using GLeg = Leg<GPair>;
@@ -120,12 +170,12 @@ __global__ void g_chain_kernel(int R, int n, int ld, int rows_per_tile,
   chain_tile(R, n, ld, rows_per_tile, x, y, leg);
 }
 
-__global__ void g_operator_kernel(int R, int n, int ld, int rows_per_tile,
-                                  const float* __restrict__ x,
-                                  float* __restrict__ y,
-                                  const float* __restrict__ d, GLeg adj,
-                                  GLeg fwd) {
-  operator_tile(R, n, ld, rows_per_tile, x, y, d, adj, fwd);
+__global__ void __launch_bounds__(kMaxOperatorThreads)
+    g_operator_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
+                      const float* __restrict__ x, float* __restrict__ y,
+                      const float* __restrict__ d, StreamLeg adj,
+                      StreamLeg fwd) {
+  operator_lanes<GPair>(R, n, ld, lanes, rows_per_warp, x, y, d, adj, fwd);
 }
 
 __global__ void g_bank_kernel(int R, int n, int ld, int rows_per_cta,
@@ -193,20 +243,20 @@ int g_chain_launch(const float* x, float* y, int B, int R, int n,
                                           ns));
 }
 
-// y[b] = Ubar_b diag(d[b]) Ubar_b^T x[b]: the adjoint leg runs stages
-// [a0, a0 + na) of the adjoint tables, the forward leg [f0, f0 + nf) of the
-// forward tables; d is (B, n + 1) with 1.0 in the dummy column n.
+// y[b] = Ubar_b diag(d[b]) Ubar_b^T x[b], d (B, n): the adjoint leg runs
+// stages [a0, a0 + na) of the adjoint stream (words, (B, aS + 1) stage
+// offsets), the forward leg [f0, f0 + nf) of the forward stream; each row
+// of x is held by `lanes` lanes, a warp owns rows_per_warp rows, a CTA has
+// `warps` warps.
 int g_operator_launch(const float* x, float* y, const float* d, int B, int R,
-                      int n, const int* aii, const int* ajj, const float* ac,
-                      const float* as, const float* asg, long long abstride,
-                      int aP, int a0, int na, const int* fii, const int* fjj,
-                      const float* fc, const float* fs, const float* fsg,
-                      long long fbstride, int fP, int f0, int nf,
-                      int rows_per_tile, int threads, void* stream) {
-  return launch_tiled(g_operator_kernel, B, R, n, rows_per_tile, threads,
-                      stream, x, y, d,
-                      g_leg(aii, ajj, ac, as, asg, abstride, aP, a0, na),
-                      g_leg(fii, fjj, fc, fs, fsg, fbstride, fP, f0, nf));
+                      int n, const int* awords, const int* aoff, int aS,
+                      int a0, int na, const int* fwords, const int* foff,
+                      int fS, int f0, int nf, int lanes, int rows_per_warp,
+                      int warps, void* stream) {
+  return launch_rows<GPair>(g_operator_kernel, B, R, n, lanes, rows_per_warp,
+                            warps, stream, x, y, d,
+                            StreamLeg{awords, aoff, aS, a0, na},
+                            StreamLeg{fwords, foff, fS, f0, nf});
 }
 
 // y[b, f] = Ubar_b diag(gains[b, f]) Ubar_b^T x[b] for f < F, legs as in
@@ -230,15 +280,19 @@ int g_bank_launch(const float* x, float* y, const float* gains, int F, int B,
 }
 
 // Resident CTAs per SM of a G kernel (0 chain, 1 operator, 2 bank) with a
-// tile of `rows` rows of width n (a bank: all its filters' rows) and, for
-// the bank, a ring of P-slot stages; negative: a cudaError_t code.
+// tile of `rows` rows of width n (an operator: all its warps' rows; a bank:
+// all its filters' rows) and, for the bank, a ring of P-slot stages;
+// negative: a cudaError_t code.
 int g_occupancy(int kind, int rows, int n, int P, int threads) {
   const int ld = odd_stride(n);
   const size_t tile = (size_t)rows * ld * sizeof(float);
   switch (kind) {
     case 0: return resident_ctas((const void*)g_chain_kernel, tile, threads);
     case 1:
-      return resident_ctas((const void*)g_operator_kernel, tile, threads);
+      return resident_ctas((const void*)g_operator_kernel,
+                           operator_smem(rows, ld, threads / 32,
+                                         GPair::kWords),
+                           threads);
     default:
       return resident_ctas((const void*)g_bank_kernel,
                            bank_smem(rows, ld, P * GPair::kWords), threads);

@@ -1,31 +1,47 @@
-// The staged-chain kernel body shared by every table family (butterfly.cu:
-// G pairs, shear.cu: T entries).  A family supplies its stage action `Op`, a
-// struct of table pointers with
+// The staged-chain kernel bodies shared by every table family (butterfly.cu:
+// G pairs, shear.cu: T entries).  A family supplies its stage action `Op`.
+//
+// The chain kernels (run_leg, chain_tile) hold `rows` signal rows of width n
+// per CTA in shared memory at a row stride `ld` (n + 1 rounded up to an odd
+// count, so rows fall on distinct banks), read x from device memory once and
+// write y once.  A stage is a loop over (entry, row) work items, row fastest,
+// so a warp's 32 lanes read one table entry (a broadcast) and touch 32 rows at
+// an odd stride (no bank conflicts); they walk all P slots of a stage, read
+// each work item's entry from device memory through
 //   __device__ void operator()(float* row, long long e, int n) const
-// that applies table entry e to one signal row held in shared memory (pads,
-// with an index n, are skipped by the action).
+// (pads, with an index n, are skipped), and one __syncthreads() orders
+// consecutive stages.
 //
-// One CTA holds `rows` signal rows of width n at a row stride `ld` (n + 1
-// rounded up to an odd count, so rows fall on distinct banks), reads x from
-// device memory once and writes y once, also across both legs of an
-// operator.  A stage is a loop over (entry, row) work items, row fastest, so
-// a warp's 32 lanes read one table entry (a broadcast) and touch 32 rows at
-// an odd stride (no bank conflicts).  Within a stage the packer makes the
-// entries' touch sets disjoint, so every work item's reads and writes are
-// its own; one __syncthreads() orders consecutive stages.
-//
-// The chain and operator kernels (run_leg, chain_tile, operator_tile) walk
-// all P slots of a stage and read each work item's entry from device memory.
 // The filter-bank kernels have a body of their own (walk_leg, bank_tile):
 // a CTA owns r signal rows and F_g filters, runs the analysis leg on its r
 // rows, scales them into F_g copies in the same tile and runs ONE synthesis
-// walk over all F_g * r rows, so it crosses 2 S stage barriers whatever F_g
-// (the earlier bank body crossed (1 + F) S); each leg walks a stage only up
-// to its real extent (1 + its last real slot, from a (B, S) extent table),
-// and reads its entries from a small ring of stages in shared memory that
-// cp.async fills a few stages ahead, so no work item waits on device memory.
-// The rows and filters per CTA (kernels/launcher.py::bank_geometry) keep the
-// CTA's shared memory small enough for three resident CTAs per SM.
+// walk over all F_g * r rows, so it crosses 2 S stage barriers whatever F_g;
+// each leg walks a stage only up to its real extent (1 + its last real slot,
+// from a (B, S) extent table), and reads its entries from a small ring of
+// stages in shared memory that cp.async fills a few stages ahead.  The rows
+// and filters per CTA (kernels/launcher.py::bank_geometry) keep the CTA's
+// shared memory small enough for three resident CTAs per SM.
+//
+// The operator kernels have the third body (stream_leg, operator_rows): a
+// warp owns its rows of one matrix for both legs and the scaling, so no
+// stage ever waits for the whole CTA.  Each leg walks a compacted stream of
+// its real entries in stage order (kernels/launcher.py::entry_stream) with
+// per-stage offsets; with L lanes per row (kernels/launcher.py::
+// operator_geometry) the lanes of a row split a stage's entries and cross one
+// __syncwarp() per stage, and with L = 1 a lane walks every entry on its own
+// row with no synchronisation at all.  The stream reaches each warp through
+// a ring of its own in shared memory, filled with plain loads staged
+// through registers two chunks ahead.  A chain is its one-leg case.
+//
+// What bounds the operator now: not memory (x, y and the stream are read or
+// written once per warp) and not the shared-memory pipe, but the latency of
+// one warp's walk.  At the batched shapes a scheduler holds one warp, so a
+// stage costs its dependent chain (ring load, row load, arithmetic, store)
+// plus the per-stage bookkeeping; the body keeps that chain short: a lane
+// reads a group of up to 8 entries and all their coordinates before it
+// writes any, the group's shared accesses are pinned in that order, idle
+// slots of a group use the row's scratch column instead of a branch, and
+// no stage waits on device memory (PERF.md §6).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -114,24 +130,6 @@ __device__ __forceinline__ void chain_tile(int R, int n, int ld,
   const TileSpan t = tile_span(R, n, rows_per_tile);
   load_tile(tile, ld, x + t.off, t.rows, n);
   run_leg(tile, ld, t.rows, n, t.b, leg);
-  store_tile(y + t.off, tile, ld, t.rows, n);
-}
-
-// y[b] = second_b diag(d[b]) first_b x[b] for this CTA's tile; d is
-// (B, n + 1) with 1.0 in the dummy column n.
-template <class Op>
-__device__ __forceinline__ void operator_tile(int R, int n, int ld,
-                                              int rows_per_tile,
-                                              const float* x, float* y,
-                                              const float* d,
-                                              const Leg<Op>& first,
-                                              const Leg<Op>& second) {
-  extern __shared__ float tile[];
-  const TileSpan t = tile_span(R, n, rows_per_tile);
-  load_tile(tile, ld, x + t.off, t.rows, n);
-  run_leg(tile, ld, t.rows, n, t.b, first);
-  scale_tile(tile, ld, d + (long long)t.b * (n + 1), t.rows, n);
-  run_leg(tile, ld, t.rows, n, t.b, second);
   store_tile(y + t.off, tile, ld, t.rows, n);
 }
 
@@ -334,6 +332,294 @@ inline int launch_bank(void (*kernel)(Params...), int B, int R, int n, int F,
   kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       R, n, ld, rows_per_cta, filters_per_cta, row_tiles, slot_words, x, y,
       gains, F, first, second);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The operator (g_operator_kernel, t_operator_kernel)
+// ---------------------------------------------------------------------------
+// A warp owns rows of one matrix for the whole operator, so nothing in it
+// waits for the CTA.  A family's action `Op` supplies, besides kWords,
+//   Entry                      one table entry in registers, read from the
+//                              ring form at a shared address (entry(a))
+//   apply_group<K>(row, scratch, en, ok)
+//                              the K entries en[k] of one stage on the row at
+//                              shared address `row`, every coordinate read
+//                              before any is written; an entry without ok[k]
+//                              reads and writes the row's scratch column n
+//                              (`scratch`) instead, which is never stored
+
+// Shared-memory accesses at 32-bit shared addresses, kept in program order
+// (a memory clobber each): a group's loads all issue before its stores,
+// and the compiler does not sink a load below arithmetic it could overlap.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ float ld_shared(unsigned a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int4 ld_shared4(unsigned a) {
+  int4 v;
+  asm volatile("ld.shared.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared(unsigned a, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(a), "f"(v) : "memory");
+}
+
+constexpr int kMaxOperatorThreads = 256;  // 8 warps: registers up to 255
+constexpr int kChunk = 32;        // stream entries per ring chunk
+constexpr int kRingChunks = 8;    // chunks in a warp's ring (a power of two)
+constexpr int kRingEntries = kChunk * kRingChunks;
+
+// Entries a lane reads before it writes any: eight with one or two lanes
+// per row, four with more (so that a stage's ~9-15 entries mostly take one
+// pass of the row's lanes).
+template <int L>
+constexpr int kGroupOf = L <= 2 ? 8 : 4;
+
+// One leg as a compacted stream: the real entries of all matrices in stage
+// order, and per-stage offsets (matrix b's stage s holds stream entries
+// [off[b * (S + 1) + s], off[b * (S + 1) + s + 1])).  The anytime cut is the
+// entry range of stages [s0, s0 + ns): a runtime offset and count.
+struct StreamLeg {
+  const int* words;  // (E, kWords) entries
+  const int* off;    // (B, S + 1) stage offsets into the stream
+  int S;             // stages of the tables
+  int s0;            // first stage to run
+  int ns;            // number of stages to run
+};
+
+// One lane's share of a ring chunk in registers: 16-byte pieces lane,
+// lane + 32, ... of the chunk's kChunk entries.
+template <class Op>
+struct ChunkRegs {
+  static constexpr int kPieces = Op::kWords / 4;  // per entry and per lane
+  int4 v[kPieces];
+
+  // Load chunk c of the leg's entry range [e_lo, e_hi) (pieces past e_hi
+  // are not read).
+  __device__ __forceinline__ void load(const int* words, int e_lo, int e_hi,
+                                       int c, int lane) {
+    const int first = e_lo + c * kChunk;
+    const int pieces = min(kChunk, e_hi - first) * kPieces;
+    const int4* src =
+        reinterpret_cast<const int4*>(words + (long long)first * Op::kWords);
+#pragma unroll
+    for (int q = 0; q < kPieces; ++q)
+      if (lane + 32 * q < pieces) v[q] = __ldg(src + lane + 32 * q);
+  }
+
+  // Store them as chunk c of the warp's ring.
+  __device__ __forceinline__ void store(int* ring, int c, int lane) const {
+    int4* slot = reinterpret_cast<int4*>(
+        ring + (c & (kRingChunks - 1)) * kChunk * Op::kWords);
+#pragma unroll
+    for (int q = 0; q < kPieces; ++q) slot[lane + 32 * q] = v[q];
+  }
+};
+
+// One leg on one signal row that L lanes of the warp share (this lane is
+// number `sub` of them; a lane whose row lies past the warp's rows walks
+// along without touching any row: `active` false).  Each lane takes
+// entries sub, sub + L, ... of a stage, kGroupOf<L> at a time, and reads
+// all their coordinates before it writes any: a stage's entries touch
+// disjoint coordinates.  With L > 1 the row's lanes cross one __syncwarp()
+// per stage; with one lane per row nothing in the stage loop synchronises.
+// All 32 lanes run the same trip counts.
+//
+// The entries come from the warp's own ring in shared memory, chunks
+// [first - 1, first + kRingChunks - 2] around the chunk `first` the walk is
+// in, filled with plain loads staged through registers: the two chunks
+// after the ring's last are in flight in two register sets (by parity, so
+// no register waits on a load it is not stored from), and the walk stores
+// the older one into the ring when it enters a new chunk.  A stage longer
+// than the ring is walked in pieces.  The stage offsets come from a window
+// of 32 that lane k holds in a register (off[w0 + k]), read with a shuffle;
+// the next window is loaded one window ahead.
+template <class Op, int L>
+__device__ __forceinline__ void stream_leg(float* row, int n, bool active,
+                                           int* ring, int b,
+                                           const StreamLeg& leg, int lane,
+                                           int sub) {
+  constexpr int K = kGroupOf<L>;
+  if (leg.ns <= 0) return;
+  const unsigned row_s = smem_addr(row);
+  const unsigned ring_s = smem_addr(ring);
+  const int* off = leg.off + (long long)b * (leg.S + 1) + leg.s0;
+  const int e_lo = __ldg(off);
+  const int e_hi = __ldg(off + leg.ns);
+  ChunkRegs<Op> even, odd;  // chunks in flight, by parity
+  for (int c = 0; c < kRingChunks - 2; c += 2) {
+    even.load(leg.words, e_lo, e_hi, c, lane);
+    odd.load(leg.words, e_lo, e_hi, c + 1, lane);
+    even.store(ring, c, lane);
+    odd.store(ring, c + 1, lane);
+  }
+  even.load(leg.words, e_lo, e_hi, kRingChunks - 2, lane);
+  odd.load(leg.words, e_lo, e_hi, kRingChunks - 1, lane);
+  int stored = kRingChunks - 3;  // the ring's last chunk
+  __syncwarp();
+  int w0 = 0;  // the window's first stage offset
+  int win = __ldg(off + min(lane, leg.ns));
+  int nxt = __ldg(off + min(32 + lane, leg.ns));
+  int e0 = e_lo;
+  for (int st = 0; st < leg.ns; ++st) {
+    if (st + 1 - w0 == 32) {
+      w0 += 32;
+      win = nxt;
+      nxt = __ldg(off + min(w0 + 32 + lane, leg.ns));
+    }
+    const int e1 = __shfl_sync(0xffffffffu, win, st + 1 - w0);
+    while (e0 < e1) {
+      const int first = (e0 - e_lo) / kChunk;
+      if (stored < first + kRingChunks - 2) {
+        __syncwarp();  // every lane is done with the slots being refilled
+        do {
+          ++stored;
+          if (stored & 1) {
+            odd.store(ring, stored, lane);
+            odd.load(leg.words, e_lo, e_hi, stored + 2, lane);
+          } else {
+            even.store(ring, stored, lane);
+            even.load(leg.words, e_lo, e_hi, stored + 2, lane);
+          }
+        } while (stored < first + kRingChunks - 2);
+        __syncwarp();  // and every lane's stores are visible
+      }
+      const int hi = min(e1, e_lo + (stored + 1) * kChunk);
+      for (int base = e0 - e_lo + sub; base < hi - e_lo; base += K * L) {
+        typename Op::Entry en[K];
+        bool ok[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          ok[k] = active && base + k * L < hi - e_lo;
+          en[k] = Op::entry(ring_s + ((base + k * L) & (kRingEntries - 1)) *
+                                         Op::kWords * 4);
+        }
+        Op::apply_group(row_s, row_s + 4 * n, en, ok);
+      }
+      e0 = hi;
+    }
+    if (L > 1) __syncwarp();
+  }
+  __syncwarp();  // the ring is free for the next leg
+}
+
+// Shared memory of an operator CTA: `rows` rows at the stride ld (16-byte
+// aligned), then one ring per warp.
+inline size_t operator_smem(int rows, int ld, int warps, int words) {
+  return ((size_t)rows * ld + 3) / 4 * 16 +
+         (size_t)warps * kChunk * kRingChunks * words * sizeof(int);
+}
+
+// y[b] = second_b diag(d[b]) first_b x[b], d (B, n).  CTA (blockIdx.x,
+// b = blockIdx.y) has blockDim.x / 32 warps; warp w owns rows [r0, r0 +
+// rows_per_warp) of matrix b, r0 = (blockIdx.x * warps + w) * rows_per_warp,
+// in its own part of the shared tile at the odd stride ld (lanes on
+// different rows hit different banks), and a ring of table entries.  The
+// warp loads its rows (coalesced), each row's `lanes` lanes walk the first
+// leg, the warp scales its rows' columns < n, the lanes walk the second leg,
+// and the warp stores its rows: x is read once and y written once, and no
+// warp waits for another.  A partial last warp leaves the lanes of its
+// missing rows idle.
+template <class Op, int L>
+__device__ __forceinline__ void operator_rows(int R, int n, int ld,
+                                              int rows_per_warp,
+                                              const float* x, float* y,
+                                              const float* d,
+                                              const StreamLeg& first,
+                                              const StreamLeg& second) {
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  const int r0 = (blockIdx.x * warps + warp) * rows_per_warp;
+  if (r0 >= R) return;
+  const int rows = min(rows_per_warp, R - r0);
+  float* wt = smem + warp * rows_per_warp * ld;
+  int* ring = reinterpret_cast<int*>(smem) +
+              ((size_t)warps * rows_per_warp * ld + 3) / 4 * 4 +
+              warp * kRingEntries * Op::kWords;
+  const long long at = ((long long)b * R + r0) * n;
+  for (int r = 0; r < rows; ++r)
+    for (int c = lane; c < n; c += 32)
+      wt[r * ld + c] = __ldg(x + at + (long long)r * n + c);
+  __syncwarp();
+  const int row = lane / L;
+  const int sub = lane - row * L;
+  // a lane past the warp's rows walks on row 0's scratch column
+  float* mine = wt + (row < rows ? row : 0) * ld;
+  stream_leg<Op, L>(mine, n, row < rows, ring, b, first, lane, sub);
+  __syncwarp();
+  const float* db = d + (long long)b * n;
+  for (int c = lane; c < n; c += 32) {
+    const float dc = __ldg(db + c);
+    for (int r = 0; r < rows; ++r) wt[r * ld + c] *= dc;
+  }
+  __syncwarp();
+  stream_leg<Op, L>(mine, n, row < rows, ring, b, second, lane, sub);
+  __syncwarp();
+  for (int r = 0; r < rows; ++r)
+    for (int c = lane; c < n; c += 32)
+      y[at + (long long)r * n + c] = wt[r * ld + c];
+}
+
+// The operator body at the launch's lanes per row (1, 2, 4 or 8).
+template <class Op>
+__device__ __forceinline__ void operator_lanes(int R, int n, int ld,
+                                               int lanes, int rows_per_warp,
+                                               const float* x, float* y,
+                                               const float* d,
+                                               const StreamLeg& first,
+                                               const StreamLeg& second) {
+  switch (lanes) {
+    case 1:
+      operator_rows<Op, 1>(R, n, ld, rows_per_warp, x, y, d, first, second);
+      break;
+    case 2:
+      operator_rows<Op, 2>(R, n, ld, rows_per_warp, x, y, d, first, second);
+      break;
+    case 4:
+      operator_rows<Op, 4>(R, n, ld, rows_per_warp, x, y, d, first, second);
+      break;
+    default:
+      operator_rows<Op, 8>(R, n, ld, rows_per_warp, x, y, d, first, second);
+  }
+}
+
+// Launch `kernel(R, n, ld, lanes, rows_per_warp, args...)` on a grid of
+// (row tiles of warps * rows_per_warp rows, matrices), `warps` warps per
+// CTA, each warp's rows and ring in dynamic shared memory.  Returns a
+// cudaError_t code (0: launched).
+template <class Op, class... Params, class... Args>
+inline int launch_rows(void (*kernel)(int, int, int, int, int, Params...),
+                       int B, int R, int n, int lanes, int rows_per_warp,
+                       int warps, void* stream, Args... args) {
+  if (B == 0 || R == 0) return 0;
+  if ((lanes != 1 && lanes != 2 && lanes != 4 && lanes != 8) ||
+      rows_per_warp < 1 || rows_per_warp * lanes > 32 || warps < 1 ||
+      warps * 32 > kMaxOperatorThreads)
+    return (int)cudaErrorInvalidValue;
+  const int ld = odd_stride(n);
+  const int rows = warps * rows_per_warp;
+  const size_t smem = operator_smem(rows, ld, warps, Op::kWords);
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((R + rows - 1) / rows, B);
+  kernel<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
+      R, n, ld, lanes, rows_per_warp, args...);
   return (int)cudaGetLastError();
 }
 

@@ -18,32 +18,35 @@
 // y_i = alpha x_i + beta x_j and writes only i (a scaling has j == i and
 // beta = 0, a shear alpha = 1).  The packer puts j into a shear's touch set,
 // so within a stage no entry writes a coordinate that another entry reads or
-// writes: every work item's reads and its write are its own, and one
-// __syncthreads() between stages orders the stages.  Pad entries carry the
-// out-of-bounds index n and are skipped.  The operator runs the inverse leg,
-// scales by the (n+1)-wide dummy-padded spectrum, then runs the forward leg,
-// in one launch; the bank runs the inverse leg once, scales one copy of the
+// writes: every work item's reads and its write are its own.  Pad entries
+// carry the out-of-bounds index n and are skipped.  The operator runs the
+// inverse leg, scales by the spectrum, then runs the forward leg, in one
+// launch; the bank runs the inverse leg once, scales one copy of the
 // coefficients per filter, and runs the forward leg on all copies at once.
 // Each entry is computed as round(round(alpha x_i) + round(beta x_j)),
-// without FMA contraction, so the kernel rounds exactly as the plain version
-// does: T is not orthogonal, and rounding differences would otherwise grow
-// with cond(Tbar) along the chain.
+// without FMA contraction, so every kernel rounds exactly as the plain
+// version does: T is not orthogonal, and rounding differences would
+// otherwise grow with cond(Tbar) along the chain.
 //
-// Design.  The G-chain kernels' body (chain.cuh), with the stage action
-// TEntry: one CTA owns one (matrix b, tile of `rows` signal rows); the tile
-// sits in dynamic shared memory for the whole chain, so x is read from device
-// memory once and y written once, also across both legs of the operator.
+// Design.  The chain kernel has the G chain's body (chain.cuh, run_leg) with
+// the stage action TEntry: one CTA owns a tile of rows in dynamic shared
+// memory, walks all P slots of every stage (most of them pads: a T stage has
+// at most n/2 shears or n scalings) between two __syncthreads(), and is
+// bound by those barriers and the per-stage table reads; it answers with
+// many rows per CTA and several CTAs per SM (kernels/launcher.py::
+// rows_per_tile).  Every kernel takes the anytime cut as a runtime (first
+// stage, stage count) per leg: no recompilation, and a count of 0 is a
+// valid cut.
 //
-// Bound on this card.  Stages are narrow (a T stage has at most n/2 shears or
-// n scalings, and most slots of the padded (S, P) layout are pads): a stage
-// is at most ~rows*P*2 flops between two barriers (2 per shear and row, 1 per
-// scaling), so the kernel is bound by the stage barriers and the per-stage
-// table reads, not by arithmetic or by the single HBM pass over x and y.
-// The design answers with many rows per CTA and several CTAs per SM (see
-// kernels/launcher.py::rows_per_tile), so the
-// barrier stalls of one CTA overlap another's work.  The anytime cut is a
-// runtime (first stage, stage count) per leg: no recompilation, and a count
-// of 0 is a valid cut.
+// The operator has the G operator's body (chain.cuh, stream_leg and
+// operator_rows; see butterfly.cu): warps own their rows for both legs and
+// the scaling, with no CTA barrier; each leg walks only its real entries,
+// compacted in stage order (~14 a stage at the batched shapes, (i, j,
+// alpha, beta) at a 16-byte stride), from a per-warp shared ring.  It is
+// bound, like the G operator, by the latency of one warp's walk.  Each row's
+// arithmetic is the plain version's in the same stage order (within a stage
+// the entries touch disjoint coordinates, so their order does not matter),
+// and the scaling is one f32 multiply: the operator is bitwise equal to it.
 //
 // The bank has the G bank's body (chain.cuh, walk_leg and bank_tile; see
 // butterfly.cu): filters folded into the synthesis rows (2 S barriers per
@@ -98,6 +101,39 @@ struct TEntry {
                            __fmul_rn(__int_as_float(w.w), row[w.y]));
     }
   }
+
+  // The operator's form (chain.cuh, stream_leg): an entry in registers,
+  // read from a warp's ring (the ring form) with one 16-byte broadcast
+  // load.
+  struct Entry {
+    int i, j;
+    float a, b;
+  };
+
+  static __device__ __forceinline__ Entry entry(unsigned a) {
+    const int4 v = ld_shared4(a);
+    return Entry{v.x, v.y, __int_as_float(v.z), __int_as_float(v.w)};
+  }
+
+  template <int K>
+  static __device__ __forceinline__ void apply_group(unsigned row,
+                                                     unsigned scratch,
+                                                     const Entry (&en)[K],
+                                                     const bool (&ok)[K]) {
+    unsigned ai[K];
+    float xi[K], xj[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      ai[k] = ok[k] ? row + 4 * en[k].i : scratch;
+      const unsigned aj = ok[k] ? row + 4 * en[k].j : scratch;
+      xi[k] = ld_shared(ai[k]);
+      xj[k] = ld_shared(aj);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      st_shared(ai[k], __fadd_rn(__fmul_rn(en[k].a, xi[k]),
+                                 __fmul_rn(en[k].b, xj[k])));
+  }
 };
 
 using TLeg = Leg<TEntry>;
@@ -109,12 +145,12 @@ __global__ void t_chain_kernel(int R, int n, int ld, int rows_per_tile,
   chain_tile(R, n, ld, rows_per_tile, x, y, leg);
 }
 
-__global__ void t_operator_kernel(int R, int n, int ld, int rows_per_tile,
-                                  const float* __restrict__ x,
-                                  float* __restrict__ y,
-                                  const float* __restrict__ d, TLeg inv,
-                                  TLeg fwd) {
-  operator_tile(R, n, ld, rows_per_tile, x, y, d, inv, fwd);
+__global__ void __launch_bounds__(kMaxOperatorThreads)
+    t_operator_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
+                      const float* __restrict__ x, float* __restrict__ y,
+                      const float* __restrict__ d, StreamLeg inv,
+                      StreamLeg fwd) {
+  operator_lanes<TEntry>(R, n, ld, lanes, rows_per_warp, x, y, d, inv, fwd);
 }
 
 __global__ void t_bank_kernel(int R, int n, int ld, int rows_per_cta,
@@ -153,19 +189,19 @@ int t_chain_launch(const float* x, float* y, int B, int R, int n,
                       stream, x, y, t_leg(ii, jj, al, be, bstride, P, s0, ns));
 }
 
-// y[b] = Tbar_b diag(d[b]) Tbar_b^{-1} x[b]: the inverse leg runs stages
-// [i0, i0 + ni) of the inverse tables, the forward leg [f0, f0 + nf) of the
-// forward tables; d is (B, n + 1) with 1.0 in the dummy column n.
+// y[b] = Tbar_b diag(d[b]) Tbar_b^{-1} x[b], d (B, n): the inverse leg runs
+// stages [i0, i0 + ni) of the inverse stream (words, (B, iS + 1) stage
+// offsets), the forward leg [f0, f0 + nf) of the forward stream; geometry as
+// g_operator_launch.
 int t_operator_launch(const float* x, float* y, const float* d, int B, int R,
-                      int n, const int* iii, const int* ijj, const float* ial,
-                      const float* ibe, long long ibstride, int iP, int i0,
-                      int ni, const int* fii, const int* fjj, const float* fal,
-                      const float* fbe, long long fbstride, int fP, int f0,
-                      int nf, int rows_per_tile, int threads, void* stream) {
-  return launch_tiled(t_operator_kernel, B, R, n, rows_per_tile, threads,
-                      stream, x, y, d,
-                      t_leg(iii, ijj, ial, ibe, ibstride, iP, i0, ni),
-                      t_leg(fii, fjj, fal, fbe, fbstride, fP, f0, nf));
+                      int n, const int* iwords, const int* ioff, int iS,
+                      int i0, int ni, const int* fwords, const int* foff,
+                      int fS, int f0, int nf, int lanes, int rows_per_warp,
+                      int warps, void* stream) {
+  return launch_rows<TEntry>(t_operator_kernel, B, R, n, lanes, rows_per_warp,
+                             warps, stream, x, y, d,
+                             StreamLeg{iwords, ioff, iS, i0, ni},
+                             StreamLeg{fwords, foff, fS, f0, nf});
 }
 
 // y[b, f] = Tbar_b diag(gains[b, f]) Tbar_b^{-1} x[b] for f < F, legs as in
@@ -194,7 +230,10 @@ int t_occupancy(int kind, int rows, int n, int P, int threads) {
   switch (kind) {
     case 0: return resident_ctas((const void*)t_chain_kernel, tile, threads);
     case 1:
-      return resident_ctas((const void*)t_operator_kernel, tile, threads);
+      return resident_ctas((const void*)t_operator_kernel,
+                           operator_smem(rows, ld, threads / 32,
+                                         TEntry::kWords),
+                           threads);
     default:
       return resident_ctas((const void*)t_bank_kernel,
                            bank_smem(rows, ld, P * TEntry::kWords), threads);

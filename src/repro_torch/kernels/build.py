@@ -107,8 +107,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         chain = getattr(lib, f"{family}_chain_launch")
         chain.argtypes = [p, p, i, i, i] + leg + tail
         chain.restype = i
+        # an operator leg is a stream: words, stage offsets, S, s0, ns; its
+        # geometry is (lanes per row, rows per warp, warps per CTA)
+        stream_leg = [p, p, i, i, i]
         op = getattr(lib, f"{family}_operator_launch")
-        op.argtypes = [p, p, p, i, i, i] + leg + leg + tail
+        op.argtypes = ([p, p, p, i, i, i] + stream_leg + stream_leg
+                       + [i, i, i, p])
         op.restype = i
         # a bank leg adds its stage extents after the tables; the bank's
         # geometry is (rows, filters) per CTA

@@ -10,12 +10,19 @@ Signals and values are f32, indices int32; other dtypes raise.  The
 anytime cut is passed to the kernel as a runtime (first stage, count) per
 leg, each operator or bank leg cut at its family's ``leg_orientation``.
 
-Geometry.  The chain and operator kernels hold one tile of
-``rows_per_tile`` signal rows per CTA.  A bank CTA owns r signal rows and
-F_g filters (``bank_geometry``, a pure function of the shapes and the
-card's shared-memory and SM counts): it runs the analysis leg on its r
-rows, scales them into F_g copies and runs ONE synthesis walk over all
-F_g * r rows, so it crosses 2 S stage barriers for any F_g.  Its shared
+Geometry.  The chain kernels hold one tile of ``rows_per_tile`` signal
+rows per CTA.  In an operator launch a warp owns its signal rows of one
+matrix for both legs and the scaling (``operator_geometry``, a pure
+function of the shapes and the card's figures): L lanes per row, 32 / L
+rows per warp, a few warps per CTA; each leg walks a compacted stream of
+its real entries in stage order (``entry_stream``, built on the tables'
+device and kept beside the index table, as the extents are), so the
+anytime cut is an entry range and no pad is read.  A bank CTA owns r
+signal rows and F_g filters (``bank_geometry``, a pure function of the
+shapes and the card's shared-memory and SM counts): it runs the analysis
+leg on its r rows, scales them into F_g copies and runs ONE synthesis
+walk over all F_g * r rows, so it crosses 2 S stage barriers for any
+F_g.  Its shared
 memory (the F_g * r rows and a ring of table stages) leaves at least
 three CTAs resident per SM; the grid (r-row tiles x filter groups,
 matrices) gives every SM two CTAs where the work allows, and otherwise
@@ -56,14 +63,21 @@ KERNEL_OF = {"batched_butterfly_apply": "g_chain_kernel",
 KERNELS = tuple(dict.fromkeys(KERNEL_OF.values()))
 THREADS = 256
 _MAX_ROWS = 128
-#: table stages in a bank CTA's shared ring, and ring words per entry
-#: (csrc/chain.cuh kRing; GPair::kWords, TEntry::kWords)
+#: table stages in a bank CTA's shared ring, and words per entry of that
+#: ring and of an operator's stream (csrc/chain.cuh kRing; GPair::kWords,
+#: TEntry::kWords)
 RING_STAGES = 4
 _ENTRY_WORDS = {"g": 8, "t": 4}
 #: shared memory the card reserves for each resident block (Hopper: 1 KB),
 #: and the resident bank CTAs per SM that the geometry keeps room for
 _SMEM_RESERVED = 1024
 _MIN_RESIDENT = 3
+#: lanes per signal row an operator launch may take, its warps per CTA,
+#: and the stream entries of a warp's ring (csrc/chain.cuh kChunk *
+#: kRingChunks)
+OPERATOR_LANES = (1, 2, 4, 8)
+_MAX_WARPS = 8
+_RING_ENTRIES = 32 * 8
 _launches = dict.fromkeys(KERNEL_OF, 0)
 
 
@@ -157,7 +171,7 @@ def _check_tables(staged, device: torch.device, batch: Optional[int],
 
 def rows_per_tile(batch: int, rows: int, n: int,
                   device: torch.device) -> int:
-    """Signal rows per CTA of a chain or operator kernel: at most 128,
+    """Signal rows per CTA of a chain kernel: at most 128,
     within the shared memory a block may opt into, halved while the grid
     would not give every SM two CTAs (barrier stalls of one CTA then
     overlap another's work)."""
@@ -268,20 +282,109 @@ def _bank_geometry_on(device: torch.device, batch: int, rows: int, n: int,
                          *_card_limits(index))
 
 
+class OperatorGeometry(NamedTuple):
+    """An operator launch's CTAs: ``warps`` warps each, each warp owning
+    ``rows_per_warp`` signal rows of one matrix with ``lanes`` lanes per
+    row and a ring of table entries; ``row_tiles`` CTAs per matrix;
+    ``smem`` dynamic shared-memory bytes per CTA, which leave
+    ``resident`` CTAs per SM."""
+    lanes: int
+    rows_per_warp: int
+    warps: int
+    row_tiles: int
+    smem: int
+    resident: int
+
+
+def operator_ring_bytes(family: str) -> int:
+    """Bytes of a warp's ring of stream entries in an operator CTA, for
+    the family "g" or "t" (csrc/chain.cuh::operator_smem)."""
+    return _RING_ENTRIES * _ENTRY_WORDS[family] * 4
+
+
+@functools.lru_cache(maxsize=4096)
+def operator_geometry(batch: int, rows: int, n: int, ring_bytes: int,
+                      smem_block: int, smem_sm: int,
+                      sms: int) -> OperatorGeometry:
+    """Lanes per row, rows per warp and warps per CTA of an operator
+    launch for B = ``batch`` matrices of R = ``rows`` signal rows of
+    width n and a ring of ``ring_bytes`` per warp, on a card whose
+    blocks may take ``smem_block`` bytes of shared memory and whose
+    ``sms`` SMs hold ``smem_sm`` bytes each.  Pure: no card query.
+
+    L is the fewest lanes in OPERATOR_LANES whose warps number at least
+    two per SM, else the most (a warp holds 32 / L rows, fewer where R
+    or one block's shared memory is smaller): one lane per row where the
+    rows fill the card, more where they do not, so that more warps run.
+    The warps per CTA (at most 8, at most a matrix's warps) minimize the
+    warps on the busiest SM, ceil(CTAs / SMs) * warps, then take the
+    most warps per CTA (their rings load one matrix's stream through one
+    L1).  Raises when not one row fits."""
+    if min(batch, rows) < 1:
+        raise ValueError(f"operator geometry needs B, R >= 1, got "
+                         f"{(batch, rows)}")
+    row_bytes = ((n + 1) | 1) * 4
+    fit = (smem_block - 16 - ring_bytes) // row_bytes
+    if fit < 1:
+        raise ValueError(f"n={n} is too wide for one shared-memory row "
+                         f"and a ring ({row_bytes} + {ring_bytes} bytes > "
+                         f"{smem_block})")
+    for lanes in OPERATOR_LANES:
+        per_warp = min(32 // lanes, rows, fit)
+        warps_per_matrix = -(-rows // per_warp)
+        if batch * warps_per_matrix >= 2 * sms:
+            break
+
+    def smem(warps):
+        rows_bytes = -(-warps * per_warp * row_bytes // 16) * 16
+        return rows_bytes + warps * ring_bytes
+
+    best, best_key = None, None
+    for warps in range(1, min(_MAX_WARPS, warps_per_matrix) + 1):
+        if smem(warps) > smem_block:
+            break
+        tiles = -(-warps_per_matrix // warps)
+        key = (-(-(batch * tiles) // sms) * warps, -warps)
+        if best_key is None or key < best_key:
+            best_key, best = key, (warps, tiles)
+    warps, tiles = best
+    resident = min(smem_sm // (smem(warps) + _SMEM_RESERVED), 64 // warps,
+                   32)
+    return OperatorGeometry(lanes, per_warp, warps, tiles, smem(warps),
+                            resident)
+
+
+def _operator_geometry_on(device: torch.device, batch: int, rows: int,
+                          n: int, family: str) -> OperatorGeometry:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return operator_geometry(batch, rows, n, operator_ring_bytes(family),
+                             *_card_limits(index))
+
+
 def launch_geometry(entry: str, batch: int, rows: int, n: int,
                     filters: int = 1, slots: int = 1) -> dict:
     """The CTAs a launch of ``entry`` takes on the current card at x
     (batch, rows, n) (a bank: ``filters`` filters on tables of ``slots``
-    slots per stage), with the card's own reading of its resident CTAs
+    slots per stage; an operator also its lanes per row, rows per warp
+    and warps per CTA), with the card's own reading of its resident CTAs
     per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     kernel = KERNEL_OF[entry]
     dev = torch.device("cuda", torch.cuda.current_device())
     family, kind = kernel[0], kernel.split("_")[1]
+    threads = THREADS
     if kind == "bank":
         geo = _bank_geometry_on(dev, batch, rows, n, filters, slots, family)
         out = {"rows_per_cta": geo.rows, "filters_per_cta": geo.filters,
                "ctas": batch * geo.row_tiles * geo.groups}
         tile_rows = geo.rows * geo.filters
+    elif kind == "operator":
+        geo = _operator_geometry_on(dev, batch, rows, n, family)
+        tile_rows = geo.warps * geo.rows_per_warp
+        threads = 32 * geo.warps
+        out = {"rows_per_cta": tile_rows, "filters_per_cta": 1,
+               "lanes_per_row": geo.lanes, "rows_per_warp": geo.rows_per_warp,
+               "warps_per_cta": geo.warps, "ctas": batch * geo.row_tiles}
     else:
         tile_rows = rows_per_tile(batch, rows, n, dev)
         out = {"rows_per_cta": tile_rows, "filters_per_cta": 1,
@@ -289,7 +392,7 @@ def launch_geometry(entry: str, batch: int, rows: int, n: int,
     lib = build.library()
     resident = getattr(lib, f"{family}_occupancy")(
         ("chain", "operator", "bank").index(kind), tile_rows, n, slots,
-        THREADS)
+        threads)
     if resident < 0:
         build.check(lib, -resident, f"{kernel} occupancy query")
     out["resident_per_sm"] = resident
@@ -307,31 +410,85 @@ def stage_extents(staged) -> torch.Tensor:
     return torch.where(ii < staged.n, slot, 0).amax(-1).to(torch.int32)
 
 
-#: id(idx_i) -> (weak reference to idx_i, its version, n, its extents)
+def _kept(cache: dict, tensors: tuple, n: int, make: Callable):
+    """``make()`` kept in ``cache`` beside the tensors it is computed
+    from, keyed on the first, while all of them live and none is
+    replaced or written in place (their versions); the entry goes with
+    the first tensor."""
+    key = id(tensors[0])
+    hit = cache.get(key)
+    if (hit is not None and hit[2] == n
+            and all(r() is t and v == t._version
+                    for r, v, t in zip(hit[0], hit[1], tensors))):
+        return hit[3]
+    out = make()
+    refs = ((weakref.ref(tensors[0], lambda _, k=key: cache.pop(k, None)),)
+            + tuple(weakref.ref(t) for t in tensors[1:]))
+    cache[key] = (refs, tuple(t._version for t in tensors), n, out)
+    return out
+
+
+#: id(idx_i) -> ((weak reference to idx_i,), (its version,), n, its
+#: extents)
 _EXTENTS: dict = {}
 
 
 def _cached_extents(staged) -> torch.Tensor:
     """``stage_extents`` kept beside the index table it was computed
-    from, while that tensor lives and is not written in place: a served
-    basis pays the reduction (a few small launches) once, not per bank
-    launch."""
-    ii = staged.idx_i
-    key = id(ii)
-    hit = _EXTENTS.get(key)
-    if (hit is not None and hit[0]() is ii and hit[1] == ii._version
-            and hit[2] == staged.n):
-        return hit[3]
-    ext = stage_extents(staged)
-    ref = weakref.ref(ii, lambda _, k=key: _EXTENTS.pop(k, None))
-    _EXTENTS[key] = (ref, ii._version, staged.n, ext)
-    return ext
+    from: a served basis pays the reduction (a few small launches) once,
+    not per bank launch."""
+    return _kept(_EXTENTS, (staged.idx_i,), staged.n,
+                 lambda: stage_extents(staged))
 
 
-def _padded_diag(diag: torch.Tensor, x3: torch.Tensor, batched: bool,
-                 what: str) -> torch.Tensor:
-    """Validate the spectrum; return it (B, n+1) with 1.0 in the dummy
-    column n."""
+def entry_stream(staged) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An operator leg's compacted stream, built on the tables' device:
+    ``(words, offsets)``.  ``words`` (E, k) int32 holds the real entries
+    (index below n) of all matrices in (matrix, stage, slot) order in the
+    ring form of csrc/{butterfly,shear}.cu, k words each: (i, j, c, s,
+    sigma, 0, 0, 0) for G, (i, j, alpha, beta) for T, values as their
+    bits.  ``offsets`` (B, S + 1) int32: matrix b's stage s holds entries
+    [offsets[b, s], offsets[b, s + 1]), so offsets[b, 1:] - offsets[b, 0]
+    is the running sum of b's stage extents.  (S, P) tables give
+    B = 1."""
+    tabs = table_arrays(staged)
+    ii = tabs[0]
+    dev = ii.device
+    bsz = ii.shape[0] if ii.dim() == 3 else 1
+    s_tot = ii.shape[-2]
+    flat = [t.reshape(-1) for t in tabs]
+    real = flat[0] < staged.n
+    counts = real.reshape(bsz * s_tot, -1).sum(-1)
+    ends = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    at = (torch.arange(bsz, device=dev)[:, None] * s_tot
+          + torch.arange(s_tot + 1, device=dev))
+    sel = real.nonzero().squeeze(1)
+    if sel.numel() >= 2 ** 31:
+        raise ValueError(f"{sel.numel()} table entries exceed the stream's "
+                         "int32 offsets")
+    family = "t" if isinstance(staged, StagedT) else "g"
+    words = torch.zeros((sel.numel(), _ENTRY_WORDS[family]),
+                        dtype=torch.int32, device=dev)
+    for k, t in enumerate(flat):
+        words[:, k] = t[sel].view(torch.int32)
+    return words, ends[at].to(torch.int32)
+
+
+#: id(idx_i) -> (weak references to the leg's tables, their versions, n,
+#: its stream)
+_STREAMS: dict = {}
+
+
+def _cached_stream(staged) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``entry_stream`` kept beside the tables it was built from: a
+    served basis builds its streams once, not per operator launch."""
+    return _kept(_STREAMS, table_arrays(staged), staged.n,
+                 lambda: entry_stream(staged))
+
+
+def _check_diag(diag: torch.Tensor, x3: torch.Tensor, batched: bool,
+                what: str) -> torch.Tensor:
+    """Validate the spectrum; return it contiguous, (B, n) or (n,)."""
     bsz, _, n = x3.shape
     want = (bsz, n) if batched else (n,)
     if tuple(diag.shape) != want:
@@ -339,9 +496,7 @@ def _padded_diag(diag: torch.Tensor, x3: torch.Tensor, batched: bool,
     if diag.device != x3.device or diag.dtype != torch.float32:
         raise TypeError(f"{what}: diag must be float32 on the signal's "
                         "device")
-    dp = torch.ones((bsz, n + 1), dtype=torch.float32, device=x3.device)
-    dp[:, :n] = diag
-    return dp
+    return diag.contiguous()
 
 
 def _padded_gains(gains: torch.Tensor, x3: torch.Tensor, batched: bool,
@@ -374,37 +529,35 @@ def _launch(entry: str, x3: torch.Tensor, y: torch.Tensor, args: tuple,
             geometry: tuple) -> torch.Tensor:
     """Launch ``entry``'s kernel from x3 (B, R, n) into y: ``args`` are
     the C arguments between the two signals and the geometry (operand
-    pointers, shapes, legs), ``geometry`` its rows (and filters) per
-    CTA."""
+    pointers, shapes, legs), ``geometry`` the C arguments before the
+    CUDA stream handle (rows or filters per CTA and threads; an
+    operator's lanes, rows per warp and warps)."""
     kernel = KERNEL_OF[entry]
     lib = build.library()
     launch = getattr(lib, kernel.replace("_kernel", "_launch"))
-    code = launch(x3.data_ptr(), y.data_ptr(), *args, *geometry, THREADS,
+    code = launch(x3.data_ptr(), y.data_ptr(), *args, *geometry,
                   torch.cuda.current_stream(x3.device).cuda_stream)
     build.check(lib, code, f"{kernel} launch")
     _launches[entry] += 1
     return y
 
 
-def _tiled_launch(entry: str, x3: torch.Tensor, head: tuple,
-                  legs: tuple) -> torch.Tensor:
-    """A chain or operator kernel on x3 (B, R, n): ``head`` holds the C
-    arguments before the signal's shape (an operator's spectrum)."""
-    bsz, r, n = x3.shape
+def _check_batch(bsz: int) -> None:
     if bsz > 65535:
         raise ValueError(f"batch {bsz} exceeds the grid's 65535 matrices")
-    y = torch.empty_like(x3)
-    if bsz == 0 or r == 0:
-        return y
-    return _launch(entry, x3, y, (*head, bsz, r, n, *legs),
-                   (rows_per_tile(bsz, r, n, x3.device),))
 
 
 def _chain_launch(entry: str, staged, x3: torch.Tensor,
                   num_stages: Optional[int], keep: str) -> torch.Tensor:
     leg = _leg(staged, x3, entry.startswith("batched"), num_stages, keep,
                KERNEL_OF[entry])
-    return _tiled_launch(entry, x3, (), leg)
+    bsz, r, n = x3.shape
+    _check_batch(bsz)
+    y = torch.empty_like(x3)
+    if bsz == 0 or r == 0:
+        return y
+    return _launch(entry, x3, y, (bsz, r, n, *leg),
+                   (rows_per_tile(bsz, r, n, x3.device), THREADS))
 
 
 def _operator_legs(entry: str, fwd, bwd, x3: torch.Tensor,
@@ -420,13 +573,41 @@ def _operator_legs(entry: str, fwd, bwd, x3: torch.Tensor,
             _leg(fwd, x3, batched, num_stages, s_keep, f"{kernel} fwd"))
 
 
+def _stream_leg(staged, x3: torch.Tensor, batched: bool,
+                num_stages: Optional[int], keep: str, what: str) -> tuple:
+    """An operator leg's C arguments: the stream's words and stage
+    offsets, S, first stage and stage count."""
+    bsz, _, n = x3.shape
+    s_tot, _ = _check_tables(staged, x3.device, bsz if batched else None, n,
+                             what)
+    words, offsets = _cached_stream(staged)
+    return (words.data_ptr(), offsets.data_ptr(), s_tot,
+            *_leg_range(s_tot, num_stages, keep))
+
+
 def _operator_launch(entry: str, fwd, bwd, diag: torch.Tensor,
                      x3: torch.Tensor,
                      num_stages: Optional[int]) -> torch.Tensor:
-    first, second = _operator_legs(entry, fwd, bwd, x3, num_stages)
-    dp = _padded_diag(diag, x3, entry.startswith("batched"),
-                      KERNEL_OF[entry])
-    return _tiled_launch(entry, x3, (dp.data_ptr(),), first + second)
+    """y (B, R, n): the analysis leg (bwd), the spectrum (B, n) and the
+    synthesis leg (fwd), each leg a stream cut at its family's
+    orientation, on the ``operator_geometry`` grid."""
+    batched = entry.startswith("batched")
+    kernel = KERNEL_OF[entry]
+    a_keep, s_keep = leg_orientation(
+        "general" if isinstance(fwd, StagedT) else "sym")
+    legs = (_stream_leg(bwd, x3, batched, num_stages, a_keep,
+                        f"{kernel} bwd")
+            + _stream_leg(fwd, x3, batched, num_stages, s_keep,
+                          f"{kernel} fwd"))
+    d = _check_diag(diag, x3, batched, kernel)
+    bsz, r, n = x3.shape
+    _check_batch(bsz)
+    y = torch.empty_like(x3)
+    if bsz == 0 or r == 0:
+        return y
+    geo = _operator_geometry_on(x3.device, bsz, r, n, kernel[0])
+    return _launch(entry, x3, y, (d.data_ptr(), bsz, r, n, *legs),
+                   (geo.lanes, geo.rows_per_warp, geo.warps))
 
 
 def _bank_launch(entry: str, fwd, bwd, gains: torch.Tensor,
@@ -438,8 +619,7 @@ def _bank_launch(entry: str, fwd, bwd, gains: torch.Tensor,
     gp = _padded_gains(gains, x3, entry.startswith("batched"),
                        KERNEL_OF[entry])
     bsz, r, n = x3.shape
-    if bsz > 65535:
-        raise ValueError(f"batch {bsz} exceeds the grid's 65535 matrices")
+    _check_batch(bsz)
     f = gp.shape[1]
     y = x3.new_empty((bsz, f, r, n))
     if bsz == 0 or r == 0:
@@ -453,7 +633,7 @@ def _bank_launch(entry: str, fwd, bwd, gains: torch.Tensor,
     geo = _bank_geometry_on(x3.device, bsz, r, n, f, slots,
                             KERNEL_OF[entry][0])
     return _launch(entry, x3, y, (gp.data_ptr(), f, bsz, r, n, *legs),
-                   (geo.rows, geo.filters))
+                   (geo.rows, geo.filters, THREADS))
 
 
 # ---------------------------------------------------------------------------

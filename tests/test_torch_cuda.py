@@ -201,6 +201,58 @@ def test_t_wrapper_validation(cuda):
         sh.batched_shear_apply(cpu_fwd, x)
 
 
+def _batch_for_lanes(lanes, rows, n, family, device):
+    """The fewest matrices at which the operator geometry on this card
+    takes ``lanes`` lanes per row."""
+    for batch in range(1, 257):
+        geo = launcher._operator_geometry_on(device, batch, rows, n, family)
+        if geo.lanes == lanes:
+            return batch
+    pytest.fail(f"no batch up to 256 takes {lanes} lanes per row")
+
+
+@pytest.mark.parametrize("family", ["sym", "general"])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [255, 256])
+def test_operator_kernels_at_each_lane_count(cuda, family, lanes, n):
+    """Both operator kernels at a batch where the geometry takes each
+    lane count it can (launcher.operator_geometry), R = 130 signal rows
+    (no multiple of any rows per warp: every matrix ends in a partial
+    warp), n = 255 and 256, every cut; the B = 1 entry points too where
+    the batch is one.  G within the tolerance, T bitwise."""
+    rows = 130
+    batch = _batch_for_lanes(lanes, rows, n,
+                             "g" if family == "sym" else "t", cuda)
+    if family == "sym":
+        fwd, bwd, sfwd, sbwd, diag = _tables(n, batch, 2 * n, cuda)
+        op, op1 = bf.batched_sym_operator_apply, bf.sym_operator_apply
+        plain = ref.batched_sym_operator_apply
+        plain1 = ref.sym_operator_apply
+        check, entry = _close, "batched_sym_operator_apply"
+    else:
+        fwd, bwd, sfwd, sbwd, diag = _t_tables(n, batch, 2 * n, cuda)
+        op, op1 = sh.batched_gen_operator_apply, sh.gen_operator_apply
+        plain = ref.batched_gen_operator_apply
+        plain1 = ref.gen_operator_apply
+        check, entry = _equal, "batched_gen_operator_apply"
+    geo = launcher.launch_geometry(entry, batch, rows, n)
+    assert geo["lanes_per_row"] == lanes
+    assert rows % geo["rows_per_warp"] != 0
+    gen = torch.Generator(device=cuda).manual_seed(lanes)
+    x = torch.randn((batch, rows, n), generator=gen, device=cuda)
+    launcher.reset_launch_counts()
+    cuts = sorted({0, *fwd.cuts[:, 0].tolist()})
+    for k in cuts:
+        check(op(fwd, bwd, diag, x, k), plain(fwd, bwd, diag, x, k))
+    assert launcher.entry_launch_counts()[entry] == len(cuts)
+    if batch == 1:
+        x1 = x[0].contiguous()
+        for k in sorted({0, *sfwd.cuts[:, 0].tolist()}):
+            check(op1(sfwd, sbwd, diag[0], x1, k),
+                  plain1(sfwd, sbwd, diag[0], x1, k))
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # filter banks: g_bank_kernel and t_bank_kernel
 # ---------------------------------------------------------------------------

@@ -198,8 +198,8 @@ def test_wrapper_validation_for_t_tables(fitted):
     with pytest.raises(ValueError, match="do not match"):
         launcher._check_tables(f["sfwd"], cpu, batch, n, "t")
     with pytest.raises(ValueError, match="diag shape"):
-        launcher._padded_diag(torch.ones(n + 1), torch.zeros((1, 2, n)), False,
-                        "t_operator_kernel")
+        launcher._check_diag(torch.ones(n + 1), torch.zeros((1, 2, n)), False,
+                             "t_operator_kernel")
     x = torch.zeros((batch, 4, n), device="meta")
     meta = tst.StagedT(*(t.to("meta") for t in f["fwd"][:4]),
                        f["fwd"].cuts, n)
