@@ -15,7 +15,10 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              ladder cut including 0, the chains at both keeps, the banks at
              F in {1, 7, 33} (33 filters split into several filter groups
              per row tile where the grid needs them; the geometry of each
-             check is printed).
+             check is printed).  Then the batch split: a batch of 7 at a
+             grid limit forced down to 3 matrices (launcher._GRID_B)
+             launches each family's chain, operator and bank three times,
+             and each equals its unsplit launch bitwise.
 3. main    — the port's main path at a realistic size, through the CLI entry
              point: ``python -m repro_torch.launch.serve --fgft`` with B = 64
              community graphs, n = 256, g = 2 n log2 n = 4096, R = 256,
@@ -74,18 +77,20 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              (cudaOccupancyMaxActiveBlocksPerMultiprocessor; a bank launch
              must keep at least three) and the kernel's device time per
              launch from a torch.profiler trace beside the CUDA-event
-             time of the whole call; an operator launch also prints its
-             lanes per row, rows per warp and warps per CTA
+             time of the whole call; a chain or operator launch also
+             prints its lanes per row, rows per warp and warps per CTA
              (launcher.operator_geometry).  The banks' stage-extent
              reduction (launcher.stage_extents, both legs) is timed on its
              own.
 8. turns   — only with ``--baseline DIR ...`` (each DIR a checkout of this
              repository, e.g. a ``git archive`` of an earlier commit): the
-             four operator entry points of this checkout and of each DIR
-             timed in turns (this, DIR..., then the same in reverse), each
-             tree in a process of its own with its own kernel build, on
-             the main paths' tables, signals and spectra saved by this
-             run; CUDA-event and profiler device ms per call.
+             four operator and the four chain entry points of this
+             checkout and of each DIR timed in turns (this, DIR..., then
+             the same in reverse), each tree in a process of its own with
+             its own kernel build, on the tables, signals and spectra of
+             phase 7's timings, saved by this run (the batched G chain on
+             the tier refit's identity block); CUDA-event and profiler
+             device ms per call.
 
 Tolerance of the kernel-vs-plain checks: for the G kernels max|dy| <= 1e-4 *
 max(1, max|y|), since they and their plain versions round their FMA
@@ -423,6 +428,81 @@ def directed_laps(n: int, count: int):
                      for s in range(count)])
 
 
+def random_tables(family: str, n: int, batch: int, g: int, seed: int):
+    """(fwd, bwd) tables of ``batch`` random chains of g components."""
+    import numpy as np
+    from repro_torch.core import staging
+    from repro_torch.core.types import GFactors, TFactors
+    rng = np.random.default_rng(seed)
+    i = rng.integers(0, n, (batch, g))
+    j = (i + rng.integers(1, n, (batch, g))) % n
+    if family == "sym":
+        theta = rng.uniform(-np.pi, np.pi, (batch, g))
+        f = GFactors(np.minimum(i, j).astype(np.int32),
+                     np.maximum(i, j).astype(np.int32),
+                     np.cos(theta).astype(np.float32),
+                     np.sin(theta).astype(np.float32),
+                     rng.choice([-1.0, 1.0], (batch, g)).astype(np.float32))
+        return staging.pack_g_batch_pair(f, n, device=DEVICE)
+    kind = rng.integers(0, 2, (batch, g)).astype(np.int32)
+    scale = (rng.uniform(0.8, 1.25, (batch, g))
+             * rng.choice([-1.0, 1.0], (batch, g)))
+    a = np.where(kind == 0, scale, rng.uniform(-0.5, 0.5, (batch, g)))
+    f = TFactors(kind, i.astype(np.int32),
+                 np.where(kind == 0, i, j).astype(np.int32),
+                 a.astype(np.float32))
+    return staging.pack_t_batch_pair(f, n, device=DEVICE)
+
+
+def check_split() -> None:
+    """A batch of 7 at a grid limit forced down to 3 matrices: each
+    family's chain, operator and bank entry point launches three times
+    (on [0, 3), [3, 6) and [6, 7)) and equals its unsplit launch
+    bitwise."""
+    import torch
+    from repro_torch.kernels import launcher
+    from repro_torch.kernels import spectral as ksp
+    from repro_torch.kernels import butterfly as bf
+    from repro_torch.kernels import shear as sh
+    n, batch = 48, 7
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    x = torch.randn((batch, 130, n), generator=gen, device=DEVICE)
+    diag = torch.rand((batch, n), generator=gen, device=DEVICE) * n
+    gains = torch.rand((batch, 5, n), generator=gen, device=DEVICE) * 2.0
+    for family, mod, names in (
+            ("sym", bf, ("batched_butterfly_apply",
+                         "batched_sym_operator_apply",
+                         "batched_sym_filter_bank_apply")),
+            ("general", sh, ("batched_shear_apply",
+                             "batched_gen_operator_apply",
+                             "batched_gen_filter_bank_apply"))):
+        fwd, bwd = random_tables(family, n, batch, 200, 5)
+        k = int(fwd.cuts[1, 0])
+        chain, op = getattr(mod, names[0]), getattr(mod, names[1])
+        bank = getattr(ksp, names[2])
+        calls = (lambda: chain(fwd, x, k, "tail"),
+                 lambda: op(fwd, bwd, diag, x, k),
+                 lambda: bank(fwd, bwd, gains, x, k))
+        whole = [call() for call in calls]
+        grid = launcher._GRID_B
+        launcher._GRID_B = 3
+        try:
+            launcher.reset_launch_counts()
+            split = [call() for call in calls]
+            counts = launcher.entry_launch_counts()
+        finally:
+            launcher._GRID_B = grid
+        for name, got, want in zip(names, split, whole):
+            check(torch.equal(got, want),
+                  f"{name}: split launch != unsplit launch")
+            check(counts[name] == 3,
+                  f"{name}: {counts[name]} launches for 3 slices")
+    torch.cuda.synchronize()
+    log(f"[kernels] batch split: B={batch} at a grid limit of 3 matrices, "
+        f"chain, operator and bank of both families: 3 launches each, "
+        f"bitwise equal to the unsplit launches")
+
+
 def phase_kernels(errs) -> None:
     import numpy as np
     import torch
@@ -458,6 +538,7 @@ def phase_kernels(errs) -> None:
                        x1, errs)
         check_bank_tables(f"n={n} B=1 R=130", sfwd, sinv, g1, x1, errs,
                           (1, 7, 33))
+    check_split()
     torch.cuda.synchronize()
 
 
@@ -1084,30 +1165,38 @@ def phase_directed_shapes(main, single, errs) -> list:
     return timed_rows(cases, main, single, basis.fwd, sfwd, errs, "general")
 
 
-OPERATORS = {"batched_sym_operator_apply": ("sym", "g_operator_kernel"),
-             "sym_operator_apply": ("sym", "g_operator_kernel"),
-             "batched_gen_operator_apply": ("general", "t_operator_kernel"),
-             "gen_operator_apply": ("general", "t_operator_kernel")}
+#: entry point -> (family, kernel) of the turns phase
+TURNS = {"batched_sym_operator_apply": ("sym", "g_operator_kernel"),
+         "sym_operator_apply": ("sym", "g_operator_kernel"),
+         "batched_gen_operator_apply": ("general", "t_operator_kernel"),
+         "gen_operator_apply": ("general", "t_operator_kernel"),
+         "batched_butterfly_apply": ("sym", "g_chain_kernel"),
+         "butterfly_apply": ("sym", "g_chain_kernel"),
+         "batched_shear_apply": ("general", "t_chain_kernel"),
+         "shear_apply": ("general", "t_chain_kernel")}
 
 
-def save_operator_inputs(path, main, single, main_dir, single_dir) -> None:
-    """The main paths' operator inputs, on the host: per entry point
-    both table sets, n, the spectrum and the signal."""
+def save_turn_inputs(path, main, single, main_dir, single_dir) -> None:
+    """Phase 7's timing inputs of the TURNS entry points, on the host: per
+    entry point both table sets, n, the spectrum and the signal (the
+    batched G chain's signal is the tier refit's identity block)."""
     import torch
     from repro_torch.core.staging import table_arrays
 
     def host(staged):
         return [t.cpu() for t in table_arrays(staged)]
     out = {}
-    for entry, (batched, path_rec) in {
-            "batched_sym_operator_apply": (True, main),
-            "sym_operator_apply": (False, single),
-            "batched_gen_operator_apply": (True, main_dir),
-            "gen_operator_apply": (False, single_dir)}.items():
+    for entry, (family, _) in TURNS.items():
+        batched = entry.startswith("batched")
+        path_rec = ((main if batched else single) if family == "sym"
+                    else (main_dir if batched else single_dir))
         if batched:
             basis = path_rec["out"]["engine"].basis
             x = path_rec["out"]["signals"]
             fwd, bwd, spec = basis.fwd, basis.bwd, basis.spectrum
+            if entry == "batched_butterfly_apply":
+                x = torch.eye(basis.n).expand(spec.shape[0], basis.n,
+                                              basis.n).contiguous()
         else:
             f, x = path_rec["fgft"], path_rec["signals"]
             fwd, bwd, spec = f.fwd, f.bwd, f.spectrum
@@ -1116,37 +1205,41 @@ def save_operator_inputs(path, main, single, main_dir, single_dir) -> None:
     torch.save(out, path)
 
 
-def time_operators(path) -> dict:
-    """Child of the turns phase: the four operator entry points of the
-    ``repro_torch`` on sys.path, timed on the saved inputs."""
+def time_entries(path) -> dict:
+    """Child of the turns phase: the TURNS entry points of the
+    ``repro_torch`` on sys.path, timed on the saved inputs (a chain on
+    its forward tables, full chain)."""
     import torch
     from repro_torch.core.staging import StagedG, StagedT
     from repro_torch.kernels import butterfly as bf
     from repro_torch.kernels import shear as sh
     data = torch.load(path)
     out = {}
-    for entry, (family, kernel) in OPERATORS.items():
+    for entry, (family, kernel) in TURNS.items():
         d = data[entry]
         cls, mod = (StagedG, bf) if family == "sym" else (StagedT, sh)
         fwd, bwd = (cls(*(t.to(DEVICE) for t in d[leg]), None, d["n"])
                     for leg in ("fwd", "bwd"))
         diag, x = d["diag"].to(DEVICE), d["x"].to(DEVICE)
         fn = getattr(mod, entry)
-        call = lambda: fn(fwd, bwd, diag, x)  # noqa: E731
+        if "operator" in kernel:
+            call = lambda: fn(fwd, bwd, diag, x)  # noqa: E731
+        else:
+            call = lambda: fn(fwd, x)  # noqa: E731
         out[entry] = {"ms": time_ms(call), "device_ms": device_ms(call,
                                                                   kernel)}
     return out
 
 
 def phase_turns(baselines, main, single, main_dir, single_dir) -> list:
-    """This checkout's operator entry points and each baseline's, timed in
+    """This checkout's TURNS entry points and each baseline's, timed in
     turns (this, baselines..., then in reverse), each tree in a process
     of its own that builds its own kernels."""
     import os
     work = ROOT / "build" / "turns"
     work.mkdir(parents=True, exist_ok=True)
-    inputs = work / "operator_inputs.pt"
-    save_operator_inputs(inputs, main, single, main_dir, single_dir)
+    inputs = work / "turn_inputs.pt"
+    save_turn_inputs(inputs, main, single, main_dir, single_dir)
     trees = [("this", ROOT)] + [(f"baseline {d}", pathlib.Path(d).resolve())
                                 for d in baselines]
     rows = []
@@ -1156,7 +1249,7 @@ def phase_turns(baselines, main, single, main_dir, single_dir) -> list:
         env = dict(os.environ, REPRO_TORCH_BUILD_DIR=str(
             work / f"build_{trees.index((tag, tree))}"))
         out = subprocess.run(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--time-operators",
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--time-entries",
              str(inputs), "--src", str(tree / "src")],
             capture_output=True, text=True, env=env, timeout=900)
         check(out.returncode == 0, f"turn {k} ({tag}) failed:\n"
@@ -1175,15 +1268,15 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", nargs="+", default=[], metavar="DIR",
-                    help="checkouts whose operator entry points are timed "
-                    "in turns with this one's (phase 8)")
-    ap.add_argument("--time-operators", metavar="FILE",
+                    help="checkouts whose operator and chain entry points "
+                    "are timed in turns with this one's (phase 8)")
+    ap.add_argument("--time-entries", metavar="FILE",
                     help=argparse.SUPPRESS)
     ap.add_argument("--src", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.time_operators:
+    if args.time_entries:
         sys.path.insert(0, args.src)
-        print(json.dumps(time_operators(args.time_operators)))
+        print(json.dumps(time_entries(args.time_entries)))
         return 0
     import torch
     if not torch.cuda.is_available():

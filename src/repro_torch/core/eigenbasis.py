@@ -14,6 +14,7 @@ of the port that brings them.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
@@ -74,7 +75,7 @@ class ApproxEigenbasis:
 
     @classmethod
     def fit(cls, mats, num_transforms: int, *, kind: str = "auto",
-            n_iter: int = 8, eps: float = 1e-3,
+            hint: Optional[str] = None, n_iter: int = 8, eps: float = 1e-3,
             update_spectrum: bool = True, spectrum=None,
             score: Optional[str] = None, sizes=None,
             stage_pad: Optional[tuple] = None,
@@ -84,7 +85,9 @@ class ApproxEigenbasis:
         The B greedy factorizations advance in lockstep on ``device``.
         ``kind="auto"`` resolves to "sym" for symmetric input and to
         "general" otherwise; pass ``kind="sym"``/``"general"`` to force
-        a family.  ``score``/``spectrum`` as in
+        a family, or ``hint`` ("sym" or "general") to keep the detection
+        but be warned when it resolves against the family the caller
+        expects.  ``score``/``spectrum`` as in
         ``gtransform.approximate_symmetric`` (``score`` applies to the
         symmetric family only).  ``stage_pad``: optional
         (depth_quantum, width_quantum) staged-table shape quantization
@@ -103,8 +106,16 @@ class ApproxEigenbasis:
         if mats.shape[-2] != n:
             raise ValueError(f"matrices must be square, got "
                              f"{tuple(mats.shape)}")
+        if hint not in (None, SYMMETRIC, GENERAL):
+            raise ValueError(f"unknown hint {hint!r}; expected "
+                             f"{SYMMETRIC!r} or {GENERAL!r}")
         if kind == "auto":
             kind = SYMMETRIC if _is_symmetric(mats) else GENERAL
+            if hint is not None and hint != kind:
+                warnings.warn(
+                    f"kind='auto' resolved to {kind!r}, overriding the "
+                    f"caller hint {hint!r}; pass kind={hint!r} to force "
+                    "that factorization family", stacklevel=2)
         if kind not in (SYMMETRIC, GENERAL):
             raise ValueError(f"unknown kind {kind!r}")
         if kind == GENERAL and score is not None:

@@ -58,11 +58,12 @@ class FGFT:
 
     def _plan(self, mode: str, backend: Optional[str],
               num_stages: Optional[int], keep: str = "head",
-              fused: bool = True):
+              precision: str = "f32", fused: bool = True):
         from repro_torch.kernels.plan import ApplyPlan
         return ApplyPlan(family=self.family, mode=mode, n=self.n,
                          backend=backend, num_stages=num_stages, keep=keep,
-                         fused=fused, device=str(self.spectrum.device))
+                         precision=precision, fused=fused,
+                         device=str(self.spectrum.device))
 
     def analysis(self, x: torch.Tensor, backend: Optional[str] = None,
                  num_stages: Optional[int] = None) -> torch.Tensor:
@@ -84,16 +85,27 @@ class FGFT:
         return self._plan("apply", backend, num_stages, keep).apply(
             self.fwd, xh)
 
+    def filter(self, x: torch.Tensor, h: Optional[Callable],
+               backend: Optional[str] = None,
+               num_stages: Optional[int] = None, precision: str = "f32",
+               fused: bool = True) -> torch.Tensor:
+        """Spectral filter y = Ubar diag(h(spectrum)) Ubar^T x (or the
+        Tbar form) in one fused launch; ``h`` maps the (n,) spectrum to
+        (n,) gains (None: the identity, the Laplacian itself).
+        ``num_stages`` cuts both legs to the same component prefix;
+        ``fused=False`` runs three passes.  ``precision`` other than
+        "f32" is refused (bf16 tables are not ported)."""
+        d = self.spectrum if h is None else h(self.spectrum)
+        plan = self._plan("operator", backend, num_stages,
+                          precision=precision, fused=fused)
+        return plan.operator(self.fwd, self.bwd, d, x)
+
     def project(self, x: torch.Tensor, h: Optional[Callable] = None,
                 backend: Optional[str] = None,
                 num_stages: Optional[int] = None,
                 fused: bool = True) -> torch.Tensor:
-        """Spectral filter y = Ubar diag(h(spectrum)) Ubar^T x (or the
-        Tbar form) in one fused launch (``h`` defaults to the identity:
-        the Laplacian itself); ``fused=False`` runs three passes."""
-        d = self.spectrum if h is None else h(self.spectrum)
-        plan = self._plan("operator", backend, num_stages, fused=fused)
-        return plan.operator(self.fwd, self.bwd, d, x)
+        """``filter`` with ``h`` defaulting to the identity."""
+        return self.filter(x, h, backend, num_stages, fused=fused)
 
     @property
     def stage_cuts(self) -> np.ndarray:

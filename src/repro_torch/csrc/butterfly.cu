@@ -20,34 +20,30 @@
 // once, scales one copy of the coefficients per filter by that filter's
 // gains, and runs the forward leg on all copies at once.
 //
-// Design.  The chain kernel: one CTA owns one (matrix b, tile of `rows`
-// signal rows), held in dynamic shared memory for the whole chain (x read
-// from device memory once, y written once); its body (chain.cuh, run_leg)
-// walks all P slots of every stage between two __syncthreads().  It is
-// bound by those barriers and the per-stage table reads (at n = 256,
-// g = 4096 a batched fit packs S = 440 stages of P = 63 slots, ~9 of them
-// real pairs), not by arithmetic or the single HBM pass over x and y, and
-// answers with many rows per CTA and several CTAs per SM.  This file
-// supplies the stage action GPair.  Every kernel takes the anytime cut as a
-// runtime (first stage, stage count) per leg: no recompilation, and a count
-// of 0 is a valid cut.
-//
-// The operator (chain.cuh, stream_leg and operator_rows).  A warp owns its
-// signal rows of one matrix for both legs and the scaling: one lane per
-// row where the rows fill the card (B = 64, R = 256: 4 warps of 32 rows per
+// Design: the chain and the operator (chain.cuh, the rows body:
+// stream_leg in own_rows, chain_rows and operator_rows).  A warp owns
+// its signal rows of one matrix for the whole launch: one lane per row
+// where the rows fill the card (B = 64, R = 256: 4 warps of 32 rows per
 // CTA), eight lanes splitting each stage's entries at B = 1
 // (kernels/launcher.py::operator_geometry).  Each leg walks only the real
 // pairs, compacted in stage order with per-stage offsets
-// (kernels/launcher.py::entry_stream, built once per table set), so no pad
-// is read and the anytime cut is an entry range; the spectrum is read as
-// given, (B, n).  There is no CTA barrier: with one lane per row nothing
-// synchronises, with several the row's lanes cross one __syncwarp() per
-// stage.  Bound on this card: the latency of one warp's walk (a stage of
-// ~9 pairs costs its chain of ring load, row load, arithmetic and store
-// plus bookkeeping, with one warp per scheduler at the batched shapes), not
-// memory and not arithmetic; the body answers with groups of up to 8 pairs
-// whose loads all precede their stores in pinned order, entries from a
-// per-warp shared ring filled two chunks ahead, and no branch per pair.
+// (kernels/launcher.py::entry_stream, built once per table set and shared
+// by every chain and operator launch on it), so no pad is read and the
+// anytime cut, head or tail, is a runtime entry range; a cut of 0 stages
+// is valid.  The operator's spectrum is read as given, (B, n).  There is
+// no CTA barrier: with one lane per row nothing synchronises, with
+// several the row's lanes cross one __syncwarp() per stage.
+//
+// Bound on this card.  The chain's function is one pass over x and y plus
+// its real pairs (B = 64, R = n = 256, 4096 pairs a matrix: ~0.012 ms of
+// HBM traffic), the operator's twice the pairs; the kernels are bound
+// instead by the latency of one warp's walk (a stage of ~9 pairs costs
+// its chain of ring load, row load, arithmetic and store plus
+// bookkeeping, with one warp per scheduler at the batched shapes), not
+// by memory and not by arithmetic.  The body answers with groups of up
+// to 8 pairs whose loads all precede their stores in pinned order,
+// entries from a per-warp shared ring filled two chunks ahead, and no
+// branch per pair.
 //
 // The bank.  The function is F + 1 legs over one signal read and F output
 // writes (at B = 64, F = 7, R = n = 256 about 3.2 GFLOP against 0.14 GB:
@@ -70,28 +66,14 @@
 
 namespace {
 
-// A G pair (i, j) with values (c, s, sigma), applied to one signal row.
+// A G pair (i, j) with values (c, s, sigma): the table pointers of a bank
+// leg, and the stage action of every body on one signal row.
 struct GPair {
   const int* ii;
   const int* jj;
   const float* c;
   const float* s;
   const float* sg;
-
-  __device__ __forceinline__ void operator()(float* row, long long e,
-                                             int n) const {
-    const int i = __ldg(ii + e);
-    const int j = __ldg(jj + e);
-    if (i < n && j < n) {
-      const float ce = __ldg(c + e);
-      const float se = __ldg(s + e);
-      const float ge = __ldg(sg + e);
-      const float xi = row[i];
-      const float xj = row[j];
-      row[i] = ce * xi + se * xj;
-      row[j] = ge * (-se * xi + ce * xj);
-    }
-  }
 
   // The bank's ring form (chain.cuh): an entry is the words
   // (i, j, c, s, sigma) at a 32-byte stride.
@@ -122,7 +104,7 @@ struct GPair {
     }
   }
 
-  // The operator's form (chain.cuh, stream_leg): an entry in registers,
+  // The rows body's form (chain.cuh, stream_leg): an entry in registers,
   // read from a warp's ring (the ring form) with one 16-byte and one
   // 4-byte broadcast load.
   struct Entry {
@@ -161,13 +143,13 @@ struct GPair {
   }
 };
 
-using GLeg = Leg<GPair>;
 using GBankLeg = BankLeg<GPair>;
 
-__global__ void g_chain_kernel(int R, int n, int ld, int rows_per_tile,
-                               const float* __restrict__ x,
-                               float* __restrict__ y, GLeg leg) {
-  chain_tile(R, n, ld, rows_per_tile, x, y, leg);
+__global__ void __launch_bounds__(kMaxOperatorThreads)
+    g_chain_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
+                   const float* __restrict__ x, float* __restrict__ y,
+                   StreamLeg leg) {
+  chain_lanes<GPair>(R, n, ld, lanes, rows_per_warp, x, y, leg);
 }
 
 __global__ void __launch_bounds__(kMaxOperatorThreads)
@@ -186,11 +168,6 @@ __global__ void g_bank_kernel(int R, int n, int ld, int rows_per_cta,
                               GBankLeg adj, GBankLeg fwd) {
   bank_tile(R, n, ld, rows_per_cta, filters_per_cta, row_tiles, slot_words,
             x, y, gains, F, adj, fwd);
-}
-
-inline GLeg g_leg(const int* ii, const int* jj, const float* c, const float* s,
-                  const float* sg, long long bstride, int P, int s0, int ns) {
-  return GLeg{GPair{ii, jj, c, s, sg}, bstride, P, s0, ns};
 }
 
 inline GBankLeg g_bank_leg(const int* ii, const int* jj, const float* c,
@@ -231,16 +208,15 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// y[b] = Ubar_b x[b] over stages [s0, s0 + ns) of tables (B, S, P) with
-// matrix stride `bstride` (0 for one shared table set).  x, y: (B, R, n).
+// y[b] = Ubar_b x[b] over stages [s0, s0 + ns) of the leg's stream (words,
+// (B, S + 1) stage offsets); x, y: (B, R, n).  Each row of x is held by
+// `lanes` lanes, a warp owns rows_per_warp rows, a CTA has `warps` warps.
 int g_chain_launch(const float* x, float* y, int B, int R, int n,
-                   const int* ii, const int* jj, const float* c,
-                   const float* s, const float* sg, long long bstride, int P,
-                   int s0, int ns, int rows_per_tile, int threads,
-                   void* stream) {
-  return launch_tiled(g_chain_kernel, B, R, n, rows_per_tile, threads,
-                      stream, x, y, g_leg(ii, jj, c, s, sg, bstride, P, s0,
-                                          ns));
+                   const int* words, const int* off, int S, int s0, int ns,
+                   int lanes, int rows_per_warp, int warps, void* stream) {
+  return launch_rows<GPair>(g_chain_kernel, B, R, n, lanes, rows_per_warp,
+                            warps, stream, x, y,
+                            StreamLeg{words, off, S, s0, ns});
 }
 
 // y[b] = Ubar_b diag(d[b]) Ubar_b^T x[b], d (B, n): the adjoint leg runs
@@ -248,11 +224,11 @@ int g_chain_launch(const float* x, float* y, int B, int R, int n,
 // offsets), the forward leg [f0, f0 + nf) of the forward stream; each row
 // of x is held by `lanes` lanes, a warp owns rows_per_warp rows, a CTA has
 // `warps` warps.
-int g_operator_launch(const float* x, float* y, const float* d, int B, int R,
-                      int n, const int* awords, const int* aoff, int aS,
-                      int a0, int na, const int* fwords, const int* foff,
-                      int fS, int f0, int nf, int lanes, int rows_per_warp,
-                      int warps, void* stream) {
+int g_operator_launch(const float* x, float* y, int B, int R, int n,
+                      const float* d, const int* awords, const int* aoff,
+                      int aS, int a0, int na, const int* fwords,
+                      const int* foff, int fS, int f0, int nf, int lanes,
+                      int rows_per_warp, int warps, void* stream) {
   return launch_rows<GPair>(g_operator_kernel, B, R, n, lanes, rows_per_warp,
                             warps, stream, x, y, d,
                             StreamLeg{awords, aoff, aS, a0, na},
@@ -262,8 +238,8 @@ int g_operator_launch(const float* x, float* y, const float* d, int B, int R,
 // y[b, f] = Ubar_b diag(gains[b, f]) Ubar_b^T x[b] for f < F, legs as in
 // g_operator_launch plus each leg's (B, S) stage extents; gains (B, F, n + 1)
 // with 1.0 in the dummy column n, y (B, F, R, n).
-int g_bank_launch(const float* x, float* y, const float* gains, int F, int B,
-                  int R, int n, const int* aii, const int* ajj,
+int g_bank_launch(const float* x, float* y, int B, int R, int n,
+                  const float* gains, int F, const int* aii, const int* ajj,
                   const float* ac, const float* as, const float* asg,
                   const int* aext, long long abstride, int aP, int a0, int na,
                   const int* fii, const int* fjj, const float* fc,
@@ -280,19 +256,17 @@ int g_bank_launch(const float* x, float* y, const float* gains, int F, int B,
 }
 
 // Resident CTAs per SM of a G kernel (0 chain, 1 operator, 2 bank) with a
-// tile of `rows` rows of width n (an operator: all its warps' rows; a bank:
-// all its filters' rows) and, for the bank, a ring of P-slot stages;
-// negative: a cudaError_t code.
+// tile of `rows` rows of width n (a chain or an operator: all its warps'
+// rows, beside a ring per warp; a bank: all its filters' rows) and, for
+// the bank, a ring of P-slot stages; negative: a cudaError_t code.
 int g_occupancy(int kind, int rows, int n, int P, int threads) {
   const int ld = odd_stride(n);
-  const size_t tile = (size_t)rows * ld * sizeof(float);
+  const size_t smem = operator_smem(rows, ld, threads / 32, GPair::kWords);
   switch (kind) {
-    case 0: return resident_ctas((const void*)g_chain_kernel, tile, threads);
+    case 0:
+      return resident_ctas((const void*)g_chain_kernel, smem, threads);
     case 1:
-      return resident_ctas((const void*)g_operator_kernel,
-                           operator_smem(rows, ld, threads / 32,
-                                         GPair::kWords),
-                           threads);
+      return resident_ctas((const void*)g_operator_kernel, smem, threads);
     default:
       return resident_ctas((const void*)g_bank_kernel,
                            bank_smem(rows, ld, P * GPair::kWords), threads);

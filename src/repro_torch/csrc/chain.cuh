@@ -1,96 +1,50 @@
-// The staged-chain kernel bodies shared by every table family (butterfly.cu:
-// G pairs, shear.cu: T entries).  A family supplies its stage action `Op`.
+// The staged-chain kernel bodies shared by both table families
+// (butterfly.cu: G pairs, shear.cu: T entries).  A family supplies its
+// stage action `Op`.  Two bodies:
 //
-// The chain kernels (run_leg, chain_tile) hold `rows` signal rows of width n
-// per CTA in shared memory at a row stride `ld` (n + 1 rounded up to an odd
-// count, so rows fall on distinct banks), read x from device memory once and
-// write y once.  A stage is a loop over (entry, row) work items, row fastest,
-// so a warp's 32 lanes read one table entry (a broadcast) and touch 32 rows at
-// an odd stride (no bank conflicts); they walk all P slots of a stage, read
-// each work item's entry from device memory through
-//   __device__ void operator()(float* row, long long e, int n) const
-// (pads, with an index n, are skipped), and one __syncthreads() orders
-// consecutive stages.
+// The rows body (stream_leg, own_rows, chain_rows, operator_rows,
+// launch_rows) carries the chain kernels (one leg) and the operator
+// kernels (two legs and the spectrum between them).  A warp owns its
+// signal rows of one matrix for the whole launch, so no stage ever waits
+// for the whole CTA.  Each leg walks a compacted stream of its real
+// entries in stage order (kernels/launcher.py::entry_stream) with
+// per-stage offsets, so no pad is read and the anytime cut, head or tail,
+// is a runtime entry range; with L lanes per row (kernels/launcher.py::
+// operator_geometry) the lanes of a row split a stage's entries and cross
+// one __syncwarp() per stage, and with L = 1 a lane walks every entry on
+// its own row with no synchronisation at all.  The stream reaches each
+// warp through a ring of its own in shared memory, filled with plain
+// loads staged through registers two chunks ahead.
 //
-// The filter-bank kernels have a body of their own (walk_leg, bank_tile):
-// a CTA owns r signal rows and F_g filters, runs the analysis leg on its r
-// rows, scales them into F_g copies in the same tile and runs ONE synthesis
-// walk over all F_g * r rows, so it crosses 2 S stage barriers whatever F_g;
-// each leg walks a stage only up to its real extent (1 + its last real slot,
-// from a (B, S) extent table), and reads its entries from a small ring of
-// stages in shared memory that cp.async fills a few stages ahead.  The rows
-// and filters per CTA (kernels/launcher.py::bank_geometry) keep the CTA's
-// shared memory small enough for three resident CTAs per SM.
+// What bounds the rows body: not memory (x, y and the stream are read or
+// written once per warp) and not the shared-memory pipe, but the latency
+// of one warp's walk.  At the batched shapes a scheduler holds one warp,
+// so a stage costs its dependent chain (ring load, row load, arithmetic,
+// store) plus the per-stage bookkeeping; the body keeps that chain short:
+// a lane reads a group of up to 8 entries and all their coordinates
+// before it writes any, the group's shared accesses are pinned in that
+// order, idle slots of a group use the row's scratch column instead of a
+// branch, and no stage waits on device memory (PERF.md §6).
 //
-// The operator kernels have the third body (stream_leg, operator_rows): a
-// warp owns its rows of one matrix for both legs and the scaling, so no
-// stage ever waits for the whole CTA.  Each leg walks a compacted stream of
-// its real entries in stage order (kernels/launcher.py::entry_stream) with
-// per-stage offsets; with L lanes per row (kernels/launcher.py::
-// operator_geometry) the lanes of a row split a stage's entries and cross one
-// __syncwarp() per stage, and with L = 1 a lane walks every entry on its own
-// row with no synchronisation at all.  The stream reaches each warp through
-// a ring of its own in shared memory, filled with plain loads staged
-// through registers two chunks ahead.  A chain is its one-leg case.
+// The bank body (walk_leg, bank_tile, launch_bank): a CTA owns r signal
+// rows and F_g filters, runs the analysis leg on its r rows, scales them
+// into F_g copies in the same tile and runs ONE synthesis walk over all
+// F_g * r rows, so it crosses 2 S stage barriers whatever F_g; each leg
+// walks a stage only up to its real extent (1 + its last real slot, from
+// a (B, S) extent table), and reads its entries from a small ring of
+// stages in shared memory that cp.async fills a few stages ahead.  The
+// rows and filters per CTA (kernels/launcher.py::bank_geometry) keep the
+// CTA's shared memory small enough for three resident CTAs per SM.
 //
-// What bounds the operator now: not memory (x, y and the stream are read or
-// written once per warp) and not the shared-memory pipe, but the latency of
-// one warp's walk.  At the batched shapes a scheduler holds one warp, so a
-// stage costs its dependent chain (ring load, row load, arithmetic, store)
-// plus the per-stage bookkeeping; the body keeps that chain short: a lane
-// reads a group of up to 8 entries and all their coordinates before it
-// writes any, the group's shared accesses are pinned in that order, idle
-// slots of a group use the row's scratch column instead of a branch, and
-// no stage waits on device memory (PERF.md §6).
+// Every launch helper takes its batch as grid y; the launcher splits a
+// batch of more than 65535 matrices into launches on offset pointers.
 #pragma once
 
 #include <cuda_runtime.h>
 
 inline int odd_stride(int n) { return (n + 1) | 1; }
 
-// One leg of a chain: stages [s0, s0 + ns) of (B, S, P) tables.
-template <class Op>
-struct Leg {
-  Op op;              // the family's table pointers and stage action
-  long long bstride;  // elements between consecutive matrices' tables (0: shared)
-  int P;              // entries per stage
-  int s0;             // first stage to run
-  int ns;             // number of stages to run
-};
-
-template <class Op>
-__device__ __forceinline__ void run_leg(float* tile, int ld, int rows, int n,
-                                        int b, const Leg<Op>& leg) {
-  const long long base = (long long)b * leg.bstride;
-  const int items = rows * leg.P;
-  for (int st = leg.s0; st < leg.s0 + leg.ns; ++st) {
-    const long long off = base + (long long)st * leg.P;
-    for (int w = threadIdx.x; w < items; w += blockDim.x) {
-      const int p = w / rows;
-      const int r = w - p * rows;
-      leg.op(tile + r * ld, off + p, n);
-    }
-    __syncthreads();
-  }
-}
-
-// The CTA's tile: matrix blockIdx.y, rows [r0, r0 + rows) of its signal.
-struct TileSpan {
-  long long off;  // offset of the tile's first element in x and y
-  int b;
-  int rows;
-};
-
-__device__ __forceinline__ TileSpan tile_span(int R, int n,
-                                              int rows_per_tile) {
-  TileSpan t;
-  t.b = blockIdx.y;
-  const int r0 = blockIdx.x * rows_per_tile;
-  t.rows = min(rows_per_tile, R - r0);
-  t.off = ((long long)t.b * R + r0) * n;
-  return t;
-}
-
+// The bank's tile: `rows` rows of x into the shared tile at the stride ld.
 __device__ __forceinline__ void load_tile(float* tile, int ld, const float* x,
                                           int rows, int n) {
   for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
@@ -99,15 +53,6 @@ __device__ __forceinline__ void load_tile(float* tile, int ld, const float* x,
     tile[r * ld + col] = x[(long long)r * n + col];
   }
   __syncthreads();
-}
-
-__device__ __forceinline__ void store_tile(float* y, const float* tile, int ld,
-                                           int rows, int n) {
-  for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
-    const int r = e / n;
-    const int col = e - r * n;
-    y[(long long)r * n + col] = tile[r * ld + col];
-  }
 }
 
 // tile[r, col] *= d[col] for the (n + 1)-wide dummy-padded spectrum d.
@@ -119,18 +64,6 @@ __device__ __forceinline__ void scale_tile(float* tile, int ld, const float* d,
     tile[r * ld + col] *= d[col];
   }
   __syncthreads();
-}
-
-// y[b] = chain_b x[b] for this CTA's tile.
-template <class Op>
-__device__ __forceinline__ void chain_tile(int R, int n, int ld,
-                                           int rows_per_tile, const float* x,
-                                           float* y, const Leg<Op>& leg) {
-  extern __shared__ float tile[];
-  const TileSpan t = tile_span(R, n, rows_per_tile);
-  load_tile(tile, ld, x + t.off, t.rows, n);
-  run_leg(tile, ld, t.rows, n, t.b, leg);
-  store_tile(y + t.off, tile, ld, t.rows, n);
 }
 
 // ---------------------------------------------------------------------------
@@ -336,9 +269,10 @@ inline int launch_bank(void (*kernel)(Params...), int B, int R, int n, int F,
 }
 
 // ---------------------------------------------------------------------------
-// The operator (g_operator_kernel, t_operator_kernel)
+// The rows body: chains (g_chain_kernel, t_chain_kernel) and operators
+// (g_operator_kernel, t_operator_kernel)
 // ---------------------------------------------------------------------------
-// A warp owns rows of one matrix for the whole operator, so nothing in it
+// A warp owns rows of one matrix for the whole launch, so nothing in it
 // waits for the CTA.  A family's action `Op` supplies, besides kWords,
 //   Entry                      one table entry in registers, read from the
 //                              ring form at a shared address (entry(a))
@@ -514,30 +448,29 @@ __device__ __forceinline__ void stream_leg(float* row, int n, bool active,
   __syncwarp();  // the ring is free for the next leg
 }
 
-// Shared memory of an operator CTA: `rows` rows at the stride ld (16-byte
+// Shared memory of a rows CTA: `rows` rows at the stride ld (16-byte
 // aligned), then one ring per warp.
 inline size_t operator_smem(int rows, int ld, int warps, int words) {
   return ((size_t)rows * ld + 3) / 4 * 16 +
          (size_t)warps * kChunk * kRingChunks * words * sizeof(int);
 }
 
-// y[b] = second_b diag(d[b]) first_b x[b], d (B, n).  CTA (blockIdx.x,
-// b = blockIdx.y) has blockDim.x / 32 warps; warp w owns rows [r0, r0 +
-// rows_per_warp) of matrix b, r0 = (blockIdx.x * warps + w) * rows_per_warp,
-// in its own part of the shared tile at the odd stride ld (lanes on
-// different rows hit different banks), and a ring of table entries.  The
-// warp loads its rows (coalesced), each row's `lanes` lanes walk the first
-// leg, the warp scales its rows' columns < n, the lanes walk the second leg,
-// and the warp stores its rows: x is read once and y written once, and no
-// warp waits for another.  A partial last warp leaves the lanes of its
+// The rows a warp owns in a rows CTA (blockIdx.x, b = blockIdx.y) of
+// blockDim.x / 32 warps, shared by chain_rows and operator_rows: warp w
+// owns rows [r0, r0 + rows) of matrix b, r0 = (blockIdx.x * warps + w) *
+// rows_per_warp, in its own part of the shared tile (`wt`) at the odd
+// stride ld (lanes on different rows hit different banks), beside a ring
+// of table entries of its own.  The warp loads its rows from x
+// (coalesced), runs `walk`, and stores its rows to y: x is read once and
+// y written once, and no warp waits for another.  In the walk, lane
+// `lane` is number `sub` of the L lanes of its row `mine`; a lane past
+// the warp's rows walks on row 0's scratch column without touching any
+// row (`active` false).  A partial last warp leaves the lanes of its
 // missing rows idle.
-template <class Op, int L>
-__device__ __forceinline__ void operator_rows(int R, int n, int ld,
-                                              int rows_per_warp,
-                                              const float* x, float* y,
-                                              const float* d,
-                                              const StreamLeg& first,
-                                              const StreamLeg& second) {
+template <class Op, int L, class Walk>
+__device__ __forceinline__ void own_rows(int R, int n, int ld,
+                                         int rows_per_warp, const float* x,
+                                         float* y, Walk walk) {
   extern __shared__ __align__(16) float smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -557,24 +490,66 @@ __device__ __forceinline__ void operator_rows(int R, int n, int ld,
   __syncwarp();
   const int row = lane / L;
   const int sub = lane - row * L;
-  // a lane past the warp's rows walks on row 0's scratch column
   float* mine = wt + (row < rows ? row : 0) * ld;
-  stream_leg<Op, L>(mine, n, row < rows, ring, b, first, lane, sub);
-  __syncwarp();
-  const float* db = d + (long long)b * n;
-  for (int c = lane; c < n; c += 32) {
-    const float dc = __ldg(db + c);
-    for (int r = 0; r < rows; ++r) wt[r * ld + c] *= dc;
-  }
-  __syncwarp();
-  stream_leg<Op, L>(mine, n, row < rows, ring, b, second, lane, sub);
+  walk(wt, rows, mine, row < rows, ring, b, lane, sub);
   __syncwarp();
   for (int r = 0; r < rows; ++r)
     for (int c = lane; c < n; c += 32)
       y[at + (long long)r * n + c] = wt[r * ld + c];
 }
 
-// The operator body at the launch's lanes per row (1, 2, 4 or 8).
+// y[b] = leg_b x[b]: the rows' lanes walk the one leg.
+template <class Op, int L>
+__device__ __forceinline__ void chain_rows(int R, int n, int ld,
+                                           int rows_per_warp, const float* x,
+                                           float* y, const StreamLeg& leg) {
+  own_rows<Op, L>(R, n, ld, rows_per_warp, x, y,
+                  [&](float*, int, float* mine, bool active, int* ring,
+                      int b, int lane, int sub) {
+                    stream_leg<Op, L>(mine, n, active, ring, b, leg, lane,
+                                      sub);
+                  });
+}
+
+// y[b] = second_b diag(d[b]) first_b x[b], d (B, n): the rows' lanes walk
+// the first leg, the warp scales its rows' columns < n, the lanes walk
+// the second leg.
+template <class Op, int L>
+__device__ __forceinline__ void operator_rows(int R, int n, int ld,
+                                              int rows_per_warp,
+                                              const float* x, float* y,
+                                              const float* d,
+                                              const StreamLeg& first,
+                                              const StreamLeg& second) {
+  own_rows<Op, L>(
+      R, n, ld, rows_per_warp, x, y,
+      [&](float* wt, int rows, float* mine, bool active, int* ring, int b,
+          int lane, int sub) {
+        stream_leg<Op, L>(mine, n, active, ring, b, first, lane, sub);
+        __syncwarp();
+        const float* db = d + (long long)b * n;
+        for (int c = lane; c < n; c += 32) {
+          const float dc = __ldg(db + c);
+          for (int r = 0; r < rows; ++r) wt[r * ld + c] *= dc;
+        }
+        __syncwarp();
+        stream_leg<Op, L>(mine, n, active, ring, b, second, lane, sub);
+      });
+}
+
+// A rows body at the launch's lanes per row (1, 2, 4 or 8).
+template <class Op>
+__device__ __forceinline__ void chain_lanes(int R, int n, int ld, int lanes,
+                                            int rows_per_warp, const float* x,
+                                            float* y, const StreamLeg& leg) {
+  switch (lanes) {
+    case 1: chain_rows<Op, 1>(R, n, ld, rows_per_warp, x, y, leg); break;
+    case 2: chain_rows<Op, 2>(R, n, ld, rows_per_warp, x, y, leg); break;
+    case 4: chain_rows<Op, 4>(R, n, ld, rows_per_warp, x, y, leg); break;
+    default: chain_rows<Op, 8>(R, n, ld, rows_per_warp, x, y, leg);
+  }
+}
+
 template <class Op>
 __device__ __forceinline__ void operator_lanes(int R, int n, int ld,
                                                int lanes, int rows_per_warp,
@@ -634,25 +609,4 @@ inline int resident_ctas(const void* kernel, size_t smem, int threads) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
                                                       threads, smem);
   return err == cudaSuccess ? blocks : -(int)err;
-}
-
-// Launch `kernel(R, n, ld, rows_per_tile, args...)` on a grid of (row
-// tiles, matrices) with a tile of rows_per_tile rows in dynamic shared
-// memory.  Returns a cudaError_t code (0: launched).
-template <class... Params, class... Args>
-inline int launch_tiled(void (*kernel)(int, int, int, int, Params...), int B,
-                        int R, int n, int rows_per_tile, int threads,
-                        void* stream, Args... args) {
-  if (B == 0 || R == 0) return 0;
-  const int ld = odd_stride(n);
-  const size_t smem = (size_t)rows_per_tile * ld * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((R + rows_per_tile - 1) / rows_per_tile, B);
-  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(R, n, ld,
-                                                         rows_per_tile,
-                                                         args...);
-  return (int)cudaGetLastError();
 }

@@ -28,25 +28,21 @@
 // version does: T is not orthogonal, and rounding differences would
 // otherwise grow with cond(Tbar) along the chain.
 //
-// Design.  The chain kernel has the G chain's body (chain.cuh, run_leg) with
-// the stage action TEntry: one CTA owns a tile of rows in dynamic shared
-// memory, walks all P slots of every stage (most of them pads: a T stage has
-// at most n/2 shears or n scalings) between two __syncthreads(), and is
-// bound by those barriers and the per-stage table reads; it answers with
-// many rows per CTA and several CTAs per SM (kernels/launcher.py::
-// rows_per_tile).  Every kernel takes the anytime cut as a runtime (first
-// stage, stage count) per leg: no recompilation, and a count of 0 is a
-// valid cut.
-//
-// The operator has the G operator's body (chain.cuh, stream_leg and
-// operator_rows; see butterfly.cu): warps own their rows for both legs and
-// the scaling, with no CTA barrier; each leg walks only its real entries,
+// Design: the chain and the operator have the G family's rows body
+// (chain.cuh: stream_leg in own_rows, chain_rows and operator_rows; see
+// butterfly.cu): warps own their rows for the whole
+// launch, with no CTA barrier; each leg walks only its real entries,
 // compacted in stage order (~14 a stage at the batched shapes, (i, j,
-// alpha, beta) at a 16-byte stride), from a per-warp shared ring.  It is
-// bound, like the G operator, by the latency of one warp's walk.  Each row's
-// arithmetic is the plain version's in the same stage order (within a stage
-// the entries touch disjoint coordinates, so their order does not matter),
-// and the scaling is one f32 multiply: the operator is bitwise equal to it.
+// alpha, beta) at a 16-byte stride), from a per-warp shared ring, and
+// the anytime cut, head or tail, is a runtime entry range (a cut of 0
+// stages is valid).  The chain's function is one pass over x and y plus
+// its real entries (B = 64, R = n = 256: ~0.011 ms of HBM traffic); like
+// the G kernels, both are bound instead by the latency of one warp's
+// walk.  Each row's arithmetic is the plain version's in the same stage
+// order (within a stage the entries touch disjoint coordinates, so their
+// order does not matter), and the operator's scaling is one f32
+// multiply: chain and operator are bitwise equal to their plain
+// versions.
 //
 // The bank has the G bank's body (chain.cuh, walk_leg and bank_tile; see
 // butterfly.cu): filters folded into the synthesis rows (2 S barriers per
@@ -62,22 +58,13 @@
 
 namespace {
 
-// A T entry (i, j, alpha, beta), applied to one signal row: only i written.
+// A T entry (i, j, alpha, beta): the table pointers of a bank leg, and the
+// stage action of every body on one signal row (only i written).
 struct TEntry {
   const int* ii;
   const int* jj;
   const float* al;
   const float* be;
-
-  __device__ __forceinline__ void operator()(float* row, long long e,
-                                             int n) const {
-    const int i = __ldg(ii + e);
-    const int j = __ldg(jj + e);
-    if (i < n && j < n) {
-      row[i] = __fadd_rn(__fmul_rn(__ldg(al + e), row[i]),
-                         __fmul_rn(__ldg(be + e), row[j]));
-    }
-  }
 
   // The bank's ring form (chain.cuh): an entry is the words
   // (i, j, alpha, beta) at a 16-byte stride.
@@ -102,7 +89,7 @@ struct TEntry {
     }
   }
 
-  // The operator's form (chain.cuh, stream_leg): an entry in registers,
+  // The rows body's form (chain.cuh, stream_leg): an entry in registers,
   // read from a warp's ring (the ring form) with one 16-byte broadcast
   // load.
   struct Entry {
@@ -136,13 +123,13 @@ struct TEntry {
   }
 };
 
-using TLeg = Leg<TEntry>;
 using TBankLeg = BankLeg<TEntry>;
 
-__global__ void t_chain_kernel(int R, int n, int ld, int rows_per_tile,
-                               const float* __restrict__ x,
-                               float* __restrict__ y, TLeg leg) {
-  chain_tile(R, n, ld, rows_per_tile, x, y, leg);
+__global__ void __launch_bounds__(kMaxOperatorThreads)
+    t_chain_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
+                   const float* __restrict__ x, float* __restrict__ y,
+                   StreamLeg leg) {
+  chain_lanes<TEntry>(R, n, ld, lanes, rows_per_warp, x, y, leg);
 }
 
 __global__ void __launch_bounds__(kMaxOperatorThreads)
@@ -163,11 +150,6 @@ __global__ void t_bank_kernel(int R, int n, int ld, int rows_per_cta,
             x, y, gains, F, inv, fwd);
 }
 
-inline TLeg t_leg(const int* ii, const int* jj, const float* al,
-                  const float* be, long long bstride, int P, int s0, int ns) {
-  return TLeg{TEntry{ii, jj, al, be}, bstride, P, s0, ns};
-}
-
 inline TBankLeg t_bank_leg(const int* ii, const int* jj, const float* al,
                            const float* be, const int* ext, long long bstride,
                            int P, int s0, int ns) {
@@ -179,25 +161,25 @@ inline TBankLeg t_bank_leg(const int* ii, const int* jj, const float* al,
 
 extern "C" {
 
-// y[b] = Tbar_b x[b] over stages [s0, s0 + ns) of tables (B, S, P) with
-// matrix stride `bstride` (0 for one shared table set).  x, y: (B, R, n).
+// y[b] = Tbar_b x[b] (Tbar_b^{-1} x[b] on the inverse stream) over stages
+// [s0, s0 + ns) of the leg's stream; arguments as g_chain_launch.
 int t_chain_launch(const float* x, float* y, int B, int R, int n,
-                   const int* ii, const int* jj, const float* al,
-                   const float* be, long long bstride, int P, int s0, int ns,
-                   int rows_per_tile, int threads, void* stream) {
-  return launch_tiled(t_chain_kernel, B, R, n, rows_per_tile, threads,
-                      stream, x, y, t_leg(ii, jj, al, be, bstride, P, s0, ns));
+                   const int* words, const int* off, int S, int s0, int ns,
+                   int lanes, int rows_per_warp, int warps, void* stream) {
+  return launch_rows<TEntry>(t_chain_kernel, B, R, n, lanes, rows_per_warp,
+                             warps, stream, x, y,
+                             StreamLeg{words, off, S, s0, ns});
 }
 
 // y[b] = Tbar_b diag(d[b]) Tbar_b^{-1} x[b], d (B, n): the inverse leg runs
 // stages [i0, i0 + ni) of the inverse stream (words, (B, iS + 1) stage
 // offsets), the forward leg [f0, f0 + nf) of the forward stream; geometry as
 // g_operator_launch.
-int t_operator_launch(const float* x, float* y, const float* d, int B, int R,
-                      int n, const int* iwords, const int* ioff, int iS,
-                      int i0, int ni, const int* fwords, const int* foff,
-                      int fS, int f0, int nf, int lanes, int rows_per_warp,
-                      int warps, void* stream) {
+int t_operator_launch(const float* x, float* y, int B, int R, int n,
+                      const float* d, const int* iwords, const int* ioff,
+                      int iS, int i0, int ni, const int* fwords,
+                      const int* foff, int fS, int f0, int nf, int lanes,
+                      int rows_per_warp, int warps, void* stream) {
   return launch_rows<TEntry>(t_operator_kernel, B, R, n, lanes, rows_per_warp,
                              warps, stream, x, y, d,
                              StreamLeg{iwords, ioff, iS, i0, ni},
@@ -207,8 +189,8 @@ int t_operator_launch(const float* x, float* y, const float* d, int B, int R,
 // y[b, f] = Tbar_b diag(gains[b, f]) Tbar_b^{-1} x[b] for f < F, legs as in
 // t_operator_launch plus each leg's (B, S) stage extents; gains
 // (B, F, n + 1) with 1.0 in the dummy column n, y (B, F, R, n).
-int t_bank_launch(const float* x, float* y, const float* gains, int F, int B,
-                  int R, int n, const int* iii, const int* ijj,
+int t_bank_launch(const float* x, float* y, int B, int R, int n,
+                  const float* gains, int F, const int* iii, const int* ijj,
                   const float* ial, const float* ibe, const int* iext,
                   long long ibstride, int iP, int i0, int ni, const int* fii,
                   const int* fjj, const float* fal, const float* fbe,
@@ -226,14 +208,12 @@ int t_bank_launch(const float* x, float* y, const float* gains, int F, int B,
 // Resident CTAs per SM of a T kernel, as g_occupancy.
 int t_occupancy(int kind, int rows, int n, int P, int threads) {
   const int ld = odd_stride(n);
-  const size_t tile = (size_t)rows * ld * sizeof(float);
+  const size_t smem = operator_smem(rows, ld, threads / 32, TEntry::kWords);
   switch (kind) {
-    case 0: return resident_ctas((const void*)t_chain_kernel, tile, threads);
+    case 0:
+      return resident_ctas((const void*)t_chain_kernel, smem, threads);
     case 1:
-      return resident_ctas((const void*)t_operator_kernel,
-                           operator_smem(rows, ld, threads / 32,
-                                         TEntry::kWords),
-                           threads);
+      return resident_ctas((const void*)t_operator_kernel, smem, threads);
     default:
       return resident_ctas((const void*)t_bank_kernel,
                            bank_smem(rows, ld, P * TEntry::kWords), threads);

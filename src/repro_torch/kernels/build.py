@@ -101,25 +101,23 @@ def _compile(out: pathlib.Path) -> None:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    head = [p, p, i, i, i]                   # x, y, B, R, n
+    # a chain or operator leg is a stream: words, stage offsets, S, s0,
+    # ns; their geometry is (lanes per row, rows per warp, warps per CTA)
+    stream_leg = [p, p, i, i, i]
+    rows = [i, i, i, p]                      # geometry, stream
     for family, tables in (("g", 5), ("t", 4)):
-        leg = [p] * tables + [ll, i, i, i]   # tables, stride, P, s0, ns
-        tail = [i, i, p]                     # rows per tile, threads, stream
         chain = getattr(lib, f"{family}_chain_launch")
-        chain.argtypes = [p, p, i, i, i] + leg + tail
+        chain.argtypes = head + stream_leg + rows
         chain.restype = i
-        # an operator leg is a stream: words, stage offsets, S, s0, ns; its
-        # geometry is (lanes per row, rows per warp, warps per CTA)
-        stream_leg = [p, p, i, i, i]
         op = getattr(lib, f"{family}_operator_launch")
-        op.argtypes = ([p, p, p, i, i, i] + stream_leg + stream_leg
-                       + [i, i, i, p])
+        op.argtypes = head + [p] + stream_leg + stream_leg + rows
         op.restype = i
-        # a bank leg adds its stage extents after the tables; the bank's
-        # geometry is (rows, filters) per CTA
+        # a bank leg is its tables, stage extents, matrix stride, P, s0,
+        # ns; the bank's geometry is (rows, filters) per CTA and threads
         bank_leg = [p] * (tables + 1) + [ll, i, i, i]
         bank = getattr(lib, f"{family}_bank_launch")
-        bank.argtypes = ([p, p, p, i, i, i, i] + bank_leg + bank_leg
-                         + [i, i, i, p])
+        bank.argtypes = head + [p, i] + bank_leg + bank_leg + [i, i, i, p]
         bank.restype = i
         occ = getattr(lib, f"{family}_occupancy")
         occ.argtypes = [i, i, i, i, i]       # kind, rows, n, P, threads

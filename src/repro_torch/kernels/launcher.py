@@ -8,27 +8,35 @@ stream, or raise (no nvcc, failed build, wrong dtype/shape/device):
 there is no fallback.
 Signals and values are f32, indices int32; other dtypes raise.  The
 anytime cut is passed to the kernel as a runtime (first stage, count) per
-leg, each operator or bank leg cut at its family's ``leg_orientation``.
+leg: a chain's at the caller's ``keep``, each operator or bank leg at its
+family's ``leg_orientation``.
 
-Geometry.  The chain kernels hold one tile of ``rows_per_tile`` signal
-rows per CTA.  In an operator launch a warp owns its signal rows of one
-matrix for both legs and the scaling (``operator_geometry``, a pure
-function of the shapes and the card's figures): L lanes per row, 32 / L
-rows per warp, a few warps per CTA; each leg walks a compacted stream of
-its real entries in stage order (``entry_stream``, built on the tables'
-device and kept beside the index table, as the extents are), so the
-anytime cut is an entry range and no pad is read.  A bank CTA owns r
-signal rows and F_g filters (``bank_geometry``, a pure function of the
-shapes and the card's shared-memory and SM counts): it runs the analysis
-leg on its r rows, scales them into F_g copies and runs ONE synthesis
-walk over all F_g * r rows, so it crosses 2 S stage barriers for any
-F_g.  Its shared
-memory (the F_g * r rows and a ring of table stages) leaves at least
-three CTAs resident per SM; the grid (r-row tiles x filter groups,
-matrices) gives every SM two CTAs where the work allows, and otherwise
-F_g = F, so the analysis runs once.  A bank leg walks each stage only up
-to its real extent (``stage_extents``, computed on the tables' device
-and kept beside the index table until it dies or is written).
+Geometry.  In a chain or operator launch (the rows body of
+csrc/chain.cuh, which replaces the Pallas chain kernels
+``_{batched_,}butterfly_kernel`` and ``_{batched_,}shear_kernel`` and the
+fused operator kernels) a warp owns its signal rows of one matrix for
+the whole launch (``operator_geometry``, a pure function of the shapes
+and the card's figures): L lanes per row, 32 / L rows per warp, a few
+warps per CTA.  Each leg walks a compacted stream of its real entries in
+stage order (``entry_stream``, built on the tables' device and kept
+beside the tables, so a chain and an operator on the same tables share
+one stream), so the anytime cut is an entry range and no pad is read;
+the body is bound by one warp's latency per stage, not by memory.  A
+bank CTA owns r signal rows and F_g filters (``bank_geometry``, a pure
+function of the shapes and the card's shared-memory and SM counts): it
+runs the analysis leg on its r rows, scales them into F_g copies and runs
+ONE synthesis walk over all F_g * r rows, so it crosses 2 S stage
+barriers for any F_g.  Its shared memory (the F_g * r rows and a ring of
+table stages) leaves at least three CTAs resident per SM; the grid
+(r-row tiles x filter groups, matrices) gives every SM two CTAs where the
+work allows, and otherwise F_g = F, so the analysis runs once.  A bank
+leg walks each stage only up to its real extent (``stage_extents``,
+computed on the tables' device and kept beside the index table until it
+dies or is written).
+
+A batch is grid y of every launch, so a batch of more than ``_GRID_B``
+matrices is launched as consecutive slices of at most ``_GRID_B``
+(``batch_slices``), each on pointers offset to its first matrix.
 
 Every launch adds one to its entry point's count, in ONE registry for all
 families: ``entry_launch_counts()`` per entry point, ``launch_counts()``
@@ -38,7 +46,7 @@ from __future__ import annotations
 
 import functools
 import weakref
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,7 +70,8 @@ KERNEL_OF = {"batched_butterfly_apply": "g_chain_kernel",
              "gen_filter_bank_apply": "t_bank_kernel"}
 KERNELS = tuple(dict.fromkeys(KERNEL_OF.values()))
 THREADS = 256
-_MAX_ROWS = 128
+#: matrices per launch: the grid's y dimension
+_GRID_B = 65535
 #: table stages in a bank CTA's shared ring, and words per entry of that
 #: ring and of an operator's stream (csrc/chain.cuh kRing; GPair::kWords,
 #: TEntry::kWords)
@@ -167,28 +176,6 @@ def _check_tables(staged, device: torch.device, batch: Optional[int],
         if not t.is_contiguous():
             raise ValueError(f"{what}: table {name} must be contiguous")
     return shape[-2], shape[-1]
-
-
-def rows_per_tile(batch: int, rows: int, n: int,
-                  device: torch.device) -> int:
-    """Signal rows per CTA of a chain kernel: at most 128,
-    within the shared memory a block may opt into, halved while the grid
-    would not give every SM two CTAs (barrier stalls of one CTA then
-    overlap another's work)."""
-    lib = build.library()
-    ld = (n + 1) | 1
-    smem = lib.repro_max_smem_optin()
-    if smem <= 0:
-        raise RuntimeError("cannot read the device's shared memory limit")
-    cap = smem // (ld * 4)
-    if cap < 1:
-        raise ValueError(f"n={n} is too wide for one shared-memory row "
-                         f"({ld * 4} bytes > {smem})")
-    rpt = max(1, min(rows, _MAX_ROWS, cap))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    while rpt > 16 and batch * -(-rows // rpt) < 2 * sms:
-        rpt //= 2
-    return rpt
 
 
 class BankGeometry(NamedTuple):
@@ -366,9 +353,9 @@ def launch_geometry(entry: str, batch: int, rows: int, n: int,
                     filters: int = 1, slots: int = 1) -> dict:
     """The CTAs a launch of ``entry`` takes on the current card at x
     (batch, rows, n) (a bank: ``filters`` filters on tables of ``slots``
-    slots per stage; an operator also its lanes per row, rows per warp
-    and warps per CTA), with the card's own reading of its resident CTAs
-    per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    slots per stage; a chain or an operator also its lanes per row, rows
+    per warp and warps per CTA), with the card's own reading of its
+    resident CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     kernel = KERNEL_OF[entry]
     dev = torch.device("cuda", torch.cuda.current_device())
     family, kind = kernel[0], kernel.split("_")[1]
@@ -378,17 +365,13 @@ def launch_geometry(entry: str, batch: int, rows: int, n: int,
         out = {"rows_per_cta": geo.rows, "filters_per_cta": geo.filters,
                "ctas": batch * geo.row_tiles * geo.groups}
         tile_rows = geo.rows * geo.filters
-    elif kind == "operator":
+    else:
         geo = _operator_geometry_on(dev, batch, rows, n, family)
         tile_rows = geo.warps * geo.rows_per_warp
         threads = 32 * geo.warps
         out = {"rows_per_cta": tile_rows, "filters_per_cta": 1,
                "lanes_per_row": geo.lanes, "rows_per_warp": geo.rows_per_warp,
                "warps_per_cta": geo.warps, "ctas": batch * geo.row_tiles}
-    else:
-        tile_rows = rows_per_tile(batch, rows, n, dev)
-        out = {"rows_per_cta": tile_rows, "filters_per_cta": 1,
-               "ctas": batch * -(-rows // tile_rows)}
     lib = build.library()
     resident = getattr(lib, f"{family}_occupancy")(
         ("chain", "operator", "bank").index(kind), tile_rows, n, slots,
@@ -513,76 +496,102 @@ def _padded_gains(gains: torch.Tensor, x3: torch.Tensor, batched: bool,
     return gp
 
 
-def _leg(staged, x3: torch.Tensor, batched: bool, num_stages: Optional[int],
-         keep: str, what: str) -> tuple:
-    """A leg's C arguments: table pointers, matrix stride, P, first stage
-    and stage count."""
-    bsz, _, n = x3.shape
-    s_tot, p = _check_tables(staged, x3.device, bsz if batched else None, n,
-                             what)
-    return (*(t.data_ptr() for t in table_arrays(staged)),
-            s_tot * p if batched else 0, p,
-            *_leg_range(s_tot, num_stages, keep))
+class _PerMatrix(NamedTuple):
+    """A pointer argument that advances ``stride`` 4-byte elements per
+    matrix of the batch."""
+    ptr: int
+    stride: int
 
 
-def _launch(entry: str, x3: torch.Tensor, y: torch.Tensor, args: tuple,
-            geometry: tuple) -> torch.Tensor:
-    """Launch ``entry``'s kernel from x3 (B, R, n) into y: ``args`` are
-    the C arguments between the two signals and the geometry (operand
-    pointers, shapes, legs), ``geometry`` the C arguments before the
-    CUDA stream handle (rows or filters per CTA and threads; an
-    operator's lanes, rows per warp and warps)."""
-    kernel = KERNEL_OF[entry]
-    lib = build.library()
-    launch = getattr(lib, kernel.replace("_kernel", "_launch"))
-    code = launch(x3.data_ptr(), y.data_ptr(), *args, *geometry,
-                  torch.cuda.current_stream(x3.device).cuda_stream)
-    build.check(lib, code, f"{kernel} launch")
-    _launches[entry] += 1
-    return y
+def batch_slices(bsz: int) -> Iterator[Tuple[int, int]]:
+    """The [b0, b1) slices of at most ``_GRID_B`` matrices that cover
+    [0, bsz) in order: one launch each."""
+    for b0 in range(0, bsz, _GRID_B):
+        yield b0, min(bsz, b0 + _GRID_B)
 
 
-def _check_batch(bsz: int) -> None:
-    if bsz > 65535:
-        raise ValueError(f"batch {bsz} exceeds the grid's 65535 matrices")
-
-
-def _chain_launch(entry: str, staged, x3: torch.Tensor,
-                  num_stages: Optional[int], keep: str) -> torch.Tensor:
-    leg = _leg(staged, x3, entry.startswith("batched"), num_stages, keep,
-               KERNEL_OF[entry])
+def _sliced(x3: torch.Tensor, y: torch.Tensor,
+            args: tuple) -> Iterator[tuple]:
+    """Per ``batch_slices`` slice [b0, b1): the C arguments (x, y,
+    b1 - b0, R, n, *args), with x, y and every ``_PerMatrix`` argument
+    offset to matrix b0 (the others, such as a stream's words, stay as
+    they are)."""
     bsz, r, n = x3.shape
-    _check_batch(bsz)
-    y = torch.empty_like(x3)
-    if bsz == 0 or r == 0:
-        return y
-    return _launch(entry, x3, y, (bsz, r, n, *leg),
-                   (rows_per_tile(bsz, r, n, x3.device), THREADS))
+    xy = (_PerMatrix(x3.data_ptr(), x3.stride(0)),
+          _PerMatrix(y.data_ptr(), y.stride(0)))
+    for b0, b1 in batch_slices(bsz):
+        at = [a.ptr + 4 * b0 * a.stride if isinstance(a, _PerMatrix) else a
+              for a in xy + args]
+        yield (*at[:2], b1 - b0, r, n, *at[2:])
 
 
-def _operator_legs(entry: str, fwd, bwd, x3: torch.Tensor,
-                   num_stages: Optional[int]) -> Tuple[tuple, tuple]:
-    """(analysis leg, synthesis leg): bwd is the analysis leg (G adjoint,
-    T inverse), fwd the synthesis leg, each cut at its family's
-    orientation."""
-    batched = entry.startswith("batched")
+def _launch(lib, entry: str, x3: torch.Tensor, y: torch.Tensor,
+            args: tuple, geometry: tuple) -> torch.Tensor:
+    """Launch ``entry``'s kernel from ``lib`` (build.library()) from x3
+    (B, R, n) into y (B, ..., n), once per batch slice (``_sliced``):
+    ``args`` are the C arguments after (x, y, B, R, n) and before the
+    geometry, ``geometry`` those before the CUDA stream handle (a chain's
+    or operator's lanes, rows per warp and warps; a bank's rows and
+    filters per CTA and threads).  Each launch function loads ``lib``
+    first: without a toolchain nothing is prepared for a kernel."""
     kernel = KERNEL_OF[entry]
-    a_keep, s_keep = leg_orientation(
-        "general" if isinstance(fwd, StagedT) else "sym")
-    return (_leg(bwd, x3, batched, num_stages, a_keep, f"{kernel} bwd"),
-            _leg(fwd, x3, batched, num_stages, s_keep, f"{kernel} fwd"))
+    launch = getattr(lib, kernel.replace("_kernel", "_launch"))
+    stream = torch.cuda.current_stream(x3.device).cuda_stream
+    for c_args in _sliced(x3, y, args):
+        build.check(lib, launch(*c_args, *geometry, stream),
+                    f"{kernel} launch")
+        _launches[entry] += 1
+    return y
 
 
 def _stream_leg(staged, x3: torch.Tensor, batched: bool,
                 num_stages: Optional[int], keep: str, what: str) -> tuple:
-    """An operator leg's C arguments: the stream's words and stage
-    offsets, S, first stage and stage count."""
+    """A chain or operator leg's C arguments: the stream's words and
+    stage offsets, S, first stage and stage count."""
     bsz, _, n = x3.shape
     s_tot, _ = _check_tables(staged, x3.device, bsz if batched else None, n,
                              what)
     words, offsets = _cached_stream(staged)
-    return (words.data_ptr(), offsets.data_ptr(), s_tot,
+    return (words.data_ptr(), _PerMatrix(offsets.data_ptr(), s_tot + 1),
+            s_tot, *_leg_range(s_tot, num_stages, keep))
+
+
+def _bank_leg(staged, x3: torch.Tensor, batched: bool,
+              num_stages: Optional[int], keep: str, what: str) -> tuple:
+    """A bank leg's C arguments: its table pointers and stage extents,
+    the tables' matrix stride, P, first stage and stage count."""
+    bsz, _, n = x3.shape
+    s_tot, p = _check_tables(staged, x3.device, bsz if batched else None, n,
+                             what)
+    stride = s_tot * p if batched else 0
+    ext = _cached_extents(staged)
+    return (*(_PerMatrix(t.data_ptr(), stride)
+              for t in table_arrays(staged)),
+            _PerMatrix(ext.data_ptr(), s_tot if batched else 0), stride, p,
             *_leg_range(s_tot, num_stages, keep))
+
+
+def _keeps(fwd) -> tuple:
+    """(analysis, synthesis) cut orientation of the operator or bank whose
+    synthesis tables are ``fwd``."""
+    return leg_orientation("general" if isinstance(fwd, StagedT) else "sym")
+
+
+def _chain_launch(entry: str, staged, x3: torch.Tensor,
+                  num_stages: Optional[int], keep: str) -> torch.Tensor:
+    """y (B, R, n): one leg, a stream cut at ``keep``, on the
+    ``operator_geometry`` grid."""
+    lib = build.library()
+    kernel = KERNEL_OF[entry]
+    leg = _stream_leg(staged, x3, entry.startswith("batched"), num_stages,
+                      keep, kernel)
+    bsz, r, n = x3.shape
+    y = torch.empty_like(x3)
+    if bsz == 0 or r == 0:
+        return y
+    geo = _operator_geometry_on(x3.device, bsz, r, n, kernel[0])
+    return _launch(lib, entry, x3, y, leg,
+                   (geo.lanes, geo.rows_per_warp, geo.warps))
 
 
 def _operator_launch(entry: str, fwd, bwd, diag: torch.Tensor,
@@ -591,22 +600,21 @@ def _operator_launch(entry: str, fwd, bwd, diag: torch.Tensor,
     """y (B, R, n): the analysis leg (bwd), the spectrum (B, n) and the
     synthesis leg (fwd), each leg a stream cut at its family's
     orientation, on the ``operator_geometry`` grid."""
+    lib = build.library()
     batched = entry.startswith("batched")
     kernel = KERNEL_OF[entry]
-    a_keep, s_keep = leg_orientation(
-        "general" if isinstance(fwd, StagedT) else "sym")
+    a_keep, s_keep = _keeps(fwd)
     legs = (_stream_leg(bwd, x3, batched, num_stages, a_keep,
                         f"{kernel} bwd")
             + _stream_leg(fwd, x3, batched, num_stages, s_keep,
                           f"{kernel} fwd"))
     d = _check_diag(diag, x3, batched, kernel)
     bsz, r, n = x3.shape
-    _check_batch(bsz)
     y = torch.empty_like(x3)
     if bsz == 0 or r == 0:
         return y
     geo = _operator_geometry_on(x3.device, bsz, r, n, kernel[0])
-    return _launch(entry, x3, y, (d.data_ptr(), bsz, r, n, *legs),
+    return _launch(lib, entry, x3, y, (_PerMatrix(d.data_ptr(), n), *legs),
                    (geo.lanes, geo.rows_per_warp, geo.warps))
 
 
@@ -615,24 +623,23 @@ def _bank_launch(entry: str, fwd, bwd, gains: torch.Tensor,
                  num_stages: Optional[int]) -> torch.Tensor:
     """(B, F, R, n): both legs cut as the operator's, each walked over
     its stages' real extents, on the ``bank_geometry`` grid."""
-    first, second = _operator_legs(entry, fwd, bwd, x3, num_stages)
-    gp = _padded_gains(gains, x3, entry.startswith("batched"),
-                       KERNEL_OF[entry])
+    lib = build.library()
+    batched = entry.startswith("batched")
+    kernel = KERNEL_OF[entry]
+    a_keep, s_keep = _keeps(fwd)
+    legs = (_bank_leg(bwd, x3, batched, num_stages, a_keep, f"{kernel} bwd")
+            + _bank_leg(fwd, x3, batched, num_stages, s_keep,
+                        f"{kernel} fwd"))
+    gp = _padded_gains(gains, x3, batched, kernel)
     bsz, r, n = x3.shape
-    _check_batch(bsz)
     f = gp.shape[1]
     y = x3.new_empty((bsz, f, r, n))
     if bsz == 0 or r == 0:
         return y
-    nt = len(table_arrays(fwd))
-    exts = (_cached_extents(bwd), _cached_extents(fwd))
-    legs = ()
-    for leg, ext in zip((first, second), exts):
-        legs += leg[:nt] + (ext.data_ptr(),) + leg[nt:]
-    slots = max(first[nt + 1], second[nt + 1])
-    geo = _bank_geometry_on(x3.device, bsz, r, n, f, slots,
-                            KERNEL_OF[entry][0])
-    return _launch(entry, x3, y, (gp.data_ptr(), f, bsz, r, n, *legs),
+    slots = max(fwd.idx_i.shape[-1], bwd.idx_i.shape[-1])
+    geo = _bank_geometry_on(x3.device, bsz, r, n, f, slots, kernel[0])
+    return _launch(lib, entry, x3, y,
+                   (_PerMatrix(gp.data_ptr(), f * (n + 1)), f, *legs),
                    (geo.rows, geo.filters, THREADS))
 
 

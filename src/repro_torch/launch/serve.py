@@ -119,14 +119,16 @@ class FGFTServeEngine:
     maps tier names to component fractions; each resolves to the nearest
     exact stage cut and binds one cached plan over the cut tables, with
     its spectrum refit by Lemma 1 on the prefix basis (a general-family
-    tier serves the full fit's spectrum).  ``kind``: "auto", "sym" or
-    "general", as in ``ApproxEigenbasis.fit``.  ``backend``:
-    None (the device's default: the CUDA kernels on a card), "cuda" or
-    "torch".  ``filters``: a bank spec for ``named_responses`` (e.g.
-    "heat,tikhonov,wavelets:4"), served by ``step_bank``."""
+    tier serves the full fit's spectrum).  ``kind`` ("auto", "sym" or
+    "general") and ``hint``: as in ``ApproxEigenbasis.fit``.
+    ``backend``: None (the device's default: the CUDA kernels on a
+    card), "cuda" or "torch".  ``filters``: a bank spec for
+    ``named_responses`` (e.g. "heat,tikhonov,wavelets:4"), served by
+    ``step_bank``."""
 
     def __init__(self, laps, num_transforms: int = 0, n_iter: int = 3,
                  backend: Optional[str] = None, kind: str = "auto",
+                 hint: Optional[str] = None,
                  tiers: Optional[Dict[str, float]] = None, basis=None,
                  fused: bool = True, filters: Optional[str] = None,
                  device="cuda"):
@@ -143,7 +145,7 @@ class FGFTServeEngine:
                                  "no prefit basis is given")
             basis = ApproxEigenbasis.fit(laps, num_transforms,
                                          n_iter=n_iter, kind=kind,
-                                         device=self.device)
+                                         hint=hint, device=self.device)
         elif basis.device != self.device:
             raise ValueError(f"basis lives on {basis.device}, engine on "
                              f"{self.device}")

@@ -253,6 +253,86 @@ def test_operator_kernels_at_each_lane_count(cuda, family, lanes, n):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("family", ["sym", "general"])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [255, 256])
+def test_chain_kernels_at_each_lane_count(cuda, family, lanes, n):
+    """Both chain kernels at a batch where the geometry takes each lane
+    count, R = 130 signal rows (every matrix ends in a partial warp),
+    n = 255 and 256, every cut at both keeps, on both table sets; the
+    B = 1 entry points too where the batch is one.  G within the
+    tolerance, T bitwise."""
+    rows = 130
+    batch = _batch_for_lanes(lanes, rows, n,
+                             "g" if family == "sym" else "t", cuda)
+    if family == "sym":
+        tabs = _tables(n, batch, 2 * n, cuda)
+        chain, chain1 = bf.batched_butterfly_apply, bf.butterfly_apply
+        plain, plain1 = ref.batched_g_apply, ref.staged_g_apply
+        check, entry = _close, "batched_butterfly_apply"
+    else:
+        tabs = _t_tables(n, batch, 2 * n, cuda)
+        chain, chain1 = sh.batched_shear_apply, sh.shear_apply
+        plain, plain1 = ref.batched_t_apply, ref.staged_t_apply
+        check, entry = _equal, "batched_shear_apply"
+    fwd, bwd, sfwd, sbwd, _ = tabs
+    geo = launcher.launch_geometry(entry, batch, rows, n)
+    assert geo["lanes_per_row"] == lanes
+    assert rows % geo["rows_per_warp"] != 0
+    gen = torch.Generator(device=cuda).manual_seed(lanes)
+    x = torch.randn((batch, rows, n), generator=gen, device=cuda)
+    launcher.reset_launch_counts()
+    calls = 0
+    for staged in (fwd, bwd):
+        for k in sorted({0, *staged.cuts[:, 0].tolist()}):
+            for keep in ("head", "tail"):
+                check(chain(staged, x, k, keep), plain(staged, x, k, keep))
+                calls += 1
+    assert launcher.entry_launch_counts()[entry] == calls
+    if batch == 1:
+        x1 = x[0].contiguous()
+        for staged in (sfwd, sbwd):
+            for k in sorted({0, *staged.cuts[:, 0].tolist()}):
+                for keep in ("head", "tail"):
+                    check(chain1(staged, x1, k, keep),
+                          plain1(staged, x1, k, keep))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("family", ["sym", "general"])
+def test_batches_split_at_the_grid_limit(cuda, family, monkeypatch):
+    """A batch of 7 at a grid limit of 3 matrices: the chain, operator and
+    bank entry points each launch three times, on [0, 3), [3, 6) and
+    [6, 7), and equal their unsplit launches bitwise."""
+    if family == "sym":
+        fwd, bwd, _, _, diag = _tables(48, 7, 200, cuda)
+        chain, op = bf.batched_butterfly_apply, bf.batched_sym_operator_apply
+        bank = ksp.batched_sym_filter_bank_apply
+        names = ("batched_butterfly_apply", "batched_sym_operator_apply",
+                 "batched_sym_filter_bank_apply")
+    else:
+        fwd, bwd, _, _, diag = _t_tables(48, 7, 200, cuda)
+        chain, op = sh.batched_shear_apply, sh.batched_gen_operator_apply
+        bank = ksp.batched_gen_filter_bank_apply
+        names = ("batched_shear_apply", "batched_gen_operator_apply",
+                 "batched_gen_filter_bank_apply")
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((7, 130, 48), generator=gen, device=cuda)
+    gains = _gains((7, 5, 48), cuda, 6)
+    k = int(fwd.cuts[1, 0])
+    calls = (lambda: chain(fwd, x, k, "tail"),
+             lambda: op(fwd, bwd, diag, x, k),
+             lambda: bank(fwd, bwd, gains, x, k))
+    whole = [call() for call in calls]
+    monkeypatch.setattr(launcher, "_GRID_B", 3)
+    launcher.reset_launch_counts()
+    for call, want in zip(calls, whole):
+        assert torch.equal(call(), want)
+    counts = launcher.entry_launch_counts()
+    assert [counts[e] for e in names] == [3, 3, 3]
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # filter banks: g_bank_kernel and t_bank_kernel
 # ---------------------------------------------------------------------------
