@@ -63,6 +63,30 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              its steps; ``batched_gen_filter_bank_apply`` must have
              launched, the bank must equal its plain version and each
              filter the operator kernel, bitwise.
+5b. main-ragged — the heterogeneous fleet through the CLI: ``serve --fgft
+             --ragged --graphs 64 --graph-sizes 64,100,180,256 --transforms
+             4096`` (16 community graphs of each size in buckets of width 64,
+             128 and 256 with 16, 16 and 32 graphs, g = 768, 1792 and 4096:
+             2 w log2 w, the main path's g at the largest width), R = 256,
+             the same tiers.  Counters are zeroed just before and read just
+             after; both batched G entry points must have launched.  Each
+             graph's relative error equals its dense recomputation on the
+             cropped block within 1e-3 relative (mean < 0.05); each bucket's
+             served output matches the plain operator program on the same
+             tables (G tolerance), each graph's answer is its cropped bucket
+             row and the bucket's pads are 0; ``apply`` passes pad
+             coordinates through bitwise (synthesis, analysis, round trip)
+             and ``project`` with the heat response gives exactly 0 there.
+             Then the router is saved and loaded (times printed) with the
+             bank spec as a ``filters=`` override: the restored tables and
+             every tier's steps are bitwise equal to the saved router's,
+             and the restored router serves ``step_bank`` (counters zeroed
+             just before its timed steps: one bank launch per bucket and
+             step), each bucket's bank held to its plain version and each
+             filter to the operator kernel, pads 0.  Last a small directed
+             ragged fleet (sizes 12, 20, 32; n_iter = 1): the T operator,
+             chain (both legs) and bank of every bucket bitwise equal to
+             their plain versions, and the pads passed through bitwise.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
              graph (n = 256, g = 4096, n_iter = 3), then analysis, synthesis,
              project and the bank; ``shear_apply``, ``gen_operator_apply``
@@ -120,6 +144,13 @@ DEVICE = "cuda"
 MAIN = dict(graphs=64, n=256, signals=256, steps=5,
             tiers="full:1.0,balanced:0.5,draft:0.25",
             filters="heat,tikhonov,wavelets:4")
+#: the heterogeneous fleet of [main-ragged]: sizes cycled over the graphs,
+#: the largest bucket at the main path's width and g; the directed check's
+#: small fleet
+RAGGED = dict(graphs=64, sizes="64,100,180,256", transforms=4096,
+              buckets={64: 16, 128: 16, 256: 32},
+              g={64: 768, 128: 1792, 256: 4096},
+              directed_sizes="12,20,32", directed_graphs=6)
 REPLACES = {
     "batched_sym_operator_apply": "src/repro/kernels/butterfly.py:169",
     "batched_butterfly_apply": "src/repro/kernels/butterfly.py:209",
@@ -1165,6 +1196,396 @@ def phase_directed_shapes(main, single, errs) -> list:
     return timed_rows(cases, main, single, basis.fwd, sfwd, errs, "general")
 
 
+def sync() -> None:
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def masked_gains(basis, gains):
+    """``gains`` (B, n) zeroed at the pad coordinates of a ragged basis
+    (computed here from ``basis.sizes``, not by the engine)."""
+    import torch
+    if basis.sizes is None:
+        return gains
+    valid = (torch.arange(basis.n, device=gains.device)
+             < torch.as_tensor(basis.sizes, device=gains.device)[:, None])
+    return torch.where(valid, gains, torch.zeros_like(gains))
+
+
+def ragged_blocks(router, seed: int, rows: int):
+    """Random (B_w, R, w) blocks per bucket with NONZERO pad coordinates
+    (the pass-through checks need signal there)."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return {w: torch.randn((len(m), rows, w), generator=gen, device=DEVICE)
+            for w, m in sorted(router.bucket_of.items())}
+
+
+def ragged_step_times(tag, calls: dict, kernel: str, launches: int,
+                      graphs: int, steps: int = 50) -> dict:
+    """Per call (a tier's step or the bank's): the host's enqueue time and
+    the synchronized wall time per step over ``steps`` steps, the rate
+    (``graphs`` per step), and the profiler's device time of ``kernel``
+    per step (``launches`` launches each) with the card's idle share."""
+    import torch
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        t1 = time.perf_counter()
+        sync()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+        enqueue = (t1 - t0) / steps * 1e3
+        dev = device_ms(fn, kernel) if torch.cuda.is_available() else None
+        dev_step = None if dev is None else dev * launches
+        out[name] = {"enqueue_ms": enqueue, "wall_ms": wall,
+                     "per_s": graphs / wall * 1e3, "device_ms": dev_step}
+        dev_txt = ("not measured" if dev_step is None else
+                   f"{dev_step:.4f} ms ({launches} launches), idle "
+                   f"{1.0 - dev_step / wall:.2f}")
+        log(f"[{tag}] {name}: {steps} steps, host enqueue {enqueue:.4f} "
+            f"ms/step, wall {wall:.4f} ms/step ({graphs / wall * 1e3:.1f} "
+            f"per s); device {dev_txt}")
+    return out
+
+
+def ragged_host_split(tag, router, x, steps: int = 50) -> dict:
+    """Host enqueue time per call of the three parts of a full-tier
+    router step: the scatter into padded blocks, the bucket engines'
+    steps on those blocks, and the crops (the card finishes its work
+    between the parts, so each is the host's alone)."""
+    blocks = router._scatter(x)
+    ys = {w: router.engines[w].step(b, lowpass) for w, b in blocks.items()}
+    parts = {"scatter": lambda: router._scatter(x),
+             "engine steps": lambda: {w: router.engines[w].step(b, lowpass)
+                                      for w, b in blocks.items()},
+             "crops": lambda: router._gather(ys)}
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        out[name] = (time.perf_counter() - t0) / steps * 1e3
+        sync()
+    log(f"[{tag}] host enqueue per full-tier step, by part: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in out.items()))
+    return out
+
+
+def check_ragged_pads(tag, router, blocks, tol: float) -> None:
+    """Per bucket: ``apply`` (synthesis, analysis and the round trip)
+    passes pad coordinates through BITWISE, ``project`` with the heat
+    response (h(0) = 1) gives exactly 0 there, and ``apply`` equals its
+    plain version (G within ``tol`` * scale, T bitwise)."""
+    import torch
+    from repro_torch.spectral import named_responses
+    heat = named_responses("heat")["heat"]
+    for w, eng in sorted(router.engines.items()):
+        basis, x = eng.basis, blocks[w]
+        y = basis.apply(x)
+        xa = basis.apply(x, inverse=True)
+        xr = basis.apply(xa)
+        p = basis.project(x, h=heat)
+        err, scale = max_err(y, basis.apply(x, backend="torch"))
+        check(err <= tol * scale, f"{tag} bucket {w}: apply vs plain "
+              f"max|dy| {err:.3e}")
+        sizes = basis.sizes if basis.sizes is not None else [w] * len(x)
+        for b, s in enumerate(sizes):
+            for name, got in (("synthesis", y), ("analysis", xa),
+                              ("round trip", xr)):
+                check(torch.equal(got[b, :, s:], x[b, :, s:]),
+                      f"{tag} bucket {w} graph {b}: {name} changed its "
+                      f"pad coordinates")
+            check(bool((p[b, :, s:] == 0).all()),
+                  f"{tag} bucket {w} graph {b}: project(heat) is not 0 "
+                  f"at the pads")
+    sync()
+    log(f"[{tag}] pads of every bucket: synthesis, analysis and round "
+        f"trip bitwise the input's; project(heat, h(0) = 1) exactly 0")
+
+
+def check_ragged_served(tag, router, signals, tol: float) -> float:
+    """Each bucket's served full-tier output against the plain operator
+    program on the same tables and masked gains; every graph's cropped
+    answer equals its bucket row and the bucket's pads are 0.  Returns
+    the largest max|dy|."""
+    import torch
+    from repro_torch.kernels.plan import ApplyPlan
+    ys = router.step(signals, lowpass, tier="full")
+    blocks = router._scatter(signals)
+    worst = 0.0
+    for w, eng in sorted(router.engines.items()):
+        live, basis = eng._live, eng.basis
+        plain = ApplyPlan(family=basis.kind, mode="operator", n=w,
+                          batched=True, backend="torch",
+                          device=DEVICE).program()
+        d = masked_gains(basis, lowpass(eng.tiers["full"]["spectrum"]))
+        y = eng.step(blocks[w], lowpass, tier="full")
+        err, scale = max_err(y, plain(live.fwd, live.bwd, d, blocks[w]))
+        check(err <= tol * scale, f"{tag} bucket {w}: served vs plain "
+              f"max|dy| {err:.3e} > {tol} * {scale:.3e}")
+        worst = max(worst, err)
+        for row, pos in enumerate(router.bucket_of[w]):
+            n = router.sizes[pos]
+            check(ys[pos].device.type == torch.device(DEVICE).type
+                  and tuple(ys[pos].shape) == (signals[pos].shape[0], n),
+                  f"{tag}: graph {pos} served {tuple(ys[pos].shape)} on "
+                  f"{ys[pos].device}")
+            check(torch.equal(ys[pos], y[row, :, :n]),
+                  f"{tag}: graph {pos} != its bucket row")
+            check(bool((y[row, :, n:] == 0).all()),
+                  f"{tag}: graph {pos}'s pads are not 0")
+    sync()
+    log(f"[{tag}] served full tier of every bucket vs the plain version: "
+        f"max|dy| {worst:.3e} (tolerance {tol} * scale); crops in request "
+        f"order, pads 0")
+    return worst
+
+
+def phase_main_ragged(errs, cfg=None) -> dict:
+    """The heterogeneous-fleet path through the CLI: ``serve --fgft
+    --ragged``, then save / load of the router and its bank served from
+    the restored router (no second fit), then a small directed ragged
+    fleet held bitwise to the plain versions."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core.gtransform import g_to_dense
+    from repro_torch.core.staging import table_arrays
+    from repro_torch.kernels import launcher
+    from repro_torch.kernels.plan import ApplyPlan
+    from repro_torch.launch import serve
+    cfg = dict(RAGGED, **(cfg or {}))
+    argv = ["--fgft", "--ragged", "--graphs", str(cfg["graphs"]),
+            "--graph-sizes", cfg["sizes"], "--transforms",
+            str(cfg["transforms"]), "--signals", str(MAIN["signals"]),
+            "--filter-steps", str(MAIN["steps"]), "--tiers", MAIN["tiers"],
+            "--device", DEVICE]
+    launcher.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.main(argv)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = launcher.entry_launch_counts()
+    router = out["router"]
+    buckets = {w: len(m) for w, m in sorted(router.bucket_of.items())}
+    g = {w: e.basis.num_transforms for w, e in sorted(router.engines.items())}
+    log(f"[main-ragged] serve {' '.join(argv)}: {wall:.1f}s (fit "
+        f"{out['fit_s']:.1f}s); buckets {buckets}, g per bucket {g}; "
+        f"launches {launches}")
+    check(buckets == cfg["buckets"], f"buckets {buckets}")
+    check(g == cfg["g"], f"g per bucket {g}")
+    for entry in ("batched_sym_operator_apply", "batched_butterfly_apply"):
+        check(launches[entry] > 0, f"ragged path never launched {entry}")
+    for name, ts in out["tiers"].items():
+        log(f"[main-ragged] tier {name}: {ts['transforms_per_s']:.1f} "
+            f"graph-transforms/s, components per bucket "
+            f"{ts['num_transforms']}, stages {ts['num_stages']}")
+    x = out["signals"]
+    nb = len(router.engines)
+    step_times = ragged_step_times(
+        "main-ragged", {f"tier {name}": (lambda t=name: router.step(
+            x, lowpass, tier=t)) for name in out["tiers"]},
+        "g_operator_kernel", nb, len(x))
+    host_split = ragged_host_split("main-ragged", router, x)
+    # each graph's relative error against a dense recomputation on its
+    # cropped block
+    rel = np.asarray(out["rel_error"], np.float64)
+    dense = np.zeros_like(rel)
+    for w, eng in sorted(router.engines.items()):
+        basis = eng.basis
+        u = g_to_dense(basis.factors, w)
+        recon = (u @ torch.diag_embed(basis.spectrum)
+                 @ u.transpose(1, 2)).double().cpu().numpy()
+        for row, pos in enumerate(router.bucket_of[w]):
+            n = router.sizes[pos]
+            lap = np.asarray(out["laps"][pos], np.float64)
+            dense[pos] = (((lap - recon[row, :n, :n]) ** 2).sum()
+                          / (lap ** 2).sum())
+    dev_rel = float(np.max(np.abs(dense - rel) / rel))
+    log(f"[main-ragged] full-tier relative error: mean {rel.mean():.6f} "
+        f"(per bucket " + ", ".join(
+            f"{w}: {rel[m].mean():.6f}" for w, m in
+            sorted(router.bucket_of.items())) + f"); dense recomputation "
+        f"on the cropped blocks: mean {dense.mean():.6f}, worst relative "
+        f"deviation {dev_rel:.2e}")
+    check(bool(np.isfinite(rel).all()), "non-finite relative error")
+    check(float(rel.mean()) < 0.05, f"mean relative error {rel.mean()}")
+    check(dev_rel <= 1e-3, f"dense relative error deviates {dev_rel:.3e}")
+    served_err = check_ragged_served("main-ragged", router, out["signals"],
+                                     TOL)
+    errs["batched_sym_operator_apply"] = max(
+        errs.get("batched_sym_operator_apply", 0.0), served_err)
+    check_ragged_pads("main-ragged", router,
+                      ragged_blocks(router, 29, 130), TOL)
+
+    # save / load: the restored router serves the bank without a refit
+    ckpt = ROOT / "build" / "ragged_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    router.save(ckpt)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = serve.RaggedFGFTServeEngine.load(
+        ckpt, filters=MAIN["filters"], device=DEVICE)
+    sync()
+    load_s = time.perf_counter() - t0
+    size_mb = sum(p.stat().st_size for p in ckpt.rglob("*")
+                  if p.is_file()) / 2 ** 20
+    check(restored.widths == router.widths
+          and restored.bucket_of == router.bucket_of, "restored geometry")
+    for w, eng in router.engines.items():
+        back = restored.engines[w]
+        for leg in ("fwd", "bwd"):
+            for a, b in zip(table_arrays(getattr(eng.basis, leg)),
+                            table_arrays(getattr(back.basis, leg))):
+                check(torch.equal(a, b), f"bucket {w}: restored {leg} "
+                      f"tables differ")
+    for tier in router.engines[max(router.engines)].tiers:
+        for pos, (a, b) in enumerate(zip(router.step(x, lowpass, tier=tier),
+                                         restored.step(x, lowpass,
+                                                       tier=tier))):
+            check(torch.equal(a, b), f"restored router, tier {tier}: "
+                  f"graph {pos} differs")
+    sync()
+    log(f"[main-ragged] router saved in {save_s:.2f}s ({size_mb:.1f} MiB, "
+        f"{len(router.engines)} bucket checkpoints) and loaded with filters "
+        f"{MAIN['filters']} in {load_s:.2f}s; staged tables bitwise equal, "
+        f"every tier's steps bitwise equal to the saved router's")
+    restored.step_bank(x)                       # warmup: not counted
+    sync()
+    launcher.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(MAIN["steps"]):
+        yb = restored.step_bank(x)
+    sync()
+    dt = time.perf_counter() - t0
+    bank_launches = launcher.entry_launch_counts()
+    nf = len(restored.engines[max(restored.engines)].bank)
+    rate = MAIN["steps"] * len(x) * nf / dt
+    log(f"[main-ragged] restored router's bank ({nf} filters): "
+        f"{rate:.1f} responses/s; launches {bank_launches}")
+    step_times.update(ragged_step_times(
+        "main-ragged", {"bank": lambda: restored.step_bank(x)},
+        "g_bank_kernel", nb, len(x) * nf))
+    check(bank_launches["batched_sym_filter_bank_apply"]
+          == MAIN["steps"] * len(restored.engines),
+          "the restored router's bank did not launch once per bucket "
+          "and step")
+    blocks = restored._scatter(x)
+    plain_bank = {}
+    for w, eng in sorted(restored.engines.items()):
+        live = eng._live
+        y = eng.step_bank(blocks[w])
+        plain = ApplyPlan(family="sym", mode="bank", n=w, batched=True,
+                          backend="torch", device=DEVICE).program()
+        err, scale = max_err(y, plain(live.fwd, live.bwd, live.bank_gains,
+                                      blocks[w]))
+        check(err <= TOL * scale, f"bucket {w}: bank vs plain max|dy| "
+              f"{err:.3e}")
+        plain_bank[w] = err
+        errs["batched_sym_filter_bank_apply"] = max(
+            errs.get("batched_sym_filter_bank_apply", 0.0), err)
+        check_bank_slices(f"main-ragged bucket {w}", eng, y, blocks[w], TOL)
+        for row, pos in enumerate(restored.bucket_of[w]):
+            n = restored.sizes[pos]
+            check(bool((y[row, :, :, n:] == 0).all()),
+                  f"bucket {w}: bank pads of graph {pos} are not 0")
+            check(torch.equal(yb[pos], y[row, :, :, :n]),
+                  f"bank of graph {pos} != its bucket row")
+    log(f"[main-ragged] bank of every bucket vs plain version: max|dy| "
+        f"{plain_bank}; pads 0")
+    directed = ragged_directed(cfg)
+    return {"out": out, "launches": launches, "wall_s": wall,
+            "mean_rel": float(rel.mean()), "dense_dev": dev_rel,
+            "served_err": served_err, "save_s": save_s, "load_s": load_s,
+            "checkpoint_mib": size_mb, "bank_responses_per_s": rate,
+            "step_times": step_times, "host_split": host_split,
+            "bank_launches": bank_launches, "directed": directed}
+
+
+def ragged_directed(cfg) -> dict:
+    """A small directed ragged fleet (T fit, n_iter = 1): the T operator,
+    chain and bank of every bucket held BITWISE to their plain versions,
+    and the pads passed through bitwise."""
+    import torch
+    from repro_torch.core import laplacian
+    from repro_torch.graphs import community_graph, directed_variant
+    from repro_torch.kernels import launcher
+    from repro_torch.kernels.plan import ApplyPlan
+    from repro_torch.launch import serve
+    sizes = [int(s) for s in cfg["directed_sizes"].split(",")]
+    sizes = [sizes[i % len(sizes)] for i in range(cfg["directed_graphs"])]
+    laps = [laplacian(directed_variant(community_graph(n, seed=s), seed=s))
+            for s, n in enumerate(sizes)]
+    launcher.reset_launch_counts()
+    t0 = time.perf_counter()
+    router = serve.RaggedFGFTServeEngine(
+        laps, n_iter=1, kind="general", filters=MAIN["filters"],
+        tiers={"full": 1.0}, device=DEVICE)
+    sync()
+    fit_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    x = [torch.randn((MAIN["signals"], n), generator=gen, device=DEVICE)
+         for n in sizes]
+    ys = router.step(x, lowpass)
+    yb = router.step_bank(x)
+    blocks = ragged_blocks(router, 37, MAIN["signals"])
+    for eng in router.engines.values():
+        eng.basis.apply(eng.basis.apply(blocks[eng.basis.n], inverse=True))
+    sync()
+    launches = launcher.entry_launch_counts()
+    rel = router.rel_errors()
+    log(f"[ragged-directed] {len(sizes)} directed graphs (sizes "
+        f"{sorted(set(sizes))}) in buckets "
+        f"{ {w: len(m) for w, m in sorted(router.bucket_of.items())} }: "
+        f"fit {fit_s:.1f}s, mean rel error {rel.mean():.6f}; launches "
+        f"{launches}")
+    for entry in ("batched_gen_operator_apply", "batched_shear_apply",
+                  "batched_gen_filter_bank_apply"):
+        check(launches[entry] > 0, f"directed ragged check never launched "
+              f"{entry}")
+    check(router.engines[max(router.engines)].basis.kind == "general",
+          "directed fleet fitted as sym")
+    xb = router._scatter(x)
+    for w, eng in sorted(router.engines.items()):
+        live, basis = eng._live, eng.basis
+        d = masked_gains(basis, lowpass(eng.tiers["full"]["spectrum"]))
+        op = ApplyPlan(family="general", mode="operator", n=w, batched=True,
+                       backend="torch", device=DEVICE).program()
+        bank = ApplyPlan(family="general", mode="bank", n=w, batched=True,
+                         backend="torch", device=DEVICE).program()
+        checks = (("batched_gen_operator_apply", eng.step(xb[w], lowpass),
+                   op(live.fwd, live.bwd, d, xb[w])),
+                  ("batched_gen_filter_bank_apply", eng.step_bank(xb[w]),
+                   bank(live.fwd, live.bwd, live.bank_gains, xb[w])),
+                  ("batched_shear_apply", basis.apply(blocks[w]),
+                   basis.apply(blocks[w], backend="torch")),
+                  ("batched_shear_apply", basis.apply(blocks[w],
+                                                      inverse=True),
+                   basis.apply(blocks[w], inverse=True, backend="torch")))
+        for entry, got, want in checks:
+            check(torch.equal(got, want), f"directed bucket {w}: {entry} "
+                  f"!= its plain version (want bitwise)")
+        for row, pos in enumerate(router.bucket_of[w]):
+            n = sizes[pos]
+            check(torch.equal(ys[pos], eng.step(xb[w], lowpass)[row, :, :n]),
+                  f"directed graph {pos} != its bucket row")
+            check(bool((yb[pos] == eng.step_bank(xb[w])[row, :, :, :n]).all()),
+                  f"directed bank of graph {pos} != its bucket row")
+    check_ragged_pads("ragged-directed", router, blocks, 0.0)
+    log("[ragged-directed] T operator, chain (both legs) and bank of every "
+        "bucket bitwise equal to their plain versions")
+    return {"launches": launches, "fit_s": fit_s,
+            "mean_rel": float(rel.mean())}
+
+
 #: entry point -> (family, kernel) of the turns phase
 TURNS = {"batched_sym_operator_apply": ("sym", "g_operator_kernel"),
          "sym_operator_apply": ("sym", "g_operator_kernel"),
@@ -1306,6 +1727,15 @@ def main() -> int:
                                  main_dir["out"]["signals"], single_dir, errs)
     check(len(kernels) == len(REPLACES),
           f"{len(kernels)} kernel rows for {len(REPLACES)} entry points")
+    ragged = phase_main_ragged(errs)
+    ragged_counts = dict(ragged["launches"])
+    for entry, k in ragged["bank_launches"].items():
+        ragged_counts[entry] += k
+    for entry, k in ragged["directed"]["launches"].items():
+        ragged_counts[entry] += k
+    for row in kernels:
+        row["ragged_launches"] = ragged_counts[row["entry"]]
+        row["max_abs_err"] = errs[row["entry"]]
     if args.baseline:
         turns = phase_turns(args.baseline, main_rec, single, main_dir,
                             single_dir)

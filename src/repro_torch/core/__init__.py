@@ -13,6 +13,6 @@ from .gtransform import (approximate_symmetric, default_sbar, g_init,
 from .ttransform import (approximate_general, default_cbar, lemma2_spectrum,
                          t_init, t_objective, t_polish, t_reconstruct,
                          t_to_dense, tapply)
-from .eigenbasis import ApproxEigenbasis
+from .eigenbasis import ApproxEigenbasis, pad_ragged
 from .fgft import (FGFT, build_fgft, laplacian, prefix_relative_error,
                    relative_error)

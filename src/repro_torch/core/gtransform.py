@@ -146,12 +146,15 @@ def _conjugate_g(m, i, j, c, s, sigma, ar=None):
 # ---------------------------------------------------------------------------
 
 def _pair_gains_rows(diag_s, s_row, sbar, idx, score: str = "paper",
-                     ar=None):
+                     ar=None, valid=None):
     """Gain of pairing index ``idx`` (B,) with every other index: (B, n).
 
     score="paper": the exact Theorem-1 score in rearrangement-max form;
     score="gamma": Remark 1's eigenvalue-free 2 S_pq^2 drop (up to the
-    factor 2)."""
+    factor 2).  ``valid`` ((B, n) bool, optional) marks the real
+    coordinates of ragged matrices embedded in a wider bucket; pairs
+    touching a padding coordinate score -inf, so the greedy never
+    selects them."""
     ar = _arange(diag_s) if ar is None else ar
     if score == "gamma":
         gain = s_row * s_row
@@ -165,12 +168,16 @@ def _pair_gains_rows(diag_s, s_row, sbar, idx, score: str = "paper",
         si = sbar[ar, idx][:, None]
         base = si * a_i + sbar * diag_s
         gain = torch.maximum(si * d1 + sbar * d2, si * d2 + sbar * d1) - base
+    if valid is not None:
+        ok = valid & valid[ar, idx][:, None]
+        gain = gain.masked_fill(~ok, -math.inf)
     gain[ar, idx] = -math.inf
     return gain
 
 
-def _gain_matrix(s_work, sbar, score: str = "paper"):
-    """(B, n, n) pair gains with -inf on the diagonal."""
+def _gain_matrix(s_work, sbar, score: str = "paper", valid=None):
+    """(B, n, n) pair gains with -inf on the diagonal (and, with
+    ``valid``, on every pair touching a padding coordinate)."""
     n = s_work.shape[-1]
     if score == "gamma":
         gain = s_work * s_work
@@ -184,8 +191,10 @@ def _gain_matrix(s_work, sbar, score: str = "paper"):
         si, sj = sbar[:, :, None], sbar[:, None, :]
         base = si * ai + sj * aj
         gain = torch.maximum(si * d1 + sj * d2, si * d2 + sj * d1) - base
-    eye = torch.eye(n, dtype=torch.bool, device=s_work.device)
-    return gain.masked_fill(eye, -math.inf)
+    off = torch.eye(n, dtype=torch.bool, device=s_work.device)
+    if valid is not None:
+        off = off | ~(valid[:, :, None] & valid[:, None, :])
+    return gain.masked_fill(off, -math.inf)
 
 
 def _procrustes_2x2(s_ii, s_jj, s_ij, sbar_i, sbar_j):
@@ -202,17 +211,24 @@ def _procrustes_2x2(s_ii, s_jj, s_ij, sbar_i, sbar_j):
 
 
 def g_init(s_mat: torch.Tensor, sbar: torch.Tensor, g: int,
-           score: str = "paper") -> Tuple[GFactors, torch.Tensor]:
+           score: str = "paper", valid=None
+           ) -> Tuple[GFactors, torch.Tensor]:
     """Theorem-1 greedy initialization of ``g`` G-transforms.
 
-    ``s_mat`` (n, n) or (B, n, n).  Returns factors (application order,
-    int32 indices) and the final working matrix ``W = Ubar^T S Ubar``."""
+    ``s_mat`` (n, n) or (B, n, n).  ``valid`` ((n,) or (B, n) bool)
+    restricts the greedy to the real coordinates of ragged matrices
+    embedded in a wider bucket: no selected pair touches a padding
+    coordinate, so the chain acts as the identity there.  Returns
+    factors (application order, int32 indices) and the final working
+    matrix ``W = Ubar^T S Ubar``."""
     s_work, _, single = _single_to_batch(s_mat, None)
     s_work = s_work.clone()
     bsz, n = s_work.shape[0], s_work.shape[-1]
     sbar = sbar.to(s_work.dtype).reshape(bsz, n)
+    if valid is not None:
+        valid = valid.reshape(bsz, n)
     ar = _arange(s_work)
-    gains = _gain_matrix(s_work, sbar, score)
+    gains = _gain_matrix(s_work, sbar, score, valid)
     picked = []
     for _ in range(g):
         flat = torch.argmax(gains.reshape(bsz, -1), dim=1)
@@ -232,10 +248,12 @@ def g_init(s_mat: torch.Tensor, sbar: torch.Tensor, g: int,
         _conjugate_gt(s_work, i, j, c, s, sigma, ar)
         # refresh the O(n) affected scores (rows/cols i and j)
         diag_s = torch.diagonal(s_work, dim1=-2, dim2=-1)
-        gi = _pair_gains_rows(diag_s, s_work[ar, i], sbar, i, score, ar)
+        gi = _pair_gains_rows(diag_s, s_work[ar, i], sbar, i, score, ar,
+                              valid)
         gains[ar, i] = gi
         gains[ar, :, i] = gi
-        gj = _pair_gains_rows(diag_s, s_work[ar, j], sbar, j, score, ar)
+        gj = _pair_gains_rows(diag_s, s_work[ar, j], sbar, j, score, ar,
+                              valid)
         gains[ar, j] = gj
         gains[ar, :, j] = gj
         gji = gj[ar, i]
@@ -445,20 +463,84 @@ def _sym_iterate(s_mat, factors, sbar, n_iter, update_spectrum, eps):
     return factors, sbar, obj, hist, it
 
 
-def _approx_sym_core(s_mat, sbar0, g, n_iter, update_spectrum, eps, score):
+def _valid_mask(sizes, n: int, device) -> torch.Tensor:
+    """(..., n) bool mask of the real coordinates of ragged matrices of
+    true sides ``sizes`` (an int, or (...,)) embedded in an n-wide
+    bucket."""
+    size = torch.as_tensor(sizes, device=device)
+    return torch.arange(n, device=device) < size[..., None]
+
+
+def _valid_coords(s_mat: torch.Tensor, size) -> Optional[torch.Tensor]:
+    """(B, n) mask of the real coordinates of the (B, n, n) stack
+    ``s_mat`` (``size``: its (B,) true sides, or one int for B = 1; None
+    when every matrix fills the bucket)."""
+    if size is None:
+        return None
+    return _valid_mask(size, s_mat.shape[-1], s_mat.device).reshape(
+        s_mat.shape[0], -1)
+
+
+def _approx_sym_core(s_mat, sbar0, g, n_iter, update_spectrum, eps, score,
+                     size=None):
     """Batched Algorithm-1 body: (B, n, n) matrices, (B, n) initial
-    spectra.  Returns (factors, sbar, objective, history, iterations)."""
-    factors, w = g_init(s_mat, sbar0, g, score)
+    spectra.  ``size`` ((B,) true sides, optional) masks the greedy to
+    each matrix's leading coordinates: with a zero pad block every
+    polish and Lemma-1 sweep then stays inside the valid block, and each
+    matrix fits as its own-size fit would.  Returns (factors, sbar,
+    objective, history, iterations)."""
+    factors, w = g_init(s_mat, sbar0, g, score, _valid_coords(s_mat, size))
     sbar = (torch.diagonal(w, dim1=-2, dim2=-1).clone() if update_spectrum
             else sbar0.to(s_mat.dtype))
     return _sym_iterate(s_mat, factors, sbar, n_iter, update_spectrum, eps)
 
 
-def default_sbar(s_mat: torch.Tensor) -> torch.Tensor:
+def _extend_sym_core(s_mat, factors0, sbar0, g_extra, n_iter,
+                     update_spectrum, eps, score, size=None):
+    """Warm-start extension: append ``g_extra`` Theorem-1 components
+    fitted against the current residual.  The greedy continues on
+    W = Ubar^T S Ubar, where a from-scratch init would stand after the
+    first g components, so the new factors extend the DISCOVERY order
+    and are PREPENDED in application order: Ubar_ext = Ubar0 Unew.
+    ``n_iter`` > 0 re-sweeps the whole chain; ``size`` masks the
+    appended greedy as in ``_approx_sym_core``."""
+    w = g_conjugated(s_mat, factors0)
+    new, w2 = g_init(w, sbar0, g_extra, score, _valid_coords(s_mat, size))
+    factors = GFactors(*(torch.cat([nf, of.to(nf.dtype)], dim=-1)
+                         for nf, of in zip(new, factors0)))
+    sbar = (torch.diagonal(w2, dim1=-2, dim2=-1).clone() if update_spectrum
+            else sbar0.to(s_mat.dtype))
+    return _sym_iterate(s_mat, factors, sbar, n_iter, update_spectrum, eps)
+
+
+def _masked_default_spectrum(diag: torch.Tensor, sizes) -> torch.Tensor:
+    """diag + the deterministic tie-break for ragged matrices embedded in
+    an n-wide bucket: the statistics (std) and the perturbation ramp use
+    each matrix's TRUE size, so the estimate is what its own-size fit
+    starts from; padding coordinates are exactly zero."""
+    n = diag.shape[-1]
+    size = torch.as_tensor(sizes, device=diag.device).to(diag.dtype)[..., None]
+    ramp = torch.arange(n, dtype=diag.dtype, device=diag.device)
+    valid = ramp < size
+    zero = torch.zeros_like(diag)
+    d = torch.where(valid, diag, zero)
+    mean = d.sum(-1, keepdim=True) / size
+    var = torch.where(valid, (d - mean) ** 2, zero).sum(-1, keepdim=True) / size
+    scale = torch.clamp(torch.sqrt(var), min=1e-6)
+    pert = 1e-6 * scale * ramp / size
+    return torch.where(valid, d + pert, zero)
+
+
+def default_sbar(s_mat: torch.Tensor, sizes=None) -> torch.Tensor:
     """Default spectrum estimate: diag(S) with a deterministic tie-break
-    (population std, as ``jnp.std``).  Works on (n, n) or (..., n, n)."""
+    (population std, as ``jnp.std``).  Works on (n, n) or (..., n, n).
+    ``sizes`` (scalar, or (...,) matching the batch) marks ragged
+    matrices embedded in the n-wide bucket: the statistics follow each
+    matrix's true size and padding coordinates get exactly zero."""
     n = s_mat.shape[-1]
     sbar = torch.diagonal(s_mat, dim1=-2, dim2=-1)
+    if sizes is not None:
+        return _masked_default_spectrum(sbar, sizes)
     scale = torch.clamp(torch.std(sbar, dim=-1, keepdim=True, correction=0),
                         min=1e-6)
     ramp = torch.arange(n, dtype=s_mat.dtype, device=s_mat.device)

@@ -374,36 +374,47 @@ def _refresh(c_mat, b_mat):
             torch.bmm(e.transpose(-1, -2), b_mat), sq.sum(-1), sq.sum(-2))
 
 
-def t_init(c_mat: torch.Tensor, cbar: torch.Tensor, m: int
+def t_init(c_mat: torch.Tensor, cbar: torch.Tensor, m: int, valid=None
            ) -> Tuple[TFactors, torch.Tensor]:
     """Theorem-3 greedy initialization of m T-transforms.
 
-    ``c_mat`` (n, n) or (B, n, n).  Returns (factors in application
-    order, int32 indices; the final dense approximation B)."""
+    ``c_mat`` (n, n) or (B, n, n).  ``valid`` ((n,) or (B, n) bool)
+    restricts the greedy to the real coordinates of ragged matrices
+    embedded in a wider bucket.  Returns (factors in application order,
+    int32 indices; the final dense approximation B)."""
     c_b, _, single = _single_to_batch(c_mat, None)
     b0 = torch.diag_embed(cbar.to(c_b.dtype).reshape(c_b.shape[:2]))
-    factors, b = _t_greedy(c_b, b0, m)
+    if valid is not None:
+        valid = valid.reshape(c_b.shape[:2])
+    factors, b = _t_greedy(c_b, b0, m, valid)
     if single:
         return TFactors(*(f[0] for f in factors)), b[0]
     return factors, b
 
 
-def _t_greedy(c_mat: torch.Tensor, b0: torch.Tensor, m: int
+def _t_greedy(c_mat: torch.Tensor, b0: torch.Tensor, m: int, valid=None
               ) -> Tuple[TFactors, torch.Tensor]:
     """Greedy Theorem-3 loop from a current approximation ``b0`` on
     (B, n, n) stacks.  New transforms CONJUGATE the running
     approximation (B <- T B T^{-1}), i.e. they are appended to the
     application order.  The score state is rebuilt from B every
-    ``_REFRESH_EVERY`` steps."""
+    ``_REFRESH_EVERY`` steps.  With ``valid`` ((B, n) bool), shear pairs
+    and scaling indices that touch a padding coordinate score +inf and
+    are never selected."""
     bsz, n = c_mat.shape[0], c_mat.shape[-1]
     ar = _arange(c_mat)
     state = _refresh(c_mat, b0)
+    pair_bad = (None if valid is None
+                else ~(valid[:, :, None] & valid[:, None, :]))
     picked = []
     for t in range(m):
         if t and t % _REFRESH_EVERY == 0:
             state = _refresh(c_mat, state[0])
         a_sh, val_sh = _shear_scores(*state)
         a_sc, val_sc = _scale_scores(*state)
+        if valid is not None:
+            val_sh = val_sh.masked_fill(pair_bad, math.inf)
+            val_sc = val_sc.masked_fill(~valid, math.inf)
         flat = torch.argmin(val_sh.reshape(bsz, -1), dim=1)
         pi = torch.div(flat, n, rounding_mode="floor")
         pj = flat - pi * n
@@ -658,21 +669,41 @@ def _gen_iterate(c_mat, factors, cbar, n_iter, update_spectrum, eps):
     return factors, cbar, obj, hist, it
 
 
-def _approx_gen_core(c_mat, cbar0, m, n_iter, update_spectrum, eps):
+def _approx_gen_core(c_mat, cbar0, m, n_iter, update_spectrum, eps,
+                     size=None):
     """Batched Algorithm-1 body for the general case: (B, n, n) matrices,
-    (B, n) initial spectra.  Returns (factors, cbar, objective, history,
-    iterations)."""
+    (B, n) initial spectra.  ``size`` ((B,) true sides, optional) masks
+    the Theorem-3 greedy to each matrix's leading coordinates; with a
+    zero pad block the polish and Lemma-2 refits stay inside the valid
+    block.  Returns (factors, cbar, objective, history, iterations)."""
     b0 = torch.diag_embed(cbar0.to(c_mat.dtype))
-    factors, _ = _t_greedy(c_mat, b0, m)
+    factors, _ = _t_greedy(c_mat, b0, m, gt._valid_coords(c_mat, size))
     cbar = _gen_refit_spectrum(c_mat, factors, cbar0.to(c_mat.dtype),
                                update_spectrum)
     return _gen_iterate(c_mat, factors, cbar, n_iter, update_spectrum, eps)
 
 
-def default_cbar(c_mat: torch.Tensor) -> torch.Tensor:
+def _extend_gen_core(c_mat, factors0, cbar0, m_extra, n_iter,
+                     update_spectrum, eps, size=None):
+    """Warm-start extension for the general case: the Theorem-3 greedy
+    continues from the fitted reconstruction, so the ``m_extra`` new
+    transforms refine the current residual.  They conjugate the running
+    approximation and are therefore APPENDED in application order.
+    ``size`` masks the appended greedy as in ``_approx_gen_core``."""
+    cbar0 = cbar0.to(c_mat.dtype)
+    b0 = t_reconstruct(factors0, cbar0)
+    new, _ = _t_greedy(c_mat, b0, m_extra, gt._valid_coords(c_mat, size))
+    factors = TFactors(*(torch.cat([of.to(nf.dtype), nf], dim=-1)
+                         for of, nf in zip(factors0, new)))
+    cbar = _gen_refit_spectrum(c_mat, factors, cbar0, update_spectrum)
+    return _gen_iterate(c_mat, factors, cbar, n_iter, update_spectrum, eps)
+
+
+def default_cbar(c_mat: torch.Tensor, sizes=None) -> torch.Tensor:
     """Default spectrum estimate diag(C) with a deterministic tie-break,
-    for (n, n) or (..., n, n) (the same rule as ``default_sbar``)."""
-    return gt.default_sbar(c_mat)
+    for (n, n) or (..., n, n) (the same rule as ``default_sbar``,
+    ``sizes`` included)."""
+    return gt.default_sbar(c_mat, sizes)
 
 
 def approximate_general(c_mat: torch.Tensor, m: int, n_iter: int = 10,

@@ -14,9 +14,8 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.eigenbasis import ApproxEigenbasis
-from repro_torch.core.staging import (pack_g_batch_pair, pack_g_pair,
-                                     pack_t_batch_pair, pack_t_pair)
+from repro_torch.core.eigenbasis import (ApproxEigenbasis, _normalize_sizes,
+                                        _pack)
 from repro_torch.core.types import GFactors, TFactors
 
 #: kind -> (factor container, its int32 fields; the others are f32)
@@ -27,14 +26,16 @@ _LAYOUT = {"sym": (GFactors, ("i", "j")),
 def basis_from_numpy(kind: str, n: int, factors: Mapping[str, np.ndarray],
                      spectrum: np.ndarray, objective=None,
                      cuts: Optional[Sequence[int]] = None,
-                     stage_pad: Optional[tuple] = None,
+                     stage_pad: Optional[tuple] = None, sizes=None,
                      device="cuda") -> ApproxEigenbasis:
     """A port basis from host arrays.
 
     ``kind``: "sym" or "general"; ``factors``: dict of the family's
     fields (``i, j, c, s, sigma`` or ``kind, i, j, a``), (g,) or (B, g);
     ``spectrum``: (n,) or (B, n); ``cuts``: the component ladder to pack
-    (default: the quarters ladder); ``stage_pad``: batched shape quanta.
+    (default: the quarters ladder); ``stage_pad``: batched shape quanta;
+    ``sizes``: the true sides of a ragged (masked) fit, (B,) or a scalar,
+    so that the carried basis keeps its mask.
     """
     if kind not in _LAYOUT:
         raise ValueError(f"kind must be one of {sorted(_LAYOUT)}, got "
@@ -54,14 +55,10 @@ def basis_from_numpy(kind: str, n: int, factors: Mapping[str, np.ndarray],
     want = (host.i.shape[0], n) if batched else (n,)
     if spec.shape != want:
         raise ValueError(f"spectrum shape {spec.shape} != {want}")
+    sizes = _normalize_sizes(sizes, batched, n,
+                             host.i.shape[0] if batched else 0)
     dev = torch.device(device)
-    sym = kind == "sym"
-    if batched:
-        pack = pack_g_batch_pair if sym else pack_t_batch_pair
-        fwd, bwd = pack(host, n, cuts=cuts, pad=stage_pad, device=dev)
-    else:
-        pack = pack_g_pair if sym else pack_t_pair
-        fwd, bwd = pack(host, cuts=cuts, n=n, device=dev)
+    fwd, bwd = _pack(kind, batched, host, n, cuts, stage_pad, dev)
     tensors = cls(*(torch.from_numpy(f.copy()).to(dev) for f in host))
     obj = (None if objective is None
            else torch.from_numpy(np.array(objective, np.float32)).to(dev))
@@ -69,4 +66,4 @@ def basis_from_numpy(kind: str, n: int, factors: Mapping[str, np.ndarray],
                             factors=tensors,
                             spectrum=torch.from_numpy(spec.copy()).to(dev),
                             fwd=fwd, bwd=bwd, objective=obj,
-                            info={"stage_pad": stage_pad})
+                            info={"stage_pad": stage_pad}, sizes=sizes)

@@ -465,3 +465,89 @@ def test_engine_serves_a_basis_fitted_on_the_card(cuda):
     assert y.shape == (2, 2, 5, 16)
     assert launcher.entry_launch_counts()["batched_sym_filter_bank_apply"] == 1
     _close(y[:, 1], eng.step(x, eng.bank.filters[1].response))
+
+
+def _ragged_fleet(family, sizes):
+    from repro_torch.core import laplacian
+    from repro_torch.graphs import community_graph, directed_variant
+    adjs = [community_graph(n, seed=s) for s, n in enumerate(sizes)]
+    if family == "general":
+        adjs = [directed_variant(a, seed=s) for s, a in enumerate(adjs)]
+    return [laplacian(a) for a in adjs]
+
+
+@pytest.mark.parametrize("family", ["sym", "general"])
+def test_ragged_basis_pads_pass_through_the_kernels_bitwise(cuda, family):
+    """A masked fit never selects a pad coordinate, so the chain kernel
+    passes pad coordinates through bitwise (both legs), and the operator
+    and bank kernels, with gains masked at the pads, give exactly 0
+    there; kernel vs plain as everywhere else."""
+    from repro_torch.core import ApproxEigenbasis
+    from repro_torch.spectral import SpectralFilterBank, named_responses
+    sizes = [12, 20, 32, 9]
+    basis = ApproxEigenbasis.fit(_ragged_fleet(family, sizes), 160,
+                                 n_iter=1, kind=family, device="cuda")
+    assert basis.sizes.tolist() == sizes and basis.n == 32
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((4, 130, 32), generator=gen, device=cuda)
+    launcher.reset_launch_counts()
+    y = basis.apply(x)
+    xr = basis.apply(basis.apply(x, inverse=True))
+    p = basis.project(x, h=lambda lam: torch.exp(-lam))      # h(0) = 1
+    bank = SpectralFilterBank(basis, named_responses("heat,tikhonov"))
+    yb = bank.apply(x)
+    counts = launcher.launch_counts()
+    prefix = "g" if family == "sym" else "t"
+    assert counts[f"{prefix}_chain_kernel"] == 3
+    assert counts[f"{prefix}_operator_kernel"] == 1
+    assert counts[f"{prefix}_bank_kernel"] == 1
+    for b, s in enumerate(sizes):
+        assert torch.equal(y[b, :, s:], x[b, :, s:])
+        assert torch.equal(xr[b, :, s:], x[b, :, s:])
+        assert bool((p[b, :, s:] == 0).all())
+        assert bool((yb[b, :, :, s:] == 0).all())
+    plain = basis.apply(x, backend="torch")
+    if family == "sym":
+        _close(y, plain)
+    else:
+        assert torch.equal(y, plain)
+
+
+def test_ragged_router_serves_through_the_kernels(cuda):
+    """The router builds its padded blocks on the card, launches one
+    operator per bucket without a host synchronization, and returns
+    cropped device tensors in request order, each equal to its bucket
+    engine's plain-version output."""
+    from repro_torch.kernels.plan import ApplyPlan
+    from repro_torch.launch.serve import RaggedFGFTServeEngine
+    sizes = [12, 20, 32, 9, 16]
+    router = RaggedFGFTServeEngine(_ragged_fleet("sym", sizes), 160,
+                                   n_iter=1, tiers={"full": 1.0},
+                                   device="cuda")
+    assert sorted(router.engines) == [16, 32]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    xs = [torch.randn((7, n), generator=gen, device=cuda) for n in sizes]
+    h = lambda lam: 1.0 / (1.0 + lam)  # noqa: E731
+    router.step(xs, h)                      # builds the entry streams
+    launcher.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")  # a step never waits on the card
+    try:
+        ys = router.step(xs, h)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert launcher.entry_launch_counts()["batched_sym_operator_apply"] == 2
+    blocks = router._scatter(xs)
+    for w, eng in router.engines.items():
+        live = eng._live
+        plain = ApplyPlan(family="sym", mode="operator", n=w, batched=True,
+                          backend="torch", device="cuda").program()
+        valid = (torch.arange(w, device=cuda)
+                 < torch.as_tensor(eng.basis.sizes, device=cuda)[:, None])
+        d = torch.where(valid, h(eng.tiers["full"]["spectrum"]),
+                        torch.zeros((), device=cuda))
+        want = plain(live.fwd, live.bwd, d, blocks[w])
+        for row, pos in enumerate(router.bucket_of[w]):
+            got = ys[pos]
+            assert got.device.type == "cuda" and got.shape == (7, sizes[pos])
+            _close(got, want[row, :, :sizes[pos]])
+            assert bool((want[row, :, sizes[pos]:] == 0).all())

@@ -162,10 +162,11 @@ def test_sym_iterate_freezes_converged_matrix_per_matrix():
 
 def test_fit_rejects_what_is_not_ported():
     lap = _laps(16, 2)
-    with pytest.raises(NotImplementedError, match="ragged"):
-        ApproxEigenbasis.fit(lap, 8, sizes=[16, 12], device="cpu")
-    with pytest.raises(NotImplementedError, match="ragged"):
-        ApproxEigenbasis.fit([np.triu(lap[0]), np.triu(lap[1])[:12, :12]],
-                             8, kind="general", device="cpu")
+    basis = ApproxEigenbasis.fit(lap, 8, n_iter=0, device="cpu")
+    x = torch.zeros((2, 3, 16))
+    with pytest.raises(ValueError, match="precision"):
+        basis.apply(x, precision="bf16")
+    with pytest.raises(ValueError, match="precision"):
+        basis.project(x, precision="bf16")
     with pytest.raises(ValueError, match="spectrum shape"):
         ApproxEigenbasis.fit(lap, 8, spectrum=np.zeros(16), device="cpu")

@@ -147,7 +147,7 @@ def test_cli_serves_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--fgft", "--ragged"], "ragged"),
+    (["--fgft", "--dynamic"], "dynamic"),
     (["--fgft", "--precision", "bf16"], "precision"),
     (["--fgft", "--serve-async"], "async"),
     (["--fgft", "--filter", "nosuch"], "unknown filter"),
