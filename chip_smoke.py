@@ -87,6 +87,34 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              ragged fleet (sizes 12, 20, 32; n_iter = 1): the T operator,
              chain (both legs) and bank of every bucket bitwise equal to
              their plain versions, and the pads passed through bitwise.
+5c. main-dynamic — the evolving-fleet path (after [main-ragged], whose
+             saved router it loads), each part driven with the counts
+             zeroed just before and read just after, comparisons not
+             counted: a. ``serve --fgft --dynamic --graphs 64 --graph-n
+             256 --transforms 4096 --signals 256 --update-rounds 4
+             --churn 0.002`` (default tiers and policy) through
+             ``serve_fgft_dynamic``; after each round the served full tier
+             against the plain operator, the full-tier relative error
+             through the operator kernel (and the objective after a
+             structural fit) against the dense recomputation within 1e-3
+             relative, the entry-stream cache's hits and misses; then the
+             drift probe (R = 8), the Lemma-1 refresh and a full-tier step
+             timed on the pinned tables.  b. REFRESH, then EXTEND at full
+             width on the same engine (2% churn, thresholds set from the
+             measured drift), every kernel of the path (operator at R =
+             256 and R = 8, chain on the identity, the F = 7 bank served
+             on the extended basis) against its plain version on the
+             pinned, extended tables.  c. EXTEND then a budget-forced
+             REFIT on a small fleet (B = 4, n = 32): the chain returns to
+             g0, ``extends_since_refit`` is 0.  d. a dynamic engine on
+             [main-directed]'s basis (no new fit), one directed round,
+             EXTEND; every tier bitwise equal to its plain version.
+             e. [main-ragged]'s router loaded with ``dynamic=True``, graphs
+             of two of its three buckets updated, ``maintain(dirty_only=
+             True)``: only those buckets tick and only their graphs'
+             versions move; pads 0 from ``project``.  The operator, chain,
+             bank and T operator batched entry points must have launched;
+             each ``kernels`` row carries ``dynamic_launches``.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
              graph (n = 256, g = 4096, n_iter = 3), then analysis, synthesis,
              project and the bank; ``shear_apply``, ``gen_operator_apply``
@@ -122,11 +150,14 @@ contractions differently across about 2S stages; for the T kernels max|dy|
 == 0, since they round every entry as their plain versions do (no FMA
 contraction).
 
-Output: progress lines, a {"kernels": [...]} line, the card's name and power
-limit, and as the last line {"ok": true, "device": {...}}.
+Output: progress lines, a {"kernels": [...]} line (launches per path:
+``launches`` on the batched or single-graph path, ``ragged_launches``,
+``dynamic_launches``), the card's name and power limit, and as the last
+line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import statistics
@@ -151,6 +182,12 @@ RAGGED = dict(graphs=64, sizes="64,100,180,256", transforms=4096,
               buckets={64: 16, 128: 16, 256: 32},
               g={64: 768, 128: 1792, 256: 4096},
               directed_sizes="12,20,32", directed_graphs=6)
+#: the evolving fleet of [main-dynamic]: the main path's fleet under the
+#: CLI's update rounds, then forced rounds at 10x the churn, a small fleet
+#: for the REFIT, and the directed EXTEND's component budget
+DYNAMIC = dict(graphs=64, n=256, transforms=4096, signals=256, rounds=4,
+               churn=0.002, forced_churn=0.02, small=dict(graphs=4, n=32),
+               directed_extend_fraction=0.03125)
 REPLACES = {
     "batched_sym_operator_apply": "src/repro/kernels/butterfly.py:169",
     "batched_butterfly_apply": "src/repro/kernels/butterfly.py:209",
@@ -576,7 +613,6 @@ def phase_kernels(errs) -> None:
 def phase_main() -> dict:
     import numpy as np
     import torch
-    from repro_torch.core.gtransform import g_to_dense
     from repro_torch.kernels import launcher
     from repro_torch.kernels.plan import ApplyPlan
     from repro_torch.launch import serve
@@ -597,11 +633,7 @@ def phase_main() -> dict:
     engine, laps = out["engine"], out["laps"]
     basis = engine.basis
     n = basis.n
-    lap_t = torch.from_numpy(laps).to(basis.device)
-    u = g_to_dense(basis.factors, n)
-    recon = u @ torch.diag_embed(basis.spectrum) @ u.transpose(1, 2)
-    dense = (((lap_t - recon) ** 2).sum((1, 2))
-             / (lap_t ** 2).sum((1, 2))).cpu().numpy()
+    dense = dense_rel_error(basis, laps)
     rel = np.asarray(out["rel_error"], np.float64)
     mean_rel, mean_dense = float(rel.mean()), float(dense.mean())
     log(f"[main] full-tier relative error: mean {mean_rel:.6f} from the "
@@ -1586,6 +1618,445 @@ def ragged_directed(cfg) -> dict:
             "mean_rel": float(rel.mean())}
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside (comparisons with the plain versions, error
+    checks) leave the launch counts as they were."""
+    from repro_torch.kernels import launcher
+    saved = launcher.entry_launch_counts()
+    try:
+        yield
+    finally:
+        launcher.reset_launch_counts()
+        launcher._launches.update(saved)
+
+
+def device_total_ms(fn, kernel: str, reps: int = 5, traces: int = 5):
+    """Device time per call of fn summed over every kernel it launches
+    (torch.profiler's CUDA events), from a trace that holds all ``reps``
+    launches of ``kernel`` (a trace now and then drops events); None
+    when no trace does."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA]
+        if sum(e.count for e in events if kernel in e.key) != reps:
+            continue
+        total = sum(getattr(e, "device_time_total", None)
+                    or getattr(e, "cuda_time_total", 0.0) for e in events)
+        return total / 1e3 / reps
+    return None
+
+
+def table_shape(basis) -> str:
+    s, p = basis.fwd.idx_i.shape[-2:]
+    return f"(S, P) = ({s}, {p}), g = {basis.num_transforms}"
+
+
+def dense_rel_error(basis, laps):
+    """Per-graph ||L - U diag(s) U^T||^2 / ||L||^2 from the dense chain
+    (plain torch: g_to_dense / t_to_dense)."""
+    import torch
+    from repro_torch.core.gtransform import g_to_dense
+    from repro_torch.core.ttransform import t_to_dense
+    lap = torch.as_tensor(laps, dtype=torch.float32).to(basis.device)
+    if basis.kind == "sym":
+        u = g_to_dense(basis.factors, basis.n)
+        recon = u @ torch.diag_embed(basis.spectrum) @ u.transpose(-1, -2)
+    else:
+        recon = (t_to_dense(basis.factors, basis.n)
+                 @ torch.diag_embed(basis.spectrum)
+                 @ t_to_dense(basis.factors, basis.n, inverse=True))
+    return (((lap - recon) ** 2).sum((-2, -1))
+            / (lap ** 2).sum((-2, -1))).cpu().numpy()
+
+
+def check_swap(tag, engine, x, y, errs, structural: bool) -> dict:
+    """After a hot swap: the served full tier (y on x) against the plain
+    operator on the live tables; the full-tier relative error through the
+    operator kernel (``exact_rel_residual``) and, when the swap was a
+    ``structural`` fit (EXTEND, REFIT) on the tracked Laplacians, from
+    its objective, each against the dense recomputation within 1e-3
+    relative."""
+    import numpy as np
+    from repro_torch.dynamic import exact_rel_residual
+    from repro_torch.kernels.plan import ApplyPlan
+    live, basis = engine._live, engine.basis
+    with uncounted():
+        plain = ApplyPlan(family=basis.kind, mode="operator", n=basis.n,
+                          batched=True, backend="torch",
+                          device=DEVICE).program()
+        want = plain(live.fwd, live.bwd,
+                     lowpass(live.tiers[engine.default_tier]["spectrum"]), x)
+        err, scale = max_err(y, want)
+        entry = ("batched_sym_operator_apply" if basis.kind == "sym"
+                 else "batched_gen_operator_apply")
+        tol = tolerance(entry)
+        check(err <= tol * scale, f"{tag}: served full tier vs plain "
+              f"max|dy| {err:.3e} > {tol} * {scale:.3e}")
+        errs[entry] = max(errs.get(entry, 0.0), err)
+        laps = engine._laps
+        dense = dense_rel_error(basis, laps)
+        kern = exact_rel_residual(basis, laps)
+        dev = float(np.max(np.abs(kern - dense) / dense))
+        check(dev <= 1e-3, f"{tag}: relative error through the kernel "
+              f"deviates {dev:.2e} from the dense recomputation")
+        obj_dev = None
+        if structural:
+            from repro_torch.dynamic import relative_objective
+            rel = relative_objective(basis.objective, laps)
+            obj_dev = float(np.max(np.abs(rel - dense) / dense))
+            check(obj_dev <= 1e-3, f"{tag}: objective relative error "
+                  f"deviates {obj_dev:.2e} from the dense recomputation")
+    log(f"[{tag}] served full tier vs plain max|dy| {err:.3e} (scale "
+        f"{scale:.3e}); full-tier relative error mean {dense.mean():.6f} "
+        f"dense, kernel deviation {dev:.2e}"
+        + ("" if obj_dev is None else f", objective deviation {obj_dev:.2e}")
+        + f"; {table_shape(basis)}")
+    return {"served_err": err, "rel_error": float(dense.mean()),
+            "kernel_dev": dev, "objective_dev": obj_dev}
+
+
+def update_round(engine, stream, churn: float, seed: int,
+                 directed: bool = False, graphs=None) -> None:
+    """One ``edge_perturbation`` batch at ``churn`` of the edge slots for
+    each graph (or those listed), through the stream into the engine."""
+    from repro_torch.graphs import edge_perturbation
+    for gid in (range(len(stream)) if graphs is None else graphs):
+        n = stream.sizes[gid]
+        batch = edge_perturbation(stream.adjs[gid],
+                                  max(int(churn * n * (n - 1) / 2), 1),
+                                  seed=seed + gid, directed=directed)
+        engine.apply_updates(gid, stream.apply(gid, batch))
+
+
+def forced_tick(tag, engine, want: str, **thresholds) -> dict:
+    """One maintain tick under a policy whose thresholds are the given
+    multiples of the engine's current maximum drift, so that the ladder
+    takes ``want``; timed, with the stream cache's hits and misses.  A
+    quiet tick first (every threshold out of reach: REUSE) clears a
+    hysteresis floor that an earlier action left standing."""
+    from dataclasses import replace
+    import torch
+    from repro_torch.kernels import launcher
+    policy = engine.controller.policy
+    engine.controller.policy = replace(policy, refresh=1e9, extend=1e9,
+                                       refit=1e9)
+    check(engine.maintain()["action"] == "reuse", f"{tag}: quiet tick")
+    d = float(engine.drift().max())
+    check(d > 0, f"{tag}: no drift to act on")
+    engine.controller.policy = replace(
+        policy, **{k: v * d for k, v in thresholds.items()})
+    launcher.reset_stream_cache_counts()
+    t0 = time.perf_counter()
+    res = engine.maintain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cache = launcher.stream_cache_counts()
+    check(res["action"] == want, f"{tag}: took {res['action']}, want {want}")
+    split = engine.maintain_ms
+    log(f"[{tag}] {want}: drift {d:.5f} -> {float(res['post_drift'].max()):.5f}"
+        f" in {wall:.3f}s (drift probe {split['drift']:.1f} ms, action "
+        f"{split['action']:.1f} ms, install {split['install']:.1f} ms, "
+        f"post-action probe {split['post_drift']:.1f} ms); stream cache "
+        f"{cache}; {table_shape(engine.basis)}")
+    return {"action": want, "drift": d, "wall_s": wall,
+            "split_ms": dict(split), "stream_cache": cache,
+            "post_drift": float(res["post_drift"].max())}
+
+
+def hold_pinned(tag, engine, bank_engine, x, errs) -> None:
+    """Every kernel of the dynamic path against its plain version on the
+    engine's pinned (and extended) tables: the operator at R = 256 and at
+    the probe's R = 8 (every cut at R = 8, the full chain at R = 256),
+    the chain on the identity block at every cut, the bank (F = 7)
+    served by ``bank_engine`` on the same basis."""
+    import torch
+    from repro_torch.kernels import butterfly as bf
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import ApplyPlan
+    basis = engine.basis
+    fwd, bwd, spec = basis.fwd, basis.bwd, basis.spectrum
+    bsz, n = spec.shape
+    x8 = x[:, :8].contiguous()
+    eye = torch.eye(n, device=DEVICE).expand(bsz, n, n).contiguous()
+    with uncounted():
+        compare("batched_sym_operator_apply",
+                bf.batched_sym_operator_apply(fwd, bwd, spec, x),
+                ref.batched_sym_operator_apply(fwd, bwd, spec, x), errs)
+        for k in [None, *cut_list(fwd)]:
+            compare("batched_sym_operator_apply",
+                    bf.batched_sym_operator_apply(fwd, bwd, spec, x8, k),
+                    ref.batched_sym_operator_apply(fwd, bwd, spec, x8, k),
+                    errs)
+            compare("batched_butterfly_apply",
+                    bf.batched_butterfly_apply(fwd, eye, k, "tail"),
+                    ref.batched_g_apply(fwd, eye, k, "tail"), errs)
+        live = bank_engine._live
+        plain = ApplyPlan(family="sym", mode="bank", n=n, batched=True,
+                          backend="torch", device=DEVICE).program()
+        yb = bank_engine.step_bank(x)
+        compare("batched_sym_filter_bank_apply", yb,
+                plain(live.fwd, live.bwd, live.bank_gains, x), errs)
+        check_bank_slices(tag, bank_engine, yb, x, TOL)
+    sync()
+    log(f"[{tag}] operator (R = {x.shape[1]} full, R = 8 at every cut), "
+        f"chain on the identity at every cut and bank (F = "
+        f"{len(bank_engine.bank)}) vs plain on {table_shape(basis)}: "
+        f"max|dy| operator {errs['batched_sym_operator_apply']:.3e}, chain "
+        f"{errs['batched_butterfly_apply']:.3e}, bank "
+        f"{errs['batched_sym_filter_bank_apply']:.3e}")
+
+
+def phase_main_dynamic(errs, main_dir) -> dict:
+    """The evolving-fleet path: a. ``serve --fgft --dynamic`` at full
+    width through the CLI, each swap checked; b. REFRESH and EXTEND forced
+    on the same engine, every kernel held to its plain version on the
+    pinned and extended tables; c. a REFIT on a small fleet; d. the
+    directed engine on [main-directed]'s basis; e. [main-ragged]'s saved
+    router loaded dynamic.  Counts are zeroed before each driven part
+    and read after it; comparisons do not count."""
+    from collections import Counter
+    import numpy as np
+    import torch
+    from repro_torch.dynamic import GraphStream, RefitPolicy
+    from repro_torch.graphs import community_graph, directed_variant
+    from repro_torch.kernels import launcher
+    from repro_torch.kernels.plan import ApplyPlan
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    counts: Counter = Counter()
+
+    def driven(fn):
+        launcher.reset_launch_counts()
+        out = fn()
+        sync()
+        counts.update(launcher.entry_launch_counts())
+        return out
+
+    cfg = DYNAMIC
+    # a. the CLI at full width, each swap checked after its round
+    argv = ["--fgft", "--dynamic", "--graphs", str(cfg["graphs"]),
+            "--graph-n", str(cfg["n"]), "--transforms",
+            str(cfg["transforms"]), "--signals", str(cfg["signals"]),
+            "--update-rounds", str(cfg["rounds"]), "--churn",
+            str(cfg["churn"]), "--filter-steps", str(MAIN["steps"]),
+            "--device", DEVICE]
+    swaps = []
+
+    def on_round(rnd, engine, rec, x, y):
+        seen = launcher.entry_launch_counts()
+        cache = launcher.stream_cache_counts()
+        for entry in ("batched_sym_operator_apply",
+                      "batched_butterfly_apply"):
+            check(seen[entry] > 0, f"[main-dynamic] round {rnd}: "
+                  f"{entry} never launched")
+        swaps.append({**rec, "stream_cache": cache,
+                      **check_swap(f"main-dynamic round {rnd}", engine, x,
+                                   y, errs, rec["action"] in ("extend",
+                                                              "refit"))})
+        log(f"[main-dynamic] round {rnd}: {rec['action']}, stream cache "
+            f"{cache} (since the previous round's checks)")
+        launcher.reset_stream_cache_counts()
+
+    launcher.reset_stream_cache_counts()
+    t0 = time.perf_counter()
+    out = driven(lambda: serve.serve_fgft_dynamic(serve.parse_args(argv),
+                                                  on_round=on_round))
+    wall_a = time.perf_counter() - t0
+    engine, stream = out["engine"], out["stream"]
+    log(f"[main-dynamic] serve {' '.join(argv)}: {wall_a:.1f}s (fit "
+        f"{out['fit_s']:.1f}s); actions {out['actions']}; launches "
+        f"{dict(counts)}")
+    check(engine.basis.fwd.idx_i.shape[-1] == cfg["n"] // 2,
+          "pinned G tables are not n/2 wide")
+    gen = torch.Generator(device=DEVICE).manual_seed(41)
+    x = torch.randn((cfg["graphs"], cfg["signals"], cfg["n"]),
+                    generator=gen, device=DEVICE)
+    # the probe and the refresh on the full-width pinned tables
+    from repro_torch.dynamic import lemma1_refresh
+    probe = {"ms": time_ms(engine.drift, reps=5, rounds=3),
+             "device_ms": device_total_ms(engine.drift,
+                                          "g_operator_kernel"),
+             "kernel_device_ms": device_ms(engine.drift,
+                                           "g_operator_kernel")}
+    refresh = {"ms": time_ms(lambda: lemma1_refresh(engine.basis,
+                                                    engine._laps),
+                             reps=5, rounds=3),
+               "device_ms": device_total_ms(
+                   lambda: lemma1_refresh(engine.basis, engine._laps),
+                   "g_chain_kernel"),
+               "kernel_device_ms": device_ms(
+                   lambda: lemma1_refresh(engine.basis, engine._laps),
+                   "g_chain_kernel")}
+    step = {"ms": time_ms(lambda: engine.step(x, lowpass)),
+            "device_ms": device_ms(lambda: engine.step(x, lowpass),
+                                   "g_operator_kernel")}
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
+    log(f"[main-dynamic] drift probe (R = 8, B = {cfg['graphs']}): "
+        f"{probe['ms']:.4f} ms a call, device {fmt(probe['device_ms'])} ms "
+        f"(operator kernel {fmt(probe['kernel_device_ms'])}); Lemma-1 "
+        f"refresh: {refresh['ms']:.4f} ms, device "
+        f"{fmt(refresh['device_ms'])} ms (chain kernel "
+        f"{fmt(refresh['kernel_device_ms'])}); full-tier step "
+        f"{step['ms']:.4f} ms, device {fmt(step['device_ms'])} ms on "
+        f"{table_shape(engine.basis)}")
+
+    # b. REFRESH then EXTEND, forced at full width
+    taken = {a for a in out["actions"]}
+    forced = []
+    driven(lambda: update_round(engine, stream, cfg["forced_churn"], 7000))
+    forced.append(driven(lambda: forced_tick(
+        "main-dynamic forced", engine, "refresh", refresh=0.5, extend=4.0,
+        refit=8.0)))
+    driven(lambda: update_round(engine, stream, cfg["churn"], 8000))
+    g_before = engine.basis.num_transforms
+    forced.append(driven(lambda: forced_tick(
+        "main-dynamic forced", engine, "extend", refresh=0.25, extend=0.5,
+        refit=8.0)))
+    check(engine.basis.num_transforms
+          == g_before + round(0.125 * cfg["transforms"]),
+          f"EXTEND grew the chain from {g_before} to "
+          f"{engine.basis.num_transforms}")
+    y = driven(lambda: engine.step(x, lowpass))
+    swaps.append(check_swap("main-dynamic extended", engine, x, y, errs,
+                            True))
+    bank_engine = serve.FGFTServeEngine(
+        engine._laps, basis=engine.basis, filters=MAIN["filters"],
+        tiers={"full": 1.0}, device=DEVICE)
+    driven(lambda: bank_engine.step_bank(x))
+    hold_pinned("main-dynamic pinned", engine, bank_engine, x, errs)
+    taken |= {"refresh", "extend"}
+
+    # c. REFIT on a small fleet: the chain returns to g0
+    small = cfg["small"]
+    sstream = GraphStream([community_graph(small["n"], seed=100 + s)
+                           for s in range(small["graphs"])])
+    g0 = int(2 * small["n"] * np.log2(small["n"]))
+    seng = driven(lambda: serve.FGFTServeEngine(
+        np.stack(sstream.laplacians()), g0, dynamic=True,
+        policy=RefitPolicy(max_extends=1), device=DEVICE))
+    driven(lambda: update_round(seng, sstream, 0.05, 9000))
+    refit_ticks = [driven(lambda: forced_tick(
+        "main-dynamic small", seng, "extend", refresh=0.25, extend=0.5,
+        refit=8.0))]
+    check(seng.basis.num_transforms > g0, "small fleet did not extend")
+    driven(lambda: update_round(seng, sstream, 0.05, 9100))
+    refit_ticks.append(driven(lambda: forced_tick(
+        "main-dynamic small", seng, "refit", refresh=0.25, extend=0.5,
+        refit=8.0)))
+    check(seng.basis.num_transforms == g0,
+          f"REFIT chain has {seng.basis.num_transforms} != g0 = {g0}")
+    check(seng.controller.extends_since_refit == 0,
+          "extends_since_refit is not 0 after the REFIT")
+    xs = torch.randn((small["graphs"], 32, small["n"]), generator=gen,
+                     device=DEVICE)
+    swaps.append(check_swap("main-dynamic small refit", seng, xs,
+                            driven(lambda: seng.step(xs, lowpass)), errs,
+                            True))
+
+    # d. directed: the [main-directed] basis, no new fit
+    dbasis = main_dir["out"]["engine"].basis
+    dstream = GraphStream([directed_variant(community_graph(cfg["n"],
+                                                            seed=s), seed=s)
+                           for s in range(cfg["graphs"])], directed=True)
+    check(np.array_equal(np.stack(dstream.laplacians()),
+                         main_dir["out"]["laps"]),
+          "directed stream differs from [main-directed]'s Laplacians")
+    deng = driven(lambda: serve.FGFTServeEngine(
+        main_dir["out"]["laps"], basis=dbasis, dynamic=True,
+        policy=RefitPolicy(extend_fraction=cfg["directed_extend_fraction"]),
+        device=DEVICE))
+    check(deng.basis.fwd.idx_i.shape[-1] == cfg["n"],
+          "pinned T tables are not n wide")
+    driven(lambda: update_round(deng, dstream, cfg["churn"], 9500,
+                                directed=True))
+    directed_tick = driven(lambda: forced_tick(
+        "main-dynamic directed", deng, "extend", refresh=0.5, extend=4.0,
+        refit=8.0))
+    xd = main_dir["out"]["signals"]
+    for tier in deng.tiers:
+        got = driven(lambda: deng.step(xd, lowpass, tier=tier))
+        with uncounted():
+            live = deng._live
+            want = ApplyPlan(family="general", mode="operator", n=cfg["n"],
+                             batched=True, backend="torch", device=DEVICE,
+                             num_stages=(None if tier == deng.default_tier
+                                         else live.tiers[tier]["num_stages"])
+                             ).program()(live.fwd, live.bwd, lowpass(
+                                 live.tiers[tier]["spectrum"]), xd)
+        check(torch.equal(got, want), f"directed dynamic tier {tier} != "
+              f"its plain version (want bitwise)")
+    log(f"[main-dynamic directed] every tier bitwise equal to its plain "
+        f"version on {table_shape(deng.basis)}")
+
+    # e. [main-ragged]'s saved router, loaded dynamic
+    ckpt = ROOT / "build" / "ragged_checkpoint"
+    t0 = time.perf_counter()
+    router = driven(lambda: serve.RaggedFGFTServeEngine.load(
+        ckpt, dynamic=True, policy=RefitPolicy(
+            refresh=1e-9, extend=10.0, refit=20.0, num_probes=64),
+        device=DEVICE))
+    load_s = time.perf_counter() - t0
+    sizes = router.sizes
+    rstream = GraphStream([community_graph(n, seed=s)
+                           for s, n in enumerate(sizes)])
+    moved = sorted({router.widths[0], router.widths[3]})
+    check(len(moved) == 2 and len(router.engines) == 3,
+          f"ragged buckets {sorted(router.engines)}")
+    before = router.versions.copy()
+    driven(lambda: update_round(router, rstream, cfg["forced_churn"], 9900,
+                                graphs=[0, 3]))
+    res = driven(lambda: router.maintain(dirty_only=True))
+    after = router.versions
+    check(sorted(res) == moved, f"dirty_only ticked buckets {sorted(res)}")
+    check(all(r["action"] == "refresh" for r in res.values()),
+          f"updated buckets took {[r['action'] for r in res.values()]}")
+    for pos, w in enumerate(router.widths):
+        want_bump = pos in (0, 3)
+        check((after[pos] > before[pos]) == want_bump,
+              f"graph {pos} (bucket {w}): version {before[pos]} -> "
+              f"{after[pos]}")
+    blocks = ragged_blocks(router, 43, 64)
+    signals = [torch.randn((64, n), generator=gen, device=DEVICE)
+               for n in sizes]
+    driven(lambda: router.step(signals, lowpass))
+    with uncounted():
+        for w, eng in sorted(router.engines.items()):
+            p = eng.basis.project(blocks[w], h=lambda lam: torch.exp(-lam))
+            for row, pos in enumerate(router.bucket_of[w]):
+                check(bool((p[row, :, sizes[pos]:] == 0).all()),
+                      f"bucket {w}: project pads of graph {pos} are not 0")
+    with uncounted():
+        ragged_served = check_ragged_served("main-dynamic ragged", router,
+                                            signals, TOL)
+    log(f"[main-dynamic ragged] router loaded dynamic in {load_s:.2f}s; "
+        f"buckets {moved} acted ({ {w: r['action'] for w, r in res.items()} }"
+        f"), versions moved only there; pads 0 from project")
+
+    path = ("batched_sym_operator_apply", "batched_butterfly_apply",
+            "batched_gen_operator_apply", "batched_sym_filter_bank_apply")
+    for entry in path:
+        check(counts[entry] > 0, f"dynamic path never launched {entry}")
+    check({"refresh", "extend"} <= taken, f"actions taken {taken}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[main-dynamic] {phase_s:.1f}s in all; launches {dict(counts)}")
+    return {"out": out, "launches": dict(counts), "swaps": swaps,
+            "forced": forced, "refit": refit_ticks,
+            "directed": directed_tick, "probe": probe, "refresh": refresh,
+            "step": step, "ragged_load_s": load_s,
+            "ragged_served_err": ragged_served, "phase_s": phase_s,
+            "fit_s": out["fit_s"], "wall_a_s": wall_a}
+
+
 #: entry point -> (family, kernel) of the turns phase
 TURNS = {"batched_sym_operator_apply": ("sym", "g_operator_kernel"),
          "sym_operator_apply": ("sym", "g_operator_kernel"),
@@ -1728,6 +2199,7 @@ def main() -> int:
     check(len(kernels) == len(REPLACES),
           f"{len(kernels)} kernel rows for {len(REPLACES)} entry points")
     ragged = phase_main_ragged(errs)
+    dynamic = phase_main_dynamic(errs, main_dir)
     ragged_counts = dict(ragged["launches"])
     for entry, k in ragged["bank_launches"].items():
         ragged_counts[entry] += k
@@ -1735,6 +2207,7 @@ def main() -> int:
         ragged_counts[entry] += k
     for row in kernels:
         row["ragged_launches"] = ragged_counts[row["entry"]]
+        row["dynamic_launches"] = dynamic["launches"].get(row["entry"], 0)
         row["max_abs_err"] = errs[row["entry"]]
     if args.baseline:
         turns = phase_turns(args.baseline, main_rec, single, main_dir,

@@ -393,17 +393,23 @@ def stage_extents(staged) -> torch.Tensor:
     return torch.where(ii < staged.n, slot, 0).amax(-1).to(torch.int32)
 
 
-def _kept(cache: dict, tensors: tuple, n: int, make: Callable):
+def _kept(cache: dict, tensors: tuple, n: int, make: Callable,
+          counts: Optional[dict] = None):
     """``make()`` kept in ``cache`` beside the tensors it is computed
     from, keyed on the first, while all of them live and none is
     replaced or written in place (their versions); the entry goes with
-    the first tensor."""
+    the first tensor.  ``counts`` tallies the lookups' hits and
+    misses."""
     key = id(tensors[0])
     hit = cache.get(key)
     if (hit is not None and hit[2] == n
             and all(r() is t and v == t._version
                     for r, v, t in zip(hit[0], hit[1], tensors))):
+        if counts is not None:
+            counts["hits"] += 1
         return hit[3]
+    if counts is not None:
+        counts["misses"] += 1
     out = make()
     refs = ((weakref.ref(tensors[0], lambda _, k=key: cache.pop(k, None)),)
             + tuple(weakref.ref(t) for t in tensors[1:]))
@@ -460,13 +466,26 @@ def entry_stream(staged) -> Tuple[torch.Tensor, torch.Tensor]:
 #: id(idx_i) -> (weak references to the leg's tables, their versions, n,
 #: its stream)
 _STREAMS: dict = {}
+_stream_counts = {"hits": 0, "misses": 0}
+
+
+def stream_cache_counts() -> dict:
+    """Hits and misses of the entry-stream cache since the last
+    ``reset_stream_cache_counts``: a hot swap that keeps its tables
+    (a spectrum refresh) hits, one that builds new tables misses once
+    per leg."""
+    return dict(_stream_counts)
+
+
+def reset_stream_cache_counts() -> None:
+    _stream_counts.update(hits=0, misses=0)
 
 
 def _cached_stream(staged) -> Tuple[torch.Tensor, torch.Tensor]:
     """``entry_stream`` kept beside the tables it was built from: a
     served basis builds its streams once, not per operator launch."""
     return _kept(_STREAMS, table_arrays(staged), staged.n,
-                 lambda: entry_stream(staged))
+                 lambda: entry_stream(staged), _stream_counts)
 
 
 def _check_diag(diag: torch.Tensor, x3: torch.Tensor, batched: bool,

@@ -29,10 +29,22 @@ served by its own engine, one launch per bucket per step
     python -m repro_torch.launch.serve --fgft --ragged --graphs 64 \\
         --graph-sizes 64,100,180,256 --transforms 4096
 
+An EVOLVING fleet (``--dynamic``, with or without ``--ragged`` and
+``--directed``) streams edge-update batches into the engine each round
+(``apply_updates``), runs the drift-triggered refit controller off the
+hot path (``maintain``: a Hutchinson probe pass through the operator
+kernel, then reuse, a Lemma-1 spectrum refresh through the chain
+kernel, a warm-start extend or a full refit) and keeps serving through
+versioned hot swaps:
+
+    python -m repro_torch.launch.serve --fgft --dynamic --graphs 64 \\
+        --graph-n 256 --transforms 4096 --signals 256 --update-rounds 4 \\
+        --churn 0.002 [--drift-thresholds 0.01,0.08,0.5]
+
 Engines and routers ``save``/``load`` through the checkpoint store in
 the JAX package's format, so either package restores the other's
-fleets without a refit.  The static subset of the JAX package's service
-is ported; its other flags exit with an error naming the later slice.
+fleets (dynamic state included) without a refit.  The JAX package's
+other flags exit with an error naming the later slice.
 """
 from __future__ import annotations
 
@@ -56,10 +68,6 @@ _LATER_FLAGS = {
     "--prompt-len": "the LM scaffold", "--gen-len": "the LM scaffold",
     "--max-len": "the LM scaffold",
     "--precision": "the precision (bf16)",
-    "--dynamic": "the dynamic maintenance",
-    "--update-rounds": "the dynamic maintenance",
-    "--churn": "the dynamic maintenance",
-    "--drift-thresholds": "the dynamic maintenance",
     "--serve-async": "the async service",
     "--load-requests": "the async service",
     "--load-workers": "the async service", "--qps": "the async service",
@@ -126,11 +134,8 @@ def _not_ported(what: str, slice_name: str) -> NotImplementedError:
                                f"the {slice_name} slice of repro_torch")
 
 
-def _refuse_unported(dynamic, placement, mesh) -> None:
+def _refuse_unported(placement, mesh) -> None:
     """The engines' arguments that belong to later slices."""
-    if dynamic:
-        raise _not_ported("dynamic=True (streaming updates, drift and "
-                          "maintenance)", "dynamic maintenance")
     if placement is not None:
         raise _not_ported("placement=", "multi-GPU placement")
     if mesh is not None:
@@ -139,7 +144,7 @@ def _refuse_unported(dynamic, placement, mesh) -> None:
 
 class FGFTServeEngine:
     """Batched spectral-filter serving over a fleet of graphs, with
-    anytime quality tiers.
+    anytime quality tiers and (optionally) streaming updates.
 
     One ``ApproxEigenbasis.fit`` factorizes all B Laplacians (or a prefit
     ``basis`` is served as given); every ``step`` then filters a
@@ -157,8 +162,24 @@ class FGFTServeEngine:
     a step's padded signal columns come back zeroed — the router
     (``RaggedFGFTServeEngine``) builds its per-bucket engines so.
     ``precision`` ("f32"; "bf16" tables come with a later slice),
-    ``dynamic``, ``placement`` and ``mesh`` are refused with the name of
-    the slice that brings them."""
+    ``placement`` and ``mesh`` are refused with the name of the slice
+    that brings them.
+
+    DYNAMIC mode (``dynamic=True``): the engine tracks the current
+    Laplacians on its device, accepts streaming deltas through
+    ``apply_updates(graph_id, delta)``, and ``maintain()`` runs the
+    drift-triggered refit controller (dynamic/refit.py, ``policy``) OFF
+    the hot path: it scores drift (Hutchinson, dynamic/drift.py: one
+    operator launch with the probes as signal rows), picks the cheapest
+    restoring action (reuse / Lemma-1 spectrum refresh / warm-start
+    extend / full refit), builds a complete serving version (tier
+    spectra, plan bindings, bank gains) and swaps it in with one
+    attribute store, so ``step`` always sees one consistent version.  A
+    batched dynamic fit quantizes its table shapes (``_repin``) so that
+    every refit lands on the same (B, S, P) tables.  Per-graph basis
+    versions and the controller's counters are in ``stats["dynamic"]``
+    and persist through ``save``/``load``; ``drift_baseline`` hands a
+    restored engine its persisted baselines."""
 
     def __init__(self, laps, num_transforms: int = 0, n_iter: int = 3,
                  backend: Optional[str] = None, kind: str = "auto",
@@ -166,10 +187,11 @@ class FGFTServeEngine:
                  tiers: Optional[Dict[str, float]] = None, basis=None,
                  fused: bool = True, filters: Optional[str] = None,
                  sizes=None, precision: str = "f32", dynamic: bool = False,
-                 placement=None, mesh=None, device="cuda"):
+                 policy=None, drift_baseline=None, placement=None,
+                 mesh=None, device="cuda"):
         from repro_torch.core import ApproxEigenbasis
         from repro_torch.core.gtransform import _valid_mask
-        _refuse_unported(dynamic, placement, mesh)
+        _refuse_unported(placement, mesh)
         self.device = _resolve(device)
         self.backend = backend
         self._tier_spec = dict(tiers or {"full": 1.0})
@@ -178,6 +200,11 @@ class FGFTServeEngine:
         self._n_iter = n_iter
         self._precision = precision
         laps = torch.as_tensor(laps, dtype=torch.float32).to(self.device)
+        if dynamic:
+            laps = laps.clone()         # apply_updates adds into it
+        # dynamic engines quantize the staged-table shapes (see _repin)
+        self._stage_pad = (4, 8) if dynamic and laps.dim() == 3 else None
+        fitted_here = basis is None
         if basis is None:
             if num_transforms <= 0:
                 raise ValueError("num_transforms must be positive when "
@@ -185,26 +212,100 @@ class FGFTServeEngine:
             basis = ApproxEigenbasis.fit(laps, num_transforms,
                                          n_iter=n_iter, kind=kind,
                                          hint=hint, sizes=sizes,
+                                         stage_pad=self._stage_pad,
                                          device=self.device)
         elif basis.device != self.device:
             raise ValueError(f"basis lives on {basis.device}, engine on "
                              f"{self.device}")
         self._g0 = basis.num_transforms
+        self._kind = basis.kind
         # pad coordinates of a ragged bucket: h(0) need not be 0
         # (heat/Tikhonov map 0 -> 1), so step() zeroes those gains
         self._pad_mask = (None if basis.sizes is None else
                           ~_valid_mask(basis.sizes, basis.n, self.device))
-        # the tracked Laplacians: what save() persists, so that load()
+        self.stats: Dict[str, Any] = {"steps": {}}
+        self.dynamic = bool(dynamic)
+        self._live = None
+        if self.dynamic and basis.batched:
+            pinned = basis.info.get("stage_pad")
+            if fitted_here or not pinned:
+                basis = self._repin(basis)
+            else:
+                # a basis that carries its pin (a restored one) keeps it:
+                # re-deriving the quantum from its PADDED depth would
+                # inflate the tables ~1.5x per save/load cycle
+                self._stage_pad = tuple(int(q) for q in pinned)
+        # the tracked Laplacians: the update and refit substrate of a
+        # dynamic engine, and what save() persists, so that load()
         # rebuilds the tier spectra without a refit
         self._laps = laps
-        self.stats: Dict[str, Any] = {"steps": {}}
-        self._live = None
         self._install(basis, laps)
+        if self.dynamic:
+            self._init_dynamic(basis, laps, policy, drift_baseline)
+
+    def _init_dynamic(self, basis, laps, policy, drift_baseline):
+        from repro_torch.dynamic.drift import (estimate_rel_residual,
+                                               relative_objective)
+        from repro_torch.dynamic.refit import RefitController, RefitPolicy
+        self.controller = RefitController(policy or RefitPolicy())
+        nb = laps.shape[0] if basis.batched else 1
+        self.versions = np.zeros(nb, np.int64)
+        self._dirty = np.zeros(nb, bool)
+        self._updates = 0
+        # drift is cached per update revision: an idle tick with pending
+        # but unchanged updates reuses the last probe pass
+        self._update_rev = 0
+        self._scored_rev = -1
+        self._last_drift = np.zeros(nb)
+        #: host ms of the last maintain() tick: the drift probe, the
+        #: action, the install of its serving version and the post-action
+        #: probe (each ends on a synchronization; maintain runs off the
+        #: hot path)
+        self.maintain_ms = dict.fromkeys(
+            ("drift", "action", "install", "post_drift"), 0.0)
+        if drift_baseline is not None:
+            # a restored engine hands its persisted baseline through
+            self._baseline = np.atleast_1d(
+                np.asarray(drift_baseline, np.float64))
+        elif basis.objective is not None:
+            self._baseline = relative_objective(basis.objective, laps)
+        else:
+            # a refresh-swapped basis carries no exact objective; anchor
+            # the baseline stochastically instead
+            p = self.controller.policy
+            self._baseline = np.atleast_1d(estimate_rel_residual(
+                basis, laps, num_probes=p.num_probes, seed=p.seed))
+        self._refresh_dynamic_stats(np.zeros(nb))
+
+    def _repin(self, basis):
+        """Repack a batched basis with a depth quantum pinned to its own
+        staged depth and the width pinned at its structural maximum."""
+        from repro_torch.core.eigenbasis import _pack
+        from repro_torch.core.staging import DEFAULT_NUM_CHUNKS
+        s0 = int(basis.fwd.num_stages)
+        # depth: 1.5x the observed per-chunk depth (refit chains vary tens
+        # of percent with graph content); width: disjoint pairs bound a
+        # G stage at n/2 entries and a T stage at n, so the width never
+        # overflows and every refit lands on the same tables
+        q = max(-(-3 * s0 // (2 * DEFAULT_NUM_CHUNKS)), 1)
+        w_max = basis.n // 2 if basis.kind == "sym" else basis.n
+        pad = (q, max(8 * -(-w_max // 8), 8))
+        if self._stage_pad == pad:
+            return basis
+        self._stage_pad = pad
+        cuts = (sorted(set(np.asarray(basis.fwd.cuts)[:, 1].tolist()))
+                if basis.fwd.cuts is not None else None)
+        fwd, bwd = _pack(basis.kind, True, basis.factors, basis.n, cuts,
+                         pad, basis.device)
+        return replace(basis, fwd=fwd, bwd=bwd,
+                       info={**basis.info, "stage_pad": pad})
 
     def _install(self, basis, laps):
         """Build a COMPLETE serving version (per-tier refit spectra, plan
         bindings and the filter bank's gains from the live spectrum) and
-        swap it in with a single attribute store."""
+        swap it in with a single attribute store.  ``laps``: the
+        Laplacians the tier spectra refit against — the fit stack at
+        construction, the updated stack on a dynamic swap."""
         from repro_torch.core.staging import table_arrays
         from repro_torch.dynamic.refit import prefix_spectrum
         from repro_torch.kernels.plan import ApplyPlan
@@ -230,6 +331,8 @@ class FGFTServeEngine:
         if self._filters:
             from repro_torch.spectral import (SpectralFilterBank,
                                               named_responses)
+            # gains come from the (possibly refreshed) spectrum on every
+            # swap; the bank program itself is shape-cached
             bank = SpectralFilterBank(basis, named_responses(self._filters))
             bank_gains = bank.gains().contiguous()
             bank_fn = ApplyPlan(
@@ -267,13 +370,25 @@ class FGFTServeEngine:
         """The live version's SpectralFilterBank (None without filters)."""
         return self._live.bank
 
-    def warmup(self, signals: torch.Tensor) -> torch.Tensor:
-        """Run every tier once (builds the kernels on first use); warmup
-        steps are not counted."""
+    def warmup(self, signals):
+        """Run the serving and maintenance suite once up front — every
+        tier, the filter bank, and in dynamic mode the drift probe and
+        the Lemma-1 refresh — so that the kernels are built and the
+        entry streams cached before the first real request or update
+        round.  Warmup steps are not counted.  Returns the last output:
+        the bank's (B, F, R, n) when filters are set, else the last
+        tier's step."""
         y = None
         for name in self._live.tiers:
             y = self.step(signals, tier=name)
             self.stats["steps"][name] -= 1
+        if self._live.bank is not None:
+            y = self.step_bank(signals)
+        if self.dynamic:
+            self.drift()
+            if self._kind == "sym":
+                from repro_torch.dynamic.refit import lemma1_refresh
+                lemma1_refresh(self._live.basis, self._laps)
         _sync(self.device)
         return y
 
@@ -317,15 +432,172 @@ class FGFTServeEngine:
         return (live.bank_fn(live.fwd, live.bwd, live.bank_gains, x),
                 live.version)
 
+    # -- streaming updates + drift-triggered refits ------------------------
+
+    def _require_dynamic(self):
+        if not self.dynamic:
+            raise ValueError("engine was built without dynamic=True")
+
+    def _graph_size(self, graph_id: int) -> int:
+        basis = self._live.basis
+        if basis.sizes is None:
+            return basis.n
+        sizes = np.asarray(basis.sizes)
+        return int(sizes[graph_id]) if basis.batched else int(sizes)
+
+    def apply_updates(self, graph_id: int, delta):
+        """Absorb one update batch for graph ``graph_id`` into the
+        tracked Laplacian: an ``UpdateBatch`` (edge insert/delete/reweight
+        list, dynamic/stream.py) or a dense Laplacian delta (an array or
+        tensor; an (n_i, n_i) delta of a smaller ragged graph is embedded
+        at the leading block).  The delta is added on the device as one
+        elementwise f32 add, so the tracked stack equals the JAX engine's
+        bitwise under the same stream.  The SERVED basis is untouched
+        until the next ``maintain()`` decides an action."""
+        self._require_dynamic()
+        from repro_torch.dynamic.stream import UpdateBatch, laplacian_delta
+        basis = self._live.basis
+        n = basis.n
+        size = self._graph_size(graph_id)
+        if isinstance(delta, UpdateBatch):
+            # bounds-checked at the graph's size
+            dl = torch.from_numpy(laplacian_delta(delta, size))
+        else:
+            dl = torch.as_tensor(delta, dtype=torch.float32)
+            if dl.shape[0] > size:
+                raise ValueError(f"delta side {dl.shape[0]} exceeds graph "
+                                 f"{graph_id}'s size {size}")
+        dl = dl.to(self.device)
+        if dl.shape[0] < n:                     # embed into the bucket
+            pad = torch.zeros((n, n), dtype=torch.float32,
+                              device=self.device)
+            pad[:dl.shape[0], :dl.shape[1]] = dl
+            dl = pad
+        if basis.batched:
+            self._laps[graph_id] += dl
+        else:
+            if graph_id != 0:
+                raise ValueError("unbatched engine serves graph 0 only")
+            self._laps += dl
+        self._dirty[graph_id] = True
+        self._updates += 1
+        self._update_rev += 1
+
+    def drift(self) -> np.ndarray:
+        """Per-graph drift scores of the LIVE version on the tracked
+        (updated) Laplacians: Hutchinson relative residual minus the
+        baseline recorded at the last structural (re)fit, floored at 0."""
+        self._require_dynamic()
+        from repro_torch.dynamic.drift import estimate_rel_residual
+        p = self.controller.policy
+        est = estimate_rel_residual(self._live.basis, self._laps,
+                                    num_probes=p.num_probes, seed=p.seed)
+        return np.maximum(np.atleast_1d(est) - self._baseline, 0.0)
+
+    def maintain(self) -> dict:
+        """One OFF-hot-path controller tick: score drift, pick the
+        cheapest restoring action, execute it and swap the new serving
+        version in.  Returns {action, drift, post_drift, versions,
+        swap_version} (numpy arrays); ``maintain_ms`` holds the tick's
+        time split."""
+        self._require_dynamic()
+        from repro_torch.dynamic.refit import Action
+        self.maintain_ms = dict.fromkeys(self.maintain_ms, 0.0)
+        if not self._dirty.any():
+            zero = np.zeros_like(self._baseline)
+            self.controller.record(Action.REUSE, zero,  # idle tick counts
+                                   drift=zero)
+            self._refresh_dynamic_stats(zero)
+            return {"action": Action.REUSE.value, "drift": zero,
+                    "post_drift": zero, "versions": self.versions.copy(),
+                    "swap_version": self._live.version}
+        t0 = time.perf_counter()
+        if self._scored_rev != self._update_rev:
+            self._last_drift = self.drift()
+            self._scored_rev = self._update_rev
+        drift = self._last_drift
+        self.maintain_ms["drift"] = (time.perf_counter() - t0) * 1e3
+        # the general family has no cheap spectrum refresh (Lemma 2 needs
+        # a dense solve per graph): the controller escalates for it
+        action = self.controller.decide(drift,
+                                        can_refresh=self._kind == "sym")
+        post = drift
+        if action is not Action.REUSE:
+            self._execute(action)
+            bump = self._dirty.copy()
+            if action in (Action.EXTEND, Action.REFIT):
+                bump[:] = True      # every chain in the batch was regrown
+            self.versions[bump] += 1
+            self._dirty[:] = False
+            t0 = time.perf_counter()
+            post = self.drift()
+            self.maintain_ms["post_drift"] = (time.perf_counter() - t0) * 1e3
+            self._last_drift = post
+            self._scored_rev = self._update_rev
+        self.controller.record(action, post, drift=drift)
+        self._refresh_dynamic_stats(post)
+        return {"action": action.value, "drift": drift, "post_drift": post,
+                "versions": self.versions.copy(),
+                "swap_version": self._live.version}
+
+    def _execute(self, action):
+        """Run one refit action and install the resulting serving
+        version."""
+        from repro_torch.core import ApproxEigenbasis
+        from repro_torch.dynamic.drift import relative_objective
+        from repro_torch.dynamic.refit import Action, lemma1_refresh
+        basis, laps = self._live.basis, self._laps
+        t0 = time.perf_counter()
+        if action is Action.REFRESH:
+            # spectrum-only: the factor chain (its staged tables, and the
+            # baseline anchored at the last structural fit) survive
+            basis = replace(basis, spectrum=lemma1_refresh(basis, laps),
+                            objective=None)
+        elif action is Action.EXTEND:
+            p = self.controller.policy
+            extra = max(int(round(p.extend_fraction * self._g0)), 1)
+            basis = basis.extend(laps, basis.num_transforms + extra,
+                                 n_iter=0)
+        elif action is Action.REFIT:
+            # keep the fit's RESOLVED greedy criterion: refitting under
+            # the default score would switch the criterion mid-stream
+            score = basis.info.get("score") if self._kind == "sym" else None
+            basis = ApproxEigenbasis.fit(
+                laps, self._g0, n_iter=self._n_iter, kind=self._kind,
+                score=score, sizes=basis.sizes, stage_pad=self._stage_pad,
+                device=self.device)
+        else:
+            raise ValueError(f"not an executable action: {action}")
+        if action in (Action.EXTEND, Action.REFIT):
+            # re-baseline at the new structural fit (exact objective)
+            self._baseline = relative_objective(basis.objective, laps)
+        _sync(self.device)
+        t1 = time.perf_counter()
+        self._install(basis, laps)
+        _sync(self.device)
+        self.maintain_ms["action"] = (t1 - t0) * 1e3
+        self.maintain_ms["install"] = (time.perf_counter() - t1) * 1e3
+
+    def _refresh_dynamic_stats(self, last_drift):
+        self.stats["dynamic"] = {
+            "updates": int(self._updates),
+            "versions": self.versions.tolist(),
+            "swap_version": self._live.version,
+            "actions": dict(self.controller.counts),
+            "last_drift": np.asarray(last_drift).tolist(),
+        }
+
     # -- persistence (repro_torch/checkpoint, the JAX package's format) ---
 
     def save(self, directory, step: int = 0, extra_metadata=None,
              shards: int = 1):
         """Persist the live basis and the serving state: the tracked
         Laplacians ride as the ``laps`` leaf, the tier spec, filters and
-        fit settings as the ``serve`` metadata block, and the swap
-        counter as the basis version.  ``extra_metadata`` merges more
-        top-level keys."""
+        fit settings as the ``serve`` metadata block, the swap counter as
+        the basis version, and a dynamic engine's per-graph versions,
+        update count, drift baselines, controller state and pending
+        (dirty) flags as the ``dynamic`` block.  ``extra_metadata``
+        merges more top-level keys."""
         live = self._live
         basis = replace(live.basis, info={**live.basis.info,
                                           "version": int(live.version)})
@@ -342,6 +614,16 @@ class FGFTServeEngine:
                 raise ValueError(f"extra_metadata may not override the "
                                  f"engine's own keys: {sorted(overlap)}")
             meta.update(extra_metadata)
+        if self.dynamic:
+            meta["dynamic"] = {
+                "versions": self.versions.tolist(),
+                "updates": int(self._updates),
+                "baseline": np.asarray(self._baseline).tolist(),
+                "controller": self.controller.state_dict(),
+                # a restored engine must not silently serve a basis whose
+                # updates were never scored
+                "dirty": self._dirty.tolist(),
+            }
         return basis.save(directory, step, extra_state={"laps": self._laps},
                           extra_metadata=meta, shards=shards)
 
@@ -349,7 +631,7 @@ class FGFTServeEngine:
     def load(cls, directory, step: Optional[int] = None, *, laps=None,
              backend: Optional[str] = None, filters: Optional[str] = None,
              tiers: Optional[Dict[str, float]] = None,
-             dynamic: Optional[bool] = None,
+             dynamic: Optional[bool] = None, policy=None,
              precision: Optional[str] = None,
              fused: Optional[bool] = None, placement=None, mesh=None,
              device="cuda") -> "FGFTServeEngine":
@@ -357,23 +639,25 @@ class FGFTServeEngine:
         package) WITHOUT refitting.  ``filters``, ``tiers``,
         ``precision`` and ``fused`` override the saved settings.
         ``laps`` supplies the Laplacians of a checkpoint that carries
-        none (one written by ``ApproxEigenbasis.save``).  A checkpoint
-        of a dynamic engine loads only with ``dynamic=False``: streaming
-        maintenance comes with a later slice of the port."""
+        none (one written by ``ApproxEigenbasis.save``).  ``dynamic``
+        defaults to whether the checkpoint holds a ``dynamic`` block; a
+        dynamic engine restores its per-graph versions, baselines,
+        controller state and pending flags (a checkpoint without them
+        restores with every version at 0 and fresh counters), under
+        ``policy`` (default ``RefitPolicy()``)."""
         from repro_torch.checkpoint import (latest_step, read_metadata,
                                             restore_checkpoint)
         from repro_torch.core import ApproxEigenbasis
+        _refuse_unported(placement, mesh)
         if step is None:
             step = latest_step(directory)
             if step is None:
                 raise FileNotFoundError(
                     f"no committed checkpoint in {directory}")
         meta = read_metadata(directory, step)
-        if meta.get("dynamic") is not None and dynamic is not False:
-            raise _not_ported("restoring a dynamic engine (its 'dynamic' "
-                              "block; pass dynamic=False to serve it "
-                              "statically)", "dynamic maintenance")
-        _refuse_unported(dynamic, placement, mesh)
+        dyn_meta = meta.get("dynamic")
+        if dynamic is None:
+            dynamic = dyn_meta is not None
         dev = _resolve(device)
         basis = ApproxEigenbasis.load(directory, step, device=dev)
         serve_meta = meta.get("serve", {})
@@ -396,7 +680,8 @@ class FGFTServeEngine:
                               else serve_meta.get("filters")),
                      tiers=(tiers if tiers is not None
                             else serve_meta.get("tier_spec")),
-                     basis=basis,
+                     basis=basis, dynamic=dynamic, policy=policy,
+                     drift_baseline=(dyn_meta or {}).get("baseline"),
                      precision=(precision if precision is not None
                                 else serve_meta.get("precision", "f32")),
                      fused=(fused if fused is not None
@@ -404,8 +689,22 @@ class FGFTServeEngine:
                      device=dev)
         engine._live = replace(engine._live,
                                version=int(basis.info.get("version", 0)))
-        # the ORIGINAL fitted budget, not the (maybe extended) chain
+        # the ORIGINAL fitted budget, not the (maybe extended) chain:
+        # REFIT clamps back to it and EXTEND budgets are fractions of it
         engine._g0 = int(serve_meta.get("num_transforms", engine._g0))
+        if engine.dynamic:
+            dyn = dyn_meta or {}
+            versions = dyn.get("versions")
+            engine.versions = (np.asarray(versions, np.int64)
+                               if versions is not None
+                               else np.zeros_like(engine.versions))
+            engine._updates = int(dyn.get("updates", 0))
+            if dyn.get("dirty") is not None:
+                engine._dirty = np.asarray(dyn["dirty"], bool)
+                if engine._dirty.any():
+                    engine._update_rev += 1   # force a fresh drift pass
+            engine.controller.load_state_dict(dyn.get("controller", {}))
+            engine._refresh_dynamic_stats(np.zeros_like(engine._baseline))
         return engine
 
 
@@ -413,10 +712,13 @@ def serve_fgft(args) -> dict:
     """Build B community-graph Laplacians (their directed variants with
     ``--directed``), fit them in one batched run, serve filter steps at
     every configured quality tier, or the filter bank of ``--filter``
-    (a mixed-size fleet with ``--ragged``: ``serve_fgft_ragged``)."""
+    (a mixed-size fleet with ``--ragged``: ``serve_fgft_ragged``; an
+    evolving one with ``--dynamic``: ``serve_fgft_dynamic``)."""
     from repro_torch.core.fgft import laplacian
     from repro_torch.graphs import community_graph, directed_variant
 
+    if args.dynamic:
+        return serve_fgft_dynamic(args)
     if args.ragged:
         return serve_fgft_ragged(args)
     device = torch.device(args.device)
@@ -528,23 +830,28 @@ class RaggedFGFTServeEngine:
 
     ``num_transforms``: components per graph of the LARGEST bucket;
     smaller buckets scale as w log2 w (alpha of g = alpha n log2 n stays
-    constant across the fleet); 0 -> 2 w log2 w.  ``dynamic``,
-    ``placement`` and ``mesh`` are refused with the name of the slice
-    that brings them."""
+    constant across the fleet); 0 -> 2 w log2 w.  ``dynamic`` and
+    ``policy`` go to every bucket engine: updates route to the graph's
+    bucket (``apply_updates``, request-order ids) and each bucket runs
+    its own controller tick and hot swap (``maintain``), so a burst of
+    updates to small graphs never blocks the big bucket's serving
+    version.  ``placement`` and ``mesh`` are refused with the name of
+    the slice that brings them."""
 
     def __init__(self, laps, num_transforms: int = 0, n_iter: int = 3,
                  backend: Optional[str] = None,
                  filters: Optional[str] = None, kind: str = "auto",
                  hint: Optional[str] = None,
                  tiers: Optional[Dict[str, float]] = None,
-                 min_width: int = 8, dynamic: bool = False,
+                 min_width: int = 8, dynamic: bool = False, policy=None,
                  precision: str = "f32", fused: bool = True,
                  placement=None, mesh=None, device="cuda",
                  _engines: Optional[Dict[int, FGFTServeEngine]] = None,
                  _widths: Optional[List[int]] = None):
         from repro_torch.core import pad_ragged
-        _refuse_unported(dynamic, placement, mesh)
+        _refuse_unported(placement, mesh)
         self.device = _resolve(device)
+        self.dynamic = bool(dynamic)
         laps = [torch.as_tensor(lap, dtype=torch.float32) for lap in laps]
         if not laps:
             raise ValueError("empty graph fleet")
@@ -589,7 +896,8 @@ class RaggedFGFTServeEngine:
                 stack, scaled_g(w), n_iter=n_iter, backend=backend,
                 filters=filters, kind=kind, hint=hint, tiers=tiers,
                 sizes=None if np.all(sizes == w) else sizes,
-                precision=precision, fused=fused, device=self.device)
+                dynamic=dynamic, policy=policy, precision=precision,
+                fused=fused, device=self.device)
 
     def __len__(self) -> int:
         return len(self.sizes)
@@ -689,11 +997,63 @@ class RaggedFGFTServeEngine:
     def stats(self) -> dict:
         return {w: eng.stats for w, eng in self.engines.items()}
 
+    # -- streaming updates: per-bucket hot swaps ---------------------------
+
+    def _locate(self, graph_id: int) -> tuple:
+        if not 0 <= graph_id < len(self.sizes):
+            raise ValueError(f"graph_id {graph_id} not in fleet of "
+                             f"{len(self.sizes)}")
+        w = self.widths[graph_id]
+        return w, self.bucket_of[w].index(graph_id)
+
+    def apply_updates(self, graph_id: int, delta):
+        """Route one update batch to the graph's bucket engine (request-
+        order ``graph_id``; the bucket keeps serving its OTHER graphs on
+        the old version until its own ``maintain`` swap)."""
+        w, row = self._locate(graph_id)
+        self.engines[w].apply_updates(row, delta)
+
+    def drift(self) -> np.ndarray:
+        """Per-graph drift scores, request order."""
+        out = np.zeros(len(self.sizes))
+        for w, members in self.bucket_of.items():
+            d = self.engines[w].drift()
+            for row, pos in enumerate(members):
+                out[pos] = d[row]
+        return out
+
+    def maintain(self, buckets=None, dirty_only: bool = False) -> dict:
+        """One controller tick per bucket; buckets refit and swap
+        independently.  ``buckets`` restricts the tick to those widths;
+        ``dirty_only`` skips buckets with no pending updates entirely.
+        Returns {width: that engine's maintain result}."""
+        sel = (sorted(self.engines) if buckets is None
+               else [int(w) for w in buckets])
+        out = {}
+        for w in sel:
+            eng = self.engines[w]
+            if dirty_only and not bool(
+                    np.any(getattr(eng, "_dirty", False))):
+                continue
+            out[w] = eng.maintain()
+        return out
+
+    @property
+    def versions(self) -> np.ndarray:
+        """Per-graph basis versions, request order."""
+        out = np.zeros(len(self.sizes), np.int64)
+        for w, members in self.bucket_of.items():
+            v = self.engines[w].versions
+            for row, pos in enumerate(members):
+                out[pos] = v[row]
+        return out
+
     # -- persistence: one checkpoint per bucket + a router manifest --------
 
     def save(self, directory, step: int = 0):
-        """Persist every bucket engine plus the routing geometry, so that
-        ``load`` rebuilds the fleet without refitting."""
+        """Persist every bucket engine (basis and dynamic state) plus the
+        routing geometry, so that ``load`` rebuilds the fleet without
+        refitting."""
         directory = pathlib.Path(directory)
         directory.mkdir(parents=True, exist_ok=True)
         for w, eng in self.engines.items():
@@ -709,15 +1069,17 @@ class RaggedFGFTServeEngine:
     def load(cls, directory, step: Optional[int] = None, *,
              backend: Optional[str] = None, filters: Optional[str] = None,
              tiers: Optional[Dict[str, float]] = None,
-             dynamic: Optional[bool] = None,
+             dynamic: Optional[bool] = None, policy=None,
              precision: Optional[str] = None,
              fused: Optional[bool] = None, placement=None, mesh=None,
              device="cuda") -> "RaggedFGFTServeEngine":
         """Rebuild a fleet router (saved by either package) from its
-        per-bucket checkpoints, with the persisted widths and buckets.
-        A checkpoint with a placement manifest (``placement.json``) loads
-        only with ``placement=False`` (unplaced): placement comes with a
-        later slice of the port."""
+        per-bucket checkpoints, with the persisted widths and buckets;
+        ``dynamic``/``policy`` as in ``FGFTServeEngine.load`` for every
+        bucket (``dynamic=True`` makes a static router's checkpoint
+        dynamic).  A checkpoint with a placement manifest
+        (``placement.json``) loads only with ``placement=False``
+        (unplaced): placement comes with a later slice of the port."""
         directory = pathlib.Path(directory)
         manifest = json.loads((directory / "router.json").read_text())
         if placement is False:
@@ -726,7 +1088,7 @@ class RaggedFGFTServeEngine:
             raise _not_ported("restoring a placed fleet (placement.json; "
                               "pass placement=False to load it unplaced)",
                               "multi-GPU placement")
-        _refuse_unported(dynamic, placement, mesh)
+        _refuse_unported(placement, mesh)
         if step is None:
             step = int(manifest["step"])
         sizes = [int(s) for s in manifest["sizes"]]
@@ -736,7 +1098,7 @@ class RaggedFGFTServeEngine:
             bucket_of.setdefault(w, []).append(pos)
         engines = {w: FGFTServeEngine.load(
             directory / f"bucket_{w:05d}", step, backend=backend,
-            filters=filters, tiers=tiers, dynamic=dynamic,
+            filters=filters, tiers=tiers, dynamic=dynamic, policy=policy,
             precision=precision, fused=fused, device=device)
             for w in sorted(bucket_of)}
         # request-order Laplacians from the restored buckets (pads are
@@ -746,7 +1108,8 @@ class RaggedFGFTServeEngine:
             for row, pos in enumerate(members):
                 n_i = sizes[pos]
                 laps[pos] = engines[w]._laps[row, :n_i, :n_i]
-        return cls(laps, _engines=engines, _widths=widths, device=device)
+        return cls(laps, dynamic=any(e.dynamic for e in engines.values()),
+                   _engines=engines, _widths=widths, device=device)
 
 
 def serve_fgft_ragged(args) -> dict:
@@ -830,6 +1193,125 @@ def serve_fgft_ragged(args) -> dict:
             "stats": router.stats}
 
 
+def serve_fgft_dynamic(args, on_round=None) -> dict:
+    """Serve an EVOLVING fleet: per round, apply one edge-update batch per
+    graph (``edge_perturbation`` at ``--churn`` of its edge slots, through
+    a ``GraphStream``), run the drift-triggered maintenance tick off the
+    hot path, then serve ``--filter-steps`` steps through the hot-swapped
+    version, timed.  Works for the uniform engine and the ragged router
+    (``--ragged``), undirected or ``--directed``.  ``on_round(round,
+    engine, record, signals, served)``, when given, is called after each
+    round with that round's record and its last served block."""
+    from repro_torch.dynamic import GraphStream
+    from repro_torch.graphs import (community_graph, directed_variant,
+                                    edge_perturbation)
+
+    device = _resolve(args.device)
+    b = args.graphs
+    sizes = ([args.size_list[i % len(args.size_list)] for i in range(b)]
+             if args.ragged else [args.graph_n] * b)
+    adjs = [community_graph(n, seed=s) for s, n in enumerate(sizes)]
+    if args.directed:
+        adjs = [directed_variant(a, seed=s) for s, a in enumerate(adjs)]
+    stream = GraphStream(adjs, directed=args.directed)
+    laps = stream.laplacians()
+    kind = "general" if args.directed else "auto"
+    t0 = time.perf_counter()
+    if args.ragged:
+        engine = RaggedFGFTServeEngine(
+            laps, args.transforms, backend=args.backend, kind=kind,
+            filters=args.filter, tiers=args.tier_map, dynamic=True,
+            policy=args.policy, fused=args.fused, device=device)
+        engines = engine.engines
+    else:
+        g = args.transforms or int(2 * args.graph_n * np.log2(args.graph_n))
+        engine = FGFTServeEngine(
+            np.stack(laps), g, backend=args.backend, kind=kind,
+            filters=args.filter, tiers=args.tier_map, dynamic=True,
+            policy=args.policy, fused=args.fused, device=device)
+        engines = {args.graph_n: engine}
+    _sync(device)
+    fit_s = time.perf_counter() - t0
+    backend = args.backend or ("cuda" if device.type == "cuda" else "torch")
+    print(f"[fgft] fitted evolving fleet of {b} graphs in {fit_s:.1f}s on "
+          f"{device}; streaming {args.update_rounds} rounds at churn "
+          f"{args.churn}")
+    rng = np.random.default_rng(args.seed)
+
+    def signal_block():
+        if args.ragged:
+            return [torch.from_numpy(rng.standard_normal(
+                (args.signals, n)).astype(np.float32)).to(device)
+                for n in sizes]
+        return torch.from_numpy(rng.standard_normal(
+            (b, args.signals, args.graph_n)).astype(np.float32)).to(device)
+
+    lowpass = lambda lam: 1.0 / (1.0 + lam)  # noqa: E731
+    engine.step(signal_block(), lowpass)         # warmup: builds kernels
+    _sync(device)
+    rounds: List[dict] = []
+    t_serve = t_maintain = 0.0
+    for rnd in range(args.update_rounds):
+        for gid in range(b):
+            budget = max(int(args.churn * sizes[gid]
+                             * (sizes[gid] - 1) / 2), 1)
+            batch = edge_perturbation(
+                stream.adjs[gid], budget,
+                seed=args.seed + 1000 * (rnd + 1) + gid,
+                directed=args.directed)
+            engine.apply_updates(gid, stream.apply(gid, batch))
+        t0 = time.perf_counter()
+        res = engine.maintain()
+        dt = time.perf_counter() - t0
+        t_maintain += dt
+        ticks = list(res.values()) if args.ragged else [res]
+        acted = list(res) if args.ragged else list(engines)
+        split = {k: sum(engines[w].maintain_ms[k] for w in acted)
+                 for k in ("drift", "action", "install", "post_drift")}
+        record = {
+            "round": rnd,
+            "action": "+".join(sorted({r["action"] for r in ticks})),
+            "drift": max(float(np.max(r["drift"])) for r in ticks),
+            "post_drift": max(float(np.max(r["post_drift"]))
+                              for r in ticks),
+            "versions": engine.versions.tolist(), "maintain_ms": dt * 1e3,
+            "maintain_split_ms": split}
+        x = signal_block()
+        t0 = time.perf_counter()
+        for _ in range(args.filter_steps):
+            ys = engine.step(x, lowpass)
+        _sync(device)
+        dt = max(time.perf_counter() - t0, 1e-9)
+        t_serve += dt
+        record["transforms_per_s"] = args.filter_steps * b / dt
+        rounds.append(record)
+        # maintain() already scored the post-action drift; no extra probe
+        # pass here distorts the serve/maintain split
+        print(f"[fgft]   round {rnd}: action={record['action']}, max drift "
+              f"{record['drift']:.4f} -> {record['post_drift']:.4f}, "
+              f"versions {record['versions']}; maintain "
+              f"{record['maintain_ms']:.1f} ms (drift probe "
+              f"{split['drift']:.1f}, action {split['action']:.1f}, install "
+              f"{split['install']:.1f}, post-action probe "
+              f"{split['post_drift']:.1f}); "
+              f"{record['transforms_per_s']:.1f} graph-transforms/s after "
+              f"the swap [{backend}]")
+        if on_round is not None:
+            on_round(rnd, engine, record, x, ys)
+    served = args.update_rounds * args.filter_steps * b
+    print(f"[fgft] served {served} graph-filter requests across "
+          f"{args.update_rounds} update rounds (serve {t_serve:.2f}s, "
+          f"maintain {t_maintain:.2f}s) [{backend}]")
+    dyn_stats = (engine.stats["dynamic"] if not args.ragged
+                 else {w: s["dynamic"] for w, s in engine.stats.items()})
+    print(f"[fgft] dynamic stats: {dyn_stats}")
+    return {"actions": [r["action"] for r in rounds],
+            "versions": engine.versions.tolist(), "serve_s": t_serve,
+            "maintain_s": t_maintain, "stats": dyn_stats, "rounds": rounds,
+            "fit_s": fit_s, "engine": engine, "stream": stream,
+            "sizes": sizes}
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
@@ -877,6 +1359,21 @@ def parse_args(argv=None):
     ap.add_argument("--directed", action="store_true",
                     help="serve directed graphs through the T-transform "
                          "(scaling/shear) family")
+    ap.add_argument("--dynamic", action="store_true",
+                    help="serve an EVOLVING fleet (implies --fgft): per "
+                         "round, stream edge-update batches into the "
+                         "engine (apply_updates), run the drift-triggered "
+                         "refit controller (maintain) off the hot path, "
+                         "and keep serving through versioned hot swaps")
+    ap.add_argument("--update-rounds", type=int, default=5,
+                    help="update/serve rounds in --dynamic mode")
+    ap.add_argument("--churn", type=float, default=0.02,
+                    help="fraction of each graph's edge slots perturbed "
+                         "per round in --dynamic mode")
+    ap.add_argument("--drift-thresholds", default=None,
+                    help="refit-policy thresholds as "
+                         "'refresh,extend,refit' drift scores "
+                         "(default: the RefitPolicy defaults)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to fit and serve on")
@@ -894,6 +1391,21 @@ def parse_args(argv=None):
         try:
             if not named_responses(args.filter):
                 raise ValueError("empty filter bank")
+        except ValueError as e:
+            ap.error(str(e))
+    if args.ragged or args.dynamic:
+        args.fgft = True
+    args.policy = None
+    if args.drift_thresholds:
+        from repro_torch.dynamic.refit import RefitPolicy
+        try:
+            lo, mid, hi = (float(t) for t in
+                           args.drift_thresholds.split(","))
+        except ValueError:
+            ap.error("--drift-thresholds must be three comma-separated "
+                     "floats: refresh,extend,refit")
+        try:
+            args.policy = RefitPolicy(refresh=lo, extend=mid, refit=hi)
         except ValueError as e:
             ap.error(str(e))
     if not args.fgft:

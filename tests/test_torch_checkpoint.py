@@ -331,11 +331,16 @@ def test_engine_load_overrides_and_refusals(tmp_path):
         FGFTServeEngine.load(tmp_path / "basis", device="cpu")
     eng = FGFTServeEngine.load(tmp_path / "basis", laps=laps, device="cpu")
     torch.testing.assert_close(eng.step(x), teng.step(x), rtol=0, atol=0)
-    # a dynamic engine's checkpoint, and the unported options
+    # a dynamic engine's checkpoint restores dynamic (its versions, the
+    # baseline from the restored objective), or static with
+    # dynamic=False; then the unported options
     teng.basis.save(tmp_path / "dyn", extra_state={"laps": teng._laps},
-                    extra_metadata={"dynamic": {"versions": [0, 0]}})
-    with pytest.raises(NotImplementedError, match="dynamic maintenance"):
-        FGFTServeEngine.load(tmp_path / "dyn", device="cpu")
+                    extra_metadata={"dynamic": {"versions": [2, 1]}})
+    dyn = FGFTServeEngine.load(tmp_path / "dyn", device="cpu")
+    assert dyn.dynamic and dyn.versions.tolist() == [2, 1]
+    assert dyn._stage_pad == (dyn._stage_pad[0], N // 2)
+    assert dyn.maintain()["action"] == "reuse"
+    torch.testing.assert_close(dyn.step(x), teng.step(x))
     static = FGFTServeEngine.load(tmp_path / "dyn", dynamic=False,
                                   device="cpu")
     torch.testing.assert_close(static.step(x), teng.step(x), rtol=0, atol=0)

@@ -551,3 +551,115 @@ def test_ragged_router_serves_through_the_kernels(cuda):
             assert got.device.type == "cuda" and got.shape == (7, sizes[pos])
             _close(got, want[row, :, :sizes[pos]])
             assert bool((want[row, :, sizes[pos]:] == 0).all())
+
+
+@pytest.mark.parametrize("family", ["sym", "general"])
+def test_pinned_tables_match_plain_versions(cuda, family):
+    """A dynamic engine's pinned tables (width at the structural maximum,
+    depth rounded up to whole quanta, so many stages are empty): the
+    operator at R = 130 and at the drift probe's R = 8, the chain on the
+    identity block (the Lemma-1 refresh) and the bank (F = 7) against
+    their plain versions at every cut."""
+    from repro_torch.launch.serve import FGFTServeEngine
+    from repro_torch.spectral import SpectralFilterBank, named_responses
+    n = 32
+    laps = np.stack(_ragged_fleet(family, [n] * 3))
+    eng = FGFTServeEngine(laps, 160, n_iter=1, kind=family, dynamic=True,
+                          tiers={"full": 1.0}, device="cuda")
+    fwd, bwd = eng.basis.fwd, eng.basis.bwd
+    assert fwd.idx_i.shape[-1] == (n // 2 if family == "sym" else n)
+    assert fwd.num_stages % eng._stage_pad[0] == 0
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    diag = eng.basis.spectrum
+    gains = SpectralFilterBank(
+        eng.basis, named_responses("heat,tikhonov,wavelets:4")).gains()
+    eye = torch.eye(n, device=cuda).expand(3, n, n).contiguous()
+    mod = bf if family == "sym" else sh
+    op = (mod.batched_sym_operator_apply if family == "sym"
+          else mod.batched_gen_operator_apply)
+    chain = (bf.batched_butterfly_apply if family == "sym"
+             else sh.batched_shear_apply)
+    bank = (ksp.batched_sym_filter_bank_apply if family == "sym"
+            else ksp.batched_gen_filter_bank_apply)
+    plain_op = (ref.batched_sym_operator_apply if family == "sym"
+                else ref.batched_gen_operator_apply)
+    plain_chain = ref.batched_g_apply if family == "sym" else ref.batched_t_apply
+    plain_bank = (ref.batched_sym_filter_bank_apply if family == "sym"
+                  else ref.batched_gen_filter_bank_apply)
+
+    def check(got, want):
+        if family == "sym":
+            _close(got, want)
+        else:                           # the T kernels: bitwise
+            assert torch.equal(got, want)
+    for rows in (130, 8):
+        x = torch.randn((3, rows, n), generator=gen, device=cuda)
+        for k in [None, *fwd.cuts[:, 0].tolist()]:
+            check(op(fwd, bwd, diag, x, k), plain_op(fwd, bwd, diag, x, k))
+            check(bank(fwd, bwd, gains, x, k),
+                  plain_bank(fwd, bwd, gains, x, k))
+    for keep in ("head", "tail"):
+        check(chain(fwd, eye, None, keep), plain_chain(fwd, eye, None, keep))
+    torch.cuda.synchronize()
+
+
+def test_drift_probe_runs_one_operator_launch(cuda):
+    """The Hutchinson pass on the card: one batched operator launch with
+    the probes as its 8 signal rows, equal to the same pass through the
+    plain operator on the same probes."""
+    from repro_torch.core import ApproxEigenbasis
+    from repro_torch.dynamic import estimate_rel_residual
+    from repro_torch.dynamic.drift import _rademacher, _residual_program
+    from repro_torch.core.staging import table_arrays
+    laps = np.stack(_ragged_fleet("sym", [24] * 4))
+    basis = ApproxEigenbasis.fit(laps, 96, n_iter=1, stage_pad=(4, 8),
+                                 device="cuda")
+    launcher.reset_launch_counts()
+    est = estimate_rel_residual(basis, laps, num_probes=8, seed=3)
+    assert launcher.entry_launch_counts()["batched_sym_operator_apply"] == 1
+    plain = _residual_program(ApplyPlan(family="sym", mode="operator", n=24,
+                                        batched=True, backend="torch",
+                                        device="cuda"), 8)
+    want = plain(table_arrays(basis.fwd), table_arrays(basis.bwd),
+                 basis.spectrum, torch.from_numpy(laps).to(cuda),
+                 _rademacher(8, 24, 3, cuda)).cpu().numpy()
+    np.testing.assert_allclose(est, want, rtol=1e-4, atol=1e-7)
+
+
+def test_dynamic_engine_step_never_waits(cuda):
+    """A dynamic engine serves without a host synchronization before and
+    after a hot swap; a REFRESH swap reuses the cached entry streams and
+    an EXTEND swap builds them once per leg."""
+    from repro_torch.dynamic import GraphStream, RefitPolicy
+    from repro_torch.graphs import community_graph, edge_perturbation
+    from repro_torch.launch.serve import FGFTServeEngine
+    stream = GraphStream([community_graph(32, seed=s) for s in range(3)])
+    eng = FGFTServeEngine(np.stack(stream.laplacians()), 160, n_iter=1,
+                          dynamic=True, tiers={"full": 1.0, "draft": 0.25},
+                          policy=RefitPolicy(refresh=1e-6, extend=10.0,
+                                             refit=20.0), device="cuda")
+    x = torch.randn((3, 7, 32), device=cuda)
+    h = lambda lam: 1.0 / (1.0 + lam)  # noqa: E731
+    eng.warmup(x)
+    for action in ("refresh", "extend"):
+        if action == "extend":
+            eng.controller.policy = RefitPolicy(refresh=1e-7, extend=1e-6,
+                                                refit=20.0)
+        eng.apply_updates(1, stream.apply(1, edge_perturbation(
+            stream.adjs[1], 12, seed=1)))
+        assert eng.maintain()["action"] == action
+        eng.step(x, h)                          # builds a new leg's stream
+        torch.cuda.synchronize()
+        launcher.reset_stream_cache_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = eng.step(x, h)
+            eng.step(x, h, tier="draft")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert launcher.stream_cache_counts() == {"hits": 4, "misses": 0}
+        live = eng._live
+        plain = ApplyPlan(family="sym", mode="operator", n=32, batched=True,
+                          backend="torch", device="cuda").program()
+        _close(y, plain(live.fwd, live.bwd, h(live.tiers["full"]["spectrum"]),
+                        x))

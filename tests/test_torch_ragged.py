@@ -362,8 +362,10 @@ def test_router_restores_persisted_geometry_and_refuses_placement(tmp_path):
     unplaced = RaggedFGFTServeEngine.load(tmp_path, placement=False,
                                           device="cpu")
     assert unplaced.widths == [16, 16]
-    with pytest.raises(NotImplementedError, match="dynamic maintenance"):
-        RaggedFGFTServeEngine(laps, 24, dynamic=True, device="cpu")
+    dyn = RaggedFGFTServeEngine(laps, 24, n_iter=0, min_width=16,
+                                dynamic=True, device="cpu")
+    assert dyn.dynamic and dyn.versions.tolist() == [0, 0]
+    assert dyn.maintain()[16]["action"] == "reuse"
     with pytest.raises(NotImplementedError, match="placement"):
         RaggedFGFTServeEngine(laps, 24, placement="auto", device="cpu")
 

@@ -147,7 +147,8 @@ def test_cli_serves_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--fgft", "--dynamic"], "dynamic"),
+    (["--fgft", "--dynamic", "--drift-thresholds", "1,2"],
+     "three comma-separated floats"),
     (["--fgft", "--precision", "bf16"], "precision"),
     (["--fgft", "--serve-async"], "async"),
     (["--fgft", "--filter", "nosuch"], "unknown filter"),
