@@ -15,10 +15,14 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              ladder cut including 0, the chains at both keeps, the banks at
              F in {1, 7, 33} (33 filters split into several filter groups
              per row tile where the grid needs them; the geometry of each
-             check is printed).  Then the batch split: a batch of 7 at a
-             grid limit forced down to 3 matrices (launcher._GRID_B)
-             launches each family's chain, operator and bank three times,
-             and each equals its unsplit launch bitwise.
+             check is printed).  The same checks run on the same tables
+             cast to bf16 (the bf16 forms of all 12 entry points, G chains
+             now at both keeps), each bf16 form also against its own f32
+             form on the widened tables (max|dy| printed).  Then the batch
+             split, f32 and bf16: a batch of 7 at a grid limit forced down
+             to 3 matrices (launcher._GRID_B) launches each family's
+             chain, operator and bank three times, and each equals its
+             unsplit launch bitwise.
 3. main    — the port's main path at a realistic size, through the CLI entry
              point: ``python -m repro_torch.launch.serve --fgft`` with B = 64
              community graphs, n = 256, g = 2 n log2 n = 4096, R = 256,
@@ -115,6 +119,25 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              versions move; pads 0 from ``project``.  The operator, chain,
              bank and T operator batched entry points must have launched;
              each ``kernels`` row carries ``dynamic_launches``.
+5d. main-bf16 — bf16 table storage (after [main-dynamic]), each part
+             driven with the counts zeroed just before and read just
+             after, comparisons not counted: a. ``serve --fgft --precision
+             bf16 --filter heat,tikhonov,wavelets:4 --graphs 64 --graph-n
+             256 --transforms 4096 --signals 256`` (one G fit): the bank
+             against its plain version, each filter against dense ``eigh``
+             within its bound; b. engines at ``precision="bf16"`` on
+             [main]'s and [main-directed]'s bases (``basis=``, no fit):
+             every tier and the bank against the plain versions, the full
+             tier and the bank against the f32 engine's (relative
+             deviation < 0.03), graph-transforms/s and responses/s beside
+             the f32 ones, an ``apply`` round trip at bf16; c.
+             [main-ragged]'s saved router loaded at bf16: served buckets
+             against plain, pads bitwise through ``apply`` and 0 from
+             ``project``; d. a dynamic engine at bf16 on [main]'s basis,
+             one forced REFRESH: the bf16 cast is kept and every step after
+             the swap hits the entry-stream cache; e. the single-graph
+             paths at bf16.  Every bf16 form must have launched; the bf16
+             rows of the ``kernels`` line carry these launches.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
              graph (n = 256, g = 4096, n_iter = 3), then analysis, synthesis,
              project and the bank; ``shear_apply``, ``gen_operator_apply``
@@ -133,7 +156,9 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              prints its lanes per row, rows per warp and warps per CTA
              (launcher.operator_geometry).  The banks' stage-extent
              reduction (launcher.stage_extents, both legs) is timed on its
-             own.
+             own.  After [main-bf16] the same checks and timings for the
+             12 bf16 forms on the same tables cast to bf16 (the bound
+             counts a value at 2 bytes).
 8. turns   — only with ``--baseline DIR ...`` (each DIR a checkout of this
              repository, e.g. a ``git archive`` of an earlier commit): the
              four operator and the four chain entry points of this
@@ -150,10 +175,11 @@ contractions differently across about 2S stages; for the T kernels max|dy|
 == 0, since they round every entry as their plain versions do (no FMA
 contraction).
 
-Output: progress lines, a {"kernels": [...]} line (launches per path:
-``launches`` on the batched or single-graph path, ``ragged_launches``,
-``dynamic_launches``), the card's name and power limit, and as the last
-line {"ok": true, "device": {...}}.
+Output: progress lines, a {"kernels": [...]} line (24 rows: each entry
+point's f32 and bf16 form; launches per path: ``launches`` on the
+batched or single-graph path, or on [main-bf16] for a bf16 form,
+``ragged_launches``, ``dynamic_launches``), the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -206,8 +232,13 @@ REPLACES = {
 #: and values it needs) and flops per signal row — a G pair (i, j, c, s,
 #: sigma) 20 B and 6 flops (paper Table 1), a T shear y_i = x_i + beta x_j
 #: (i, j, beta) 12 B and 2 flops, a T scaling y_i = alpha x_i (i, alpha) 8 B
-#: and 1 flop
+#: and 1 flop; with bf16 values each value is 2 B (pair 14 B, shear 10 B,
+#: scaling 6 B)
 ENTRY_COST = {"pair": (20, 6), "shear": (12, 2), "scaling": (8, 1)}
+ENTRY_COST_BF16 = {"pair": (14, 6), "shear": (10, 2), "scaling": (6, 1)}
+#: form name of a bf16 check -> the largest max|dy| of the bf16 form
+#: against its own f32 form run on the widened tables (printed)
+BF16_VS_F32: dict = {}
 
 
 class SmokeFailure(RuntimeError):
@@ -316,7 +347,7 @@ def real_entries(staged, num_stages, keep) -> dict:
             "scaling": int((real & (jj == ii)).sum())}
 
 
-def bound_ms(x, legs, filters: int) -> tuple:
+def bound_ms(x, legs, filters: int, precision: str = "f32") -> tuple:
     """Least time on the card for the function itself.  ``filters``: 0
     for a chain (one leg, no diagonal), 1 for an operator, F for a bank.
     x is read once and y written max(1, F) times; each leg's real entries
@@ -325,8 +356,10 @@ def bound_ms(x, legs, filters: int) -> tuple:
     synthesis leg (legs[1]) once per filter; the F diagonals (B F n
     values) are read once and cost n flops per row and filter.  Pad
     entries of the (S, P) layout are not counted: the function does not
-    need them, the layout is the kernel's choice.  Returns (ms, "bytes"
-    | "operations")."""
+    need them, the layout is the kernel's choice.  ``precision`` "bf16"
+    counts the values at 2 bytes (ENTRY_COST_BF16).  Returns (ms,
+    "bytes" | "operations")."""
+    cost = ENTRY_COST if precision == "f32" else ENTRY_COST_BF16
     bsz, rows, n = (1,) * (3 - x.dim()) + tuple(x.shape)
     outputs = max(filters, 1)
     nbytes = (1 + outputs) * x.numel() * 4 + filters * bsz * n * 4
@@ -334,7 +367,7 @@ def bound_ms(x, legs, filters: int) -> tuple:
     for pos, leg in enumerate(legs):
         runs = outputs if pos > 0 else 1
         for kind, count in leg.items():
-            per_bytes, per_flops = ENTRY_COST[kind]
+            per_bytes, per_flops = cost[kind]
             nbytes += count * per_bytes
             flops += runs * per_flops * count * rows
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -347,6 +380,37 @@ def bound_ms(x, legs, filters: int) -> tuple:
 # phases
 # ---------------------------------------------------------------------------
 
+def ptxas_report(nvcc: str) -> dict:
+    """Registers, stack frame and spill bytes of every kernel, from
+    ``nvcc -Xptxas -v`` on each source (one process per source, all
+    started together): {kernel: (registers, stack, spill stores, spill
+    loads)}."""
+    import re
+    from repro_torch.kernels import build
+    procs = [subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v",
+                               "-c", "-o", "/dev/null", str(src)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src in build.sources()]
+    out, kernel, frame = {}, None, (0, 0, 0)
+    for proc in procs:
+        text = proc.communicate(timeout=600)[0]
+        check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function .*?([gt]_(?:chain|"
+                          r"operator|bank)(?:_bf16)?_kernel)", line)
+            if m:
+                kernel = m.group(1)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                frame = tuple(int(v) for v in m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                out[kernel] = (int(m.group(1)), *frame)
+    return out
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     nvcc = build.find_nvcc()
@@ -357,6 +421,9 @@ def phase_build() -> None:
     build.library()
     log(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f}s")
+    for kernel, (regs, stack, st, ld) in sorted(ptxas_report(nvcc).items()):
+        log(f"[build] ptxas: {kernel} {regs} registers, {stack} B stack "
+            f"frame, spill stores {st} B, spill loads {ld} B")
 
 
 def lowpass(lam):
@@ -368,32 +435,68 @@ def cut_list(staged) -> list:
     return sorted({0, *staged.cuts[:, 0].tolist()})
 
 
+def widened(staged):
+    """The f32 tables a bf16 table set widens to (exact), or None for
+    f32 tables."""
+    from repro_torch.core.staging import table_precision, with_precision
+    return (None if table_precision(staged) == "f32"
+            else with_precision(staged, "f32"))
+
+
+def compare_form(name, fn, args, plain, errs, wide_args=None) -> None:
+    """``fn(*args)`` against ``plain(*args)`` (``compare``); for a bf16
+    form also against ``fn(*wide_args)``, its f32 form on the widened
+    tables, into BF16_VS_F32 (an exact widening: 0 unless the two forms
+    round differently)."""
+    y = fn(*args)
+    compare(name, y, plain(*args), errs)
+    if wide_args is not None:
+        d = float((y - fn(*wide_args)).abs().max()) if y.numel() else 0.0
+        BF16_VS_F32[name] = max(BF16_VS_F32.get(name, 0.0), d)
+
+
+def forms_note(*names) -> str:
+    """The printed bf16-vs-f32 deltas of the named forms, if any."""
+    got = {k: BF16_VS_F32[k] for k in names if k in BF16_VS_F32}
+    return ("" if not got else "; bf16 form vs its f32 form on the "
+            "widened tables max|dy| " + ", ".join(
+                f"{k} {v:.3e}" for k, v in got.items()))
+
+
 def check_tables(tag, fwd, adj, diag, x, errs) -> int:
     """Both kernels (batched if the tables are) against the plain
-    versions at every cut; returns the number of comparisons."""
+    versions at every cut (bf16 tables: the bf16 forms, also against
+    their f32 forms on the widened tables); returns the number of
+    comparisons."""
+    from repro_torch.core.staging import table_precision
     from repro_torch.kernels import butterfly as bf
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import launcher, ref
     batched = fwd.idx_i.dim() == 3
+    prec = table_precision(fwd)
+    wfwd, wadj = widened(fwd), widened(adj)
     chain = bf.batched_butterfly_apply if batched else bf.butterfly_apply
     chain_ref = ref.batched_g_apply if batched else ref.staged_g_apply
     op = (bf.batched_sym_operator_apply if batched
           else bf.sym_operator_apply)
     op_ref = (ref.batched_sym_operator_apply if batched
               else ref.sym_operator_apply)
-    chain_name = "batched_butterfly_apply" if batched else "butterfly_apply"
-    op_name = ("batched_sym_operator_apply" if batched
-               else "sym_operator_apply")
+    chain_name = launcher.form("batched_butterfly_apply" if batched
+                               else "butterfly_apply", prec)
+    op_name = launcher.form("batched_sym_operator_apply" if batched
+                            else "sym_operator_apply", prec)
     count = 0
     for k in cut_list(fwd):
-        for staged, keep in ((fwd, "tail"), (adj, "head")):
-            compare(chain_name, chain(staged, x, k, keep),
-                    chain_ref(staged, x, k, keep), errs)
+        for staged, wide, keep in ((fwd, wfwd, "tail"), (adj, wadj, "head"),
+                                   (fwd, wfwd, "head"), (adj, wadj, "tail")):
+            compare_form(chain_name, chain, (staged, x, k, keep), chain_ref,
+                         errs, wide and (wide, x, k, keep))
             count += 1
-        compare(op_name, op(fwd, adj, diag, x, k),
-                op_ref(fwd, adj, diag, x, k), errs)
+        compare_form(op_name, op, (fwd, adj, diag, x, k), op_ref, errs,
+                     wfwd and (wfwd, wadj, diag, x, k))
         count += 1
     log(f"[kernels] {tag}: {count} kernel-vs-plain checks at cuts "
-        f"{cut_list(fwd)} passed")
+        f"{cut_list(fwd)} passed ({prec} tables)"
+        + forms_note(chain_name, op_name))
     return count
 
 
@@ -407,30 +510,37 @@ def tables_for(basis, b: int):
 
 def check_t_tables(tag, fwd, inv, diag, x, errs) -> int:
     """Both T kernels (batched if the tables are) against the plain
-    versions at every cut, the chain on both table sets at both keeps;
-    returns the number of comparisons."""
-    from repro_torch.kernels import ref
+    versions at every cut, the chain on both table sets at both keeps
+    (bf16 tables: as check_tables); returns the number of
+    comparisons."""
+    from repro_torch.core.staging import table_precision
+    from repro_torch.kernels import launcher, ref
     from repro_torch.kernels import shear as sh
     batched = fwd.idx_i.dim() == 3
+    prec = table_precision(fwd)
+    wfwd, winv = widened(fwd), widened(inv)
     chain = sh.batched_shear_apply if batched else sh.shear_apply
     chain_ref = ref.batched_t_apply if batched else ref.staged_t_apply
     op = sh.batched_gen_operator_apply if batched else sh.gen_operator_apply
     op_ref = (ref.batched_gen_operator_apply if batched
               else ref.gen_operator_apply)
-    chain_name = "batched_shear_apply" if batched else "shear_apply"
-    op_name = "batched_gen_operator_apply" if batched else "gen_operator_apply"
+    chain_name = launcher.form("batched_shear_apply" if batched
+                               else "shear_apply", prec)
+    op_name = launcher.form("batched_gen_operator_apply" if batched
+                            else "gen_operator_apply", prec)
     count = 0
     for k in cut_list(fwd):
-        for staged in (fwd, inv):
+        for staged, wide in ((fwd, wfwd), (inv, winv)):
             for keep in ("head", "tail"):
-                compare(chain_name, chain(staged, x, k, keep),
-                        chain_ref(staged, x, k, keep), errs)
+                compare_form(chain_name, chain, (staged, x, k, keep),
+                             chain_ref, errs, wide and (wide, x, k, keep))
                 count += 1
-        compare(op_name, op(fwd, inv, diag, x, k),
-                op_ref(fwd, inv, diag, x, k), errs)
+        compare_form(op_name, op, (fwd, inv, diag, x, k), op_ref, errs,
+                     wfwd and (wfwd, winv, diag, x, k))
         count += 1
     log(f"[kernels] {tag}: {count} T kernel-vs-plain checks at cuts "
-        f"{cut_list(fwd)} passed")
+        f"{cut_list(fwd)} passed ({prec} tables)"
+        + forms_note(chain_name, op_name))
     return count
 
 
@@ -464,26 +574,30 @@ def check_bank_tables(tag, fwd, bwd, gains, x, errs,
                       filter_counts=None) -> dict:
     """The bank kernel of the tables' family (batched if they are)
     against its plain version at every cut, with the first filter and
-    with all of ``gains``' filters (or the leading ``filter_counts``);
-    returns {F: filter groups of its launches}."""
-    from repro_torch.core.staging import StagedT
-    from repro_torch.kernels import ref
+    with all of ``gains``' filters (or the leading ``filter_counts``;
+    bf16 tables: as check_tables); returns {F: filter groups of its
+    launches}."""
+    from repro_torch.core.staging import StagedT, table_precision
+    from repro_torch.kernels import launcher, ref
     from repro_torch.kernels import spectral as ksp
     entry = (("batched_" if fwd.idx_i.dim() == 3 else "")
              + ("gen" if isinstance(fwd, StagedT) else "sym")
              + "_filter_bank_apply")
     fn, plain = getattr(ksp, entry), getattr(ref, entry)
+    name = launcher.form(entry, table_precision(fwd))
+    wfwd, wbwd = widened(fwd), widened(bwd)
     counts = sorted(filter_counts or {1, gains.shape[-2]})
     count = 0
     for k in cut_list(fwd):
         for f in counts:
             g = gains[..., :f, :].contiguous()
-            compare(entry, fn(fwd, bwd, g, x, k), plain(fwd, bwd, g, x, k),
-                    errs)
+            compare_form(name, fn, (fwd, bwd, g, x, k), plain, errs,
+                         wfwd and (wfwd, wbwd, g, x, k))
             count += 1
-    groups = {f: bank_groups(entry, fwd, x, f) for f in counts}
-    log(f"[kernels] {tag}: {count} {entry} kernel-vs-plain checks at cuts "
-        f"{cut_list(fwd)}, F in {counts} (filter groups {groups}) passed")
+    groups = {f: bank_groups(name, fwd, x, f) for f in counts}
+    log(f"[kernels] {tag}: {count} {name} kernel-vs-plain checks at cuts "
+        f"{cut_list(fwd)}, F in {counts} (filter groups {groups}) passed"
+        + forms_note(name))
     return groups
 
 
@@ -522,12 +636,13 @@ def random_tables(family: str, n: int, batch: int, g: int, seed: int):
     return staging.pack_t_batch_pair(f, n, device=DEVICE)
 
 
-def check_split() -> None:
+def check_split(precision: str = "f32") -> None:
     """A batch of 7 at a grid limit forced down to 3 matrices: each
-    family's chain, operator and bank entry point launches three times
-    (on [0, 3), [3, 6) and [6, 7)) and equals its unsplit launch
-    bitwise."""
+    family's chain, operator and bank entry point (its form at the table
+    ``precision``) launches three times (on [0, 3), [3, 6) and [6, 7))
+    and equals its unsplit launch bitwise."""
     import torch
+    from repro_torch.core.staging import with_precision
     from repro_torch.kernels import launcher
     from repro_torch.kernels import spectral as ksp
     from repro_torch.kernels import butterfly as bf
@@ -544,7 +659,8 @@ def check_split() -> None:
             ("general", sh, ("batched_shear_apply",
                              "batched_gen_operator_apply",
                              "batched_gen_filter_bank_apply"))):
-        fwd, bwd = random_tables(family, n, batch, 200, 5)
+        fwd, bwd = (with_precision(t, precision)
+                    for t in random_tables(family, n, batch, 200, 5))
         k = int(fwd.cuts[1, 0])
         chain, op = getattr(mod, names[0]), getattr(mod, names[1])
         bank = getattr(ksp, names[2])
@@ -561,22 +677,27 @@ def check_split() -> None:
         finally:
             launcher._GRID_B = grid
         for name, got, want in zip(names, split, whole):
+            name = launcher.form(name, precision)
             check(torch.equal(got, want),
                   f"{name}: split launch != unsplit launch")
             check(counts[name] == 3,
                   f"{name}: {counts[name]} launches for 3 slices")
     torch.cuda.synchronize()
-    log(f"[kernels] batch split: B={batch} at a grid limit of 3 matrices, "
-        f"chain, operator and bank of both families: 3 launches each, "
-        f"bitwise equal to the unsplit launches")
+    log(f"[kernels] batch split ({precision} tables): B={batch} at a grid "
+        f"limit of 3 matrices, chain, operator and bank of both families: "
+        f"3 launches each, bitwise equal to the unsplit launches")
 
 
 def phase_kernels(errs) -> None:
     import numpy as np
     import torch
     from repro_torch.core import ApproxEigenbasis, laplacian
+    from repro_torch.core.staging import with_precision
     from repro_torch.graphs import community_graph
     dev = torch.device(DEVICE)
+
+    def bf16(*tables):
+        return [with_precision(t, "bf16") for t in tables]
     for n in (16, 48):
         g = int(2 * n * np.log2(n))
         laps = np.stack([laplacian(community_graph(n, seed=s))
@@ -606,7 +727,29 @@ def phase_kernels(errs) -> None:
                        x1, errs)
         check_bank_tables(f"n={n} B=1 R=130", sfwd, sinv, g1, x1, errs,
                           (1, 7, 33))
+        # the bf16 forms on the same fits' tables cast to bf16
+        b_fwd, b_bwd = bf16(basis.fwd, basis.bwd)
+        check_tables(f"n={n} B=4 R=130", b_fwd, b_bwd, basis.spectrum, x,
+                     errs)
+        check_bank_tables(f"n={n} B=4 R=130", b_fwd, b_bwd, gains, x, errs,
+                          (1, 7, 33))
+        s_fwd, s_adj = bf16(*tables_for(basis, 1))
+        check_tables(f"n={n} B=1 R=130", s_fwd, s_adj, basis.spectrum[1],
+                     x1, errs)
+        check_bank_tables(f"n={n} B=1 R=130", s_fwd, s_adj, g1, x1, errs,
+                          (1, 7, 33))
+        t_fwd, t_inv = bf16(tbasis.fwd, tbasis.bwd)
+        check_t_tables(f"n={n} B=4 R=130", t_fwd, t_inv, tbasis.spectrum, x,
+                       errs)
+        check_bank_tables(f"n={n} B=4 R=130", t_fwd, t_inv, gains, x, errs,
+                          (1, 7, 33))
+        s_fwd, s_inv = bf16(sfwd, sinv)
+        check_t_tables(f"n={n} B=1 R=130", s_fwd, s_inv, tbasis.spectrum[1],
+                       x1, errs)
+        check_bank_tables(f"n={n} B=1 R=130", s_fwd, s_inv, g1, x1, errs,
+                          (1, 7, 33))
     check_split()
+    check_split("bf16")
     torch.cuda.synchronize()
 
 
@@ -685,7 +828,6 @@ def phase_main_filter(errs) -> dict:
     from repro_torch.kernels import launcher
     from repro_torch.kernels.plan import ApplyPlan
     from repro_torch.launch import serve
-    from repro_torch.spectral import response_lipschitz
     argv = ["--fgft", "--filter", MAIN["filters"], "--graphs",
             str(MAIN["graphs"]), "--graph-n", str(MAIN["n"]), "--signals",
             str(MAIN["signals"]), "--filter-steps", str(MAIN["steps"]),
@@ -718,11 +860,23 @@ def phase_main_filter(errs) -> dict:
     log(f"[main-filter] served bank {list(y.shape)} vs plain version: "
         f"max|dy| {err:.3e} (scale {scale:.3e})")
     check_bank_slices("main-filter", engine, y, x, TOL)
-    # each filter against dense eigh filtering, per graph, within the
-    # accuracy the fit's error implies (tests/test_spectral.py's bound)
-    lap = torch.from_numpy(out["laps"]).to(DEVICE, torch.float64)
+    worst = check_filters_dense("main-filter", engine, y, x, out["laps"],
+                                out["rel_error"])
+    return {"out": out, "launches": launches, "wall_s": wall,
+            "worst_ratio": worst}
+
+
+def check_filters_dense(tag, engine, y, x, laps, rel_error) -> float:
+    """Each filter of a served bank y (B, F, R, n) against dense ``eigh``
+    filtering of x, per graph, within the accuracy the fit's error
+    implies: 2 max(Lip(h), 1) delta + 5e-3, delta = sqrt(relative error)
+    (tests/test_spectral.py's bound).  Returns the worst error/bound."""
+    import numpy as np
+    import torch
+    from repro_torch.spectral import response_lipschitz
+    lap = torch.from_numpy(laps).to(DEVICE, torch.float64)
     lam, u = torch.linalg.eigh(lap)
-    delta = np.sqrt(np.asarray(out["rel_error"], np.float64))
+    delta = np.sqrt(np.asarray(rel_error, np.float64))
     xd = x.double()
     worst = 0.0
     for f, filt in enumerate(engine.bank.filters):
@@ -734,18 +888,18 @@ def phase_main_filter(errs) -> dict:
         lip = max(response_lipschitz(filt.response), 1.0)
         bound = 2.0 * lip * delta + 5e-3
         ratio = float((err_b / bound).max())
-        log(f"[main-filter] filter {filt.name}: Lip {lip:.3f}, max rel error "
+        log(f"[{tag}] filter {filt.name}: Lip {lip:.3f}, max rel error "
             f"vs dense eigh {float(err_b.max()):.5f}, worst error/bound "
             f"{ratio:.4f}")
         check(bool((err_b <= bound).all()),
-              f"filter {filt.name} exceeds its dense-eigh bound "
+              f"{tag}: filter {filt.name} exceeds its dense-eigh bound "
               f"(error/bound {ratio:.3f})")
         worst = max(worst, ratio)
-    log(f"[main-filter] worst error/bound over {nf} filters x {bsz} graphs: "
-        f"{worst:.4f} (mean relative error {float(delta.mean() ** 2):.6f})")
+    log(f"[{tag}] worst error/bound over {len(engine.bank)} filters x "
+        f"{x.shape[0]} graphs: {worst:.4f} (mean relative error "
+        f"{float(delta.mean() ** 2):.6f})")
     torch.cuda.synchronize()
-    return {"out": out, "launches": launches, "wall_s": wall,
-            "worst_ratio": worst}
+    return worst
 
 
 def phase_fgft(errs) -> dict:
@@ -797,53 +951,65 @@ def phase_fgft(errs) -> dict:
     return {"fgft": f, "launches": launches, "signals": x, "gains": gains}
 
 
-def phase_main_shapes(main, single, errs) -> list:
-    """Kernel vs plain at the two paths' shapes, then timings."""
+def at_precision(precision: str, *tables) -> list:
+    """The table sets at a storage precision (with_precision)."""
+    from repro_torch.core.staging import with_precision
+    return [with_precision(t, precision) for t in tables]
+
+
+def phase_main_shapes(main, single, errs, precision: str = "f32",
+                      launches=None) -> list:
+    """Kernel vs plain at the two paths' shapes, then timings; with
+    ``precision`` "bf16" the same on the paths' tables cast to bf16 (the
+    bf16 forms, their launches from ``launches``)."""
     import torch
     from repro_torch.kernels import butterfly as bf
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import launcher, ref
     engine = main["out"]["engine"]
     basis = engine.basis
+    fwd, bwd = at_precision(precision, basis.fwd, basis.bwd)
     n, bsz = basis.n, basis.spectrum.shape[0]
     x = main["out"]["signals"]
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     ragged = torch.randn((bsz, 130, n), generator=gen, device=DEVICE)
     eye = torch.eye(n, device=DEVICE).expand(bsz, n, n).contiguous()
-    check_tables(f"main n={n} B={bsz} R={x.shape[1]}", basis.fwd, basis.bwd,
+    check_tables(f"main n={n} B={bsz} R={x.shape[1]}", fwd, bwd,
                  basis.spectrum, x, errs)
-    check_tables(f"main n={n} B={bsz} R=130", basis.fwd, basis.bwd,
-                 basis.spectrum, ragged, errs)
+    check_tables(f"main n={n} B={bsz} R=130", fwd, bwd, basis.spectrum,
+                 ragged, errs)
+    wide = widened(fwd)
     for name in ("balanced", "draft"):
         k = engine.tiers[name]["num_stages"]
-        compare("batched_butterfly_apply",
-                bf.batched_butterfly_apply(basis.fwd, eye, k, "tail"),
-                ref.batched_g_apply(basis.fwd, eye, k, "tail"), errs)
+        compare_form(launcher.form("batched_butterfly_apply", precision),
+                     bf.batched_butterfly_apply, (fwd, eye, k, "tail"),
+                     ref.batched_g_apply, errs,
+                     wide and (wide, eye, k, "tail"))
     f = single["fgft"]
-    sfwd, sadj, sspec, x0 = f.fwd, f.bwd, f.spectrum, single["signals"]
+    sfwd, sadj = at_precision(precision, f.fwd, f.bwd)
+    sspec, x0 = f.spectrum, single["signals"]
     check_tables(f"fgft n={n} B=1 R={x0.shape[0]}", sfwd, sadj, sspec, x0,
                  errs)
     torch.cuda.synchronize()
 
     # timings at the main path's shapes (full chain)
     spec = basis.spectrum
-    ut = bf.batched_butterfly_apply(basis.fwd, eye)        # rows: Ubar^T
+    ut = bf.batched_butterfly_apply(fwd, eye)              # rows: Ubar^T
     u = ut.transpose(1, 2).contiguous()
     dense_op = u @ torch.diag_embed(spec) @ u.transpose(1, 2)
     su = bf.butterfly_apply(sfwd, torch.eye(n, device=DEVICE)).T.contiguous()
     sdense = su @ torch.diag(sspec) @ su.T
-    fwd_legs = [real_entries(basis.fwd, None, "tail")]
-    op_legs = [real_entries(basis.bwd, None, "head")] + fwd_legs
+    fwd_legs = [real_entries(fwd, None, "tail")]
+    op_legs = [real_entries(bwd, None, "head")] + fwd_legs
     single_fwd = [real_entries(sfwd, None, "tail")]
     single_op = [real_entries(sadj, None, "head")] + single_fwd
     cases = [
         ("g_operator_kernel", "batched_sym_operator_apply", x, op_legs, 1,
-         lambda: bf.batched_sym_operator_apply(basis.fwd, basis.bwd, spec, x),
-         lambda: ref.batched_sym_operator_apply(basis.fwd, basis.bwd, spec,
-                                                x),
+         lambda: bf.batched_sym_operator_apply(fwd, bwd, spec, x),
+         lambda: ref.batched_sym_operator_apply(fwd, bwd, spec, x),
          lambda: torch.bmm(x, dense_op.transpose(1, 2))),
         ("g_chain_kernel", "batched_butterfly_apply", eye, fwd_legs, 0,
-         lambda: bf.batched_butterfly_apply(basis.fwd, eye),
-         lambda: ref.batched_g_apply(basis.fwd, eye),
+         lambda: bf.batched_butterfly_apply(fwd, eye),
+         lambda: ref.batched_g_apply(fwd, eye),
          lambda: torch.bmm(eye, u.transpose(1, 2))),
         ("g_operator_kernel", "sym_operator_apply", x0, single_op, 1,
          lambda: bf.sym_operator_apply(sfwd, sadj, sspec, x0),
@@ -854,24 +1020,31 @@ def phase_main_shapes(main, single, errs) -> list:
          lambda: ref.staged_g_apply(sfwd, x0),
          lambda: torch.mm(x0, su.T)),
     ]
-    return timed_rows(cases, main, single, basis.fwd, sfwd, errs, "sym")
+    return timed_rows(cases, main, single, fwd, sfwd, errs, "sym",
+                      precision, launches)
 
 
 def timed_rows(cases, main, single, tables_b, tables_1, errs,
-               family: str) -> list:
+               family: str, precision: str = "f32", launches=None) -> list:
     """Time each case (kernel, plain version, library yardstick) and
     build its row of the ``kernels`` line; batched entries report the
-    batched path's launches, B = 1 entries the single-graph path's."""
+    batched path's launches, B = 1 entries the single-graph path's.  At
+    ``precision`` "bf16" each case is the entry point's bf16 form (its
+    kernel, form name and bf16 bound), with the launches of
+    ``launches`` (the [main-bf16] path's)."""
     source = ("src/repro_torch/csrc/butterfly.cu" if family == "sym"
               else "src/repro_torch/csrc/shear.cu")
     from repro_torch.kernels import launcher
     rows = []
     for kernel, entry, xin, legs, filters, fn, plain, lib in cases:
+        base = entry
+        entry = launcher.form(entry, precision)
+        kernel = launcher.KERNEL_OF[entry]
         ms = time_ms(fn)
         dev_ms = device_ms(fn, kernel)
         plain_ms = time_ms(plain, reps=2, rounds=3)
         lib_ms = time_ms(lib)
-        b_ms, b_by = bound_ms(xin, legs, filters)
+        b_ms, b_by = bound_ms(xin, legs, filters, precision)
         batched = entry.startswith("batched")
         path = main if batched else single
         tables = tables_b if batched else tables_1
@@ -881,15 +1054,17 @@ def timed_rows(cases, main, single, tables_b, tables_1, errs,
         rows.append({
             "name": kernel if batched else f"{kernel}[B=1]",
             "entry": entry, "route": "cuda", "source": source,
-            "replaces": REPLACES[entry],
-            "launches": path["launches"][entry],
+            "replaces": REPLACES[base], "precision": precision,
+            "launches": (launches if launches is not None
+                         else path["launches"])[entry],
             "max_abs_err": errs[entry], "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "shape": list(xin.shape), "filters": filters,
             "stages": int(tables.idx_i.shape[-2]),
             "pairs_per_stage": int(tables.idx_i.shape[-1]),
-            "real_entries": legs, **geo})
+            "real_entries": legs,
+            "bf16_vs_f32_max_abs": BF16_VS_F32.get(entry), **geo})
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         lanes = (f" ({geo['warps_per_cta']} warps of {geo['rows_per_warp']} "
                  f"rows, {geo['lanes_per_row']} lanes per row)"
@@ -906,7 +1081,7 @@ def timed_rows(cases, main, single, tables_b, tables_1, errs,
 
 
 def phase_bank_shapes(family: str, path: dict, engine, x, single,
-                      errs) -> list:
+                      errs, precision: str = "f32", launches=None) -> list:
     """The family's bank kernel against its plain version at the paths'
     shapes (every cut, F in {1, 7}; the served R and a ragged R = 130,
     there also F = 33: the served gains and 26 random filters, batched
@@ -916,19 +1091,21 @@ def phase_bank_shapes(family: str, path: dict, engine, x, single,
     and the stage-extent reduction of both legs on its own.  The library
     yardstick is one ``torch.matmul`` over dense per-filter operators
     built outside the timing (from the kernel's own output on the
-    identity)."""
+    identity).  ``precision`` and ``launches``: as in
+    phase_main_shapes."""
     import torch
     from repro_torch.core.staging import table_arrays
     from repro_torch.kernels import launcher, ref
     from repro_torch.kernels import spectral as ksp
     from repro_torch.kernels.launcher import leg_orientation
     basis, gains = engine.basis, engine._live.bank_gains
-    fwd, bwd = basis.fwd, basis.bwd
+    fwd, bwd = at_precision(precision, basis.fwd, basis.bwd)
     bsz, rows, n = x.shape
     gen = torch.Generator(device=DEVICE).manual_seed(19)
     ragged = torch.randn((bsz, 130, n), generator=gen, device=DEVICE)
     f = single["fgft"]
-    sfwd, sbwd, x0, g0 = f.fwd, f.bwd, single["signals"], single["gains"]
+    sfwd, sbwd = at_precision(precision, f.fwd, f.bwd)
+    x0, g0 = single["signals"], single["gains"]
     for tag, tf, tb, g, xin in (
             (f"B={bsz} R={rows}", fwd, bwd, gains, x),
             (f"B=1 R={x0.shape[0]}", sfwd, sbwd, g0, x0)):
@@ -984,7 +1161,8 @@ def phase_bank_shapes(family: str, path: dict, engine, x, single,
          lambda: plain1(sfwd, sbwd, g0, x0),
          lambda: torch.matmul(x0.unsqueeze(0), ops1.transpose(-1, -2))),
     ]
-    out = timed_rows(cases, path, single, fwd, sfwd, errs, family)
+    out = timed_rows(cases, path, single, fwd, sfwd, errs, family,
+                     precision, launches)
     for row, ms in zip(out, (ext_ms, ext_ms1)):
         row["extent_ms"] = ms
         check(row["resident_per_sm"] >= 3,
@@ -1169,23 +1347,27 @@ def phase_fgft_directed(errs) -> dict:
     return {"fgft": f, "launches": launches, "signals": x, "gains": gains}
 
 
-def phase_directed_shapes(main, single, errs) -> list:
+def phase_directed_shapes(main, single, errs, precision: str = "f32",
+                          launches=None) -> list:
     """T kernels vs plain at the directed paths' shapes (every cut),
-    then timings."""
+    then timings; ``precision`` and ``launches``: as in
+    phase_main_shapes."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import shear as sh
     basis = main["out"]["engine"].basis
+    fwd, inv = at_precision(precision, basis.fwd, basis.bwd)
     n, bsz = basis.n, basis.spectrum.shape[0]
     x = main["out"]["signals"]
     gen = torch.Generator(device=DEVICE).manual_seed(17)
     ragged = torch.randn((bsz, 130, n), generator=gen, device=DEVICE)
-    check_t_tables(f"main-directed n={n} B={bsz} R={x.shape[1]}", basis.fwd,
-                   basis.bwd, basis.spectrum, x, errs)
-    check_t_tables(f"main-directed n={n} B={bsz} R=130", basis.fwd,
-                   basis.bwd, basis.spectrum, ragged, errs)
+    check_t_tables(f"main-directed n={n} B={bsz} R={x.shape[1]}", fwd, inv,
+                   basis.spectrum, x, errs)
+    check_t_tables(f"main-directed n={n} B={bsz} R=130", fwd, inv,
+                   basis.spectrum, ragged, errs)
     f = single["fgft"]
-    sfwd, sinv, sspec, x0 = f.fwd, f.bwd, f.spectrum, single["signals"]
+    sfwd, sinv = at_precision(precision, f.fwd, f.bwd)
+    sspec, x0 = f.spectrum, single["signals"]
     check_t_tables(f"fgft-directed n={n} B=1 R={x0.shape[0]}", sfwd, sinv,
                    sspec, x0, errs)
     torch.cuda.synchronize()
@@ -1194,27 +1376,26 @@ def phase_directed_shapes(main, single, errs) -> list:
     # the kernels' own output
     eye = torch.eye(n, device=DEVICE)
     tt_rows = sh.batched_shear_apply(
-        basis.fwd, eye.expand(bsz, n, n).contiguous())     # rows: Tbar^T
+        fwd, eye.expand(bsz, n, n).contiguous())           # rows: Tbar^T
     t_dense = tt_rows.transpose(1, 2).contiguous()
     spec = basis.spectrum
     dense_op = sh.batched_gen_operator_apply(
-        basis.fwd, basis.bwd, spec,
+        fwd, inv, spec,
         eye.expand(bsz, n, n).contiguous()).transpose(1, 2).contiguous()
     st = sh.shear_apply(sfwd, eye).T.contiguous()
     sdense = sh.gen_operator_apply(sfwd, sinv, sspec, eye).T.contiguous()
-    fwd_legs = [real_entries(basis.fwd, None, "head")]
-    op_legs = [real_entries(basis.bwd, None, "tail")] + fwd_legs
+    fwd_legs = [real_entries(fwd, None, "head")]
+    op_legs = [real_entries(inv, None, "tail")] + fwd_legs
     single_fwd = [real_entries(sfwd, None, "head")]
     single_op = [real_entries(sinv, None, "tail")] + single_fwd
     cases = [
         ("t_operator_kernel", "batched_gen_operator_apply", x, op_legs, 1,
-         lambda: sh.batched_gen_operator_apply(basis.fwd, basis.bwd, spec, x),
-         lambda: ref.batched_gen_operator_apply(basis.fwd, basis.bwd, spec,
-                                                x),
+         lambda: sh.batched_gen_operator_apply(fwd, inv, spec, x),
+         lambda: ref.batched_gen_operator_apply(fwd, inv, spec, x),
          lambda: torch.bmm(x, dense_op.transpose(1, 2))),
         ("t_chain_kernel", "batched_shear_apply", x, fwd_legs, 0,
-         lambda: sh.batched_shear_apply(basis.fwd, x),
-         lambda: ref.batched_t_apply(basis.fwd, x),
+         lambda: sh.batched_shear_apply(fwd, x),
+         lambda: ref.batched_t_apply(fwd, x),
          lambda: torch.bmm(x, t_dense.transpose(1, 2))),
         ("t_operator_kernel", "gen_operator_apply", x0, single_op, 1,
          lambda: sh.gen_operator_apply(sfwd, sinv, sspec, x0),
@@ -1225,7 +1406,8 @@ def phase_directed_shapes(main, single, errs) -> list:
          lambda: ref.staged_t_apply(sfwd, x0),
          lambda: torch.mm(x0, st.T)),
     ]
-    return timed_rows(cases, main, single, basis.fwd, sfwd, errs, "general")
+    return timed_rows(cases, main, single, fwd, sfwd, errs, "general",
+                      precision, launches)
 
 
 def sync() -> None:
@@ -1310,21 +1492,24 @@ def ragged_host_split(tag, router, x, steps: int = 50) -> dict:
     return out
 
 
-def check_ragged_pads(tag, router, blocks, tol: float) -> None:
+def check_ragged_pads(tag, router, blocks, tol: float,
+                      precision: str = "f32") -> None:
     """Per bucket: ``apply`` (synthesis, analysis and the round trip)
     passes pad coordinates through BITWISE, ``project`` with the heat
     response (h(0) = 1) gives exactly 0 there, and ``apply`` equals its
-    plain version (G within ``tol`` * scale, T bitwise)."""
+    plain version (G within ``tol`` * scale, T bitwise), each at the
+    table ``precision``."""
     import torch
     from repro_torch.spectral import named_responses
     heat = named_responses("heat")["heat"]
+    at = dict(precision=precision)
     for w, eng in sorted(router.engines.items()):
         basis, x = eng.basis, blocks[w]
-        y = basis.apply(x)
-        xa = basis.apply(x, inverse=True)
-        xr = basis.apply(xa)
-        p = basis.project(x, h=heat)
-        err, scale = max_err(y, basis.apply(x, backend="torch"))
+        y = basis.apply(x, **at)
+        xa = basis.apply(x, inverse=True, **at)
+        xr = basis.apply(xa, **at)
+        p = basis.project(x, h=heat, **at)
+        err, scale = max_err(y, basis.apply(x, backend="torch", **at))
         check(err <= tol * scale, f"{tag} bucket {w}: apply vs plain "
               f"max|dy| {err:.3e}")
         sizes = basis.sizes if basis.sizes is not None else [w] * len(x)
@@ -1338,8 +1523,9 @@ def check_ragged_pads(tag, router, blocks, tol: float) -> None:
                   f"{tag} bucket {w} graph {b}: project(heat) is not 0 "
                   f"at the pads")
     sync()
-    log(f"[{tag}] pads of every bucket: synthesis, analysis and round "
-        f"trip bitwise the input's; project(heat, h(0) = 1) exactly 0")
+    log(f"[{tag}] pads of every bucket ({precision} tables): synthesis, "
+        f"analysis and round trip bitwise the input's; project(heat, "
+        f"h(0) = 1) exactly 0")
 
 
 def check_ragged_served(tag, router, signals, tol: float) -> float:
@@ -2057,6 +2243,285 @@ def phase_main_dynamic(errs, main_dir) -> dict:
             "fit_s": out["fit_s"], "wall_a_s": wall_a}
 
 
+def rel_dev(got, want) -> float:
+    """||got - want|| / ||want|| over the whole block."""
+    import torch
+    return float(torch.linalg.norm((got - want).double())
+                 / torch.linalg.norm(want.double()).clamp(min=1e-30))
+
+
+def served_rates(engine, x, steps: int) -> dict:
+    """graph-transforms/s of every tier and responses/s of the bank of an
+    engine (one uncounted warm-up each, then ``steps`` timed steps)."""
+    import torch
+    out = {}
+    calls = {f"tier {t}": (lambda t=t: engine.step(x, lowpass, tier=t))
+             for t in engine.tiers}
+    if engine.bank is not None:
+        calls["bank"] = lambda: engine.step_bank(x)
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        per = x.shape[0] * (len(engine.bank) if name == "bank" else 1)
+        out[name] = steps * per / (time.perf_counter() - t0)
+    return out
+
+
+def phase_main_bf16(errs, main, filt, single, main_dir, single_dir) -> dict:
+    """[main-bf16]: bf16 table storage end to end, each part driven with
+    the counts zeroed just before and read just after (comparisons not
+    counted).  a. ``serve --fgft --precision bf16 --filter ...`` at full
+    width through the CLI (one G fit): the bank against its plain version
+    and each filter against dense eigh within its bound.  b. engines at
+    ``precision="bf16"`` on [main]'s and [main-directed]'s bases (no
+    fit): every tier and the bank against the plain versions, the full
+    tier against the f32 engine (relative deviation < 0.03), rates beside
+    the f32 ones, and an ``apply`` round trip at bf16.  c. [main-ragged]'s
+    saved router loaded at bf16: pads bitwise through ``apply``, 0 from
+    ``project``, served buckets against plain.  d. a dynamic engine at
+    bf16 on [main]'s basis with one forced REFRESH: every step after the
+    swap hits the entry-stream cache.  e. the single-graph paths at bf16
+    (analysis, synthesis, project, bank).  Every bf16 form must have
+    launched."""
+    from collections import Counter
+    import numpy as np
+    import torch
+    from repro_torch.core.staging import table_arrays
+    from repro_torch.dynamic import GraphStream, RefitPolicy
+    from repro_torch.graphs import community_graph
+    from repro_torch.kernels import launcher
+    from repro_torch.kernels.plan import ApplyPlan
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    counts: Counter = Counter()
+
+    def driven(fn):
+        launcher.reset_launch_counts()
+        out = fn()
+        sync()
+        counts.update(launcher.entry_launch_counts())
+        return out
+
+    def plain(kind, mode, n, **kw):
+        return ApplyPlan(family=kind, mode=mode, n=n, batched=True,
+                         backend="torch", precision="bf16", device=DEVICE,
+                         **kw).program()
+
+    # a. the CLI at full width
+    argv = ["--fgft", "--precision", "bf16", "--filter", MAIN["filters"],
+            "--graphs", str(MAIN["graphs"]), "--graph-n", str(MAIN["n"]),
+            "--transforms", str(int(2 * MAIN["n"] * np.log2(MAIN["n"]))),
+            "--signals", str(MAIN["signals"]), "--filter-steps",
+            str(MAIN["steps"]), "--device", DEVICE]
+    t0 = time.perf_counter()
+    out = driven(lambda: serve.main(argv))
+    wall = time.perf_counter() - t0
+    engine, x = out["engine"], out["signals"]
+    live = engine._live
+    log(f"[main-bf16] serve {' '.join(argv)}: {wall:.1f}s (fit "
+        f"{out['fit_s']:.1f}s), {out['responses_per_s']:.1f} responses/s "
+        f"(f32 [main-filter]: {filt['out']['responses_per_s']:.1f}); "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    check(engine._precision == "bf16"
+          and all(t.dtype == torch.bfloat16 for t in live.fwd[2:]),
+          "the bf16 CLI engine does not serve bf16 tables")
+    check(counts["batched_sym_filter_bank_apply_bf16"] > 0
+          and counts["batched_sym_filter_bank_apply"] == 0,
+          "the bf16 CLI did not serve through the bf16 bank form")
+    with uncounted():
+        y = engine.step_bank(x)
+        err, scale = max_err(y, plain("sym", "bank", engine.basis.n)(
+            live.fwd, live.bwd, live.bank_gains, x))
+        check(err <= TOL * scale, f"[main-bf16] bank vs plain max|dy| "
+              f"{err:.3e}")
+        errs["batched_sym_filter_bank_apply_bf16"] = max(
+            errs.get("batched_sym_filter_bank_apply_bf16", 0.0), err)
+        log(f"[main-bf16] served bank {list(y.shape)} vs plain version: "
+            f"max|dy| {err:.3e} (scale {scale:.3e})")
+        cli_worst = check_filters_dense("main-bf16", engine, y, x,
+                                        out["laps"], out["rel_error"])
+
+    # b. engines at bf16 on the f32 paths' bases, no fit
+    engines = {}
+    for tag, rec, f32_bank in (
+            ("main", main, filt["out"]["responses_per_s"]),
+            ("main-directed", main_dir, main_dir["bank"]["responses_per_s"])):
+        f32_eng, laps, xs = (rec["out"]["engine"], rec["out"]["laps"],
+                             rec["out"]["signals"])
+        basis = f32_eng.basis
+        eng = driven(lambda: serve.FGFTServeEngine(
+            laps, basis=basis, tiers=serve.parse_tiers(MAIN["tiers"]),
+            filters=MAIN["filters"], precision="bf16", device=DEVICE))
+        rates = driven(lambda: served_rates(eng, xs, MAIN["steps"]))
+        yr = driven(lambda: basis.apply(basis.apply(
+            xs, inverse=True, precision="bf16"), precision="bf16"))
+        with uncounted():
+            kind, n, lv = basis.kind, basis.n, eng._live
+            tol = TOL if kind == "sym" else 0.0
+            for tier in eng.tiers:
+                k = lv.tiers[tier]["num_stages"]
+                want = plain(kind, "operator", n, num_stages=(
+                    None if tier == eng.default_tier else k))(
+                        lv.fwd, lv.bwd, lowpass(lv.tiers[tier]["spectrum"]),
+                        xs)
+                err, scale = max_err(eng.step(xs, lowpass, tier=tier), want)
+                check(err <= tol * scale, f"[main-bf16 {tag}] tier {tier} vs "
+                      f"plain max|dy| {err:.3e}")
+                entry = launcher.form(
+                    "batched_sym_operator_apply" if kind == "sym"
+                    else "batched_gen_operator_apply", "bf16")
+                errs[entry] = max(errs.get(entry, 0.0), err)
+            y16 = eng.step(xs, lowpass)
+            dev = rel_dev(y16, f32_eng.step(xs, lowpass))
+            check(dev < 0.03, f"[main-bf16 {tag}] full tier deviates {dev:.4f}"
+                  f" from the f32 engine")
+            yb = eng.step_bank(xs)
+            err, scale = max_err(yb, plain(kind, "bank", n)(
+                lv.fwd, lv.bwd, lv.bank_gains, xs))
+            check(err <= tol * scale, f"[main-bf16 {tag}] bank vs plain "
+                  f"max|dy| {err:.3e}")
+            bank_entry = launcher.form(
+                "batched_sym_filter_bank_apply" if kind == "sym"
+                else "batched_gen_filter_bank_apply", "bf16")
+            errs[bank_entry] = max(errs.get(bank_entry, 0.0), err)
+            f32_bank_fn = ApplyPlan(family=kind, mode="bank", n=n,
+                                    batched=True, device=DEVICE).program()
+            bank_dev = rel_dev(yb, f32_bank_fn(
+                table_arrays(basis.fwd), table_arrays(basis.bwd),
+                lv.bank_gains, xs))
+            check(bank_dev < 0.03, f"[main-bf16 {tag}] bank deviates "
+                  f"{bank_dev:.4f} from the f32 bank")
+            worst = (check_filters_dense(f"main-bf16 {tag}", eng, yb, xs,
+                                         laps, rec["out"]["rel_error"])
+                     if kind == "sym" else None)
+            chain_entry = launcher.form(
+                "batched_butterfly_apply" if kind == "sym"
+                else "batched_shear_apply", "bf16")
+            inv = basis.apply(xs, inverse=True, precision="bf16")
+            err, scale = max_err(inv, basis.apply(
+                xs, inverse=True, precision="bf16", backend="torch"))
+            check(err <= tol * scale, f"[main-bf16 {tag}] apply vs plain "
+                  f"max|dy| {err:.3e}")
+            errs[chain_entry] = max(errs.get(chain_entry, 0.0), err)
+            trip = rel_dev(yr, xs)
+            check(bool(torch.isfinite(yr).all()) and trip < 0.03,
+                  f"[main-bf16 {tag}] bf16 round trip deviates {trip:.4f}")
+        f32_rates = {f"tier {t}": ts["transforms_per_s"]
+                     for t, ts in rec["out"]["tiers"].items()}
+        f32_rates["bank"] = f32_bank
+        log(f"[main-bf16 {tag}] engine at bf16 on the fitted basis: full "
+            f"tier vs the f32 engine relative deviation {dev:.3e}, bank "
+            f"{bank_dev:.3e}; every tier and the bank vs plain within "
+            f"{tol} * scale; apply round trip at bf16 vs x {trip:.3e}"
+            + ("" if worst is None else f"; bank filters' worst error/bound "
+               f"vs dense eigh {worst:.4f}"))
+        log(f"[main-bf16 {tag}] rates at bf16 (f32): " + ", ".join(
+            f"{k} {v:.1f} ({f32_rates[k]:.1f})" for k, v in rates.items())
+            + " graph-transforms/s per tier, responses/s for the bank")
+        engines[tag] = {"rates": rates, "f32_rates": f32_rates,
+                        "full_dev": dev, "bank_dev": bank_dev,
+                        "round_trip_dev": trip, "dense_worst": worst}
+
+    # c. [main-ragged]'s saved router at bf16
+    ckpt = ROOT / "build" / "ragged_checkpoint"
+    router = driven(lambda: serve.RaggedFGFTServeEngine.load(
+        ckpt, precision="bf16", device=DEVICE))
+    check(all(e._live.fwd[2].dtype == torch.bfloat16
+              for e in router.engines.values()),
+          "the bf16 router does not serve bf16 tables")
+    gen = torch.Generator(device=DEVICE).manual_seed(47)
+    rsig = [torch.randn((64, n), generator=gen, device=DEVICE)
+            for n in router.sizes]
+    driven(lambda: router.step(rsig, lowpass))
+    with uncounted():
+        ragged_err = check_ragged_served("main-bf16 ragged", router, rsig,
+                                         TOL)
+        check_ragged_pads("main-bf16 ragged", router,
+                          ragged_blocks(router, 53, 130), TOL, "bf16")
+
+    # d. a dynamic engine at bf16, one forced REFRESH
+    f32_eng = main["out"]["engine"]
+    xs = main["out"]["signals"]
+    stream = GraphStream([community_graph(MAIN["n"], seed=s)
+                          for s in range(MAIN["graphs"])])
+    check(np.array_equal(np.stack(stream.laplacians()), main["out"]["laps"]),
+          "the stream differs from [main]'s Laplacians")
+    deng = driven(lambda: serve.FGFTServeEngine(
+        main["out"]["laps"], basis=f32_eng.basis, dynamic=True,
+        tiers=serve.parse_tiers(MAIN["tiers"]), policy=RefitPolicy(),
+        precision="bf16", device=DEVICE))
+    driven(lambda: [deng.step(xs, lowpass, tier=t) for t in deng.tiers])
+    cast = deng._live.fwd
+    driven(lambda: update_round(deng, stream, DYNAMIC["forced_churn"], 7700))
+    tick = driven(lambda: forced_tick("main-bf16 dynamic", deng, "refresh",
+                                      refresh=0.5, extend=4.0, refit=8.0))
+    check(deng.basis.fwd.c.dtype == torch.float32,
+          "the dynamic engine's basis is not f32")
+    check(deng._live.fwd[2] is cast[2], "REFRESH did not keep the bf16 cast")
+    launcher.reset_stream_cache_counts()
+    driven(lambda: [deng.step(xs, lowpass, tier=t) for t in deng.tiers])
+    cache = launcher.stream_cache_counts()
+    check(cache["misses"] == 0 and cache["hits"] == 2 * len(deng.tiers),
+          f"[main-bf16 dynamic] steps after the REFRESH: stream cache "
+          f"{cache}")
+    with uncounted():
+        lv = deng._live
+        err, scale = max_err(deng.step(xs, lowpass), plain(
+            "sym", "operator", MAIN["n"])(
+                lv.fwd, lv.bwd, lowpass(lv.tiers[deng.default_tier][
+                    "spectrum"]), xs))
+        check(err <= TOL * scale, f"[main-bf16 dynamic] served full tier vs "
+              f"plain max|dy| {err:.3e}")
+    log(f"[main-bf16 dynamic] REFRESH on {table_shape(deng.basis)}: the "
+        f"bf16 cast kept, steps after the swap hit the stream cache "
+        f"{cache}; full tier vs plain max|dy| {err:.3e}")
+
+    # e. the single-graph paths at bf16
+    for tag, rec in (("single", single), ("single-directed", single_dir)):
+        f, x0, g0 = rec["fgft"], rec["signals"], rec["gains"]
+        bank = ApplyPlan(family=f.family, mode="bank", n=f.n,
+                         precision="bf16", device=DEVICE)
+        ys = driven(lambda: (f.synthesis(f.analysis(x0, precision="bf16"),
+                                         precision="bf16"),
+                             f.project(x0, lowpass, precision="bf16"),
+                             bank.bank(f.fwd, f.bwd, g0, x0)))
+        with uncounted():
+            tol = TOL if f.family == "sym" else 0.0
+            fam = "sym" if f.family == "sym" else "gen"
+            wants = (f.synthesis(f.analysis(x0, "torch", precision="bf16"),
+                                 "torch", precision="bf16"),
+                     f.project(x0, lowpass, "torch", precision="bf16"),
+                     ApplyPlan(family=f.family, mode="bank", n=f.n,
+                               precision="bf16", backend="torch",
+                               device=DEVICE).bank(f.fwd, f.bwd, g0, x0))
+            names = ("butterfly_apply" if fam == "sym" else "shear_apply",
+                     f"{fam}_operator_apply", f"{fam}_filter_bank_apply")
+            for name, got, want in zip(names, ys, wants):
+                err, scale = max_err(got, want)
+                name = launcher.form(name, "bf16")
+                check(err <= tol * scale, f"[main-bf16 {tag}] {name} vs "
+                      f"plain max|dy| {err:.3e}")
+                errs[name] = max(errs.get(name, 0.0), err)
+        log(f"[main-bf16 {tag}] analysis, synthesis, project and bank at "
+            f"bf16 vs plain within {tol} * scale")
+
+    missing = [e for e in launcher.ENTRIES
+               if counts[launcher.form(e, "bf16")] == 0]
+    check(not missing, f"[main-bf16] bf16 forms never launched: {missing}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[main-bf16] {phase_s:.1f}s in all; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return {"launches": dict(counts), "wall_s": wall, "fit_s": out["fit_s"],
+            "responses_per_s": out["responses_per_s"],
+            "cli_dense_worst": cli_worst, "engines": engines,
+            "ragged_served_err": ragged_err, "dynamic_tick": tick,
+            "dynamic_cache": cache, "phase_s": phase_s}
+
+
 #: entry point -> (family, kernel) of the turns phase
 TURNS = {"batched_sym_operator_apply": ("sym", "g_operator_kernel"),
          "sym_operator_apply": ("sym", "g_operator_kernel"),
@@ -2196,10 +2661,21 @@ def main() -> int:
     bank_dir = main_dir["bank"]
     kernels += phase_bank_shapes("general", bank_dir, bank_dir["engine"],
                                  main_dir["out"]["signals"], single_dir, errs)
-    check(len(kernels) == len(REPLACES),
-          f"{len(kernels)} kernel rows for {len(REPLACES)} entry points")
     ragged = phase_main_ragged(errs)
     dynamic = phase_main_dynamic(errs, main_dir)
+    bf16 = phase_main_bf16(errs, main_rec, filter_rec, single, main_dir,
+                           single_dir)
+    at = ("bf16", bf16["launches"])
+    kernels += phase_main_shapes(main_rec, single, errs, *at)
+    kernels += phase_bank_shapes("sym", filter_rec, filter_out["engine"],
+                                 filter_out["signals"], single, errs, *at)
+    kernels += phase_directed_shapes(main_dir, single_dir, errs, *at)
+    kernels += phase_bank_shapes("general", bank_dir, bank_dir["engine"],
+                                 main_dir["out"]["signals"], single_dir, errs,
+                                 *at)
+    check(len(kernels) == 2 * len(REPLACES),
+          f"{len(kernels)} kernel rows for the f32 and bf16 forms of "
+          f"{len(REPLACES)} entry points")
     ragged_counts = dict(ragged["launches"])
     for entry, k in ragged["bank_launches"].items():
         ragged_counts[entry] += k

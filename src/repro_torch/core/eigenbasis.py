@@ -354,7 +354,8 @@ class ApproxEigenbasis:
         Tbar^{-1} (graph Fourier ANALYSIS; forward is SYNTHESIS).
         ``x``: (..., n), with a leading (B, ...) batch when ``batched``.
         ``num_stages`` runs an anytime prefix (pick one with
-        ``select_tier``)."""
+        ``select_tier``); ``precision="bf16"`` stores the tables in bf16
+        (cast once per table set and kept) and accumulates in f32."""
         from repro_torch.kernels.plan import leg_orientation
         staged = self.bwd if inverse else self.fwd
         keep = leg_orientation(self.kind)[0 if inverse else 1]
@@ -368,7 +369,9 @@ class ApproxEigenbasis:
         """y = Ubar diag(h(spectrum)) Ubar^T x, or Tbar diag(h(spectrum))
         Tbar^{-1} x for the general family (``h`` defaults to the
         identity: the approximated matrix itself).  One fused kernel
-        launch on the card; ``fused=False`` is the three-pass baseline.
+        launch on the card; ``fused=False`` is the three-pass baseline;
+        ``precision="bf16"`` stores the tables in bf16, accumulating in
+        f32.
         On a ragged basis the gains are zeroed at each matrix's padding
         coordinates: the padded spectrum is 0 but ``h(0)`` need not be,
         and the transforms pass pad coordinates through, so an unmasked

@@ -66,24 +66,28 @@ class FGFT:
                          device=str(self.spectrum.device))
 
     def analysis(self, x: torch.Tensor, backend: Optional[str] = None,
-                 num_stages: Optional[int] = None) -> torch.Tensor:
+                 num_stages: Optional[int] = None,
+                 precision: str = "f32") -> torch.Tensor:
         """Graph Fourier coefficients x_hat = Ubar^T x (or Tbar^{-1} x):
         (..., n) -> (..., n); ``num_stages`` runs the anytime prefix
-        transform (``leg_orientation`` picks the cut's end)."""
+        transform (``leg_orientation`` picks the cut's end);
+        ``precision="bf16"`` stores the tables in bf16 and accumulates in
+        f32."""
         from repro_torch.kernels.plan import leg_orientation
         keep = leg_orientation(self.family)[0]
-        return self._plan("apply", backend, num_stages, keep).apply(
-            self.bwd, x)
+        return self._plan("apply", backend, num_stages, keep,
+                          precision).apply(self.bwd, x)
 
     def synthesis(self, xh: torch.Tensor, backend: Optional[str] = None,
-                  num_stages: Optional[int] = None) -> torch.Tensor:
+                  num_stages: Optional[int] = None,
+                  precision: str = "f32") -> torch.Tensor:
         """Inverse transform x = Ubar x_hat (or Tbar x_hat): the exact
         inverse of ``analysis`` for G; for T it inverts up to the f32
         conditioning of Tbar."""
         from repro_torch.kernels.plan import leg_orientation
         keep = leg_orientation(self.family)[1]
-        return self._plan("apply", backend, num_stages, keep).apply(
-            self.fwd, xh)
+        return self._plan("apply", backend, num_stages, keep,
+                          precision).apply(self.fwd, xh)
 
     def filter(self, x: torch.Tensor, h: Optional[Callable],
                backend: Optional[str] = None,
@@ -93,8 +97,8 @@ class FGFT:
         Tbar form) in one fused launch; ``h`` maps the (n,) spectrum to
         (n,) gains (None: the identity, the Laplacian itself).
         ``num_stages`` cuts both legs to the same component prefix;
-        ``fused=False`` runs three passes.  ``precision`` other than
-        "f32" is refused (bf16 tables are not ported)."""
+        ``fused=False`` runs three passes; ``precision="bf16"`` stores the
+        tables in bf16 and accumulates in f32."""
         d = self.spectrum if h is None else h(self.spectrum)
         plan = self._plan("operator", backend, num_stages,
                           precision=precision, fused=fused)
@@ -102,10 +106,10 @@ class FGFT:
 
     def project(self, x: torch.Tensor, h: Optional[Callable] = None,
                 backend: Optional[str] = None,
-                num_stages: Optional[int] = None,
+                num_stages: Optional[int] = None, precision: str = "f32",
                 fused: bool = True) -> torch.Tensor:
         """``filter`` with ``h`` defaulting to the identity."""
-        return self.filter(x, h, backend, num_stages, fused=fused)
+        return self.filter(x, h, backend, num_stages, precision, fused)
 
     @property
     def stage_cuts(self) -> np.ndarray:

@@ -44,10 +44,10 @@ class StagedG(NamedTuple):
     """G-transforms packed into conflict-free stages (padded to width P).
 
     ``idx_*``/``c``/``s``/``sigma`` are (S, P) tensors — (B, S, P) when
-    batched; indices int32, values f32.  ``cuts`` is host metadata: a
-    (C, 2) int64 array of (num_stages, num_components) pairs at which
-    truncating the stage axis is exact.  ``n`` is the signal width and
-    the pad index."""
+    batched; indices int32, values f32 (bf16 under ``with_precision``).
+    ``cuts`` is host metadata: a (C, 2) int64 array of (num_stages,
+    num_components) pairs at which truncating the stage axis is exact.
+    ``n`` is the signal width and the pad index."""
 
     idx_i: torch.Tensor
     idx_j: torch.Tensor
@@ -94,6 +94,44 @@ def table_arrays(staged) -> Tuple[torch.Tensor, ...]:
     ``cuts``/``n`` tail — what plan programs take as their table
     arguments."""
     return tuple(staged[:len(_table_fields(staged))])
+
+
+TABLE_PRECISIONS = ("f32", "bf16")
+PRECISION_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def table_precision(staged) -> str:
+    """"f32" or "bf16": the dtype of a table set's value tables (G: c, s,
+    sigma; T: alpha, beta), which must all share one of the two."""
+    values = {getattr(staged, f).dtype for f in _table_fields(staged)[2:]}
+    for name, dtype in PRECISION_DTYPE.items():
+        if values == {dtype}:
+            return name
+    raise TypeError(f"value tables must all be float32 or all bfloat16, "
+                    f"got {sorted(map(str, values))}")
+
+
+def with_precision(staged, precision: str):
+    """Staged tables under a storage-precision policy.
+
+    ``"f32"`` is the packing default.  ``"bf16"`` casts the VALUE tables
+    (c, s, sigma for G; alpha, beta for T) to bfloat16, rounding to
+    nearest even as the JAX package's cast does; the index tables stay
+    int32 and ``cuts``/``n`` are untouched, so cut ladders and plan keys
+    survive the cast.  Returns ``staged`` itself when its value tables
+    already have the dtype.  Accumulation stays f32: every kernel and
+    plain version widens a bf16 entry to the f32 signal's dtype before
+    it uses it (kernels/ref.py, csrc/*.cu), so bf16 is a storage policy
+    only."""
+    if precision not in TABLE_PRECISIONS:
+        raise ValueError(f"precision must be one of {TABLE_PRECISIONS}, "
+                         f"got {precision!r}")
+    dtype = PRECISION_DTYPE[precision]
+    values = _table_fields(staged)[2:]
+    if all(getattr(staged, f).dtype == dtype for f in values):
+        return staged
+    return staged._replace(**{f: getattr(staged, f).to(dtype)
+                              for f in values})
 
 
 # ---------------------------------------------------------------------------

@@ -60,6 +60,18 @@
 // while giving every SM two CTAs where the work allows, splitting the
 // filters over CTAs (and re-running the analysis per group) only then.
 // F is a runtime count: a new bank needs no rebuild.
+//
+// bf16 forms (g_chain_bf16_kernel, g_operator_bf16_kernel,
+// g_bank_bf16_kernel: the same entry points when the value tables c, s,
+// sigma are stored as bf16, as the JAX package's precision="bf16" policy
+// stores them; its Pallas kernels cast each entry to the f32 signal's
+// dtype).  The rows body reads a 16-byte stream entry (i, j, c|s, sigma|0:
+// two bf16 values a word, the first in the low half) instead of the f32
+// form's 32 bytes, with one 16-byte shared load per entry; the bank body
+// copies the indices with cp.async as before and reads each 2-byte value
+// with a plain load, widened into the ring's f32 word.  The arithmetic is
+// the f32 form's on the widened values, so a bf16 form equals its f32 form
+// on tables.float(), and is held to the same plain versions.
 #include <cuda_runtime.h>
 
 #include "chain.cuh"
@@ -143,7 +155,57 @@ struct GPair {
   }
 };
 
+// GPair's rows-body form for bf16 value tables: the 4-word stream entry
+// (i, j, c|s, sigma|0), widened in registers, then GPair's arithmetic.
+struct GPairBf16 {
+  static constexpr int kWords = 4;
+  using Entry = GPair::Entry;
+
+  static __device__ __forceinline__ Entry entry(unsigned a) {
+    const int4 v = ld_shared4(a);
+    return Entry{v.x, v.y, bf16_lo((unsigned)v.z), bf16_hi((unsigned)v.z),
+                 bf16_lo((unsigned)v.w)};
+  }
+
+  template <int K>
+  static __device__ __forceinline__ void apply_group(unsigned row,
+                                                     unsigned scratch,
+                                                     const Entry (&en)[K],
+                                                     const bool (&ok)[K]) {
+    GPair::apply_group<K>(row, scratch, en, ok);
+  }
+};
+
+// GPair's bank-body form for bf16 value tables: the indices by cp.async,
+// the three values widened into GPair's ring form (i, j, c, s, sigma).
+struct GBankBf16 {
+  const int* ii;
+  const int* jj;
+  const unsigned short* c;  // bf16 bits
+  const unsigned short* s;
+  const unsigned short* sg;
+
+  static constexpr int kFields = 2;
+  static constexpr int kWords = GPair::kWords;
+
+  __device__ __forceinline__ const float* field(int k) const {
+    return reinterpret_cast<const float*>(k == 0 ? ii : jj);
+  }
+
+  __device__ __forceinline__ void widen(float* e, long long at) const {
+    e[2] = bf16_lo(__ldg(c + at));
+    e[3] = bf16_lo(__ldg(s + at));
+    e[4] = bf16_lo(__ldg(sg + at));
+  }
+
+  static __device__ __forceinline__ void apply(float* row, const float* e,
+                                               int n) {
+    GPair::apply(row, e, n);
+  }
+};
+
 using GBankLeg = BankLeg<GPair>;
+using GBankBf16Leg = BankLeg<GBankBf16>;
 
 __global__ void __launch_bounds__(kMaxOperatorThreads)
     g_chain_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
@@ -175,6 +237,42 @@ inline GBankLeg g_bank_leg(const int* ii, const int* jj, const float* c,
                            long long bstride, int P, int s0, int ns) {
   return GBankLeg{GPair{ii, jj, c, s, sg}, ext, bstride,
                   P ? bstride / P : 0, P, s0, ns};
+}
+
+__global__ void __launch_bounds__(kMaxOperatorThreads)
+    g_chain_bf16_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
+                        const float* __restrict__ x, float* __restrict__ y,
+                        StreamLeg leg) {
+  chain_lanes<GPairBf16>(R, n, ld, lanes, rows_per_warp, x, y, leg);
+}
+
+__global__ void __launch_bounds__(kMaxOperatorThreads)
+    g_operator_bf16_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
+                           const float* __restrict__ x, float* __restrict__ y,
+                           const float* __restrict__ d, StreamLeg adj,
+                           StreamLeg fwd) {
+  operator_lanes<GPairBf16>(R, n, ld, lanes, rows_per_warp, x, y, d, adj,
+                            fwd);
+}
+
+__global__ void g_bank_bf16_kernel(int R, int n, int ld, int rows_per_cta,
+                                   int filters_per_cta, int row_tiles,
+                                   int slot_words, const float* __restrict__ x,
+                                   float* __restrict__ y,
+                                   const float* __restrict__ gains, int F,
+                                   GBankBf16Leg adj, GBankBf16Leg fwd) {
+  bank_tile(R, n, ld, rows_per_cta, filters_per_cta, row_tiles, slot_words,
+            x, y, gains, F, adj, fwd);
+}
+
+inline GBankBf16Leg g_bank_bf16_leg(const int* ii, const int* jj,
+                                    const unsigned short* c,
+                                    const unsigned short* s,
+                                    const unsigned short* sg, const int* ext,
+                                    long long bstride, int P, int s0,
+                                    int ns) {
+  return GBankBf16Leg{GBankBf16{ii, jj, c, s, sg}, ext, bstride,
+                      P ? bstride / P : 0, P, s0, ns};
 }
 
 }  // namespace
@@ -270,6 +368,65 @@ int g_occupancy(int kind, int rows, int n, int P, int threads) {
     default:
       return resident_ctas((const void*)g_bank_kernel,
                            bank_smem(rows, ld, P * GPair::kWords), threads);
+  }
+}
+
+// The bf16 forms: the same arguments, the value tables as bf16 bits.
+int g_chain_bf16_launch(const float* x, float* y, int B, int R, int n,
+                        const int* words, const int* off, int S, int s0,
+                        int ns, int lanes, int rows_per_warp, int warps,
+                        void* stream) {
+  return launch_rows<GPairBf16>(g_chain_bf16_kernel, B, R, n, lanes,
+                                rows_per_warp, warps, stream, x, y,
+                                StreamLeg{words, off, S, s0, ns});
+}
+
+int g_operator_bf16_launch(const float* x, float* y, int B, int R, int n,
+                           const float* d, const int* awords, const int* aoff,
+                           int aS, int a0, int na, const int* fwords,
+                           const int* foff, int fS, int f0, int nf, int lanes,
+                           int rows_per_warp, int warps, void* stream) {
+  return launch_rows<GPairBf16>(g_operator_bf16_kernel, B, R, n, lanes,
+                                rows_per_warp, warps, stream, x, y, d,
+                                StreamLeg{awords, aoff, aS, a0, na},
+                                StreamLeg{fwords, foff, fS, f0, nf});
+}
+
+int g_bank_bf16_launch(const float* x, float* y, int B, int R, int n,
+                       const float* gains, int F, const int* aii,
+                       const int* ajj, const unsigned short* ac,
+                       const unsigned short* as, const unsigned short* asg,
+                       const int* aext, long long abstride, int aP, int a0,
+                       int na, const int* fii, const int* fjj,
+                       const unsigned short* fc, const unsigned short* fs,
+                       const unsigned short* fsg, const int* fext,
+                       long long fbstride, int fP, int f0, int nf,
+                       int rows_per_cta, int filters_per_cta, int threads,
+                       void* stream) {
+  return launch_bank(g_bank_bf16_kernel, B, R, n, F, rows_per_cta,
+                     filters_per_cta, threads, stream, x, y, gains,
+                     g_bank_bf16_leg(aii, ajj, ac, as, asg, aext, abstride,
+                                     aP, a0, na),
+                     g_bank_bf16_leg(fii, fjj, fc, fs, fsg, fext, fbstride,
+                                     fP, f0, nf));
+}
+
+// Resident CTAs per SM of a G bf16 form, as g_occupancy (its stream
+// entries are half the f32 form's; its bank ring is the f32 form's).
+int g_bf16_occupancy(int kind, int rows, int n, int P, int threads) {
+  const int ld = odd_stride(n);
+  const size_t smem =
+      operator_smem(rows, ld, threads / 32, GPairBf16::kWords);
+  switch (kind) {
+    case 0:
+      return resident_ctas((const void*)g_chain_bf16_kernel, smem, threads);
+    case 1:
+      return resident_ctas((const void*)g_operator_bf16_kernel, smem,
+                           threads);
+    default:
+      return resident_ctas((const void*)g_bank_bf16_kernel,
+                           bank_smem(rows, ld, P * GBankBf16::kWords),
+                           threads);
   }
 }
 

@@ -38,11 +38,32 @@
 //
 // Every launch helper takes its batch as grid y; the launcher splits a
 // batch of more than 65535 matrices into launches on offset pointers.
+//
+// bf16 value tables.  Each family has a second Op per body for tables
+// whose values are stored as bf16 (GPairBf16 and GBankBf16 in
+// butterfly.cu, TEntryBf16 in shear.cu): it reads the 16-bit values from
+// device memory and widens them to f32 in registers (the rows body: from
+// the packed stream entry) or into the ring's f32 words (the bank body),
+// and then runs its f32 Op's arithmetic.  A bf16 -> f32 widening is exact,
+// so a bf16 form computes exactly what its f32 form computes on the
+// widened tables.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 inline int odd_stride(int n) { return (n + 1) | 1; }
+
+// The f32 value of the bf16 in the low or high half of a word (exact: a
+// bf16 is the high half of the f32 it rounds).
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
 
 // The bank's tile: `rows` rows of x into the shared tile at the stride ld.
 __device__ __forceinline__ void load_tile(float* tile, int ld, const float* x,
@@ -77,9 +98,16 @@ __device__ __forceinline__ void scale_tile(float* tile, int ld, const float* d,
 // stage reads and frees the slot that the copy started after it overwrites.
 // A family's action `Op` supplies, besides its table pointers,
 //   kFields                    32-bit table fields per entry (indices first)
+//                              that cp.async copies
 //   kWords                     ring words per entry (16-byte aligned)
 //   field(k)                   field k's (B, S, P) table
 //   apply(row, entry, n)       the entry (in the ring) on one signal row
+// and, where its value tables are bf16, a member
+//   widen(entry, at)           the value words of a ring entry from table
+//                              element `at`, read with plain loads and
+//                              widened to f32 (a 2-byte value at an odd
+//                              element cannot take a 4-byte cp.async), so
+//                              its kFields are the index fields only.
 
 constexpr int kRing = 4;  // stages of table entries in shared memory
 
@@ -110,8 +138,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+template <class Op, class = void>
+struct Widens : std::false_type {};
+template <class Op>
+struct Widens<Op, std::void_t<decltype(&Op::widen)>> : std::true_type {};
+
 // Copy the e real entries of stage st into a ring slot (entry-major, kWords
-// words per entry); asynchronous until this thread's cp_async_wait.
+// words per entry); the cp.async fields are asynchronous until this
+// thread's cp_async_wait, a widened value is stored before it returns.
+// Either way the stage's next __syncthreads() (walk_leg) publishes them.
 template <class Op>
 __device__ __forceinline__ void copy_stage(const BankLeg<Op>& leg,
                                            long long base, int st, int e,
@@ -121,6 +156,8 @@ __device__ __forceinline__ void copy_stage(const BankLeg<Op>& leg,
 #pragma unroll
     for (int k = 0; k < Op::kFields; ++k)
       cp_async4(slot + p * Op::kWords + k, leg.op.field(k) + off + p);
+    if constexpr (Widens<Op>::value)
+      leg.op.widen(slot + p * Op::kWords, off + p);
   }
 }
 

@@ -52,6 +52,15 @@
 // per work item), and kernels/launcher.py::bank_geometry's rows and filters
 // per CTA.  The copy of the coefficients for filter f is one f32 multiply,
 // as in the plain version, so the bank stays bitwise equal to it.
+//
+// bf16 forms (t_chain_bf16_kernel, t_operator_bf16_kernel,
+// t_bank_bf16_kernel: the same entry points when alpha and beta are stored
+// as bf16, as the JAX package's precision="bf16" policy stores them).  The
+// rows body reads the stream entry (i, j, alpha|beta, 0), still 16 bytes
+// (ChunkRegs moves whole 16-byte pieces); the bank body copies the indices
+// with cp.async and widens each 2-byte value with a plain load into the
+// ring's f32 word.  The arithmetic is the f32 form's on the widened
+// values, so the bf16 forms too are bitwise equal to their plain versions.
 #include <cuda_runtime.h>
 
 #include "chain.cuh"
@@ -123,7 +132,51 @@ struct TEntry {
   }
 };
 
+// TEntry for bf16 value tables, in both bodies: the rows body's stream
+// entry (i, j, alpha|beta, 0) widened in registers; the bank's ring entry
+// in TEntry's f32 form (i, j, alpha, beta), the indices by cp.async and
+// the values widened into it.  Then TEntry's arithmetic.
+struct TEntryBf16 {
+  const int* ii;
+  const int* jj;
+  const unsigned short* al;  // bf16 bits
+  const unsigned short* be;
+
+  static constexpr int kFields = 2;
+  static constexpr int kWords = 4;
+
+  __device__ __forceinline__ const float* field(int k) const {
+    return reinterpret_cast<const float*>(k == 0 ? ii : jj);
+  }
+
+  __device__ __forceinline__ void widen(float* e, long long at) const {
+    e[2] = bf16_lo(__ldg(al + at));
+    e[3] = bf16_lo(__ldg(be + at));
+  }
+
+  static __device__ __forceinline__ void apply(float* row, const float* e,
+                                               int n) {
+    TEntry::apply(row, e, n);
+  }
+
+  using Entry = TEntry::Entry;
+
+  static __device__ __forceinline__ Entry entry(unsigned a) {
+    const int4 v = ld_shared4(a);
+    return Entry{v.x, v.y, bf16_lo((unsigned)v.z), bf16_hi((unsigned)v.z)};
+  }
+
+  template <int K>
+  static __device__ __forceinline__ void apply_group(unsigned row,
+                                                     unsigned scratch,
+                                                     const Entry (&en)[K],
+                                                     const bool (&ok)[K]) {
+    TEntry::apply_group<K>(row, scratch, en, ok);
+  }
+};
+
 using TBankLeg = BankLeg<TEntry>;
+using TBankBf16Leg = BankLeg<TEntryBf16>;
 
 __global__ void __launch_bounds__(kMaxOperatorThreads)
     t_chain_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
@@ -155,6 +208,41 @@ inline TBankLeg t_bank_leg(const int* ii, const int* jj, const float* al,
                            int P, int s0, int ns) {
   return TBankLeg{TEntry{ii, jj, al, be}, ext, bstride, P ? bstride / P : 0,
                   P, s0, ns};
+}
+
+__global__ void __launch_bounds__(kMaxOperatorThreads)
+    t_chain_bf16_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
+                        const float* __restrict__ x, float* __restrict__ y,
+                        StreamLeg leg) {
+  chain_lanes<TEntryBf16>(R, n, ld, lanes, rows_per_warp, x, y, leg);
+}
+
+__global__ void __launch_bounds__(kMaxOperatorThreads)
+    t_operator_bf16_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
+                           const float* __restrict__ x, float* __restrict__ y,
+                           const float* __restrict__ d, StreamLeg inv,
+                           StreamLeg fwd) {
+  operator_lanes<TEntryBf16>(R, n, ld, lanes, rows_per_warp, x, y, d, inv,
+                             fwd);
+}
+
+__global__ void t_bank_bf16_kernel(int R, int n, int ld, int rows_per_cta,
+                                   int filters_per_cta, int row_tiles,
+                                   int slot_words, const float* __restrict__ x,
+                                   float* __restrict__ y,
+                                   const float* __restrict__ gains, int F,
+                                   TBankBf16Leg inv, TBankBf16Leg fwd) {
+  bank_tile(R, n, ld, rows_per_cta, filters_per_cta, row_tiles, slot_words,
+            x, y, gains, F, inv, fwd);
+}
+
+inline TBankBf16Leg t_bank_bf16_leg(const int* ii, const int* jj,
+                                    const unsigned short* al,
+                                    const unsigned short* be, const int* ext,
+                                    long long bstride, int P, int s0,
+                                    int ns) {
+  return TBankBf16Leg{TEntryBf16{ii, jj, al, be}, ext, bstride,
+                      P ? bstride / P : 0, P, s0, ns};
 }
 
 }  // namespace
@@ -217,6 +305,63 @@ int t_occupancy(int kind, int rows, int n, int P, int threads) {
     default:
       return resident_ctas((const void*)t_bank_kernel,
                            bank_smem(rows, ld, P * TEntry::kWords), threads);
+  }
+}
+
+// The bf16 forms: the same arguments, the value tables as bf16 bits.
+int t_chain_bf16_launch(const float* x, float* y, int B, int R, int n,
+                        const int* words, const int* off, int S, int s0,
+                        int ns, int lanes, int rows_per_warp, int warps,
+                        void* stream) {
+  return launch_rows<TEntryBf16>(t_chain_bf16_kernel, B, R, n, lanes,
+                                 rows_per_warp, warps, stream, x, y,
+                                 StreamLeg{words, off, S, s0, ns});
+}
+
+int t_operator_bf16_launch(const float* x, float* y, int B, int R, int n,
+                           const float* d, const int* iwords, const int* ioff,
+                           int iS, int i0, int ni, const int* fwords,
+                           const int* foff, int fS, int f0, int nf, int lanes,
+                           int rows_per_warp, int warps, void* stream) {
+  return launch_rows<TEntryBf16>(t_operator_bf16_kernel, B, R, n, lanes,
+                                 rows_per_warp, warps, stream, x, y, d,
+                                 StreamLeg{iwords, ioff, iS, i0, ni},
+                                 StreamLeg{fwords, foff, fS, f0, nf});
+}
+
+int t_bank_bf16_launch(const float* x, float* y, int B, int R, int n,
+                       const float* gains, int F, const int* iii,
+                       const int* ijj, const unsigned short* ial,
+                       const unsigned short* ibe, const int* iext,
+                       long long ibstride, int iP, int i0, int ni,
+                       const int* fii, const int* fjj,
+                       const unsigned short* fal, const unsigned short* fbe,
+                       const int* fext, long long fbstride, int fP, int f0,
+                       int nf, int rows_per_cta, int filters_per_cta,
+                       int threads, void* stream) {
+  return launch_bank(t_bank_bf16_kernel, B, R, n, F, rows_per_cta,
+                     filters_per_cta, threads, stream, x, y, gains,
+                     t_bank_bf16_leg(iii, ijj, ial, ibe, iext, ibstride, iP,
+                                     i0, ni),
+                     t_bank_bf16_leg(fii, fjj, fal, fbe, fext, fbstride, fP,
+                                     f0, nf));
+}
+
+// Resident CTAs per SM of a T bf16 form, as g_occupancy.
+int t_bf16_occupancy(int kind, int rows, int n, int P, int threads) {
+  const int ld = odd_stride(n);
+  const size_t smem =
+      operator_smem(rows, ld, threads / 32, TEntryBf16::kWords);
+  switch (kind) {
+    case 0:
+      return resident_ctas((const void*)t_chain_bf16_kernel, smem, threads);
+    case 1:
+      return resident_ctas((const void*)t_operator_bf16_kernel, smem,
+                           threads);
+    default:
+      return resident_ctas((const void*)t_bank_bf16_kernel,
+                           bank_smem(rows, ld, P * TEntryBf16::kWords),
+                           threads);
   }
 }
 

@@ -106,22 +106,27 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # ns; their geometry is (lanes per row, rows per warp, warps per CTA)
     stream_leg = [p, p, i, i, i]
     rows = [i, i, i, p]                      # geometry, stream
+    # each family's f32 form and its bf16 form (the kernels
+    # <family>_*_bf16_kernel) take the same arguments
     for family, tables in (("g", 5), ("t", 4)):
-        chain = getattr(lib, f"{family}_chain_launch")
-        chain.argtypes = head + stream_leg + rows
-        chain.restype = i
-        op = getattr(lib, f"{family}_operator_launch")
-        op.argtypes = head + [p] + stream_leg + stream_leg + rows
-        op.restype = i
-        # a bank leg is its tables, stage extents, matrix stride, P, s0,
-        # ns; the bank's geometry is (rows, filters) per CTA and threads
-        bank_leg = [p] * (tables + 1) + [ll, i, i, i]
-        bank = getattr(lib, f"{family}_bank_launch")
-        bank.argtypes = head + [p, i] + bank_leg + bank_leg + [i, i, i, p]
-        bank.restype = i
-        occ = getattr(lib, f"{family}_occupancy")
-        occ.argtypes = [i, i, i, i, i]       # kind, rows, n, P, threads
-        occ.restype = i
+        for form in ("", "_bf16"):
+            chain = getattr(lib, f"{family}_chain{form}_launch")
+            chain.argtypes = head + stream_leg + rows
+            chain.restype = i
+            op = getattr(lib, f"{family}_operator{form}_launch")
+            op.argtypes = head + [p] + stream_leg + stream_leg + rows
+            op.restype = i
+            # a bank leg is its tables, stage extents, matrix stride, P,
+            # s0, ns; the bank's geometry is (rows, filters) per CTA and
+            # threads
+            bank_leg = [p] * (tables + 1) + [ll, i, i, i]
+            bank = getattr(lib, f"{family}_bank{form}_launch")
+            bank.argtypes = (head + [p, i] + bank_leg + bank_leg
+                             + [i, i, i, p])
+            bank.restype = i
+            occ = getattr(lib, f"{family}{form}_occupancy")
+            occ.argtypes = [i, i, i, i, i]   # kind, rows, n, P, threads
+            occ.restype = i
     for fn in (lib.repro_max_smem_optin, lib.repro_smem_per_sm):
         fn.argtypes = []
         fn.restype = i

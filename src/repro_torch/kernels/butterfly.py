@@ -12,7 +12,9 @@ Four entry points, the port of the JAX package's Pallas TPU kernels in
 A tensor on the CPU goes to the plain PyTorch version (kernels/ref.py);
 a CUDA tensor launches the kernel or raises (kernels/launcher.py, which
 also keeps the launch counters).  The operator cuts the adjoint tables'
-head and the forward tables' tail.
+head and the forward tables' tail.  Tables whose values are
+bf16 (``core/staging.py::with_precision``) launch the kernel's bf16
+form, which widens each value to f32 on the card; signals are f32.
 """
 from __future__ import annotations
 

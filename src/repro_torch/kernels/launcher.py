@@ -6,7 +6,11 @@ PyTorch version they are given (kernels/ref.py), and otherwise check the
 arguments and launch the entry point's kernel on PyTorch's current
 stream, or raise (no nvcc, failed build, wrong dtype/shape/device):
 there is no fallback.
-Signals and values are f32, indices int32; other dtypes raise.  The
+Signals are f32, indices int32, and the value tables all f32 or all
+bf16; other dtypes raise.  Each entry point has two forms, one per value
+dtype: a bf16 form launches its kernel's bf16 instantiation, which reads
+the 16-bit values and widens them in registers (a widening is exact), so
+it computes what the f32 form computes on ``tables.float()``.  The
 anytime cut is passed to the kernel as a runtime (first stage, count) per
 leg: a chain's at the caller's ``keep``, each operator or bank leg at its
 family's ``leg_orientation``.
@@ -38,9 +42,11 @@ A batch is grid y of every launch, so a batch of more than ``_GRID_B``
 matrices is launched as consecutive slices of at most ``_GRID_B``
 (``batch_slices``), each on pointers offset to its first matrix.
 
-Every launch adds one to its entry point's count, in ONE registry for all
-families: ``entry_launch_counts()`` per entry point, ``launch_counts()``
-summed per kernel, ``reset_launch_counts()`` zeroes both.
+Every launch adds one to its entry point form's count, in ONE registry
+for all families: ``entry_launch_counts()`` per form (an entry point's
+name for f32 tables, the name with ``_bf16`` for bf16 ones),
+``launch_counts()`` summed per kernel (``g_chain_kernel``,
+``g_chain_bf16_kernel``, ...), ``reset_launch_counts()`` zeroes both.
 """
 from __future__ import annotations
 
@@ -50,33 +56,45 @@ from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.staging import StagedT, table_arrays
+from repro_torch.core.staging import (PRECISION_DTYPE, StagedT,
+                                      table_arrays, table_precision,
+                                      with_precision)
 from . import build
 from .ref import check_gains
 
-#: entry point -> the kernel it launches (its C launcher is
-#: ``<kernel without _kernel>_launch``)
-KERNEL_OF = {"batched_butterfly_apply": "g_chain_kernel",
-             "butterfly_apply": "g_chain_kernel",
-             "batched_sym_operator_apply": "g_operator_kernel",
-             "sym_operator_apply": "g_operator_kernel",
-             "batched_shear_apply": "t_chain_kernel",
-             "shear_apply": "t_chain_kernel",
-             "batched_gen_operator_apply": "t_operator_kernel",
-             "gen_operator_apply": "t_operator_kernel",
-             "batched_sym_filter_bank_apply": "g_bank_kernel",
-             "sym_filter_bank_apply": "g_bank_kernel",
-             "batched_gen_filter_bank_apply": "t_bank_kernel",
-             "gen_filter_bank_apply": "t_bank_kernel"}
+#: entry point -> the kernel its f32 form launches
+_F32_KERNEL_OF = {"batched_butterfly_apply": "g_chain_kernel",
+                  "butterfly_apply": "g_chain_kernel",
+                  "batched_sym_operator_apply": "g_operator_kernel",
+                  "sym_operator_apply": "g_operator_kernel",
+                  "batched_shear_apply": "t_chain_kernel",
+                  "shear_apply": "t_chain_kernel",
+                  "batched_gen_operator_apply": "t_operator_kernel",
+                  "gen_operator_apply": "t_operator_kernel",
+                  "batched_sym_filter_bank_apply": "g_bank_kernel",
+                  "sym_filter_bank_apply": "g_bank_kernel",
+                  "batched_gen_filter_bank_apply": "t_bank_kernel",
+                  "gen_filter_bank_apply": "t_bank_kernel"}
+#: the 12 entry points
+ENTRIES = tuple(_F32_KERNEL_OF)
+#: entry point form -> the kernel it launches (its C launcher is
+#: ``<kernel without _kernel>_launch``): ``entry`` for f32 value tables,
+#: ``entry + "_bf16"`` for bf16 ones
+KERNEL_OF = {**_F32_KERNEL_OF,
+             **{f"{e}_bf16": k.replace("_kernel", "_bf16_kernel")
+                for e, k in _F32_KERNEL_OF.items()}}
 KERNELS = tuple(dict.fromkeys(KERNEL_OF.values()))
 THREADS = 256
 #: matrices per launch: the grid's y dimension
 _GRID_B = 65535
-#: table stages in a bank CTA's shared ring, and words per entry of that
-#: ring and of an operator's stream (csrc/chain.cuh kRing; GPair::kWords,
-#: TEntry::kWords)
+#: table stages in a bank CTA's shared ring (csrc/chain.cuh kRing), and
+#: 32-bit words per entry of a chain or operator stream by (family,
+#: precision): GPair::kWords, TEntry::kWords, GPairBf16::kWords,
+#: TEntryBf16::kWords.  A bank ring holds the f32 form's words at either
+#: precision (GBankBf16 and TEntryBf16 widen the values into it).
 RING_STAGES = 4
-_ENTRY_WORDS = {"g": 8, "t": 4}
+_ENTRY_WORDS = {("g", "f32"): 8, ("t", "f32"): 4,
+                ("g", "bf16"): 4, ("t", "bf16"): 4}
 #: shared memory the card reserves for each resident block (Hopper: 1 KB),
 #: and the resident bank CTAs per SM that the geometry keeps room for
 _SMEM_RESERVED = 1024
@@ -135,10 +153,18 @@ def _leg_range(num_stages_total: int, num_stages: Optional[int],
             num_stages)
 
 
+def form(entry: str, precision: str) -> str:
+    """The launch counters' name of ``entry`` at a table precision."""
+    return entry if precision == "f32" else f"{entry}_{precision}"
+
+
 def _check_signal(x: torch.Tensor, ndim: int, what: str) -> None:
     if x.dtype != torch.float32:
-        raise TypeError(f"{what}: signals must be float32, got {x.dtype} "
-                        "(bf16 belongs to the precision slice)")
+        raise TypeError(
+            f"{what}: signals must be float32, got {x.dtype} (a precision="
+            "'bf16' plan takes a bf16 signal and walks it in f32; a bf16 "
+            "signal computed in bf16, as the JAX kernels do on f32 tables, "
+            "is not ported)")
     if x.device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, got "
                          f"device {x.device}")
@@ -151,8 +177,9 @@ def _check_signal(x: torch.Tensor, ndim: int, what: str) -> None:
 
 def _check_tables(staged, device: torch.device, batch: Optional[int],
                   n: int, what: str) -> Tuple[int, int]:
-    """Validate a StagedG/StagedT table set against the signal; returns
-    (S, P)."""
+    """Validate a StagedG/StagedT table set against the signal: int32
+    indices, value tables all f32 or all bf16 (``table_precision``);
+    returns (S, P)."""
     if staged.n != n:
         raise ValueError(f"{what}: tables are for n={staged.n}, signal has "
                          f"n={n}")
@@ -161,8 +188,10 @@ def _check_tables(staged, device: torch.device, batch: Optional[int],
     if len(shape) != want_dim or (batch is not None and shape[0] != batch):
         raise ValueError(f"{what}: tables of shape {shape} do not match "
                          f"{'(S, P)' if batch is None else f'({batch}, S, P)'}")
+    values = table_arrays(staged)[2].dtype
     for name, t in zip(staged._fields, table_arrays(staged)):
         dt = (torch.int32 if name.startswith("idx_")
+              else values if values in (torch.float32, torch.bfloat16)
               else torch.float32)
         if t.device != device:
             raise ValueError(f"{what}: table {name} on {t.device}, signal "
@@ -194,8 +223,9 @@ class BankGeometry(NamedTuple):
 def bank_ring_bytes(slots: int, family: str) -> int:
     """Bytes of a bank CTA's table ring: RING_STAGES stages of ``slots``
     entries of the family's ("g" or "t") ring words, and their extents
-    (csrc/chain.cuh::bank_smem)."""
-    return RING_STAGES * (slots * _ENTRY_WORDS[family] + 1) * 4
+    (csrc/chain.cuh::bank_smem).  The ring holds f32 words at either
+    table precision."""
+    return RING_STAGES * (slots * _ENTRY_WORDS[(family, "f32")] + 1) * 4
 
 
 @functools.lru_cache(maxsize=4096)
@@ -283,10 +313,11 @@ class OperatorGeometry(NamedTuple):
     resident: int
 
 
-def operator_ring_bytes(family: str) -> int:
+def operator_ring_bytes(family: str, precision: str = "f32") -> int:
     """Bytes of a warp's ring of stream entries in an operator CTA, for
-    the family "g" or "t" (csrc/chain.cuh::operator_smem)."""
-    return _RING_ENTRIES * _ENTRY_WORDS[family] * 4
+    the family "g" or "t" at a table precision (csrc/chain.cuh::
+    operator_smem): the bf16 G stream's entry is half the f32 one's."""
+    return _RING_ENTRIES * _ENTRY_WORDS[(family, precision)] * 4
 
 
 @functools.lru_cache(maxsize=4096)
@@ -342,23 +373,27 @@ def operator_geometry(batch: int, rows: int, n: int, ring_bytes: int,
 
 
 def _operator_geometry_on(device: torch.device, batch: int, rows: int,
-                          n: int, family: str) -> OperatorGeometry:
+                          n: int, family: str,
+                          precision: str) -> OperatorGeometry:
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
-    return operator_geometry(batch, rows, n, operator_ring_bytes(family),
+    return operator_geometry(batch, rows, n,
+                             operator_ring_bytes(family, precision),
                              *_card_limits(index))
 
 
 def launch_geometry(entry: str, batch: int, rows: int, n: int,
                     filters: int = 1, slots: int = 1) -> dict:
-    """The CTAs a launch of ``entry`` takes on the current card at x
-    (batch, rows, n) (a bank: ``filters`` filters on tables of ``slots``
-    slots per stage; a chain or an operator also its lanes per row, rows
-    per warp and warps per CTA), with the card's own reading of its
-    resident CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    """The CTAs a launch of ``entry`` (an entry point form: its bf16 form
+    is ``entry + "_bf16"``) takes on the current card at x (batch, rows,
+    n) (a bank: ``filters`` filters on tables of ``slots`` slots per
+    stage; a chain or an operator also its lanes per row, rows per warp
+    and warps per CTA), with the card's own reading of its resident CTAs
+    per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     kernel = KERNEL_OF[entry]
     dev = torch.device("cuda", torch.cuda.current_device())
     family, kind = kernel[0], kernel.split("_")[1]
+    precision = "bf16" if "_bf16_" in kernel else "f32"
     threads = THREADS
     if kind == "bank":
         geo = _bank_geometry_on(dev, batch, rows, n, filters, slots, family)
@@ -366,14 +401,16 @@ def launch_geometry(entry: str, batch: int, rows: int, n: int,
                "ctas": batch * geo.row_tiles * geo.groups}
         tile_rows = geo.rows * geo.filters
     else:
-        geo = _operator_geometry_on(dev, batch, rows, n, family)
+        geo = _operator_geometry_on(dev, batch, rows, n, family, precision)
         tile_rows = geo.warps * geo.rows_per_warp
         threads = 32 * geo.warps
         out = {"rows_per_cta": tile_rows, "filters_per_cta": 1,
                "lanes_per_row": geo.lanes, "rows_per_warp": geo.rows_per_warp,
                "warps_per_cta": geo.warps, "ctas": batch * geo.row_tiles}
     lib = build.library()
-    resident = getattr(lib, f"{family}_occupancy")(
+    occupancy = (f"{family}_occupancy" if precision == "f32"
+                 else f"{family}_{precision}_occupancy")
+    resident = getattr(lib, occupancy)(
         ("chain", "operator", "bank").index(kind), tile_rows, n, slots,
         threads)
     if resident < 0:
@@ -434,12 +471,14 @@ def entry_stream(staged) -> Tuple[torch.Tensor, torch.Tensor]:
     """An operator leg's compacted stream, built on the tables' device:
     ``(words, offsets)``.  ``words`` (E, k) int32 holds the real entries
     (index below n) of all matrices in (matrix, stage, slot) order in the
-    ring form of csrc/{butterfly,shear}.cu, k words each: (i, j, c, s,
-    sigma, 0, 0, 0) for G, (i, j, alpha, beta) for T, values as their
-    bits.  ``offsets`` (B, S + 1) int32: matrix b's stage s holds entries
-    [offsets[b, s], offsets[b, s + 1]), so offsets[b, 1:] - offsets[b, 0]
-    is the running sum of b's stage extents.  (S, P) tables give
-    B = 1."""
+    ring form of csrc/{butterfly,shear}.cu, k words each, values as their
+    bits: for f32 tables (i, j, c, s, sigma, 0, 0, 0) for G and (i, j,
+    alpha, beta) for T; for bf16 tables two values a word, the first in
+    the low half: (i, j, c|s, sigma|0) for G and (i, j, alpha|beta, 0)
+    for T.  ``offsets`` (B, S + 1) int32: matrix b's stage s holds
+    entries [offsets[b, s], offsets[b, s + 1]), so offsets[b, 1:] -
+    offsets[b, 0] is the running sum of b's stage extents.  (S, P) tables
+    give B = 1."""
     tabs = table_arrays(staged)
     ii = tabs[0]
     dev = ii.device
@@ -456,16 +495,28 @@ def entry_stream(staged) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"{sel.numel()} table entries exceed the stream's "
                          "int32 offsets")
     family = "t" if isinstance(staged, StagedT) else "g"
-    words = torch.zeros((sel.numel(), _ENTRY_WORDS[family]),
+    precision = table_precision(staged)
+    cols = [t[sel].view(torch.int32) for t in flat[:2]]
+    if precision == "f32":
+        cols += [t[sel].view(torch.int32) for t in flat[2:]]
+    else:
+        half = [t[sel].view(torch.int16) for t in flat[2:]]
+        half += [torch.zeros_like(half[0])] * (len(half) % 2)
+        cols += [torch.stack(half[k:k + 2], -1).view(torch.int32)[:, 0]
+                 for k in range(0, len(half), 2)]
+    words = torch.zeros((sel.numel(), _ENTRY_WORDS[(family, precision)]),
                         dtype=torch.int32, device=dev)
-    for k, t in enumerate(flat):
-        words[:, k] = t[sel].view(torch.int32)
+    for k, col in enumerate(cols):
+        words[:, k] = col
     return words, ends[at].to(torch.int32)
 
 
 #: id(idx_i) -> (weak references to the leg's tables, their versions, n,
-#: its stream)
+#: its stream), one cache per value precision: a basis's f32 and bf16
+#: table sets share their index tables, and an engine that probes on one
+#: and serves on the other keeps both streams
 _STREAMS: dict = {}
+_BF16_STREAMS: dict = {}
 _stream_counts = {"hits": 0, "misses": 0}
 
 
@@ -484,8 +535,27 @@ def reset_stream_cache_counts() -> None:
 def _cached_stream(staged) -> Tuple[torch.Tensor, torch.Tensor]:
     """``entry_stream`` kept beside the tables it was built from: a
     served basis builds its streams once, not per operator launch."""
-    return _kept(_STREAMS, table_arrays(staged), staged.n,
+    cache = _STREAMS if table_precision(staged) == "f32" else _BF16_STREAMS
+    return _kept(cache, table_arrays(staged), staged.n,
                  lambda: entry_stream(staged), _stream_counts)
+
+
+#: id(the first value table) -> (weak references to the value and index
+#: tables, their versions, n, the table set cast to the other precision)
+_CASTS: dict = {}
+
+
+def cast_tables(staged, precision: str):
+    """``with_precision(staged, precision)`` kept beside the tables it
+    casts while they live and are not written: repeated one-shot calls at
+    a precision other than the tables' (``ApproxEigenbasis.apply(
+    precision="bf16")`` on f32 tables) cast once and then share one cast
+    table set, and so one cached entry stream."""
+    tabs = table_arrays(staged)
+    if all(t.dtype == PRECISION_DTYPE[precision] for t in tabs[2:]):
+        return staged
+    return _kept(_CASTS, tabs[2:] + tabs[:2], staged.n,
+                 lambda: with_precision(staged, precision))
 
 
 def _check_diag(diag: torch.Tensor, x3: torch.Tensor, batched: bool,
@@ -516,10 +586,11 @@ def _padded_gains(gains: torch.Tensor, x3: torch.Tensor, batched: bool,
 
 
 class _PerMatrix(NamedTuple):
-    """A pointer argument that advances ``stride`` 4-byte elements per
-    matrix of the batch."""
+    """A pointer argument that advances ``stride`` elements of
+    ``itemsize`` bytes per matrix of the batch."""
     ptr: int
     stride: int
+    itemsize: int = 4
 
 
 def batch_slices(bsz: int) -> Iterator[Tuple[int, int]]:
@@ -539,14 +610,15 @@ def _sliced(x3: torch.Tensor, y: torch.Tensor,
     xy = (_PerMatrix(x3.data_ptr(), x3.stride(0)),
           _PerMatrix(y.data_ptr(), y.stride(0)))
     for b0, b1 in batch_slices(bsz):
-        at = [a.ptr + 4 * b0 * a.stride if isinstance(a, _PerMatrix) else a
-              for a in xy + args]
+        at = [a.ptr + a.itemsize * b0 * a.stride
+              if isinstance(a, _PerMatrix) else a for a in xy + args]
         yield (*at[:2], b1 - b0, r, n, *at[2:])
 
 
 def _launch(lib, entry: str, x3: torch.Tensor, y: torch.Tensor,
             args: tuple, geometry: tuple) -> torch.Tensor:
-    """Launch ``entry``'s kernel from ``lib`` (build.library()) from x3
+    """Launch the kernel of ``entry`` (an entry point form, ``form``)
+    from ``lib`` (build.library()) from x3
     (B, R, n) into y (B, ..., n), once per batch slice (``_sliced``):
     ``args`` are the C arguments after (x, y, B, R, n) and before the
     geometry, ``geometry`` those before the CUDA stream handle (a chain's
@@ -584,10 +656,20 @@ def _bank_leg(staged, x3: torch.Tensor, batched: bool,
                              what)
     stride = s_tot * p if batched else 0
     ext = _cached_extents(staged)
-    return (*(_PerMatrix(t.data_ptr(), stride)
+    return (*(_PerMatrix(t.data_ptr(), stride, t.element_size())
               for t in table_arrays(staged)),
             _PerMatrix(ext.data_ptr(), s_tot if batched else 0), stride, p,
             *_leg_range(s_tot, num_stages, keep))
+
+
+def _form(entry: str, *legs) -> str:
+    """The form of ``entry`` that the legs' (checked) tables take: they
+    must share one value precision."""
+    got = {table_precision(t) for t in legs}
+    if len(got) != 1:
+        raise TypeError(f"{entry}: the legs' value tables differ in "
+                        f"precision ({sorted(got)})")
+    return form(entry, got.pop())
 
 
 def _keeps(fwd) -> tuple:
@@ -604,11 +686,13 @@ def _chain_launch(entry: str, staged, x3: torch.Tensor,
     kernel = KERNEL_OF[entry]
     leg = _stream_leg(staged, x3, entry.startswith("batched"), num_stages,
                       keep, kernel)
+    entry = _form(entry, staged)
     bsz, r, n = x3.shape
     y = torch.empty_like(x3)
     if bsz == 0 or r == 0:
         return y
-    geo = _operator_geometry_on(x3.device, bsz, r, n, kernel[0])
+    geo = _operator_geometry_on(x3.device, bsz, r, n, kernel[0],
+                                table_precision(staged))
     return _launch(lib, entry, x3, y, leg,
                    (geo.lanes, geo.rows_per_warp, geo.warps))
 
@@ -628,11 +712,13 @@ def _operator_launch(entry: str, fwd, bwd, diag: torch.Tensor,
             + _stream_leg(fwd, x3, batched, num_stages, s_keep,
                           f"{kernel} fwd"))
     d = _check_diag(diag, x3, batched, kernel)
+    entry = _form(entry, fwd, bwd)
     bsz, r, n = x3.shape
     y = torch.empty_like(x3)
     if bsz == 0 or r == 0:
         return y
-    geo = _operator_geometry_on(x3.device, bsz, r, n, kernel[0])
+    geo = _operator_geometry_on(x3.device, bsz, r, n, kernel[0],
+                                table_precision(fwd))
     return _launch(lib, entry, x3, y, (_PerMatrix(d.data_ptr(), n), *legs),
                    (geo.lanes, geo.rows_per_warp, geo.warps))
 
@@ -650,6 +736,7 @@ def _bank_launch(entry: str, fwd, bwd, gains: torch.Tensor,
             + _bank_leg(fwd, x3, batched, num_stages, s_keep,
                         f"{kernel} fwd"))
     gp = _padded_gains(gains, x3, batched, kernel)
+    entry = _form(entry, fwd, bwd)
     bsz, r, n = x3.shape
     f = gp.shape[1]
     y = x3.new_empty((bsz, f, r, n))

@@ -24,6 +24,15 @@ PyTorch versions of kernels/ref.py on any device.  A plan defaults to
 on a CUDA device exists so that the kernels can be compared with their
 plain versions on the card.
 
+Precision policy: ``precision="bf16"`` stores the value tables in
+bfloat16 (``prepare`` casts them, indices stay int32) while accumulating
+in f32: the program runs the walk on the signal raised to f32 and
+returns the result in the caller's dtype, and the kernels (and the plain
+versions) widen each entry to the f32 signal's dtype as they use it, as
+the JAX package's ``table_op`` and Pallas kernels do.  An f32 plan takes
+f32 signals on the card; a bf16 signal computed in bf16 there is not
+ported.
+
 ``fused=False`` compiles the operator to the three-pass baseline
 (analysis apply, diagonal scale, synthesis apply as separate calls), the
 parity oracle of the fused path; a bank then runs F such three-pass
@@ -37,9 +46,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.staging import StagedG, StagedT, table_arrays
+from repro_torch.core.staging import (TABLE_PRECISIONS, StagedG, StagedT,
+                                      table_arrays)
 from . import butterfly as _bf
-from .launcher import leg_orientation
+from .launcher import cast_tables, leg_orientation
 from . import ref as _ref
 from . import shear as _sh
 from . import spectral as _sp
@@ -47,7 +57,7 @@ from . import spectral as _sp
 PLAN_FAMILIES = ("sym", "general")
 PLAN_MODES = ("apply", "operator", "bank")
 PLAN_BACKENDS = ("cuda", "torch")
-PLAN_PRECISIONS = ("f32",)
+PLAN_PRECISIONS = TABLE_PRECISIONS
 
 
 def _not_ported(what: str, slice_name: str) -> ValueError:
@@ -81,8 +91,6 @@ class ApplyPlan:
     block_b: Optional[int] = None
 
     def __post_init__(self):
-        if self.precision == "bf16":
-            raise _not_ported("precision='bf16'", "precision")
         if self.placement is not None:
             raise _not_ported("placement=", "multi-GPU placement")
         if self.block_b is not None:
@@ -127,9 +135,14 @@ class ApplyPlan:
     # -- tables and programs ---------------------------------------------
 
     def prepare(self, staged) -> tuple:
-        """The table tuple a program takes, on the plan's device."""
+        """The table tuple a program takes, on the plan's device, under
+        the plan's precision policy (``core/staging.py::with_precision``;
+        the cast is kept beside the tables it came from,
+        ``launcher.cast_tables``, so repeated one-shot calls share it)."""
         dev = torch.device(self.device)
-        return tuple(t.to(dev) for t in table_arrays(staged))
+        staged = type(staged)(*(t.to(dev) for t in table_arrays(staged)),
+                              staged.cuts, staged.n)
+        return table_arrays(cast_tables(staged, self.precision))
 
     def program(self):
         """The plan's program: ONE process-wide cache entry per plan."""
@@ -244,12 +257,24 @@ _ENTRY = {
 }
 
 
+def _accumulate_f32(op):
+    """The bf16 policy around a program: the walk runs on the signal
+    raised to f32 (the tables stay bf16 and are widened entry by entry),
+    and the result returns in the caller's dtype."""
+    def accumulate_f32(*args):
+        x = args[-1]
+        return op(*args[:-1], x.float()).to(x.dtype)
+    return accumulate_f32
+
+
 @functools.lru_cache(maxsize=None)
 def _compile(plan: ApplyPlan):
     """THE plan cache: every tier/refit/core program lives here."""
     if plan.mode != "apply" and not plan.fused:
-        return plan._three_pass()
-    return plan._dispatch()
+        op = plan._three_pass()
+    else:
+        op = plan._dispatch()
+    return op if plan.precision == "f32" else _accumulate_f32(op)
 
 
 def plan_cache_stats() -> dict:

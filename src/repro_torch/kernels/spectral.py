@@ -19,6 +19,7 @@ chooses r and F_g).  A tensor on the CPU goes
 to the plain PyTorch version (kernels/ref.py); a CUDA tensor launches the
 kernel or raises (kernels/launcher.py, which also keeps the launch
 counters).  Both legs are cut as the family's operator cuts them.
+Tables whose values are bf16 launch the kernel's bf16 form.
 """
 from __future__ import annotations
 

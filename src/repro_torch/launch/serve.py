@@ -41,6 +41,14 @@ versioned hot swaps:
         --graph-n 256 --transforms 4096 --signals 256 --update-rounds 4 \\
         --churn 0.002 [--drift-thresholds 0.01,0.08,0.5]
 
+``--precision bf16`` (any of the above) stores the served tables in
+bf16, as the JAX package's flag does: the value tables are cast once per
+serving version, the kernels widen each entry to f32 and accumulate in
+f32, and every dispatch launches the kernels' bf16 forms:
+
+    python -m repro_torch.launch.serve --fgft --precision bf16 \
+        --filter heat,tikhonov,wavelets:4 --graphs 64 --graph-n 256
+
 Engines and routers ``save``/``load`` through the checkpoint store in
 the JAX package's format, so either package restores the other's
 fleets (dynamic state included) without a refit.  The JAX package's
@@ -67,7 +75,6 @@ _LATER_FLAGS = {
     "--requests": "the LM scaffold", "--batch-slots": "the LM scaffold",
     "--prompt-len": "the LM scaffold", "--gen-len": "the LM scaffold",
     "--max-len": "the LM scaffold",
-    "--precision": "the precision (bf16)",
     "--serve-async": "the async service",
     "--load-requests": "the async service",
     "--load-workers": "the async service", "--qps": "the async service",
@@ -161,9 +168,12 @@ class FGFTServeEngine:
     ragged bucket: the fit is masked to each graph's real coordinates and
     a step's padded signal columns come back zeroed — the router
     (``RaggedFGFTServeEngine``) builds its per-bucket engines so.
-    ``precision`` ("f32"; "bf16" tables come with a later slice),
-    ``placement`` and ``mesh`` are refused with the name of the slice
-    that brings them.
+    ``precision`` ("f32" or "bf16"): the storage precision of the served
+    tables; "bf16" casts the value tables once per serving version
+    (``_install``) and accumulates in f32, while the tier refits, the
+    drift probe and the Lemma-1 refresh stay on the basis's f32 tables,
+    as the JAX engine does.  ``placement`` and ``mesh`` are refused with
+    the name of the slice that brings them.
 
     DYNAMIC mode (``dynamic=True``): the engine tracks the current
     Laplacians on its device, accepts streaming deltas through
@@ -191,7 +201,11 @@ class FGFTServeEngine:
                  mesh=None, device="cuda"):
         from repro_torch.core import ApproxEigenbasis
         from repro_torch.core.gtransform import _valid_mask
+        from repro_torch.core.staging import TABLE_PRECISIONS
         _refuse_unported(placement, mesh)
+        if precision not in TABLE_PRECISIONS:
+            raise ValueError(f"precision must be one of "
+                             f"{TABLE_PRECISIONS}, got {precision!r}")
         self.device = _resolve(device)
         self.backend = backend
         self._tier_spec = dict(tiers or {"full": 1.0})
@@ -305,9 +319,14 @@ class FGFTServeEngine:
         bindings and the filter bank's gains from the live spectrum) and
         swap it in with a single attribute store.  ``laps``: the
         Laplacians the tier spectra refit against — the fit stack at
-        construction, the updated stack on a dynamic swap."""
+        construction, the updated stack on a dynamic swap.  The served
+        tables are the basis's at the engine's precision: a bf16 cast is
+        kept beside the f32 tables (``launcher.cast_tables``), so a swap
+        that keeps its tables (a spectrum refresh) keeps its cast and its
+        entry streams."""
         from repro_torch.core.staging import table_arrays
         from repro_torch.dynamic.refit import prefix_spectrum
+        from repro_torch.kernels.launcher import cast_tables
         from repro_torch.kernels.plan import ApplyPlan
 
         full_stages = int(basis.fwd.num_stages)
@@ -342,8 +361,10 @@ class FGFTServeEngine:
                 device=str(self.device)).program()
         version = 0 if self._live is None else self._live.version + 1
         self._live = _LiveVersion(
-            basis=basis, fwd=table_arrays(basis.fwd),
-            bwd=table_arrays(basis.bwd), tiers=tiers, fns=fns,
+            basis=basis,
+            fwd=table_arrays(cast_tables(basis.fwd, self._precision)),
+            bwd=table_arrays(cast_tables(basis.bwd, self._precision)),
+            tiers=tiers, fns=fns,
             version=version, bank=bank, bank_gains=bank_gains,
             bank_fn=bank_fn)
         # default tier = highest quality in the map, whatever its name
@@ -734,7 +755,8 @@ def serve_fgft(args) -> dict:
     t0 = time.perf_counter()
     engine = FGFTServeEngine(laps, g, backend=args.backend, kind=kind,
                              tiers=args.tier_map, fused=args.fused,
-                             filters=args.filter, device=device)
+                             filters=args.filter, precision=args.precision,
+                             device=device)
     _sync(device)
     fit_s = time.perf_counter() - t0
     denom = (laps * laps).sum((1, 2))
@@ -835,8 +857,9 @@ class RaggedFGFTServeEngine:
     bucket (``apply_updates``, request-order ids) and each bucket runs
     its own controller tick and hot swap (``maintain``), so a burst of
     updates to small graphs never blocks the big bucket's serving
-    version.  ``placement`` and ``mesh`` are refused with the name of
-    the slice that brings them."""
+    version.  ``precision`` and ``fused`` go to every bucket engine.
+    ``placement`` and ``mesh`` are refused with the name of the slice
+    that brings them."""
 
     def __init__(self, laps, num_transforms: int = 0, n_iter: int = 3,
                  backend: Optional[str] = None,
@@ -1132,7 +1155,7 @@ def serve_fgft_ragged(args) -> dict:
     router = RaggedFGFTServeEngine(
         laps, args.transforms, backend=args.backend, kind=kind,
         filters=args.filter, tiers=args.tier_map, fused=args.fused,
-        device=device)
+        precision=args.precision, device=device)
     _sync(device)
     fit_s = time.perf_counter() - t0
     rel = router.rel_errors()
@@ -1221,14 +1244,16 @@ def serve_fgft_dynamic(args, on_round=None) -> dict:
         engine = RaggedFGFTServeEngine(
             laps, args.transforms, backend=args.backend, kind=kind,
             filters=args.filter, tiers=args.tier_map, dynamic=True,
-            policy=args.policy, fused=args.fused, device=device)
+            policy=args.policy, fused=args.fused, precision=args.precision,
+            device=device)
         engines = engine.engines
     else:
         g = args.transforms or int(2 * args.graph_n * np.log2(args.graph_n))
         engine = FGFTServeEngine(
             np.stack(laps), g, backend=args.backend, kind=kind,
             filters=args.filter, tiers=args.tier_map, dynamic=True,
-            policy=args.policy, fused=args.fused, device=device)
+            policy=args.policy, fused=args.fused, precision=args.precision,
+            device=device)
         engines = {args.graph_n: engine}
     _sync(device)
     fit_s = time.perf_counter() - t0
@@ -1352,6 +1377,11 @@ def parse_args(argv=None):
     ap.add_argument("--backend", choices=("cuda", "torch"), default=None,
                     help="cuda: the hand-written kernels (default on a "
                          "card); torch: their plain PyTorch versions")
+    ap.add_argument("--precision", choices=("f32", "bf16"), default="f32",
+                    help="storage precision of the served tables: bf16 "
+                         "halves the value-table bytes and keeps f32 "
+                         "accumulation (the filter error stays within "
+                         "the 2 Lip(h) delta bound)")
     ap.add_argument("--fused", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="serve through the fused one-launch operator "

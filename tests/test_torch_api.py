@@ -85,8 +85,13 @@ def test_fgft_filter_matches_jax(n, directed):
                             fused=fused), want)
         _close(f.project(xt, num_stages=k),
                jf.filter(jnp.asarray(x), lambda s: s, num_stages=k))
-    with pytest.raises(ValueError, match="bf16.* not ported"):
-        f.filter(xt, None, precision="bf16")
+    # bf16 table storage with f32 accumulation, fused and three-pass
+    for k in (None, mid):
+        want = jf.filter(jnp.asarray(x), lambda s: jnp.exp(-0.3 * s),
+                         num_stages=k, precision="bf16")
+        for fused in (True, False):
+            _close(f.filter(xt, lambda s: torch.exp(-0.3 * s), num_stages=k,
+                            precision="bf16", fused=fused), want)
 
 
 def _sym_laps(n=16, batch=2):

@@ -349,6 +349,16 @@ def test_engine_load_overrides_and_refusals(tmp_path):
                         device="cpu")
     with pytest.raises(NotImplementedError, match="placement"):
         FGFTServeEngine(laps, basis=teng.basis, mesh=object(), device="cpu")
+    # bf16 table storage is ported: the restored engine serves bf16
+    # tables, within the bf16 rounding of the f32 engine
+    half = FGFTServeEngine.load(tmp_path / "eng", precision="bf16",
+                                device="cpu")
+    assert half._live.fwd[2].dtype == torch.bfloat16
+    assert half._live.fwd[0].dtype == torch.int32
+    assert half.basis.fwd.c.dtype == torch.float32
+    y16, y32 = half.step(x), teng.step(x)
+    assert y16.dtype == torch.float32
+    assert float((y16 - y32).abs().max()) <= 0.03 * float(y32.abs().max())
     with pytest.raises(ValueError, match="precision"):
-        FGFTServeEngine.load(tmp_path / "eng", precision="bf16",
+        FGFTServeEngine.load(tmp_path / "eng", precision="fp8",
                              device="cpu")

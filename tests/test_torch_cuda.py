@@ -90,19 +90,12 @@ def test_cuda_plans_launch_the_kernels(cuda):
                                    ).operator(fwd, adj, diag, x)
     _close(y, y_plain)
     ApplyPlan.for_staged(fwd, "apply", keep="tail").apply(fwd, x)
-    assert launcher.launch_counts() == {"g_chain_kernel": 1,
-                                        "g_operator_kernel": 1,
-                                        "t_chain_kernel": 0,
-                                        "t_operator_kernel": 0,
-                                        "g_bank_kernel": 0,
-                                        "t_bank_kernel": 0}
+    assert launcher.launch_counts() == {
+        **dict.fromkeys(launcher.KERNELS, 0), "g_chain_kernel": 1,
+        "g_operator_kernel": 1}
     assert launcher.entry_launch_counts() == {
-        "batched_butterfly_apply": 1, "butterfly_apply": 0,
-        "batched_sym_operator_apply": 1, "sym_operator_apply": 0,
-        "batched_shear_apply": 0, "shear_apply": 0,
-        "batched_gen_operator_apply": 0, "gen_operator_apply": 0,
-        "batched_sym_filter_bank_apply": 0, "sym_filter_bank_apply": 0,
-        "batched_gen_filter_bank_apply": 0, "gen_filter_bank_apply": 0}
+        **dict.fromkeys(launcher.KERNEL_OF, 0),
+        "batched_butterfly_apply": 1, "batched_sym_operator_apply": 1}
 
 
 def test_cuda_wrapper_validation(cuda):
@@ -172,19 +165,12 @@ def test_cuda_general_plans_launch_the_t_kernels(cuda):
                                    ).operator(fwd, inv, diag, x)
     assert torch.equal(y, y_plain)
     ApplyPlan.for_staged(inv, "apply", keep="tail").apply(inv, x)
-    assert launcher.launch_counts() == {"g_chain_kernel": 0,
-                                        "g_operator_kernel": 0,
-                                        "t_chain_kernel": 1,
-                                        "t_operator_kernel": 1,
-                                        "g_bank_kernel": 0,
-                                        "t_bank_kernel": 0}
+    assert launcher.launch_counts() == {
+        **dict.fromkeys(launcher.KERNELS, 0), "t_chain_kernel": 1,
+        "t_operator_kernel": 1}
     assert launcher.entry_launch_counts() == {
-        "batched_butterfly_apply": 0, "butterfly_apply": 0,
-        "batched_sym_operator_apply": 0, "sym_operator_apply": 0,
-        "batched_shear_apply": 1, "shear_apply": 0,
-        "batched_gen_operator_apply": 1, "gen_operator_apply": 0,
-        "batched_sym_filter_bank_apply": 0, "sym_filter_bank_apply": 0,
-        "batched_gen_filter_bank_apply": 0, "gen_filter_bank_apply": 0}
+        **dict.fromkeys(launcher.KERNEL_OF, 0),
+        "batched_shear_apply": 1, "batched_gen_operator_apply": 1}
 
 
 def test_t_wrapper_validation(cuda):
@@ -663,3 +649,140 @@ def test_dynamic_engine_step_never_waits(cuda):
                           backend="torch", device="cuda").program()
         _close(y, plain(live.fwd, live.bwd, h(live.tiers["full"]["spectrum"]),
                         x))
+
+
+# ---------------------------------------------------------------------------
+# bf16 value tables: the kernels' bf16 forms
+# ---------------------------------------------------------------------------
+
+def _bf16_pair(family, n, batch, g, device):
+    """(fwd, bwd) f32 tables of random chains and their bf16 casts."""
+    if family == "sym":
+        fwd, bwd, _, _, _ = _tables(n, batch, g, device)
+    else:
+        fwd, bwd, _, _, _ = _t_tables(n, batch, g, device)
+    return (fwd, bwd), tuple(tst.with_precision(t, "bf16")
+                             for t in (fwd, bwd))
+
+
+@pytest.mark.parametrize("family", ["sym", "general"])
+@pytest.mark.parametrize("n,batch,g", [(16, 3, 64), (48, 2, 200),
+                                       (256, 2, 4096)])
+def test_bf16_forms_match_plain_versions_at_every_cut(cuda, family, n, batch,
+                                                      g):
+    """Every entry point's bf16 form against its plain version on the
+    same bf16 tables (G within the tolerance, T bitwise) and against its
+    f32 form on the widened tables, chain at both keeps, operator, and
+    bank at F in {1, 7, 33}, batched and B = 1."""
+    (f32, b32), (fwd, bwd) = _bf16_pair(family, n, batch, g, cuda)
+    wide = tuple(tst.with_precision(t, "f32") for t in (fwd, bwd))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((batch, 130, n), generator=gen, device=cuda)
+    diag = torch.rand((batch, n), generator=gen, device=cuda) * 2.0
+    gains = torch.rand((batch, 33, n), generator=gen, device=cuda) * 2.0
+    mod, pre = (bf, "g") if family == "sym" else (sh, "t")
+    chain = bf.batched_butterfly_apply if family == "sym" else \
+        sh.batched_shear_apply
+    chain_ref = ref.batched_g_apply if family == "sym" else \
+        ref.batched_t_apply
+    op = (bf.batched_sym_operator_apply if family == "sym"
+          else sh.batched_gen_operator_apply)
+    op_ref = (ref.batched_sym_operator_apply if family == "sym"
+              else ref.batched_gen_operator_apply)
+    bank = (ksp.batched_sym_filter_bank_apply if family == "sym"
+            else ksp.batched_gen_filter_bank_apply)
+    bank_ref = (ref.batched_sym_filter_bank_apply if family == "sym"
+                else ref.batched_gen_filter_bank_apply)
+    same = _close if family == "sym" else \
+        (lambda got, want: torch.testing.assert_close(got, want, rtol=0,
+                                                      atol=0))
+    launcher.reset_launch_counts()
+    for k in sorted({0, *fwd.cuts[:, 0].tolist()}):
+        for staged, w in ((fwd, wide[0]), (bwd, wide[1])):
+            for keep in ("head", "tail"):
+                y = chain(staged, x, k, keep)
+                same(y, chain_ref(staged, x, k, keep))
+                same(y, chain(w, x, k, keep))
+        y = op(fwd, bwd, diag, x, k)
+        same(y, op_ref(fwd, bwd, diag, x, k))
+        same(y, op(*wide, diag, x, k))
+        for f in (1, 7, 33):
+            gf = gains[:, :f].contiguous()
+            y = bank(fwd, bwd, gf, x, k)
+            same(y, bank_ref(fwd, bwd, gf, x, k))
+            same(y, bank(*wide, gf, x, k))
+    counts = launcher.launch_counts()
+    assert counts[f"{pre}_chain_bf16_kernel"] > 0
+    assert counts[f"{pre}_operator_bf16_kernel"] > 0
+    assert counts[f"{pre}_bank_bf16_kernel"] > 0
+    x1 = x[0].contiguous()
+    sf, sb = (type(t)(*(a[0].contiguous() for a in tst.table_arrays(t)),
+                      t.cuts, t.n) for t in (fwd, bwd))
+    for k in sorted({0, *fwd.cuts[:, 0].tolist()}):
+        single = mod.butterfly_apply if family == "sym" else mod.shear_apply
+        single_ref = (ref.staged_g_apply if family == "sym"
+                      else ref.staged_t_apply)
+        same(single(sf, x1, k, "tail"), single_ref(sf, x1, k, "tail"))
+        sop = (bf.sym_operator_apply if family == "sym"
+               else sh.gen_operator_apply)
+        sop_ref = (ref.sym_operator_apply if family == "sym"
+                   else ref.gen_operator_apply)
+        same(sop(sf, sb, diag[0], x1, k), sop_ref(sf, sb, diag[0], x1, k))
+        sbank = (ksp.sym_filter_bank_apply if family == "sym"
+                 else ksp.gen_filter_bank_apply)
+        sbank_ref = (ref.sym_filter_bank_apply if family == "sym"
+                     else ref.gen_filter_bank_apply)
+        g1 = gains[0].contiguous()
+        same(sbank(sf, sb, g1, x1, k), sbank_ref(sf, sb, g1, x1, k))
+    torch.cuda.synchronize()
+    assert launcher.entry_launch_counts()[
+        launcher.form("sym_filter_bank_apply" if family == "sym"
+                      else "gen_filter_bank_apply", "bf16")] > 0
+
+
+@pytest.mark.parametrize("family", ["sym", "general"])
+def test_bf16_batches_split_at_the_grid_limit(cuda, family, monkeypatch):
+    """The bf16 value tables advance 2 bytes a slot: a split launch on
+    offset pointers equals the unsplit one."""
+    _, (fwd, bwd) = _bf16_pair(family, 48, 7, 200, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((7, 130, 48), generator=gen, device=cuda)
+    diag = torch.rand((7, 48), generator=gen, device=cuda)
+    gains = torch.rand((7, 5, 48), generator=gen, device=cuda)
+    mod = bf if family == "sym" else sh
+    names = (("batched_butterfly_apply", "batched_sym_operator_apply",
+              "batched_sym_filter_bank_apply") if family == "sym" else
+             ("batched_shear_apply", "batched_gen_operator_apply",
+              "batched_gen_filter_bank_apply"))
+    k = int(fwd.cuts[1, 0])
+    calls = (lambda: getattr(mod, names[0])(fwd, x, k, "tail"),
+             lambda: getattr(mod, names[1])(fwd, bwd, diag, x, k),
+             lambda: getattr(ksp, names[2])(fwd, bwd, gains, x, k))
+    whole = [c() for c in calls]
+    monkeypatch.setattr(launcher, "_GRID_B", 3)
+    launcher.reset_launch_counts()
+    split = [c() for c in calls]
+    counts = launcher.entry_launch_counts()
+    for name, got, want in zip(names, split, whole):
+        assert torch.equal(got, want)
+        assert counts[launcher.form(name, "bf16")] == 3
+
+
+def test_bf16_plans_launch_the_bf16_forms(cuda):
+    (fwd, adj), _ = _bf16_pair("sym", 32, 2, 160, cuda)
+    x = torch.randn((2, 5, 7, 32), device=cuda)
+    diag = torch.rand((2, 32), device=cuda)
+    launcher.reset_launch_counts()
+    plan = ApplyPlan.for_staged(fwd, "operator", precision="bf16")
+    y = plan.operator(fwd, adj, diag, x)
+    again = plan.operator(fwd, adj, diag, x)
+    assert torch.equal(y, again)
+    y32 = ApplyPlan.for_staged(fwd, "operator").operator(fwd, adj, diag, x)
+    assert float((y - y32).abs().max()) <= 0.03 * float(y32.abs().max())
+    counts = launcher.entry_launch_counts()
+    assert counts["batched_sym_operator_apply_bf16"] == 2
+    assert counts["batched_sym_operator_apply"] == 1
+    with pytest.raises(TypeError, match="float32"):
+        bf.batched_sym_operator_apply(fwd, adj, diag,
+                                      x[:, 0].to(torch.bfloat16))
+

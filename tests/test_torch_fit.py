@@ -161,12 +161,27 @@ def test_sym_iterate_freezes_converged_matrix_per_matrix():
 
 
 def test_fit_rejects_what_is_not_ported():
+    from repro_torch.interop import basis_from_numpy
     lap = _laps(16, 2)
-    basis = ApproxEigenbasis.fit(lap, 8, n_iter=0, device="cpu")
-    x = torch.zeros((2, 3, 16))
+    jb = JaxBasis.fit(jnp.asarray(lap), 8, n_iter=0)
+    basis = basis_from_numpy(
+        "sym", 16, {k: np.asarray(getattr(jb.factors, k))
+                    for k in ("i", "j", "c", "s", "sigma")},
+        np.asarray(jb.spectrum), device="cpu")
+    # bf16 tables are ported: apply and project against the JAX package
+    x = np.random.default_rng(3).standard_normal((2, 3, 16)).astype(
+        np.float32)
+    for inverse in (False, True):
+        np.testing.assert_allclose(
+            basis.apply(x, inverse=inverse, precision="bf16").numpy(),
+            np.asarray(jb.apply(jnp.asarray(x), inverse=inverse,
+                                precision="bf16")), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        basis.project(x, h=lambda s: 1.0 / (1.0 + s),
+                      precision="bf16").numpy(),
+        np.asarray(jb.project(jnp.asarray(x), h=lambda s: 1.0 / (1.0 + s),
+                              precision="bf16")), rtol=2e-5, atol=2e-5)
     with pytest.raises(ValueError, match="precision"):
-        basis.apply(x, precision="bf16")
-    with pytest.raises(ValueError, match="precision"):
-        basis.project(x, precision="bf16")
+        basis.apply(x, precision="fp8")
     with pytest.raises(ValueError, match="spectrum shape"):
         ApproxEigenbasis.fit(lap, 8, spectrum=np.zeros(16), device="cpu")

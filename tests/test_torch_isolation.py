@@ -74,9 +74,9 @@ def test_cuda_plan_resolves_to_cuda_backend():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mode="bank", precision="bf16"), "precision"),
+    (dict(mode="bank", placement=object()), "placement"),
     (dict(family="general", mode="bank", block_b=64), "autotune"),
-    (dict(precision="bf16"), "precision"),
+    (dict(precision="bf16", block_b=64), "autotune"),
     (dict(placement=object()), "placement"),
     (dict(block_b=64), "autotune"),
     (dict(backend="pallas"), "backend"),

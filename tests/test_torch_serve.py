@@ -146,10 +146,22 @@ def test_cli_serves_on_cpu(capsys):
     assert "graph-transforms/s [torch]" in capsys.readouterr().out
 
 
+def test_cli_serves_bf16_tables_on_cpu(capsys):
+    out = serve.main(["--fgft", "--precision", "bf16", "--graphs", "2",
+                      "--graph-n", "16", "--signals", "4",
+                      "--filter-steps", "2", "--tiers", "full:1.0",
+                      "--device", "cpu", "--backend", "torch"])
+    engine = out["engine"]
+    assert engine._live.fwd[2].dtype == torch.bfloat16
+    assert engine.basis.fwd.c.dtype == torch.float32
+    assert out["stats"]["steps"] == {"full": 2}
+    assert "graph-transforms/s [torch]" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("argv,match", [
     (["--fgft", "--dynamic", "--drift-thresholds", "1,2"],
      "three comma-separated floats"),
-    (["--fgft", "--precision", "bf16"], "precision"),
+    (["--fgft", "--trace", "t.json"], "observability"),
     (["--fgft", "--serve-async"], "async"),
     (["--fgft", "--filter", "nosuch"], "unknown filter"),
     (["--graphs", "2"], "--fgft is required"),
