@@ -2,7 +2,11 @@
 
     python3 chip_smoke.py [--baseline DIR [DIR ...]]
 
-Phases (any failure exits non-zero; no phase swallows its own failure):
+Phases (any failure exits non-zero; no phase swallows its own failure).
+[main-filter], [main-dynamic] and [main-bf16] fit [main]'s fleet at its g
+and n_iter again through their CLIs; the G greedy of those fits is not run
+again but copied from [main]'s (``reuse_g_greedy``, a ``[reuse]`` line
+each), so that the run stays well inside its time limit:
 
 1. build   — compile the hand-written CUDA kernels (every csrc/*.cu, one
              nvcc process per source, all started together) from this
@@ -138,6 +142,49 @@ Phases (any failure exits non-zero; no phase swallows its own failure):
              the swap hits the entry-stream cache; e. the single-graph
              paths at bf16.  Every bf16 form must have launched; the bf16
              rows of the ``kernels`` line carry these launches.
+5e. main-async — the async front end (after [main-bf16]), on the tables
+             the earlier phases fitted (no fit at full width), each part
+             driven with the counts zeroed just before and read just
+             after, comparisons not counted: a. [main]'s basis with its
+             tiers and the F = 7 bank behind ``AsyncFGFTService(
+             max_queue=128, max_batch=8)``, 4096 tier and 1024 bank
+             requests of R = 8 rows from 16 closed-loop tenants: every
+             answer equal to ``step_versioned`` / ``step_bank_versioned``
+             on the request's rows alone (G within the G tolerance, the
+             largest max|dy| and whether it was bitwise printed),
+             ``batched_sym_operator_apply`` launches equal to the tier
+             dispatches and ``batched_sym_filter_bank_apply`` launches to
+             the bank dispatches, ``plan_compile`` spans equal to the
+             plan-cache misses (cache cleared first), each request's
+             queue, batch and execute spans sharing their endpoints with
+             the next one and with the request span, exactly (the
+             service's clock is rounded to 2^-20 s so that the sums are
+             exact); requests/s, p50/p99 of queue, service and total per
+             tier, mean occupancy, and the traced/untraced requests/s
+             ratio (the same load with ``obs.configure(enabled=False)``,
+             printed, not gated).  b. [main-directed]'s basis, 1024
+             requests, bitwise.  c. [main-ragged]'s saved router (no
+             fit), 1024 requests over its three buckets, one launch per
+             dispatch, pads 0 in every bucket output.  d. a dynamic
+             engine on [main]'s basis, a churn thread at 0.002 and the
+             maintainer at a 0.05 s interval (refresh threshold 0.002,
+             the others out of reach, hysteresis 1: REFRESH fires, and
+             an EXTEND comes only by escalation; the churn stops when the
+             first EXTEND starts, so there is at most one), 2048
+             requests: at least one swap, versions non-decreasing in
+             dispatch order, no failed request, the final full tier
+             against plain, a profiled REFRESH tick's kernels on other
+             CUDA streams than the serving launches' (in a process of its
+             own on the saved [main] basis: a profiler that has taken the
+             earlier phases' traces can lose a whole tick), total p99
+             while a tick runs against idle.  e. ``serve --fgft --serve-async
+             --dynamic --graphs 8 --graph-n 64 --load-requests 256
+             --load-workers 4 --trace T --metrics-dir M``: T loads as a
+             Chrome trace, M's metrics.json and metrics.prom hold
+             ``service_requests_total`` and ``plan_cache_misses_total``.
+             The operator, bank, T operator and chain batched entry
+             points must have launched; each ``kernels`` row carries
+             ``async_launches``.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
              graph (n = 256, g = 4096, n_iter = 3), then analysis, synthesis,
              project and the bank; ``shear_apply``, ``gen_operator_apply``
@@ -178,8 +225,9 @@ contraction).
 Output: progress lines, a {"kernels": [...]} line (24 rows: each entry
 point's f32 and bf16 form; launches per path: ``launches`` on the
 batched or single-graph path, or on [main-bf16] for a bf16 form,
-``ragged_launches``, ``dynamic_launches``), the card's name and power
-limit, and as the last line {"ok": true, "device": {...}}.
+``ragged_launches``, ``dynamic_launches``, ``async_launches``), the
+card's name and power limit, and as the last line {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -189,6 +237,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -2522,6 +2571,604 @@ def phase_main_bf16(errs, main, filt, single, main_dir, single_dir) -> dict:
             "dynamic_cache": cache, "phase_s": phase_s}
 
 
+#: the async front end of [main-async]: R-row requests from closed-loop
+#: tenants through AsyncFGFTService on the tables the earlier phases
+#: fitted (no fit at full width); the dynamic part's churn and refresh
+#: threshold; the CLI at a small size for the wiring
+ASYNC = dict(requests=4096, bank_requests=1024, directed_requests=1024,
+             ragged_requests=1024, dynamic_requests=2048, rows=8,
+             workers=16, max_queue=128, max_batch=8, churn=0.002,
+             maintain_interval=0.05, refresh=0.002,
+             cli=["--fgft", "--serve-async", "--dynamic", "--graphs", "8",
+                  "--graph-n", "64", "--load-requests", "256",
+                  "--load-workers", "4"])
+
+
+def span_clock():
+    """time.monotonic rounded to 2^-20 s: differences and sums of its
+    readings are exact in float64, so that a request's spans can be held
+    to their shared endpoints with ==."""
+    return round(time.monotonic() * 2 ** 20) / 2 ** 20
+
+
+def async_requests(sizes, count: int, seed: int, tiers=None) -> list:
+    """``count`` requests of ASYNC["rows"] rows cycling over the graphs
+    (and over ``tiers``; None: bank requests)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        gid = i % len(sizes)
+        x = rng.standard_normal((ASYNC["rows"], sizes[gid])).astype(
+            np.float32)
+        out.append((gid, x, None if tiers is None else tiers[i % len(tiers)],
+                    tiers is None))
+    return out
+
+
+def timed_load(svc, requests) -> tuple:
+    """(results, requests/s) of one closed-loop load."""
+    from repro_torch.launch.service import closed_loop_load
+    t0 = time.perf_counter()
+    results = closed_loop_load(svc, requests, workers=ASYNC["workers"])
+    rate = len(requests) / (time.perf_counter() - t0)
+    check(all(r is not None for r in results), "a request got no answer")
+    return results, rate
+
+
+def warm(svc, requests) -> None:
+    """Answer one request per (graph, tier) group, then zero the SLO
+    counters: first calls are not in the measured load."""
+    from repro_torch.launch.service import closed_loop_load
+    seen, first = set(), []
+    for req in requests:
+        if (req[0], req[2]) not in seen:
+            seen.add((req[0], req[2]))
+            first.append(req)
+    closed_loop_load(svc, first, workers=ASYNC["workers"])
+    sync()
+    svc.reset_stats()
+
+
+def hold_answers(tag, routes, requests, results, h, family: str) -> dict:
+    """Every answer against ``step_versioned`` (``step_bank_versioned``)
+    of its engine on that request's rows alone, zero-padded as the
+    service pads them, at the same tier and version; uncounted.  Returns
+    the largest max|dy| and whether every answer was bitwise equal."""
+    import torch
+    from repro_torch.launch.service import quantize_rows
+    worst, scale = [], 1.0
+    with uncounted():
+        for (gid, x, tier, bank), res in zip(requests, results):
+            route = routes[gid]
+            eng = route.engine
+            b, n = int(eng.basis.spectrum.shape[0]), eng.basis.n
+            r, size = x.shape
+            block = torch.zeros((b, quantize_rows(r), n), device=DEVICE)
+            block[route.row, :r, :size] = torch.from_numpy(x).to(DEVICE)
+            if bank:
+                y, v = eng.step_bank_versioned(block)
+                want = y[route.row, :, :r, :size]
+            else:
+                y, v = eng.step_versioned(block, h, tier=tier)
+                want = y[route.row, :r, :size]
+            check(v == res.version, f"[{tag}] graph {gid}: answered by "
+                  f"version {res.version}, reference at {v}")
+            got = torch.from_numpy(res.y).to(DEVICE)
+            check(got.shape == want.shape, f"[{tag}] graph {gid}: answer "
+                  f"{tuple(got.shape)} != {tuple(want.shape)}")
+            worst.append((got - want).abs().max())
+            scale = max(scale, float(want.abs().max()))
+        err = float(torch.stack(worst).max())
+    tol = 0.0 if family == "general" else TOL
+    check(err <= tol * scale, f"[{tag}] answers vs step_versioned on the "
+          f"request alone: max|dy| {err:.3e} > {tol} * {scale:.3e}")
+    return {"max_abs_err": err, "bitwise": err == 0.0, "scale": scale}
+
+
+def check_spans(tag, results) -> None:
+    """Each request's queue, batch and execute spans share their
+    endpoints with the next one and with the request span, exactly."""
+    from repro_torch import obs
+    by_id: dict = {}
+    for s in obs.default_tracer().spans(cat="serve"):
+        if s["trace_id"] is not None:
+            by_id.setdefault(s["trace_id"], {})[s["name"]] = s
+    for res in results:
+        sp = by_id.get(res.trace_id, {})
+        check(len(sp) == 4, f"[{tag}] request {res.trace_id}: spans "
+              f"{sorted(sp)}")
+        q, bt, ex, tot = (sp["request/queue"], sp["request/batch"],
+                          sp["request/execute"], sp["request"])
+        check(q["ts"] == tot["ts"] and q["ts"] + q["dur"] == bt["ts"]
+              and bt["ts"] + bt["dur"] == ex["ts"]
+              and ex["ts"] + ex["dur"] == tot["ts"] + tot["dur"]
+              and q["dur"] + bt["dur"] + ex["dur"] == tot["dur"]
+              == res.total_s and ex["dur"] == res.service_s,
+              f"[{tag}] request {res.trace_id}: spans do not share their "
+              f"endpoints: {q}, {bt}, {ex}, {tot}")
+
+
+def slo_text(stats) -> str:
+    """p50/p99 of queue, service and total per tier, in ms."""
+    lat = stats["latency"]
+    tiers = sorted({k.split("/")[0] for k in lat})
+    return "; ".join(
+        f"{t}: " + ", ".join(
+            f"{stage} p50 {lat[f'{t}/{stage}']['p50_s'] * 1e3:.3f} / p99 "
+            f"{lat[f'{t}/{stage}']['p99_s'] * 1e3:.3f} ms"
+            for stage in ("queue", "service", "total")) for t in tiers)
+
+
+def one_launch_per_dispatch(tag, counts, stats, entry) -> None:
+    check(counts[entry] == stats["dispatches"] > 0
+          and sum(counts.values()) == counts[entry],
+          f"[{tag}] {stats['dispatches']} fused dispatches but launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+
+
+def kernel_streams(prof) -> dict:
+    """kernel name -> the CUDA streams its launches ran on, from the
+    profiler's Chrome trace."""
+    import os
+    import tempfile
+    fd, path = tempfile.mkstemp(suffix=".json", dir=ROOT / "build")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+    finally:
+        os.unlink(path)
+    out: dict = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            stream = ev.get("args", {}).get("stream", ev.get("tid"))
+            out.setdefault(ev["name"], set()).add(stream)
+    return out
+
+
+def traced_streams(fn, want: tuple, traces: int = 3, before=None) -> dict:
+    """``kernel_streams`` of a profiled call of fn, from the first of up
+    to ``traces`` traces that holds a launch of a kernel named in
+    ``want`` (a trace now and then drops events); ``before(attempt)``
+    runs ahead of each, outside the trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    seen = []
+    for attempt in range(traces):
+        if before is not None:
+            before(attempt)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        streams = kernel_streams(prof)
+        if any(w in k for k in streams for w in want):
+            return streams
+        seen.append({k[:60]: sorted(v) for k, v in streams.items()})
+    raise SmokeFailure(f"no trace of {traces} holds a launch of {want}; "
+                       f"kernels and streams per trace: {seen}")
+
+
+def maintenance_streams(ckpt) -> dict:
+    """Child of [main-async] d, in a fresh process: a dynamic engine on the
+    [main] basis saved in ``ckpt`` (and its Laplacians, ``laps.npy``)
+    behind a service whose maintainer ticks only when asked; the CUDA
+    streams of 32 served requests, then of one REFRESH tick, each from a
+    torch.profiler trace (``traced_streams``).  The tick runs after a
+    quiet tick and one round of updates at DYNAMIC["forced_churn"].
+    Launches here are in no count of the parent's."""
+    from dataclasses import replace
+    import numpy as np
+    from repro_torch.core import ApproxEigenbasis
+    from repro_torch.dynamic import GraphStream, RefitPolicy
+    from repro_torch.graphs import community_graph
+    from repro_torch.kernels import build, launcher
+    from repro_torch.launch import serve
+    from repro_torch.launch.service import AsyncFGFTService
+    build.library()
+    ckpt = pathlib.Path(ckpt)
+    basis = ApproxEigenbasis.load(ckpt, device=DEVICE)
+    graphs = int(basis.spectrum.shape[0])
+    stream = GraphStream([community_graph(basis.n, seed=s)
+                          for s in range(graphs)])
+    laps = np.stack(stream.laplacians())
+    check(np.array_equal(laps, np.load(ckpt / "laps.npy")),
+          "[main-async streams] the stream differs from [main]'s Laplacians")
+    policy = RefitPolicy(refresh=ASYNC["refresh"], extend=1e9, refit=1e9,
+                         hysteresis=1.0, max_extends=1000)
+    tiers = serve.parse_tiers(MAIN["tiers"])
+    dyn = serve.FGFTServeEngine(laps, basis=basis, tiers=tiers,
+                                dynamic=True, policy=policy, device=DEVICE)
+    x_one = [(g, x, "full", False) for g, x, _, _ in
+             async_requests([basis.n] * graphs, 32, 65, sorted(tiers))]
+    attempts, launched = [], {}
+
+    def refresh_ready(attempt):
+        # a quiet tick (every threshold out of reach) clears a hysteresis
+        # floor an earlier tick left armed; then one round of updates
+        attempts.append(attempt)
+        dyn.controller.policy = replace(policy, refresh=1e9)
+        svc.maintain_now(timeout=120)
+        dyn.controller.policy = policy
+        update_round(dyn, stream, DYNAMIC["forced_churn"],
+                     90000 + 1000 * attempt)
+        sync()
+
+    def refresh_tick():
+        launcher.reset_launch_counts()
+        check(svc.maintain_now(timeout=120)["action"] == "refresh",
+              "[main-async streams] the profiled tick was not a REFRESH")
+        launched.clear()
+        launched.update({k: v for k, v in
+                         launcher.entry_launch_counts().items() if v})
+
+    with AsyncFGFTService(dyn, h=lowpass, name="smoke-streams",
+                          max_queue=ASYNC["max_queue"],
+                          max_batch=ASYNC["max_batch"]) as svc:
+        warm(svc, x_one)
+        serving = traced_streams(lambda: timed_load(svc, x_one),
+                                 ("g_operator_kernel",))
+        maintenance = traced_streams(
+            refresh_tick, ("g_chain_kernel", "g_operator_kernel"),
+            traces=6, before=refresh_ready)
+    return {"serving": {k: sorted(v) for k, v in serving.items()},
+            "maintenance": {k: sorted(v) for k, v in maintenance.items()},
+            "launched": launched, "attempt": len(attempts)}
+
+
+def phase_main_async(errs, main, main_dir) -> dict:
+    """[main-async]: the async front end (launch/service.py) on the tables
+    the earlier phases fitted, each part driven with the counts zeroed
+    just before and read just after (comparisons not counted).  a. the
+    [main] basis with its tiers and the F = 7 bank behind
+    ``AsyncFGFTService(max_queue=128, max_batch=8)``: 4096 tier requests
+    and 1024 bank requests of R = 8 rows from 16 closed-loop tenants,
+    every answer against ``step_versioned`` on the request alone, one
+    kernel launch per fused dispatch, compile spans equal to plan-cache
+    misses, each request's spans sharing their endpoints exactly; the
+    same tier load untraced (``obs.configure(enabled=False)``) for the
+    traced/untraced ratio.  b. the [main-directed] basis, 1024 requests
+    bitwise.  c. [main-ragged]'s saved router, 1024 requests over its
+    three buckets, pads 0 in every bucket output.  d. a dynamic engine on
+    the [main] basis under a churn thread, 2048 requests while the
+    maintainer ticks on its own CUDA stream: swaps, non-decreasing
+    versions, no failed request, the final full tier against plain, a
+    profiled tick's kernels on another stream than the serving launches
+    (``maintenance_streams``, in a child process), p99 while a tick runs
+    against idle.  e. ``serve --fgft --serve-async
+    --dynamic --trace T --metrics-dir M`` at a small size."""
+    from collections import Counter
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.dynamic import GraphStream, RefitPolicy
+    from repro_torch.dynamic.refit import Action
+    from repro_torch.graphs import community_graph
+    from repro_torch.kernels import launcher
+    from repro_torch.kernels.plan import (ApplyPlan, clear_plan_cache,
+                                          plan_cache_stats)
+    from repro_torch.launch import serve
+    from repro_torch.launch.service import AsyncFGFTService
+    t_phase = time.perf_counter()
+    counts: Counter = Counter()
+    tracer = obs.default_tracer()
+    tiers = sorted(serve.parse_tiers(MAIN["tiers"]))
+    svc_args = dict(max_queue=ASYNC["max_queue"],
+                    max_batch=ASYNC["max_batch"], clock=span_clock)
+
+    def driven(fn):
+        launcher.reset_launch_counts()
+        out = fn()
+        sync()
+        seen = launcher.entry_launch_counts()
+        counts.update(seen)
+        return out, seen
+
+    # a. static, undirected, full width: compile spans count from a
+    # cleared plan cache, so the engine is built after the clear
+    clear_plan_cache()
+    tracer.clear()
+    m_out = main["out"]
+    engine = serve.FGFTServeEngine(
+        m_out["laps"], basis=m_out["engine"].basis,
+        tiers=serve.parse_tiers(MAIN["tiers"]), filters=MAIN["filters"],
+        device=DEVICE)
+    sizes = [engine.basis.n] * int(engine.basis.spectrum.shape[0])
+    reqs = async_requests(sizes, ASYNC["requests"], 61, tiers)
+    bank_reqs = async_requests(sizes, ASYNC["bank_requests"], 62)
+    with AsyncFGFTService(engine, h=lowpass, name="smoke-static",
+                          **svc_args) as svc:
+        warm(svc, reqs)
+        (results, rate), seen = driven(lambda: timed_load(svc, reqs))
+        stats = svc.stats()
+        one_launch_per_dispatch("main-async", seen, stats,
+                                "batched_sym_operator_apply")
+        check(stats["served"] == len(reqs) and stats["errors"] == 0,
+              f"[main-async] served {stats['served']}, errors "
+              f"{stats['errors']}")
+        check_spans("main-async", results)
+        obs.configure(enabled=False)
+        try:
+            svc.reset_stats()
+            _, rate_off = timed_load(svc, reqs)
+        finally:
+            obs.configure(enabled=True)
+        warm(svc, bank_reqs)
+        (bank_results, bank_rate), bank_seen = driven(
+            lambda: timed_load(svc, bank_reqs))
+        bank_stats = svc.stats()
+        one_launch_per_dispatch("main-async bank", bank_seen, bank_stats,
+                                "batched_sym_filter_bank_apply")
+        check_spans("main-async bank", bank_results)
+    compiles = len(tracer.spans(cat="compile"))
+    misses = plan_cache_stats()["misses"]
+    check(compiles == misses > 0, f"[main-async] {compiles} compile spans, "
+          f"{misses} plan-cache misses")
+    routes = svc._routes
+    held = hold_answers("main-async", routes, reqs, results, lowpass, "sym")
+    bank_held = hold_answers("main-async bank", routes, bank_reqs,
+                             bank_results, None, "sym")
+    errs["batched_sym_operator_apply"] = max(
+        errs["batched_sym_operator_apply"], held["max_abs_err"])
+    errs["batched_sym_filter_bank_apply"] = max(
+        errs["batched_sym_filter_bank_apply"], bank_held["max_abs_err"])
+    log(f"[main-async] {len(reqs)} tier requests (R = {ASYNC['rows']}, "
+        f"{ASYNC['workers']} tenants, max_batch {ASYNC['max_batch']}): "
+        f"{rate:.1f} requests/s traced, {rate_off:.1f} untraced (traced/"
+        f"untraced {rate / rate_off:.4f}); {stats['dispatches']} fused "
+        f"dispatches = {seen['batched_sym_operator_apply']} operator "
+        f"launches, mean occupancy {stats['batch']['occupancy_mean']:.3f}"
+        f" (max {stats['batch']['occupancy_max']}), queue peak "
+        f"{stats['queue']['peak']}; {slo_text(stats)}")
+    log(f"[main-async] {len(bank_reqs)} bank requests (F = "
+        f"{len(engine.bank)}): {bank_rate:.1f} requests/s, "
+        f"{bank_stats['dispatches']} dispatches = "
+        f"{bank_seen['batched_sym_filter_bank_apply']} bank launches, mean "
+        f"occupancy {bank_stats['batch']['occupancy_mean']:.3f}; "
+        f"{slo_text(bank_stats)}")
+    log(f"[main-async] answers vs step_versioned on the request alone: "
+        f"tiers max|dy| {held['max_abs_err']:.3e} (bitwise "
+        f"{held['bitwise']}), bank {bank_held['max_abs_err']:.3e} (bitwise "
+        f"{bank_held['bitwise']}); compile spans {compiles} = plan-cache "
+        f"misses {misses}; every request's spans share their endpoints")
+
+    # b. directed: the [main-directed] basis, held bitwise
+    d_out = main_dir["out"]
+    d_engine = serve.FGFTServeEngine(
+        d_out["laps"], basis=d_out["engine"].basis,
+        tiers=serve.parse_tiers(MAIN["tiers"]), device=DEVICE)
+    d_reqs = async_requests(sizes, ASYNC["directed_requests"], 63, tiers)
+    with AsyncFGFTService(d_engine, h=lowpass, name="smoke-directed",
+                          **svc_args) as svc:
+        warm(svc, d_reqs)
+        (d_results, d_rate), d_seen = driven(lambda: timed_load(svc,
+                                                                d_reqs))
+        d_stats = svc.stats()
+        one_launch_per_dispatch("main-async directed", d_seen, d_stats,
+                                "batched_gen_operator_apply")
+    d_held = hold_answers("main-async directed", svc._routes, d_reqs,
+                          d_results, lowpass, "general")
+    log(f"[main-async directed] {len(d_reqs)} requests: {d_rate:.1f} "
+        f"requests/s, {d_stats['dispatches']} dispatches, every answer "
+        f"bitwise equal to step_versioned on the request alone; "
+        f"{slo_text(d_stats)}")
+
+    # c. ragged: [main-ragged]'s saved router, loaded (no fit)
+    router = serve.RaggedFGFTServeEngine.load(
+        ROOT / "build" / "ragged_checkpoint", device=DEVICE)
+    outputs = []
+    for w, eng in router.engines.items():
+        def keep(live, x, h, tier, _step=eng._step_on, _eng=eng):
+            y = _step(live, x, h, tier)
+            outputs.append((_eng, y))
+            return y
+        eng._step_on = keep
+    r_reqs = async_requests(router.sizes, ASYNC["ragged_requests"], 64,
+                            tiers)
+    with AsyncFGFTService(router, h=lowpass, name="smoke-ragged",
+                          **svc_args) as svc:
+        warm(svc, r_reqs)
+        outputs.clear()
+        (r_results, r_rate), r_seen = driven(lambda: timed_load(svc,
+                                                                r_reqs))
+        r_stats = svc.stats()
+        one_launch_per_dispatch("main-async ragged", r_seen, r_stats,
+                                "batched_sym_operator_apply")
+    for eng in router.engines.values():
+        del eng._step_on
+    with uncounted():
+        for eng, y in outputs:
+            if eng.basis.sizes is None:         # a bucket without pads
+                continue
+            pad = (torch.arange(eng.basis.n, device=DEVICE)
+                   >= torch.as_tensor(eng.basis.sizes,
+                                      device=DEVICE)[:, None])
+            check(bool((y.masked_select(pad[:, None, :]) == 0).all()),
+                  "[main-async ragged] a bucket output has nonzero pads")
+    r_held = hold_answers("main-async ragged", svc._routes, r_reqs,
+                          r_results, lowpass, "sym")
+    log(f"[main-async ragged] {len(r_reqs)} requests over buckets "
+        f"{sorted(router.engines)}: {r_rate:.1f} requests/s, "
+        f"{r_stats['dispatches']} dispatches ({len(outputs)} bucket "
+        f"outputs, pads 0 in each); answers vs step_versioned max|dy| "
+        f"{r_held['max_abs_err']:.3e} (bitwise {r_held['bitwise']}); "
+        f"{slo_text(r_stats)}")
+
+    # d. dynamic: churn and maintenance on the maintainer's own stream
+    policy = RefitPolicy(refresh=ASYNC["refresh"], extend=1e9, refit=1e9,
+                         hysteresis=1.0, max_extends=1000)
+    dyn = serve.FGFTServeEngine(
+        m_out["laps"], basis=m_out["engine"].basis,
+        tiers=serve.parse_tiers(MAIN["tiers"]), dynamic=True, policy=policy,
+        device=DEVICE)
+    stream = GraphStream([community_graph(MAIN["n"], seed=s)
+                          for s in range(len(sizes))])
+    check(np.array_equal(np.stack(stream.laplacians()), m_out["laps"]),
+          "[main-async dynamic] the stream differs from [main]'s Laplacians")
+    ticks = []
+    real_maintain, real_execute = dyn.maintain, dyn._execute
+    churn_stop = threading.Event()
+
+    def timed_maintain():
+        t0 = span_clock()
+        res = real_maintain()
+        ticks.append((t0, span_clock(), res["action"]))
+        return res
+
+    def one_extend(action, laps):
+        # at most one full-width EXTEND (~5 s) in the phase: the churn
+        # stops when the first starts
+        if action is Action.EXTEND:
+            churn_stop.set()
+        return real_execute(action, laps)
+
+    dyn.maintain, dyn._execute = timed_maintain, one_extend
+    churn_errors = []
+
+    def churn(svc):
+        try:
+            rnd = 0
+            while not churn_stop.is_set():
+                update_round(dyn, stream, ASYNC["churn"],
+                             20000 + 1000 * rnd)
+                svc.request_maintain()
+                rnd += 1
+                churn_stop.wait(ASYNC["maintain_interval"])
+        except Exception as exc:  # noqa: BLE001 — re-raised after join
+            churn_errors.append(exc)
+
+    y_reqs = async_requests(sizes, ASYNC["dynamic_requests"], 65, tiers)
+    try:
+        with AsyncFGFTService(dyn, h=lowpass, name="smoke-dynamic",
+                              maintain_interval=ASYNC["maintain_interval"],
+                              **svc_args) as svc:
+            warm(svc, y_reqs)
+            churner = threading.Thread(target=churn, args=(svc,),
+                                       name="smoke-churn")
+            launcher.reset_launch_counts()
+            churner.start()
+            try:
+                y_results, y_rate = timed_load(svc, y_reqs)
+            finally:
+                churn_stop.set()
+                churner.join(60)
+            check(not churner.is_alive() and not churn_errors,
+                  f"[main-async dynamic] churn failed: {churn_errors}")
+            y_stats = svc.stats()
+            svc.maintain_now(timeout=120)       # absorb the last updates
+            sync()
+            counts.update(launcher.entry_launch_counts())
+    finally:
+        dyn.maintain, dyn._execute = real_maintain, real_execute
+    acted = Counter(a for _, _, a in ticks)
+    check(y_stats["errors"] == 0 and y_stats["maintain"]["errors"] == 0
+          and y_stats["maintain"]["swaps"] >= 1 and acted["extend"] <= 1,
+          f"[main-async dynamic] stats {y_stats['maintain']}, errors "
+          f"{y_stats['errors']}, ticks {dict(acted)}")
+    ids = {r.trace_id for r in y_results}
+    order = sorted((s["ts"] + s["dur"], s["args"]["version"])
+                   for s in tracer.spans(name="request")
+                   if s["trace_id"] in ids)
+    versions = [v for _, v in order]
+    check(len(versions) == len(y_results) and versions == sorted(versions),
+          "[main-async dynamic] versions decrease in dispatch order")
+    # streams: in a process of its own on the same [main] tables
+    # (maintenance_streams); this process's profiler lost a tick's kernels
+    # after the earlier phases' hundreds of traces
+    ckpt = ROOT / "build" / "async_streams"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    m_out["engine"].basis.save(ckpt)
+    np.save(ckpt / "laps.npy", m_out["laps"])
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"),
+         "--maintenance-streams", str(ckpt)],
+        capture_output=True, text=True, timeout=300)
+    check(child.returncode == 0, f"[main-async dynamic] the stream check "
+          f"failed:\n{child.stdout[-2000:]}\n{child.stderr[-4000:]}")
+    traced = json.loads(child.stdout.strip().splitlines()[-1])
+    serve_streams, maint_streams = traced["serving"], traced["maintenance"]
+    serving = set().union(*map(set, serve_streams.values()))
+    maint = set().union(*map(set, maint_streams.values()))
+    check(maint and not (maint & serving),
+          f"[main-async dynamic] maintenance kernels on streams {maint}, "
+          f"serving launches on {serving}")
+    with uncounted():
+        live = dyn._live
+        x = torch.from_numpy(np.stack(
+            [x for _, x, _, _ in y_reqs[:len(sizes)]])).to(DEVICE)
+        plain = ApplyPlan(family="sym", mode="operator", n=dyn.basis.n,
+                          batched=True, backend="torch",
+                          device=DEVICE).program()
+        compare("batched_sym_operator_apply", dyn.step(x, lowpass),
+                plain(live.fwd, live.bwd,
+                      lowpass(live.tiers["full"]["spectrum"]), x), errs)
+    during = {"action": [], "reuse": [], "idle": []}
+    spans = {s["trace_id"]: s for s in tracer.spans(name="request")}
+    for res in y_results:
+        s = spans[res.trace_id]
+        t0, t1 = s["ts"], s["ts"] + s["dur"]
+        over = {act for a, b, act in ticks if a < t1 and t0 < b}
+        key = ("idle" if not over else "reuse" if over == {"reuse"}
+               else "action")
+        during[key].append(res.total_s)
+
+    def p99(xs):
+        if not xs:
+            return "none"
+        rank = max(int(np.ceil(0.99 * len(xs))), 1)
+        return f"{sorted(xs)[rank - 1] * 1e3:.3f} ms ({len(xs)} requests)"
+
+    log(f"[main-async dynamic] {len(y_reqs)} requests under churn "
+        f"{ASYNC['churn']}: {y_rate:.1f} requests/s; ticks {dict(acted)}, "
+        f"swaps {y_stats['maintain']['swaps']}, versions "
+        f"{versions[0]} -> {versions[-1]} non-decreasing in dispatch order, "
+        f"no failed request; total p99 while a refresh or extend tick runs "
+        f"{p99(during['action'])}, while a reuse tick (drift probe) runs "
+        f"{p99(during['reuse'])}, idle {p99(during['idle'])}; "
+        f"{slo_text(y_stats)}")
+    ours = sorted({name for name in launcher.KERNELS
+                   for k in maint_streams if f"{name}(" in k})
+    log(f"[main-async dynamic] a profiled REFRESH tick's "
+        f"{len(maint_streams)} kernels ({', '.join(ours)} and library "
+        f"kernels; the tick's wrappers launched "
+        f"{traced['launched']}) on CUDA streams {sorted(maint)}, the serving "
+        f"launches on {sorted(serving)} (a process of its own, trace "
+        f"{traced['attempt']} of up to 6); final full tier vs plain within "
+        f"{TOL} * scale")
+
+    # e. the CLI at a small size
+    out_dir = ROOT / "build" / "async_cli"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    trace_path, metrics_dir = out_dir / "trace.json", out_dir / "metrics"
+    argv = ASYNC["cli"] + ["--trace", str(trace_path), "--metrics-dir",
+                           str(metrics_dir), "--device", DEVICE]
+    cli, _ = driven(lambda: serve.main(argv))
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    check(any(e["name"] == "request" for e in events),
+          "[main-async cli] the trace holds no request span")
+    snap = json.loads((metrics_dir / "metrics.json").read_text())
+    prom = (metrics_dir / "metrics.prom").read_text()
+    for name in ("service_requests_total", "plan_cache_misses_total"):
+        check(name in snap and name in prom,
+              f"[main-async cli] {name} missing from the metrics files")
+    log(f"[main-async cli] serve {' '.join(argv)}: {cli['qps']:.1f} "
+        f"requests/s, versions {cli['versions']}; {len(events)} trace "
+        f"events, metrics.json/metrics.prom hold service_requests_total "
+        f"and plan_cache_misses_total")
+    for entry in ("batched_sym_operator_apply",
+                  "batched_sym_filter_bank_apply",
+                  "batched_gen_operator_apply", "batched_butterfly_apply"):
+        check(counts[entry] > 0, f"async path never launched {entry}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[main-async] {phase_s:.1f}s in all (budget 90 s); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return {"launches": dict(counts), "rate": rate, "rate_untraced":
+            rate_off, "stats": stats, "bank_rate": bank_rate,
+            "directed_rate": d_rate, "ragged_rate": r_rate,
+            "dynamic_rate": y_rate, "phase_s": phase_s}
+
+
 #: entry point -> (family, kernel) of the turns phase
 TURNS = {"batched_sym_operator_apply": ("sym", "g_operator_kernel"),
          "sym_operator_apply": ("sym", "g_operator_kernel"),
@@ -2621,6 +3268,43 @@ def phase_turns(baselines, main, single, main_dir, single_dir) -> list:
     return rows
 
 
+def reuse_g_greedy() -> None:
+    """From here on in this process, a G greedy
+    (``gtransform._approx_sym_core``) on exactly the inputs of an earlier
+    one returns a copy of that one's result instead of running again.
+    [main-filter], [main-dynamic] and [main-bf16] fit [main]'s fleet at
+    its g and n_iter through their CLIs: each greedy would take 50-90 s
+    of a run held to 1200 s.  Packing (a dynamic engine's pinned stage
+    quantum included), tiers and all that follows still run per
+    engine."""
+    import copy
+    import hashlib
+    import torch
+    from repro_torch.core import gtransform as gt
+    real = gt._approx_sym_core
+    done: dict = {}
+
+    def digest(t):
+        if t is None:
+            return None
+        data = torch.as_tensor(t).detach().cpu().contiguous().numpy()
+        return hashlib.sha256(data.tobytes()).hexdigest()
+
+    def core(s_mat, sbar0, g, n_iter, update_spectrum, eps, score,
+             size=None):
+        key = (tuple(s_mat.shape), digest(s_mat), digest(sbar0), g, n_iter,
+               update_spectrum, eps, score, digest(size))
+        if key in done:
+            log(f"[reuse] G greedy of {tuple(s_mat.shape)} at g = {g}, "
+                f"n_iter = {n_iter}: an earlier fit's result, not run again")
+        else:
+            done[key] = real(s_mat, sbar0, g, n_iter, update_spectrum, eps,
+                             score, size)
+        return copy.deepcopy(done[key])
+
+    gt._approx_sym_core = core
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2630,10 +3314,15 @@ def main() -> int:
     ap.add_argument("--time-entries", metavar="FILE",
                     help=argparse.SUPPRESS)
     ap.add_argument("--src", help=argparse.SUPPRESS)
+    ap.add_argument("--maintenance-streams", metavar="DIR",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time_entries:
         sys.path.insert(0, args.src)
         print(json.dumps(time_entries(args.time_entries)))
+        return 0
+    if args.maintenance_streams:
+        print(json.dumps(maintenance_streams(args.maintenance_streams)))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -2646,6 +3335,7 @@ def main() -> int:
     log(f"[card] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     phase_build()
+    reuse_g_greedy()
     errs: dict = {}
     phase_kernels(errs)
     main_rec = phase_main()
@@ -2665,6 +3355,7 @@ def main() -> int:
     dynamic = phase_main_dynamic(errs, main_dir)
     bf16 = phase_main_bf16(errs, main_rec, filter_rec, single, main_dir,
                            single_dir)
+    asynch = phase_main_async(errs, main_rec, main_dir)
     at = ("bf16", bf16["launches"])
     kernels += phase_main_shapes(main_rec, single, errs, *at)
     kernels += phase_bank_shapes("sym", filter_rec, filter_out["engine"],
@@ -2684,6 +3375,7 @@ def main() -> int:
     for row in kernels:
         row["ragged_launches"] = ragged_counts[row["entry"]]
         row["dynamic_launches"] = dynamic["launches"].get(row["entry"], 0)
+        row["async_launches"] = asynch["launches"].get(row["entry"], 0)
         row["max_abs_err"] = errs[row["entry"]]
     if args.baseline:
         turns = phase_turns(args.baseline, main_rec, single, main_dir,

@@ -18,9 +18,10 @@ pytree order (dict keys sorted, NamedTuple fields in declaration order,
 ``None`` dropped) and named by the path string ``jax.tree_util.keystr``
 gives (``['factors'].i``, ``['spectrum']``); dtype strings are numpy's.
 
-The JAX store also counts saves and restores and traces each as a span
-in its observability layer; this port has no such layer yet, so it
-keeps neither.
+As the JAX store does, it counts saves and restores
+(``checkpoint_saves_total``, ``checkpoint_restores_total``) and traces
+each as a ``checkpoint_save`` / ``checkpoint_restore`` span (cat
+``checkpoint``) in the port's observability layer (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -35,7 +36,16 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 _STEP_RE = re.compile(r"step_(\d+)$")
+
+# checkpoint I/O telemetry: counters in the registry, one timed span per
+# save/restore in the trace
+_OBS_SAVES = obs.counter("checkpoint_saves_total",
+                         "committed checkpoint saves")
+_OBS_RESTORES = obs.counter("checkpoint_restores_total",
+                            "checkpoint restores")
 
 
 def _is_namedtuple(node) -> bool:
@@ -102,6 +112,8 @@ def save_checkpoint(directory, step: int, state, *,
     full arrays whatever wrote them."""
     if shards < 1:
         raise ValueError(f"shards must be >= 1, got {shards}")
+    tracer = obs.default_tracer()
+    t_start = tracer.now()
     directory = pathlib.Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     final = _step_dir(directory, step)
@@ -137,6 +149,14 @@ def save_checkpoint(directory, step: int, state, *,
         shutil.rmtree(final)
     tmp.rename(final)            # atomic on the same filesystem
     marker.touch()               # commit marker written last
+    _OBS_SAVES.inc()
+    tracer.add_span(
+        "checkpoint_save", t_start, tracer.now(), cat="checkpoint",
+        args={"step": int(step), "leaves": len(manifest["leaves"]),
+              "shards": n_files,
+              "bytes": int(sum(int(np.prod(e["shape"] or [1]))
+                               * np.dtype(e["dtype"]).itemsize
+                               for e in manifest["leaves"]))})
     return final
 
 
@@ -182,6 +202,8 @@ def restore_checkpoint(directory, state_like, *,
     its ``state_like`` leaf (a numpy ``like`` leaf: its dtype, on the
     CPU).  Returns ``(state, step, metadata)``; a leaf path the
     checkpoint lacks raises ``KeyError``."""
+    tracer = obs.default_tracer()
+    t_start = tracer.now()
     directory = pathlib.Path(directory)
     step = _resolve_step(directory, step)
     final = _step_dir(directory, step)
@@ -210,6 +232,11 @@ def restore_checkpoint(directory, state_like, *,
         for f in files:
             f.close()
     state = _unflatten(state_like, iter(new_leaves))
+    _OBS_RESTORES.inc()
+    tracer.add_span(
+        "checkpoint_restore", t_start, tracer.now(), cat="checkpoint",
+        args={"step": int(step), "leaves": len(manifest["leaves"]),
+              "shards": num_files})
     return state, step, manifest.get("metadata", {})
 
 

@@ -40,6 +40,8 @@ from typing import Deque, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 
 class Action(enum.Enum):
     """Refit actions, ascending severity/cost."""
@@ -112,10 +114,9 @@ class RefitController:
     #: drift before/after, budget + floor state AFTER the tick.  Bounded
     #: and in-memory only (deliberately NOT in ``state_dict``: the
     #: timeline is run telemetry, not controller state — restoring it
-    #: would make checkpoint round-trips lossy in one direction).  The
-    #: JAX package also mirrors each entry to its tracer as a
-    #: ``refit_decision`` event; the port's tracer comes with its
-    #: observability slice, so the timeline is the only log here
+    #: would make checkpoint round-trips lossy in one direction).  Each
+    #: entry is also mirrored to the port's tracer as a
+    #: ``refit_decision`` event (cat ``maintain``)
     timeline: Deque[dict] = field(
         default_factory=lambda: deque(maxlen=512), repr=False,
         compare=False)
@@ -183,6 +184,8 @@ class RefitController:
                  "max_extends": int(self.policy.max_extends),
                  "floor": self._floor.value}
         self.timeline.append(entry)
+        obs.default_tracer().event("refit_decision", cat="maintain",
+                                   args=entry)
 
     def state_dict(self) -> dict:
         """JSON-able controller state for checkpoint metadata."""

@@ -51,6 +51,7 @@ name for f32 tables, the name with ``_bf16`` for bf16 ones),
 from __future__ import annotations
 
 import functools
+import threading
 import weakref
 from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
@@ -106,6 +107,10 @@ OPERATOR_LANES = (1, 2, 4, 8)
 _MAX_WARPS = 8
 _RING_ENTRIES = 32 * 8
 _launches = dict.fromkeys(KERNEL_OF, 0)
+#: guards the launch and cache counters: an async service's dispatcher
+#: and maintainer threads launch at the same time, and ``+= 1`` on a dict
+#: entry is not atomic
+_COUNT_LOCK = threading.Lock()
 
 
 def entry_launch_counts() -> dict:
@@ -430,27 +435,56 @@ def stage_extents(staged) -> torch.Tensor:
     return torch.where(ii < staged.n, slot, 0).amax(-1).to(torch.int32)
 
 
+def _built_on(t: torch.Tensor):
+    """(stream handle, event): the current stream, where an entry
+    computed from ``t`` was just enqueued, and an event recorded after
+    it (None on the CPU, which has no streams)."""
+    if t.device.type != "cuda":
+        return None
+    stream = torch.cuda.current_stream(t.device)
+    done = torch.cuda.Event()
+    done.record(stream)
+    return stream.cuda_stream, done
+
+
+def _join(built, device: torch.device) -> None:
+    """Order the current stream after an entry's build, where another
+    stream built it: an async service's maintainer builds entries on its
+    own stream that the dispatcher's stream then reads, and the other
+    way round, and the card must not read an entry before it is
+    written."""
+    if built is not None:
+        cur = torch.cuda.current_stream(device)
+        if cur.cuda_stream != built[0]:
+            cur.wait_event(built[1])
+
+
 def _kept(cache: dict, tensors: tuple, n: int, make: Callable,
           counts: Optional[dict] = None):
     """``make()`` kept in ``cache`` beside the tensors it is computed
     from, keyed on the first, while all of them live and none is
     replaced or written in place (their versions); the entry goes with
-    the first tensor.  ``counts`` tallies the lookups' hits and
-    misses."""
+    the first tensor.  A hit from another CUDA stream than the one that
+    built the entry waits (on the card) for the build.  ``counts``
+    tallies the lookups' hits and misses."""
     key = id(tensors[0])
     hit = cache.get(key)
     if (hit is not None and hit[2] == n
             and all(r() is t and v == t._version
                     for r, v, t in zip(hit[0], hit[1], tensors))):
         if counts is not None:
-            counts["hits"] += 1
+            with _COUNT_LOCK:
+                counts["hits"] += 1
+        _join(hit[4], tensors[0].device)
         return hit[3]
     if counts is not None:
-        counts["misses"] += 1
+        with _COUNT_LOCK:
+            counts["misses"] += 1
     out = make()
     refs = ((weakref.ref(tensors[0], lambda _, k=key: cache.pop(k, None)),)
             + tuple(weakref.ref(t) for t in tensors[1:]))
-    cache[key] = (refs, tuple(t._version for t in tensors), n, out)
+    cache[key] = (refs, tuple(t._version for t in tensors), n, out,
+                  _built_on(tensors[0]))
     return out
 
 
@@ -631,7 +665,8 @@ def _launch(lib, entry: str, x3: torch.Tensor, y: torch.Tensor,
     for c_args in _sliced(x3, y, args):
         build.check(lib, launch(*c_args, *geometry, stream),
                     f"{kernel} launch")
-        _launches[entry] += 1
+        with _COUNT_LOCK:
+            _launches[entry] += 1
     return y
 
 

@@ -46,6 +46,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.staging import (TABLE_PRECISIONS, StagedG, StagedT,
                                       table_arrays)
 from . import butterfly as _bf
@@ -145,8 +146,20 @@ class ApplyPlan:
         return table_arrays(cast_tables(staged, self.precision))
 
     def program(self):
-        """The plan's program: ONE process-wide cache entry per plan."""
-        return _compile(self)
+        """The plan's program: ONE process-wide cache entry per plan (two
+        equal plans return the identical program object)."""
+        before = _compile.cache_info().misses
+        prog = _compile(self)
+        # the miss counter increments inside _compile, the only place a
+        # program is built; a lookup that left `misses` untouched was a
+        # hit
+        if _compile.cache_info().misses == before:
+            _PLAN_HITS.inc(**self._obs_labels())
+        return prog
+
+    def _obs_labels(self) -> dict:
+        return {"family": self.family, "mode": self.mode,
+                "backend": self.backend, "n": self.n}
 
     def apply(self, staged, x: torch.Tensor) -> torch.Tensor:
         return self.program()(self.prepare(staged), x)
@@ -267,14 +280,38 @@ def _accumulate_f32(op):
     return accumulate_f32
 
 
+#: plan-cache telemetry, the JAX package's metrics: misses count INSIDE
+#: the lru-cached ``_compile`` body, the only code path where a program
+#: is built, so the compile spans in the trace equal the plan-cache
+#: misses by construction
+_PLAN_HITS = obs.counter(
+    "plan_cache_hits_total",
+    "plan-cache lookups served by an already-compiled program",
+    ("family", "mode", "backend", "n"))
+_PLAN_MISSES = obs.counter(
+    "plan_cache_misses_total",
+    "staged-program compilations (plan-cache misses)",
+    ("family", "mode", "backend", "n"))
+
+
 @functools.lru_cache(maxsize=None)
 def _compile(plan: ApplyPlan):
-    """THE plan cache: every tier/refit/core program lives here."""
-    if plan.mode != "apply" and not plan.fused:
-        op = plan._three_pass()
-    else:
-        op = plan._dispatch()
-    return op if plan.precision == "f32" else _accumulate_f32(op)
+    """THE plan cache: every tier/refit/core program lives here.  In the
+    port a "compilation" builds the dispatch closure over the entry
+    points (the kernels themselves are built once per process by
+    kernels/build.py); the ``plan_compile`` span times that build."""
+    labels = plan._obs_labels()
+    _PLAN_MISSES.inc(**labels)
+    with obs.default_tracer().span(
+            "plan_compile", cat="compile",
+            args={**labels, "fused": plan.fused,
+                  "num_stages": plan.num_stages,
+                  "precision": plan.precision}):
+        if plan.mode != "apply" and not plan.fused:
+            op = plan._three_pass()
+        else:
+            op = plan._dispatch()
+        return op if plan.precision == "f32" else _accumulate_f32(op)
 
 
 def plan_cache_stats() -> dict:

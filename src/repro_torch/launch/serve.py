@@ -51,8 +51,23 @@ f32, and every dispatch launches the kernels' bf16 forms:
 
 Engines and routers ``save``/``load`` through the checkpoint store in
 the JAX package's format, so either package restores the other's
-fleets (dynamic state included) without a refit.  The JAX package's
-other flags exit with an error naming the later slice.
+fleets (dynamic state included) without a refit.
+
+``--serve-async`` (with any of the above) serves the fleet through the
+async front end (launch/service.py): tenants submit a few signal rows on
+one graph each, a bounded queue admits or sheds them, a dispatcher
+coalesces them into one fused engine dispatch (one operator or bank
+launch on the card), and a dynamic fleet is maintained on a background
+thread, on a CUDA stream of its own, while serving continues.
+``--trace PATH`` and ``--metrics-dir DIR`` write the run's Chrome trace
+and its metrics (``metrics.json``, ``metrics.prom``) on exit, also when
+the run fails:
+
+    python -m repro_torch.launch.serve --fgft --serve-async --dynamic \
+        --graphs 8 --graph-n 64 --load-requests 256 --load-workers 4 \
+        --trace trace.json --metrics-dir metrics
+
+The JAX package's LM flags exit with an error naming the later slice.
 """
 from __future__ import annotations
 
@@ -60,12 +75,15 @@ import argparse
 import json
 import os
 import pathlib
+import threading
 import time
 from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from repro_torch import obs
 
 DEFAULT_TIERS = {"full": 1.0, "balanced": 0.5, "draft": 0.25}
 
@@ -75,13 +93,22 @@ _LATER_FLAGS = {
     "--requests": "the LM scaffold", "--batch-slots": "the LM scaffold",
     "--prompt-len": "the LM scaffold", "--gen-len": "the LM scaffold",
     "--max-len": "the LM scaffold",
-    "--serve-async": "the async service",
-    "--load-requests": "the async service",
-    "--load-workers": "the async service", "--qps": "the async service",
-    "--max-queue": "the async service", "--max-batch": "the async service",
-    "--maintain-interval": "the async service",
-    "--trace": "the observability", "--metrics-dir": "the observability",
 }
+
+# -- serving-engine telemetry, the JAX engine's metrics ---------------------
+_OBS_SWAPS = obs.counter("serve_swaps_total",
+                         "versioned hot swaps installed (version > 0)",
+                         ("family",))
+_OBS_VERSION = obs.gauge("serve_version", "live serving version",
+                         ("family",))
+_OBS_STEPS = obs.counter("serve_steps_total", "engine steps served",
+                         ("tier",))
+_OBS_DRIFT = obs.gauge("serve_drift_score",
+                       "per-graph drift score after the last maintain "
+                       "tick", ("graph",))
+_OBS_MAINTAIN = obs.counter("maintain_actions_total",
+                            "maintenance controller decisions",
+                            ("action",))
 
 
 @dataclass(frozen=True)
@@ -132,8 +159,12 @@ def _resolve(device) -> torch.device:
 
 
 def _sync(device: torch.device) -> None:
+    """Wait for the work enqueued on the calling thread's current stream
+    (an async service's maintainer runs on a stream of its own; a
+    device-wide synchronize would also wait for the dispatcher's
+    launches)."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def _not_ported(what: str, slice_name: str) -> NotImplementedError:
@@ -266,6 +297,15 @@ class FGFTServeEngine:
         self.versions = np.zeros(nb, np.int64)
         self._dirty = np.zeros(nb, bool)
         self._updates = 0
+        # the tracked Laplacians are written in place by apply_updates
+        # (any thread) and read by maintain (a service's maintainer
+        # thread): the lock orders the host side, and on the card the
+        # event recorded after the last add or snapshot orders the
+        # streams (see _snapshot); per-graph update counts tell a
+        # finished action which graphs were updated while it ran
+        self._laps_lock = threading.Lock()
+        self._laps_done = None
+        self._graph_rev = np.zeros(nb, np.int64)
         # drift is cached per update revision: an idle tick with pending
         # but unchanged updates reuses the last probe pass
         self._update_rev = 0
@@ -360,13 +400,25 @@ class FGFTServeEngine:
                 precision=self._precision, fused=self._fused,
                 device=str(self.device)).program()
         version = 0 if self._live is None else self._live.version + 1
-        self._live = _LiveVersion(
+        live = _LiveVersion(
             basis=basis,
             fwd=table_arrays(cast_tables(basis.fwd, self._precision)),
             bwd=table_arrays(cast_tables(basis.bwd, self._precision)),
             tiers=tiers, fns=fns,
             version=version, bank=bank, bank_gains=bank_gains,
             bank_fn=bank_fn)
+        # the version's tables, spectra and gains are written on this
+        # thread's stream (a service's maintenance stream) and read on
+        # the dispatcher's: they are complete before anyone can see them
+        _sync(self.device)
+        self._live = live
+        _OBS_VERSION.set(version, family=basis.kind)
+        if version > 0:
+            _OBS_SWAPS.inc(family=basis.kind)
+        obs.default_tracer().event(
+            "serve_swap", cat="serve",
+            args={"version": version, "family": basis.kind,
+                  "num_stages": full_stages, "tiers": sorted(tiers)})
         # default tier = highest quality in the map, whatever its name
         self.default_tier = max(
             tiers, key=lambda k: tiers[k]["num_transforms"])
@@ -421,6 +473,7 @@ class FGFTServeEngine:
         if h is not None and self._pad_mask is not None:
             d = d.masked_fill(self._pad_mask, 0.0)
         self.stats["steps"][tier] += 1
+        _OBS_STEPS.inc(tier=tier)
         x = torch.as_tensor(signals, dtype=torch.float32).to(self.device)
         return live.fns[tier](live.fwd, live.bwd, d, x)
 
@@ -447,11 +500,14 @@ class FGFTServeEngine:
         """``step_bank`` plus the serving version that produced the
         answer, both read from one ``_live`` snapshot."""
         live = self._live
+        return self._bank_on(live, signals), live.version
+
+    def _bank_on(self, live: _LiveVersion, signals) -> torch.Tensor:
         if live.bank is None:
             raise ValueError("engine was built without filters (--filter)")
+        _OBS_STEPS.inc(tier="bank")
         x = torch.as_tensor(signals, dtype=torch.float32).to(self.device)
-        return (live.bank_fn(live.fwd, live.bwd, live.bank_gains, x),
-                live.version)
+        return live.bank_fn(live.fwd, live.bwd, live.bank_gains, x)
 
     # -- streaming updates + drift-triggered refits ------------------------
 
@@ -488,30 +544,68 @@ class FGFTServeEngine:
             if dl.shape[0] > size:
                 raise ValueError(f"delta side {dl.shape[0]} exceeds graph "
                                  f"{graph_id}'s size {size}")
+        if not basis.batched and graph_id != 0:
+            raise ValueError("unbatched engine serves graph 0 only")
         dl = dl.to(self.device)
         if dl.shape[0] < n:                     # embed into the bucket
             pad = torch.zeros((n, n), dtype=torch.float32,
                               device=self.device)
             pad[:dl.shape[0], :dl.shape[1]] = dl
             dl = pad
-        if basis.batched:
-            self._laps[graph_id] += dl
-        else:
-            if graph_id != 0:
-                raise ValueError("unbatched engine serves graph 0 only")
-            self._laps += dl
-        self._dirty[graph_id] = True
-        self._updates += 1
-        self._update_rev += 1
+        with self._laps_lock:
+            self._after_laps()
+            if basis.batched:
+                self._laps[graph_id] += dl
+            else:
+                self._laps += dl
+            self._mark_laps()
+            self._dirty[graph_id] = True
+            self._graph_rev[graph_id] += 1
+            self._updates += 1
+            self._update_rev += 1
+
+    def _after_laps(self) -> None:
+        """Order the current stream after the last add into, or snapshot
+        of, the tracked Laplacians (caller holds ``_laps_lock``)."""
+        if self._laps_done is not None:
+            torch.cuda.current_stream(self.device).wait_event(
+                self._laps_done)
+
+    def _mark_laps(self) -> None:
+        """Record where the last add or snapshot was enqueued (caller
+        holds ``_laps_lock``)."""
+        if self.device.type == "cuda":
+            self._laps_done = torch.cuda.Event()
+            self._laps_done.record(torch.cuda.current_stream(self.device))
+
+    def _snapshot(self) -> tuple:
+        """``(laps, dirty, graph_revs, update_rev)``: a copy of the
+        tracked Laplacians as they stand, with the pending flags and
+        update counts it holds.  An action runs on one snapshot, as the
+        JAX engine's does (its ``jnp.asarray(self._laps_host)``):
+        ``apply_updates`` adds into ``_laps`` in place, so an update
+        applied while a refit runs would otherwise change the Laplacians
+        under the fit and its re-baseline.  On the card the copy waits
+        for every add enqueued before it, and every later add waits for
+        the copy."""
+        with self._laps_lock:
+            self._after_laps()
+            laps = self._laps.clone()
+            self._mark_laps()
+            return (laps, self._dirty.copy(), self._graph_rev.copy(),
+                    self._update_rev)
 
     def drift(self) -> np.ndarray:
         """Per-graph drift scores of the LIVE version on the tracked
         (updated) Laplacians: Hutchinson relative residual minus the
         baseline recorded at the last structural (re)fit, floored at 0."""
         self._require_dynamic()
+        return self._drift_on(self._snapshot()[0])
+
+    def _drift_on(self, laps) -> np.ndarray:
         from repro_torch.dynamic.drift import estimate_rel_residual
         p = self.controller.policy
-        est = estimate_rel_residual(self._live.basis, self._laps,
+        est = estimate_rel_residual(self._live.basis, laps,
                                     num_probes=p.num_probes, seed=p.seed)
         return np.maximum(np.atleast_1d(est) - self._baseline, 0.0)
 
@@ -529,13 +623,17 @@ class FGFTServeEngine:
             self.controller.record(Action.REUSE, zero,  # idle tick counts
                                    drift=zero)
             self._refresh_dynamic_stats(zero)
+            self._obs_maintain(Action.REUSE.value, zero, zero)
             return {"action": Action.REUSE.value, "drift": zero,
                     "post_drift": zero, "versions": self.versions.copy(),
                     "swap_version": self._live.version}
         t0 = time.perf_counter()
-        if self._scored_rev != self._update_rev:
-            self._last_drift = self.drift()
-            self._scored_rev = self._update_rev
+        # the whole tick (drift, action, re-baseline, post-action drift)
+        # sees one set of Laplacians
+        laps, dirty, graph_rev, rev = self._snapshot()
+        if self._scored_rev != rev:
+            self._last_drift = self._drift_on(laps)
+            self._scored_rev = rev
         drift = self._last_drift
         self.maintain_ms["drift"] = (time.perf_counter() - t0) * 1e3
         # the general family has no cheap spectrum refresh (Lemma 2 needs
@@ -544,30 +642,48 @@ class FGFTServeEngine:
                                         can_refresh=self._kind == "sym")
         post = drift
         if action is not Action.REUSE:
-            self._execute(action)
-            bump = self._dirty.copy()
+            self._execute(action, laps)
+            with self._laps_lock:
+                # a graph updated while the action ran stays pending
+                self._dirty = self._graph_rev != graph_rev
+            bump = dirty
             if action in (Action.EXTEND, Action.REFIT):
                 bump[:] = True      # every chain in the batch was regrown
             self.versions[bump] += 1
-            self._dirty[:] = False
             t0 = time.perf_counter()
-            post = self.drift()
+            post = self._drift_on(laps)
             self.maintain_ms["post_drift"] = (time.perf_counter() - t0) * 1e3
             self._last_drift = post
-            self._scored_rev = self._update_rev
+            self._scored_rev = rev
         self.controller.record(action, post, drift=drift)
         self._refresh_dynamic_stats(post)
+        self._obs_maintain(action.value, drift, post)
         return {"action": action.value, "drift": drift, "post_drift": post,
                 "versions": self.versions.copy(),
                 "swap_version": self._live.version}
 
-    def _execute(self, action):
-        """Run one refit action and install the resulting serving
-        version."""
+    def _obs_maintain(self, action: str, drift, post):
+        """Record one maintain decision: the action counter, per-graph
+        drift gauges (post-action scores) and one trace event beside the
+        controller's timeline entry."""
+        _OBS_MAINTAIN.inc(action=action)
+        post = np.atleast_1d(np.asarray(post, np.float64))
+        for gid, d in enumerate(post):
+            _OBS_DRIFT.set(float(d), graph=gid)
+        obs.default_tracer().event(
+            "maintain", cat="maintain",
+            args={"action": action,
+                  "drift_max": float(np.max(np.atleast_1d(drift))),
+                  "post_drift_max": float(np.max(post)),
+                  "swap_version": self._live.version})
+
+    def _execute(self, action, laps):
+        """Run one refit action on ``laps`` (the tick's snapshot of the
+        tracked Laplacians) and install the resulting serving version."""
         from repro_torch.core import ApproxEigenbasis
         from repro_torch.dynamic.drift import relative_objective
         from repro_torch.dynamic.refit import Action, lemma1_refresh
-        basis, laps = self._live.basis, self._laps
+        basis = self._live.basis
         t0 = time.perf_counter()
         if action is Action.REFRESH:
             # spectrum-only: the factor chain (its staged tables, and the
@@ -595,7 +711,6 @@ class FGFTServeEngine:
         _sync(self.device)
         t1 = time.perf_counter()
         self._install(basis, laps)
-        _sync(self.device)
         self.maintain_ms["action"] = (t1 - t0) * 1e3
         self.maintain_ms["install"] = (time.perf_counter() - t1) * 1e3
 
@@ -734,10 +849,15 @@ def serve_fgft(args) -> dict:
     ``--directed``), fit them in one batched run, serve filter steps at
     every configured quality tier, or the filter bank of ``--filter``
     (a mixed-size fleet with ``--ragged``: ``serve_fgft_ragged``; an
-    evolving one with ``--dynamic``: ``serve_fgft_dynamic``)."""
+    evolving one with ``--dynamic``: ``serve_fgft_dynamic``; any of them
+    behind the async front end with ``--serve-async``:
+    ``launch/service.py::serve_fgft_async``)."""
     from repro_torch.core.fgft import laplacian
     from repro_torch.graphs import community_graph, directed_variant
 
+    if args.serve_async:
+        from repro_torch.launch.service import serve_fgft_async
+        return serve_fgft_async(args)
     if args.dynamic:
         return serve_fgft_dynamic(args)
     if args.ragged:
@@ -1404,6 +1524,35 @@ def parse_args(argv=None):
                     help="refit-policy thresholds as "
                          "'refresh,extend,refit' drift scores "
                          "(default: the RefitPolicy defaults)")
+    ap.add_argument("--serve-async", action="store_true",
+                    help="serve through the ASYNC front end (implies "
+                         "--fgft): bounded request queue with load "
+                         "shedding, cross-tenant micro-batching into "
+                         "fused dispatches, background maintenance on "
+                         "its own CUDA stream, per-tier SLO stats "
+                         "(launch/service.py)")
+    ap.add_argument("--load-requests", type=int, default=64,
+                    help="requests generated by the --serve-async load")
+    ap.add_argument("--load-workers", type=int, default=4,
+                    help="closed-loop tenant threads in --serve-async")
+    ap.add_argument("--qps", type=float, default=0.0,
+                    help="open-loop arrival rate for --serve-async "
+                         "(0 = closed loop driven by --load-workers)")
+    ap.add_argument("--max-queue", type=int, default=128,
+                    help="admission-control queue bound (requests past "
+                         "it are shed with a typed rejection)")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="max requests coalesced into one fused dispatch")
+    ap.add_argument("--maintain-interval", type=float, default=0.05,
+                    help="background maintenance period in seconds "
+                         "(--serve-async --dynamic)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON of the run's "
+                         "spans and events to PATH on exit (loads in "
+                         "chrome://tracing and Perfetto)")
+    ap.add_argument("--metrics-dir", default=None, metavar="DIR",
+                    help="write metrics.json + metrics.prom snapshots "
+                         "of the obs registry into DIR on exit")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to fit and serve on")
@@ -1423,8 +1572,11 @@ def parse_args(argv=None):
                 raise ValueError("empty filter bank")
         except ValueError as e:
             ap.error(str(e))
-    if args.ragged or args.dynamic:
+    if args.ragged or args.dynamic or args.serve_async:
         args.fgft = True
+    for flag in ("max_queue", "max_batch", "load_workers"):
+        if getattr(args, flag) < 1:
+            ap.error(f"--{flag.replace('_', '-')} must be >= 1")
     args.policy = None
     if args.drift_thresholds:
         from repro_torch.dynamic.refit import RefitPolicy
@@ -1458,8 +1610,24 @@ def parse_args(argv=None):
     return args
 
 
+def _export_obs(args):
+    """``--trace`` / ``--metrics-dir``: runs on every exit path (``main``
+    wraps the serving functions in try/finally), so a failed run still
+    leaves its telemetry behind."""
+    if args.trace:
+        path = obs.export_trace(args.trace)
+        print(f"[obs] chrome trace -> {path}")
+    if args.metrics_dir:
+        out = obs.export_metrics(args.metrics_dir)
+        print(f"[obs] metrics -> {out['json']} + {out['prom']}")
+
+
 def main(argv=None):
-    return serve_fgft(parse_args(argv))
+    args = parse_args(argv)
+    try:
+        return serve_fgft(args)
+    finally:
+        _export_obs(args)
 
 
 if __name__ == "__main__":

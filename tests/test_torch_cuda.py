@@ -191,7 +191,8 @@ def _batch_for_lanes(lanes, rows, n, family, device):
     """The fewest matrices at which the operator geometry on this card
     takes ``lanes`` lanes per row."""
     for batch in range(1, 257):
-        geo = launcher._operator_geometry_on(device, batch, rows, n, family)
+        geo = launcher._operator_geometry_on(device, batch, rows, n, family,
+                                             "f32")
         if geo.lanes == lanes:
             return batch
     pytest.fail(f"no batch up to 256 takes {lanes} lanes per row")
@@ -786,3 +787,50 @@ def test_bf16_plans_launch_the_bf16_forms(cuda):
         bf.batched_sym_operator_apply(fwd, adj, diag,
                                       x[:, 0].to(torch.bfloat16))
 
+
+
+def test_async_service_on_the_card(cuda):
+    """The async front end on the card: one operator launch per fused
+    dispatch, every answer equal to ``step_versioned`` on the request
+    alone, and every maintenance tick on the service's own stream (not
+    the dispatcher's)."""
+    from repro_torch.core.fgft import laplacian
+    from repro_torch.dynamic import RefitPolicy
+    from repro_torch.graphs import erdos_renyi, weight_jitter
+    from repro_torch.launch.serve import FGFTServeEngine
+    from repro_torch.launch.service import AsyncFGFTService
+    adjs = [erdos_renyi(16, 0.4, seed=s) for s in range(3)]
+    engine = FGFTServeEngine(np.stack([laplacian(a) for a in adjs]), 48,
+                             n_iter=1, dynamic=True,
+                             policy=RefitPolicy(refresh=1e-9, extend=10.0,
+                                                refit=10.0), device=cuda)
+    ticks = []
+    real = engine.maintain
+
+    def spy():
+        ticks.append(torch.cuda.current_stream(cuda).cuda_stream)
+        return real()
+
+    engine.maintain = spy
+    rng = np.random.default_rng(0)
+    xs = [rng.standard_normal((2, 16)).astype(np.float32) for _ in range(12)]
+    with AsyncFGFTService(engine, max_batch=4) as svc:
+        launcher.reset_launch_counts()
+        results = [f.result(timeout=60) for f in
+                   [svc.submit(k % 3, x) for k, x in enumerate(xs)]]
+        stats = svc.stats()
+        assert launcher.entry_launch_counts()[
+            "batched_sym_operator_apply"] == stats["dispatches"]
+        for k, (x, res) in enumerate(zip(xs, results)):
+            block = torch.zeros((3, 8, 16), device=cuda)
+            block[k % 3, :2] = torch.from_numpy(x).to(cuda)
+            y, v = engine.step_versioned(block, tier="full")
+            assert v == res.version == 0
+            _close(torch.from_numpy(res.y).to(cuda), y[k % 3, :2])
+        engine.apply_updates(1, weight_jitter(adjs[1], 6, scale=0.2,
+                                              seed=1))
+        assert svc.maintain_now(timeout=60)["action"] == "refresh"
+        assert engine._live.version == 1
+        stream = svc.maintain_stream.cuda_stream
+    assert ticks and set(ticks) == {stream}
+    assert stream != torch.cuda.default_stream(cuda).cuda_stream

@@ -161,8 +161,8 @@ def test_cli_serves_bf16_tables_on_cpu(capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--fgft", "--dynamic", "--drift-thresholds", "1,2"],
      "three comma-separated floats"),
-    (["--fgft", "--trace", "t.json"], "observability"),
-    (["--fgft", "--serve-async"], "async"),
+    (["--fgft", "--arch", "qwen2-1.5b"], "LM scaffold"),
+    (["--fgft", "--serve-async", "--max-batch", "0"], "--max-batch"),
     (["--fgft", "--filter", "nosuch"], "unknown filter"),
     (["--graphs", "2"], "--fgft is required"),
     (["--fgft", "--tiers", "full:2"], "fraction"),
