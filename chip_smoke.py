@@ -10,7 +10,9 @@ each), so that the run stays well inside its time limit:
 
 1. build   — compile the hand-written CUDA kernels (every csrc/*.cu, one
              nvcc process per source, all started together) from this
-             checkout and load them.
+             checkout and load them; print each kernel's registers and
+             spills (``nvcc -Xptxas -v``) and its FFMA count
+             (``cuobjdump -sass``): a bf16-signal kernel must have none.
 2. kernels — hold each kernel against its plain PyTorch version on the card:
              the G kernels (csrc/butterfly.cu) and the T kernels
              (csrc/shear.cu), chain, operator and bank, batched and B = 1,
@@ -22,11 +24,16 @@ each), so that the run stays well inside its time limit:
              check is printed).  The same checks run on the same tables
              cast to bf16 (the bf16 forms of all 12 entry points, G chains
              now at both keeps), each bf16 form also against its own f32
-             form on the widened tables (max|dy| printed).  Then the batch
-             split, f32 and bf16: a batch of 7 at a grid limit forced down
-             to 3 matrices (launcher._GRID_B) launches each family's
-             chain, operator and bank three times, and each equals its
-             unsplit launch bitwise.
+             form on the widened tables (max|dy| printed).  Then all of
+             it again on a bf16 signal (x cast to bf16): the bf16-signal
+             forms of all 12 entry points on the f32 tables and on the
+             bf16 ones, held bitwise to their plain versions, and each on
+             the bf16 tables equal to itself on the widened f32 tables.
+             Then the batch split at both table precisions and both
+             signal dtypes: a batch of 7 at a grid limit forced down to 3
+             matrices (launcher._GRID_B) launches each family's chain,
+             operator and bank three times, and each equals its unsplit
+             launch bitwise.
 3. main    — the port's main path at a realistic size, through the CLI entry
              point: ``python -m repro_torch.launch.serve --fgft`` with B = 64
              community graphs, n = 256, g = 2 n log2 n = 4096, R = 256,
@@ -185,6 +192,22 @@ each), so that the run stays well inside its time limit:
              The operator, bank, T operator and chain batched entry
              points must have launched; each ``kernels`` row carries
              ``async_launches``.
+5f. main-bf16x — bf16 signals (after [main-async]) on the tables that
+             [main], [main-filter], [fgft], [main-directed] and
+             [fgft-directed] fitted (no fit), one bf16 block of R = 256,
+             each part driven with the counts zeroed just before and read
+             just after, comparisons not counted: a. f32 tables, as a
+             user serves a bf16 block: ``FGFTServeEngine.step`` at every
+             tier and ``step_bank`` (F = 7), ``SpectralFilterBank.apply``,
+             ``ApproxEigenbasis.apply`` (both ways) and ``project``, and
+             the single graph's ``FGFT.analysis``, ``synthesis``,
+             ``filter`` and bank, in both families; b. the same tables
+             cast to bf16 through the 12 entry points.  Every answer is
+             bf16 and bitwise equal to its plain version on the same
+             block; each tier equals ``project`` at the tier and the bank
+             the basis's own bank.  max|dy| / max|y| against the same
+             block's f32 answer is printed per tier, bank and family, not
+             gated.  All 24 bf16-signal forms must have launched.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
              graph (n = 256, g = 4096, n_iter = 3), then analysis, synthesis,
              project and the bank; ``shear_apply``, ``gen_operator_apply``
@@ -205,7 +228,13 @@ each), so that the run stays well inside its time limit:
              reduction (launcher.stage_extents, both legs) is timed on its
              own.  After [main-bf16] the same checks and timings for the
              12 bf16 forms on the same tables cast to bf16 (the bound
-             counts a value at 2 bytes).
+             counts a value at 2 bytes).  After [main-bf16x] the timings
+             of the 24 bf16-signal forms (the 12 entry points on f32 and
+             on bf16 tables) on the same tables and signals cast to bf16,
+             each timed call held bitwise to its plain version (phase 2
+             and [main-bf16x] held them at every cut); the library
+             yardstick in bf16, the bound with x and y at 2 bytes and the
+             operations at the card's bf16 rate.
 8. turns   — only with ``--baseline DIR ...`` (each DIR a checkout of this
              repository, e.g. a ``git archive`` of an earlier commit): the
              four operator and the four chain entry points of this
@@ -216,18 +245,20 @@ each), so that the run stays well inside its time limit:
              the tier refit's identity block); CUDA-event and profiler
              device ms per call.
 
-Tolerance of the kernel-vs-plain checks: for the G kernels max|dy| <= 1e-4 *
-max(1, max|y|), since they and their plain versions round their FMA
-contractions differently across about 2S stages; for the T kernels max|dy|
-== 0, since they round every entry as their plain versions do (no FMA
-contraction).
+Tolerance of the kernel-vs-plain checks: for the G kernels on an f32
+signal max|dy| <= 1e-4 * max(1, max|y|), since they and their plain
+versions round their FMA contractions differently across about 2S stages;
+for the T kernels and for every bf16-signal form max|dy| == 0, since they
+round every entry as their plain versions do (no FMA contraction; on a
+bf16 signal every product and sum rounded to bf16).
 
-Output: progress lines, a {"kernels": [...]} line (24 rows: each entry
-point's f32 and bf16 form; launches per path: ``launches`` on the
-batched or single-graph path, or on [main-bf16] for a bf16 form,
-``ragged_launches``, ``dynamic_launches``, ``async_launches``), the
-card's name and power limit, and as the last line {"ok": true, "device":
-{...}}.
+Output: progress lines, a {"kernels": [...]} line (48 rows: each entry
+point's four forms, f32 or bf16 tables (``precision``) by f32 or bf16
+signal (``signal``); launches per path: ``launches`` on the batched or
+single-graph path, on [main-bf16] for a bf16-table form and on
+[main-bf16x] for a bf16-signal form, ``ragged_launches``,
+``dynamic_launches``, ``async_launches``), the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -245,6 +276,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16, dense
 TOL = 1e-4
 DEVICE = "cuda"
 MAIN = dict(graphs=64, n=256, signals=256, steps=5,
@@ -325,10 +357,12 @@ def max_err(got, want) -> tuple:
 
 
 def tolerance(entry: str) -> float:
-    """Relative kernel-vs-plain tolerance of an entry point: 0 (bitwise)
-    for the T kernels, TOL for the G kernels (module docstring)."""
+    """Relative kernel-vs-plain tolerance of an entry point form: 0
+    (bitwise) for the T kernels and for every bf16-signal form, TOL for
+    the G kernels on an f32 signal (module docstring)."""
     from repro_torch.kernels import launcher
-    return 0.0 if launcher.KERNEL_OF[entry].startswith("t_") else TOL
+    kernel = launcher.KERNEL_OF[entry]
+    return 0.0 if kernel.startswith("t_") or "_xbf16_" in kernel else TOL
 
 
 def compare(name, got, want, errs) -> None:
@@ -406,12 +440,16 @@ def bound_ms(x, legs, filters: int, precision: str = "f32") -> tuple:
     values) are read once and cost n flops per row and filter.  Pad
     entries of the (S, P) layout are not counted: the function does not
     need them, the layout is the kernel's choice.  ``precision`` "bf16"
-    counts the values at 2 bytes (ENTRY_COST_BF16).  Returns (ms,
-    "bytes" | "operations")."""
+    counts the values at 2 bytes (ENTRY_COST_BF16).  x and y count at
+    x's element size; the operations of a bf16 signal (bf16 in, bf16
+    out) at the card's bf16 peak.  Returns (ms, "bytes" |
+    "operations")."""
+    import torch
     cost = ENTRY_COST if precision == "f32" else ENTRY_COST_BF16
     bsz, rows, n = (1,) * (3 - x.dim()) + tuple(x.shape)
     outputs = max(filters, 1)
-    nbytes = (1 + outputs) * x.numel() * 4 + filters * bsz * n * 4
+    nbytes = ((1 + outputs) * x.numel() * x.element_size()
+              + filters * bsz * n * 4)
     flops = filters * bsz * rows * n
     for pos, leg in enumerate(legs):
         runs = outputs if pos > 0 else 1
@@ -420,7 +458,9 @@ def bound_ms(x, legs, filters: int, precision: str = "f32") -> tuple:
             nbytes += count * per_bytes
             flops += runs * per_flops * count * rows
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    rate = (BF16_FLOPS_PER_S if x.dtype != torch.float32
+            else F32_FLOPS_PER_S)
+    t_ops = flops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -447,7 +487,7 @@ def ptxas_report(nvcc: str) -> dict:
         check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
         for line in text.splitlines():
             m = re.search(r"Compiling entry function .*?([gt]_(?:chain|"
-                          r"operator|bank)(?:_bf16)?_kernel)", line)
+                          r"operator|bank)(?:_x?bf16)?_kernel)", line)
             if m:
                 kernel = m.group(1)
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
@@ -460,8 +500,32 @@ def ptxas_report(nvcc: str) -> dict:
     return out
 
 
-def phase_build() -> None:
+def sass_fma(nvcc: str) -> dict:
+    """{kernel: FFMA instructions} of every bf16-signal kernel in the
+    built library, from ``cuobjdump -sass``: these must round each product
+    and sum on its own, so one contracted FFMA would break their bitwise
+    equality with the plain versions."""
+    import re
     from repro_torch.kernels import build
+    lib = build.build_dir() / f"librepro_torch_kernels_{build._digest()}.so"
+    out = subprocess.run([str(pathlib.Path(nvcc).parent / "cuobjdump"),
+                          "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr}")
+    counts, kernel = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : \S*?([gt]_(?:chain|operator|bank)"
+                      r"(?:_x?bf16)?_kernel)", line)
+        if m:
+            kernel = m.group(1)
+            counts.setdefault(kernel, 0)
+        elif kernel and re.search(r"\bFFMA\b", line):
+            counts[kernel] += 1
+    return counts
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import build, launcher
     nvcc = build.find_nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True, timeout=60).stdout.strip()
@@ -473,6 +537,13 @@ def phase_build() -> None:
     for kernel, (regs, stack, st, ld) in sorted(ptxas_report(nvcc).items()):
         log(f"[build] ptxas: {kernel} {regs} registers, {stack} B stack "
             f"frame, spill stores {st} B, spill loads {ld} B")
+    fma = sass_fma(nvcc)
+    log(f"[build] SASS FFMA count per kernel: {fma}")
+    for kernel in launcher.KERNELS:
+        check(kernel in fma, f"{kernel} not found in the library's SASS")
+        check("_xbf16_" not in kernel or fma[kernel] == 0,
+              f"{kernel}: {fma[kernel]} FFMA in its SASS (the bf16-signal "
+              f"forms must not contract)")
 
 
 def lowpass(lam):
@@ -496,12 +567,17 @@ def compare_form(name, fn, args, plain, errs, wide_args=None) -> None:
     """``fn(*args)`` against ``plain(*args)`` (``compare``); for a bf16
     form also against ``fn(*wide_args)``, its f32 form on the widened
     tables, into BF16_VS_F32 (an exact widening: 0 unless the two forms
-    round differently)."""
+    round differently).  On a bf16 signal both table forms walk the same
+    bf16 values (f32 tables are cast by RNE, an exact round trip of the
+    widened ones), so there the two must be equal."""
     y = fn(*args)
     compare(name, y, plain(*args), errs)
     if wide_args is not None:
         d = float((y - fn(*wide_args)).abs().max()) if y.numel() else 0.0
         BF16_VS_F32[name] = max(BF16_VS_F32.get(name, 0.0), d)
+        check(d == 0.0 or "_xbf16" not in name,
+              f"{name}: bf16 tables != their widened f32 tables on a bf16 "
+              f"signal, max|dy| {d:.3e}")
 
 
 def forms_note(*names) -> str:
@@ -529,10 +605,11 @@ def check_tables(tag, fwd, adj, diag, x, errs) -> int:
           else bf.sym_operator_apply)
     op_ref = (ref.batched_sym_operator_apply if batched
               else ref.sym_operator_apply)
+    sig = launcher.signal_precision(x)
     chain_name = launcher.form("batched_butterfly_apply" if batched
-                               else "butterfly_apply", prec)
+                               else "butterfly_apply", prec, sig)
     op_name = launcher.form("batched_sym_operator_apply" if batched
-                            else "sym_operator_apply", prec)
+                            else "sym_operator_apply", prec, sig)
     count = 0
     for k in cut_list(fwd):
         for staged, wide, keep in ((fwd, wfwd, "tail"), (adj, wadj, "head"),
@@ -544,7 +621,7 @@ def check_tables(tag, fwd, adj, diag, x, errs) -> int:
                      wfwd and (wfwd, wadj, diag, x, k))
         count += 1
     log(f"[kernels] {tag}: {count} kernel-vs-plain checks at cuts "
-        f"{cut_list(fwd)} passed ({prec} tables)"
+        f"{cut_list(fwd)} passed ({prec} tables, {sig} signal)"
         + forms_note(chain_name, op_name))
     return count
 
@@ -573,10 +650,11 @@ def check_t_tables(tag, fwd, inv, diag, x, errs) -> int:
     op = sh.batched_gen_operator_apply if batched else sh.gen_operator_apply
     op_ref = (ref.batched_gen_operator_apply if batched
               else ref.gen_operator_apply)
+    sig = launcher.signal_precision(x)
     chain_name = launcher.form("batched_shear_apply" if batched
-                               else "shear_apply", prec)
+                               else "shear_apply", prec, sig)
     op_name = launcher.form("batched_gen_operator_apply" if batched
-                            else "gen_operator_apply", prec)
+                            else "gen_operator_apply", prec, sig)
     count = 0
     for k in cut_list(fwd):
         for staged, wide in ((fwd, wfwd), (inv, winv)):
@@ -588,7 +666,7 @@ def check_t_tables(tag, fwd, inv, diag, x, errs) -> int:
                      wfwd and (wfwd, winv, diag, x, k))
         count += 1
     log(f"[kernels] {tag}: {count} T kernel-vs-plain checks at cuts "
-        f"{cut_list(fwd)} passed ({prec} tables)"
+        f"{cut_list(fwd)} passed ({prec} tables, {sig} signal)"
         + forms_note(chain_name, op_name))
     return count
 
@@ -633,7 +711,8 @@ def check_bank_tables(tag, fwd, bwd, gains, x, errs,
              + ("gen" if isinstance(fwd, StagedT) else "sym")
              + "_filter_bank_apply")
     fn, plain = getattr(ksp, entry), getattr(ref, entry)
-    name = launcher.form(entry, table_precision(fwd))
+    sig = launcher.signal_precision(x)
+    name = launcher.form(entry, table_precision(fwd), sig)
     wfwd, wbwd = widened(fwd), widened(bwd)
     counts = sorted(filter_counts or {1, gains.shape[-2]})
     count = 0
@@ -645,8 +724,8 @@ def check_bank_tables(tag, fwd, bwd, gains, x, errs,
             count += 1
     groups = {f: bank_groups(name, fwd, x, f) for f in counts}
     log(f"[kernels] {tag}: {count} {name} kernel-vs-plain checks at cuts "
-        f"{cut_list(fwd)}, F in {counts} (filter groups {groups}) passed"
-        + forms_note(name))
+        f"{cut_list(fwd)}, F in {counts} (filter groups {groups}) passed "
+        f"({sig} signal)" + forms_note(name))
     return groups
 
 
@@ -685,20 +764,21 @@ def random_tables(family: str, n: int, batch: int, g: int, seed: int):
     return staging.pack_t_batch_pair(f, n, device=DEVICE)
 
 
-def check_split(precision: str = "f32") -> None:
+def check_split(precision: str = "f32", signal: str = "f32") -> None:
     """A batch of 7 at a grid limit forced down to 3 matrices: each
     family's chain, operator and bank entry point (its form at the table
-    ``precision``) launches three times (on [0, 3), [3, 6) and [6, 7))
-    and equals its unsplit launch bitwise."""
+    ``precision`` and the ``signal`` precision) launches three times (on
+    [0, 3), [3, 6) and [6, 7)) and equals its unsplit launch bitwise."""
     import torch
-    from repro_torch.core.staging import with_precision
+    from repro_torch.core.staging import PRECISION_DTYPE, with_precision
     from repro_torch.kernels import launcher
     from repro_torch.kernels import spectral as ksp
     from repro_torch.kernels import butterfly as bf
     from repro_torch.kernels import shear as sh
     n, batch = 48, 7
     gen = torch.Generator(device=DEVICE).manual_seed(23)
-    x = torch.randn((batch, 130, n), generator=gen, device=DEVICE)
+    x = torch.randn((batch, 130, n), generator=gen, device=DEVICE).to(
+        PRECISION_DTYPE[signal])
     diag = torch.rand((batch, n), generator=gen, device=DEVICE) * n
     gains = torch.rand((batch, 5, n), generator=gen, device=DEVICE) * 2.0
     for family, mod, names in (
@@ -726,27 +806,28 @@ def check_split(precision: str = "f32") -> None:
         finally:
             launcher._GRID_B = grid
         for name, got, want in zip(names, split, whole):
-            name = launcher.form(name, precision)
+            name = launcher.form(name, precision, signal)
+            check(got.dtype == x.dtype, f"{name}: y is {got.dtype}")
             check(torch.equal(got, want),
                   f"{name}: split launch != unsplit launch")
             check(counts[name] == 3,
                   f"{name}: {counts[name]} launches for 3 slices")
     torch.cuda.synchronize()
-    log(f"[kernels] batch split ({precision} tables): B={batch} at a grid "
-        f"limit of 3 matrices, chain, operator and bank of both families: "
-        f"3 launches each, bitwise equal to the unsplit launches")
+    log(f"[kernels] batch split ({precision} tables, {signal} signal): "
+        f"B={batch} at a grid limit of 3 matrices, chain, operator and "
+        f"bank of both families: 3 launches each, bitwise equal to the "
+        f"unsplit launches")
 
 
 def phase_kernels(errs) -> None:
+    """Phase 2: every entry point form against its plain version (module
+    docstring), on f32 and bf16 signals."""
     import numpy as np
     import torch
     from repro_torch.core import ApproxEigenbasis, laplacian
-    from repro_torch.core.staging import with_precision
     from repro_torch.graphs import community_graph
     dev = torch.device(DEVICE)
-
-    def bf16(*tables):
-        return [with_precision(t, "bf16") for t in tables]
+    t0 = time.perf_counter()
     for n in (16, 48):
         g = int(2 * n * np.log2(n))
         laps = np.stack([laplacian(community_graph(n, seed=s))
@@ -756,50 +837,34 @@ def phase_kernels(errs) -> None:
         x = torch.randn((4, 130, n), generator=gen, device=dev)
         gains = torch.rand((4, 33, n), generator=gen, device=dev) * 2.0
         x1, g1 = x[1].contiguous(), gains[1].contiguous()
-        check_tables(f"n={n} B=4 R=130", basis.fwd, basis.bwd,
-                     basis.spectrum, x, errs)
-        check_bank_tables(f"n={n} B=4 R=130", basis.fwd, basis.bwd, gains,
-                          x, errs, (1, 7, 33))
-        sfwd, sadj = tables_for(basis, 1)
-        check_tables(f"n={n} B=1 R=130", sfwd, sadj, basis.spectrum[1],
-                     x1, errs)
-        check_bank_tables(f"n={n} B=1 R=130", sfwd, sadj, g1, x1, errs,
-                          (1, 7, 33))
         tbasis = ApproxEigenbasis.fit(directed_laps(n, 4), g, n_iter=1,
                                       kind="general", device=dev)
-        check_t_tables(f"n={n} B=4 R=130", tbasis.fwd, tbasis.bwd,
-                       tbasis.spectrum, x, errs)
-        check_bank_tables(f"n={n} B=4 R=130", tbasis.fwd, tbasis.bwd, gains,
-                          x, errs, (1, 7, 33))
-        sfwd, sinv = t_tables_for(tbasis, 1)
-        check_t_tables(f"n={n} B=1 R=130", sfwd, sinv, tbasis.spectrum[1],
-                       x1, errs)
-        check_bank_tables(f"n={n} B=1 R=130", sfwd, sinv, g1, x1, errs,
-                          (1, 7, 33))
-        # the bf16 forms on the same fits' tables cast to bf16
-        b_fwd, b_bwd = bf16(basis.fwd, basis.bwd)
-        check_tables(f"n={n} B=4 R=130", b_fwd, b_bwd, basis.spectrum, x,
-                     errs)
-        check_bank_tables(f"n={n} B=4 R=130", b_fwd, b_bwd, gains, x, errs,
-                          (1, 7, 33))
-        s_fwd, s_adj = bf16(*tables_for(basis, 1))
-        check_tables(f"n={n} B=1 R=130", s_fwd, s_adj, basis.spectrum[1],
-                     x1, errs)
-        check_bank_tables(f"n={n} B=1 R=130", s_fwd, s_adj, g1, x1, errs,
-                          (1, 7, 33))
-        t_fwd, t_inv = bf16(tbasis.fwd, tbasis.bwd)
-        check_t_tables(f"n={n} B=4 R=130", t_fwd, t_inv, tbasis.spectrum, x,
-                       errs)
-        check_bank_tables(f"n={n} B=4 R=130", t_fwd, t_inv, gains, x, errs,
-                          (1, 7, 33))
-        s_fwd, s_inv = bf16(sfwd, sinv)
-        check_t_tables(f"n={n} B=1 R=130", s_fwd, s_inv, tbasis.spectrum[1],
-                       x1, errs)
-        check_bank_tables(f"n={n} B=1 R=130", s_fwd, s_inv, g1, x1, errs,
-                          (1, 7, 33))
-    check_split()
-    check_split("bf16")
+        # per family: (check, batched tables, B = 1 tables, spectra)
+        families = (
+            (check_tables, (basis.fwd, basis.bwd), tables_for(basis, 1),
+             basis.spectrum),
+            (check_t_tables, (tbasis.fwd, tbasis.bwd),
+             t_tables_for(tbasis, 1), tbasis.spectrum))
+        # f32 signals, then bf16 signals (the bf16-signal forms); each on
+        # the fits' tables and on the same tables cast to bf16
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, x1s = x.to(dtype), x1.to(dtype)
+            for precision in ("f32", "bf16"):
+                for check_fn, tabs, tabs1, spec in families:
+                    fwd, bwd = at_precision(precision, *tabs)
+                    sfwd, sbwd = at_precision(precision, *tabs1)
+                    check_fn(f"n={n} B=4 R=130", fwd, bwd, spec, xs, errs)
+                    check_bank_tables(f"n={n} B=4 R=130", fwd, bwd, gains,
+                                      xs, errs, (1, 7, 33))
+                    check_fn(f"n={n} B=1 R=130", sfwd, sbwd, spec[1], x1s,
+                             errs)
+                    check_bank_tables(f"n={n} B=1 R=130", sfwd, sbwd, g1,
+                                      x1s, errs, (1, 7, 33))
+    for signal in ("f32", "bf16"):
+        for precision in ("f32", "bf16"):
+            check_split(precision, signal)
     torch.cuda.synchronize()
+    log(f"[kernels] phase 2: {time.perf_counter() - t0:.1f}s in all")
 
 
 def phase_main() -> dict:
@@ -1000,6 +1065,12 @@ def phase_fgft(errs) -> dict:
     return {"fgft": f, "launches": launches, "signals": x, "gains": gains}
 
 
+def signal_dtype(signal: str):
+    """The torch dtype of a signal precision ("f32" or "bf16")."""
+    from repro_torch.core.staging import PRECISION_DTYPE
+    return PRECISION_DTYPE[signal]
+
+
 def at_precision(precision: str, *tables) -> list:
     """The table sets at a storage precision (with_precision)."""
     from repro_torch.core.staging import with_precision
@@ -1007,10 +1078,14 @@ def at_precision(precision: str, *tables) -> list:
 
 
 def phase_main_shapes(main, single, errs, precision: str = "f32",
-                      launches=None) -> list:
+                      launches=None, signal: str = "f32") -> list:
     """Kernel vs plain at the two paths' shapes, then timings; with
     ``precision`` "bf16" the same on the paths' tables cast to bf16 (the
-    bf16 forms, their launches from ``launches``)."""
+    bf16 forms, their launches from ``launches``).  With ``signal``
+    "bf16" the signals are cast to bf16 (the bf16-signal forms, their
+    launches from ``launches``): phase 2 and [main-bf16x] held them at
+    every cut and at these shapes, so only the timed calls are held
+    (bitwise) to their plain versions here."""
     import torch
     from repro_torch.kernels import butterfly as bf
     from repro_torch.kernels import launcher, ref
@@ -1018,35 +1093,39 @@ def phase_main_shapes(main, single, errs, precision: str = "f32",
     basis = engine.basis
     fwd, bwd = at_precision(precision, basis.fwd, basis.bwd)
     n, bsz = basis.n, basis.spectrum.shape[0]
-    x = main["out"]["signals"]
-    gen = torch.Generator(device=DEVICE).manual_seed(7)
-    ragged = torch.randn((bsz, 130, n), generator=gen, device=DEVICE)
+    dtype = signal_dtype(signal)
+    x = main["out"]["signals"].to(dtype)
     eye = torch.eye(n, device=DEVICE).expand(bsz, n, n).contiguous()
-    check_tables(f"main n={n} B={bsz} R={x.shape[1]}", fwd, bwd,
-                 basis.spectrum, x, errs)
-    check_tables(f"main n={n} B={bsz} R=130", fwd, bwd, basis.spectrum,
-                 ragged, errs)
-    wide = widened(fwd)
-    for name in ("balanced", "draft"):
-        k = engine.tiers[name]["num_stages"]
-        compare_form(launcher.form("batched_butterfly_apply", precision),
-                     bf.batched_butterfly_apply, (fwd, eye, k, "tail"),
-                     ref.batched_g_apply, errs,
-                     wide and (wide, eye, k, "tail"))
     f = single["fgft"]
     sfwd, sadj = at_precision(precision, f.fwd, f.bwd)
-    sspec, x0 = f.spectrum, single["signals"]
-    check_tables(f"fgft n={n} B=1 R={x0.shape[0]}", sfwd, sadj, sspec, x0,
-                 errs)
+    sspec, x0 = f.spectrum, single["signals"].to(dtype)
+    if signal == "f32":
+        gen = torch.Generator(device=DEVICE).manual_seed(7)
+        ragged = torch.randn((bsz, 130, n), generator=gen, device=DEVICE)
+        check_tables(f"main n={n} B={bsz} R={x.shape[1]}", fwd, bwd,
+                     basis.spectrum, x, errs)
+        check_tables(f"main n={n} B={bsz} R=130", fwd, bwd, basis.spectrum,
+                     ragged, errs)
+        wide = widened(fwd)
+        for name in ("balanced", "draft"):
+            k = engine.tiers[name]["num_stages"]
+            compare_form(launcher.form("batched_butterfly_apply", precision),
+                         bf.batched_butterfly_apply, (fwd, eye, k, "tail"),
+                         ref.batched_g_apply, errs,
+                         wide and (wide, eye, k, "tail"))
+        check_tables(f"fgft n={n} B=1 R={x0.shape[0]}", sfwd, sadj, sspec,
+                     x0, errs)
     torch.cuda.synchronize()
 
-    # timings at the main path's shapes (full chain)
+    # timings at the main path's shapes (full chain); the dense
+    # yardsticks in the signal's dtype
     spec = basis.spectrum
     ut = bf.batched_butterfly_apply(fwd, eye)              # rows: Ubar^T
     u = ut.transpose(1, 2).contiguous()
-    dense_op = u @ torch.diag_embed(spec) @ u.transpose(1, 2)
+    dense_op = (u @ torch.diag_embed(spec) @ u.transpose(1, 2)).to(dtype)
     su = bf.butterfly_apply(sfwd, torch.eye(n, device=DEVICE)).T.contiguous()
-    sdense = su @ torch.diag(sspec) @ su.T
+    sdense = (su @ torch.diag(sspec) @ su.T).to(dtype)
+    u, su, eye = u.to(dtype), su.to(dtype), eye.to(dtype)
     fwd_legs = [real_entries(fwd, None, "tail")]
     op_legs = [real_entries(bwd, None, "head")] + fwd_legs
     single_fwd = [real_entries(sfwd, None, "tail")]
@@ -1070,25 +1149,33 @@ def phase_main_shapes(main, single, errs, precision: str = "f32",
          lambda: torch.mm(x0, su.T)),
     ]
     return timed_rows(cases, main, single, fwd, sfwd, errs, "sym",
-                      precision, launches)
+                      precision, launches, signal)
 
 
 def timed_rows(cases, main, single, tables_b, tables_1, errs,
-               family: str, precision: str = "f32", launches=None) -> list:
+               family: str, precision: str = "f32", launches=None,
+               signal: str = "f32") -> list:
     """Time each case (kernel, plain version, library yardstick) and
     build its row of the ``kernels`` line; batched entries report the
     batched path's launches, B = 1 entries the single-graph path's.  At
     ``precision`` "bf16" each case is the entry point's bf16 form (its
     kernel, form name and bf16 bound), with the launches of
-    ``launches`` (the [main-bf16] path's)."""
+    ``launches`` (the [main-bf16] path's); at ``signal`` "bf16" its
+    bf16-signal form (x and y at 2 bytes in the bound), held bitwise to
+    its plain version, with [main-bf16x]'s launches."""
+    import torch
     source = ("src/repro_torch/csrc/butterfly.cu" if family == "sym"
               else "src/repro_torch/csrc/shear.cu")
     from repro_torch.kernels import launcher
     rows = []
     for kernel, entry, xin, legs, filters, fn, plain, lib in cases:
         base = entry
-        entry = launcher.form(entry, precision)
+        entry = launcher.form(entry, precision, signal)
         kernel = launcher.KERNEL_OF[entry]
+        if signal != "f32":
+            y, want = fn(), plain()
+            check(y.dtype == xin.dtype and torch.equal(y, want),
+                  f"{entry}: the timed call != its plain version")
         ms = time_ms(fn)
         dev_ms = device_ms(fn, kernel)
         plain_ms = time_ms(plain, reps=2, rounds=3)
@@ -1104,6 +1191,7 @@ def timed_rows(cases, main, single, tables_b, tables_1, errs,
             "name": kernel if batched else f"{kernel}[B=1]",
             "entry": entry, "route": "cuda", "source": source,
             "replaces": REPLACES[base], "precision": precision,
+            "signal": signal,
             "launches": (launches if launches is not None
                          else path["launches"])[entry],
             "max_abs_err": errs[entry], "ms": ms, "device_ms": dev_ms,
@@ -1129,37 +1217,22 @@ def timed_rows(cases, main, single, tables_b, tables_1, errs,
     return rows
 
 
-def phase_bank_shapes(family: str, path: dict, engine, x, single,
-                      errs, precision: str = "f32", launches=None) -> list:
-    """The family's bank kernel against its plain version at the paths'
-    shapes (every cut, F in {1, 7}; the served R and a ragged R = 130,
-    there also F = 33: the served gains and 26 random filters, batched
-    at B = 64 and on the first two matrices, and at B = 1, where 33
-    filters need several filter groups), then timed: batched on the
-    served engine's tables and gains, B = 1 on the single-graph fit's,
-    and the stage-extent reduction of both legs on its own.  The library
-    yardstick is one ``torch.matmul`` over dense per-filter operators
-    built outside the timing (from the kernel's own output on the
-    identity).  ``precision`` and ``launches``: as in
-    phase_main_shapes."""
+def bank_checks(family, fwd, bwd, gains, x, sfwd, sbwd, g0, x0,
+                errs) -> None:
+    """phase_bank_shapes' kernel-vs-plain checks of the bank at the
+    paths' shapes: every cut, F in {1, 7} at the served R, and at a
+    ragged R = 130 also F = 33 (the served gains and 26 random filters),
+    batched at B = 64 and on the first two matrices, and at B = 1, where
+    33 filters need several filter groups."""
     import torch
     from repro_torch.core.staging import table_arrays
-    from repro_torch.kernels import launcher, ref
-    from repro_torch.kernels import spectral as ksp
-    from repro_torch.kernels.launcher import leg_orientation
-    basis, gains = engine.basis, engine._live.bank_gains
-    fwd, bwd = at_precision(precision, basis.fwd, basis.bwd)
-    bsz, rows, n = x.shape
+    bsz, _, n = x.shape
     gen = torch.Generator(device=DEVICE).manual_seed(19)
     ragged = torch.randn((bsz, 130, n), generator=gen, device=DEVICE)
-    f = single["fgft"]
-    sfwd, sbwd = at_precision(precision, f.fwd, f.bwd)
-    x0, g0 = single["signals"], single["gains"]
     for tag, tf, tb, g, xin in (
-            (f"B={bsz} R={rows}", fwd, bwd, gains, x),
+            (f"B={bsz} R={x.shape[1]}", fwd, bwd, gains, x),
             (f"B=1 R={x0.shape[0]}", sfwd, sbwd, g0, x0)):
         check_bank_tables(f"{family} bank n={n} {tag}", tf, tb, g, xin, errs)
-    # 33 filters: the served ones and 26 random ones, at R = 130
     wide = torch.cat([gains, torch.rand((bsz, 26, n), generator=gen,
                                         device=DEVICE) * 2.0], dim=1)
     wide1 = torch.cat([g0, wide[0, 7:]], dim=0)
@@ -1177,6 +1250,36 @@ def phase_bank_shapes(family: str, path: dict, engine, x, single,
                                    xin, errs, (1, 7, 33))
         check(not split or groups[33] > 1,
               f"{family} bank {tag}: F = 33 ran in one filter group")
+
+
+def phase_bank_shapes(family: str, path: dict, engine, x, single,
+                      errs, precision: str = "f32", launches=None,
+                      signal: str = "f32") -> list:
+    """The family's bank kernel against its plain version at the paths'
+    shapes (every cut, F in {1, 7}; the served R and a ragged R = 130,
+    there also F = 33: the served gains and 26 random filters, batched
+    at B = 64 and on the first two matrices, and at B = 1, where 33
+    filters need several filter groups), then timed: batched on the
+    served engine's tables and gains, B = 1 on the single-graph fit's,
+    and the stage-extent reduction of both legs on its own.  The library
+    yardstick is one ``torch.matmul`` over dense per-filter operators
+    built outside the timing (from the kernel's own output on the
+    identity).  ``precision``, ``launches`` and ``signal``: as in
+    phase_main_shapes."""
+    import torch
+    from repro_torch.kernels import launcher, ref
+    from repro_torch.kernels import spectral as ksp
+    from repro_torch.kernels.launcher import leg_orientation
+    basis, gains = engine.basis, engine._live.bank_gains
+    fwd, bwd = at_precision(precision, basis.fwd, basis.bwd)
+    dtype = signal_dtype(signal)
+    x = x.to(dtype)
+    bsz, rows, n = x.shape
+    f = single["fgft"]
+    sfwd, sbwd = at_precision(precision, f.fwd, f.bwd)
+    x0, g0 = single["signals"].to(dtype), single["gains"]
+    if signal == "f32":
+        bank_checks(family, fwd, bwd, gains, x, sfwd, sbwd, g0, x0, errs)
     torch.cuda.synchronize()
     ext_ms = time_ms(lambda: (launcher.stage_extents(bwd),
                               launcher.stage_extents(fwd)))
@@ -1193,8 +1296,9 @@ def phase_bank_shapes(family: str, path: dict, engine, x, single,
     # row r of a bank's output on the identity is op e_r: transposed, the
     # dense (B, F, n, n) / (F, n, n) operators
     ops = bank(fwd, bwd, gains, eye.expand(bsz, n, n).contiguous()
-               ).transpose(-1, -2).contiguous()
-    ops1 = bank1(sfwd, sbwd, g0, eye).transpose(-1, -2).contiguous()
+               ).transpose(-1, -2).contiguous().to(dtype)
+    ops1 = bank1(sfwd, sbwd, g0, eye).transpose(-1, -2).contiguous().to(
+        dtype)
     a_keep, s_keep = leg_orientation(family)
     legs = [real_entries(bwd, None, a_keep), real_entries(fwd, None, s_keep)]
     legs1 = [real_entries(sbwd, None, a_keep),
@@ -1211,7 +1315,7 @@ def phase_bank_shapes(family: str, path: dict, engine, x, single,
          lambda: torch.matmul(x0.unsqueeze(0), ops1.transpose(-1, -2))),
     ]
     out = timed_rows(cases, path, single, fwd, sfwd, errs, family,
-                     precision, launches)
+                     precision, launches, signal)
     for row, ms in zip(out, (ext_ms, ext_ms1)):
         row["extent_ms"] = ms
         check(row["resident_per_sm"] >= 3,
@@ -1397,9 +1501,9 @@ def phase_fgft_directed(errs) -> dict:
 
 
 def phase_directed_shapes(main, single, errs, precision: str = "f32",
-                          launches=None) -> list:
+                          launches=None, signal: str = "f32") -> list:
     """T kernels vs plain at the directed paths' shapes (every cut),
-    then timings; ``precision`` and ``launches``: as in
+    then timings; ``precision``, ``launches`` and ``signal``: as in
     phase_main_shapes."""
     import torch
     from repro_torch.kernels import ref
@@ -1407,18 +1511,20 @@ def phase_directed_shapes(main, single, errs, precision: str = "f32",
     basis = main["out"]["engine"].basis
     fwd, inv = at_precision(precision, basis.fwd, basis.bwd)
     n, bsz = basis.n, basis.spectrum.shape[0]
-    x = main["out"]["signals"]
-    gen = torch.Generator(device=DEVICE).manual_seed(17)
-    ragged = torch.randn((bsz, 130, n), generator=gen, device=DEVICE)
-    check_t_tables(f"main-directed n={n} B={bsz} R={x.shape[1]}", fwd, inv,
-                   basis.spectrum, x, errs)
-    check_t_tables(f"main-directed n={n} B={bsz} R=130", fwd, inv,
-                   basis.spectrum, ragged, errs)
+    dtype = signal_dtype(signal)
+    x = main["out"]["signals"].to(dtype)
     f = single["fgft"]
     sfwd, sinv = at_precision(precision, f.fwd, f.bwd)
-    sspec, x0 = f.spectrum, single["signals"]
-    check_t_tables(f"fgft-directed n={n} B=1 R={x0.shape[0]}", sfwd, sinv,
-                   sspec, x0, errs)
+    sspec, x0 = f.spectrum, single["signals"].to(dtype)
+    if signal == "f32":
+        gen = torch.Generator(device=DEVICE).manual_seed(17)
+        ragged = torch.randn((bsz, 130, n), generator=gen, device=DEVICE)
+        check_t_tables(f"main-directed n={n} B={bsz} R={x.shape[1]}", fwd,
+                       inv, basis.spectrum, x, errs)
+        check_t_tables(f"main-directed n={n} B={bsz} R=130", fwd, inv,
+                       basis.spectrum, ragged, errs)
+        check_t_tables(f"fgft-directed n={n} B=1 R={x0.shape[0]}", sfwd,
+                       sinv, sspec, x0, errs)
     torch.cuda.synchronize()
 
     # timings at the paths' shapes (full chain); dense yardsticks from
@@ -1433,6 +1539,8 @@ def phase_directed_shapes(main, single, errs, precision: str = "f32",
         eye.expand(bsz, n, n).contiguous()).transpose(1, 2).contiguous()
     st = sh.shear_apply(sfwd, eye).T.contiguous()
     sdense = sh.gen_operator_apply(sfwd, sinv, sspec, eye).T.contiguous()
+    t_dense, dense_op, st, sdense = (a.to(dtype) for a in (
+        t_dense, dense_op, st, sdense))
     fwd_legs = [real_entries(fwd, None, "head")]
     op_legs = [real_entries(inv, None, "tail")] + fwd_legs
     single_fwd = [real_entries(sfwd, None, "head")]
@@ -1456,7 +1564,7 @@ def phase_directed_shapes(main, single, errs, precision: str = "f32",
          lambda: torch.mm(x0, st.T)),
     ]
     return timed_rows(cases, main, single, fwd, sfwd, errs, "general",
-                      precision, launches)
+                      precision, launches, signal)
 
 
 def sync() -> None:
@@ -2571,6 +2679,186 @@ def phase_main_bf16(errs, main, filt, single, main_dir, single_dir) -> dict:
             "dynamic_cache": cache, "phase_s": phase_s}
 
 
+#: entry point -> its plain version's name in kernels/ref.py
+REF_OF = {"butterfly_apply": "staged_g_apply",
+          "batched_butterfly_apply": "batched_g_apply",
+          "shear_apply": "staged_t_apply",
+          "batched_shear_apply": "batched_t_apply"}
+
+
+def phase_main_bf16x(errs, main, filt, single, main_dir,
+                     single_dir) -> dict:
+    """[main-bf16x]: the main path on one bf16 signal block (R = 256) on
+    the tables the earlier phases fitted (no fit), each part driven with
+    the counts zeroed just before and read just after (comparisons not
+    counted).  a. f32 tables, as a user's f32 engines and bases serve a
+    bf16 block: [main]'s engine at every tier, [main-filter]'s bank
+    (``step_bank``, F = 7) and its ``SpectralFilterBank.apply``, [main]'s
+    basis ``apply`` (both ways) and ``project``, the single graph's
+    ``FGFT.analysis``, ``synthesis``, ``filter`` and bank; the same for
+    [main-directed] (its engine, its bank engine and basis) and
+    [fgft-directed].  b. the same tables cast to bf16 through the 12
+    entry points.  Every answer is bf16 and bitwise equal to its plain
+    version on the same block; the engine's tiers equal ``project`` at
+    the tier and its bank the basis's own bank.  The distance to the
+    same block's f32 answer (max|dy| / max|y|) is printed, not gated:
+    it is the bf16 semantics the JAX package chose.  Every bf16-signal
+    form must have launched."""
+    from collections import Counter
+    import torch
+    from repro_torch.kernels import butterfly as bf
+    from repro_torch.kernels import launcher, ref
+    from repro_torch.kernels import shear as sh
+    from repro_torch.kernels import spectral as ksp
+    from repro_torch.kernels.plan import ApplyPlan
+    t_phase = time.perf_counter()
+    counts: Counter = Counter()
+    bf16 = torch.bfloat16
+    dist: dict = {}
+
+    def driven(fn):
+        launcher.reset_launch_counts()
+        out = fn()
+        sync()
+        counts.update(launcher.entry_launch_counts())
+        return out
+
+    def hold(tag, got, plain, f32=None):
+        """got (a served bf16 answer) bitwise its plain version; the
+        distance to the f32 answer into ``dist``."""
+        check(got.dtype == bf16, f"[main-bf16x] {tag}: answer is "
+              f"{got.dtype}")
+        check(bool(torch.isfinite(got).all()), f"[main-bf16x] {tag}: "
+              f"non-finite")
+        check(torch.equal(got, plain), f"[main-bf16x] {tag}: max|dy| "
+              f"{float((got.float() - plain.float()).abs().max()):.3e} "
+              f"against the plain version (want 0)")
+        if f32 is not None:
+            dist[tag] = float((got.float() - f32).abs().max()
+                              / f32.abs().max().clamp(min=1e-30))
+
+    # a. f32 tables: the path as a user serves a bf16 block
+    for family, rec, frec, srec in (
+            ("sym", main, filt, single),
+            ("general", main_dir, main_dir["bank"], single_dir)):
+        fam = "G" if family == "sym" else "T"
+        engine = rec["out"]["engine"]
+        bank_engine = (frec["out"]["engine"] if family == "sym"
+                       else frec["engine"])
+        basis = engine.basis
+        x32 = rec["out"]["signals"]
+        x = x32.to(bf16)
+        tiers = list(engine.tiers)
+        ys = driven(lambda: [engine.step(x, lowpass, tier=t) for t in tiers])
+        yb = driven(lambda: bank_engine.step_bank(x))
+        ybank = driven(lambda: bank_engine.bank.apply(x))
+        ya = driven(lambda: (basis.apply(x, inverse=True), basis.apply(x),
+                             basis.project(x, h=lowpass)))
+        f, x0_32 = srec["fgft"], srec["signals"]
+        x0, g0 = x0_32.to(bf16), srec["gains"]
+        sbank = ApplyPlan(family=f.family, mode="bank", n=f.n, device=DEVICE)
+        y1 = driven(lambda: (f.analysis(x0), f.synthesis(x0),
+                             f.filter(x0, lowpass),
+                             sbank.bank(f.fwd, f.bwd, g0, x0)))
+        with uncounted():
+            for t, y in zip(tiers, ys):
+                lt = engine._live.tiers[t]
+                k = lt["num_stages"]
+                h_t = (lambda spec: lambda _: lowpass(spec))(lt["spectrum"])
+                hold(f"{fam} tier {t}", y,
+                     basis.project(x, h=h_t, num_stages=k, backend="torch"),
+                     engine.step(x32, lowpass, tier=t))
+                check(torch.equal(y, basis.project(x, h=h_t, num_stages=k)),
+                      f"[main-bf16x] {fam} tier {t} != project at the tier")
+            bplain = bank_engine.bank.apply(x, backend="torch")
+            hold(f"{fam} bank", yb, bplain, bank_engine.step_bank(x32))
+            hold(f"{fam} SpectralFilterBank.apply", ybank, bplain)
+            for name, y, want, w32 in zip(
+                    ("apply inverse", "apply", "project"), ya,
+                    (basis.apply(x, inverse=True, backend="torch"),
+                     basis.apply(x, backend="torch"),
+                     basis.project(x, h=lowpass, backend="torch")),
+                    (basis.apply(x32, inverse=True), basis.apply(x32),
+                     basis.project(x32, h=lowpass))):
+                hold(f"{fam} {name}", y, want, w32)
+            splain = ApplyPlan(family=f.family, mode="bank", n=f.n,
+                               backend="torch", device=DEVICE)
+            for name, y, want, w32 in zip(
+                    ("FGFT.analysis", "FGFT.synthesis", "FGFT.filter",
+                     "single bank"), y1,
+                    (f.analysis(x0, "torch"), f.synthesis(x0, "torch"),
+                     f.filter(x0, lowpass, "torch"),
+                     splain.bank(f.fwd, f.bwd, g0, x0)),
+                    (f.analysis(x0_32), f.synthesis(x0_32),
+                     f.filter(x0_32, lowpass),
+                     sbank.bank(f.fwd, f.bwd, g0, x0_32))):
+                hold(f"{fam} {name}", y, want, w32)
+        log(f"[main-bf16x] {fam} f32 tables, bf16 block {list(x.shape)}: "
+            f"tiers {tiers}, bank, SpectralFilterBank.apply, apply, "
+            f"project and the single graph's analysis, synthesis, filter "
+            f"and bank: bf16, bitwise equal to the plain versions; tiers "
+            f"equal project at the tier, the bank the basis's own bank")
+
+    # b. the same tables cast to bf16, through the 12 entry points
+    for family, rec, frec, srec in (
+            ("sym", main, filt, single),
+            ("general", main_dir, main_dir["bank"], single_dir)):
+        fam = "G" if family == "sym" else "T"
+        engine = rec["out"]["engine"]
+        bank_engine = (frec["out"]["engine"] if family == "sym"
+                       else frec["engine"])
+        basis, bbasis = engine.basis, bank_engine.basis
+        x = rec["out"]["signals"].to(bf16)
+        fwd, bwd = at_precision("bf16", basis.fwd, basis.bwd)
+        bfwd, bbwd = at_precision("bf16", bbasis.fwd, bbasis.bwd)
+        f = srec["fgft"]
+        sfwd, sbwd = at_precision("bf16", f.fwd, f.bwd)
+        x0, g0 = srec["signals"].to(bf16), srec["gains"]
+        gains = bank_engine._live.bank_gains
+        spec = engine.tiers[engine.default_tier]["spectrum"]
+        d, d0 = lowpass(spec), lowpass(f.spectrum)
+        mod, pre = (bf, "sym") if family == "sym" else (sh, "gen")
+        chain = "butterfly_apply" if family == "sym" else "shear_apply"
+        calls = {
+            f"batched_{chain}": (getattr(mod, f"batched_{chain}"),
+                                 (fwd, x)),
+            chain: (getattr(mod, chain), (sfwd, x0)),
+            f"batched_{pre}_operator_apply": (
+                getattr(mod, f"batched_{pre}_operator_apply"),
+                (fwd, bwd, d, x)),
+            f"{pre}_operator_apply": (getattr(mod, f"{pre}_operator_apply"),
+                                      (sfwd, sbwd, d0, x0)),
+            f"batched_{pre}_filter_bank_apply": (
+                getattr(ksp, f"batched_{pre}_filter_bank_apply"),
+                (bfwd, bbwd, gains, x)),
+            f"{pre}_filter_bank_apply": (
+                getattr(ksp, f"{pre}_filter_bank_apply"),
+                (sfwd, sbwd, g0, x0)),
+        }
+        ys = driven(lambda: {e: fn(*a) for e, (fn, a) in calls.items()})
+        with uncounted():
+            for entry, (fn, args) in calls.items():
+                plain = getattr(ref, REF_OF.get(entry, entry))
+                hold(f"{fam} {entry} (bf16 tables)", ys[entry],
+                     plain(*args))
+        log(f"[main-bf16x] {fam} bf16 tables, bf16 blocks: the six entry "
+            f"points bitwise equal to their plain versions")
+
+    for tag, v in dist.items():
+        log(f"[main-bf16x] {tag}: max|dy| / max|y| against the same block "
+            f"in f32: {v:.4e}")
+    missing = [launcher.form(e, p, "bf16") for e in launcher.ENTRIES
+               for p in ("f32", "bf16")
+               if counts[launcher.form(e, p, "bf16")] == 0]
+    check(not missing, f"[main-bf16x] bf16-signal forms never launched: "
+          f"{missing}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[main-bf16x] {phase_s:.1f}s in all; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return {"launches": dict(counts), "f32_distance": dist,
+            "phase_s": phase_s}
+
+
 #: the async front end of [main-async]: R-row requests from closed-loop
 #: tenants through AsyncFGFTService on the tables the earlier phases
 #: fitted (no fit at full width); the dynamic part's churn and refresh
@@ -3356,17 +3644,25 @@ def main() -> int:
     bf16 = phase_main_bf16(errs, main_rec, filter_rec, single, main_dir,
                            single_dir)
     asynch = phase_main_async(errs, main_rec, main_dir)
-    at = ("bf16", bf16["launches"])
-    kernels += phase_main_shapes(main_rec, single, errs, *at)
-    kernels += phase_bank_shapes("sym", filter_rec, filter_out["engine"],
-                                 filter_out["signals"], single, errs, *at)
-    kernels += phase_directed_shapes(main_dir, single_dir, errs, *at)
-    kernels += phase_bank_shapes("general", bank_dir, bank_dir["engine"],
-                                 main_dir["out"]["signals"], single_dir, errs,
-                                 *at)
-    check(len(kernels) == 2 * len(REPLACES),
-          f"{len(kernels)} kernel rows for the f32 and bf16 forms of "
-          f"{len(REPLACES)} entry points")
+    bf16x = phase_main_bf16x(errs, main_rec, filter_rec, single, main_dir,
+                             single_dir)
+    # phase 7 for the bf16 forms, then for the bf16-signal forms on f32
+    # and on bf16 tables
+    for at in (("bf16", bf16["launches"]),
+               ("f32", bf16x["launches"], "bf16"),
+               ("bf16", bf16x["launches"], "bf16")):
+        kernels += phase_main_shapes(main_rec, single, errs, *at)
+        kernels += phase_bank_shapes("sym", filter_rec, filter_out["engine"],
+                                     filter_out["signals"], single, errs,
+                                     *at)
+        kernels += phase_directed_shapes(main_dir, single_dir, errs, *at)
+        kernels += phase_bank_shapes("general", bank_dir,
+                                     bank_dir["engine"],
+                                     main_dir["out"]["signals"], single_dir,
+                                     errs, *at)
+    check(len(kernels) == 4 * len(REPLACES),
+          f"{len(kernels)} kernel rows for the four forms (f32 or bf16 "
+          f"tables, f32 or bf16 signal) of {len(REPLACES)} entry points")
     ragged_counts = dict(ragged["launches"])
     for entry, k in ragged["bank_launches"].items():
         ragged_counts[entry] += k

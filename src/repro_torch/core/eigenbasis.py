@@ -29,7 +29,7 @@ from . import gtransform as gt
 from . import ttransform as tt
 from .staging import (default_cut_ladder, pack_g_batch_pair, pack_g_pair,
                       pack_t_batch_pair, pack_t_pair, select_cut)
-from .types import GFactors, TFactors
+from .types import GFactors, TFactors, as_signal
 
 SYMMETRIC = "sym"
 GENERAL = "general"
@@ -345,7 +345,7 @@ class ApproxEigenbasis:
                          device=str(self.device))
 
     def _signal(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        return as_signal(x, self.device)
 
     def apply(self, x, inverse: bool = False, backend: Optional[str] = None,
               num_stages: Optional[int] = None,
@@ -404,7 +404,8 @@ class ApproxEigenbasis:
 
     def frobenius_error(self, mats) -> torch.Tensor:
         """||M - reconstruction||_F^2 per matrix (scalar or (B,))."""
-        diff = self._signal(mats) - self.reconstruct()
+        diff = (torch.as_tensor(mats, dtype=torch.float32).to(self.device)
+                - self.reconstruct())
         return (diff * diff).sum((-2, -1))
 
     # -- persistence (repro_torch/checkpoint, the JAX package's format) ---

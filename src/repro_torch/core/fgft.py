@@ -41,7 +41,8 @@ class FGFT:
     ``spectrum`` is (n,) f32; ``fwd``/``bwd`` are the staged (S, P)
     tables of Ubar and Ubar^T (undirected) or of Tbar and Tbar^{-1}
     (directed, ``t_factors`` set instead of ``g_factors``).  Signals put
-    the graph coordinate on the LAST axis: x is (..., n) f32."""
+    the graph coordinate on the LAST axis: x is (..., n), f32 or bf16
+    (computed in its dtype; the result has it)."""
 
     n: int
     spectrum: torch.Tensor

@@ -16,6 +16,9 @@ Factors are stored in APPLICATION order: factor 0 is applied first, i.e.
 ``Ubar = G_{g-1} ... G_1 G_0``.  Fields hold torch tensors (or numpy
 arrays on the host side of the packers); batched chains carry a leading
 (B,) axis.
+
+Signals (``as_signal``) are float32 or bfloat16: the transforms compute
+in the signal's dtype, as the JAX package's kernels do.
 """
 from __future__ import annotations
 
@@ -74,3 +77,16 @@ def tfactors_identity(m: int, dtype=torch.float32,
         kind=torch.full((m,), SCALE, dtype=torch.int32, device=device),
         i=z, j=z.clone(), a=torch.ones((m,), dtype=dtype, device=device),
     )
+
+
+#: the signal dtypes the transforms compute in
+SIGNAL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def as_signal(x, device) -> torch.Tensor:
+    """A signal block on ``device``: a float32 or bfloat16 tensor keeps
+    its dtype (the transforms then compute in it), anything else becomes
+    float32, as ``jnp.asarray`` does without x64."""
+    x = torch.as_tensor(x)
+    dtype = x.dtype if x.dtype in SIGNAL_DTYPES else torch.float32
+    return x.to(device=device, dtype=dtype)

@@ -72,15 +72,90 @@
 // with a plain load, widened into the ring's f32 word.  The arithmetic is
 // the f32 form's on the widened values, so a bf16 form equals its f32 form
 // on tables.float(), and is held to the same plain versions.
+//
+// bf16-signal forms (g_chain_xbf16_kernel, g_operator_xbf16_kernel,
+// g_bank_xbf16_kernel: the same entry points on a bf16 signal, which the
+// Pallas kernels compute in bf16, casting every table value, spectrum
+// entry and gain to x's dtype).  They take bf16 value tables (the
+// launcher casts f32 tables once by RNE, launcher.cast_tables: the same
+// rounding as the per-entry cast), read x as bf16 into the f32 tile and
+// round every product and sum to bf16 in the plain version's order
+// (g_rotate: y_i = r(r(c x_i) + r(s x_j)), y_j = r(sigma r(r(-s x_i) +
+// r(c x_j)))), with __fmul_rn / __fadd_rn so that nothing contracts to an
+// FMA; the spectrum and the gains are rounded as they are read (chain.cuh,
+// Signal).  They are bitwise equal to their plain versions.
 #include <cuda_runtime.h>
 
 #include "chain.cuh"
 
 namespace {
 
+// One G pair on a row's two coordinates at signal type T: y_i = c x_i +
+// s x_j, y_j = sigma (-s x_i + c x_j).  f32 as the f32 kernels always
+// computed it (nvcc contracts it to FMAs); bf16 rounds each product and
+// sum on its own, in the plain version's order (kernels/ref.py::_walk).
+template <class T>
+__device__ __forceinline__ void g_rotate(float c, float s, float g, float xi,
+                                         float xj, float& yi, float& yj) {
+  if constexpr (Signal<T>::kRounds) {
+    yi = radd<T>(rmul<T>(c, xi), rmul<T>(s, xj));
+    yj = rmul<T>(g, radd<T>(rmul<T>(-s, xi), rmul<T>(c, xj)));
+  } else {
+    yi = c * xi + s * xj;
+    yj = g * (-s * xi + c * xj);
+  }
+}
+
+// A bank ring entry (i, j, c, s, sigma) on one signal row.
+template <class T>
+__device__ __forceinline__ void g_apply(float* row, const float* e, int n) {
+  const int4 w = *reinterpret_cast<const int4*>(e);
+  if (w.x < n && w.y < n) {
+    float yi, yj;
+    g_rotate<T>(__int_as_float(w.z), __int_as_float(w.w), e[4], row[w.x],
+                row[w.y], yi, yj);
+    row[w.x] = yi;
+    row[w.y] = yj;
+  }
+}
+
+// The rows body's entry in registers (chain.cuh, stream_leg).
+struct GEntry {
+  int i, j;
+  float c, s, g;
+};
+
+// K entries of one stage on the row at shared address `row`: every
+// coordinate read before any is written (chain.cuh, apply_group).
+template <class T, int K>
+__device__ __forceinline__ void g_apply_group(unsigned row, unsigned scratch,
+                                              const GEntry (&en)[K],
+                                              const bool (&ok)[K]) {
+  unsigned ai[K], aj[K];
+  float xi[K], xj[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    ai[k] = ok[k] ? row + 4 * en[k].i : scratch;
+    aj[k] = ok[k] ? row + 4 * en[k].j : scratch;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    xi[k] = ld_shared(ai[k]);
+    xj[k] = ld_shared(aj[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float yi, yj;
+    g_rotate<T>(en[k].c, en[k].s, en[k].g, xi[k], xj[k], yi, yj);
+    st_shared(ai[k], yi);
+    st_shared(aj[k], yj);
+  }
+}
+
 // A G pair (i, j) with values (c, s, sigma): the table pointers of a bank
-// leg, and the stage action of every body on one signal row.
+// leg, and the stage action of every body on one f32 signal row.
 struct GPair {
+  using Signal = float;
   const int* ii;
   const int* jj;
   const float* c;
@@ -104,25 +179,13 @@ struct GPair {
 
   static __device__ __forceinline__ void apply(float* row, const float* e,
                                                int n) {
-    const int4 w = *reinterpret_cast<const int4*>(e);
-    if (w.x < n && w.y < n) {
-      const float ce = __int_as_float(w.z);
-      const float se = __int_as_float(w.w);
-      const float ge = e[4];
-      const float xi = row[w.x];
-      const float xj = row[w.y];
-      row[w.x] = ce * xi + se * xj;
-      row[w.y] = ge * (-se * xi + ce * xj);
-    }
+    g_apply<float>(row, e, n);
   }
 
   // The rows body's form (chain.cuh, stream_leg): an entry in registers,
   // read from a warp's ring (the ring form) with one 16-byte and one
   // 4-byte broadcast load.
-  struct Entry {
-    int i, j;
-    float c, s, g;
-  };
+  using Entry = GEntry;
 
   static __device__ __forceinline__ Entry entry(unsigned a) {
     const int4 v = ld_shared4(a);
@@ -135,31 +198,18 @@ struct GPair {
                                                      unsigned scratch,
                                                      const Entry (&en)[K],
                                                      const bool (&ok)[K]) {
-    unsigned ai[K], aj[K];
-    float xi[K], xj[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      ai[k] = ok[k] ? row + 4 * en[k].i : scratch;
-      aj[k] = ok[k] ? row + 4 * en[k].j : scratch;
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      xi[k] = ld_shared(ai[k]);
-      xj[k] = ld_shared(aj[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      st_shared(ai[k], en[k].c * xi[k] + en[k].s * xj[k]);
-      st_shared(aj[k], en[k].g * (-en[k].s * xi[k] + en[k].c * xj[k]));
-    }
+    g_apply_group<float, K>(row, scratch, en, ok);
   }
 };
 
-// GPair's rows-body form for bf16 value tables: the 4-word stream entry
-// (i, j, c|s, sigma|0), widened in registers, then GPair's arithmetic.
+// GPair's rows-body form for bf16 value tables at signal type T: the
+// 4-word stream entry (i, j, c|s, sigma|0), widened in registers, then
+// g_rotate<T>.
+template <class T>
 struct GPairBf16 {
+  using Signal = T;
   static constexpr int kWords = 4;
-  using Entry = GPair::Entry;
+  using Entry = GEntry;
 
   static __device__ __forceinline__ Entry entry(unsigned a) {
     const int4 v = ld_shared4(a);
@@ -172,13 +222,16 @@ struct GPairBf16 {
                                                      unsigned scratch,
                                                      const Entry (&en)[K],
                                                      const bool (&ok)[K]) {
-    GPair::apply_group<K>(row, scratch, en, ok);
+    g_apply_group<T, K>(row, scratch, en, ok);
   }
 };
 
-// GPair's bank-body form for bf16 value tables: the indices by cp.async,
-// the three values widened into GPair's ring form (i, j, c, s, sigma).
+// GPair's bank-body form for bf16 value tables at signal type T: the
+// indices by cp.async, the three values widened into GPair's ring form
+// (i, j, c, s, sigma).
+template <class T>
 struct GBankBf16 {
+  using Signal = T;
   const int* ii;
   const int* jj;
   const unsigned short* c;  // bf16 bits
@@ -200,12 +253,13 @@ struct GBankBf16 {
 
   static __device__ __forceinline__ void apply(float* row, const float* e,
                                                int n) {
-    GPair::apply(row, e, n);
+    g_apply<T>(row, e, n);
   }
 };
 
 using GBankLeg = BankLeg<GPair>;
-using GBankBf16Leg = BankLeg<GBankBf16>;
+using GBankBf16Leg = BankLeg<GBankBf16<float>>;
+using GBankXLeg = BankLeg<GBankBf16<__nv_bfloat16>>;
 
 __global__ void __launch_bounds__(kMaxOperatorThreads)
     g_chain_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
@@ -243,7 +297,7 @@ __global__ void __launch_bounds__(kMaxOperatorThreads)
     g_chain_bf16_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
                         const float* __restrict__ x, float* __restrict__ y,
                         StreamLeg leg) {
-  chain_lanes<GPairBf16>(R, n, ld, lanes, rows_per_warp, x, y, leg);
+  chain_lanes<GPairBf16<float>>(R, n, ld, lanes, rows_per_warp, x, y, leg);
 }
 
 __global__ void __launch_bounds__(kMaxOperatorThreads)
@@ -251,8 +305,8 @@ __global__ void __launch_bounds__(kMaxOperatorThreads)
                            const float* __restrict__ x, float* __restrict__ y,
                            const float* __restrict__ d, StreamLeg adj,
                            StreamLeg fwd) {
-  operator_lanes<GPairBf16>(R, n, ld, lanes, rows_per_warp, x, y, d, adj,
-                            fwd);
+  operator_lanes<GPairBf16<float>>(R, n, ld, lanes, rows_per_warp, x, y, d,
+                                   adj, fwd);
 }
 
 __global__ void g_bank_bf16_kernel(int R, int n, int ld, int rows_per_cta,
@@ -271,8 +325,50 @@ inline GBankBf16Leg g_bank_bf16_leg(const int* ii, const int* jj,
                                     const unsigned short* sg, const int* ext,
                                     long long bstride, int P, int s0,
                                     int ns) {
-  return GBankBf16Leg{GBankBf16{ii, jj, c, s, sg}, ext, bstride,
+  return GBankBf16Leg{GBankBf16<float>{ii, jj, c, s, sg}, ext, bstride,
                       P ? bstride / P : 0, P, s0, ns};
+}
+
+// The bf16-signal forms (bf16 tables; the launcher casts f32 tables
+// once, launcher.cast_tables): x and y bf16, every operation rounded to
+// bf16 (chain.cuh, Signal).
+using XSignal = __nv_bfloat16;
+
+__global__ void __launch_bounds__(kMaxOperatorThreads)
+    g_chain_xbf16_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
+                         const XSignal* __restrict__ x,
+                         XSignal* __restrict__ y, StreamLeg leg) {
+  chain_lanes<GPairBf16<XSignal>>(R, n, ld, lanes, rows_per_warp, x, y, leg);
+}
+
+__global__ void __launch_bounds__(kMaxOperatorThreads)
+    g_operator_xbf16_kernel(int R, int n, int ld, int lanes,
+                            int rows_per_warp, const XSignal* __restrict__ x,
+                            XSignal* __restrict__ y,
+                            const float* __restrict__ d, StreamLeg adj,
+                            StreamLeg fwd) {
+  operator_lanes<GPairBf16<XSignal>>(R, n, ld, lanes, rows_per_warp, x, y, d,
+                                     adj, fwd);
+}
+
+__global__ void g_bank_xbf16_kernel(int R, int n, int ld, int rows_per_cta,
+                                    int filters_per_cta, int row_tiles,
+                                    int slot_words,
+                                    const XSignal* __restrict__ x,
+                                    XSignal* __restrict__ y,
+                                    const float* __restrict__ gains, int F,
+                                    GBankXLeg adj, GBankXLeg fwd) {
+  bank_tile(R, n, ld, rows_per_cta, filters_per_cta, row_tiles, slot_words,
+            x, y, gains, F, adj, fwd);
+}
+
+inline GBankXLeg g_bank_xbf16_leg(const int* ii, const int* jj,
+                                  const unsigned short* c,
+                                  const unsigned short* s,
+                                  const unsigned short* sg, const int* ext,
+                                  long long bstride, int P, int s0, int ns) {
+  return GBankXLeg{GBankBf16<XSignal>{ii, jj, c, s, sg}, ext, bstride,
+                   P ? bstride / P : 0, P, s0, ns};
 }
 
 }  // namespace
@@ -376,7 +472,7 @@ int g_chain_bf16_launch(const float* x, float* y, int B, int R, int n,
                         const int* words, const int* off, int S, int s0,
                         int ns, int lanes, int rows_per_warp, int warps,
                         void* stream) {
-  return launch_rows<GPairBf16>(g_chain_bf16_kernel, B, R, n, lanes,
+  return launch_rows<GPairBf16<float>>(g_chain_bf16_kernel, B, R, n, lanes,
                                 rows_per_warp, warps, stream, x, y,
                                 StreamLeg{words, off, S, s0, ns});
 }
@@ -386,7 +482,7 @@ int g_operator_bf16_launch(const float* x, float* y, int B, int R, int n,
                            int aS, int a0, int na, const int* fwords,
                            const int* foff, int fS, int f0, int nf, int lanes,
                            int rows_per_warp, int warps, void* stream) {
-  return launch_rows<GPairBf16>(g_operator_bf16_kernel, B, R, n, lanes,
+  return launch_rows<GPairBf16<float>>(g_operator_bf16_kernel, B, R, n, lanes,
                                 rows_per_warp, warps, stream, x, y, d,
                                 StreamLeg{awords, aoff, aS, a0, na},
                                 StreamLeg{fwords, foff, fS, f0, nf});
@@ -416,7 +512,7 @@ int g_bank_bf16_launch(const float* x, float* y, int B, int R, int n,
 int g_bf16_occupancy(int kind, int rows, int n, int P, int threads) {
   const int ld = odd_stride(n);
   const size_t smem =
-      operator_smem(rows, ld, threads / 32, GPairBf16::kWords);
+      operator_smem(rows, ld, threads / 32, GPairBf16<float>::kWords);
   switch (kind) {
     case 0:
       return resident_ctas((const void*)g_chain_bf16_kernel, smem, threads);
@@ -425,7 +521,67 @@ int g_bf16_occupancy(int kind, int rows, int n, int P, int threads) {
                            threads);
     default:
       return resident_ctas((const void*)g_bank_bf16_kernel,
-                           bank_smem(rows, ld, P * GBankBf16::kWords),
+                           bank_smem(rows, ld, P * GBankBf16<float>::kWords),
+                           threads);
+  }
+}
+
+// The bf16-signal forms: x and y as bf16, the value tables as bf16 bits,
+// the other arguments as the f32 forms'.
+int g_chain_xbf16_launch(const XSignal* x, XSignal* y, int B, int R, int n,
+                         const int* words, const int* off, int S, int s0,
+                         int ns, int lanes, int rows_per_warp, int warps,
+                         void* stream) {
+  return launch_rows<GPairBf16<XSignal>>(g_chain_xbf16_kernel, B, R, n, lanes,
+                                         rows_per_warp, warps, stream, x, y,
+                                         StreamLeg{words, off, S, s0, ns});
+}
+
+int g_operator_xbf16_launch(const XSignal* x, XSignal* y, int B, int R,
+                            int n, const float* d, const int* awords,
+                            const int* aoff, int aS, int a0, int na,
+                            const int* fwords, const int* foff, int fS,
+                            int f0, int nf, int lanes, int rows_per_warp,
+                            int warps, void* stream) {
+  return launch_rows<GPairBf16<XSignal>>(
+      g_operator_xbf16_kernel, B, R, n, lanes, rows_per_warp, warps, stream,
+      x, y, d, StreamLeg{awords, aoff, aS, a0, na},
+      StreamLeg{fwords, foff, fS, f0, nf});
+}
+
+int g_bank_xbf16_launch(const XSignal* x, XSignal* y, int B, int R, int n,
+                        const float* gains, int F, const int* aii,
+                        const int* ajj, const unsigned short* ac,
+                        const unsigned short* as, const unsigned short* asg,
+                        const int* aext, long long abstride, int aP, int a0,
+                        int na, const int* fii, const int* fjj,
+                        const unsigned short* fc, const unsigned short* fs,
+                        const unsigned short* fsg, const int* fext,
+                        long long fbstride, int fP, int f0, int nf,
+                        int rows_per_cta, int filters_per_cta, int threads,
+                        void* stream) {
+  return launch_bank(g_bank_xbf16_kernel, B, R, n, F, rows_per_cta,
+                     filters_per_cta, threads, stream, x, y, gains,
+                     g_bank_xbf16_leg(aii, ajj, ac, as, asg, aext, abstride,
+                                      aP, a0, na),
+                     g_bank_xbf16_leg(fii, fjj, fc, fs, fsg, fext, fbstride,
+                                      fP, f0, nf));
+}
+
+// Resident CTAs per SM of a G bf16-signal form, as g_bf16_occupancy.
+int g_xbf16_occupancy(int kind, int rows, int n, int P, int threads) {
+  const int ld = odd_stride(n);
+  const size_t smem =
+      operator_smem(rows, ld, threads / 32, GPairBf16<XSignal>::kWords);
+  switch (kind) {
+    case 0:
+      return resident_ctas((const void*)g_chain_xbf16_kernel, smem, threads);
+    case 1:
+      return resident_ctas((const void*)g_operator_xbf16_kernel, smem,
+                           threads);
+    default:
+      return resident_ctas((const void*)g_bank_xbf16_kernel,
+                           bank_smem(rows, ld, P * GBankBf16<XSignal>::kWords),
                            threads);
   }
 }

@@ -47,13 +47,66 @@
 // and then runs its f32 Op's arithmetic.  A bf16 -> f32 widening is exact,
 // so a bf16 form computes exactly what its f32 form computes on the
 // widened tables.
+//
+// bf16 signals.  Both bodies take the signal's element type from their Op
+// (Op::Signal, float or __nv_bfloat16) and its rounding from Signal<T>.
+// The shared tile keeps f32 words either way: a bf16 signal is widened
+// into it (exact), every product and sum of the walk, the operator's
+// spectrum scale and the bank's gain scale is rounded to bf16 by RNE
+// (Signal<T>::r, after an unfused __fmul_rn / __fadd_rn: never an FMA),
+// so the tile holds bf16 values throughout and the store back to bf16 is
+// exact.  That is the plain version's arithmetic on a bf16 signal
+// (kernels/ref.py: each torch op rounds its f32 result to bf16), so the
+// bf16-signal forms (the *_xbf16_kernel instantiations) are bitwise equal
+// to it.  The spectrum and the gains come in as f32 and are rounded to
+// bf16 as they are read, as the plain version casts them to x's dtype.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
 inline int odd_stride(int n) { return (n + 1) | 1; }
+
+// The signal's element type T: how it widens into the f32 tile, how a tile
+// value is stored back, and the rounding r of every product and sum (the
+// identity for f32).
+template <class T>
+struct Signal;
+
+template <>
+struct Signal<float> {
+  static constexpr bool kRounds = false;
+  static __device__ __forceinline__ float widen(float v) { return v; }
+  static __device__ __forceinline__ float narrow(float v) { return v; }
+  static __device__ __forceinline__ float r(float v) { return v; }
+};
+
+template <>
+struct Signal<__nv_bfloat16> {
+  static constexpr bool kRounds = true;
+  static __device__ __forceinline__ float widen(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 narrow(float v) {
+    return __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ float r(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+};
+
+// r(a * b) and r(a + b) at signal type T, each rounded on its own.
+template <class T>
+__device__ __forceinline__ float rmul(float a, float b) {
+  return Signal<T>::r(__fmul_rn(a, b));
+}
+
+template <class T>
+__device__ __forceinline__ float radd(float a, float b) {
+  return Signal<T>::r(__fadd_rn(a, b));
+}
 
 // The f32 value of the bf16 in the low or high half of a word (exact: a
 // bf16 is the high half of the f32 it rounds).
@@ -66,23 +119,26 @@ __device__ __forceinline__ float bf16_hi(unsigned w) {
 }
 
 // The bank's tile: `rows` rows of x into the shared tile at the stride ld.
-__device__ __forceinline__ void load_tile(float* tile, int ld, const float* x,
+template <class T>
+__device__ __forceinline__ void load_tile(float* tile, int ld, const T* x,
                                           int rows, int n) {
   for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
     const int r = e / n;
     const int col = e - r * n;
-    tile[r * ld + col] = x[(long long)r * n + col];
+    tile[r * ld + col] = Signal<T>::widen(x[(long long)r * n + col]);
   }
   __syncthreads();
 }
 
 // tile[r, col] *= d[col] for the (n + 1)-wide dummy-padded spectrum d.
+template <class T>
 __device__ __forceinline__ void scale_tile(float* tile, int ld, const float* d,
                                            int rows, int n) {
   for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
     const int r = e / n;
     const int col = e - r * n;
-    tile[r * ld + col] *= d[col];
+    tile[r * ld + col] =
+        rmul<T>(tile[r * ld + col], Signal<T>::r(d[col]));
   }
   __syncthreads();
 }
@@ -97,6 +153,8 @@ __device__ __forceinline__ void scale_tile(float* tile, int ld, const float* d,
 // barrier that orders the stages also publishes the ring slot that the next
 // stage reads and frees the slot that the copy started after it overwrites.
 // A family's action `Op` supplies, besides its table pointers,
+//   Signal                     the signal's element type (float or
+//                              __nv_bfloat16; its rounding: Signal<T>)
 //   kFields                    32-bit table fields per entry (indices first)
 //                              that cp.async copies
 //   kWords                     ring words per entry (16-byte aligned)
@@ -232,12 +290,12 @@ inline size_t bank_smem(int rows, int ld, int slot_words) {
 // fg * rows rows: 2 S stage barriers per CTA for any fg.  Each row's
 // arithmetic is the plain version's (kernels/ref.py folds F into the row
 // axis the same way).
-template <class Op>
+template <class Op, class T = typename Op::Signal>
 __device__ __forceinline__ void bank_tile(int R, int n, int ld,
                                           int rows_per_cta,
                                           int filters_per_cta, int row_tiles,
-                                          int slot_words, const float* x,
-                                          float* y, const float* gains, int F,
+                                          int slot_words, const T* x, T* y,
+                                          const float* gains, int F,
                                           const BankLeg<Op>& first,
                                           const BankLeg<Op>& second) {
   extern __shared__ __align__(16) float smem[];
@@ -261,10 +319,11 @@ __device__ __forceinline__ void bank_tile(int R, int n, int ld,
     const int r = q / n;
     const int col = q - r * n;
     tile[(f * rows + r) * ld + col] =
-        tile[r * ld + col] * g[(long long)f * (n + 1) + col];
+        rmul<T>(tile[r * ld + col],
+                Signal<T>::r(g[(long long)f * (n + 1) + col]));
   }
   __syncthreads();
-  scale_tile(tile, ld, g, rows, n);
+  scale_tile<T>(tile, ld, g, rows, n);
   walk_leg(tile, ld, fg * rows, n, b, second, ring, slot_words, ring_ext);
   for (int e = threadIdx.x; e < fg * span; e += blockDim.x) {
     const int row = e / n;
@@ -272,7 +331,7 @@ __device__ __forceinline__ void bank_tile(int R, int n, int ld,
     const int f = row / rows;
     const int r = row - f * rows;
     y[(((long long)b * F + f0 + f) * R + r0 + r) * n + col] =
-        tile[row * ld + col];
+        Signal<T>::narrow(tile[row * ld + col]);
   }
 }
 
@@ -281,8 +340,8 @@ __device__ __forceinline__ void bank_tile(int R, int n, int ld,
 template <class Op, class... Params>
 inline int launch_bank(void (*kernel)(Params...), int B, int R, int n, int F,
                        int rows_per_cta, int filters_per_cta, int threads,
-                       void* stream,
-                       const float* x, float* y, const float* gains,
+                       void* stream, const typename Op::Signal* x,
+                       typename Op::Signal* y, const float* gains,
                        const BankLeg<Op>& first, const BankLeg<Op>& second) {
   if (B == 0 || R == 0) return 0;
   if (rows_per_cta < 1 || filters_per_cta < 1 || F < 1)
@@ -310,7 +369,8 @@ inline int launch_bank(void (*kernel)(Params...), int B, int R, int n, int F,
 // (g_operator_kernel, t_operator_kernel)
 // ---------------------------------------------------------------------------
 // A warp owns rows of one matrix for the whole launch, so nothing in it
-// waits for the CTA.  A family's action `Op` supplies, besides kWords,
+// waits for the CTA.  A family's action `Op` supplies, besides kWords and
+// Signal (as in the bank body),
 //   Entry                      one table entry in registers, read from the
 //                              ring form at a shared address (entry(a))
 //   apply_group<K>(row, scratch, en, ok)
@@ -504,10 +564,10 @@ inline size_t operator_smem(int rows, int ld, int warps, int words) {
 // the warp's rows walks on row 0's scratch column without touching any
 // row (`active` false).  A partial last warp leaves the lanes of its
 // missing rows idle.
-template <class Op, int L, class Walk>
+template <class Op, int L, class Walk, class T = typename Op::Signal>
 __device__ __forceinline__ void own_rows(int R, int n, int ld,
-                                         int rows_per_warp, const float* x,
-                                         float* y, Walk walk) {
+                                         int rows_per_warp, const T* x, T* y,
+                                         Walk walk) {
   extern __shared__ __align__(16) float smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -523,7 +583,8 @@ __device__ __forceinline__ void own_rows(int R, int n, int ld,
   const long long at = ((long long)b * R + r0) * n;
   for (int r = 0; r < rows; ++r)
     for (int c = lane; c < n; c += 32)
-      wt[r * ld + c] = __ldg(x + at + (long long)r * n + c);
+      wt[r * ld + c] =
+          Signal<T>::widen(__ldg(x + at + (long long)r * n + c));
   __syncwarp();
   const int row = lane / L;
   const int sub = lane - row * L;
@@ -532,14 +593,14 @@ __device__ __forceinline__ void own_rows(int R, int n, int ld,
   __syncwarp();
   for (int r = 0; r < rows; ++r)
     for (int c = lane; c < n; c += 32)
-      y[at + (long long)r * n + c] = wt[r * ld + c];
+      y[at + (long long)r * n + c] = Signal<T>::narrow(wt[r * ld + c]);
 }
 
 // y[b] = leg_b x[b]: the rows' lanes walk the one leg.
-template <class Op, int L>
+template <class Op, int L, class T = typename Op::Signal>
 __device__ __forceinline__ void chain_rows(int R, int n, int ld,
-                                           int rows_per_warp, const float* x,
-                                           float* y, const StreamLeg& leg) {
+                                           int rows_per_warp, const T* x,
+                                           T* y, const StreamLeg& leg) {
   own_rows<Op, L>(R, n, ld, rows_per_warp, x, y,
                   [&](float*, int, float* mine, bool active, int* ring,
                       int b, int lane, int sub) {
@@ -551,11 +612,10 @@ __device__ __forceinline__ void chain_rows(int R, int n, int ld,
 // y[b] = second_b diag(d[b]) first_b x[b], d (B, n): the rows' lanes walk
 // the first leg, the warp scales its rows' columns < n, the lanes walk
 // the second leg.
-template <class Op, int L>
+template <class Op, int L, class T = typename Op::Signal>
 __device__ __forceinline__ void operator_rows(int R, int n, int ld,
-                                              int rows_per_warp,
-                                              const float* x, float* y,
-                                              const float* d,
+                                              int rows_per_warp, const T* x,
+                                              T* y, const float* d,
                                               const StreamLeg& first,
                                               const StreamLeg& second) {
   own_rows<Op, L>(
@@ -566,8 +626,9 @@ __device__ __forceinline__ void operator_rows(int R, int n, int ld,
         __syncwarp();
         const float* db = d + (long long)b * n;
         for (int c = lane; c < n; c += 32) {
-          const float dc = __ldg(db + c);
-          for (int r = 0; r < rows; ++r) wt[r * ld + c] *= dc;
+          const float dc = Signal<T>::r(__ldg(db + c));
+          for (int r = 0; r < rows; ++r)
+            wt[r * ld + c] = rmul<T>(wt[r * ld + c], dc);
         }
         __syncwarp();
         stream_leg<Op, L>(mine, n, active, ring, b, second, lane, sub);
@@ -575,10 +636,10 @@ __device__ __forceinline__ void operator_rows(int R, int n, int ld,
 }
 
 // A rows body at the launch's lanes per row (1, 2, 4 or 8).
-template <class Op>
+template <class Op, class T = typename Op::Signal>
 __device__ __forceinline__ void chain_lanes(int R, int n, int ld, int lanes,
-                                            int rows_per_warp, const float* x,
-                                            float* y, const StreamLeg& leg) {
+                                            int rows_per_warp, const T* x,
+                                            T* y, const StreamLeg& leg) {
   switch (lanes) {
     case 1: chain_rows<Op, 1>(R, n, ld, rows_per_warp, x, y, leg); break;
     case 2: chain_rows<Op, 2>(R, n, ld, rows_per_warp, x, y, leg); break;
@@ -587,10 +648,10 @@ __device__ __forceinline__ void chain_lanes(int R, int n, int ld, int lanes,
   }
 }
 
-template <class Op>
+template <class Op, class T = typename Op::Signal>
 __device__ __forceinline__ void operator_lanes(int R, int n, int ld,
                                                int lanes, int rows_per_warp,
-                                               const float* x, float* y,
+                                               const T* x, T* y,
                                                const float* d,
                                                const StreamLeg& first,
                                                const StreamLeg& second) {

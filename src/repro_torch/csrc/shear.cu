@@ -61,15 +61,69 @@
 // with cp.async and widens each 2-byte value with a plain load into the
 // ring's f32 word.  The arithmetic is the f32 form's on the widened
 // values, so the bf16 forms too are bitwise equal to their plain versions.
+//
+// bf16-signal forms (t_chain_xbf16_kernel, t_operator_xbf16_kernel,
+// t_bank_xbf16_kernel: the entry points on a bf16 signal, computed in bf16
+// as the Pallas kernels compute it).  They take bf16 value tables (the
+// launcher casts f32 tables once by RNE), read x as bf16 into the f32 tile
+// and round every product and sum to bf16 (t_combine: y_i = r(r(alpha
+// x_i) + r(beta x_j))), the spectrum and the gains as they are read and
+// the scales after them (chain.cuh, Signal); bitwise equal to their plain
+// versions.
 #include <cuda_runtime.h>
 
 #include "chain.cuh"
 
 namespace {
 
+// y_i = alpha x_i + beta x_j at signal type T: each product and the sum
+// rounded on its own (unfused; at bf16 each rounded to bf16 as well).
+template <class T>
+__device__ __forceinline__ float t_combine(float a, float xi, float b,
+                                           float xj) {
+  return radd<T>(rmul<T>(a, xi), rmul<T>(b, xj));
+}
+
+// A bank ring entry (i, j, alpha, beta) on one signal row.
+template <class T>
+__device__ __forceinline__ void t_apply(float* row, const float* e, int n) {
+  const int4 w = *reinterpret_cast<const int4*>(e);
+  if (w.x < n && w.y < n) {
+    row[w.x] = t_combine<T>(__int_as_float(w.z), row[w.x],
+                            __int_as_float(w.w), row[w.y]);
+  }
+}
+
+// The rows body's entry in registers (chain.cuh, stream_leg).
+struct TRowEntry {
+  int i, j;
+  float a, b;
+};
+
+// K entries of one stage on the row at shared address `row`: every
+// coordinate read before any is written (chain.cuh, apply_group).
+template <class T, int K>
+__device__ __forceinline__ void t_apply_group(unsigned row, unsigned scratch,
+                                              const TRowEntry (&en)[K],
+                                              const bool (&ok)[K]) {
+  unsigned ai[K];
+  float xi[K], xj[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    ai[k] = ok[k] ? row + 4 * en[k].i : scratch;
+    const unsigned aj = ok[k] ? row + 4 * en[k].j : scratch;
+    xi[k] = ld_shared(ai[k]);
+    xj[k] = ld_shared(aj);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    st_shared(ai[k], t_combine<T>(en[k].a, xi[k], en[k].b, xj[k]));
+}
+
 // A T entry (i, j, alpha, beta): the table pointers of a bank leg, and the
-// stage action of every body on one signal row (only i written).
+// stage action of every body on one f32 signal row (only i written).
 struct TEntry {
+  using Signal = float;
   const int* ii;
   const int* jj;
   const float* al;
@@ -91,20 +145,13 @@ struct TEntry {
 
   static __device__ __forceinline__ void apply(float* row, const float* e,
                                                int n) {
-    const int4 w = *reinterpret_cast<const int4*>(e);
-    if (w.x < n && w.y < n) {
-      row[w.x] = __fadd_rn(__fmul_rn(__int_as_float(w.z), row[w.x]),
-                           __fmul_rn(__int_as_float(w.w), row[w.y]));
-    }
+    t_apply<float>(row, e, n);
   }
 
   // The rows body's form (chain.cuh, stream_leg): an entry in registers,
   // read from a warp's ring (the ring form) with one 16-byte broadcast
   // load.
-  struct Entry {
-    int i, j;
-    float a, b;
-  };
+  using Entry = TRowEntry;
 
   static __device__ __forceinline__ Entry entry(unsigned a) {
     const int4 v = ld_shared4(a);
@@ -116,27 +163,17 @@ struct TEntry {
                                                      unsigned scratch,
                                                      const Entry (&en)[K],
                                                      const bool (&ok)[K]) {
-    unsigned ai[K];
-    float xi[K], xj[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      ai[k] = ok[k] ? row + 4 * en[k].i : scratch;
-      const unsigned aj = ok[k] ? row + 4 * en[k].j : scratch;
-      xi[k] = ld_shared(ai[k]);
-      xj[k] = ld_shared(aj);
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      st_shared(ai[k], __fadd_rn(__fmul_rn(en[k].a, xi[k]),
-                                 __fmul_rn(en[k].b, xj[k])));
+    t_apply_group<float, K>(row, scratch, en, ok);
   }
 };
 
-// TEntry for bf16 value tables, in both bodies: the rows body's stream
-// entry (i, j, alpha|beta, 0) widened in registers; the bank's ring entry
-// in TEntry's f32 form (i, j, alpha, beta), the indices by cp.async and
-// the values widened into it.  Then TEntry's arithmetic.
+// TEntry for bf16 value tables at signal type T, in both bodies: the rows
+// body's stream entry (i, j, alpha|beta, 0) widened in registers; the
+// bank's ring entry in TEntry's f32 form (i, j, alpha, beta), the indices
+// by cp.async and the values widened into it.  Then t_combine<T>.
+template <class T>
 struct TEntryBf16 {
+  using Signal = T;
   const int* ii;
   const int* jj;
   const unsigned short* al;  // bf16 bits
@@ -156,10 +193,10 @@ struct TEntryBf16 {
 
   static __device__ __forceinline__ void apply(float* row, const float* e,
                                                int n) {
-    TEntry::apply(row, e, n);
+    t_apply<T>(row, e, n);
   }
 
-  using Entry = TEntry::Entry;
+  using Entry = TRowEntry;
 
   static __device__ __forceinline__ Entry entry(unsigned a) {
     const int4 v = ld_shared4(a);
@@ -171,12 +208,13 @@ struct TEntryBf16 {
                                                      unsigned scratch,
                                                      const Entry (&en)[K],
                                                      const bool (&ok)[K]) {
-    TEntry::apply_group<K>(row, scratch, en, ok);
+    t_apply_group<T, K>(row, scratch, en, ok);
   }
 };
 
 using TBankLeg = BankLeg<TEntry>;
-using TBankBf16Leg = BankLeg<TEntryBf16>;
+using TBankBf16Leg = BankLeg<TEntryBf16<float>>;
+using TBankXLeg = BankLeg<TEntryBf16<__nv_bfloat16>>;
 
 __global__ void __launch_bounds__(kMaxOperatorThreads)
     t_chain_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
@@ -214,7 +252,7 @@ __global__ void __launch_bounds__(kMaxOperatorThreads)
     t_chain_bf16_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
                         const float* __restrict__ x, float* __restrict__ y,
                         StreamLeg leg) {
-  chain_lanes<TEntryBf16>(R, n, ld, lanes, rows_per_warp, x, y, leg);
+  chain_lanes<TEntryBf16<float>>(R, n, ld, lanes, rows_per_warp, x, y, leg);
 }
 
 __global__ void __launch_bounds__(kMaxOperatorThreads)
@@ -222,8 +260,8 @@ __global__ void __launch_bounds__(kMaxOperatorThreads)
                            const float* __restrict__ x, float* __restrict__ y,
                            const float* __restrict__ d, StreamLeg inv,
                            StreamLeg fwd) {
-  operator_lanes<TEntryBf16>(R, n, ld, lanes, rows_per_warp, x, y, d, inv,
-                             fwd);
+  operator_lanes<TEntryBf16<float>>(R, n, ld, lanes, rows_per_warp, x, y, d,
+                                    inv, fwd);
 }
 
 __global__ void t_bank_bf16_kernel(int R, int n, int ld, int rows_per_cta,
@@ -241,8 +279,50 @@ inline TBankBf16Leg t_bank_bf16_leg(const int* ii, const int* jj,
                                     const unsigned short* be, const int* ext,
                                     long long bstride, int P, int s0,
                                     int ns) {
-  return TBankBf16Leg{TEntryBf16{ii, jj, al, be}, ext, bstride,
+  return TBankBf16Leg{TEntryBf16<float>{ii, jj, al, be}, ext, bstride,
                       P ? bstride / P : 0, P, s0, ns};
+}
+
+// The bf16-signal forms (bf16 tables; the launcher casts f32 tables
+// once, launcher.cast_tables): x and y bf16, every operation rounded to
+// bf16 (chain.cuh, Signal).
+using XSignal = __nv_bfloat16;
+
+__global__ void __launch_bounds__(kMaxOperatorThreads)
+    t_chain_xbf16_kernel(int R, int n, int ld, int lanes, int rows_per_warp,
+                         const XSignal* __restrict__ x,
+                         XSignal* __restrict__ y, StreamLeg leg) {
+  chain_lanes<TEntryBf16<XSignal>>(R, n, ld, lanes, rows_per_warp, x, y,
+                                   leg);
+}
+
+__global__ void __launch_bounds__(kMaxOperatorThreads)
+    t_operator_xbf16_kernel(int R, int n, int ld, int lanes,
+                            int rows_per_warp, const XSignal* __restrict__ x,
+                            XSignal* __restrict__ y,
+                            const float* __restrict__ d, StreamLeg inv,
+                            StreamLeg fwd) {
+  operator_lanes<TEntryBf16<XSignal>>(R, n, ld, lanes, rows_per_warp, x, y,
+                                      d, inv, fwd);
+}
+
+__global__ void t_bank_xbf16_kernel(int R, int n, int ld, int rows_per_cta,
+                                    int filters_per_cta, int row_tiles,
+                                    int slot_words,
+                                    const XSignal* __restrict__ x,
+                                    XSignal* __restrict__ y,
+                                    const float* __restrict__ gains, int F,
+                                    TBankXLeg inv, TBankXLeg fwd) {
+  bank_tile(R, n, ld, rows_per_cta, filters_per_cta, row_tiles, slot_words,
+            x, y, gains, F, inv, fwd);
+}
+
+inline TBankXLeg t_bank_xbf16_leg(const int* ii, const int* jj,
+                                  const unsigned short* al,
+                                  const unsigned short* be, const int* ext,
+                                  long long bstride, int P, int s0, int ns) {
+  return TBankXLeg{TEntryBf16<XSignal>{ii, jj, al, be}, ext, bstride,
+                   P ? bstride / P : 0, P, s0, ns};
 }
 
 }  // namespace
@@ -313,7 +393,7 @@ int t_chain_bf16_launch(const float* x, float* y, int B, int R, int n,
                         const int* words, const int* off, int S, int s0,
                         int ns, int lanes, int rows_per_warp, int warps,
                         void* stream) {
-  return launch_rows<TEntryBf16>(t_chain_bf16_kernel, B, R, n, lanes,
+  return launch_rows<TEntryBf16<float>>(t_chain_bf16_kernel, B, R, n, lanes,
                                  rows_per_warp, warps, stream, x, y,
                                  StreamLeg{words, off, S, s0, ns});
 }
@@ -323,7 +403,7 @@ int t_operator_bf16_launch(const float* x, float* y, int B, int R, int n,
                            int iS, int i0, int ni, const int* fwords,
                            const int* foff, int fS, int f0, int nf, int lanes,
                            int rows_per_warp, int warps, void* stream) {
-  return launch_rows<TEntryBf16>(t_operator_bf16_kernel, B, R, n, lanes,
+  return launch_rows<TEntryBf16<float>>(t_operator_bf16_kernel, B, R, n, lanes,
                                  rows_per_warp, warps, stream, x, y, d,
                                  StreamLeg{iwords, ioff, iS, i0, ni},
                                  StreamLeg{fwords, foff, fS, f0, nf});
@@ -351,7 +431,7 @@ int t_bank_bf16_launch(const float* x, float* y, int B, int R, int n,
 int t_bf16_occupancy(int kind, int rows, int n, int P, int threads) {
   const int ld = odd_stride(n);
   const size_t smem =
-      operator_smem(rows, ld, threads / 32, TEntryBf16::kWords);
+      operator_smem(rows, ld, threads / 32, TEntryBf16<float>::kWords);
   switch (kind) {
     case 0:
       return resident_ctas((const void*)t_chain_bf16_kernel, smem, threads);
@@ -360,8 +440,68 @@ int t_bf16_occupancy(int kind, int rows, int n, int P, int threads) {
                            threads);
     default:
       return resident_ctas((const void*)t_bank_bf16_kernel,
-                           bank_smem(rows, ld, P * TEntryBf16::kWords),
+                           bank_smem(rows, ld, P * TEntryBf16<float>::kWords),
                            threads);
+  }
+}
+
+// The bf16-signal forms: x and y as bf16, the value tables as bf16 bits,
+// the other arguments as the f32 forms'.
+int t_chain_xbf16_launch(const XSignal* x, XSignal* y, int B, int R, int n,
+                         const int* words, const int* off, int S, int s0,
+                         int ns, int lanes, int rows_per_warp, int warps,
+                         void* stream) {
+  return launch_rows<TEntryBf16<XSignal>>(t_chain_xbf16_kernel, B, R, n,
+                                          lanes, rows_per_warp, warps, stream,
+                                          x, y,
+                                          StreamLeg{words, off, S, s0, ns});
+}
+
+int t_operator_xbf16_launch(const XSignal* x, XSignal* y, int B, int R,
+                            int n, const float* d, const int* iwords,
+                            const int* ioff, int iS, int i0, int ni,
+                            const int* fwords, const int* foff, int fS,
+                            int f0, int nf, int lanes, int rows_per_warp,
+                            int warps, void* stream) {
+  return launch_rows<TEntryBf16<XSignal>>(
+      t_operator_xbf16_kernel, B, R, n, lanes, rows_per_warp, warps, stream,
+      x, y, d, StreamLeg{iwords, ioff, iS, i0, ni},
+      StreamLeg{fwords, foff, fS, f0, nf});
+}
+
+int t_bank_xbf16_launch(const XSignal* x, XSignal* y, int B, int R, int n,
+                        const float* gains, int F, const int* iii,
+                        const int* ijj, const unsigned short* ial,
+                        const unsigned short* ibe, const int* iext,
+                        long long ibstride, int iP, int i0, int ni,
+                        const int* fii, const int* fjj,
+                        const unsigned short* fal, const unsigned short* fbe,
+                        const int* fext, long long fbstride, int fP, int f0,
+                        int nf, int rows_per_cta, int filters_per_cta,
+                        int threads, void* stream) {
+  return launch_bank(t_bank_xbf16_kernel, B, R, n, F, rows_per_cta,
+                     filters_per_cta, threads, stream, x, y, gains,
+                     t_bank_xbf16_leg(iii, ijj, ial, ibe, iext, ibstride, iP,
+                                      i0, ni),
+                     t_bank_xbf16_leg(fii, fjj, fal, fbe, fext, fbstride, fP,
+                                      f0, nf));
+}
+
+// Resident CTAs per SM of a T bf16-signal form, as g_occupancy.
+int t_xbf16_occupancy(int kind, int rows, int n, int P, int threads) {
+  const int ld = odd_stride(n);
+  const size_t smem =
+      operator_smem(rows, ld, threads / 32, TEntryBf16<XSignal>::kWords);
+  switch (kind) {
+    case 0:
+      return resident_ctas((const void*)t_chain_xbf16_kernel, smem, threads);
+    case 1:
+      return resident_ctas((const void*)t_operator_xbf16_kernel, smem,
+                           threads);
+    default:
+      return resident_ctas(
+          (const void*)t_bank_xbf16_kernel,
+          bank_smem(rows, ld, P * TEntryBf16<XSignal>::kWords), threads);
   }
 }
 

@@ -106,10 +106,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # ns; their geometry is (lanes per row, rows per warp, warps per CTA)
     stream_leg = [p, p, i, i, i]
     rows = [i, i, i, p]                      # geometry, stream
-    # each family's f32 form and its bf16 form (the kernels
-    # <family>_*_bf16_kernel) take the same arguments
+    # each family's f32 form, its bf16-table form (the kernels
+    # <family>_*_bf16_kernel) and its bf16-signal form (<family>_*_xbf16_
+    # kernel) take the same arguments
     for family, tables in (("g", 5), ("t", 4)):
-        for form in ("", "_bf16"):
+        for form in ("", "_bf16", "_xbf16"):
             chain = getattr(lib, f"{family}_chain{form}_launch")
             chain.argtypes = head + stream_leg + rows
             chain.restype = i

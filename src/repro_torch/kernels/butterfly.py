@@ -14,7 +14,10 @@ a CUDA tensor launches the kernel or raises (kernels/launcher.py, which
 also keeps the launch counters).  The operator cuts the adjoint tables'
 head and the forward tables' tail.  Tables whose values are
 bf16 (``core/staging.py::with_precision``) launch the kernel's bf16
-form, which widens each value to f32 on the card; signals are f32.
+form, which widens each value to f32 on the card.  y has x's dtype: an
+f32 signal is computed in f32, a bf16 signal in bf16 (the kernel's
+bf16-signal form on either table precision, every operation rounded to
+bf16 as the plain version and the JAX package's kernels round it).
 """
 from __future__ import annotations
 

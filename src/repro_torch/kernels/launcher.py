@@ -6,14 +6,22 @@ PyTorch version they are given (kernels/ref.py), and otherwise check the
 arguments and launch the entry point's kernel on PyTorch's current
 stream, or raise (no nvcc, failed build, wrong dtype/shape/device):
 there is no fallback.
-Signals are f32, indices int32, and the value tables all f32 or all
-bf16; other dtypes raise.  Each entry point has two forms, one per value
-dtype: a bf16 form launches its kernel's bf16 instantiation, which reads
-the 16-bit values and widens them in registers (a widening is exact), so
-it computes what the f32 form computes on ``tables.float()``.  The
-anytime cut is passed to the kernel as a runtime (first stage, count) per
-leg: a chain's at the caller's ``keep``, each operator or bank leg at its
-family's ``leg_orientation``.
+Signals are f32 or bf16, indices int32, and the value tables all f32 or
+all bf16; other dtypes raise.  Each entry point has four forms, one per
+(table precision, signal dtype), chosen from the tables' and the
+signal's dtypes.  On an f32 signal a bf16-table form launches its
+kernel's bf16 instantiation, which reads the 16-bit values and widens
+them in registers (a widening is exact), so it computes what the f32
+form computes on ``tables.float()``.  A bf16 signal is computed in bf16,
+as the JAX package's Pallas kernels compute it (every table value,
+spectrum entry and gain cast to the signal's dtype, every product and
+sum rounded to it): both of its forms launch the kernel's bf16-signal
+instantiation (``*_xbf16_kernel``) on bf16 tables, f32 tables cast once
+by RNE (``cast_tables``, kept beside them; the same rounding as the
+per-entry cast), and return y in bf16.  The anytime cut is passed to the
+kernel as a runtime (first stage, count) per leg: a chain's at the
+caller's ``keep``, each operator or bank leg at its family's
+``leg_orientation``.
 
 Geometry.  In a chain or operator launch (the rows body of
 csrc/chain.cuh, which replaces the Pallas chain kernels
@@ -43,10 +51,11 @@ matrices is launched as consecutive slices of at most ``_GRID_B``
 (``batch_slices``), each on pointers offset to its first matrix.
 
 Every launch adds one to its entry point form's count, in ONE registry
-for all families: ``entry_launch_counts()`` per form (an entry point's
-name for f32 tables, the name with ``_bf16`` for bf16 ones),
-``launch_counts()`` summed per kernel (``g_chain_kernel``,
-``g_chain_bf16_kernel``, ...), ``reset_launch_counts()`` zeroes both.
+for all families: ``entry_launch_counts()`` per form (``form``: an entry
+point's name for f32 tables, the name with ``_bf16`` for bf16 ones, and
+``_xbf16`` after either on a bf16 signal), ``launch_counts()`` summed
+per kernel (``g_chain_kernel``, ``g_chain_bf16_kernel``,
+``g_chain_xbf16_kernel``, ...), ``reset_launch_counts()`` zeroes both.
 """
 from __future__ import annotations
 
@@ -60,6 +69,7 @@ import torch
 from repro_torch.core.staging import (PRECISION_DTYPE, StagedT,
                                       table_arrays, table_precision,
                                       with_precision)
+from repro_torch.core.types import SIGNAL_DTYPES
 from . import build
 from .ref import check_gains
 
@@ -78,12 +88,15 @@ _F32_KERNEL_OF = {"batched_butterfly_apply": "g_chain_kernel",
                   "gen_filter_bank_apply": "t_bank_kernel"}
 #: the 12 entry points
 ENTRIES = tuple(_F32_KERNEL_OF)
-#: entry point form -> the kernel it launches (its C launcher is
-#: ``<kernel without _kernel>_launch``): ``entry`` for f32 value tables,
-#: ``entry + "_bf16"`` for bf16 ones
+#: entry point form (``form``) -> the kernel it launches (its C launcher
+#: is ``<kernel without _kernel>_launch``): ``entry`` for f32 value
+#: tables, ``entry + "_bf16"`` for bf16 ones; on a bf16 signal both add
+#: ``"_xbf16"`` and launch the bf16-signal kernel
 KERNEL_OF = {**_F32_KERNEL_OF,
              **{f"{e}_bf16": k.replace("_kernel", "_bf16_kernel")
-                for e, k in _F32_KERNEL_OF.items()}}
+                for e, k in _F32_KERNEL_OF.items()},
+             **{f"{e}{t}_xbf16": k.replace("_kernel", "_xbf16_kernel")
+                for t in ("", "_bf16") for e, k in _F32_KERNEL_OF.items()}}
 KERNELS = tuple(dict.fromkeys(KERNEL_OF.values()))
 THREADS = 256
 #: matrices per launch: the grid's y dimension
@@ -158,18 +171,22 @@ def _leg_range(num_stages_total: int, num_stages: Optional[int],
             num_stages)
 
 
-def form(entry: str, precision: str) -> str:
-    """The launch counters' name of ``entry`` at a table precision."""
-    return entry if precision == "f32" else f"{entry}_{precision}"
+def form(entry: str, precision: str, signal: str = "f32") -> str:
+    """The launch counters' name of ``entry`` at a table precision and
+    a signal precision ("f32" or "bf16")."""
+    name = entry if precision == "f32" else f"{entry}_{precision}"
+    return name if signal == "f32" else f"{name}_x{signal}"
+
+
+def signal_precision(x: torch.Tensor) -> str:
+    """"f32" or "bf16": the precision a signal is computed in."""
+    return "bf16" if x.dtype == torch.bfloat16 else "f32"
 
 
 def _check_signal(x: torch.Tensor, ndim: int, what: str) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(
-            f"{what}: signals must be float32, got {x.dtype} (a precision="
-            "'bf16' plan takes a bf16 signal and walks it in f32; a bf16 "
-            "signal computed in bf16, as the JAX kernels do on f32 tables, "
-            "is not ported)")
+    if x.dtype not in SIGNAL_DTYPES:
+        raise TypeError(f"{what}: signals must be float32 or bfloat16, got "
+                        f"{x.dtype}")
     if x.device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, got "
                          f"device {x.device}")
@@ -398,7 +415,9 @@ def launch_geometry(entry: str, batch: int, rows: int, n: int,
     kernel = KERNEL_OF[entry]
     dev = torch.device("cuda", torch.cuda.current_device())
     family, kind = kernel[0], kernel.split("_")[1]
-    precision = "bf16" if "_bf16_" in kernel else "f32"
+    # "", "_bf16" or "_xbf16": both bf16 instantiations walk bf16 tables
+    variant = kernel[len(f"{family}_{kind}"):-len("_kernel")]
+    precision = "bf16" if variant else "f32"
     threads = THREADS
     if kind == "bank":
         geo = _bank_geometry_on(dev, batch, rows, n, filters, slots, family)
@@ -413,9 +432,7 @@ def launch_geometry(entry: str, batch: int, rows: int, n: int,
                "lanes_per_row": geo.lanes, "rows_per_warp": geo.rows_per_warp,
                "warps_per_cta": geo.warps, "ctas": batch * geo.row_tiles}
     lib = build.library()
-    occupancy = (f"{family}_occupancy" if precision == "f32"
-                 else f"{family}_{precision}_occupancy")
-    resident = getattr(lib, occupancy)(
+    resident = getattr(lib, f"{family}{variant}_occupancy")(
         ("chain", "operator", "bank").index(kind), tile_rows, n, slots,
         threads)
     if resident < 0:
@@ -641,8 +658,8 @@ def _sliced(x3: torch.Tensor, y: torch.Tensor,
     offset to matrix b0 (the others, such as a stream's words, stay as
     they are)."""
     bsz, r, n = x3.shape
-    xy = (_PerMatrix(x3.data_ptr(), x3.stride(0)),
-          _PerMatrix(y.data_ptr(), y.stride(0)))
+    xy = (_PerMatrix(x3.data_ptr(), x3.stride(0), x3.element_size()),
+          _PerMatrix(y.data_ptr(), y.stride(0), y.element_size()))
     for b0, b1 in batch_slices(bsz):
         at = [a.ptr + a.itemsize * b0 * a.stride
               if isinstance(a, _PerMatrix) else a for a in xy + args]
@@ -670,6 +687,15 @@ def _launch(lib, entry: str, x3: torch.Tensor, y: torch.Tensor,
     return y
 
 
+def _walked(staged, x3: torch.Tensor):
+    """The tables a launch on x3 walks: as given on an f32 signal; on a
+    bf16 signal bf16 tables, f32 ones cast once and kept
+    (``cast_tables``)."""
+    if signal_precision(x3) == "f32":
+        return staged
+    return cast_tables(staged, "bf16")
+
+
 def _stream_leg(staged, x3: torch.Tensor, batched: bool,
                 num_stages: Optional[int], keep: str, what: str) -> tuple:
     """A chain or operator leg's C arguments: the stream's words and
@@ -677,7 +703,7 @@ def _stream_leg(staged, x3: torch.Tensor, batched: bool,
     bsz, _, n = x3.shape
     s_tot, _ = _check_tables(staged, x3.device, bsz if batched else None, n,
                              what)
-    words, offsets = _cached_stream(staged)
+    words, offsets = _cached_stream(_walked(staged, x3))
     return (words.data_ptr(), _PerMatrix(offsets.data_ptr(), s_tot + 1),
             s_tot, *_leg_range(s_tot, num_stages, keep))
 
@@ -692,19 +718,20 @@ def _bank_leg(staged, x3: torch.Tensor, batched: bool,
     stride = s_tot * p if batched else 0
     ext = _cached_extents(staged)
     return (*(_PerMatrix(t.data_ptr(), stride, t.element_size())
-              for t in table_arrays(staged)),
+              for t in table_arrays(_walked(staged, x3))),
             _PerMatrix(ext.data_ptr(), s_tot if batched else 0), stride, p,
             *_leg_range(s_tot, num_stages, keep))
 
 
-def _form(entry: str, *legs) -> str:
-    """The form of ``entry`` that the legs' (checked) tables take: they
-    must share one value precision."""
+def _form(entry: str, *legs, signal: str = "f32") -> str:
+    """The form of ``entry`` that the legs' (checked) tables take on a
+    signal of precision ``signal``: the legs must share one value
+    precision."""
     got = {table_precision(t) for t in legs}
     if len(got) != 1:
         raise TypeError(f"{entry}: the legs' value tables differ in "
                         f"precision ({sorted(got)})")
-    return form(entry, got.pop())
+    return form(entry, got.pop(), signal)
 
 
 def _keeps(fwd) -> tuple:
@@ -721,13 +748,13 @@ def _chain_launch(entry: str, staged, x3: torch.Tensor,
     kernel = KERNEL_OF[entry]
     leg = _stream_leg(staged, x3, entry.startswith("batched"), num_stages,
                       keep, kernel)
-    entry = _form(entry, staged)
+    entry = _form(entry, staged, signal=signal_precision(x3))
     bsz, r, n = x3.shape
     y = torch.empty_like(x3)
     if bsz == 0 or r == 0:
         return y
     geo = _operator_geometry_on(x3.device, bsz, r, n, kernel[0],
-                                table_precision(staged))
+                                table_precision(_walked(staged, x3)))
     return _launch(lib, entry, x3, y, leg,
                    (geo.lanes, geo.rows_per_warp, geo.warps))
 
@@ -747,13 +774,13 @@ def _operator_launch(entry: str, fwd, bwd, diag: torch.Tensor,
             + _stream_leg(fwd, x3, batched, num_stages, s_keep,
                           f"{kernel} fwd"))
     d = _check_diag(diag, x3, batched, kernel)
-    entry = _form(entry, fwd, bwd)
+    entry = _form(entry, fwd, bwd, signal=signal_precision(x3))
     bsz, r, n = x3.shape
     y = torch.empty_like(x3)
     if bsz == 0 or r == 0:
         return y
     geo = _operator_geometry_on(x3.device, bsz, r, n, kernel[0],
-                                table_precision(fwd))
+                                table_precision(_walked(fwd, x3)))
     return _launch(lib, entry, x3, y, (_PerMatrix(d.data_ptr(), n), *legs),
                    (geo.lanes, geo.rows_per_warp, geo.warps))
 
@@ -771,7 +798,7 @@ def _bank_launch(entry: str, fwd, bwd, gains: torch.Tensor,
             + _bank_leg(fwd, x3, batched, num_stages, s_keep,
                         f"{kernel} fwd"))
     gp = _padded_gains(gains, x3, batched, kernel)
-    entry = _form(entry, fwd, bwd)
+    entry = _form(entry, fwd, bwd, signal=signal_precision(x3))
     bsz, r, n = x3.shape
     f = gp.shape[1]
     y = x3.new_empty((bsz, f, r, n))

@@ -29,9 +29,12 @@ bfloat16 (``prepare`` casts them, indices stay int32) while accumulating
 in f32: the program runs the walk on the signal raised to f32 and
 returns the result in the caller's dtype, and the kernels (and the plain
 versions) widen each entry to the f32 signal's dtype as they use it, as
-the JAX package's ``table_op`` and Pallas kernels do.  An f32 plan takes
-f32 signals on the card; a bf16 signal computed in bf16 there is not
-ported.
+the JAX package's ``table_op`` and Pallas kernels do.  An f32 plan
+computes in the signal's dtype, on the card as on the CPU: an f32 signal
+in f32, a bf16 signal in bf16 (every table value, spectrum entry and
+gain cast to bf16 and every product and sum rounded to it, as the JAX
+package's Pallas kernels do; on the card the kernels' bf16-signal
+forms), returned in bf16.
 
 ``fused=False`` compiles the operator to the three-pass baseline
 (analysis apply, diagonal scale, synthesis apply as separate calls), the
@@ -312,6 +315,11 @@ def _compile(plan: ApplyPlan):
         else:
             op = plan._dispatch()
         return op if plan.precision == "f32" else _accumulate_f32(op)
+
+
+def plan_cache_size() -> int:
+    """Number of compiled plan programs resident in the process."""
+    return int(_compile.cache_info().currsize)
 
 
 def plan_cache_stats() -> dict:

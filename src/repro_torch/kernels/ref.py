@@ -21,6 +21,13 @@ take ``keep`` ("head"/"tail"), while the operators know their own
 orientation (core/staging.py): the G operator cuts the adjoint head and
 the forward tail, the T operator the inverse tail and the forward head.
 The banks cut both legs as their family's operator does.
+
+Every function computes in the signal's dtype, as the JAX package's
+kernels do: the table values, the spectrum and the gains are cast to it
+(``.to(x.dtype)``), and on a bf16 signal each torch op rounds its
+product or sum to bf16 (RNE).  On a bf16 signal these are bitwise equal
+to the JAX package's Pallas kernels in interpret mode, and the CUDA
+kernels' bf16-signal forms are held to them bitwise.
 """
 from __future__ import annotations
 

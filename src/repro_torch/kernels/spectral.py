@@ -19,7 +19,10 @@ chooses r and F_g).  A tensor on the CPU goes
 to the plain PyTorch version (kernels/ref.py); a CUDA tensor launches the
 kernel or raises (kernels/launcher.py, which also keeps the launch
 counters).  Both legs are cut as the family's operator cuts them.
-Tables whose values are bf16 launch the kernel's bf16 form.
+Tables whose values are bf16 launch the kernel's bf16 form.  y has x's
+dtype: a bf16 signal's coefficients are scaled by the gains rounded to
+bf16 and every operation is rounded to bf16 (the bf16-signal form), as
+the JAX package's kernels keep the coefficients in x's dtype.
 """
 from __future__ import annotations
 

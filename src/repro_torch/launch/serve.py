@@ -84,6 +84,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core.types import as_signal
 
 DEFAULT_TIERS = {"full": 1.0, "balanced": 0.5, "draft": 0.25}
 
@@ -474,7 +475,7 @@ class FGFTServeEngine:
             d = d.masked_fill(self._pad_mask, 0.0)
         self.stats["steps"][tier] += 1
         _OBS_STEPS.inc(tier=tier)
-        x = torch.as_tensor(signals, dtype=torch.float32).to(self.device)
+        x = as_signal(signals, self.device)
         return live.fns[tier](live.fwd, live.bwd, d, x)
 
     def step(self, signals, h=None, tier: Optional[str] = None
@@ -506,7 +507,7 @@ class FGFTServeEngine:
         if live.bank is None:
             raise ValueError("engine was built without filters (--filter)")
         _OBS_STEPS.inc(tier="bank")
-        x = torch.as_tensor(signals, dtype=torch.float32).to(self.device)
+        x = as_signal(signals, self.device)
         return live.bank_fn(live.fwd, live.bwd, live.bank_gains, x)
 
     # -- streaming updates + drift-triggered refits ------------------------

@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.types import as_signal
+
 
 def topk_coefficients(coeff: torch.Tensor, k: int) -> torch.Tensor:
     """Zero all but the k largest-|.| entries along the last axis.
@@ -73,7 +75,7 @@ def compress(basis, x, k: int, backend: Optional[str] = None) -> Compressed:
 def compression_error(basis, x, k: int,
                       backend: Optional[str] = None) -> torch.Tensor:
     """Relative reconstruction error ||x - recon|| / ||x|| per row."""
-    x = torch.as_tensor(x, dtype=torch.float32).to(basis.device)
+    x = as_signal(x, basis.device)
     recon = compress(basis, x, k, backend=backend).recon
     num = torch.linalg.norm(x - recon, dim=-1)
     return num / torch.linalg.norm(x, dim=-1).clamp(min=1e-30)

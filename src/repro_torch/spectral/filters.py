@@ -27,6 +27,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.types import as_signal
+
 Response = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -224,7 +226,7 @@ class SpectralFilterBank:
         ``project``, the semantics baseline."""
         from repro_torch.kernels.plan import ApplyPlan
         basis = self.basis
-        x = torch.as_tensor(x, dtype=torch.float32).to(basis.device)
+        x = as_signal(x, basis.device)
         if not fused:
             axis = 1 if basis.batched else 0
             return torch.stack([f.apply(x, backend=backend)

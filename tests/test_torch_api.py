@@ -12,7 +12,11 @@ calls it:
 * ``hint=`` on ``ApproxEigenbasis.fit`` and ``FGFTServeEngine``: an
   unknown hint raises the JAX package's ``ValueError``; ``kind="auto"``
   resolving against the hint warns with the JAX package's text, at the
-  caller's line; an agreeing hint, or a forced kind, does not warn."""
+  caller's line; an agreeing hint, or a forced kind, does not warn;
+* ``repro_torch.kernels`` exports every name the JAX package's
+  ``repro.kernels`` exports (``ApplyPlan`` and the kernel submodules)
+  but ``autotune``, which is not ported, and ``plan.plan_cache_size()``
+  counts resident programs as the JAX package's does."""
 import warnings
 
 import jax.numpy as jnp
@@ -143,3 +147,36 @@ def test_engine_passes_the_hint_through():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         FGFTServeEngine(laps, 8, n_iter=1, hint="sym", device="cpu")
+
+
+#: names of the JAX package's ``repro.kernels`` that are not ported
+NOT_PORTED = {"autotune"}
+
+
+def test_kernels_package_exports_the_reference_names():
+    import repro.kernels as jk
+    import repro_torch.kernels as tk
+    from repro.kernels.plan import ApplyPlan as JaxPlan
+    want = {name for name in dir(jk) if not name.startswith("_")}
+    assert "ApplyPlan" in want and NOT_PORTED <= want
+    for name in sorted(want - NOT_PORTED):
+        assert hasattr(tk, name), name
+    for name in NOT_PORTED:
+        assert not hasattr(tk, name), name
+    assert tk.ApplyPlan is tk.plan.ApplyPlan
+    assert tk.ApplyPlan.__name__ == JaxPlan.__name__
+
+
+def test_plan_cache_size_counts_programs_as_the_reference():
+    from repro.kernels import plan as jplan
+    from repro_torch.kernels import plan as tplan
+    sizes = []
+    for mod, kw in ((jplan, {}), (tplan, {"device": "cpu"})):
+        mod.clear_plan_cache()
+        got = [mod.plan_cache_size()]
+        for mode in ("apply", "operator", "apply"):
+            mod.ApplyPlan(family="sym", mode=mode, n=8, **kw).program()
+            got.append(mod.plan_cache_size())
+        assert got[-1] == mod.plan_cache_stats()["currsize"]
+        sizes.append(got)
+    assert sizes[0] == sizes[1] == [0, 1, 2, 2]

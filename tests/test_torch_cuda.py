@@ -783,9 +783,137 @@ def test_bf16_plans_launch_the_bf16_forms(cuda):
     counts = launcher.entry_launch_counts()
     assert counts["batched_sym_operator_apply_bf16"] == 2
     assert counts["batched_sym_operator_apply"] == 1
-    with pytest.raises(TypeError, match="float32"):
-        bf.batched_sym_operator_apply(fwd, adj, diag,
-                                      x[:, 0].to(torch.bfloat16))
+    # a bf16 signal on the f32 tables is computed in bf16: the operator's
+    # bf16-signal form, bitwise its plain version
+    xs = x[:, 0].to(torch.bfloat16)
+    launcher.reset_launch_counts()
+    ys = bf.batched_sym_operator_apply(fwd, adj, diag, xs)
+    assert ys.dtype == torch.bfloat16
+    assert torch.equal(ys, ref.batched_sym_operator_apply(fwd, adj, diag,
+                                                          xs))
+    assert launcher.entry_launch_counts()[
+        "batched_sym_operator_apply_xbf16"] == 1
+
+
+# ---------------------------------------------------------------------------
+# bf16 signals: the kernels' bf16-signal forms
+# ---------------------------------------------------------------------------
+
+#: mode -> the family's (batched, B = 1) wrappers and plain versions
+_X_MODES = {
+    "sym": {"chain": (bf.batched_butterfly_apply, bf.butterfly_apply,
+                      ref.batched_g_apply, ref.staged_g_apply),
+            "operator": (bf.batched_sym_operator_apply,
+                         bf.sym_operator_apply,
+                         ref.batched_sym_operator_apply,
+                         ref.sym_operator_apply),
+            "bank": (ksp.batched_sym_filter_bank_apply,
+                     ksp.sym_filter_bank_apply,
+                     ref.batched_sym_filter_bank_apply,
+                     ref.sym_filter_bank_apply)},
+    "general": {"chain": (sh.batched_shear_apply, sh.shear_apply,
+                          ref.batched_t_apply, ref.staged_t_apply),
+                "operator": (sh.batched_gen_operator_apply,
+                             sh.gen_operator_apply,
+                             ref.batched_gen_operator_apply,
+                             ref.gen_operator_apply),
+                "bank": (ksp.batched_gen_filter_bank_apply,
+                         ksp.gen_filter_bank_apply,
+                         ref.batched_gen_filter_bank_apply,
+                         ref.gen_filter_bank_apply)}}
+
+
+def _first(staged):
+    """The B = 1 tables of matrix 0."""
+    return type(staged)(*(a[0].contiguous() for a in tst.table_arrays(staged)),
+                        staged.cuts, staged.n)
+
+
+@pytest.mark.parametrize("mode", ["chain", "operator", "bank"])
+@pytest.mark.parametrize("family", ["sym", "general"])
+@pytest.mark.parametrize("n,batch,g", [(16, 3, 64), (48, 2, 200),
+                                       (256, 2, 4096)])
+def test_bf16_signal_forms_equal_plain_versions_bitwise(cuda, family, mode,
+                                                        n, batch, g):
+    """A bf16 signal through the mode's entry points, batched and B = 1,
+    on f32 and on bf16 value tables, at every cut (chains at both keeps,
+    banks at F in {1, 7, 33}): the bf16-signal forms round every
+    operation as their plain versions do, so they are bitwise equal, and
+    each form counts its launches."""
+    tables = _bf16_pair(family, n, batch, g, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((batch, 130, n), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    diag = torch.rand((batch, n), generator=gen, device=cuda) * 2.0
+    gains = torch.rand((batch, 33, n), generator=gen, device=cuda) * 2.0
+    fn, fn1, plain, plain1 = _X_MODES[family][mode]
+    names = {"sym": {"chain": "butterfly_apply",
+                     "operator": "sym_operator_apply",
+                     "bank": "sym_filter_bank_apply"},
+             "general": {"chain": "shear_apply",
+                         "operator": "gen_operator_apply",
+                         "bank": "gen_filter_bank_apply"}}[family][mode]
+
+    def cases(fwd, bwd, d, g, xin, k):
+        if mode == "chain":
+            return [(staged, xin, k, keep) for staged in (fwd, bwd)
+                    for keep in ("head", "tail")]
+        if mode == "operator":
+            return [(fwd, bwd, d, xin, k)]
+        return [(fwd, bwd, g[..., :f, :].contiguous(), xin, k)
+                for f in (1, 7, 33)]
+    for precision, (fwd, bwd) in zip(("f32", "bf16"), tables):
+        launcher.reset_launch_counts()
+        calls = 0
+        for k in sorted({0, *fwd.cuts[:, 0].tolist()}):
+            for args in cases(fwd, bwd, diag, gains, x, k):
+                y = fn(*args)
+                assert y.dtype == torch.bfloat16
+                assert torch.equal(y, plain(*args))
+                calls += 1
+            for args in cases(_first(fwd), _first(bwd), diag[0], gains[0],
+                              x[0].contiguous(), k):
+                y = fn1(*args)
+                assert y.dtype == torch.bfloat16
+                assert torch.equal(y, plain1(*args))
+                calls += 1
+        torch.cuda.synchronize()
+        counts = launcher.entry_launch_counts()
+        got = (counts[launcher.form("batched_" + names, precision, "bf16")]
+               + counts[launcher.form(names, precision, "bf16")])
+        assert got == calls
+        kernel = launcher.KERNEL_OF[launcher.form(names, precision, "bf16")]
+        assert kernel.endswith("_xbf16_kernel")
+        assert launcher.launch_counts()[kernel] == calls
+
+
+@pytest.mark.parametrize("family", ["sym", "general"])
+def test_bf16_signal_batches_split_at_the_grid_limit(cuda, family,
+                                                     monkeypatch):
+    """A bf16 signal advances 2 bytes an element: each mode's split
+    launch on offset pointers equals the unsplit one, on f32 and bf16
+    tables."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((7, 130, 48), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    diag = torch.rand((7, 48), generator=gen, device=cuda)
+    gains = torch.rand((7, 5, 48), generator=gen, device=cuda)
+    fn = [_X_MODES[family][m][0] for m in ("chain", "operator", "bank")]
+    for precision, (fwd, bwd) in zip(
+            ("f32", "bf16"), _bf16_pair(family, 48, 7, 200, cuda)):
+        k = int(fwd.cuts[1, 0])
+        calls = (lambda: fn[0](fwd, x, k, "tail"),
+                 lambda: fn[1](fwd, bwd, diag, x, k),
+                 lambda: fn[2](fwd, bwd, gains, x, k))
+        whole = [c() for c in calls]
+        monkeypatch.setattr(launcher, "_GRID_B", 3)
+        launcher.reset_launch_counts()
+        split = [c() for c in calls]
+        monkeypatch.undo()
+        assert sum(launcher.entry_launch_counts().values()) == 9
+        for got, want in zip(split, whole):
+            assert got.dtype == torch.bfloat16
+            assert torch.equal(got, want)
 
 
 

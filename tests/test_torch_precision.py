@@ -415,7 +415,8 @@ def test_bf16_ring_bytes():
         "g_chain_bf16_kernel"
     assert launcher.form("gen_filter_bank_apply", "bf16") == \
         "gen_filter_bank_apply_bf16"
-    assert len(launcher.ENTRIES) == 12 and len(launcher.KERNEL_OF) == 24
+    # four forms an entry point: (f32 | bf16 tables) x (f32 | bf16 signal)
+    assert len(launcher.ENTRIES) == 12 and len(launcher.KERNEL_OF) == 48
 
 
 def test_stream_cache_keeps_both_precisions(fits):
