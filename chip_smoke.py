@@ -208,6 +208,47 @@ each), so that the run stays well inside its time limit:
              the basis's own bank.  max|dy| / max|y| against the same
              block's f32 answer is printed per tier, bank and family, not
              gated.  All 24 bf16-signal forms must have launched.
+5g. main-core — the rest of repro.core and repro.kernels (after
+             [main-bf16x]; no fleet fit): a. the paper's baselines on the
+             first 4 graphs of [main]'s fleet (n = 256, g = 4096; each
+             greedy method on the stack of 4, one chain a graph):
+             ``truncated_jacobi``, ``factorize_orthonormal`` of the exact
+             eigenvectors with its Lemma-1 spectrum, ``rank_r_symmetric``
+             at r = 3g / 2n = 24 (matched flops), beside [main]'s fit:
+             each relative error ||L - U diag(s) U^T||^2 / ||L||^2 and
+             each baseline's seconds printed; U orthonormal to 1e-4,
+             Jacobi's spectrum equal to diag(U^T L U) within 1e-4 max|L|,
+             and the greedy loops run under
+             ``torch.cuda.set_sync_debug_mode("error")`` (no host sync).
+             b. ``compress_linear`` of a seeded synthetic square projection
+             (decaying spectrum, as examples/compress_projection.py builds
+             one) at n = 1024, the d_model of seamless-m4t-large-v2 (the
+             narrowest config in src/repro/configs/), g_orth = g_sym =
+             2048, n_iter = 2; ``compressed_linear_apply`` over 4096 token
+             rows, counters zeroed just before three calls and read just
+             after: exactly one ``sym_operator_apply`` and one
+             ``butterfly_apply`` launch a call.  The output equals its plain
+             version (G tolerance; each kernel also against its own plain
+             version) and x W_hat^T of the dense factors within 1e-4
+             relative; ||y - x W^T||^2 / ||x W^T||^2 beside the reported
+             rel_err, ms a call against ``torch.matmul(x, W.T)`` and the
+             geometries at n = 1024 printed.  c. ``butterfly_apply`` at n =
+             1024 with ``fft_pattern(1024)``, forward and backward: the
+             mixing orthonormal to 1e-5, the gradients equal to the same
+             call on the CPU within 1e-4 relative; ``ef_roundtrip`` of a
+             1024 x 4096 leaf at ``make_spec(1024, 0.125)``: out + new_err
+             == grad + err within 1e-5 relative, and the identity at ratio
+             1.  d. on the run's own tile cache (build/autotune.json): all
+             12 entry points, and the batched G operator's bf16-table and
+             bf16-signal forms, at block_b in (32, 64, 128, 256) bitwise
+             equal to their block_b=None launches; ``autotune_block_b`` on
+             [main]'s batched G operator and chain plans and
+             [main-filter]'s bank plan (timings, choice and the geometry
+             at each candidate printed); after ``clear_plan_cache()`` a
+             plan with block_b=None launches the cached tile;
+             ``autotune_measurements_total`` rose by 3.  The phase's
+             seconds are printed; each ``kernels`` row carries
+             ``core_launches``.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
              graph (n = 256, g = 4096, n_iter = 3), then analysis, synthesis,
              project and the bank; ``shear_apply``, ``gen_operator_apply``
@@ -257,13 +298,15 @@ point's four forms, f32 or bf16 tables (``precision``) by f32 or bf16
 signal (``signal``); launches per path: ``launches`` on the batched or
 single-graph path, on [main-bf16] for a bf16-table form and on
 [main-bf16x] for a bf16-signal form, ``ragged_launches``,
-``dynamic_launches``, ``async_launches``), the card's name and power
+``dynamic_launches``, ``async_launches``, ``core_launches``), the card's
+name and power
 limit, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -1178,7 +1221,7 @@ def timed_rows(cases, main, single, tables_b, tables_1, errs,
                   f"{entry}: the timed call != its plain version")
         ms = time_ms(fn)
         dev_ms = device_ms(fn, kernel)
-        plain_ms = time_ms(plain, reps=2, rounds=3)
+        plain_ms = time_ms(plain, reps=1, rounds=3)
         lib_ms = time_ms(lib)
         b_ms, b_by = bound_ms(xin, legs, filters, precision)
         batched = entry.startswith("batched")
@@ -2859,6 +2902,472 @@ def phase_main_bf16x(errs, main, filt, single, main_dir,
             "phase_s": phase_s}
 
 
+#: [main-core]: the paper's baselines on the first graphs of [main]'s
+#: fleet, a compressed square projection at the d_model of the narrowest
+#: config in src/repro/configs/ (seamless-m4t-large-v2: 1024) over 4096
+#: token rows, the butterfly layer and gradient compression at that width,
+#: and the tile autotuner on [main]'s and [main-filter]'s plans.  The
+#: projection's chains take g = 2048 (2n), not 4096: at 4096 its two
+#: eager fits took 48-77 s of a run held to 1200 s
+CORE = dict(graphs=4, n=1024, g_orth=2048, g_sym=2048, n_iter=2,
+            tokens=4096, layer_rows=1024, leaf=(1024, 4096), ratio=0.125,
+            candidates=(32, 64, 128, 256), calls=3)
+
+
+def rel_sq(a, b) -> float:
+    """||a - b||^2 / ||b||^2 in float64."""
+    a, b = a.double(), b.double()
+    return float(((a - b) ** 2).sum() / (b ** 2).sum())
+
+
+def core_baselines(main) -> dict:
+    """[main-core] a: truncated Jacobi, the greedy Givens factorization of
+    the exact eigenvectors (Lemma-1 spectrum) and rank r at matched flops
+    on the first CORE["graphs"] graphs of [main]'s fleet (each greedy
+    method on the stack of them: one chain a graph, in lockstep), beside
+    [main]'s fit; the greedy loops under
+    ``torch.cuda.set_sync_debug_mode("error")``.  Each chain's dense U
+    is its packed tables' chain kernel on the identity (held to the plain
+    version by phase 2)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (factorize_orthonormal, pack_g,
+                                  rank_r_symmetric, truncated_jacobi)
+    from repro_torch.core.types import GFactors
+    from repro_torch.kernels import butterfly as bf
+    basis = main["out"]["engine"].basis
+    n, g = basis.n, basis.num_transforms
+    r = max(3 * g // (2 * n), 1)
+    laps = torch.as_tensor(np.asarray(main["out"]["laps"][:CORE["graphs"]]),
+                           dtype=torch.float32).to(DEVICE)
+    eye = torch.eye(n, device=DEVICE)
+    # rows of Ubar applied to e_r are U's columns: U = (Ubar I)^T
+    fitted = bf.batched_butterfly_apply(
+        basis.fwd, eye.expand(basis.spectrum.shape[0], n, n).contiguous()
+    ).transpose(1, 2)
+    rows, secs = [], {"jacobi": 0.0, "givens": 0.0, "rank_r": 0.0}
+
+    def timed(key, fn, *args, greedy=True):
+        """fn(*args) timed; a greedy loop under the sync gate."""
+        sync()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error" if greedy else 0)
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sync()
+        secs[key] += time.perf_counter() - t0
+        return out
+
+    def dense(tag, factors):
+        u = bf.butterfly_apply(pack_g(factors, n=n, device=DEVICE), eye).T
+        dev = float((u.T @ u - eye).abs().max())
+        check(dev <= 1e-4, f"[main-core] {tag}: max|U^T U - I| {dev:.3e}")
+        return u, dev
+
+    fj, spec_j = timed("jacobi", truncated_jacobi, laps, g)
+    _, vecs = torch.linalg.eigh(laps.double())
+    fg = timed("givens", factorize_orthonormal, vecs.float(), g)
+    for b in range(laps.shape[0]):
+        lap = laps[b]
+        u = fitted[b]
+        proposed = rel_sq(u @ torch.diag(basis.spectrum[b]) @ u.T, lap)
+        uj, worst = dense(f"graph {b} Jacobi", GFactors(*(f[b] for f in fj)))
+        dj = float((spec_j[b] - torch.diagonal(uj.T @ lap @ uj)).abs().max())
+        check(dj <= 1e-4 * float(lap.abs().max()),
+              f"[main-core] graph {b}: Jacobi spectrum vs diag(U^T L U) "
+              f"max|d| {dj:.3e}")
+        jac = rel_sq(uj @ torch.diag(spec_j[b]) @ uj.T, lap)
+        ug, dev = dense(f"graph {b} Givens", GFactors(*(f[b] for f in fg)))
+        worst = max(worst, dev)
+        lemma1 = torch.diagonal(ug.T @ lap @ ug)
+        giv = rel_sq(ug @ torch.diag(lemma1) @ ug.T, lap)
+        approx, flops = timed("rank_r", rank_r_symmetric, lap, r,
+                              greedy=False)
+        rank = rel_sq(approx, lap)
+        errs_b = {"proposed": proposed, "jacobi": jac, "givens": giv,
+                  f"rank_{r}": rank}
+        rows.append(errs_b)
+        log(f"[main-core] graph {b} (n={n}, g={g}): relative error "
+            + ", ".join(f"{k} {v:.6f}" for k, v in errs_b.items())
+            + f"; best {min(errs_b, key=errs_b.get)}; max|U^T U - I| "
+            f"{worst:.2e}, Jacobi spectrum vs diag(U^T L U) {dj:.2e}")
+    means = {k: float(np.mean([row[k] for row in rows])) for k in rows[0]}
+    log(f"[main-core] baselines on {len(rows)} graphs: mean relative error "
+        + ", ".join(f"{k} {v:.6f}" for k, v in means.items())
+        + f" (rank r = {r} at g = {g}: {flops} flops a matvec); seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + f" (the {len(rows)} greedy chains of each method in lockstep, "
+        "rank r per graph); no host sync in the greedy loops")
+    return {"rel_error": rows, "mean": means, "seconds": secs, "rank": r}
+
+
+def synthetic_projection(n: int, seed: int):
+    """A "trained" square projection with a decaying spectrum, built as
+    examples/compress_projection.py builds one (spectrum exp(-k / (n/4)))."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    basis = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    spectrum = np.exp(-np.arange(n) / (n / 4.0))
+    w = (basis * spectrum[None, :]) @ np.linalg.qr(
+        rng.standard_normal((n, n)))[0]
+    return w.astype(np.float32)
+
+
+def core_linear(errs, counts) -> dict:
+    """[main-core] b: compress_linear at n = CORE["n"] and
+    compressed_linear_apply over CORE["tokens"] rows: one operator and
+    one chain launch a call, against its plain version and against x W^T
+    through the dense factors."""
+    import torch
+    from repro_torch.core import (compress_linear, compressed_linear_apply,
+                                  g_to_dense)
+    from repro_torch.kernels import butterfly as bf
+    from repro_torch.kernels import launcher, ref
+    n = CORE["n"]
+    w = torch.from_numpy(synthetic_projection(n, 0)).to(DEVICE)
+    sync()
+    t0 = time.perf_counter()
+    comp, info = compress_linear(w, CORE["g_orth"], CORE["g_sym"],
+                                 CORE["n_iter"])
+    sync()
+    fit_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    x = torch.randn((CORE["tokens"], n), generator=gen, device=DEVICE)
+    launcher.reset_launch_counts()
+    ys = [compressed_linear_apply(comp, x) for _ in range(CORE["calls"])]
+    sync()
+    got = launcher.entry_launch_counts()
+    counts.update(got)
+    launched = {k: v for k, v in got.items() if v}
+    check(launched == {"sym_operator_apply": CORE["calls"],
+                       "butterfly_apply": CORE["calls"]},
+          f"[main-core] compressed_linear_apply x {CORE['calls']} "
+          f"launched {launched}")
+    y = ys[0]
+    with uncounted():
+        check(all(torch.equal(v, y) for v in ys[1:]),
+              "[main-core] compressed_linear_apply is not deterministic")
+        plain = compressed_linear_apply(comp, x, backend="torch")
+        err, scale = max_err(y, plain)
+        check(err <= TOL * scale, f"[main-core] compressed linear vs plain "
+              f"max|dy| {err:.3e} > {TOL} * {scale:.3e}")
+        h = ref.sym_operator_apply(comp.h_fwd, comp.h_adj, comp.diag,
+                                   x).contiguous()
+        compare("sym_operator_apply", bf.sym_operator_apply(
+            comp.h_fwd, comp.h_adj, comp.diag, x), h, errs)
+        compare("butterfly_apply", bf.butterfly_apply(comp.q_fwd, h),
+                ref.staged_g_apply(comp.q_fwd, h), errs)
+        qd, hd = (g_to_dense(_chain_of(t), n)
+                  for t in (comp.q_fwd, comp.h_fwd))
+        w_hat = qd @ (hd * comp.diag[None, :]) @ hd.T
+        y_dense = x @ w_hat.T
+        dense_dev = ((y - y_dense).norm() / y_dense.norm()).item()
+        check(dense_dev <= 1e-4, f"[main-core] compressed linear vs x W^T "
+              f"of the dense factors: relative {dense_dev:.3e}")
+        app_err = rel_sq(y, x @ w.T)
+        ms = time_ms(lambda: compressed_linear_apply(comp, x))
+        plain_ms = time_ms(lambda: compressed_linear_apply(
+            comp, x, backend="torch"), reps=1, rounds=3)
+        mm_ms = time_ms(lambda: torch.matmul(x, w.T))
+        op_ms = device_ms(lambda: compressed_linear_apply(comp, x),
+                          "g_operator_kernel")
+        ch_ms = device_ms(lambda: compressed_linear_apply(comp, x),
+                          "g_chain_kernel")
+    legs = [real_entries(comp.h_adj, None, "head"),
+            real_entries(comp.h_fwd, None, "tail"),
+            real_entries(comp.q_fwd, None, "head")]
+    b_ms, b_by = bound_ms(x, legs, 1)
+    geos = {e: launcher.launch_geometry(e, 1, CORE["tokens"], n)
+            for e in ("sym_operator_apply", "butterfly_apply")}
+    log(f"[main-core] compress_linear n={n} g_orth={CORE['g_orth']} "
+        f"g_sym={CORE['g_sym']} n_iter={CORE['n_iter']}: {fit_s:.1f}s; "
+        f"reported rel_err {info['rel_err']:.6f}, h_obj "
+        f"{info['h_obj']:.6f}; stages Q {comp.q_fwd.idx_i.shape[0]}, H "
+        f"{comp.h_fwd.idx_i.shape[0]} of {comp.h_fwd.idx_i.shape[1]} pairs")
+    log(f"[main-core] compressed_linear_apply x [{CORE['tokens']}, {n}]: "
+        f"||y - x W^T||^2 / ||x W^T||^2 {app_err:.6f} (rel_err "
+        f"{info['rel_err']:.6f}); vs plain max|dy| {err:.3e} (scale "
+        f"{scale:.3e}); vs x W_hat^T of the dense factors {dense_dev:.3e} "
+        f"relative; launches {launched} for {CORE['calls']} calls")
+    log(f"[time] compressed_linear_apply at [{CORE['tokens']}, {n}]: "
+        f"{ms:.4f} ms a call (device: g_operator_kernel "
+        f"{'not measured' if op_ms is None else f'{op_ms:.4f} ms'}, "
+        f"g_chain_kernel "
+        f"{'not measured' if ch_ms is None else f'{ch_ms:.4f} ms'}), "
+        f"plain {plain_ms:.3f} ms, torch.matmul(x, W.T) {mm_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}), real entries per leg {legs}")
+    for entry, geo in geos.items():
+        log(f"[main-core] {entry} geometry at B=1 R={CORE['tokens']} "
+            f"n={n}: {geo}")
+    return {"fit_s": fit_s, "rel_err": info["rel_err"],
+            "apply_rel_err": app_err, "plain_err": err,
+            "dense_dev": dense_dev, "ms": ms, "plain_ms": plain_ms,
+            "matmul_ms": mm_ms, "operator_device_ms": op_ms,
+            "chain_device_ms": ch_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "geometry": geos}
+
+
+def _chain_of(staged):
+    """The G chain of B = 1 tables in application order (the real
+    entries stage by stage), to materialize with g_to_dense."""
+    from repro_torch.core.types import GFactors
+    real = staged.idx_i < staged.n
+    return GFactors(*(t[real] for t in (staged.idx_i, staged.idx_j,
+                                         staged.c, staged.s, staged.sigma)))
+
+
+def core_layers() -> dict:
+    """[main-core] c: the butterfly layer at n = CORE["n"] (forward and
+    backward, against the same call on the CPU) and ef_roundtrip of a
+    CORE["leaf"] leaf."""
+    import torch
+    from repro_torch.core import ButterflyParams, butterfly_apply, fft_pattern
+    from repro_torch.core import butterfly_init
+    from repro_torch.optim import compress
+    n = CORE["n"]
+    pat = fft_pattern(n, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(29)
+    params = butterfly_init(gen, pat)
+    # angles ~ N(0, 1) and a spread diagonal: with a constant diagonal
+    # U diag(d) U^T would not depend on theta at all
+    params = ButterflyParams(params.theta * 10.0, params.diag + torch.rand(
+        (n,), generator=gen, device=DEVICE))
+    x = torch.randn((CORE["layer_rows"], n), generator=gen, device=DEVICE)
+    wgt = torch.randn((CORE["layer_rows"], n), generator=gen, device=DEVICE)
+    mixed = butterfly_apply(params, pat, x, mix_only=True)
+    norm_dev = float(((mixed.norm(dim=-1) - x.norm(dim=-1)).abs()
+                      / x.norm(dim=-1)).max())
+    check(norm_dev <= 1e-5, f"[main-core] butterfly mixing is not "
+          f"orthonormal: max relative norm change {norm_dev:.3e}")
+
+    def grads(device):
+        theta = params.theta.to(device).clone().requires_grad_(True)
+        diag = params.diag.to(device).clone().requires_grad_(True)
+        xx = x.to(device).clone().requires_grad_(True)
+        y = butterfly_apply(ButterflyParams(theta, diag),
+                            pat._replace(idx_i=pat.idx_i.to(device),
+                                         idx_j=pat.idx_j.to(device)), xx)
+        ((wgt.to(device) * y).sum() + (y ** 2).sum()).backward()
+        return [t.grad for t in (theta, diag, xx)]
+    sync()
+    t0 = time.perf_counter()
+    on_card = grads(DEVICE)
+    sync()
+    layer_s = time.perf_counter() - t0
+    on_cpu = grads("cpu")
+    grad_dev = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                   for a, b in zip(on_card, on_cpu))
+    check(grad_dev <= 1e-4, f"[main-core] butterfly gradients on the card "
+          f"vs the CPU: {grad_dev:.3e} relative")
+    log(f"[main-core] butterfly layer n={n} ({pat.idx_i.shape[0]} stages) "
+        f"on [{CORE['layer_rows']}, {n}]: mixing norm change "
+        f"{norm_dev:.2e}; forward + backward {layer_s:.3f}s; gradients "
+        f"(theta, d, x) vs the CPU {grad_dev:.2e} relative")
+
+    spec = compress.make_spec(n, CORE["ratio"], device=DEVICE)
+    grad = torch.randn(CORE["leaf"], generator=gen, device=DEVICE)
+    err = 0.1 * torch.randn(CORE["leaf"], generator=gen, device=DEVICE)
+    sync()
+    t0 = time.perf_counter()
+    out, new_err = compress.ef_roundtrip(spec, grad, err, step=3)
+    sync()
+    ef_s = time.perf_counter() - t0
+    want = grad + err
+    split = float((out + new_err - want).abs().max() / want.abs().max())
+    check(split <= 1e-5, f"[main-core] out + new_err != grad + err: "
+          f"{split:.3e} relative")
+    full = compress.make_spec(n, 1.0, device=DEVICE)
+    out1, err1 = compress.ef_roundtrip(full, grad, err, step=3)
+    ident = float((out1 - want).abs().max() / want.abs().max())
+    check(ident <= 1e-5 and float(err1.abs().max()) <= 1e-5 * float(
+        want.abs().max()), f"[main-core] ratio 1 is not the identity: "
+        f"{ident:.3e}")
+    kept = compress.compress(spec, grad).numel() / grad.numel()
+    log(f"[main-core] ef_roundtrip of a {list(CORE['leaf'])} leaf at width "
+        f"{n}, ratio {CORE['ratio']} (kept {kept:.4f} of the bytes): "
+        f"{ef_s:.4f}s; out + new_err vs grad + err {split:.2e} relative; "
+        f"ratio 1 vs identity {ident:.2e}")
+    return {"layer_s": layer_s, "grad_dev": grad_dev, "norm_dev": norm_dev,
+            "ef_s": ef_s, "ef_split": split, "ef_identity": ident}
+
+
+def core_autotune(main, filt, single, main_dir, single_dir) -> dict:
+    """[main-core] d: the 12 entry points (and the batched G operator's
+    bf16-table and bf16-signal forms) bitwise equal to their block_b=None
+    launches at every candidate; autotune_block_b on [main]'s batched G
+    operator and chain plans and [main-filter]'s bank plan; a plan built
+    after ``clear_plan_cache()`` launches the cached tile."""
+    import os
+    import torch
+    from repro_torch import obs
+    from repro_torch.kernels import autotune, launcher
+    from repro_torch.kernels import butterfly as bf
+    from repro_torch.kernels import shear as sh
+    from repro_torch.kernels import spectral as ksp
+    from repro_torch.kernels.plan import ApplyPlan, clear_plan_cache
+    path = pathlib.Path(os.environ[autotune.CACHE_ENV])
+    path.unlink(missing_ok=True)
+    engine, fengine = main["out"]["engine"], filt["out"]["engine"]
+    basis, fbasis = engine.basis, fengine.basis
+    x = main["out"]["signals"]
+    bsz, rows, n = x.shape
+    spec = lowpass(basis.spectrum)
+    gains = fengine._live.bank_gains
+    f, fd = single["fgft"], single_dir["fgft"]
+    dbasis = main_dir["out"]["engine"].basis
+    dbank = main_dir["bank"]["engine"]
+    xd, x0, x0d = main_dir["out"]["signals"], single["signals"], \
+        single_dir["signals"]
+    calls = {
+        "batched_butterfly_apply": (bf.batched_butterfly_apply,
+                                    (basis.fwd, x)),
+        "butterfly_apply": (bf.butterfly_apply, (f.fwd, x0)),
+        "batched_sym_operator_apply": (bf.batched_sym_operator_apply,
+                                       (basis.fwd, basis.bwd, spec, x)),
+        "sym_operator_apply": (bf.sym_operator_apply,
+                               (f.fwd, f.bwd, lowpass(f.spectrum), x0)),
+        "batched_shear_apply": (sh.batched_shear_apply, (dbasis.fwd, xd)),
+        "shear_apply": (sh.shear_apply, (fd.fwd, x0d)),
+        "batched_gen_operator_apply": (
+            sh.batched_gen_operator_apply,
+            (dbasis.fwd, dbasis.bwd, lowpass(dbasis.spectrum), xd)),
+        "gen_operator_apply": (sh.gen_operator_apply,
+                               (fd.fwd, fd.bwd, lowpass(fd.spectrum), x0d)),
+        "batched_sym_filter_bank_apply": (
+            ksp.batched_sym_filter_bank_apply,
+            (fbasis.fwd, fbasis.bwd, gains, filt["out"]["signals"])),
+        "sym_filter_bank_apply": (ksp.sym_filter_bank_apply,
+                                  (f.fwd, f.bwd, single["gains"], x0)),
+        "batched_gen_filter_bank_apply": (
+            ksp.batched_gen_filter_bank_apply,
+            (dbank.basis.fwd, dbank.basis.bwd, dbank._live.bank_gains, xd)),
+        "gen_filter_bank_apply": (ksp.gen_filter_bank_apply,
+                                  (fd.fwd, fd.bwd, single_dir["gains"],
+                                   x0d)),
+    }
+    bf16 = at_precision("bf16", basis.fwd, basis.bwd)
+    calls["batched_sym_operator_apply_bf16"] = (
+        bf.batched_sym_operator_apply, (*bf16, spec, x))
+    calls["batched_sym_operator_apply_xbf16"] = (
+        bf.batched_sym_operator_apply,
+        (basis.fwd, basis.bwd, spec, x.to(torch.bfloat16)))
+    check(set(launcher.ENTRIES) <= set(calls), "[main-core] entries missing")
+    with uncounted():
+        base = {k: fn(*a) for k, (fn, a) in calls.items()}
+        for cand in CORE["candidates"]:
+            for k, (fn, a) in calls.items():
+                y = fn(*a, block_b=cand)
+                dy = float((y.float() - base[k].float()).abs().max())
+                check(torch.equal(y, base[k]), f"[main-core] {k} at "
+                      f"block_b={cand} != its block_b=None launch: max|dy| "
+                      f"{dy:.3e}")
+        sync()
+    log(f"[main-core] {len(calls)} entry point forms at block_b in "
+        f"{CORE['candidates']}: bitwise equal to their block_b=None "
+        f"launches")
+
+    eye = torch.eye(n, device=DEVICE).expand(bsz, n, n).contiguous()
+    tuned = [
+        (ApplyPlan(family="sym", mode="operator", n=n, batched=True,
+                   device=DEVICE), (basis.fwd, basis.bwd), spec, x, 1),
+        (ApplyPlan(family="sym", mode="apply", n=n, batched=True,
+                   device=DEVICE), (basis.fwd,), None, eye, 1),
+        (ApplyPlan(family="sym", mode="bank", n=n, batched=True,
+                   device=DEVICE), (fbasis.fwd, fbasis.bwd), gains,
+         filt["out"]["signals"], gains.shape[1]),
+    ]
+    counter = obs.counter("autotune_measurements_total")
+    before = counter.value()
+    chosen = {}
+    with uncounted():
+        for plan, tables, d, xin, filters in tuned:
+            args = tuple(plan.prepare(t) for t in tables)
+            args += (xin,) if d is None else (d, xin)
+            t0 = time.perf_counter()
+            best = autotune.autotune_block_b(plan, args,
+                                             candidates=CORE["candidates"],
+                                             path=path)
+            tune_s = time.perf_counter() - t0
+            key = autotune.plan_key(plan)
+            entry = autotune.load_cache(path)["entries"][key]
+            entry_pt = {"sym": {"operator": "batched_sym_operator_apply",
+                                "apply": "batched_butterfly_apply",
+                                "bank": "batched_sym_filter_bank_apply"}}[
+                plan.family][plan.mode]
+            slots = int(tables[0].idx_i.shape[-1])
+            geos = {c: launcher.launch_geometry(entry_pt, bsz, rows, n,
+                                                filters, slots, c)
+                    for c in [None, *CORE["candidates"]]}
+            chosen[key] = {"block_b": best, "timings_us":
+                           entry["timings_us"], "seconds": tune_s}
+            log(f"[main-core] autotune {key}: timings (us) "
+                f"{entry['timings_us']} -> block_b {best} ({tune_s:.2f}s)")
+            for c, geo in geos.items():
+                log(f"[main-core]   {entry_pt} at block_b={c}: "
+                    f"{geo['ctas']} CTAs of {geo['rows_per_cta']} rows x "
+                    f"{geo['filters_per_cta']} filters, "
+                    f"{geo['resident_per_sm']} resident per SM")
+            # a plan built after the record launches the cached tile
+            clear_plan_cache()
+            seen = []
+            real = (launcher._bank_geometry_on if plan.mode == "bank"
+                    else launcher._operator_geometry_on)
+
+            def spy(*a, _real=real):
+                geo = _real(*a)
+                seen.append((a[-1], geo))
+                return geo
+            name = real.__name__
+            setattr(launcher, name, spy)
+            try:
+                plan.program()(*args)
+                sync()
+            finally:
+                setattr(launcher, name, real)
+            check(seen and all(b == best for b, _ in seen),
+                  f"[main-core] {key}: the rebuilt plan launched "
+                  f"block_b {[b for b, _ in seen]}, cached {best}")
+            log(f"[main-core]   after clear_plan_cache() the plan launches "
+                f"block_b={best}: {seen[-1][1]}")
+    clear_plan_cache()
+    path.unlink()       # later plans keep the launcher's own geometry
+    rose = counter.value() - before
+    check(rose == len(tuned), f"[main-core] autotune_measurements_total "
+          f"rose by {rose}, want {len(tuned)}")
+    log(f"[main-core] autotune_measurements_total rose by {rose:g}")
+    return {"chosen": chosen, "forms_checked": len(calls)}
+
+
+def phase_main_core(errs, main, filt, single, main_dir, single_dir) -> dict:
+    """[main-core]: the baselines, the compressed linear, the butterfly
+    layer and gradient compression, and the tile autotuner (CORE)."""
+    from collections import Counter
+    t_phase = time.perf_counter()
+    counts: Counter = Counter()
+    secs = {}
+    t0 = time.perf_counter()
+    base = core_baselines(main)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    linear = core_linear(errs, counts)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    layers = core_layers()
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tune = core_autotune(main, filt, single, main_dir, single_dir)
+    secs["d"] = time.perf_counter() - t0
+    phase_s = time.perf_counter() - t_phase
+    log(f"[main-core] {phase_s:.1f}s in all (a {secs['a']:.1f}s, b "
+        f"{secs['b']:.1f}s, c {secs['c']:.1f}s, d {secs['d']:.1f}s); "
+        f"launches {dict((k, v) for k, v in counts.items() if v)}")
+    return {"launches": dict(counts), "baselines": base, "linear": linear,
+            "layers": layers, "autotune": tune, "phase_s": phase_s,
+            "part_s": secs}
+
+
 #: the async front end of [main-async]: R-row requests from closed-loop
 #: tenants through AsyncFGFTService on the tables the earlier phases
 #: fitted (no fit at full width); the dynamic part's churn and refresh
@@ -3619,6 +4128,12 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from repro_torch.kernels import autotune
+    # the run's own tile cache, empty: every block_b=None launch takes the
+    # launcher's geometry until [main-core] records its measurements
+    cache = ROOT / "build" / "autotune.json"
+    cache.unlink(missing_ok=True)
+    os.environ[autotune.CACHE_ENV] = str(cache)
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -3646,6 +4161,8 @@ def main() -> int:
     asynch = phase_main_async(errs, main_rec, main_dir)
     bf16x = phase_main_bf16x(errs, main_rec, filter_rec, single, main_dir,
                              single_dir)
+    core = phase_main_core(errs, main_rec, filter_rec, single, main_dir,
+                           single_dir)
     # phase 7 for the bf16 forms, then for the bf16-signal forms on f32
     # and on bf16 tables
     for at in (("bf16", bf16["launches"]),
@@ -3672,6 +4189,7 @@ def main() -> int:
         row["ragged_launches"] = ragged_counts[row["entry"]]
         row["dynamic_launches"] = dynamic["launches"].get(row["entry"], 0)
         row["async_launches"] = asynch["launches"].get(row["entry"], 0)
+        row["core_launches"] = core["launches"].get(row["entry"], 0)
         row["max_abs_err"] = errs[row["entry"]]
     if args.baseline:
         turns = phase_turns(args.baseline, main_rec, single, main_dir,

@@ -1,5 +1,6 @@
 """Core library of the port: factor containers, stage packing, the
-symmetric and general fits and their batched facade, and the FGFT."""
+symmetric and general fits and their batched facade, the FGFT, the
+paper's baselines and the butterfly layers."""
 from .types import (GFactors, TFactors, SCALE, SHEAR, gfactors_identity,
                     tfactors_identity)
 from .staging import (StagedG, StagedT, default_cut_ladder, pack_g,
@@ -16,3 +17,8 @@ from .ttransform import (approximate_general, default_cbar, lemma2_spectrum,
 from .eigenbasis import ApproxEigenbasis, pad_ragged
 from .fgft import (FGFT, build_fgft, laplacian, prefix_relative_error,
                    relative_error)
+from .baselines import (factorize_orthonormal, rank_r_general,
+                        rank_r_symmetric, truncated_jacobi)
+from .fastlinear import (ButterflyParams, ButterflyPattern, CompressedLinear,
+                         butterfly_apply, butterfly_init, compress_linear,
+                         compressed_linear_apply, fft_pattern)

@@ -6,6 +6,14 @@ chain and spectrum of a fit as numpy arrays — ``np.asarray`` of the JAX
 ``ApproxEigenbasis`` with tables repacked by the port's own packer, which
 are bitwise the JAX package's tables for the same factors.  Both
 families: G chains (``kind="sym"``) and T chains (``kind="general"``).
+
+The same for the layers of ``core/fastlinear.py`` and
+``optim/compress.py``, whose random draws (``jax.random``) the port
+cannot reproduce: ``butterfly_params_from_numpy`` (a butterfly layer's
+angles and diagonal), ``compress_spec_from_numpy`` (a compression spec's
+fixed angles) and ``compressed_linear_from_numpy`` (the Q and H chains
+and H's spectrum of a compressed projection, repacked into the tables the
+JAX ``CompressedLinear`` holds).
 """
 from __future__ import annotations
 
@@ -16,7 +24,10 @@ import torch
 
 from repro_torch.core.eigenbasis import (ApproxEigenbasis, _normalize_sizes,
                                         _pack)
+from repro_torch.core.fastlinear import (ButterflyParams, CompressedLinear,
+                                         _bundle)
 from repro_torch.core.types import GFactors, TFactors
+from repro_torch.optim.compress import CompressSpec
 
 #: kind -> (factor container, its int32 fields; the others are f32)
 _LAYOUT = {"sym": (GFactors, ("i", "j")),
@@ -67,3 +78,61 @@ def basis_from_numpy(kind: str, n: int, factors: Mapping[str, np.ndarray],
                             spectrum=torch.from_numpy(spec.copy()).to(dev),
                             fwd=fwd, bwd=bwd, objective=obj,
                             info={"stage_pad": stage_pad}, sizes=sizes)
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype)).to(torch.device(device))
+
+
+def butterfly_params_from_numpy(theta, diag,
+                                device="cuda") -> ButterflyParams:
+    """A butterfly layer's parameters from host arrays: theta (S, n//2)
+    and diag (n,), both float32 (``np.asarray`` of the JAX
+    ``ButterflyParams`` fields)."""
+    theta = _tensor(theta, np.float32, device)
+    diag = _tensor(diag, np.float32, device)
+    if theta.dim() != 2 or diag.dim() != 1 \
+            or 2 * theta.shape[1] != diag.shape[0]:
+        raise ValueError(f"theta {tuple(theta.shape)} and diag "
+                         f"{tuple(diag.shape)} are not (S, n//2) and (n,)")
+    return ButterflyParams(theta=theta, diag=diag)
+
+
+def compress_spec_from_numpy(width: int, keep: int, theta,
+                             device="cuda") -> CompressSpec:
+    """A compression spec from the JAX ``make_spec``'s fields: ``width``
+    (a power of two), ``keep`` and its theta (log2 width, width//2)."""
+    theta = _tensor(theta, np.float32, device)
+    depth = int(np.log2(width))
+    if width < 2 or width & (width - 1) \
+            or tuple(theta.shape) != (depth, width // 2):
+        raise ValueError(f"theta {tuple(theta.shape)} does not fit width "
+                         f"{width} (want ({depth}, {width // 2}))")
+    if not 1 <= keep <= width:
+        raise ValueError(f"keep {keep} not in [1, {width}]")
+    return CompressSpec(width, depth, int(keep), theta)
+
+
+def compressed_linear_from_numpy(q_factors: Mapping[str, np.ndarray],
+                                 h_factors: Mapping[str, np.ndarray],
+                                 diag: np.ndarray, n: int,
+                                 device="cuda") -> CompressedLinear:
+    """A compressed projection from the Q chain (``factorize_orthonormal``
+    of the polar factor), the H chain (Algorithm 1) and H's spectrum, as
+    the JAX ``compress_linear`` computes them: dicts of ``i, j, c, s,
+    sigma`` (g,) arrays and diag (n,).  The tables are packed at width n
+    by the port's packer, bitwise the JAX ``CompressedLinear``'s tables
+    where its chains touch coordinate n - 1 (the JAX package infers the
+    width from the indices)."""
+    chains = []
+    for name, fields in (("q_factors", q_factors), ("h_factors", h_factors)):
+        missing = [f for f in GFactors._fields if f not in fields]
+        if missing:
+            raise ValueError(f"{name} lack fields {missing}")
+        chains.append(GFactors(*(
+            _tensor(fields[f], np.int32 if f in ("i", "j") else np.float32,
+                    device) for f in GFactors._fields)))
+    diag = _tensor(diag, np.float32, device)
+    if tuple(diag.shape) != (n,):
+        raise ValueError(f"diag shape {tuple(diag.shape)} != ({n},)")
+    return _bundle(chains[0], chains[1], diag, n, device)

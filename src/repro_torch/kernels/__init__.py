@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels (csrc/), their plain PyTorch versions
-(``ref``) and the execution plans that dispatch between them.
+(``ref``), the execution plans that dispatch between them and the
+persisted tile autotuner (``autotune``).
 
 Dispatch is declarative: ``plan.ApplyPlan`` names a staged-table
-computation and returns its one cached program.  The JAX package's
-``autotune`` (persisted Pallas tile choices) is not ported.
+computation and returns its one cached program; its ``block_b`` tile
+resolves through ``autotune``'s cache.
 """
-from . import plan, ref, butterfly, shear, spectral
+from . import plan, ref, butterfly, shear, spectral, autotune
 from .plan import ApplyPlan

@@ -46,6 +46,12 @@ leg walks each stage only up to its real extent (``stage_extents``,
 computed on the tables' device and kept beside the index table until it
 dies or is written).
 
+The tile dial ``block_b`` of every entry point (kernels/autotune.py
+tunes it per plan) caps the signal rows one CTA holds: warps x rows per
+warp in a chain or operator launch, r in a bank launch.  None keeps the
+geometry above.  Every answer is computed per row and coordinate, so
+every geometry gives the same bits.
+
 A batch is grid y of every launch, so a batch of more than ``_GRID_B``
 matrices is launched as consecutive slices of at most ``_GRID_B``
 (``batch_slices``), each on pointers offset to its first matrix.
@@ -253,11 +259,13 @@ def bank_ring_bytes(slots: int, family: str) -> int:
 @functools.lru_cache(maxsize=4096)
 def bank_geometry(batch: int, rows: int, n: int, filters: int,
                   ring_bytes: int, smem_block: int, smem_sm: int,
-                  sms: int) -> BankGeometry:
+                  sms: int, block_b: Optional[int] = None) -> BankGeometry:
     """Rows and filters per bank CTA for B = ``batch`` matrices, R =
     ``rows`` signal rows of width n and F = ``filters`` filters, on a
     card whose blocks may take ``smem_block`` bytes of shared memory and
-    whose ``sms`` SMs hold ``smem_sm`` bytes each.  Pure: no card query.
+    whose ``sms`` SMs hold ``smem_sm`` bytes each; ``block_b`` (the tile
+    dial, None: no cap) caps the signal rows r of a CTA.  Pure: no card
+    query.
 
     A CTA's tile (F_g * r rows at the odd stride, 16-byte aligned) and
     ``ring_bytes`` leave at least three CTAs resident per SM.  Among the
@@ -276,13 +284,15 @@ def bank_geometry(batch: int, rows: int, n: int, filters: int,
                          f"the table ring ({ld * 4} + {ring_bytes} bytes) "
                          f"leave no {_MIN_RESIDENT} CTAs per SM in "
                          f"{smem_sm} bytes")
+    _check_block_b(block_b)
+    cap = rows if block_b is None else min(rows, block_b)
     target = 2 * sms
     best, best_key = None, None
     for groups in range(1, filters + 1):
         fg = -(-filters // groups)
         if -(-filters // fg) != groups:      # the same F_g as fewer groups
             continue
-        rmax = min(rows, max_rows // fg)
+        rmax = min(cap, max_rows // fg)
         if rmax < 1:
             continue
         want = -(-target // (batch * groups))    # row tiles to reach it
@@ -311,14 +321,17 @@ def _card_limits(index: int) -> Tuple[int, int, int]:
     return block, sm, sms
 
 
+def _card_limits_on(device: torch.device) -> Tuple[int, int, int]:
+    return _card_limits(device.index if device.index is not None
+                        else torch.cuda.current_device())
+
+
 def _bank_geometry_on(device: torch.device, batch: int, rows: int, n: int,
-                      filters: int, slots: int,
-                      family: str) -> BankGeometry:
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
+                      filters: int, slots: int, family: str,
+                      block_b: Optional[int] = None) -> BankGeometry:
     return bank_geometry(batch, rows, n, filters,
                          bank_ring_bytes(slots, family),
-                         *_card_limits(index))
+                         *_card_limits_on(device), block_b)
 
 
 class OperatorGeometry(NamedTuple):
@@ -344,13 +357,15 @@ def operator_ring_bytes(family: str, precision: str = "f32") -> int:
 
 @functools.lru_cache(maxsize=4096)
 def operator_geometry(batch: int, rows: int, n: int, ring_bytes: int,
-                      smem_block: int, smem_sm: int,
-                      sms: int) -> OperatorGeometry:
+                      smem_block: int, smem_sm: int, sms: int,
+                      block_b: Optional[int] = None) -> OperatorGeometry:
     """Lanes per row, rows per warp and warps per CTA of an operator
     launch for B = ``batch`` matrices of R = ``rows`` signal rows of
     width n and a ring of ``ring_bytes`` per warp, on a card whose
     blocks may take ``smem_block`` bytes of shared memory and whose
-    ``sms`` SMs hold ``smem_sm`` bytes each.  Pure: no card query.
+    ``sms`` SMs hold ``smem_sm`` bytes each; ``block_b`` (the tile dial,
+    None: no cap) caps a CTA's signal rows, warps x rows per warp.
+    Pure: no card query.
 
     L is the fewest lanes in OPERATOR_LANES whose warps number at least
     two per SM, else the most (a warp holds 32 / L rows, fewer where R
@@ -359,16 +374,19 @@ def operator_geometry(batch: int, rows: int, n: int, ring_bytes: int,
     The warps per CTA (at most 8, at most a matrix's warps) minimize the
     warps on the busiest SM, ceil(CTAs / SMs) * warps, then take the
     most warps per CTA (their rings load one matrix's stream through one
-    L1).  Raises when not one row fits."""
+    L1), within the cap.  Raises when not one row fits."""
     if min(batch, rows) < 1:
         raise ValueError(f"operator geometry needs B, R >= 1, got "
                          f"{(batch, rows)}")
+    _check_block_b(block_b)
     row_bytes = ((n + 1) | 1) * 4
     fit = (smem_block - 16 - ring_bytes) // row_bytes
     if fit < 1:
         raise ValueError(f"n={n} is too wide for one shared-memory row "
                          f"and a ring ({row_bytes} + {ring_bytes} bytes > "
                          f"{smem_block})")
+    if block_b is not None:
+        fit = min(fit, block_b)
     for lanes in OPERATOR_LANES:
         per_warp = min(32 // lanes, rows, fit)
         warps_per_matrix = -(-rows // per_warp)
@@ -379,8 +397,11 @@ def operator_geometry(batch: int, rows: int, n: int, ring_bytes: int,
         rows_bytes = -(-warps * per_warp * row_bytes // 16) * 16
         return rows_bytes + warps * ring_bytes
 
+    most = min(_MAX_WARPS, warps_per_matrix)
+    if block_b is not None:
+        most = min(most, block_b // per_warp)
     best, best_key = None, None
-    for warps in range(1, min(_MAX_WARPS, warps_per_matrix) + 1):
+    for warps in range(1, most + 1):
         if smem(warps) > smem_block:
             break
         tiles = -(-warps_per_matrix // warps)
@@ -395,23 +416,28 @@ def operator_geometry(batch: int, rows: int, n: int, ring_bytes: int,
 
 
 def _operator_geometry_on(device: torch.device, batch: int, rows: int,
-                          n: int, family: str,
-                          precision: str) -> OperatorGeometry:
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
+                          n: int, family: str, precision: str,
+                          block_b: Optional[int] = None) -> OperatorGeometry:
     return operator_geometry(batch, rows, n,
                              operator_ring_bytes(family, precision),
-                             *_card_limits(index))
+                             *_card_limits_on(device), block_b)
+
+
+def _check_block_b(block_b: Optional[int]) -> None:
+    if block_b is not None and block_b <= 0:
+        raise ValueError(f"block_b must be positive, got {block_b}")
 
 
 def launch_geometry(entry: str, batch: int, rows: int, n: int,
-                    filters: int = 1, slots: int = 1) -> dict:
+                    filters: int = 1, slots: int = 1,
+                    block_b: Optional[int] = None) -> dict:
     """The CTAs a launch of ``entry`` (an entry point form: its bf16 form
     is ``entry + "_bf16"``) takes on the current card at x (batch, rows,
     n) (a bank: ``filters`` filters on tables of ``slots`` slots per
     stage; a chain or an operator also its lanes per row, rows per warp
-    and warps per CTA), with the card's own reading of its resident CTAs
-    per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    and warps per CTA) at the tile dial ``block_b``, with the card's own
+    reading of its resident CTAs per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     kernel = KERNEL_OF[entry]
     dev = torch.device("cuda", torch.cuda.current_device())
     family, kind = kernel[0], kernel.split("_")[1]
@@ -420,12 +446,14 @@ def launch_geometry(entry: str, batch: int, rows: int, n: int,
     precision = "bf16" if variant else "f32"
     threads = THREADS
     if kind == "bank":
-        geo = _bank_geometry_on(dev, batch, rows, n, filters, slots, family)
+        geo = _bank_geometry_on(dev, batch, rows, n, filters, slots, family,
+                                block_b)
         out = {"rows_per_cta": geo.rows, "filters_per_cta": geo.filters,
                "ctas": batch * geo.row_tiles * geo.groups}
         tile_rows = geo.rows * geo.filters
     else:
-        geo = _operator_geometry_on(dev, batch, rows, n, family, precision)
+        geo = _operator_geometry_on(dev, batch, rows, n, family, precision,
+                                    block_b)
         tile_rows = geo.warps * geo.rows_per_warp
         threads = 32 * geo.warps
         out = {"rows_per_cta": tile_rows, "filters_per_cta": 1,
@@ -741,7 +769,8 @@ def _keeps(fwd) -> tuple:
 
 
 def _chain_launch(entry: str, staged, x3: torch.Tensor,
-                  num_stages: Optional[int], keep: str) -> torch.Tensor:
+                  num_stages: Optional[int], keep: str,
+                  block_b: Optional[int] = None) -> torch.Tensor:
     """y (B, R, n): one leg, a stream cut at ``keep``, on the
     ``operator_geometry`` grid."""
     lib = build.library()
@@ -754,14 +783,15 @@ def _chain_launch(entry: str, staged, x3: torch.Tensor,
     if bsz == 0 or r == 0:
         return y
     geo = _operator_geometry_on(x3.device, bsz, r, n, kernel[0],
-                                table_precision(_walked(staged, x3)))
+                                table_precision(_walked(staged, x3)),
+                                block_b)
     return _launch(lib, entry, x3, y, leg,
                    (geo.lanes, geo.rows_per_warp, geo.warps))
 
 
 def _operator_launch(entry: str, fwd, bwd, diag: torch.Tensor,
-                     x3: torch.Tensor,
-                     num_stages: Optional[int]) -> torch.Tensor:
+                     x3: torch.Tensor, num_stages: Optional[int],
+                     block_b: Optional[int] = None) -> torch.Tensor:
     """y (B, R, n): the analysis leg (bwd), the spectrum (B, n) and the
     synthesis leg (fwd), each leg a stream cut at its family's
     orientation, on the ``operator_geometry`` grid."""
@@ -780,14 +810,14 @@ def _operator_launch(entry: str, fwd, bwd, diag: torch.Tensor,
     if bsz == 0 or r == 0:
         return y
     geo = _operator_geometry_on(x3.device, bsz, r, n, kernel[0],
-                                table_precision(_walked(fwd, x3)))
+                                table_precision(_walked(fwd, x3)), block_b)
     return _launch(lib, entry, x3, y, (_PerMatrix(d.data_ptr(), n), *legs),
                    (geo.lanes, geo.rows_per_warp, geo.warps))
 
 
 def _bank_launch(entry: str, fwd, bwd, gains: torch.Tensor,
-                 x3: torch.Tensor,
-                 num_stages: Optional[int]) -> torch.Tensor:
+                 x3: torch.Tensor, num_stages: Optional[int],
+                 block_b: Optional[int] = None) -> torch.Tensor:
     """(B, F, R, n): both legs cut as the operator's, each walked over
     its stages' real extents, on the ``bank_geometry`` grid."""
     lib = build.library()
@@ -805,7 +835,8 @@ def _bank_launch(entry: str, fwd, bwd, gains: torch.Tensor,
     if bsz == 0 or r == 0:
         return y
     slots = max(fwd.idx_i.shape[-1], bwd.idx_i.shape[-1])
-    geo = _bank_geometry_on(x3.device, bsz, r, n, f, slots, kernel[0])
+    geo = _bank_geometry_on(x3.device, bsz, r, n, f, slots, kernel[0],
+                            block_b)
     return _launch(lib, entry, x3, y,
                    (_PerMatrix(gp.data_ptr(), f * (n + 1)), f, *legs),
                    (geo.rows, geo.filters, THREADS))
@@ -816,45 +847,54 @@ def _bank_launch(entry: str, fwd, bwd, gains: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def chain(entry: str, plain: Callable, staged, x: torch.Tensor,
-          num_stages: Optional[int], keep: str) -> torch.Tensor:
+          num_stages: Optional[int], keep: str,
+          block_b: Optional[int] = None) -> torch.Tensor:
     """A chain entry point: ``plain`` on a CPU tensor, else the kernel;
-    x is (B, R, n) for a batched entry, (R, n) for a B = 1 one."""
+    x is (B, R, n) for a batched entry, (R, n) for a B = 1 one.
+    ``block_b`` caps a CTA's signal rows (``operator_geometry``); every
+    geometry gives the same answer, and the plain version ignores it."""
+    _check_block_b(block_b)
     if x.device.type == "cpu":
         return plain(staged, x, num_stages, keep)
     if entry.startswith("batched"):
         _check_signal(x, 3, entry)
-        return _chain_launch(entry, staged, x, num_stages, keep)
+        return _chain_launch(entry, staged, x, num_stages, keep, block_b)
     _check_signal(x, 2, entry)
-    return _chain_launch(entry, staged, x.unsqueeze(0), num_stages, keep)[0]
+    return _chain_launch(entry, staged, x.unsqueeze(0), num_stages, keep,
+                         block_b)[0]
 
 
 def _two_legs(launch: Callable, entry: str, plain: Callable, fwd, bwd,
-              d: torch.Tensor, x: torch.Tensor,
-              num_stages: Optional[int]) -> torch.Tensor:
+              d: torch.Tensor, x: torch.Tensor, num_stages: Optional[int],
+              block_b: Optional[int]) -> torch.Tensor:
     """An operator or bank entry point: ``plain`` on a CPU tensor, else
     ``launch``; x is (B, R, n) for a batched entry, (R, n) for a B = 1
     one (launched as B = 1, the batch axis dropped again)."""
+    _check_block_b(block_b)
     if x.device.type == "cpu":
         return plain(fwd, bwd, d, x, num_stages)
     if entry.startswith("batched"):
         _check_signal(x, 3, entry)
-        return launch(entry, fwd, bwd, d, x, num_stages)
+        return launch(entry, fwd, bwd, d, x, num_stages, block_b)
     _check_signal(x, 2, entry)
-    return launch(entry, fwd, bwd, d, x.unsqueeze(0), num_stages)[0]
+    return launch(entry, fwd, bwd, d, x.unsqueeze(0), num_stages,
+                  block_b)[0]
 
 
 def operator(entry: str, plain: Callable, fwd, bwd, diag: torch.Tensor,
-             x: torch.Tensor, num_stages: Optional[int]) -> torch.Tensor:
+             x: torch.Tensor, num_stages: Optional[int],
+             block_b: Optional[int] = None) -> torch.Tensor:
     """An operator entry point: the fused operator kernel, diag (B, n)
-    or (n,)."""
+    or (n,); ``block_b`` as in ``chain``."""
     return _two_legs(_operator_launch, entry, plain, fwd, bwd, diag, x,
-                     num_stages)
+                     num_stages, block_b)
 
 
 def bank(entry: str, plain: Callable, fwd, bwd, gains: torch.Tensor,
-         x: torch.Tensor, num_stages: Optional[int]) -> torch.Tensor:
+         x: torch.Tensor, num_stages: Optional[int],
+         block_b: Optional[int] = None) -> torch.Tensor:
     """A filter-bank entry point: the bank kernel, gains (B, F, n) ->
     (B, F, R, n) for a batched entry, (F, n) -> (F, R, n) for a B = 1
-    one."""
+    one; ``block_b`` caps a CTA's signal rows r (``bank_geometry``)."""
     return _two_legs(_bank_launch, entry, plain, fwd, bwd, gains, x,
-                     num_stages)
+                     num_stages, block_b)

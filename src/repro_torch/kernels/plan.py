@@ -36,6 +36,13 @@ gain cast to bf16 and every product and sum rounded to it, as the JAX
 package's Pallas kernels do; on the card the kernels' bf16-signal
 forms), returned in bf16.
 
+Tile size: ``block_b`` is the most signal rows one CTA of a ``"cuda"``
+program holds (kernels/launcher.py); None resolves, when the program is
+built, to the persisted autotune choice for the plan's key
+(kernels/autotune.py), and with no entry to the launcher's own
+geometry.  The ``"torch"`` backend ignores it.  Every tile gives the
+same answer.
+
 ``fused=False`` compiles the operator to the three-pass baseline
 (analysis apply, diagonal scale, synthesis apply as separate calls), the
 parity oracle of the fused path; a bank then runs F such three-pass
@@ -78,7 +85,9 @@ class ApplyPlan:
     ``n``: table width.  ``num_stages``: anytime ladder cut ("apply"
     also takes ``keep``; operator legs use ``leg_orientation``).
     ``device``: where the tables and signals live.  ``backend``: None
-    resolves from the device (see module docstring)."""
+    resolves from the device.  ``block_b``: the CUDA tile's signal rows
+    (None: the persisted autotune choice, else the launcher's geometry;
+    see module docstring)."""
 
     family: str
     mode: str
@@ -90,15 +99,13 @@ class ApplyPlan:
     precision: str = "f32"
     fused: bool = True
     device: str = "cuda"
-    #: not ported yet (each raises when set): mesh placement, tile size
-    placement: Optional[object] = None
     block_b: Optional[int] = None
+    #: not ported yet (raises when set): mesh placement
+    placement: Optional[object] = None
 
     def __post_init__(self):
         if self.placement is not None:
             raise _not_ported("placement=", "multi-GPU placement")
-        if self.block_b is not None:
-            raise _not_ported("block_b= (tile autotune)", "autotune")
         if self.family not in PLAN_FAMILIES:
             raise ValueError(f"family must be one of {PLAN_FAMILIES}, "
                              f"got {self.family!r}")
@@ -113,6 +120,9 @@ class ApplyPlan:
                              f"got {self.keep!r}")
         if self.n <= 0:
             raise ValueError(f"n must be positive, got {self.n}")
+        if self.block_b is not None and self.block_b <= 0:
+            raise ValueError(f"block_b must be positive, "
+                             f"got {self.block_b}")
         dev = torch.device(self.device)
         object.__setattr__(self, "device", str(dev))
         if self.backend is None:
@@ -182,37 +192,47 @@ class ApplyPlan:
         cls = StagedT if self.family == "general" else StagedG
         return cls(*tables, None, self.n)
 
+    def _resolved_block_b(self) -> Optional[int]:
+        """The tile a ``"cuda"`` program launches at: ``block_b``, else
+        the persisted choice for the plan's key, else None (the
+        launcher's geometry)."""
+        if self.block_b is not None:
+            return self.block_b
+        from . import autotune
+        return autotune.cached_block_b(self)
+
     def _dispatch(self):
         """tables -> tensors map implementing the plan: the ONE place
         where kernel entry points, reshapes and cut orientations meet."""
         cut, keep, n = self.num_stages, self.keep, self.n
         fn = _ENTRY[(self.family, self.mode, self.backend, self.batched)]
-        if self.mode == "apply":
-            if self.backend == "torch":
+        if self.backend == "torch":
+            if self.mode == "apply":
                 return lambda t, x: fn(self._staged(t), x, cut, keep)
+            return lambda ft, bt, d, x: fn(self._staged(ft),
+                                            self._staged(bt), d, x, cut)
+        bb = self._resolved_block_b()
+        if self.mode == "apply":
             if self.batched:
                 return lambda t, x: fn(
                     self._staged(t),
                     x.reshape(x.shape[0], -1, n).contiguous(),
-                    cut, keep).reshape(x.shape)
+                    cut, keep, bb).reshape(x.shape)
             return lambda t, x: fn(
                 self._staged(t), x.reshape(-1, n).contiguous(),
-                cut, keep).reshape(x.shape)
-        if self.backend == "torch":
-            return lambda ft, bt, d, x: fn(self._staged(ft),
-                                            self._staged(bt), d, x, cut)
+                cut, keep, bb).reshape(x.shape)
         # the kernel's (B, [F,] M, n) / ([F,] M, n) back to x's row axes;
         # d is the spectrum of an operator, the gains of a bank
         if self.batched:
             def batched(ft, bt, d, x):
                 y = fn(self._staged(ft), self._staged(bt), d,
-                       x.reshape(x.shape[0], -1, n).contiguous(), cut)
+                       x.reshape(x.shape[0], -1, n).contiguous(), cut, bb)
                 return y.reshape(y.shape[:-2] + x.shape[1:])
             return batched
 
         def single(ft, bt, d, x):
             y = fn(self._staged(ft), self._staged(bt), d,
-                   x.reshape(-1, n).contiguous(), cut)
+                   x.reshape(-1, n).contiguous(), cut, bb)
             return y.reshape(y.shape[:-2] + x.shape)
         return single
 

@@ -1,0 +1,4 @@
+"""Optimizer-side features of the port: butterfly gradient compression
+with error feedback (``compress``).  The JAX package's ``adamw`` comes
+with the LM scaffold."""
+from . import compress

@@ -150,7 +150,7 @@ def test_engine_passes_the_hint_through():
 
 
 #: names of the JAX package's ``repro.kernels`` that are not ported
-NOT_PORTED = {"autotune"}
+NOT_PORTED: set = set()
 
 
 def test_kernels_package_exports_the_reference_names():
@@ -165,6 +165,18 @@ def test_kernels_package_exports_the_reference_names():
         assert not hasattr(tk, name), name
     assert tk.ApplyPlan is tk.plan.ApplyPlan
     assert tk.ApplyPlan.__name__ == JaxPlan.__name__
+    assert tk.autotune.BLOCK_B_CANDIDATES == jk.autotune.BLOCK_B_CANDIDATES
+
+
+def test_core_package_exports_the_reference_names():
+    import repro.core as jc
+    import repro_torch.core as tc
+    want = {name for name in dir(jc) if not name.startswith("_")}
+    assert {"truncated_jacobi", "compress_linear", "fft_pattern"} <= want
+    missing = sorted(name for name in want if not hasattr(tc, name))
+    assert not missing, missing
+    for name in ("ButterflyParams", "ButterflyPattern", "CompressedLinear"):
+        assert getattr(tc, name)._fields == getattr(jc, name)._fields
 
 
 def test_plan_cache_size_counts_programs_as_the_reference():

@@ -962,3 +962,158 @@ def test_async_service_on_the_card(cuda):
         stream = svc.maintain_stream.cuda_stream
     assert ticks and set(ticks) == {stream}
     assert stream != torch.cuda.default_stream(cuda).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# the rest of repro.core: compressed linear, baselines, butterfly layer;
+# the tile dial
+# ---------------------------------------------------------------------------
+
+def test_compressed_linear_kernels_match_plain_at_1024(cuda):
+    """compressed_linear_apply at n = 1024 (random chains): one operator
+    and one chain launch a call, equal to its plain version."""
+    from repro_torch.core import compressed_linear_apply
+    from repro_torch.interop import compressed_linear_from_numpy
+    n, g = 1024, 4096
+    chains = [_chain_fields(n, g, seed) for seed in (1, 2)]
+    diag = np.random.default_rng(3).uniform(0.0, 2.0, n).astype(np.float32)
+    comp = compressed_linear_from_numpy(*chains, diag, n, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((4096, n), generator=gen, device=cuda)
+    launcher.reset_launch_counts()
+    y = compressed_linear_apply(comp, x)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launcher.entry_launch_counts().items() if v}
+    assert got == {"sym_operator_apply": 1, "butterfly_apply": 1}
+    _close(y, compressed_linear_apply(comp, x, backend="torch"))
+    for entry in got:
+        geo = launcher.launch_geometry(entry, 1, 4096, n)
+        assert geo["resident_per_sm"] >= 1 and geo["ctas"] >= 1
+
+
+def _chain_fields(n, g, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, n, g)
+    b = (a + rng.integers(1, n, g)) % n
+    theta = rng.uniform(-np.pi, np.pi, g)
+    return {"i": np.minimum(a, b).astype(np.int32),
+            "j": np.maximum(a, b).astype(np.int32),
+            "c": np.cos(theta).astype(np.float32),
+            "s": np.sin(theta).astype(np.float32),
+            "sigma": rng.choice([-1.0, 1.0], g).astype(np.float32)}
+
+
+@pytest.mark.parametrize("n,batch,g", [(48, 3, 200), (256, 2, 4096)])
+def test_every_entry_point_is_bitwise_at_each_block_b(cuda, n, batch, g):
+    """Every geometry gives the same bits: each of the 12 entry points
+    (and the batched G operator's bf16-table and bf16-signal forms) at
+    each tile equals its block_b=None launch."""
+    gf, ga, sgf, sga, d = _tables(n, batch, g, cuda)
+    tf, ti, stf, sti, _ = _t_tables(n, batch, g, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((batch, 130, n), generator=gen, device=cuda)
+    gains = _gains((batch, 7, n), cuda, 2)
+    x1 = x[0].contiguous()
+    bgf, bga = (tst.with_precision(t, "bf16") for t in (gf, ga))
+    calls = [
+        (bf.batched_butterfly_apply, (gf, x)),
+        (bf.butterfly_apply, (sgf, x1)),
+        (bf.batched_sym_operator_apply, (gf, ga, d, x)),
+        (bf.sym_operator_apply, (sgf, sga, d[0], x1)),
+        (sh.batched_shear_apply, (tf, x)),
+        (sh.shear_apply, (stf, x1)),
+        (sh.batched_gen_operator_apply, (tf, ti, d, x)),
+        (sh.gen_operator_apply, (stf, sti, d[0], x1)),
+        (ksp.batched_sym_filter_bank_apply, (gf, ga, gains, x)),
+        (ksp.sym_filter_bank_apply, (sgf, sga, gains[0], x1)),
+        (ksp.batched_gen_filter_bank_apply, (tf, ti, gains, x)),
+        (ksp.gen_filter_bank_apply, (stf, sti, gains[0], x1)),
+        (bf.batched_sym_operator_apply, (bgf, bga, d, x)),
+        (bf.batched_sym_operator_apply, (gf, ga, d, x.to(torch.bfloat16))),
+    ]
+    for fn, args in calls:
+        want = fn(*args)
+        for block_b in (1, 8, 32, 64, 128, 256):
+            assert torch.equal(fn(*args, block_b=block_b), want), \
+                (fn.__name__, block_b)
+    with pytest.raises(ValueError, match="block_b must be positive"):
+        bf.batched_butterfly_apply(gf, x, block_b=0)
+    torch.cuda.synchronize()
+
+
+def test_cuda_plan_launches_the_cached_tile(cuda, tmp_path, monkeypatch):
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.plan import clear_plan_cache
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "a.json"))
+    gf, ga, _, _, d = _tables(48, 3, 200, cuda)
+    x = torch.randn((3, 130, 48), device=cuda)
+    plan = ApplyPlan(family="sym", mode="operator", n=48, batched=True,
+                     device=cuda)
+    seen = []
+    real = launcher._operator_geometry_on
+
+    def spy(*a):
+        seen.append(a[-1])
+        return real(*a)
+    monkeypatch.setattr(launcher, "_operator_geometry_on", spy)
+    clear_plan_cache()
+    y = plan.operator(gf, ga, d, x)
+    best = autotune.autotune_block_b(
+        plan, (plan.prepare(gf), plan.prepare(ga), d, x),
+        candidates=(32, 64), repeats=2)
+    clear_plan_cache()
+    seen.clear()
+    assert torch.equal(plan.operator(gf, ga, d, x), y)
+    assert seen == [best]
+    clear_plan_cache()
+
+
+def test_truncated_jacobi_on_the_card_matches_the_cpu(cuda):
+    """The greedy loops on the card (no host sync) pick the CPU port's
+    pairs; values within 1e-5, spectrum within 1e-4."""
+    from repro_torch.core import factorize_orthonormal, truncated_jacobi
+    rng = np.random.default_rng(24)
+    a = rng.standard_normal((24, 24)).astype(np.float32)
+    s = torch.from_numpy(a + a.T)
+    q = torch.from_numpy(np.linalg.qr(rng.standard_normal((24, 24)))[0]
+                         .astype(np.float32))
+    s_card, q_card = s.to(cuda), q.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fj, spec = truncated_jacobi(s_card, 72)
+        fo = factorize_orthonormal(q_card, 96)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cj, cspec = truncated_jacobi(s, 72)
+    co = factorize_orthonormal(q, 96)
+    for got, want in ((fj, cj), (fo, co)):
+        for k, (a_, b_) in enumerate(zip(got, want)):
+            if k < 2:
+                assert torch.equal(a_.cpu(), b_)
+            else:
+                assert float((a_.cpu() - b_).abs().max()) <= 1e-5
+    assert float((spec.cpu() - cspec).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("n", [24, 1024])
+def test_butterfly_layer_gradients_on_the_card(cuda, n):
+    from repro_torch.core import ButterflyParams, butterfly_apply, fft_pattern
+    rng = np.random.default_rng(n)
+    pat = fft_pattern(n, device="cpu")
+    theta = torch.from_numpy(rng.normal(0, 1, tuple(pat.idx_i.shape))
+                             .astype(np.float32))
+    diag = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((64, n)).astype(np.float32))
+
+    def grads(device):
+        p = ButterflyParams(theta.to(device).requires_grad_(True),
+                            diag.to(device).requires_grad_(True))
+        xx = x.to(device).requires_grad_(True)
+        pt = pat._replace(idx_i=pat.idx_i.to(device),
+                          idx_j=pat.idx_j.to(device))
+        (butterfly_apply(p, pt, xx) ** 2).sum().backward()
+        return [t.grad.cpu() for t in (*p, xx)]
+    for got, want in zip(grads(cuda), grads("cpu")):
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())

@@ -75,16 +75,32 @@ def test_cuda_plan_resolves_to_cuda_backend():
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(mode="bank", placement=object()), "placement"),
-    (dict(family="general", mode="bank", block_b=64), "autotune"),
-    (dict(precision="bf16", block_b=64), "autotune"),
+    (dict(family="general", mode="bank", block_b=0), "block_b must be "
+     "positive"),
+    (dict(precision="bf16", block_b=-64), "block_b must be positive"),
     (dict(placement=object()), "placement"),
-    (dict(block_b=64), "autotune"),
+    (dict(block_b=0), "block_b must be positive"),
     (dict(backend="pallas"), "backend"),
 ])
 def test_plan_rejects_unported_options(kwargs, match):
+    """Unported options and bad values raise; ``block_b`` is ported (the
+    tile dial), and a non-positive one raises with the JAX package's
+    message."""
     base = dict(family="sym", mode="apply", n=16, device="cpu")
     with pytest.raises(ValueError, match=match):
         ApplyPlan(**{**base, **kwargs})
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(family="general", mode="bank", block_b=64),
+    dict(precision="bf16", block_b=64),
+    dict(block_b=64),
+])
+def test_plan_accepts_block_b(kwargs):
+    base = dict(family="sym", mode="apply", n=16, device="cpu")
+    plan = ApplyPlan(**{**base, **kwargs})
+    assert plan.block_b == 64 and plan.backend == "torch"
+    assert plan._resolved_block_b() == 64
 
 
 @pytest.mark.parametrize("batched,gains_shape,match", [
