@@ -249,6 +249,40 @@ each), so that the run stays well inside its time limit:
              ``autotune_measurements_total`` rose by 3.  The phase's
              seconds are printed; each ``kernels`` row carries
              ``core_launches``.
+5h. main-lm — the LM serving path (after [main-core]; random weights from
+             seed 0, bf16 compute on f32 parameters, TF32 off; every line
+             carries the card's name and power limit): a. ``serve --arch
+             qwen2-1.5b --requests 8 --batch-slots 4 --prompt-len 32
+             --gen-len 16`` through ``serve.main`` at the full config (28
+             layers, d 1536, vocab 151936): 8 x 16 tokens, all in [0,
+             vocab), the served line printed; tokens/s, prefill ms a
+             request, decode ms a step, ``max_memory_allocated``, and a
+             decode step's kernel launches and device-busy ms
+             (torch.profiler) beside its bytes bound, reckoned from the
+             shapes (every weight the step reads once, its cache, the
+             logits) at 3.35 TB/s.  c. the same prompts through a 4-slot
+             engine on the same weights (seed 0 again, checked equal),
+             each request's logits at every step held to the request
+             alone in a 1-slot engine fed the same tokens, within the
+             bf16 bound; the greedy tokens that agree are counted, not
+             gated.  b. prefill + one decode against ``forward`` of the
+             extended sequence (tests/test_models.py's check) for
+             qwen2-1.5b and gemma2-27b at full width with 2 layers, in
+             bf16 (bf16 cache) and f32 (f32 cache; the JAX package's bf16
+             cache at f32 printed, not gated).  e. one 2048-token prompt
+             prefilled chunked (two KV chunks of 1024, skipping) against
+             ``attn_impl="naive"``, gated in f32, printed in bf16 (the two
+             paths round the attention output in different places at
+             every layer: ~5% of max|logits| at 28 layers).  d. qwen2-1.5b at full width, 2
+             layers, f32: parameters made on the CPU and copied to the
+             card, prefill and two decodes on the card against the port
+             on the CPU (f32 cache; with the bf16 cache printed, not
+             gated: which K/V entries round a bf16 ulp apart depends on
+             each device's sum order).  Bounds: 2e-2 x max(1,
+             max|logits|) in bf16, 1e-4 x ... in f32.  The 12 entry
+             points' counters are zeroed before and read after: none
+             may have launched (``lm_launches`` of each ``kernels``
+             row).  The phase's seconds are printed.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
              graph (n = 256, g = 4096, n_iter = 3), then analysis, synthesis,
              project and the bank; ``shear_apply``, ``gen_operator_apply``
@@ -298,13 +332,14 @@ point's four forms, f32 or bf16 tables (``precision``) by f32 or bf16
 signal (``signal``); launches per path: ``launches`` on the batched or
 single-graph path, on [main-bf16] for a bf16-table form and on
 [main-bf16x] for a bf16-signal form, ``ragged_launches``,
-``dynamic_launches``, ``async_launches``, ``core_launches``), the card's
-name and power
-limit, and as the last line {"ok": true, "device": {...}}.
+``dynamic_launches``, ``async_launches``, ``core_launches``,
+``lm_launches``), the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import pathlib
@@ -3368,6 +3403,332 @@ def phase_main_core(errs, main, filt, single, main_dir, single_dir) -> dict:
             "part_s": secs}
 
 
+#: [main-lm]: the LM serving path (``serve --arch``) at full width, random
+#: weights from seed 0 (no trained weights are in the repository): the CLI
+#: at full depth, decode consistency of qwen2-1.5b (full depth) and of
+#: gemma2-27b (full width, depth cut to 2 layers), slot-locality, the card
+#: against the CPU (qwen2-1.5b at 2 layers, f32) and the chunked attention
+#: path on a 2048-token prompt; bounds on logits as LM["tol"] x max(1,
+#: max|logits|) per compute dtype
+LM = dict(arch="qwen2-1.5b", wide="gemma2-27b", wide_layers=2, cpu_layers=2,
+          requests=8, slots=4, prompt=32, gen=16, max_len=128,
+          consistency=dict(batch=2, prompt=32, max_len=64),
+          long_prompt=2048, chunk=1024,
+          tol={"bfloat16": 2e-2, "float32": 1e-4})
+
+
+def lm_bound(logits, dtype) -> float:
+    return LM["tol"][str(dtype).split(".")[-1]] * max(
+        1.0, float(logits.float().abs().max()))
+
+
+def lm_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def decode_kernels(engine, tokens, steps: int = 3) -> tuple:
+    """Kernel launches and device ms a decode step (torch.profiler over
+    ``steps`` steps), and the steps' wall ms."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.decode(tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fd, path = tempfile.mkstemp(suffix=".json", dir=ROOT / "build")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+    finally:
+        os.unlink(path)
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+    busy_us = sum(float(ev.get("dur", 0.0)) for ev in kernels)
+    return (len(kernels) / steps, busy_us / 1e3 / steps,
+            wall * 1e3 / steps)
+
+
+def decode_bytes(engine) -> int:
+    """Bytes a decode step of ``engine`` must move, each once: the weights
+    its products and norms read (the compute-dtype copies, the LM head,
+    the f32 norms), the embedding rows it gathers, the cache it attends
+    to and the entry it writes a slot and layer, and the logits."""
+    import torch
+    from repro_torch.models.blocks import AttnBlock, MLPBlock
+    model, cfg, b = engine.model, engine.cfg, engine.b
+
+    def nbytes(v) -> int:
+        if isinstance(v, torch.Tensor):
+            return v.numel() * v.element_size()
+        if isinstance(v, tuple):
+            return sum(nbytes(t) for t in v)
+        return 0
+
+    total = nbytes(model.c_lm_head) + nbytes(model.final_norm)
+    for mod in model.modules():
+        if isinstance(mod, (AttnBlock, MLPBlock)):
+            total += nbytes(mod.norm) + sum(
+                nbytes(v) for k, v in vars(mod).items() if k.startswith("c_"))
+    total += b * cfg.d_model * model.embed.element_size()
+    stack = [engine.cache]
+    while stack:
+        for leaf in stack.pop().values():
+            if isinstance(leaf, dict):
+                stack.append(leaf)
+                continue
+            total += nbytes(leaf) + nbytes(leaf[:, :, 0])
+    total += b * cfg.vocab * torch.empty((), dtype=cfg.dtype).element_size()
+    return total
+
+
+def decode_consistency(tag, model, card, cache_dtype=None,
+                       note: str = "") -> dict:
+    """[main-lm] b: prefill + one decode against ``forward`` of the
+    extended sequence (the JAX package's tests/test_models.py check)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tfm
+    cfg, c = model.cfg, LM["consistency"]
+    b, s = c["batch"], c["prompt"]
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (b, s))
+    kw = {} if cache_dtype is None else {"dtype": cache_dtype}
+    cache = tfm.init_cache(cfg, b, c["max_len"], DEVICE, **kw)
+    logits_p, cache = model.prefill(cache, toks)
+    tok = logits_p[:, -1].argmax(-1)[:, None]
+    logits_d, _ = model.decode_step(cache, tok, torch.full((b,), s))
+    logits_f = model.forward(np.concatenate([toks, tok.cpu().numpy()], 1))
+    for t in (logits_p, logits_d, logits_f):
+        check(bool(torch.isfinite(t.float()).all()),
+              f"[main-lm] b. {tag}: non-finite logits")
+    bound = lm_bound(logits_f, cfg.dtype)
+    err_p = lm_err(logits_f[:, s - 1], logits_p[:, 0])
+    err_d = lm_err(logits_f[:, s], logits_d[:, 0])
+    cache_name = str((cache_dtype or torch.bfloat16)).split(".")[-1]
+    log(f"[main-lm] b. {tag} ({str(cfg.dtype).split('.')[-1]}, "
+        f"{cfg.n_layers} layers, {cache_name} cache): prefill vs forward "
+        f"{err_p:.3e}, decode vs forward {err_d:.3e}, bound {bound:.3e} "
+        f"(max|logits| {float(logits_f.float().abs().max()):.4f}){note} "
+        f"[{card}]")
+    return {"prefill": err_p, "decode": err_d, "bound": bound}
+
+
+def lm_card_vs_cpu(card) -> dict:
+    """[main-lm] d: parameters made once on the CPU and copied to the
+    card; prefill and decode logits on the card against the port on the
+    CPU (f32, full width, LM["cpu_layers"] layers)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(LM["arch"]).replace(n_layers=LM["cpu_layers"],
+                                         dtype=torch.float32)
+    tree = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    models = {"cpu": tfm.Transformer(cfg, tree),
+              "card": tfm.Transformer(cfg, tfm.tree_map(
+                  lambda t: t.to(DEVICE), tree))}
+    c = LM["consistency"]
+    b, s = c["batch"], c["prompt"]
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (b, s + 2))
+    out = {}
+    for cache_dtype in (torch.bfloat16, torch.float32):
+        got = {}
+        for where, model in models.items():
+            cache = tfm.init_cache(cfg, b, c["max_len"], model.device,
+                                   dtype=cache_dtype)
+            seq = [model.prefill(cache, toks[:, :s])[0]]
+            for t in (s, s + 1):
+                seq.append(model.decode_step(cache, toks[:, t:t + 1],
+                                             torch.full((b,), t))[0])
+            got[where] = [x.cpu() for x in seq]
+        errs = [lm_err(g, w) for g, w in zip(got["card"], got["cpu"])]
+        bound = max(lm_bound(w, cfg.dtype) for w in got["cpu"])
+        name = str(cache_dtype).split(".")[-1]
+        # a bf16 cache rounds f32 K/V that the two devices computed an
+        # ulp apart to entries a bf16 ulp apart now and then, and which
+        # ones depends on each device's sum order: printed, gated in f32
+        gated = cache_dtype == torch.float32
+        log(f"[main-lm] d. {LM['arch']} (f32, {cfg.n_layers} layers, "
+            f"{name} cache) card vs CPU: prefill {errs[0]:.3e}, decode "
+            f"{max(errs[1:]):.3e}, bound {bound:.3e}"
+            f"{'' if gated else ' (printed, not gated)'} [{card}]")
+        if gated:
+            check(max(errs) <= bound, f"[main-lm] d. card vs CPU "
+                  f"{max(errs):.3e} > {bound:.3e}")
+        out[name] = {"errs": errs, "bound": bound}
+    return out
+
+
+def phase_main_lm(card) -> dict:
+    """[main-lm]: the LM serving path (LM)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launcher
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    secs = {}
+    launcher.reset_launch_counts()
+
+    # a. the CLI at full config and full depth
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", LM["arch"], "--requests", str(LM["requests"]),
+            "--batch-slots", str(LM["slots"]), "--prompt-len",
+            str(LM["prompt"]), "--gen-len", str(LM["gen"]), "--max-len",
+            str(LM["max_len"])]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        out = serve.main(argv)
+    sys.stdout.write(printed.getvalue())
+    check(f"served {LM['requests']} requests, {LM['requests'] * LM['gen']} "
+          f"tokens, " in printed.getvalue(), "[main-lm] a. no served line")
+    peak = torch.cuda.max_memory_allocated()
+    engine = out["engine"]
+    cfg = engine.cfg
+    toks = out["outputs"]
+    check(sorted(toks) == list(range(LM["requests"]))
+          and all(len(t) == LM["gen"] for t in toks.values())
+          and out["tokens"] == LM["requests"] * LM["gen"],
+          f"[main-lm] a. served {out['tokens']} tokens, want "
+          f"{LM['requests']} x {LM['gen']}")
+    check(all(0 <= x < cfg.vocab for t in toks.values() for x in t),
+          "[main-lm] a. a token outside [0, vocab)")
+    n_kernels, busy_ms, wall_ms = decode_kernels(
+        engine, np.zeros(LM["slots"], np.int32))
+    step_bytes = decode_bytes(engine)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    pre = statistics.median(out["prefill_s"]) * 1e3
+    dec = statistics.median(out["decode_s"]) * 1e3
+    log(f"[main-lm] a. serve {' '.join(argv)}: {out['tokens']} tokens in "
+        f"{out['seconds']:.3f}s, {out['tokens'] / out['seconds']:.1f} tok/s; "
+        f"prefill {pre:.2f} ms a request (median of "
+        f"{len(out['prefill_s'])}), decode {dec:.2f} ms a step (median of "
+        f"{len(out['decode_s'])}, first {out['decode_s'][0] * 1e3:.2f}); "
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB [{card}]")
+    log(f"[main-lm] a. decode step ({LM['slots']} slots, {cfg.n_layers} "
+        f"layers): {n_kernels:.0f} kernel launches, device busy "
+        f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall (torch.profiler), "
+        f"bound {bound_ms:.4f} ms ({step_bytes / 1e9:.3f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: reckoned from the shapes, "
+        f"not measured) [{card}]")
+    prompts = out["prompts"]
+    tree = tfm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        0), DEVICE)
+    check(torch.equal(tree["lm_head"], engine.model.lm_head),
+          "[main-lm] the seed-0 parameters differ from the CLI engine's")
+    del engine, out
+    torch.cuda.empty_cache()
+    secs["a"] = time.perf_counter() - t0
+
+    # c. slot-locality: each request of a 4-slot run against the same
+    # request alone in a 1-slot engine, fed the same tokens
+    t0 = time.perf_counter()
+    model = tfm.Transformer(cfg, tree)
+    seen: dict = {}
+
+    def on_logits(rid, logits):
+        seen.setdefault(rid, []).append(logits.clone())
+
+    slots = serve.run_requests(
+        serve.ServeEngine(cfg, LM["slots"], LM["max_len"], model=model),
+        prompts, LM["gen"], on_logits=on_logits)["outputs"]
+    alone = serve.ServeEngine(cfg, 1, LM["max_len"], model=model)
+    worst, agree, total = 0.0, 0, 0
+    for rid, prompt in enumerate(prompts):
+        alone.prefill_slot(0, prompt)
+        got = [alone.logits[0].clone()]
+        for step in range(1, LM["gen"]):
+            alone.decode(np.array([slots[rid][step - 1]], np.int32))
+            got.append(alone.logits[0].clone())
+        for step, (g, w) in enumerate(zip(got, seen[rid])):
+            err, bound = lm_err(g, w), lm_bound(w, cfg.dtype)
+            check(err <= bound, f"[main-lm] c. request {rid} step {step}: "
+                  f"{err:.3e} > {bound:.3e}")
+            worst = max(worst, err / bound)
+            agree += int(g.argmax()) == slots[rid][step]
+            total += 1
+    log(f"[main-lm] c. {LM['requests']} requests x {LM['gen']} steps in "
+        f"{LM['slots']} slots vs each alone in 1 slot: largest |dlogits| "
+        f"{worst:.3f} of the bound; {agree} of {total} greedy tokens agree; "
+        f"the 4-slot run's tokens equal the CLI's: {slots == toks} [{card}]")
+    secs["c"] = time.perf_counter() - t0
+
+    # b. decode consistency at full width, bf16 and f32
+    t0 = time.perf_counter()
+    cons = {"bf16": decode_consistency(LM["arch"], model, card)}
+    # e. the chunked attention path: a 2048-token prompt, two KV chunks
+    # with skipping, against attn_impl="naive"; gated in f32, where the
+    # two orders of the same sums agree to rounding, and printed in bf16,
+    # where the two paths round the attention output in different places
+    # at every layer
+    t1 = time.perf_counter()
+    check(cfg.attn_impl == "chunked" and cfg.attn_chunk == LM["chunk"]
+          and cfg.attn_skip, "[main-lm] e. not the chunked config")
+    long = np.random.default_rng(5).integers(0, cfg.vocab,
+                                             (1, LM["long_prompt"]))
+    f32 = tfm.Transformer(cfg.replace(dtype=torch.float32), tree)
+    res_e = {}
+    for name, m in (("bf16", model), ("f32", f32)):
+        naive = tfm.Transformer(m.cfg.replace(attn_impl="naive"), tree)
+        got = [x.prefill(tfm.init_cache(cfg, 1, LM["long_prompt"], DEVICE),
+                         long)[0] for x in (m, naive)]
+        del naive
+        err, bound = lm_err(*got), lm_bound(got[1], m.cfg.dtype)
+        gated = name == "f32"
+        res_e[name] = {"err": err, "bound": bound}
+        log(f"[main-lm] e. {LM['arch']} ({name}, {cfg.n_layers} layers) "
+            f"prefill of {LM['long_prompt']} tokens, chunked (chunk "
+            f"{cfg.attn_chunk}, skip) vs naive: {err:.3e}, bound "
+            f"{bound:.3e}{'' if gated else ' (printed, not gated)'} "
+            f"[{card}]")
+        if gated:
+            check(err <= bound, f"[main-lm] e. chunked vs naive {err:.3e} "
+                  f"> {bound:.3e}")
+    secs["e"] = time.perf_counter() - t1
+    cons["f32"] = decode_consistency(LM["arch"], f32, card, torch.float32)
+    cons["f32_bf16_cache"] = decode_consistency(
+        LM["arch"], f32, card, note=" (printed, not gated: the bf16 cache "
+        "the JAX package keeps at every dtype)")
+    del model, f32, tree
+    torch.cuda.empty_cache()
+    wide = get_config(LM["wide"]).replace(n_layers=LM["wide_layers"])
+    tree = tfm.init_params(wide, torch.Generator(device=DEVICE).manual_seed(
+        0), DEVICE)
+    cons["wide_bf16"] = decode_consistency(
+        LM["wide"], tfm.Transformer(wide, tree), card)
+    cons["wide_f32"] = decode_consistency(
+        LM["wide"], tfm.Transformer(wide.replace(dtype=torch.float32), tree),
+        card, torch.float32)
+    del tree
+    torch.cuda.empty_cache()
+    for key in ("bf16", "f32", "wide_bf16", "wide_f32"):
+        rec = cons[key]
+        check(max(rec["prefill"], rec["decode"]) <= rec["bound"],
+              f"[main-lm] b. {key}: {rec} over the bound")
+    secs["b"] = time.perf_counter() - t0 - secs["e"]
+
+    # d. card against CPU
+    t0 = time.perf_counter()
+    cpu = lm_card_vs_cpu(card)
+    secs["d"] = time.perf_counter() - t0
+    launches = launcher.entry_launch_counts()
+    check(not any(launches.values()), f"[main-lm] launched {launches}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[main-lm] {phase_s:.1f}s in all (a {secs['a']:.1f}s, b "
+        f"{secs['b']:.1f}s, c {secs['c']:.1f}s, d {secs['d']:.1f}s, e "
+        f"{secs['e']:.1f}s); none of the 12 entry points launched [{card}]")
+    return {"launches": launches, "consistency": cons, "cpu": cpu,
+            "chunked": res_e, "phase_s": phase_s, "part_s": secs}
+
+
 #: the async front end of [main-async]: R-row requests from closed-loop
 #: tenants through AsyncFGFTService on the tables the earlier phases
 #: fitted (no fit at full width); the dynamic part's churn and refresh
@@ -4163,6 +4524,7 @@ def main() -> int:
                              single_dir)
     core = phase_main_core(errs, main_rec, filter_rec, single, main_dir,
                            single_dir)
+    lm = phase_main_lm(card)
     # phase 7 for the bf16 forms, then for the bf16-signal forms on f32
     # and on bf16 tables
     for at in (("bf16", bf16["launches"]),
@@ -4190,6 +4552,7 @@ def main() -> int:
         row["dynamic_launches"] = dynamic["launches"].get(row["entry"], 0)
         row["async_launches"] = asynch["launches"].get(row["entry"], 0)
         row["core_launches"] = core["launches"].get(row["entry"], 0)
+        row["lm_launches"] = lm["launches"].get(row["entry"], 0)
         row["max_abs_err"] = errs[row["entry"]]
     if args.baseline:
         turns = phase_turns(args.baseline, main_rec, single, main_dir,

@@ -14,6 +14,12 @@ angles and diagonal), ``compress_spec_from_numpy`` (a compression spec's
 fixed angles) and ``compressed_linear_from_numpy`` (the Q and H chains
 and H's spectrum of a compressed projection, repacked into the tables the
 JAX ``CompressedLinear`` holds).
+
+And for the LM scaffold: ``lm_params_from_numpy`` turns the JAX
+``init_params`` tree (numpy leaves, stacked per group) into the port's
+parameter tree, and ``lm_cache_from_numpy`` a JAX decode cache into the
+port's.  The port keeps the JAX layouts (``wq`` (d, h, hd), ``wo``
+(h, hd, d), ...), so each leaf is a copy, not a transpose.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ from repro_torch.core.eigenbasis import (ApproxEigenbasis, _normalize_sizes,
 from repro_torch.core.fastlinear import (ButterflyParams, CompressedLinear,
                                          _bundle)
 from repro_torch.core.types import GFactors, TFactors
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import ModelConfig
 from repro_torch.optim.compress import CompressSpec
 
 #: kind -> (factor container, its int32 fields; the others are f32)
@@ -136,3 +144,37 @@ def compressed_linear_from_numpy(q_factors: Mapping[str, np.ndarray],
     if tuple(diag.shape) != (n,):
         raise ValueError(f"diag shape {tuple(diag.shape)} != ({n},)")
     return _bundle(chains[0], chains[1], diag, n, device)
+
+
+def _leaf(a, device) -> torch.Tensor:
+    """A host array as a tensor, bf16 (``ml_dtypes.bfloat16``, as
+    ``np.asarray`` of a JAX bf16 array gives it) included."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(torch.device(device))
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
+    """The port's parameter tree from the JAX ``init_params`` tree with
+    numpy leaves (``jax.tree.map(np.asarray, params)``), in
+    ``cfg.param_dtype``; its structure and shapes are checked against
+    ``transformer.param_spec``.  Build the model with
+    ``transformer.Transformer(cfg, params)``."""
+    params = tfm.tree_map(
+        lambda a: _leaf(a, device).to(cfg.param_dtype), dict(tree))
+    tfm._check_tree(params, tfm.param_spec(cfg))
+    return params
+
+
+def lm_cache_from_numpy(cfg: ModelConfig, tree, device="cuda"):
+    """The port's decode cache from a JAX ``init_cache``/``prefill``
+    cache with numpy leaves: per group and attention block ``k``, ``v``
+    (count, B, len, KV, hd) and ``pos`` (count, B, len) int32."""
+    tfm.check_ported(cfg)
+    want = [name for name, _ in tfm.group_plan(cfg)]
+    if sorted(tree) != sorted(want):
+        raise ValueError(f"cache groups {sorted(tree)}, want {sorted(want)}")
+    return tfm.tree_map(lambda a: _leaf(a, device), dict(tree))

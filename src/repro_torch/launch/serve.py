@@ -1,4 +1,5 @@
-"""Batched fast-graph-Fourier-transform service (the port's --fgft path).
+"""Serving entry point of the port: the batched fast-graph-Fourier-transform
+service (``--fgft``) and the LM engine (``--arch``).
 
 The engine fits a whole fleet of B graph Laplacians in one batched
 Algorithm-1 run (core/eigenbasis.py), then serves spectral-filter steps
@@ -67,7 +68,19 @@ the run fails:
         --graphs 8 --graph-n 64 --load-requests 256 --load-workers 4 \
         --trace trace.json --metrics-dir metrics
 
-The JAX package's LM flags exit with an error naming the later slice.
+The LM engine (``--arch``, the dense and local/global families: qwen2,
+glm4, gemma2) keeps a fixed pool of batch slots over one decode cache;
+finished requests release their slot and the next queued request
+prefills into it (continuous batching at slot granularity).  A prefill
+runs its prompt as a batch of one and writes only its slot's rows of the
+cache; a decode step runs every slot.  Weights are random, from
+``--seed``, at the config's full width (``--smoke``: its reduced one):
+
+    python -m repro_torch.launch.serve --arch qwen2-1.5b --requests 8 \
+        --batch-slots 4 --prompt-len 32 --gen-len 16
+
+An ``--arch`` of a family that is not ported yet (MoE, SSM, hybrid,
+vision, audio) exits with an error naming its later slice.
 """
 from __future__ import annotations
 
@@ -84,17 +97,11 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.types import as_signal
+from repro_torch.models import transformer as tfm
 
 DEFAULT_TIERS = {"full": 1.0, "balanced": 0.5, "draft": 0.25}
-
-#: flags of the JAX package's service that belong to later slices
-_LATER_FLAGS = {
-    "--arch": "the LM scaffold", "--smoke": "the LM scaffold",
-    "--requests": "the LM scaffold", "--batch-slots": "the LM scaffold",
-    "--prompt-len": "the LM scaffold", "--gen-len": "the LM scaffold",
-    "--max-len": "the LM scaffold",
-}
 
 # -- serving-engine telemetry, the JAX engine's metrics ---------------------
 _OBS_SWAPS = obs.counter("serve_swaps_total",
@@ -1458,16 +1465,158 @@ def serve_fgft_dynamic(args, on_round=None) -> dict:
             "sizes": sizes}
 
 
+class ServeEngine:
+    """Slot-based batched LM serving on ``Transformer.prefill`` and
+    ``decode_step`` (the JAX package's ``ServeEngine``).
+
+    ``batch_slots`` requests share one decode cache of ``max_len``
+    positions a slot.  ``prefill_slot`` runs one prompt as a batch of one
+    on its slot's rows of the cache, emptied first, so that it writes no
+    other slot's rows (the JAX engine prefills all slots, with zero tokens
+    in the others, and overwrites their caches at the prompt's positions).
+    ``decode`` runs one token for every slot; a finished slot is not
+    advanced and its output is dropped until a prompt fills it again.
+    Parameters are drawn from ``seed`` by a ``torch.Generator`` on
+    ``device`` (``transformer.init_params``), or ``model`` is served
+    (e.g. weights carried across with ``interop.lm_params_from_numpy``).
+    ``logits`` holds the last call's logits: (1, V) after
+    ``prefill_slot``, (slots, V) after ``decode``."""
+
+    def __init__(self, cfg, batch_slots: int, max_len: int, *,
+                 seed: int = 0, device="cuda", model=None):
+        tfm.check_ported(cfg)
+        if model is None:
+            dev = _resolve(device)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            model = tfm.Transformer(cfg, tfm.init_params(cfg, gen, dev))
+        self.cfg = cfg
+        self.b = batch_slots
+        self.max_len = max_len
+        self.model = model
+        self.device = model.device
+        self.cache = tfm.init_cache(cfg, batch_slots, max_len, self.device)
+        self.pos = np.zeros(batch_slots, np.int32)
+        self.active = np.zeros(batch_slots, bool)
+        self.logits: Optional[torch.Tensor] = None
+
+    def prefill_slot(self, slot: int, prompt: np.ndarray, rng=None) -> int:
+        """Prefill one slot with a prompt (S,); returns its greedy token.
+        ``rng`` is the JAX engine's (it draws the memory of the vision
+        and audio families, which are not ported)."""
+        rows = tfm.tree_map(lambda t: t[:, slot:slot + 1], self.cache)
+        tfm.clear_cache(rows)
+        logits, _ = self.model.prefill(rows, np.asarray(prompt)[None])
+        self.logits = logits[:, -1]
+        self.pos[slot] = len(prompt)
+        self.active[slot] = True
+        return int(self.logits[0].argmax())
+
+    def decode(self, tokens: np.ndarray) -> np.ndarray:
+        """One decode step for all slots. tokens: (slots,) int32."""
+        logits, _ = self.model.decode_step(
+            self.cache, np.asarray(tokens)[:, None], self.pos)
+        self.logits = logits[:, 0]
+        toks = self.logits.argmax(-1).cpu().numpy().astype(np.int32)
+        # after the step is done: on the CPU its positions alias self.pos
+        self.pos[self.active] += 1
+        return toks
+
+
+def run_requests(engine, prompts, gen_len: int, rng=None,
+                 on_logits=None) -> dict:
+    """Serve ``prompts`` through ``engine`` (a ``ServeEngine``, or any
+    engine with its ``prefill_slot``, ``decode``, ``active`` and ``b``),
+    ``gen_len`` greedy tokens each, as the JAX package's LM CLI does:
+    free slots are filled before every decode step.  ``on_logits(request,
+    logits)`` sees each request's logits (V,) after its prefill and after
+    each of its decode steps.  Returns the outputs (request -> tokens) and
+    per-call host seconds."""
+    slots = engine.b
+    queue = list(prompts)
+    done = 0
+    outputs: Dict[int, List[int]] = {}
+    slot_req: List[Optional[int]] = [None] * slots
+    next_tok = np.zeros(slots, np.int32)
+    remaining = np.zeros(slots, np.int32)
+    req_id = 0
+    prefill_s: List[float] = []
+    decode_s: List[float] = []
+    while done < len(prompts):
+        # fill free slots
+        for slot in range(slots):
+            if slot_req[slot] is None and queue:
+                t = time.perf_counter()
+                tok = engine.prefill_slot(slot, queue.pop(0), rng)
+                prefill_s.append(time.perf_counter() - t)
+                if on_logits is not None:
+                    on_logits(req_id, engine.logits[0])
+                slot_req[slot] = req_id
+                outputs[req_id] = [tok]
+                next_tok[slot] = tok
+                remaining[slot] = gen_len - 1
+                req_id += 1
+        t = time.perf_counter()
+        toks = engine.decode(next_tok)
+        decode_s.append(time.perf_counter() - t)
+        for slot in range(slots):
+            rid = slot_req[slot]
+            if rid is None:
+                continue
+            if on_logits is not None:
+                on_logits(rid, engine.logits[slot])
+            outputs[rid].append(int(toks[slot]))
+            next_tok[slot] = toks[slot]
+            remaining[slot] -= 1
+            if remaining[slot] <= 0:
+                engine.active[slot] = False
+                slot_req[slot] = None
+                done += 1
+    return {"outputs": outputs, "prefill_s": prefill_s,
+            "decode_s": decode_s}
+
+
+def serve_lm(args) -> dict:
+    """``--arch``: serve ``--requests`` random prompts of ``--prompt-len``
+    tokens through a ``ServeEngine`` of ``--batch-slots`` slots and
+    ``--max-len`` positions, ``--gen-len`` tokens each
+    (``run_requests``), and print the JAX CLI's line."""
+    cfg = get_config(args.arch, smoke=args.smoke)
+    rng = np.random.default_rng(args.seed)
+    engine = ServeEngine(cfg, args.batch_slots, args.max_len,
+                         seed=args.seed, device=args.device)
+    prompts = [rng.integers(0, cfg.vocab, args.prompt_len).astype(np.int32)
+               for _ in range(args.requests)]
+    t0 = time.perf_counter()
+    out = run_requests(engine, prompts, args.gen_len, rng)
+    dt = time.perf_counter() - t0
+    total_tokens = sum(len(v) for v in out["outputs"].values())
+    print(f"served {args.requests} requests, {total_tokens} tokens, "
+          f"{len(out['decode_s'])} decode steps, {dt:.1f}s "
+          f"({total_tokens / dt:.1f} tok/s)")
+    return {**out, "prompts": prompts, "engine": engine, "seconds": dt,
+            "tokens": total_tokens}
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="Batched FGFT service of the PyTorch/CUDA port.",
-        # no prefix matching: a later slice's flag must not be read as a
-        # prefix of a ported one
+        description="Serving CLI of the PyTorch/CUDA port: batched "
+                    "FGFT (--fgft) or an LM (--arch).",
         allow_abbrev=False)
+    ap.add_argument("--arch", choices=ARCH_NAMES,
+                    help="serve this LM config (dense and local/global "
+                         "families) with random weights from --seed")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the config's reduced (smoke) shapes")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch-slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128,
+                    help="decode-cache positions a slot")
     ap.add_argument("--fgft", action="store_true",
-                    help="serve batched graph Fourier transforms (the only "
-                         "mode this port serves so far)")
+                    help="serve batched graph Fourier transforms instead "
+                         "of an LM")
     ap.add_argument("--filter", default=None,
                     help="serve a spectral filter BANK through the fused "
                          "bank kernel (implies --fgft); comma-separated "
@@ -1557,14 +1706,7 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to fit and serve on")
-    args, rest = ap.parse_known_args(argv)
-    for tok in rest:
-        flag = tok.split("=", 1)[0]
-        if flag in _LATER_FLAGS:
-            ap.error(f"{flag} is not ported yet: it comes with "
-                     f"{_LATER_FLAGS[flag]} slice of repro_torch")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = ap.parse_args(argv)
     if args.filter is not None:
         from repro_torch.spectral import named_responses
         args.fgft = True
@@ -1592,8 +1734,12 @@ def parse_args(argv=None):
         except ValueError as e:
             ap.error(str(e))
     if not args.fgft:
-        ap.error("--fgft is required: the LM engine comes with the LM "
-                 "scaffold slice of repro_torch")
+        if args.arch is None:
+            ap.error("--arch is required unless --fgft/--filter is given")
+        try:
+            tfm.check_ported(get_config(args.arch, smoke=args.smoke))
+        except NotImplementedError as e:
+            ap.error(str(e))
     try:
         args.tier_map = (parse_tiers(args.tiers) if args.tiers
                          else dict(DEFAULT_TIERS))
@@ -1626,7 +1772,7 @@ def _export_obs(args):
 def main(argv=None):
     args = parse_args(argv)
     try:
-        return serve_fgft(args)
+        return serve_fgft(args) if args.fgft else serve_lm(args)
     finally:
         _export_obs(args)
 

@@ -1117,3 +1117,69 @@ def test_butterfly_layer_gradients_on_the_card(cuda, n):
     for got, want in zip(grads(cuda), grads("cpu")):
         assert float((got - want).abs().max()) <= \
             1e-4 * float(want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path (repro_torch.models, ServeEngine) at full width
+# ---------------------------------------------------------------------------
+
+def _lm(arch, dtype, cuda, layers=2):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(arch).replace(n_layers=layers, dtype=dtype)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    return tfm.Transformer(cfg, tfm.init_params(cfg, gen, cuda))
+
+
+def _lm_bound(logits, dtype):
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    return tol * max(1.0, float(logits.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma2-27b"])
+def test_lm_decode_matches_forward_on_the_card(cuda, arch, dtype):
+    """Prefill + one decode against the forward of the extended sequence
+    at full width (2 layers), the cache in the compute dtype."""
+    from repro_torch.models import transformer as tfm
+    model = _lm(arch, dtype, cuda)
+    b, s = 2, 32
+    toks = np.random.default_rng(2).integers(0, model.cfg.vocab, (b, s))
+    cache = tfm.init_cache(model.cfg, b, 64, cuda, dtype=dtype)
+    logits_p, cache = model.prefill(cache, toks)
+    tok = logits_p[:, -1].argmax(-1)[:, None]
+    logits_d, _ = model.decode_step(cache, tok, torch.full((b,), s))
+    logits_f = model.forward(np.concatenate([toks, tok.cpu().numpy()], 1))
+    bound = _lm_bound(logits_f, dtype)
+    assert bool(torch.isfinite(logits_f.float()).all())
+    assert float((logits_f[:, s - 1] - logits_p[:, 0]).abs().max()) <= bound
+    assert float((logits_f[:, s] - logits_d[:, 0]).abs().max()) <= bound
+
+
+def test_lm_slots_give_each_request_what_it_gets_alone(cuda):
+    """Six requests through four slots of a full-width qwen2-1.5b (2
+    layers, bf16) against each request alone in one slot, fed the same
+    tokens: prefill is slot-local."""
+    from repro_torch.launch import serve
+    model = _lm("qwen2-1.5b", torch.bfloat16, cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, model.cfg.vocab, 10).astype(np.int32)
+               for _ in range(6)]
+    seen = {}
+
+    def on_logits(rid, logits):
+        seen.setdefault(rid, []).append(logits.clone())
+
+    out = serve.run_requests(serve.ServeEngine(model.cfg, 4, 32,
+                                               model=model),
+                             prompts, 6, on_logits=on_logits)["outputs"]
+    alone = serve.ServeEngine(model.cfg, 1, 32, model=model)
+    for rid, prompt in enumerate(prompts):
+        alone.prefill_slot(0, prompt)
+        got = [alone.logits[0].clone()]
+        for step in range(1, 6):
+            alone.decode(np.array([out[rid][step - 1]], np.int32))
+            got.append(alone.logits[0].clone())
+        for g, w in zip(got, seen[rid]):
+            bound = _lm_bound(w, torch.bfloat16)
+            assert float((g.float() - w.float()).abs().max()) <= bound

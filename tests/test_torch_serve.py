@@ -161,10 +161,10 @@ def test_cli_serves_bf16_tables_on_cpu(capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--fgft", "--dynamic", "--drift-thresholds", "1,2"],
      "three comma-separated floats"),
-    (["--fgft", "--arch", "qwen2-1.5b"], "LM scaffold"),
+    (["--arch", "qwen3-moe-30b-a3b"], "later LM slice"),
     (["--fgft", "--serve-async", "--max-batch", "0"], "--max-batch"),
     (["--fgft", "--filter", "nosuch"], "unknown filter"),
-    (["--graphs", "2"], "--fgft is required"),
+    (["--graphs", "2"], "--arch is required"),
     (["--fgft", "--tiers", "full:2"], "fraction"),
     (["--fgft", "--bogus"], "unrecognized"),
 ])
