@@ -54,7 +54,7 @@ each), so that the run stays well inside its time limit:
              graph (delta = sqrt(relative error); the worst ratio is
              printed).
 4. fgft    — the single-graph path at the same width: ``build_fgft`` on one
-             community graph (n = 256, g = 4096), then ``FGFT.analysis``,
+             community graph (n = 256, g = MAIN["single_g"] = 2048), then ``FGFT.analysis``,
              ``synthesis``, ``project`` and the same bank through
              ``ApplyPlan(mode="bank")`` (the single-matrix entry points,
              launched as B = 1).  Counters are zeroed just before and read
@@ -283,8 +283,33 @@ each), so that the run stays well inside its time limit:
              points' counters are zeroed before and read after: none
              may have launched (``lm_launches`` of each ``kernels``
              row).  The phase's seconds are printed.
+5i. main-lm-families — the MoE, SSM, hybrid, vision and audio families
+             (after [main-lm]; LMF; random weights from seed 0 with the
+             cross-attention gates set to 1): a. ``serve --arch``
+             mamba2-780m and recurrentgemma-2b at full config and depth,
+             [main-lm] a's lines.  b. decode and prefill against
+             ``forward`` for mamba2-780m, recurrentgemma-2b and
+             seamless-m4t-large-v2 at full depth, qwen3-moe-30b-a3b at 2
+             layers and llama-3.2-vision-90b at 5 (one cross5
+             super-layer), all at full width, bf16 and f32 (f32 cache),
+             on a drawn memory for vision and audio; each model's
+             parameters and ``max_memory_allocated`` printed.  c. six
+             requests through 4 slots against each alone in 1 slot on
+             the same memory.  d. each family (mamba2 2 layers,
+             recurrentgemma 3, seamless 2 + 2, qwen3-moe 2, vision 5) in
+             f32 with an f32 cache on the card against the CPU.  e.
+             mamba2-780m and recurrentgemma-2b at 2 layers, f32: a
+             256-token ``forward`` (chunked SSD / scanned RG-LRU) against
+             256 single-token decode steps, and their states.  Bounds as
+             [main-lm]'s; MoE is printed, not gated, in b and c (forward,
+             prefill and decode group tokens differently, and capacity
+             couples the slots of a decode step; the dropped (token,
+             expert) pairs are printed), and d gates an MoE call only
+             where the card's and the CPU's top-k sets all agree.  None
+             of the 12 entry points may launch (``lm_families_launches``
+             of each ``kernels`` row).  The phase's seconds are printed.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
-             graph (n = 256, g = 4096, n_iter = 3), then analysis, synthesis,
+             graph (n = 256, g = 2048, n_iter = 3), then analysis, synthesis,
              project and the bank; ``shear_apply``, ``gen_operator_apply``
              and ``gen_filter_bank_apply`` must have launched; relative
              error < 0.05.
@@ -333,7 +358,8 @@ signal (``signal``); launches per path: ``launches`` on the batched or
 single-graph path, on [main-bf16] for a bf16-table form and on
 [main-bf16x] for a bf16-signal form, ``ragged_launches``,
 ``dynamic_launches``, ``async_launches``, ``core_launches``,
-``lm_launches``), the card's name and power limit, and as the last line
+``lm_launches``, ``lm_families_launches``), the card's name and power
+limit, and as the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -357,9 +383,12 @@ F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16, dense
 TOL = 1e-4
 DEVICE = "cuda"
+#: the main paths' fleet; ``single_g``: g of the single-graph build_fgft
+#: paths (phases 4 and 6), n log2 n, half the fleet's 2 n log2 n, for the
+#: run's time limit
 MAIN = dict(graphs=64, n=256, signals=256, steps=5,
             tiers="full:1.0,balanced:0.5,draft:0.25",
-            filters="heat,tikhonov,wavelets:4")
+            filters="heat,tikhonov,wavelets:4", single_g=2048)
 #: the heterogeneous fleet of [main-ragged]: sizes cycled over the graphs,
 #: the largest bucket at the main path's width and g; the directed check's
 #: small fleet
@@ -1103,7 +1132,7 @@ def phase_fgft(errs) -> dict:
     from repro_torch.kernels import launcher, ref
     from repro_torch.kernels.plan import ApplyPlan
     n = MAIN["n"]
-    g = int(2 * n * np.log2(n))
+    g = MAIN["single_g"]
     lap = laplacian(community_graph(n, seed=0))
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     x = torch.randn((MAIN["signals"], n), generator=gen, device=DEVICE)
@@ -1538,7 +1567,7 @@ def phase_fgft_directed(errs) -> dict:
     from repro_torch.kernels import launcher, ref
     from repro_torch.kernels.plan import ApplyPlan
     n = MAIN["n"]
-    g = int(2 * n * np.log2(n))
+    g = MAIN["single_g"]
     lap = directed_laps(n, 1)[0]
     gen = torch.Generator(device=DEVICE).manual_seed(13)
     x = torch.randn((MAIN["signals"], n), generator=gen, device=DEVICE)
@@ -3456,11 +3485,15 @@ def decode_kernels(engine, tokens, steps: int = 3) -> tuple:
 def decode_bytes(engine) -> int:
     """Bytes a decode step of ``engine`` must move, each once: the weights
     its products and norms read (the compute-dtype copies, the LM head,
-    the f32 norms), the embedding rows it gathers, the cache it attends
-    to and the entry it writes a slot and layer, and the logits."""
+    the f32 norms and SSD/RG-LRU constants; of an MoE block the experts
+    the step routed to), the memory a cross-attention block projects, the
+    embedding rows it gathers, the cache it attends to and the entry it
+    writes a slot and layer (a recurrent state: read and written whole),
+    and the logits."""
     import torch
-    from repro_torch.models.blocks import AttnBlock, MLPBlock
+    from repro_torch.models import blocks as mb
     model, cfg, b = engine.model, engine.cfg, engine.b
+    raw = {mb.SSDBlock: ("a_log", "d_skip"), mb.RGLRUBlock: ("lam",)}
 
     def nbytes(v) -> int:
         if isinstance(v, torch.Tensor):
@@ -3471,25 +3504,86 @@ def decode_bytes(engine) -> int:
 
     total = nbytes(model.c_lm_head) + nbytes(model.final_norm)
     for mod in model.modules():
-        if isinstance(mod, (AttnBlock, MLPBlock)):
+        if isinstance(mod, mb.MoEBlock):
+            experts = sum(nbytes(t) for t in (mod.c_gate, mod.c_up,
+                                                mod.c_down))
+            used = int(mod.routes.unique().numel())
+            total += (nbytes(mod.norm) + nbytes(mod.c_router)
+                      + experts * used // cfg.n_experts)
+        elif isinstance(mod, (mb.AttnBlock, mb.MLPBlock, mb.CrossAttnBlock,
+                              mb.SSDBlock, mb.RGLRUBlock)):
             total += nbytes(mod.norm) + sum(
                 nbytes(v) for k, v in vars(mod).items() if k.startswith("c_"))
+            total += sum(nbytes(getattr(mod, k)) for k in raw.get(type(mod),
+                                                                  ()))
+            if isinstance(mod, mb.CrossAttnBlock):
+                total += nbytes(engine.memory)
     total += b * cfg.d_model * model.embed.element_size()
     stack = [engine.cache]
     while stack:
-        for leaf in stack.pop().values():
+        for key, leaf in stack.pop().items():
             if isinstance(leaf, dict):
                 stack.append(leaf)
-                continue
-            total += nbytes(leaf) + nbytes(leaf[:, :, 0])
+            elif key in ("k", "v", "pos"):
+                total += nbytes(leaf) + nbytes(leaf[:, :, 0])
+            else:
+                total += 2 * nbytes(leaf)
     total += b * cfg.vocab * torch.empty((), dtype=cfg.dtype).element_size()
     return total
 
 
-def decode_consistency(tag, model, card, cache_dtype=None,
-                       note: str = "") -> dict:
-    """[main-lm] b: prefill + one decode against ``forward`` of the
-    extended sequence (the JAX package's tests/test_models.py check)."""
+def moe_drops(model) -> int:
+    """Dropped (token, expert) pairs of the model's last call, summed
+    over its MoE blocks."""
+    from repro_torch.models.blocks import MoEBlock
+    return sum(int((~m.kept).sum()) for m in model.modules()
+               if isinstance(m, MoEBlock) and m.kept is not None)
+
+
+def moe_routes(model) -> list:
+    """Each MoE block's top-k sets of the last call (expert ids sorted),
+    on the host."""
+    from repro_torch.models.blocks import MoEBlock
+    return [m.routes.sort(-1).values.cpu() for m in model.modules()
+            if isinstance(m, MoEBlock)]
+
+
+def tree_leaves(tree):
+    """The leaves of nested dicts."""
+    for v in tree.values():
+        yield from tree_leaves(v) if isinstance(v, dict) else (v,)
+
+
+def lm_memory(cfg, b: int, s: int, seed: int):
+    """A vision or audio request's memory as the JAX engine draws it
+    (normal x 0.02; num_patches patches or max(S // enc_ratio, 1)
+    frames), (b, P, d) f32 on the host; None for the other families."""
+    import numpy as np
+    if cfg.family == "vlm":
+        shape = (b, cfg.num_patches, cfg.d_model)
+    elif cfg.is_encdec:
+        shape = (b, max(s // cfg.enc_ratio, 1), cfg.d_model)
+    else:
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        shape, np.float32) * 0.02
+
+
+def open_gates(tree, value: float):
+    """Set a parameter tree's cross-attention gates to ``value`` (their
+    init, 0, multiplies the memory's contribution by tanh(0) = 0)."""
+    for grp in tree["groups"].values():
+        if "cross" in grp:
+            grp["cross"]["gate"].fill_(value)
+    return tree
+
+
+def decode_consistency(tag, model, card, cache_dtype=None, note: str = "",
+                       prefix: str = "[main-lm]", memory=None) -> dict:
+    """b: prefill + one decode against ``forward`` of the extended
+    sequence (the JAX package's tests/test_models.py check), on
+    ``memory`` where the family reads one.  An MoE model's dropped
+    (token, expert) pairs are counted on each side."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as tfm
@@ -3498,69 +3592,160 @@ def decode_consistency(tag, model, card, cache_dtype=None,
     toks = np.random.default_rng(2).integers(0, cfg.vocab, (b, s))
     kw = {} if cache_dtype is None else {"dtype": cache_dtype}
     cache = tfm.init_cache(cfg, b, c["max_len"], DEVICE, **kw)
-    logits_p, cache = model.prefill(cache, toks)
+    logits_p, cache, mem = model.prefill(cache, toks, memory)
+    drops = {"prefill": moe_drops(model)}
     tok = logits_p[:, -1].argmax(-1)[:, None]
-    logits_d, _ = model.decode_step(cache, tok, torch.full((b,), s))
-    logits_f = model.forward(np.concatenate([toks, tok.cpu().numpy()], 1))
+    logits_d, _ = model.decode_step(cache, tok, torch.full((b,), s), mem)
+    drops["decode"] = moe_drops(model)
+    logits_f = model.forward(np.concatenate([toks, tok.cpu().numpy()], 1),
+                             memory)
+    drops["forward"] = moe_drops(model)
     for t in (logits_p, logits_d, logits_f):
         check(bool(torch.isfinite(t.float()).all()),
-              f"[main-lm] b. {tag}: non-finite logits")
+              f"{prefix} b. {tag}: non-finite logits")
     bound = lm_bound(logits_f, cfg.dtype)
     err_p = lm_err(logits_f[:, s - 1], logits_p[:, 0])
     err_d = lm_err(logits_f[:, s], logits_d[:, 0])
     cache_name = str((cache_dtype or torch.bfloat16)).split(".")[-1]
-    log(f"[main-lm] b. {tag} ({str(cfg.dtype).split('.')[-1]}, "
-        f"{cfg.n_layers} layers, {cache_name} cache): prefill vs forward "
-        f"{err_p:.3e}, decode vs forward {err_d:.3e}, bound {bound:.3e} "
-        f"(max|logits| {float(logits_f.float().abs().max()):.4f}){note} "
-        f"[{card}]")
-    return {"prefill": err_p, "decode": err_d, "bound": bound}
+    if cfg.n_experts:
+        note += (f"; dropped (token, expert) pairs: forward "
+                 f"{drops['forward']}, prefill {drops['prefill']}, decode "
+                 f"{drops['decode']} (printed, not gated: forward, prefill "
+                 f"and decode group the tokens differently, so capacity "
+                 f"drops differ)")
+    depth = (f"{cfg.n_layers} layers" if not cfg.is_encdec else
+             f"{cfg.n_enc_layers} + {cfg.n_layers} layers")
+    log(f"{prefix} b. {tag} ({str(cfg.dtype).split('.')[-1]}, {depth}, "
+        f"{cache_name} cache): prefill vs forward {err_p:.3e}, decode vs "
+        f"forward {err_d:.3e}, bound {bound:.3e} (max|logits| "
+        f"{float(logits_f.float().abs().max()):.4f}){note} [{card}]")
+    return {"prefill": err_p, "decode": err_d, "bound": bound,
+            "drops": drops, "gated": not cfg.n_experts}
 
 
-def lm_card_vs_cpu(card) -> dict:
-    """[main-lm] d: parameters made once on the CPU and copied to the
-    card; prefill and decode logits on the card against the port on the
-    CPU (f32, full width, LM["cpu_layers"] layers)."""
+def lm_card_vs_cpu(card, arch=None, layers=None, prefix="[main-lm]",
+                   made_on="cpu", cache_dtypes=None, gate=None) -> dict:
+    """d: parameters made once (seed 0, on ``made_on``) and copied to the
+    other device; prefill and two decodes on the card against the port on
+    the CPU (f32, full width, ``layers`` layers; an encoder-decoder as
+    many encoder layers).  ``cache_dtypes``: the caches to run (default:
+    bf16, printed, then f32, gated).  An MoE model's top-k sets are
+    compared call by call: a call whose sets differ anywhere is printed
+    and left out of the gate."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
-    cfg = get_config(LM["arch"]).replace(n_layers=LM["cpu_layers"],
-                                         dtype=torch.float32)
-    tree = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    models = {"cpu": tfm.Transformer(cfg, tree),
-              "card": tfm.Transformer(cfg, tfm.tree_map(
-                  lambda t: t.to(DEVICE), tree))}
+    arch, layers = arch or LM["arch"], layers or LM["cpu_layers"]
+    cfg = get_config(arch).replace(n_layers=layers, dtype=torch.float32)
+    if cfg.is_encdec:
+        cfg = cfg.replace(n_enc_layers=layers)
+    tree = tfm.init_params(cfg, torch.Generator(device=made_on).manual_seed(
+        0), made_on)
+    if gate is not None:
+        open_gates(tree, gate)
+    on = {where: tfm.tree_map(lambda t: t.to(dev), tree)
+          for where, dev in (("cpu", "cpu"), ("card", DEVICE))}
+    del tree
+    models = {where: tfm.Transformer(cfg, t) for where, t in on.items()}
     c = LM["consistency"]
     b, s = c["batch"], c["prompt"]
     toks = np.random.default_rng(3).integers(0, cfg.vocab, (b, s + 2))
+    memory = lm_memory(cfg, b, s, seed=3)
     out = {}
-    for cache_dtype in (torch.bfloat16, torch.float32):
-        got = {}
+    for cache_dtype in cache_dtypes or (torch.bfloat16, torch.float32):
+        got, routes = {}, {}
         for where, model in models.items():
             cache = tfm.init_cache(cfg, b, c["max_len"], model.device,
                                    dtype=cache_dtype)
-            seq = [model.prefill(cache, toks[:, :s])[0]]
+            logits, cache, mem = model.prefill(cache, toks[:, :s], memory)
+            seq, rts = [logits], [moe_routes(model)]
             for t in (s, s + 1):
                 seq.append(model.decode_step(cache, toks[:, t:t + 1],
-                                             torch.full((b,), t))[0])
+                                             torch.full((b,), t), mem)[0])
+                rts.append(moe_routes(model))
             got[where] = [x.cpu() for x in seq]
+            routes[where] = rts
         errs = [lm_err(g, w) for g, w in zip(got["card"], got["cpu"])]
         bound = max(lm_bound(w, cfg.dtype) for w in got["cpu"])
+        differ = [sum(int((x != y).any(-1).sum()) for x, y in zip(rc, rp))
+                  for rc, rp in zip(routes["card"], routes["cpu"])]
+        agree = [e for e, d in zip(errs, differ) if not d]
         name = str(cache_dtype).split(".")[-1]
         # a bf16 cache rounds f32 K/V that the two devices computed an
         # ulp apart to entries a bf16 ulp apart now and then, and which
         # ones depends on each device's sum order: printed, gated in f32
         gated = cache_dtype == torch.float32
-        log(f"[main-lm] d. {LM['arch']} (f32, {cfg.n_layers} layers, "
+        moe = ""
+        if cfg.n_experts:
+            moe = (f"; top-k sets that differ, per call: {differ}"
+                   + ("" if not any(differ) else
+                      f" (the gate covers the {len(agree)} of "
+                      f"{len(errs)} calls whose sets all agree)"))
+        log(f"{prefix} d. {arch} (f32, {layers} layers"
+            f"{' + ' + str(layers) + ' encoder' if cfg.is_encdec else ''}, "
             f"{name} cache) card vs CPU: prefill {errs[0]:.3e}, decode "
-            f"{max(errs[1:]):.3e}, bound {bound:.3e}"
+            f"{max(errs[1:]):.3e}, bound {bound:.3e}{moe}"
             f"{'' if gated else ' (printed, not gated)'} [{card}]")
         if gated:
-            check(max(errs) <= bound, f"[main-lm] d. card vs CPU "
-                  f"{max(errs):.3e} > {bound:.3e}")
-        out[name] = {"errs": errs, "bound": bound}
+            check(max(agree, default=0.0) <= bound, f"{prefix} d. {arch} "
+                  f"card vs CPU {max(agree, default=0.0):.3e} > {bound:.3e}")
+        out[name] = {"errs": errs, "bound": bound, "routes_differ": differ}
     return out
+
+
+def lm_cli(prefix: str, arch: str, card) -> dict:
+    """a: ``serve --arch ARCH`` at the full config through ``serve.main``
+    (LM's requests, slots, prompt, generation and cache lengths): the
+    served line, every token in [0, vocab); tokens/s, prefill and decode
+    ms, ``max_memory_allocated``, and a decode step's kernel launches and
+    device-busy ms beside its bytes bound.  Returns ``serve_lm``'s
+    result."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", arch, "--requests", str(LM["requests"]),
+            "--batch-slots", str(LM["slots"]), "--prompt-len",
+            str(LM["prompt"]), "--gen-len", str(LM["gen"]), "--max-len",
+            str(LM["max_len"])]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        out = serve.main(argv)
+    sys.stdout.write(printed.getvalue())
+    check(f"served {LM['requests']} requests, {LM['requests'] * LM['gen']} "
+          f"tokens, " in printed.getvalue(), f"{prefix} a. no served line")
+    peak = torch.cuda.max_memory_allocated()
+    engine = out["engine"]
+    cfg = engine.cfg
+    toks = out["outputs"]
+    check(sorted(toks) == list(range(LM["requests"]))
+          and all(len(t) == LM["gen"] for t in toks.values())
+          and out["tokens"] == LM["requests"] * LM["gen"],
+          f"{prefix} a. served {out['tokens']} tokens, want "
+          f"{LM['requests']} x {LM['gen']}")
+    check(all(0 <= x < cfg.vocab for t in toks.values() for x in t),
+          f"{prefix} a. a token outside [0, vocab)")
+    n_kernels, busy_ms, wall_ms = decode_kernels(
+        engine, np.zeros(LM["slots"], np.int32))
+    step_bytes = decode_bytes(engine)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    pre = statistics.median(out["prefill_s"]) * 1e3
+    dec = statistics.median(out["decode_s"]) * 1e3
+    log(f"{prefix} a. serve {' '.join(argv)}: {out['tokens']} tokens in "
+        f"{out['seconds']:.3f}s, {out['tokens'] / out['seconds']:.1f} tok/s; "
+        f"prefill {pre:.2f} ms a request (median of "
+        f"{len(out['prefill_s'])}), decode {dec:.2f} ms a step (median of "
+        f"{len(out['decode_s'])}, first {out['decode_s'][0] * 1e3:.2f}); "
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB [{card}]")
+    log(f"{prefix} a. decode step ({LM['slots']} slots, {cfg.n_layers} "
+        f"layers): {n_kernels:.0f} kernel launches, device busy "
+        f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall (torch.profiler), "
+        f"bound {bound_ms:.4f} ms ({step_bytes / 1e9:.3f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: reckoned from the shapes, "
+        f"not measured) [{card}]")
+    return {**out, "peak": peak, "launches_a_step": n_kernels,
+            "busy_ms": busy_ms, "wall_ms": wall_ms, "bound_ms": bound_ms}
 
 
 def phase_main_lm(card) -> dict:
@@ -3579,46 +3764,10 @@ def phase_main_lm(card) -> dict:
 
     # a. the CLI at full config and full depth
     t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    argv = ["--arch", LM["arch"], "--requests", str(LM["requests"]),
-            "--batch-slots", str(LM["slots"]), "--prompt-len",
-            str(LM["prompt"]), "--gen-len", str(LM["gen"]), "--max-len",
-            str(LM["max_len"])]
-    printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
-        out = serve.main(argv)
-    sys.stdout.write(printed.getvalue())
-    check(f"served {LM['requests']} requests, {LM['requests'] * LM['gen']} "
-          f"tokens, " in printed.getvalue(), "[main-lm] a. no served line")
-    peak = torch.cuda.max_memory_allocated()
+    out = lm_cli("[main-lm]", LM["arch"], card)
     engine = out["engine"]
     cfg = engine.cfg
     toks = out["outputs"]
-    check(sorted(toks) == list(range(LM["requests"]))
-          and all(len(t) == LM["gen"] for t in toks.values())
-          and out["tokens"] == LM["requests"] * LM["gen"],
-          f"[main-lm] a. served {out['tokens']} tokens, want "
-          f"{LM['requests']} x {LM['gen']}")
-    check(all(0 <= x < cfg.vocab for t in toks.values() for x in t),
-          "[main-lm] a. a token outside [0, vocab)")
-    n_kernels, busy_ms, wall_ms = decode_kernels(
-        engine, np.zeros(LM["slots"], np.int32))
-    step_bytes = decode_bytes(engine)
-    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
-    pre = statistics.median(out["prefill_s"]) * 1e3
-    dec = statistics.median(out["decode_s"]) * 1e3
-    log(f"[main-lm] a. serve {' '.join(argv)}: {out['tokens']} tokens in "
-        f"{out['seconds']:.3f}s, {out['tokens'] / out['seconds']:.1f} tok/s; "
-        f"prefill {pre:.2f} ms a request (median of "
-        f"{len(out['prefill_s'])}), decode {dec:.2f} ms a step (median of "
-        f"{len(out['decode_s'])}, first {out['decode_s'][0] * 1e3:.2f}); "
-        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB [{card}]")
-    log(f"[main-lm] a. decode step ({LM['slots']} slots, {cfg.n_layers} "
-        f"layers): {n_kernels:.0f} kernel launches, device busy "
-        f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall (torch.profiler), "
-        f"bound {bound_ms:.4f} ms ({step_bytes / 1e9:.3f} GB at "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: reckoned from the shapes, "
-        f"not measured) [{card}]")
     prompts = out["prompts"]
     tree = tfm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
         0), DEVICE)
@@ -3727,6 +3876,221 @@ def phase_main_lm(card) -> dict:
         f"{secs['e']:.1f}s); none of the 12 entry points launched [{card}]")
     return {"launches": launches, "consistency": cons, "cpu": cpu,
             "chunked": res_e, "phase_s": phase_s, "part_s": secs}
+
+
+#: [main-lm-families]: the MoE, SSM, hybrid, vision and audio families'
+#: serving path at their configs' full widths, random weights from seed 0
+#: (the JAX distributions; no trained weights are in the repository) with
+#: the cross-attention gates set to ``gate`` (their init, 0, multiplies
+#: the memory's contribution by 0).  ``depth``: layers on the card (None:
+#: the config's own); ``cpu_depth``: layers of the card-vs-CPU check (an
+#: encoder-decoder as many encoder layers; recurrentgemma 3 = one full
+#: rrl super-layer: at 2 its rrl group is empty); ``dual``: the
+#: recurrences' chunked/scan prefill against single-token decodes.
+LMF = dict(cli=("mamba2-780m", "recurrentgemma-2b"),
+           depth={"mamba2-780m": None, "recurrentgemma-2b": None,
+                  "seamless-m4t-large-v2": None, "qwen3-moe-30b-a3b": 2,
+                  "llama-3.2-vision-90b": 5},
+           cpu_depth={"mamba2-780m": 2, "recurrentgemma-2b": 3,
+                      "seamless-m4t-large-v2": 2, "qwen3-moe-30b-a3b": 2,
+                      "llama-3.2-vision-90b": 5},
+           dual=("mamba2-780m", "recurrentgemma-2b"), dual_layers=2,
+           dual_tokens=256, requests=6, gen=6, gate=1.0)
+
+
+def lm_slot_locality(prefix, tag, model, card, gated: bool) -> dict:
+    """c: LMF's requests of LM's prompt length through a 4-slot engine
+    (memory drawn by the JAX engine's rule from a seeded rng), each
+    request's logits at every step against the request alone in a 1-slot
+    engine fed the same tokens and the same memory."""
+    import numpy as np
+    from repro_torch.launch import serve
+    cfg = model.cfg
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, LM["prompt"]).astype(np.int32)
+               for _ in range(LMF["requests"])]
+    engine = serve.ServeEngine(cfg, LM["slots"], LM["max_len"], model=model)
+    seen: dict = {}
+    memories: dict = {}
+
+    def on_logits(rid, logits):
+        if rid not in seen:
+            memories[rid] = engine.memory_in
+        seen.setdefault(rid, []).append(logits.clone())
+
+    outs = serve.run_requests(engine, prompts, LMF["gen"], rng,
+                              on_logits=on_logits)["outputs"]
+    del engine
+    alone = serve.ServeEngine(cfg, 1, LM["max_len"], model=model)
+    worst, agree, total = 0.0, 0, 0
+    for rid, prompt in enumerate(prompts):
+        alone.prefill_slot(0, prompt, memory=memories[rid])
+        got = [alone.logits[0].clone()]
+        for step in range(1, LMF["gen"]):
+            alone.decode(np.array([outs[rid][step - 1]], np.int32))
+            got.append(alone.logits[0].clone())
+        for step, (g, w) in enumerate(zip(got, seen[rid])):
+            err, bound = lm_err(g, w), lm_bound(w, cfg.dtype)
+            if gated:
+                check(err <= bound, f"{prefix} c. {tag} request {rid} step "
+                      f"{step}: {err:.3e} > {bound:.3e}")
+            worst = max(worst, err / bound)
+            agree += int(g.argmax()) == outs[rid][step]
+            total += 1
+    log(f"{prefix} c. {tag}: {LMF['requests']} requests x {LMF['gen']} "
+        f"steps in {LM['slots']} slots vs each alone in 1 slot"
+        f"{', each on its own memory' if memories[0] is not None else ''}: "
+        f"largest |dlogits| {worst:.3f} of the bound; {agree} of {total} "
+        f"greedy tokens agree"
+        f"{'' if gated else ' (printed, not gated: in the JAX semantics capacity couples the slots of a decode step)'}"
+        f" [{card}]")
+    return {"worst": worst, "agree": agree, "total": total, "gated": gated}
+
+
+def lm_duality(prefix, arch, card) -> dict:
+    """e: at full width, LMF's dual_layers layers, f32 with an f32 cache:
+    the logits of a dual_tokens-token ``forward`` (chunked SSD / scanned
+    RG-LRU) against dual_tokens single-token decode steps from an empty
+    cache, and the cache a prefill of the same tokens leaves against the
+    one the decode steps leave."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(arch).replace(n_layers=LMF["dual_layers"],
+                                   dtype=torch.float32)
+    model = tfm.Transformer(cfg, tfm.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE))
+    n = LMF["dual_tokens"]
+    toks = np.random.default_rng(7).integers(0, cfg.vocab, (1, n))
+    logits_f = model.forward(toks)
+    prefilled = tfm.init_cache(cfg, 1, n, DEVICE, dtype=torch.float32)
+    model.prefill(prefilled, toks)
+    stepped = tfm.init_cache(cfg, 1, n, DEVICE, dtype=torch.float32)
+    logits_d = torch.cat([model.decode_step(stepped, toks[:, t:t + 1],
+                                            torch.full((1,), t))[0]
+                          for t in range(n)], dim=1)
+    err, bound = lm_err(logits_d, logits_f), lm_bound(logits_f, cfg.dtype)
+    def states(cache):   # (a group of no layers holds empty tensors)
+        return [t for grp in cache.values() for blk in grp.values()
+                for k, t in blk.items()
+                if k in ("state", "h", "conv") and t.numel()]
+
+    flat_p, flat_d = states(prefilled), states(stepped)
+    check(len(flat_p) > 0, f"{prefix} e. {arch}: no recurrent state")
+    state = max(lm_err(p, d) / max(1.0, float(p.abs().max()))
+                for p, d in zip(flat_p, flat_d))
+    log(f"{prefix} e. {arch} (f32, {cfg.n_layers} layers, f32 cache): "
+        f"forward of {n} tokens ({'chunked SSD, chunk ' + str(cfg.ssm_chunk) if cfg.ssm_state else 'Hillis-Steele RG-LRU scan'}) "
+        f"vs {n} single-token decode steps: max|dlogits| {err:.3e}, bound "
+        f"{bound:.3e}; prefill's states vs the steps', max|d| / max(1, "
+        f"max|state|) {state:.3e} (bound 1e-4) [{card}]")
+    check(err <= bound and state <= LM["tol"]["float32"],
+          f"{prefix} e. {arch}: logits {err:.3e} (bound {bound:.3e}), "
+          f"states {state:.3e}")
+    return {"err": err, "bound": bound, "state": state}
+
+
+def phase_main_lm_families(card) -> dict:
+    """[main-lm-families]: the serving path of the MoE, SSM, hybrid,
+    vision and audio families (LMF)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launcher
+    from repro_torch.models import transformer as tfm
+    prefix = "[main-lm-families]"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    secs = {k: 0.0 for k in "abcde"}
+    launcher.reset_launch_counts()
+
+    # a. the CLI at full config and full depth
+    cli = {}
+    for arch in LMF["cli"]:
+        t0 = time.perf_counter()
+        out = lm_cli(prefix, arch, card)
+        cli[arch] = {k: out[k] for k in ("seconds", "tokens", "peak",
+                                         "launches_a_step", "busy_ms",
+                                         "wall_ms", "bound_ms")}
+        lm_head = out["engine"].model.lm_head
+        del out
+        # b and c rebuild the model from seed 0: the CLI engine's weights
+        tree = tfm.init_params(get_config(arch), torch.Generator(
+            device=DEVICE).manual_seed(0), DEVICE)
+        check(torch.equal(tree["lm_head"], lm_head), f"{prefix} {arch}: "
+              f"the seed-0 parameters differ from the CLI engine's")
+        del tree, lm_head
+        torch.cuda.empty_cache()
+        secs["a"] += time.perf_counter() - t0
+
+    # b. decode vs forward (bf16 and f32) and c. slot-locality, per model
+    cons, slots, peaks = {}, {}, {}
+    for arch, layers in LMF["depth"].items():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.replace(n_layers=layers)
+        tree = open_gates(tfm.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(0), DEVICE), LMF["gate"])
+        n_params = sum(t.numel() for t in tree_leaves(tree))
+        model = tfm.Transformer(cfg, tree)
+        c = LM["consistency"]
+        memory = lm_memory(cfg, c["batch"], c["prompt"], seed=2)
+        cons[arch] = {"bf16": decode_consistency(arch, model, card,
+                                                 prefix=prefix,
+                                                 memory=memory)}
+        t1 = time.perf_counter()
+        slots[arch] = lm_slot_locality(prefix, arch, model, card,
+                                       gated=not cfg.n_experts)
+        c_s = time.perf_counter() - t1
+        secs["c"] += c_s
+        f32 = tfm.Transformer(cfg.replace(dtype=torch.float32), tree)
+        cons[arch]["f32"] = decode_consistency(
+            arch, f32, card, torch.float32, prefix=prefix, memory=memory)
+        peaks[arch] = torch.cuda.max_memory_allocated()
+        log(f"{prefix} {arch}: {cfg.n_layers} layers"
+            f"{' + ' + str(cfg.n_enc_layers) + ' encoder' if cfg.is_encdec else ''}"
+            f" at full width (d {cfg.d_model}, vocab {cfg.vocab}), "
+            f"{n_params / 1e9:.3f} B parameters; max_memory_allocated "
+            f"{peaks[arch] / 2 ** 30:.2f} GiB (f32 parameters, bf16 "
+            f"copies, caches) [{card}]")
+        del model, f32, tree
+        torch.cuda.empty_cache()
+        for key, rec in cons[arch].items():
+            if rec["gated"]:
+                check(max(rec["prefill"], rec["decode"]) <= rec["bound"],
+                      f"{prefix} b. {arch} {key}: {rec} over the bound")
+        secs["b"] += time.perf_counter() - t0 - c_s
+
+    # d. card against CPU, f32 with f32 caches
+    cpu = {}
+    for arch, layers in LMF["cpu_depth"].items():
+        t0 = time.perf_counter()
+        cpu[arch] = lm_card_vs_cpu(card, arch, layers, prefix,
+                                   made_on=DEVICE,
+                                   cache_dtypes=(torch.float32,),
+                                   gate=LMF["gate"])
+        torch.cuda.empty_cache()
+        secs["d"] += time.perf_counter() - t0
+
+    # e. the recurrences' duality
+    dual = {}
+    for arch in LMF["dual"]:
+        t0 = time.perf_counter()
+        dual[arch] = lm_duality(prefix, arch, card)
+        torch.cuda.empty_cache()
+        secs["e"] += time.perf_counter() - t0
+    launches = launcher.entry_launch_counts()
+    check(not any(launches.values()), f"{prefix} launched {launches}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"{prefix} {phase_s:.1f}s in all ("
+        + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
+        + f"); none of the 12 entry points launched [{card}]")
+    return {"launches": launches, "cli": cli, "consistency": cons,
+            "slots": slots, "cpu": cpu, "duality": dual, "peaks": peaks,
+            "phase_s": phase_s, "part_s": secs}
 
 
 #: the async front end of [main-async]: R-row requests from closed-loop
@@ -4525,6 +4889,7 @@ def main() -> int:
     core = phase_main_core(errs, main_rec, filter_rec, single, main_dir,
                            single_dir)
     lm = phase_main_lm(card)
+    lm_families = phase_main_lm_families(card)
     # phase 7 for the bf16 forms, then for the bf16-signal forms on f32
     # and on bf16 tables
     for at in (("bf16", bf16["launches"]),
@@ -4553,6 +4918,8 @@ def main() -> int:
         row["async_launches"] = asynch["launches"].get(row["entry"], 0)
         row["core_launches"] = core["launches"].get(row["entry"], 0)
         row["lm_launches"] = lm["launches"].get(row["entry"], 0)
+        row["lm_families_launches"] = lm_families["launches"].get(
+            row["entry"], 0)
         row["max_abs_err"] = errs[row["entry"]]
     if args.baseline:
         turns = phase_turns(args.baseline, main_rec, single, main_dir,

@@ -171,10 +171,21 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
 
 def lm_cache_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     """The port's decode cache from a JAX ``init_cache``/``prefill``
-    cache with numpy leaves: per group and attention block ``k``, ``v``
-    (count, B, len, KV, hd) and ``pos`` (count, B, len) int32."""
-    tfm.check_ported(cfg)
+    cache with numpy leaves, each leaf's dtype kept: per group and block
+    attention ``k``, ``v`` (count, B, len, KV, hd) and ``pos`` (count, B,
+    len) int32, RG-LRU ``conv`` and ``h``, SSD ``conv`` and ``state``.
+    The tree's structure and shapes are checked against
+    ``transformer.init_cache``'s for the same batch and length."""
+    tree = {name: dict(group) for name, group in dict(tree).items()}
     want = [name for name, _ in tfm.group_plan(cfg)]
     if sorted(tree) != sorted(want):
         raise ValueError(f"cache groups {sorted(tree)}, want {sorted(want)}")
-    return tfm.tree_map(lambda a: _leaf(a, device), dict(tree))
+    cache = tfm.tree_map(lambda a: _leaf(a, device), tree)
+    blocks = [blk for grp in cache.values() for blk in grp.values()]
+    b = next(iter(blocks[0].values())).shape[1]
+    length = max((blk["k"].shape[2] for blk in blocks if "k" in blk),
+                 default=1)
+    spec = tfm.tree_map(lambda t: tfm.Leaf(tuple(t.shape), "zeros"),
+                        tfm.init_cache(cfg, b, length, device="meta"))
+    tfm._check_tree(cache, spec)
+    return cache

@@ -1467,7 +1467,8 @@ def serve_fgft_dynamic(args, on_round=None) -> dict:
 
 class ServeEngine:
     """Slot-based batched LM serving on ``Transformer.prefill`` and
-    ``decode_step`` (the JAX package's ``ServeEngine``).
+    ``decode_step`` (the JAX package's ``ServeEngine``), for every family
+    of the configs.
 
     ``batch_slots`` requests share one decode cache of ``max_len``
     positions a slot.  ``prefill_slot`` runs one prompt as a batch of one
@@ -1480,11 +1481,24 @@ class ServeEngine:
     ``device`` (``transformer.init_params``), or ``model`` is served
     (e.g. weights carried across with ``interop.lm_params_from_numpy``).
     ``logits`` holds the last call's logits: (1, V) after
-    ``prefill_slot``, (slots, V) after ``decode``."""
+    ``prefill_slot``, (slots, V) after ``decode``.
+
+    The vision and audio families' cross-attention reads a memory per
+    request: ``prefill_slot`` draws it from ``rng`` by the JAX engine's
+    rule (a (slots, P, D) block, normal x 0.02; P = ``num_patches``, or
+    max(S // ``enc_ratio``, 1) frames for audio) and keeps the prefilled
+    slot's row, or takes the request's own ``memory``.  ``memory`` holds
+    each slot's memory as the decode steps read it, (slots, P, D) in the
+    compute dtype: encoded for audio, on that request's slot alone.  The
+    JAX engine keeps the whole block as every slot's memory, redrawn at
+    each prefill, and decodes audio on the raw frames (ROADMAP C6, C7).
+    An audio engine's memory length is set by its first prompt; a prompt
+    that needs another raises ``ValueError`` (padding would change a
+    non-causal cross-attention).  ``memory_in`` is the last prefill's
+    raw memory (P, D)."""
 
     def __init__(self, cfg, batch_slots: int, max_len: int, *,
                  seed: int = 0, device="cuda", model=None):
-        tfm.check_ported(cfg)
         if model is None:
             dev = _resolve(device)
             gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1498,14 +1512,47 @@ class ServeEngine:
         self.pos = np.zeros(batch_slots, np.int32)
         self.active = np.zeros(batch_slots, bool)
         self.logits: Optional[torch.Tensor] = None
+        self.memory: Optional[torch.Tensor] = None
+        self.memory_in: Optional[np.ndarray] = None
 
-    def prefill_slot(self, slot: int, prompt: np.ndarray, rng=None) -> int:
+    def _request_memory(self, slot: int, s: int, rng, memory) -> np.ndarray:
+        cfg = self.cfg
+        want = (max(s // cfg.enc_ratio, 1) if cfg.is_encdec
+                else cfg.num_patches, cfg.d_model)
+        if memory is None:
+            if rng is None:
+                raise ValueError(f"{cfg.name} draws each request's "
+                                 f"memory from rng: pass rng= or memory=")
+            memory = rng.standard_normal((self.b,) + want,
+                                         np.float32)[slot] * 0.02
+        memory = np.asarray(memory, np.float32)
+        if memory.shape != want:
+            raise ValueError(f"memory of shape {memory.shape}, want {want}")
+        if self.memory is not None and self.memory.shape[1] != want[0]:
+            raise ValueError(
+                f"a {s}-token prompt needs {want[0]} memory positions; this "
+                f"engine's memory holds {self.memory.shape[1]} (set by its "
+                f"first prompt)")
+        return memory
+
+    def prefill_slot(self, slot: int, prompt: np.ndarray, rng=None,
+                     memory=None) -> int:
         """Prefill one slot with a prompt (S,); returns its greedy token.
-        ``rng`` is the JAX engine's (it draws the memory of the vision
-        and audio families, which are not ported)."""
+        ``rng``: the JAX engine's (it draws the vision and audio
+        families' memory); ``memory``: the request's own (P, D) instead."""
+        prompt = np.asarray(prompt)
+        mem = None
+        if self.model.needs_memory:
+            mem = self._request_memory(slot, len(prompt), rng, memory)
+            self.memory_in = mem
         rows = tfm.tree_map(lambda t: t[:, slot:slot + 1], self.cache)
         tfm.clear_cache(rows)
-        logits, _ = self.model.prefill(rows, np.asarray(prompt)[None])
+        logits, _, enc = self.model.prefill(
+            rows, prompt[None], None if mem is None else mem[None])
+        if enc is not None:
+            if self.memory is None:
+                self.memory = enc.new_zeros((self.b,) + enc.shape[1:])
+            self.memory[slot] = enc[0]
         self.logits = logits[:, -1]
         self.pos[slot] = len(prompt)
         self.active[slot] = True
@@ -1514,7 +1561,7 @@ class ServeEngine:
     def decode(self, tokens: np.ndarray) -> np.ndarray:
         """One decode step for all slots. tokens: (slots,) int32."""
         logits, _ = self.model.decode_step(
-            self.cache, np.asarray(tokens)[:, None], self.pos)
+            self.cache, np.asarray(tokens)[:, None], self.pos, self.memory)
         self.logits = logits[:, 0]
         toks = self.logits.argmax(-1).cpu().numpy().astype(np.int32)
         # after the step is done: on the CPU its positions alias self.pos
@@ -1604,8 +1651,8 @@ def parse_args(argv=None):
                     "FGFT (--fgft) or an LM (--arch).",
         allow_abbrev=False)
     ap.add_argument("--arch", choices=ARCH_NAMES,
-                    help="serve this LM config (dense and local/global "
-                         "families) with random weights from --seed")
+                    help="serve this LM config with random weights from "
+                         "--seed")
     ap.add_argument("--smoke", action="store_true",
                     help="the config's reduced (smoke) shapes")
     ap.add_argument("--requests", type=int, default=8)
@@ -1736,10 +1783,6 @@ def parse_args(argv=None):
     if not args.fgft:
         if args.arch is None:
             ap.error("--arch is required unless --fgft/--filter is given")
-        try:
-            tfm.check_ported(get_config(args.arch, smoke=args.smoke))
-        except NotImplementedError as e:
-            ap.error(str(e))
     try:
         args.tier_map = (parse_tiers(args.tiers) if args.tiers
                          else dict(DEFAULT_TIERS))

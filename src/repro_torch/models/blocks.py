@@ -1,4 +1,5 @@
-"""Attention and MLP blocks of the dense and local/global families.
+"""The LM blocks: self-attention, cross-attention, MLP, MoE, Mamba-2 SSD
+and RG-LRU.
 
 Each block is an ``nn.Module`` over one layer's parameters, in the JAX
 package's layouts (``wq`` (d, h, hd), ``wo`` (h, hd, d), ``w_gate``
@@ -9,13 +10,17 @@ JAX package casts each weight on every call (``w.astype(h.dtype)``); a
 cast is elementwise, so casting once gives the same bits, and an eager
 decode step does not rewrite every weight.
 
-``attn_spec`` / ``mlp_spec`` give each block's leaves as (shape, init)
-for ``transformer.init_params``.  The MoE, SSD, RG-LRU and
-cross-attention blocks come with a later LM slice of the port.
+``<block>_spec`` gives each block's leaves as (shape, init) or (shape,
+init, scale) for ``transformer.init_params``.
+
+The MoE dispatch, the SSD chunked scan and the RG-LRU scan are plain
+XLA in the JAX package (no ``pallas_call``), so they are plain torch
+here, the products ``torch.matmul``/``einsum``.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -122,6 +127,51 @@ class AttnBlock(nn.Module):
         return x + out.to(x.dtype), cache
 
 
+def cross_attn_spec(cfg: ModelConfig) -> Spec:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {"wq": ((d, h, hd), "normal"), "wk": ((d, kv, hd), "normal"),
+            "wv": ((d, kv, hd), "normal"), "wo": ((h, hd, d), "normal"),
+            "norm": ((d,), "zeros"), "gate": ((1,), "zeros")}
+
+
+class CrossAttnBlock(nn.Module):
+    """Pre-norm cross-attention to a fixed memory (patch, frame or encoder
+    states) with a ``tanh(gate)`` residual gate, zero at init:
+    ``forward(x, memory) -> x_out``.  Non-causal, every query and key at
+    position 0 (no RoPE, no mask).  K/V are projected from the memory at
+    every call, as the JAX package does."""
+
+    def __init__(self, cfg: ModelConfig, w: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        _params(self, w)
+        self.cast_weights()
+
+    def cast_weights(self) -> None:
+        dt, d = self.cfg.dtype, self.cfg.d_model
+        self.c_wq, self.c_wk, self.c_wv = (
+            getattr(self, n).reshape(d, -1).to(dt) for n in ("wq", "wk", "wv"))
+        self.c_wo = self.wo.reshape(-1, d).to(dt)
+        self.c_gate = torch.tanh(self.gate.float()).to(dt)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        b, sq = x.shape[:2]
+        sk = memory.shape[1]
+        h = rmsnorm(x, self.norm, cfg.rms_eps)
+        mem = memory.to(h.dtype)
+        q = (h @ self.c_wq).reshape(b, sq, cfg.n_heads, cfg.hd)
+        k = (mem @ self.c_wk).reshape(b, sk, cfg.n_kv_heads, cfg.hd)
+        v = (mem @ self.c_wv).reshape(b, sk, cfg.n_kv_heads, cfg.hd)
+        zeros = functools.partial(torch.zeros, dtype=torch.int32,
+                                  device=x.device)
+        o = attention(q, k, v, zeros((b, sq)), zeros((b, sk)), causal=False,
+                      window=0, cap=None, impl=cfg.attn_impl,
+                      chunk=cfg.attn_chunk, skip=cfg.attn_skip)
+        out = o.reshape(b, sq, -1) @ self.c_wo
+        return x + self.c_gate * out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP (dense) — swiglu/geglu/gelu, with optional butterfly fast mixing
 # ---------------------------------------------------------------------------
@@ -223,3 +273,344 @@ class MLPBlock(nn.Module):
         out = z @ self.c_down
         return x + out.to(x.dtype)
 
+
+
+# ---------------------------------------------------------------------------
+# MoE — token-choice top-k with per-group capacity, sort-based dispatch
+# ---------------------------------------------------------------------------
+
+def moe_spec(cfg: ModelConfig) -> Spec:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {"norm": ((d,), "zeros"), "router": ((d, e), "normal"),
+            "w_gate": ((e, d, f), "normal"), "w_up": ((e, d, f), "normal"),
+            "w_down": ((e, f, d), "normal")}
+
+
+def moe_groups(cfg: ModelConfig, b: int, s: int) -> Tuple[int, int]:
+    """(tokens a dispatch group, capacity an expert and group) for a call
+    on (B, S) tokens, as the JAX ``moe_block`` computes them:
+    ``moe_group`` (0: S) at most B x S, cut down until it divides B x S,
+    and ceil(gsz k / e x capacity_factor)."""
+    gsz = min(cfg.moe_group or s, b * s)
+    while (b * s) % gsz:
+        gsz -= 1
+    cap = int(np.ceil(gsz * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    return gsz, cap
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest along the last axis in descending order, a tie to the
+    lower index first, as ``lax.top_k`` orders them (``torch.topk`` makes
+    no promise about ties: a stable descending sort does)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+class MoEBlock(nn.Module):
+    """Pre-norm token-choice top-k mixture of SwiGLU experts with a
+    residual, the JAX ``moe_block`` exactly: groups of ``moe_groups``
+    tokens (all of a call's B x S tokens in order, as the JAX reshape
+    takes them), router softmax in f32, top-k weights renormalised, each
+    expert's (token, choice) pairs in token order (a stable sort on the
+    expert id) and the pairs past the capacity dropped: a token whose
+    every pair is dropped keeps its residual.
+
+    Combine: the JAX package scatter-adds each kept slot's weighted
+    output into its token, in slot order, that is, by ascending expert
+    id.  Here each token gathers its k slots and adds them in that same
+    order (a dropped pair adds a zero row), so no atomics and, on the
+    CPU, the JAX package's order of the compute-dtype sums.
+
+    ``routes`` and ``kept`` keep the last call's top-k expert ids and
+    which pairs fit, (groups, gsz, k), on the device (no host read)."""
+
+    def __init__(self, cfg: ModelConfig, w: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        _params(self, w)
+        self.cast_weights()
+        self.routes: Optional[torch.Tensor] = None
+        self.kept: Optional[torch.Tensor] = None
+
+    def cast_weights(self) -> None:
+        dt = self.cfg.dtype
+        self.c_router = self.router.to(dt)
+        self.c_gate = self.w_gate.to(dt)
+        self.c_up = self.w_up.to(dt)
+        self.c_down = self.w_down.to(dt)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        b, s, d = x.shape
+        e, k = cfg.n_experts, cfg.top_k
+        dev = x.device
+        h = rmsnorm(x, self.norm, cfg.rms_eps)
+        gsz, cap = moe_groups(cfg, b, s)
+        g = b * s // gsz
+        hg = h.reshape(g, gsz, d)
+        probs = torch.softmax((hg @ self.c_router).float(), dim=-1)
+        top_p, top_e = top_k(probs, k)                        # (g, gsz, k)
+        top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+
+        # each pair's position among its expert's pairs, in token order
+        flat_e = top_e.reshape(g, gsz * k)
+        order = torch.argsort(flat_e, dim=-1, stable=True)
+        sorted_e = flat_e.gather(1, order)
+        starts = torch.searchsorted(
+            sorted_e, torch.arange(e, device=dev).expand(g, e).contiguous())
+        rank = (torch.arange(gsz * k, device=dev)[None]
+                - starts.gather(1, sorted_e))
+        pos = torch.empty_like(rank).scatter_(1, order, rank).reshape(
+            g, gsz, k)
+        keep = pos < cap
+        # slot of each pair in the (e, cap) table; a dropped pair's is the
+        # trash slot e * cap
+        slot = torch.where(keep, top_e * cap + pos, e * cap)
+
+        # dispatch: the token each (expert, slot) holds (gsz: a zero row)
+        table = torch.full((g, e * cap + 1), gsz, dtype=torch.long,
+                           device=dev)
+        tok = torch.arange(gsz, device=dev)[None, :, None].expand(g, gsz, k)
+        table.scatter_(1, slot.reshape(g, -1), tok.reshape(g, -1))
+        hpad = torch.cat([hg, hg.new_zeros(g, 1, d)], dim=1)
+        gi = torch.arange(g, device=dev)[:, None]
+        xin = hpad[gi, table[:, :e * cap]].reshape(g, e, cap, d)
+        a = F.silu(torch.einsum("gecd,edf->gecf", xin, self.c_gate))
+        u = torch.einsum("gecd,edf->gecf", xin, self.c_up)
+        y = torch.einsum("gecf,efd->gecd", a * u, self.c_down)
+
+        # combine: each token's kept slots, weighted, by ascending expert
+        ypad = torch.cat([y.reshape(g, e * cap, d), y.new_zeros(g, 1, d)],
+                         dim=1)
+        slot, perm = torch.sort(slot, dim=-1)
+        wts = top_p.gather(-1, perm).to(y.dtype)
+        out = None
+        for j in range(k):
+            yj = ypad[gi, slot[..., j]] * wts[..., j, None]
+            out = yj if out is None else out + yj
+        self.routes, self.kept = top_e, keep
+        return x + out.reshape(b, s, d).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD block (state-space duality, chunked)
+# ---------------------------------------------------------------------------
+
+def ssd_spec(cfg: ModelConfig) -> Spec:
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    hs = d_in // cfg.ssm_head_dim
+    n, cw = cfg.ssm_state, cfg.conv_width
+    return {"norm": ((d,), "zeros"), "in_xz": ((d, 2 * d_in), "normal"),
+            "in_bc": ((d, 2 * n), "normal"), "in_dt": ((d, hs), "normal"),
+            "conv_x": ((cw, d_in), "normal", 0.2),
+            "conv_b": ((cw, n), "normal", 0.2),
+            "conv_c": ((cw, n), "normal", 0.2),
+            "a_log": ((hs,), "zeros"), "dt_bias": ((hs,), "zeros"),
+            "d_skip": ((hs,), "ones"), "out": ((d_in, d), "normal")}
+
+
+def _causal_conv(x: torch.Tensor, kernel: torch.Tensor,
+                 cache: Optional[torch.Tensor] = None):
+    """Depthwise causal conv of x (B, S, C) with kernel (W, C) in x's
+    dtype, after ``cache`` (B, W-1, C) or zeros; the terms summed in the
+    JAX package's order.  Returns (out, the last W-1 inputs)."""
+    w, s = kernel.shape[0], x.shape[1]
+    xp = (F.pad(x, (0, 0, w - 1, 0)) if cache is None
+          else torch.cat([cache.to(x.dtype), x], dim=1))
+    out = xp[:, :s] * kernel[0]
+    for i in range(1, w):
+        out = out + xp[:, i:i + s] * kernel[i]
+    return out, xp[:, xp.shape[1] - (w - 1):]
+
+
+def _segsum(t: torch.Tensor) -> torch.Tensor:
+    """(..., L) -> (..., L, L) lower-triangular cumulative sums (SSD
+    decays; -inf above the diagonal)."""
+    length = t.shape[-1]
+    cs = torch.cumsum(t, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones(length, length, dtype=torch.bool,
+                                 device=t.device))
+    return diff.masked_fill(~mask, -math.inf)
+
+
+class SSDBlock(nn.Module):
+    """Mamba-2 SSD with a residual: ``forward(x, cache) -> (x_out,
+    cache)``.  Without a cache or with S > 1 it runs the chunked form
+    (quadratic within chunks of ``ssm_chunk``, the prompt zero-padded to
+    a multiple with zero decays, recurrent across chunks in a loop); with
+    a cache and S == 1 the single-step recurrence.  ``cache`` is one
+    layer's ``{"conv": (B, W-1, d_in + 2N), "state": (B, H, P, N) f32}``,
+    written in place."""
+
+    def __init__(self, cfg: ModelConfig, w: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        _params(self, w)
+        self.cast_weights()
+
+    def cast_weights(self) -> None:
+        dt = self.cfg.dtype
+        for name in ("in_xz", "in_bc", "in_dt", "dt_bias", "conv_x",
+                     "conv_b", "conv_c", "out"):
+            setattr(self, f"c_{name}", getattr(self, name).to(dt))
+
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Dict[str, torch.Tensor]] = None):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        d_in = cfg.ssm_expand * cfg.d_model
+        p, n = cfg.ssm_head_dim, cfg.ssm_state
+        hs = d_in // p
+        h = rmsnorm(x, self.norm, cfg.rms_eps)
+        xc, z = (h @ self.c_in_xz).split(d_in, dim=-1)
+        bmat, cmat = (h @ self.c_in_bc).split(n, dim=-1)
+        dt = F.softplus(h @ self.c_in_dt + self.c_dt_bias)      # (b, s, hs)
+        a = -torch.exp(self.a_log.float())
+
+        conv = None if cache is None else cache["conv"]
+        parts = ((None,) * 3 if conv is None else
+                 (conv[..., :d_in], conv[..., d_in:d_in + n],
+                  conv[..., d_in + n:]))
+        xc, ncx = _causal_conv(F.silu(xc), self.c_conv_x, parts[0])
+        bmat, ncb = _causal_conv(bmat, self.c_conv_b, parts[1])
+        cmat, ncc = _causal_conv(cmat, self.c_conv_c, parts[2])
+
+        xh = xc.reshape(b, s, hs, p)
+        dta = dt.float() * a                                   # (b, s, hs)
+        dtx = xh * dt[..., None]
+        if cache is not None and s == 1:
+            st = cache["state"]
+            decay = torch.exp(dta[:, 0])[..., None, None]
+            upd = (dtx[:, 0].float()[..., None]
+                   * bmat[:, 0].float()[:, None, None, :])
+            st.copy_(st * decay + upd)
+            y = torch.einsum("bhpn,bn->bhp", st, cmat[:, 0].float())
+            y = y + self.d_skip.float()[None, :, None] * xh[:, 0].float()
+            y = y.reshape(b, 1, d_in)
+        else:
+            st0 = (cache["state"] if cache is not None else
+                   torch.zeros((b, hs, p, n), device=x.device))
+            y, st = self._chunked(dtx, bmat, cmat, dta, st0)
+            y = y + self.d_skip.float()[None, None, :, None] * xh.float()
+            y = y.reshape(b, s, d_in)
+            if cache is not None:
+                cache["state"].copy_(st)
+        if cache is not None:
+            conv.copy_(torch.cat([ncx, ncb, ncc], dim=-1))
+        y = y.to(x.dtype) * F.silu(z)
+        out = y @ self.c_out
+        return x + out.to(x.dtype), cache
+
+    def _chunked(self, dtx, bmat, cmat, dta, st):
+        """The chunked scan: (y (B, S, H, P) f32, the final state)."""
+        b, s, hs, p = dtx.shape
+        n = bmat.shape[-1]
+        q = min(self.cfg.ssm_chunk, s)
+        pad = (-s) % q
+        if pad:  # zero inputs and zero decays leave the state untouched
+            dtx = F.pad(dtx, (0, 0, 0, 0, 0, pad))
+            bmat = F.pad(bmat, (0, 0, 0, pad))
+            cmat = F.pad(cmat, (0, 0, 0, pad))
+            dta = F.pad(dta, (0, 0, 0, pad))
+        nc = (s + pad) // q
+        xb = dtx.reshape(b, nc, q, hs, p).float()
+        bb = bmat.reshape(b, nc, q, n).float()
+        cb = cmat.reshape(b, nc, q, n).float()
+        ab = dta.reshape(b, nc, q, hs)
+
+        lmat = torch.exp(_segsum(ab.permute(0, 1, 3, 2)))     # (b,nc,hs,q,q)
+        scores = torch.einsum("bcqn,bckn->bcqk", cb, bb)
+        y_diag = torch.einsum("bchqk,bckhp->bcqhp",
+                              lmat * scores[:, :, None], xb)
+        a_cum = torch.cumsum(ab, dim=2)                        # (b,nc,q,hs)
+        a_tot = a_cum[:, :, -1]                                # (b,nc,hs)
+        decay_out = torch.exp(a_tot[:, :, None, :] - a_cum)
+        states = torch.einsum("bcqn,bcqh,bcqhp->bchpn", bb, decay_out, xb)
+        prev = []
+        for c in range(nc):
+            prev.append(st)
+            st = st * torch.exp(a_tot[:, c])[:, :, None, None] + states[:, c]
+        y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", cb,
+                             torch.stack(prev, dim=1), torch.exp(a_cum))
+        y = (y_diag + y_off).reshape(b, s + pad, hs, p)[:, :s]
+        return y, st
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (recurrentgemma)
+# ---------------------------------------------------------------------------
+
+def rglru_spec(cfg: ModelConfig) -> Spec:
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    return {"norm": ((d,), "zeros"), "in_x": ((d, w), "normal"),
+            "in_y": ((d, w), "normal"),
+            "conv": ((cfg.conv_width, w), "normal", 0.2),
+            "w_r": ((w, w), "normal"), "w_i": ((w, w), "normal"),
+            "lam": ((w,), "ones"), "out": ((w, d), "normal")}
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t along axis 1 in log2 S
+    steps (Hillis-Steele over (a, b) pairs with the JAX package's
+    ``combine``: (a1, b1) then (a2, b2) -> (a1 a2, b1 a2 + b2)).  Returns
+    (the running products of a, h with h_{-1} = 0)."""
+    s, off = a.shape[1], 1
+    while off < s:
+        b = torch.cat([b[:, :off], b[:, :-off] * a[:, off:] + b[:, off:]],
+                      dim=1)
+        a = torch.cat([a[:, :off], a[:, :-off] * a[:, off:]], dim=1)
+        off *= 2
+    return a, b
+
+
+class RGLRUBlock(nn.Module):
+    """recurrentgemma's RG-LRU block with a residual: ``forward(x, cache)
+    -> (x_out, cache)``.  S > 1 (or no cache) scans the recurrence with
+    ``linear_scan`` and folds in the carried state; a cache and S == 1
+    take one step h = h a + gated.  ``cache`` is one layer's ``{"conv":
+    (B, W-1, width), "h": (B, width) f32}``, written in place."""
+
+    C_CONST = 8.0
+
+    def __init__(self, cfg: ModelConfig, w: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        _params(self, w)
+        self.cast_weights()
+
+    def cast_weights(self) -> None:
+        dt = self.cfg.dtype
+        for name in ("in_x", "in_y", "conv", "w_r", "w_i", "out"):
+            setattr(self, f"c_{name}", getattr(self, name).to(dt))
+
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Dict[str, torch.Tensor]] = None):
+        cfg = self.cfg
+        s = x.shape[1]
+        h = rmsnorm(x, self.norm, cfg.rms_eps)
+        xb = h @ self.c_in_x
+        yb = F.gelu(h @ self.c_in_y, approximate="tanh")
+        xb, new_conv = _causal_conv(
+            xb, self.c_conv, None if cache is None else cache["conv"])
+        r = torch.sigmoid(xb @ self.c_w_r).float()
+        i = torch.sigmoid(xb @ self.c_w_i).float()
+        log_a0 = -self.C_CONST * F.softplus(self.lam.float())
+        log_a = log_a0 * r
+        a = torch.exp(log_a)
+        gated = (torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a),
+                                            1e-12)) * i * xb.float())
+        if cache is not None and s == 1:
+            hidden = (cache["h"] * a[:, 0] + gated[:, 0])[:, None]
+            cache["h"].copy_(hidden[:, 0])
+        else:
+            a_sc, hidden = linear_scan(a, gated)
+            if cache is not None:  # prefill: fold in the carried-in state
+                hidden = hidden + a_sc * cache["h"][:, None]
+                cache["h"].copy_(hidden[:, -1])
+        if cache is not None:
+            cache["conv"].copy_(new_conv)
+        out = (hidden.to(x.dtype) * yb) @ self.c_out
+        return x + out.to(x.dtype), cache

@@ -1,27 +1,33 @@
-"""LM assembly of the dense and local/global families.
+"""LM assembly of every family of the configs.
 
 The decoder stack is organized into *groups* of identical super-layers,
 as in the JAX package:
 
   family        groups (super-layer contents)
   dense         [L x (attn + mlp)]
+  moe           [L x (attn + moe)]
   local_global  [L/2 x (local-attn + mlp + global-attn + mlp)]  (gemma2)
-
-``group_plan`` covers every family of the configs; the groups of the
-others (``moe``, ``rrl``, ``rec_extra``, ``cross5``, ``ssd``, ``dec`` and
-the encoder) raise ``NotImplementedError``: they come with a later LM
-slice of the port.
+  hybrid (rrl)  [L/3 x (rglru+mlp, rglru+mlp, local-attn+mlp)]
+                + the remainder as rglru+mlp layers (recurrentgemma)
+  ssm           [L x ssd]                                        (mamba2)
+  vlm (cross5)  [L/5 x (4 x (attn+mlp) + cross-attn + mlp)]
+  audio         encoder [Lenc x (bidirectional attn + mlp)], then
+                decoder [L x (attn + cross-attn + mlp)]
 
 Parameters are a nested dict of tensors in the JAX ``init_params``
 layout, stacked per group on a leading layer axis (``init_params``,
 ``interop.lm_params_from_numpy``).  ``Transformer`` splits the stacked
 leaves into one module per super-layer (views, no copy) and serves:
 
-  Transformer(cfg, params).forward(tokens)          -> logits (B, S, V)
-  init_cache(cfg, batch, max_len)                   -> cache
-  Transformer.prefill(cache, tokens)                -> (last logits, cache)
-  Transformer.decode_step(cache, token, pos)        -> (logits, cache)
+  Transformer(cfg, params).forward(tokens, memory)   -> logits (B, S, V)
+  init_cache(cfg, batch, max_len)                    -> cache
+  Transformer.prefill(cache, tokens, memory)         -> (last logits, cache,
+                                                        memory)
+  Transformer.decode_step(cache, token, pos, memory) -> (logits, cache)
 
+``memory`` is the vision family's patch embeddings (B, P, D) or the
+audio family's frame embeddings (B, F, D); ``prefill`` returns it in the
+compute dtype, encoded for audio, for the decode steps to reuse.
 Caches are written in place (and returned, as the JAX functions return
 theirs).  Layers run in a Python loop (no ``lax.scan``, no remat:
 serving does not differentiate).
@@ -34,14 +40,12 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
-from .blocks import AttnBlock, MLPBlock, attn_spec, mlp_spec
+from .blocks import (AttnBlock, CrossAttnBlock, MLPBlock, MoEBlock,
+                     RGLRUBlock, SSDBlock, attn_spec, cross_attn_spec,
+                     mlp_spec, moe_spec, rglru_spec, ssd_spec)
 from .common import PAD_POS, ModelConfig, rmsnorm, scaled, softcap
 
 Params = Dict[str, Any]
-
-PORTED_GROUPS = ("dense", "lg")
-LATER_SLICE = ("a later LM slice of repro_torch (the MoE, SSD, RG-LRU and "
-               "cross-attention blocks and the encoder)")
 
 
 # ---------------------------------------------------------------------------
@@ -72,49 +76,61 @@ def group_plan(cfg: ModelConfig):
     raise ValueError(pat)
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the later slice when cfg needs
-    a layer group that is not ported yet."""
-    missing = [name for name, _ in group_plan(cfg)
-               if name not in PORTED_GROUPS]
-    if cfg.is_encdec:
-        missing.append("enc")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}) needs the layer groups "
-            f"{missing}, which come with {LATER_SLICE}")
-
-
 class Leaf(NamedTuple):
     shape: tuple
-    init: str          # "normal" | "zeros"
+    init: str          # "normal" | "zeros" | "ones"
     scale: float = 0.02
 
 
+#: block key -> (module, spec); a key is matched by its longest prefix
+_BLOCKS = {"attn": (AttnBlock, attn_spec), "mlp": (MLPBlock, mlp_spec),
+           "moe": (MoEBlock, moe_spec), "rec": (RGLRUBlock, rglru_spec),
+           "cross": (CrossAttnBlock, cross_attn_spec),
+           "ssd": (SSDBlock, ssd_spec)}
+
+#: group -> its super-layer's blocks, in the JAX ``_init_group`` order
+_GROUPS = {
+    "dense": ("attn", "mlp"),
+    "moe": ("attn", "moe"),
+    "lg": ("attn_l", "mlp_l", "attn_g", "mlp_g"),
+    "rrl": ("rec1", "mlp1", "rec2", "mlp2", "attn", "mlp3"),
+    "rec_extra": ("rec", "mlp"),
+    "cross5": ("attn0", "mlp0", "attn1", "mlp1", "attn2", "mlp2", "attn3",
+               "mlp3", "cross", "mlp_c"),
+    "ssd": ("ssd",),
+    "enc": ("attn", "mlp"),
+    "dec": ("attn", "cross", "mlp"),
+}
+
+
+def _kind(key: str) -> str:
+    return next(k for k in ("cross", "attn", "mlp", "moe", "rec", "ssd")
+                if key.startswith(k))
+
+
 def _group_spec(name: str, cfg: ModelConfig) -> Dict[str, Any]:
-    if name == "dense":
-        return {"attn": attn_spec(cfg), "mlp": mlp_spec(cfg)}
-    if name == "lg":
-        return {"attn_l": attn_spec(cfg), "mlp_l": mlp_spec(cfg),
-                "attn_g": attn_spec(cfg), "mlp_g": mlp_spec(cfg)}
-    raise NotImplementedError(f"layer group {name!r} comes with "
-                              f"{LATER_SLICE}")
+    return {key: _BLOCKS[_kind(key)][1](cfg) for key in _GROUPS[name]}
+
+
+def _stacked(count: int, spec) -> Dict[str, Any]:
+    return {blk: {k: Leaf((count,) + shape, *rest)
+                  for k, (shape, *rest) in leaves.items()}
+            for blk, leaves in spec.items()}
 
 
 def param_spec(cfg: ModelConfig) -> Params:
     """The parameter tree as ``Leaf``s: the JAX ``init_params`` tree's
     structure, shapes (stacked per group) and initializers."""
-    check_ported(cfg)
     d, v = cfg.d_model, cfg.vocab
-    groups = {}
-    for name, count in group_plan(cfg):
-        groups[name] = {blk: {k: Leaf((count,) + shape, init)
-                              for k, (shape, init) in leaves.items()}
-                        for blk, leaves in _group_spec(name, cfg).items()}
-    return {"embed": Leaf((v, d), "normal", 0.01),
-            "final_norm": Leaf((d,), "zeros"),
-            "lm_head": Leaf((d, v), "normal", 0.01),
-            "groups": groups}
+    out = {"embed": Leaf((v, d), "normal", 0.01),
+           "final_norm": Leaf((d,), "zeros"),
+           "lm_head": Leaf((d, v), "normal", 0.01),
+           "groups": {name: _stacked(count, _group_spec(name, cfg))
+                      for name, count in group_plan(cfg)}}
+    if cfg.is_encdec:
+        out["encoder"] = _stacked(cfg.n_enc_layers, _group_spec("enc", cfg))
+        out["enc_norm"] = Leaf((d,), "zeros")
+    return out
 
 
 def tree_map(fn, tree, *rest):
@@ -129,7 +145,9 @@ def tree_map(fn, tree, *rest):
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> Params:
     """Random parameters with the JAX package's distributions: normal x
-    0.02, the embedding and the LM head x 0.01, norms and biases zero,
+    0.02, the embedding and the LM head x 0.01, the convolutions x 0.2,
+    norms, biases, gates, SSD ``a_log``/``dt_bias`` zero, SSD ``d_skip``
+    and RG-LRU ``lam`` one,
     drawn in f32 from ``generator`` (default: seed 0 on ``device``) and
     stored in ``cfg.param_dtype``.  The draws are torch's, not
     ``jax.random``'s: carry weights across with
@@ -139,8 +157,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         generator = torch.Generator(device=dev).manual_seed(0)
 
     def draw(leaf: Leaf) -> torch.Tensor:
-        if leaf.init == "zeros":
-            return torch.zeros(leaf.shape, dtype=cfg.param_dtype, device=dev)
+        if leaf.init in ("zeros", "ones"):
+            fill = torch.zeros if leaf.init == "zeros" else torch.ones
+            return fill(leaf.shape, dtype=cfg.param_dtype, device=dev)
         t = torch.randn(leaf.shape, generator=generator, dtype=torch.float32,
                         device=dev)
         return t.mul_(leaf.scale).to(cfg.param_dtype)
@@ -165,46 +184,71 @@ def _layer(tree, index: int):
     return tree_map(lambda t: t[index], tree)
 
 
+def _local(name: str, key: str) -> bool:
+    """Whether attention block ``key`` of group ``name`` is local."""
+    return key == "attn_l" or name == "rrl"
+
+
+#: the blocks that keep a decode cache
+_CACHED = ("attn", "rec", "ssd")
+
+
 class SuperLayer(nn.Module):
-    """One super-layer of a group: ``dense`` (attn + mlp) or ``lg``
-    (local attn + mlp + global attn + mlp)."""
+    """One super-layer of a group (``_GROUPS``), its blocks run in the
+    JAX ``_super_layer`` order.  ``forward(x, positions, cache, memory)``:
+    ``cache`` is this layer's part of the group's cache (None: no cache),
+    ``memory`` the cross-attention blocks' memory in the compute dtype."""
 
     def __init__(self, name: str, cfg: ModelConfig, w: Params):
         super().__init__()
         self.name, self.cfg = name, cfg
         for key, leaves in w.items():
-            block = AttnBlock if key.startswith("attn") else MLPBlock
-            self.add_module(key, block(cfg, leaves))
+            self.add_module(key, _BLOCKS[_kind(key)][0](cfg, leaves))
 
-    def forward(self, x, positions, cache=None):
-        def attn(key, xx, window):
-            c = None if cache is None else cache[key]
-            return getattr(self, key)(xx, positions, window=window,
-                                      cache=c)[0]
+    def forward(self, x, positions, cache=None, memory=None):
+        for key in _GROUPS[self.name]:
+            block, kind = getattr(self, key), _kind(key)
+            c = None if cache is None or kind not in _CACHED else cache[key]
+            if kind == "attn":
+                window = self.cfg.local_window if _local(self.name, key) else 0
+                x = block(x, positions, window=window,
+                          causal=self.name != "enc", cache=c)[0]
+            elif kind in ("rec", "ssd"):
+                x = block(x, c)[0]
+            elif kind == "cross":
+                x = block(x, memory)
+            else:
+                x = block(x)
+        return x
 
-        if self.name == "dense":
-            x = attn("attn", x, 0)
-            return self.mlp(x)
-        x = attn("attn_l", x, self.cfg.local_window)
-        x = self.mlp_l(x)
-        x = attn("attn_g", x, 0)
-        return self.mlp_g(x)
+
+def _stack(layers, spec: Params, device, dtype) -> Params:
+    """The per-layer trees of a group stacked on a leading axis (a group
+    of no layers: empty tensors of the spec's shapes)."""
+    if not layers:
+        return tree_map(lambda leaf: torch.empty(leaf.shape, dtype=dtype,
+                                                 device=device), spec)
+    return tree_map(lambda *ts: torch.stack(ts), *layers)
 
 
 class Transformer(nn.Module):
-    """The decoder LM over a parameter tree (see the module docstring).
-    The tree's tensors are kept (per-layer views); the compute-dtype
-    copies are made once here, and the embedding is gathered in
+    """The LM over a parameter tree (see the module docstring).  The
+    tree's tensors are kept (per-layer views); the compute-dtype copies
+    are made once here, and the embedding is gathered in
     ``param_dtype`` and cast per row, which is bitwise the JAX package's
     cast of the whole table on every call."""
 
     def __init__(self, cfg: ModelConfig, params: Params):
         super().__init__()
-        check_ported(cfg)
-        _check_tree(params, param_spec(cfg))
+        spec = param_spec(cfg)
+        _check_tree(params, spec)
         self.cfg = cfg
         self.plan = group_plan(cfg)
-        for name in ("embed", "final_norm", "lm_head"):
+        self._spec = spec
+        singles = ["embed", "final_norm", "lm_head"]
+        if cfg.is_encdec:
+            singles.append("enc_norm")
+        for name in singles:
             self.register_parameter(name, nn.Parameter(params[name],
                                                        requires_grad=False))
         self.groups = nn.ModuleDict({
@@ -212,6 +256,12 @@ class Transformer(nn.Module):
                                            _layer(params["groups"][name], i))
                                 for i in range(count))
             for name, count in self.plan})
+        self.encoder = nn.ModuleList(
+            SuperLayer("enc", cfg, _layer(params["encoder"], i))
+            for i in range(cfg.n_enc_layers if cfg.is_encdec else 0))
+        #: a cross-attention block needs the request's memory
+        self.needs_memory = any("cross" in _GROUPS[name]
+                                for name, _ in self.plan)
         self.c_lm_head = self.lm_head.to(cfg.dtype)
 
     @property
@@ -220,16 +270,22 @@ class Transformer(nn.Module):
 
     def params_tree(self) -> Params:
         """The parameters as the stacked tree they came from (a copy)."""
-        groups = {}
-        for name, _count in self.plan:
-            layers = [{key: {k: p.detach() for k, p in
-                             blk.named_parameters(recurse=False)}
-                       for key, blk in layer.named_children()}
-                      for layer in self.groups[name]]
-            groups[name] = tree_map(lambda *ts: torch.stack(ts), *layers)
-        return {"embed": self.embed.detach().clone(),
-                "final_norm": self.final_norm.detach().clone(),
-                "lm_head": self.lm_head.detach().clone(), "groups": groups}
+        def stacked(layers, spec):
+            return _stack([{key: {k: p.detach() for k, p in
+                                  blk.named_parameters(recurse=False)}
+                            for key, blk in layer.named_children()}
+                           for layer in layers], spec, self.device,
+                          self.cfg.param_dtype)
+
+        out = {name: getattr(self, name).detach().clone()
+               for name in ("embed", "final_norm", "lm_head")}
+        out["groups"] = {name: stacked(self.groups[name],
+                                       self._spec["groups"][name])
+                         for name, _count in self.plan}
+        if self.cfg.is_encdec:
+            out["encoder"] = stacked(self.encoder, self._spec["encoder"])
+            out["enc_norm"] = self.enc_norm.detach().clone()
+        return out
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
@@ -238,11 +294,11 @@ class Transformer(nn.Module):
         x = self.embed[tokens].to(self.cfg.dtype)
         return scaled(x, math.sqrt(self.cfg.d_model))
 
-    def _layers(self, x, positions, cache=None):
+    def _layers(self, x, positions, cache=None, memory=None):
         for name, _count in self.plan:
             for i, layer in enumerate(self.groups[name]):
                 c = None if cache is None else _layer(cache[name], i)
-                x = layer(x, positions, c)
+                x = layer(x, positions, c, memory)
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -253,34 +309,62 @@ class Transformer(nn.Module):
         return torch.arange(s, dtype=torch.int32,
                             device=self.device)[None].expand(b, s)
 
-    def forward_hidden(self, tokens) -> torch.Tensor:
+    def encode(self, frames) -> torch.Tensor:
+        """The audio encoder: a bidirectional stack over frame embeddings
+        (B, F, D), then ``enc_norm``; the memory in the compute dtype."""
+        x = torch.as_tensor(frames, device=self.device).to(self.cfg.dtype)
+        positions = self._positions(*x.shape[:2])
+        for layer in self.encoder:
+            x = layer(x, positions)
+        return rmsnorm(x, self.enc_norm, self.cfg.rms_eps)
+
+    def _memory(self, memory, encoded: bool = False):
+        """The memory the cross-attention blocks read, in the compute
+        dtype: the audio frames encoded unless ``encoded``."""
+        if memory is None:
+            if self.needs_memory:
+                raise ValueError(f"{self.cfg.name} (family "
+                                 f"{self.cfg.family!r}) needs a memory")
+            return None
+        if self.cfg.is_encdec and not encoded:
+            return self.encode(memory)
+        return torch.as_tensor(memory, device=self.device).to(self.cfg.dtype)
+
+    def forward_hidden(self, tokens, memory=None) -> torch.Tensor:
         """Final-normed hidden states (B, S, D) of tokens (B, S)."""
         tokens = self._tokens(tokens)
         b, s = tokens.shape
-        x = self._layers(self._embed(tokens), self._positions(b, s))
+        x = self._layers(self._embed(tokens), self._positions(b, s),
+                         memory=self._memory(memory))
         return rmsnorm(x, self.final_norm, self.cfg.rms_eps)
 
-    def forward(self, tokens) -> torch.Tensor:
-        """Logits (B, S, V) in ``cfg.dtype`` of tokens (B, S)."""
-        x = self.forward_hidden(tokens)
+    def forward(self, tokens, memory=None) -> torch.Tensor:
+        """Logits (B, S, V) in ``cfg.dtype`` of tokens (B, S) (and, for
+        the vision and audio families, their memory (B, P, D))."""
+        x = self.forward_hidden(tokens, memory)
         return softcap(x @ self.c_lm_head, self.cfg.logit_softcap)
 
-    def prefill(self, cache, tokens):
+    def prefill(self, cache, tokens, memory=None):
         """Run a prompt (B, S) and write it into ``cache`` (the tail where
         a cache is shorter than the prompt).  Returns the last position's
-        logits (B, 1, V) and the cache."""
+        logits (B, 1, V), the cache and the memory the decode steps take
+        (encoded for audio; None where the family has none)."""
         tokens = self._tokens(tokens)
         b, s = tokens.shape
-        x = self._layers(self._embed(tokens), self._positions(b, s), cache)
-        return self._logits(x[:, -1:]), cache
+        memory = self._memory(memory)
+        x = self._layers(self._embed(tokens), self._positions(b, s), cache,
+                         memory)
+        return self._logits(x[:, -1:]), cache, memory
 
-    def decode_step(self, cache, token, pos):
-        """One-token decode: token (B, 1), pos (B,) int.  Local-attention
-        caches are ring buffers indexed by pos % len."""
+    def decode_step(self, cache, token, pos, memory=None):
+        """One-token decode: token (B, 1), pos (B,) int, ``memory`` as
+        ``prefill`` returned it.  Local-attention caches are ring buffers
+        indexed by pos % len."""
         token = self._tokens(token)
         positions = torch.as_tensor(pos, device=self.device).to(
             torch.int32)[:, None]
-        x = self._layers(self._embed(token), positions, cache)
+        x = self._layers(self._embed(token), positions, cache,
+                         self._memory(memory, encoded=True))
         return self._logits(x), cache
 
 
@@ -290,31 +374,43 @@ class Transformer(nn.Module):
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device="cuda", dtype=torch.bfloat16):
-    """Empty decode caches: per group and attention block, ``k``/``v``
-    (count, B, len, KV, hd) in ``dtype`` (bf16, as the JAX package keeps
-    them at every config dtype) and ``pos`` (count, B, len) int32 at
-    2^30, the empty-slot position the mask excludes.  A local-attention
-    cache holds min(max_len, local_window) entries."""
-    check_ported(cfg)
+    """Empty decode caches in the JAX ``init_cache`` tree: per group and
+    block, attention ``k``/``v`` (count, B, len, KV, hd) and ``pos``
+    (count, B, len) int32 at 2^30 (the empty-slot position the mask
+    excludes; a local-attention cache holds min(max_len, local_window)
+    entries), RG-LRU ``conv`` (count, B, W-1, width) and ``h`` (count, B,
+    width), SSD ``conv`` (count, B, W-1, d_in + 2N) and ``state`` (count,
+    B, H, P, N).  K/V and the convolution tails are in ``dtype`` (bf16,
+    as the JAX package keeps them at every config dtype), ``h`` and
+    ``state`` in f32."""
     dev = torch.device(device)
-    kv, hd = cfg.n_kv_heads, cfg.hd
+    b = batch_size
     loc = min(max_len, cfg.local_window) if cfg.local_window else max_len
+    cw = cfg.conv_width - 1
+    d_in = cfg.ssm_expand * cfg.d_model
+    p, n = cfg.ssm_head_dim, cfg.ssm_state
 
-    def attn_c(count, length):
-        shape = (count, batch_size, length)
-        return {"k": torch.zeros(shape + (kv, hd), dtype=dtype, device=dev),
-                "v": torch.zeros(shape + (kv, hd), dtype=dtype, device=dev),
-                "pos": torch.full(shape, PAD_POS, dtype=torch.int32,
-                                  device=dev)}
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
 
-    cache = {}
-    for name, count in group_plan(cfg):
-        if name == "dense":
-            cache[name] = {"attn": attn_c(count, max_len)}
-        else:
-            cache[name] = {"attn_l": attn_c(count, loc),
-                           "attn_g": attn_c(count, max_len)}
-    return cache
+    def entry(name, key, count):
+        kind = _kind(key)
+        if kind == "attn":
+            length = loc if _local(name, key) else max_len
+            shape = (count, b, length, cfg.n_kv_heads, cfg.hd)
+            return {"k": zeros(*shape), "v": zeros(*shape),
+                    "pos": torch.full((count, b, length), PAD_POS,
+                                      dtype=torch.int32, device=dev)}
+        if kind == "rec":
+            wdt = cfg.lru_width or cfg.d_model
+            return {"conv": zeros(count, b, cw, wdt),
+                    "h": zeros(count, b, wdt, dt=torch.float32)}
+        return {"conv": zeros(count, b, cw, d_in + 2 * n),
+                "state": zeros(count, b, d_in // p, p, n, dt=torch.float32)}
+
+    return {name: {key: entry(name, key, count) for key in _GROUPS[name]
+                   if _kind(key) in _CACHED}
+            for name, count in group_plan(cfg)}
 
 
 def clear_cache(cache) -> None:

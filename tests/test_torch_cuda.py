@@ -1146,7 +1146,7 @@ def test_lm_decode_matches_forward_on_the_card(cuda, arch, dtype):
     b, s = 2, 32
     toks = np.random.default_rng(2).integers(0, model.cfg.vocab, (b, s))
     cache = tfm.init_cache(model.cfg, b, 64, cuda, dtype=dtype)
-    logits_p, cache = model.prefill(cache, toks)
+    logits_p, cache, _ = model.prefill(cache, toks)
     tok = logits_p[:, -1].argmax(-1)[:, None]
     logits_d, _ = model.decode_step(cache, tok, torch.full((b,), s))
     logits_f = model.forward(np.concatenate([toks, tok.cpu().numpy()], 1))
@@ -1183,3 +1183,105 @@ def test_lm_slots_give_each_request_what_it_gets_alone(cuda):
         for g, w in zip(got, seen[rid]):
             bound = _lm_bound(w, torch.bfloat16)
             assert float((g.float() - w.float()).abs().max()) <= bound
+
+
+# ---------------------------------------------------------------------------
+# the MoE, SSM, hybrid, vision and audio families (small, f32)
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b", "mamba2-780m",
+                "recurrentgemma-2b", "llama-3.2-vision-90b",
+                "seamless-m4t-large-v2"]
+#: block -> (module, spec, the smoke config it is built for)
+FAMILY_BLOCKS = {"cross": ("CrossAttnBlock", "cross_attn_spec",
+                           "llama-3.2-vision-90b"),
+                 "moe": ("MoEBlock", "moe_spec", "qwen3-moe-30b-a3b"),
+                 "ssd": ("SSDBlock", "ssd_spec", "mamba2-780m"),
+                 "rglru": ("RGLRUBlock", "rglru_spec", "recurrentgemma-2b")}
+
+
+def _family_tree(tree, device):
+    return {k: (_family_tree(v, device) if isinstance(v, dict)
+                else v.to(device)) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("block", list(FAMILY_BLOCKS))
+def test_lm_family_block_on_the_card(cuda, block):
+    """Each new block, card against CPU on the same weights (f32): no
+    cache, then (SSD, RG-LRU) a prefill and two decodes on a cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+    cls, spec, arch = FAMILY_BLOCKS[block]
+    cfg = get_config(arch, smoke=True).replace(dtype=torch.float32,
+                                               attn_chunk=16)
+    gen = torch.Generator().manual_seed(1)
+    w = {k: torch.randn(shape, generator=gen) * 0.3
+         for k, (shape, *_) in getattr(blocks, spec)(cfg).items()}
+    x = torch.randn((2, 37, cfg.d_model), generator=gen)
+    mem = torch.randn((2, 40, cfg.d_model), generator=gen)
+    got, want = [], []
+    for device, out in ((cuda, got), ("cpu", want)):
+        blk = getattr(blocks, cls)(cfg, _family_tree(w, device))
+        xx = x.to(device)
+        if block == "cross":
+            out.append(blk(xx, mem.to(device)))
+        elif block == "moe":
+            out.append(blk(xx))
+            out.append(blk.routes)
+        else:
+            out.append(blk(xx)[0])
+            cache = _family_block_cache(block, cfg, device)
+            out.append(blk(xx[:, :35], cache)[0])
+            for t in (35, 36):
+                out.append(blk(xx[:, t:t + 1], cache)[0])
+            out.extend(cache.values())
+    for g, w_ in zip(got, want):
+        if g.dtype == torch.long:
+            assert torch.equal(g.cpu(), w_)
+        else:
+            _close(g.cpu(), w_)
+
+
+def _family_block_cache(block, cfg, device):
+    cw = cfg.conv_width - 1
+    if block == "ssd":
+        d_in = cfg.ssm_expand * cfg.d_model
+        hs = d_in // cfg.ssm_head_dim
+        return {"conv": torch.zeros((2, cw, d_in + 2 * cfg.ssm_state),
+                                    device=device),
+                "state": torch.zeros((2, hs, cfg.ssm_head_dim,
+                                      cfg.ssm_state), device=device)}
+    return {"conv": torch.zeros((2, cw, cfg.lru_width), device=device),
+            "h": torch.zeros((2, cfg.lru_width), device=device)}
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_lm_family_decode_step_on_the_card(cuda, arch):
+    """Each family at its smoke size, f32 with an f32 cache, parameters
+    made on the CPU and copied: prefill and one decode step on the card
+    against the CPU (cross-attention gates at 1, so the memory counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(arch, smoke=True).replace(dtype=torch.float32)
+    tree = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for grp in tree["groups"].values():
+        if "cross" in grp:
+            grp["cross"]["gate"].fill_(1.0)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 17))
+    mem = None
+    if cfg.family == "vlm":
+        mem = rng.standard_normal((2, cfg.num_patches, cfg.d_model))
+    elif cfg.is_encdec:
+        mem = rng.standard_normal((2, 4, cfg.d_model))
+    mem = None if mem is None else (mem * 0.02).astype(np.float32)
+    out = {}
+    for where, device in (("card", cuda), ("cpu", "cpu")):
+        model = tfm.Transformer(cfg, _family_tree(tree, device))
+        cache = tfm.init_cache(cfg, 2, 32, device, dtype=torch.float32)
+        lp, cache, memory = model.prefill(cache, toks[:, :16], mem)
+        ld, _ = model.decode_step(cache, toks[:, 16:], torch.full((2,), 16),
+                                  memory)
+        out[where] = (lp.cpu(), ld.cpu())
+    for g, w in zip(out["card"], out["cpu"]):
+        _close(g, w)

@@ -24,7 +24,9 @@ from repro_torch.interop import lm_params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.models import transformer as tfm
 
-UNPORTED = ["qwen3-moe-30b-a3b", "recurrentgemma-2b", "mamba2-780m",
+#: one architecture of each family beside the dense ones (their parity
+#: tests: tests/test_torch_lm_families_serve.py)
+FAMILIES = ["qwen3-moe-30b-a3b", "recurrentgemma-2b", "mamba2-780m",
             "llama-3.2-vision-90b", "seamless-m4t-large-v2"]
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
@@ -183,13 +185,18 @@ def test_cli_prompts_are_the_jax_clis():
     assert all(np.array_equal(a, b) for a, b in zip(out["prompts"], want))
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_cli_refuses_unported_families(arch, capsys):
-    with pytest.raises(SystemExit):
-        serve.parse_args(["--arch", arch, "--device", "cpu"])
-    assert "later LM slice" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="later LM slice"):
-        serve.ServeEngine(get_config(arch, smoke=True), 1, 8, device="cpu")
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_cli_refuses_unported_families(arch):
+    """These families were refused until their blocks were ported; now
+    the CLI takes them and a one-slot engine serves a token."""
+    args = serve.parse_args(["--arch", arch, "--device", "cpu"])
+    assert args.arch == arch and not args.fgft
+    cfg = get_config(arch, smoke=True)
+    engine = serve.ServeEngine(cfg, 1, 8, device="cpu")
+    tok = engine.prefill_slot(0, np.arange(4, dtype=np.int32),
+                              np.random.default_rng(0))
+    assert 0 <= tok < cfg.vocab
+    assert engine.decode(np.array([tok], np.int32)).shape == (1,)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma2-27b"])

@@ -27,8 +27,9 @@ from repro_torch.models import blocks, common
 from repro_torch.models import transformer as tfm
 
 PORTED = ["qwen2-1.5b", "qwen2-7b", "glm4-9b", "gemma2-27b"]
-#: one architecture of each family that is not ported yet
-UNPORTED = ["qwen3-moe-30b-a3b", "recurrentgemma-2b", "mamba2-780m",
+#: one architecture of each of the other families (MoE, hybrid, SSM,
+#: vision, audio; their parity tests: tests/test_torch_lm_families.py)
+FAMILIES = ["qwen3-moe-30b-a3b", "recurrentgemma-2b", "mamba2-780m",
             "llama-3.2-vision-90b", "seamless-m4t-large-v2"]
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -292,7 +293,7 @@ def test_forward_prefill_decode_match_jax(arch, dtype):
     tcache = tfm.init_cache(tcfg, b, 32, device="cpu", dtype=tcfg.dtype)
     jl, jcache, _ = jtfm.prefill(jparams, jcfg, jcache,
                                  {"tokens": toks[:, :s]})
-    tl, tcache = model.prefill(tcache, toks[:, :s])
+    tl, tcache, _ = model.prefill(tcache, toks[:, :s])
     _close(tl, jl, tol)
     for t in range(s, s + 3):
         db = {"token": toks[:, t:t + 1], "pos": np.full((b,), t, np.int32)}
@@ -333,7 +334,7 @@ def test_decode_matches_forward(arch):
     b, s = 2, 32
     toks = _batch(cfg, b, s, seed=2)
     cache = tfm.init_cache(cfg, b, 64, device="cpu")
-    logits_p, cache = model.prefill(cache, toks)
+    logits_p, cache, _ = model.prefill(cache, toks)
     tok = logits_p[:, -1].argmax(-1)[:, None]
     logits_d, _ = model.decode_step(cache, tok, torch.full((b,), s))
     logits_f = model.forward(np.concatenate([toks, tok.numpy()], 1))
@@ -391,11 +392,21 @@ def test_registry_and_shapes_equal_jax():
         jconfigs.cells(jconfigs.ARCH_NAMES)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
+@pytest.mark.parametrize("arch", FAMILIES)
 def test_unported_families_are_refused(arch):
+    """These families were refused until their blocks were ported; now
+    the parameter spec, parameters and cache build on the CPU in the JAX
+    package's trees."""
+    jcfg = jconfigs.get_config(arch, smoke=True)
     cfg = configs.get_config(arch, smoke=True)
-    for make in (lambda: tfm.param_spec(cfg),
-                 lambda: tfm.init_params(cfg, device="cpu"),
-                 lambda: tfm.init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="later LM slice"):
-            make()
+    spec = tfm.param_spec(cfg)
+    params = tfm.init_params(cfg, device="cpu")
+    want = jax.tree.map(lambda a: a.shape,
+                        jtfm.init_params(jcfg, abstract=True)[0])
+    got = tfm.tree_map(lambda t: tuple(t.shape), params)
+    assert got == want
+    assert tfm.tree_map(lambda leaf: leaf.shape, spec) == want
+    cache = tfm.init_cache(cfg, 1, 8, device="cpu")
+    jcache = jtfm.init_cache(jcfg, 1, 8, abstract=True)[0]
+    assert tfm.tree_map(lambda t: (tuple(t.shape), str(t.dtype)), cache) == \
+        jax.tree.map(lambda a: (a.shape, f"torch.{a.dtype}"), jcache)

@@ -161,7 +161,7 @@ def test_cli_serves_bf16_tables_on_cpu(capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--fgft", "--dynamic", "--drift-thresholds", "1,2"],
      "three comma-separated floats"),
-    (["--arch", "qwen3-moe-30b-a3b"], "later LM slice"),
+    (["--arch", "qwen3-moe"], "invalid choice"),
     (["--fgft", "--serve-async", "--max-batch", "0"], "--max-batch"),
     (["--fgft", "--filter", "nosuch"], "unknown filter"),
     (["--graphs", "2"], "--arch is required"),
