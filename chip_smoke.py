@@ -54,7 +54,8 @@ each), so that the run stays well inside its time limit:
              graph (delta = sqrt(relative error); the worst ratio is
              printed).
 4. fgft    — the single-graph path at the same width: ``build_fgft`` on one
-             community graph (n = 256, g = MAIN["single_g"] = 2048), then ``FGFT.analysis``,
+             community graph (n = 256, g = MAIN["single_g"] = 2048, n_iter
+             = 1), then ``FGFT.analysis``,
              ``synthesis``, ``project`` and the same bank through
              ``ApplyPlan(mode="bank")`` (the single-matrix entry points,
              launched as B = 1).  Counters are zeroed just before and read
@@ -80,9 +81,10 @@ each), so that the run stays well inside its time limit:
              filter the operator kernel, bitwise.
 5b. main-ragged — the heterogeneous fleet through the CLI: ``serve --fgft
              --ragged --graphs 64 --graph-sizes 64,100,180,256 --transforms
-             4096`` (16 community graphs of each size in buckets of width 64,
-             128 and 256 with 16, 16 and 32 graphs, g = 768, 1792 and 4096:
-             2 w log2 w, the main path's g at the largest width), R = 256,
+             2048`` (16 community graphs of each size in buckets of width 64,
+             128 and 256 with 16, 16 and 32 graphs, g = 384, 896 and 2048:
+             w log2 w, half the main path's g at the largest width, for the
+             run's time limit), R = 256,
              the same tiers.  Counters are zeroed just before and read just
              after; both batched G entry points must have launched.  Each
              graph's relative error equals its dense recomputation on the
@@ -224,7 +226,7 @@ each), so that the run stays well inside its time limit:
              (decaying spectrum, as examples/compress_projection.py builds
              one) at n = 1024, the d_model of seamless-m4t-large-v2 (the
              narrowest config in src/repro/configs/), g_orth = g_sym =
-             2048, n_iter = 2; ``compressed_linear_apply`` over 4096 token
+             2048, n_iter = 1; ``compressed_linear_apply`` over 4096 token
              rows, counters zeroed just before three calls and read just
              after: exactly one ``sym_operator_apply`` and one
              ``butterfly_apply`` launch a call.  The output equals its plain
@@ -308,8 +310,35 @@ each), so that the run stays well inside its time limit:
              where the card's and the CPU's top-k sets all agree.  None
              of the 12 entry points may launch (``lm_families_launches``
              of each ``kernels`` row).  The phase's seconds are printed.
+5j. main-train — the LM training path (after [main-lm-families]; TRAIN;
+             random weights from a seed): a. ``train --arch qwen2-1.5b
+             --steps 8 --seq-len 256 --global-batch 8 --warmup 2
+             --log-every 2 --ckpt-every 1000`` at full size through
+             ``train.run``, the checkpoint under ``build/`` (removed
+             after): finite logged losses, the median step ms of steps
+             2-8 and tok/s, one more step's kernel launches and
+             device-busy ms (torch.profiler) beside its FLOP bound (6 N
+             T, N without the embedding table, a gather: forward and
+             backward, at the card's dense bf16 rate; 8 N T with the
+             remat recompute), ``max_memory_allocated``, the final
+             checkpoint's GB and seconds to commit.  b. 2 layers at full
+             width on a repeated motif, 30 steps of AdamW at lr 3e-3: the
+             last loss at least 0.5 under the first (the JAX package's
+             tests/test_models.py gate).  c. qwen2-1.5b and mamba2-780m at
+             full width, 2 layers, f32, TF32 off, B 2 x S 64: the loss,
+             every gradient leaf and the parameters after one AdamW update
+             on the card against the CPU within 1e-4 x max(1, max|.|) (a
+             gradient leaf within 1e-4 x max(1e-3, max|g|), its own
+             scale).  d.
+             4 layers at full width, ``remat_block`` 4 against no remat:
+             the gradients within the same bound (and whether bitwise),
+             both peaks printed.  e. the ``--smoke`` CLI on the card: 3
+             steps and ``--resume auto`` to 6 against 6 at once (the
+             parameters bitwise), and ``--grad-compress-ratio 0.25``.
+             None of the 12 entry points may launch (``train_launches``
+             of each ``kernels`` row).  The phase's seconds are printed.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
-             graph (n = 256, g = 2048, n_iter = 3), then analysis, synthesis,
+             graph (n = 256, g = 2048, n_iter = 2), then analysis, synthesis,
              project and the bank; ``shear_apply``, ``gen_operator_apply``
              and ``gen_filter_bank_apply`` must have launched; relative
              error < 0.05.
@@ -358,8 +387,8 @@ signal (``signal``); launches per path: ``launches`` on the batched or
 single-graph path, on [main-bf16] for a bf16-table form and on
 [main-bf16x] for a bf16-signal form, ``ragged_launches``,
 ``dynamic_launches``, ``async_launches``, ``core_launches``,
-``lm_launches``, ``lm_families_launches``), the card's name and power
-limit, and as the last line
+``lm_launches``, ``lm_families_launches``, ``train_launches``), the
+card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -390,11 +419,12 @@ MAIN = dict(graphs=64, n=256, signals=256, steps=5,
             tiers="full:1.0,balanced:0.5,draft:0.25",
             filters="heat,tikhonov,wavelets:4", single_g=2048)
 #: the heterogeneous fleet of [main-ragged]: sizes cycled over the graphs,
-#: the largest bucket at the main path's width and g; the directed check's
-#: small fleet
-RAGGED = dict(graphs=64, sizes="64,100,180,256", transforms=4096,
+#: the largest bucket at the main path's width and half its g (its fits
+#: took 146.6 s of a 1131.5 s run at 4096 on a slow host); the directed
+#: check's small fleet
+RAGGED = dict(graphs=64, sizes="64,100,180,256", transforms=2048,
               buckets={64: 16, 128: 16, 256: 32},
-              g={64: 768, 128: 1792, 256: 4096},
+              g={64: 384, 128: 896, 256: 2048},
               directed_sizes="12,20,32", directed_graphs=6)
 #: the evolving fleet of [main-dynamic]: the main path's fleet under the
 #: CLI's update rounds, then forced rounds at 10x the churn, a small fleet
@@ -1138,7 +1168,7 @@ def phase_fgft(errs) -> dict:
     x = torch.randn((MAIN["signals"], n), generator=gen, device=DEVICE)
     launcher.reset_launch_counts()
     t0 = time.perf_counter()
-    f = build_fgft(lap, g, n_iter=3, device=DEVICE)
+    f = build_fgft(lap, g, n_iter=1, device=DEVICE)
     fit_s = time.perf_counter() - t0
     xh = f.analysis(x)
     xr = f.synthesis(xh)
@@ -1573,7 +1603,7 @@ def phase_fgft_directed(errs) -> dict:
     x = torch.randn((MAIN["signals"], n), generator=gen, device=DEVICE)
     launcher.reset_launch_counts()
     t0 = time.perf_counter()
-    f = build_fgft(lap, g, directed=True, n_iter=3, device=DEVICE)
+    f = build_fgft(lap, g, directed=True, n_iter=2, device=DEVICE)
     fit_s = time.perf_counter() - t0
     xh = f.analysis(x)
     xr = f.synthesis(xh)
@@ -2972,8 +3002,9 @@ def phase_main_bf16x(errs, main, filt, single, main_dir,
 #: token rows, the butterfly layer and gradient compression at that width,
 #: and the tile autotuner on [main]'s and [main-filter]'s plans.  The
 #: projection's chains take g = 2048 (2n), not 4096: at 4096 its two
-#: eager fits took 48-77 s of a run held to 1200 s
-CORE = dict(graphs=4, n=1024, g_orth=2048, g_sym=2048, n_iter=2,
+#: eager fits took 48-77 s of a run held to 1200 s; and one polish pass
+#: (n_iter 2 took 32.4 s on a slow host)
+CORE = dict(graphs=4, n=1024, g_orth=2048, g_sym=2048, n_iter=1,
             tokens=4096, layer_rows=1024, leaf=(1024, 4096), ratio=0.125,
             candidates=(32, 64, 128, 256), calls=3)
 
@@ -3455,18 +3486,21 @@ def lm_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
-def decode_kernels(engine, tokens, steps: int = 3) -> tuple:
-    """Kernel launches and device ms a decode step (torch.profiler over
-    ``steps`` steps), and the steps' wall ms."""
+def kernel_trace(fn, steps: int, host: bool = True) -> tuple:
+    """Kernel launches and device-busy ms a call of ``fn`` (torch.profiler
+    over ``steps`` calls, the kernel events of its Chrome trace; ``host``:
+    the host's operator events traced too), and the calls' wall ms."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            engine.decode(tokens)
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     fd, path = tempfile.mkstemp(suffix=".json", dir=ROOT / "build")
@@ -3480,6 +3514,12 @@ def decode_kernels(engine, tokens, steps: int = 3) -> tuple:
     busy_us = sum(float(ev.get("dur", 0.0)) for ev in kernels)
     return (len(kernels) / steps, busy_us / 1e3 / steps,
             wall * 1e3 / steps)
+
+
+def decode_kernels(engine, tokens, steps: int = 3) -> tuple:
+    """Kernel launches and device ms a decode step (torch.profiler over
+    ``steps`` steps), and the steps' wall ms."""
+    return kernel_trace(lambda: engine.decode(tokens), steps)
 
 
 def decode_bytes(engine) -> int:
@@ -4091,6 +4131,300 @@ def phase_main_lm_families(card) -> dict:
     return {"launches": launches, "cli": cli, "consistency": cons,
             "slots": slots, "cpu": cpu, "duality": dual, "peaks": peaks,
             "phase_s": phase_s, "part_s": secs}
+
+
+#: [main-train]: the LM training path.  a: the CLI at full size (the
+#: checkpoint under build/); b: learning a repeated motif (the JAX test's
+#: gate); c: card against CPU at full width; d: remat against none; e: the
+#: smoke CLI's resume and compression on the card
+TRAIN = dict(arch="qwen2-1.5b",
+             cli=["--steps", "8", "--seq-len", "256", "--global-batch", "8",
+                  "--warmup", "2", "--log-every", "2", "--ckpt-every",
+                  "1000"],
+             learn=dict(layers=2, steps=30, lr=3e-3, batch=4, seq=64,
+                        motif=8, drop=0.5),
+             cpu=dict(archs=("qwen2-1.5b", "mamba2-780m"), layers=2,
+                      batch=2, seq=64, lr=3e-4),
+             remat=dict(layers=4, block=4, batch=8, seq=256),
+             smoke=dict(steps=6, cut=3),
+             tol=1e-4, grad_floor=1e-3)
+
+
+def train_cli(prefix: str, card) -> dict:
+    """a: ``train --arch`` at full size through ``train.run``."""
+    import re
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", TRAIN["arch"], *TRAIN["cli"], "--ckpt-dir", str(ckpt)]
+    args = train.parse_args(argv)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        out = train.run(args)
+    text = printed.getvalue()
+    sys.stdout.write(text)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in re.findall(r" loss=(\S+) ", text)]
+    check(len(losses) == args.steps // args.log_every
+          and all(np.isfinite(losses)) and np.isfinite(out["final_loss"]),
+          f"{prefix} a. logged losses {losses}, final {out['final_loss']}")
+    step_ms = statistics.median(out["step_s"][1:]) * 1e3
+    tokens = args.global_batch * args.seq_len
+    state, bundle = out["state"], out["bundle"]
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    step_dir = ckpt / f"step_{args.steps:09d}"
+    ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    batch = SyntheticLM(get_config(args.arch), args.seq_len,
+                        args.global_batch, seed=args.seed).batch(args.steps)
+    n_kernels, busy_ms, wall_ms = kernel_trace(
+        lambda: bundle.fn(state, batch), 1, host=False)
+    # products only: the embedding table is a gather; the step's required
+    # work is 6 N T, the remat recompute (layers and loss chunks) 2 N T more
+    n_mm = n_params - state.params["embed"].numel()
+    flops = 6 * n_mm * tokens
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    remat_ms = 2 * n_mm * tokens / BF16_FLOPS_PER_S * 1e3
+    log(f"{prefix} a. train {' '.join(argv[:-2])}: losses {losses} (steps "
+        f"{args.log_every}, {2 * args.log_every}, ...), final "
+        f"{out['final_loss']:.4f}; median step {step_ms:.2f} ms (steps 2-"
+        f"{args.steps}, first {out['step_s'][0] * 1e3:.1f} ms), "
+        f"{tokens / step_ms * 1e3:.1f} tok/s; max_memory_allocated "
+        f"{peak / 2 ** 30:.2f} GiB [{card}]")
+    log(f"{prefix} a. one step ({n_params / 1e9:.4f} B parameters, "
+        f"{tokens} tokens): {n_kernels:.0f} kernel launches, device busy "
+        f"{busy_ms:.2f} ms of {wall_ms:.2f} ms wall (torch.profiler, "
+        f"kernels only); FLOP "
+        f"bound {bound_ms:.2f} ms (6 N T = {flops / 1e12:.2f} TFLOP, N = "
+        f"{n_mm / 1e9:.4f} B without the embedding table, at "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s dense bf16: reckoned, not "
+        f"measured), {bound_ms + remat_ms:.2f} ms with the remat "
+        f"recompute (8 N T) [{card}]")
+    log(f"{prefix} a. final checkpoint (step {args.steps}): "
+        f"{ckpt_bytes / 1e9:.2f} GB in {out['save_s']:.2f} s from the save "
+        f"call to its commit ({ckpt_bytes / 1e9 / out['save_s']:.2f} GB/s, "
+        f"the device-to-host copy included) [{card}]")
+    shutil.rmtree(ckpt)
+    return {"losses": losses, "final_loss": out["final_loss"],
+            "step_ms": step_ms, "tok_s": tokens / step_ms * 1e3,
+            "peak": peak, "launches_a_step": n_kernels, "busy_ms": busy_ms,
+            "wall_ms": wall_ms, "bound_ms": bound_ms,
+            "remat_bound_ms": bound_ms + remat_ms, "params": n_params,
+            "ckpt_gb": ckpt_bytes / 1e9, "save_s": out["save_s"]}
+
+
+def train_learns(prefix: str, card) -> dict:
+    """b: 2 layers at full width learn a repeated motif."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    c = TRAIN["learn"]
+    cfg = get_config(TRAIN["arch"]).replace(n_layers=c["layers"])
+    params = tfm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        3), DEVICE)
+    model = tfm.Transformer(cfg, params, live=True)
+    opt = adamw.init(params)
+    motif = np.random.default_rng(3).integers(0, cfg.vocab, c["motif"])
+    reps = -(-c["seq"] // c["motif"])
+    batch = {"tokens": np.tile(motif, (c["batch"], reps))[:, :c["seq"]]}
+    losses = []
+    for _ in range(c["steps"]):
+        (loss, _), grads = tfm.value_and_grad(model, cfg, batch)
+        _, opt, _ = adamw.update(grads, opt, params, lr=c["lr"],
+                                 weight_decay=0.0)
+        losses.append(loss)
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    log(f"{prefix} b. {cfg.n_layers} layers at full width, {c['steps']} "
+        f"steps at lr {c['lr']} on a repeated {c['motif']}-token motif "
+        f"(B {c['batch']} x S {c['seq']}): loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (every 10th: "
+        f"{[round(v, 4) for v in losses[::10]]}) [{card}]")
+    check(losses[-1] < losses[0] - c["drop"], f"{prefix} b. loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}: not {c['drop']} lower")
+    return {"first": losses[0], "last": losses[-1]}
+
+
+def worst_ratio(got, want, tol: float, floor: float = 1.0) -> tuple:
+    """(max over leaves of max|d| / (tol max(floor, max|want|)), leaves)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        bound = tol * max(floor, float(w.float().abs().max()))
+        worst = max(worst, float((g.float() - w.float()).abs().max()) / bound)
+    return worst, len(want)
+
+
+def train_card_vs_cpu(prefix: str, card) -> dict:
+    """c: loss, gradients and one update, card against CPU, f32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    c = TRAIN["cpu"]
+    out = {}
+    for arch in c["archs"]:
+        cfg = get_config(arch).replace(n_layers=c["layers"],
+                                       dtype=torch.float32)
+        tree = tfm.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(0), DEVICE)
+        on = {"card": tree, "cpu": tfm.tree_map(
+            lambda t: t.to("cpu", copy=True), tree)}
+        batch = SyntheticLM(cfg, c["seq"], c["batch"], seed=5).batch(0)
+        got = {}
+        for where, params in on.items():
+            model = tfm.Transformer(cfg, params, live=True)
+            (loss, _), grads = tfm.value_and_grad(model, cfg, batch)
+            host = [g.cpu() for g in tree_leaves(grads)]
+            opt = adamw.init(params)
+            lr = adamw.warmup_cosine(opt.step, peak_lr=c["lr"], warmup=0,
+                                     total=10)
+            adamw.update(grads, opt, params, lr=lr)
+            got[where] = (loss.cpu(), host,
+                          [p.cpu() for p in tree_leaves(params)])
+            del model, grads, opt
+        del on, tree
+        torch.cuda.empty_cache()
+        r_loss, _ = worst_ratio([got["card"][0]], [got["cpu"][0]],
+                                TRAIN["tol"])
+        r_grad, n = worst_ratio(got["card"][1], got["cpu"][1], TRAIN["tol"],
+                                TRAIN["grad_floor"])
+        r_par, _ = worst_ratio(got["card"][2], got["cpu"][2], TRAIN["tol"])
+        log(f"{prefix} c. {arch} (f32, {cfg.n_layers} layers at full width, "
+            f"B {c['batch']} x S {c['seq']}, TF32 off) card vs CPU: loss "
+            f"{float(got['card'][0]):.6f} vs {float(got['cpu'][0]):.6f}; "
+            f"max|d| / bound: loss {r_loss:.3e}, {n} gradient leaves "
+            f"{r_grad:.3e}, parameters after one AdamW update (lr "
+            f"{c['lr']}) {r_par:.3e} (bound {TRAIN['tol']} x max(1, "
+            f"max|.|) a leaf, for a gradient leaf {TRAIN['tol']} x max("
+            f"{TRAIN['grad_floor']}, max|g|)) [{card}]")
+        check(max(r_loss, r_grad, r_par) <= 1.0, f"{prefix} c. {arch}: "
+              f"card vs CPU over the bound ({r_loss}, {r_grad}, {r_par})")
+        out[arch] = {"loss": r_loss, "grads": r_grad, "params": r_par}
+    return out
+
+
+def train_remat(prefix: str, card) -> dict:
+    """d: nested remat blocks against no remat at full width."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import tree_leaves
+    c = TRAIN["remat"]
+    cfg = get_config(TRAIN["arch"]).replace(n_layers=c["layers"],
+                                            remat_block=c["block"])
+    params = tfm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        6), DEVICE)
+    model = tfm.Transformer(cfg, params, live=True)
+    batch = SyntheticLM(cfg, c["seq"], c["batch"], seed=6).batch(0)
+    grads, peaks, ms = {}, {}, {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tfm.value_and_grad(model, cfg, batch, remat=remat)
+        torch.cuda.synchronize()
+        ms[remat] = (time.perf_counter() - t0) * 1e3
+        peaks[remat] = torch.cuda.max_memory_allocated() - base
+        grads[remat] = [g.clone() for g in tree_leaves(model.grads)]
+    same = sum(torch.equal(a, b) for a, b in zip(grads[True], grads[False]))
+    ratio, n = worst_ratio(grads[True], grads[False], TRAIN["tol"],
+                           TRAIN["grad_floor"])
+    log(f"{prefix} d. {c['layers']} layers at full width, B {c['batch']} x "
+        f"S {c['seq']}, {str(cfg.dtype).split('.')[-1]}: remat_block "
+        f"{c['block']} against no remat: {same} of {n} gradient leaves "
+        f"bitwise, max|d| / bound {ratio:.3e}; peak above the state "
+        f"{peaks[True] / 2 ** 30:.3f} GiB with remat, "
+        f"{peaks[False] / 2 ** 30:.3f} GiB without; {ms[True]:.1f} / "
+        f"{ms[False]:.1f} ms (one call each, the first warm-up included) "
+        f"[{card}]")
+    check(ratio <= 1.0, f"{prefix} d. remat changed the gradients "
+          f"({ratio:.3e} of the bound)")
+    return {"bitwise": same, "leaves": n, "ratio": ratio,
+            "peak_remat": peaks[True], "peak_plain": peaks[False]}
+
+
+def train_smoke(prefix: str, card) -> dict:
+    """e: the smoke CLI on the card, resumed and compressed."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+    c = TRAIN["smoke"]
+    root = ROOT / "build" / "train_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(name, n, *extra):
+        argv = ["--arch", TRAIN["arch"], "--smoke", "--steps", str(n),
+                "--seq-len", "32", "--global-batch", "4", "--log-every",
+                "3", "--ckpt-dir", str(root / name), *extra]
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            out = train.run(train.parse_args(argv))
+        return out, printed.getvalue()
+
+    run("a", c["cut"])
+    resumed, text = run("a", c["steps"], "--resume", "auto")
+    whole, _ = run("b", c["steps"])
+    check(f"resumed from step {c['cut']}" in text,
+          f"{prefix} e. no resume line")
+    same = [torch.equal(a, b) for a, b in zip(
+        tree_leaves(resumed["state"]), tree_leaves(whole["state"]))]
+    comp, _ = run("c", 4, "--grad-compress-ratio", "0.25")
+    ef = tree_leaves(comp["state"].ef_err)
+    shutil.rmtree(root)
+    log(f"{prefix} e. --smoke: {c['cut']} steps, --resume auto to "
+        f"{c['steps']}, against {c['steps']} at once: final loss "
+        f"{resumed['final_loss']:.6f} vs {whole['final_loss']:.6f}, "
+        f"{sum(same)} of {len(same)} state leaves bitwise; "
+        f"--grad-compress-ratio 0.25: final loss {comp['final_loss']:.4f}, "
+        f"{len(ef)} bf16 error-feedback buffers [{card}]")
+    check(all(same) and resumed["final_loss"] == whole["final_loss"],
+          f"{prefix} e. the resumed run differs from the uninterrupted one")
+    check(np.isfinite(comp["final_loss"]) and ef
+          and all(e.dtype == torch.bfloat16 for e in ef),
+          f"{prefix} e. the compressed run: {comp['final_loss']}")
+    return {"resumed": resumed["final_loss"], "whole": whole["final_loss"],
+            "compressed": comp["final_loss"]}
+
+
+def phase_main_train(card) -> dict:
+    """[main-train]: the LM training path (TRAIN)."""
+    import torch
+    from repro_torch.kernels import launcher
+    prefix = "[main-train]"
+    t_phase = time.perf_counter()
+    secs = {}
+    launcher.reset_launch_counts()
+    out = {}
+    for part, fn in (("a", train_cli), ("b", train_learns),
+                     ("c", train_card_vs_cpu), ("d", train_remat),
+                     ("e", train_smoke)):
+        t0 = time.perf_counter()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out[part] = fn(prefix, card)
+        torch.cuda.empty_cache()
+        secs[part] = time.perf_counter() - t0
+    launches = launcher.entry_launch_counts()
+    check(not any(launches.values()), f"{prefix} launched {launches}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"{prefix} {phase_s:.1f}s in all ("
+        + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
+        + f"); none of the 12 entry points launched [{card}]")
+    return {"launches": launches, **out, "phase_s": phase_s,
+            "part_s": secs}
 
 
 #: the async front end of [main-async]: R-row requests from closed-loop
@@ -4890,6 +5224,7 @@ def main() -> int:
                            single_dir)
     lm = phase_main_lm(card)
     lm_families = phase_main_lm_families(card)
+    trained = phase_main_train(card)
     # phase 7 for the bf16 forms, then for the bf16-signal forms on f32
     # and on bf16 tables
     for at in (("bf16", bf16["launches"]),
@@ -4920,6 +5255,7 @@ def main() -> int:
         row["lm_launches"] = lm["launches"].get(row["entry"], 0)
         row["lm_families_launches"] = lm_families["launches"].get(
             row["entry"], 0)
+        row["train_launches"] = trained["launches"].get(row["entry"], 0)
         row["max_abs_err"] = errs[row["entry"]]
     if args.baseline:
         turns = phase_turns(args.baseline, main_rec, single, main_dir,

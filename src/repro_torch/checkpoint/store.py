@@ -91,9 +91,32 @@ def _unflatten(tree, leaves):
 
 
 def _host(leaf) -> np.ndarray:
+    """A leaf as a host array; a bf16 tensor as its raw 2-byte words
+    (numpy ``V2``), as ``np.savez`` writes a JAX bf16 array."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    """The manifest's dtype string: numpy's, "bfloat16" for bf16 words."""
+    return "bfloat16" if arr.dtype == np.dtype("V2") else str(arr.dtype)
+
+
+def _itemsize(dtype: str) -> int:
+    return 2 if dtype == "bfloat16" else np.dtype(dtype).itemsize
+
+
+def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A saved leaf as a CPU tensor: a "bfloat16" leaf's raw words (``V2``,
+    from either package) as bf16."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.array(arr).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
 
 
 def _step_dir(directory: pathlib.Path, step: int) -> pathlib.Path:
@@ -133,7 +156,7 @@ def save_checkpoint(directory, step: int, state, *,
         k = shards if (shards > 1 and arr.ndim >= 1
                        and arr.shape[0] >= shards) else 1
         entry = {"path": path, "key": key, "shape": list(arr.shape),
-                 "dtype": str(arr.dtype)}
+                 "dtype": _dtype_name(arr)}
         if k > 1:
             entry["shards"] = k
             for s, part in enumerate(np.array_split(arr, k, axis=0)):
@@ -155,7 +178,7 @@ def save_checkpoint(directory, step: int, state, *,
         args={"step": int(step), "leaves": len(manifest["leaves"]),
               "shards": n_files,
               "bytes": int(sum(int(np.prod(e["shape"] or [1]))
-                               * np.dtype(e["dtype"]).itemsize
+                               * _itemsize(e["dtype"])
                                for e in manifest["leaves"]))})
     return final
 
@@ -195,13 +218,15 @@ def read_metadata(directory, step: Optional[int] = None) -> dict:
 
 
 def restore_checkpoint(directory, state_like, *,
-                       step: Optional[int] = None):
+                       step: Optional[int] = None, map_location=None):
     """Restore into the structure of ``state_like``.
 
     Each leaf comes back as a tensor with the dtype and on the device of
     its ``state_like`` leaf (a numpy ``like`` leaf: its dtype, on the
-    CPU).  Returns ``(state, step, metadata)``; a leaf path the
-    checkpoint lacks raises ``KeyError``."""
+    CPU); ``map_location`` overrides the tensor leaves' device (for a
+    ``meta`` state, as ``abstract_train_state`` gives).  Returns
+    ``(state, step, metadata)``; a leaf path the checkpoint lacks raises
+    ``KeyError``."""
     tracer = obs.default_tracer()
     t_start = tracer.now()
     directory = pathlib.Path(directory)
@@ -222,8 +247,10 @@ def restore_checkpoint(directory, state_like, *,
             arr = (files[0][entry["key"]] if k == 1 else np.concatenate(
                 [files[s][entry["key"]] for s in range(k)], axis=0))
             if isinstance(like, torch.Tensor):
-                leaf = torch.from_numpy(np.array(arr)).to(
-                    device=like.device, dtype=like.dtype)
+                leaf = _tensor(arr, entry["dtype"]).to(
+                    device=(like.device if map_location is None
+                            else map_location),
+                    dtype=like.dtype)
             else:
                 want = getattr(like, "dtype", arr.dtype)
                 leaf = torch.from_numpy(np.array(arr, dtype=want))
@@ -256,7 +283,10 @@ class CheckpointManager:
     def save(self, step: int, state, metadata: Optional[dict] = None,
              blocking: bool = False):
         self.wait()
-        leaves = iter([_host(leaf).copy() for _, leaf in _tree_paths(state)])
+        # one host copy of each leaf (a device tensor's ``_host`` is one)
+        leaves = iter([_host(leaf) if isinstance(leaf, torch.Tensor)
+                       and leaf.device.type != "cpu" else _host(leaf).copy()
+                       for _, leaf in _tree_paths(state)])
         host_state = _unflatten(state, leaves)
 
         def work():
@@ -293,5 +323,6 @@ class CheckpointManager:
             (self.directory / f"step_{s:09d}.COMMITTED").unlink(
                 missing_ok=True)
 
-    def restore_latest(self, state_like):
-        return restore_checkpoint(self.directory, state_like)
+    def restore_latest(self, state_like, map_location=None):
+        return restore_checkpoint(self.directory, state_like,
+                                  map_location=map_location)

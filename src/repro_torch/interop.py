@@ -20,6 +20,9 @@ And for the LM scaffold: ``lm_params_from_numpy`` turns the JAX
 parameter tree, and ``lm_cache_from_numpy`` a JAX decode cache into the
 port's.  The port keeps the JAX layouts (``wq`` (d, h, hd), ``wo``
 (h, hd, d), ...), so each leaf is a copy, not a transpose.
+``train_state_from_numpy`` and ``train_state_to_numpy`` carry a whole
+train state (parameters, the AdamW step and moments, the error-feedback
+buffers) across, both ways.
 """
 from __future__ import annotations
 
@@ -35,7 +38,9 @@ from repro_torch.core.fastlinear import (ButterflyParams, CompressedLinear,
 from repro_torch.core.types import GFactors, TFactors
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import ModelConfig
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.compress import CompressSpec
+from repro_torch.runtime.steps import TrainState
 
 #: kind -> (factor container, its int32 fields; the others are f32)
 _LAYOUT = {"sym": (GFactors, ("i", "j")),
@@ -189,3 +194,59 @@ def lm_cache_from_numpy(cfg: ModelConfig, tree, device="cuda"):
                         tfm.init_cache(cfg, b, length, device="meta"))
     tfm._check_tree(cache, spec)
     return cache
+
+
+def _field(tree, name):
+    return tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
+
+
+def train_state_from_numpy(cfg: ModelConfig, tree,
+                           device="cuda") -> TrainState:
+    """The port's ``TrainState`` from a JAX one with numpy leaves
+    (``jax.tree.map(np.asarray, state)``) or the same as nested dicts
+    (``train_state_to_numpy``'s): ``params`` (as
+    ``lm_params_from_numpy`` takes them), ``opt`` with ``step`` (int32),
+    ``mu`` and ``nu`` (each leaf's dtype kept: f32 or bf16 moments), and
+    ``ef_err`` (bf16 error-feedback buffers, or None)."""
+    params = lm_params_from_numpy(cfg, _field(tree, "params"), device)
+    opt = _field(tree, "opt")
+
+    def moments(name):
+        out = tfm.tree_map(lambda a: _leaf(a, device), dict(_field(opt,
+                                                                   name)))
+        tfm._check_tree(out, tfm.param_spec(cfg))
+        return out
+
+    step = torch.tensor(int(np.asarray(_field(opt, "step"))),
+                        dtype=torch.int32, device=torch.device(device))
+    ef = _field(tree, "ef_err")
+    if ef is not None:
+        ef = tfm.tree_map(lambda a: _leaf(a, device), dict(ef))
+        tfm._check_tree(ef, tfm.param_spec(cfg))
+    return TrainState(params, AdamWState(step, moments("mu"),
+                                         moments("nu")), ef)
+
+
+def _host_leaf(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; bf16 as ``ml_dtypes.bfloat16`` where
+    that package is loaded (the JAX package loads it), else f32."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy().copy()
+    try:
+        bf16 = np.dtype("bfloat16")
+    except TypeError:
+        return t.float().numpy()
+    return t.view(torch.int16).numpy().copy().view(bf16)
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """A port ``TrainState`` as nested dicts of numpy arrays:
+    {"params", "opt": {"step", "mu", "nu"}, "ef_err"}."""
+    def host(tree):
+        return None if tree is None else tfm.tree_map(_host_leaf, tree)
+
+    return {"params": host(state.params),
+            "opt": {"step": np.asarray(int(state.opt.step), np.int32),
+                    "mu": host(state.opt.mu), "nu": host(state.opt.nu)},
+            "ef_err": host(state.ef_err)}

@@ -4,11 +4,13 @@ and RG-LRU.
 Each block is an ``nn.Module`` over one layer's parameters, in the JAX
 package's layouts (``wq`` (d, h, hd), ``wo`` (h, hd, d), ``w_gate``
 (d, f), ...), so that weights carry across by a copy.  The parameters
-stay in ``cfg.param_dtype``; ``cast_weights`` makes the compute-dtype
-copies the products read once, when the weights are installed.  The
-JAX package casts each weight on every call (``w.astype(h.dtype)``); a
-cast is elementwise, so casting once gives the same bits, and an eager
-decode step does not rewrite every weight.
+stay in ``cfg.param_dtype``; for serving, ``cast_weights`` makes the
+compute-dtype copies the products read once, when the weights are
+installed.  The JAX package casts each weight on every call
+(``w.astype(h.dtype)``); a cast is elementwise, so casting once gives
+the same bits, and an eager decode step does not rewrite every weight.
+A block built ``live`` (training) casts in the graph at every call
+instead, from parameters that take gradients.
 
 ``<block>_spec`` gives each block's leaves as (shape, init) or (shape,
 init, scale) for ``transformer.init_params``.
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import functools
 import math
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -33,9 +36,38 @@ from .common import ModelConfig, apply_rope, attention, rmsnorm, rope_tables
 Spec = Dict[str, Tuple[tuple, str]]
 
 
-def _params(module: nn.Module, w: Dict[str, torch.Tensor]) -> None:
-    for name, t in w.items():
-        module.register_parameter(name, nn.Parameter(t, requires_grad=False))
+class _Block(nn.Module):
+    """One layer's parameters (views of a stacked tree share its memory)
+    and the compute-dtype weights its products read (``weights()``).
+
+    Serving (``live=False``): ``cast_weights`` makes the copies once
+    (the ``c_*`` attributes) and the parameters take no gradient.
+    Training (``live=True``): the parameters carry gradients and change
+    every step, so each call casts them in the graph, as the JAX package
+    casts them on every call; no copy is kept."""
+
+    def __init__(self, cfg: ModelConfig, w: Dict[str, torch.Tensor],
+                 live: bool = False):
+        super().__init__()
+        self.cfg, self.live = cfg, live
+        for name, t in w.items():
+            self.register_parameter(name, nn.Parameter(t, requires_grad=live))
+        self._cast = None
+        if not live:
+            self.cast_weights()
+
+    def _casts(self) -> Dict[str, object]:
+        """The compute-dtype weights, cast from the parameters now."""
+        raise NotImplementedError
+
+    def cast_weights(self) -> None:
+        casts = self._casts()
+        for name, t in casts.items():
+            setattr(self, f"c_{name}", t)
+        self._cast = SimpleNamespace(**casts)
+
+    def weights(self) -> SimpleNamespace:
+        return SimpleNamespace(**self._casts()) if self.live else self._cast
 
 
 # ---------------------------------------------------------------------------
@@ -53,7 +85,7 @@ def attn_spec(cfg: ModelConfig) -> Spec:
     return out
 
 
-class AttnBlock(nn.Module):
+class AttnBlock(_Block):
     """Pre-norm self-attention with a residual: ``forward(x, positions,
     window, causal, cache) -> (x_out, cache)``.
 
@@ -64,34 +96,31 @@ class AttnBlock(nn.Module):
     written in place; a cache shorter than the context is a ring buffer
     (slot = pos % len; the stored positions drive the mask)."""
 
-    def __init__(self, cfg: ModelConfig, w: Dict[str, torch.Tensor]):
-        super().__init__()
-        self.cfg = cfg
-        _params(self, w)
-        self.cast_weights()
 
-    def cast_weights(self) -> None:
+    def _casts(self):
         cfg, dt = self.cfg, self.cfg.dtype
         d = cfg.d_model
-        self.c_wq, self.c_wk, self.c_wv = (
-            getattr(self, n).reshape(d, -1).to(dt) for n in ("wq", "wk", "wv"))
-        self.c_wo = self.wo.reshape(-1, d).to(dt)
-        self.c_bias = ((self.bq.to(dt), self.bk.to(dt), self.bv.to(dt))
+        out = {n: getattr(self, n).reshape(d, -1).to(dt)
+               for n in ("wq", "wk", "wv")}
+        out["wo"] = self.wo.reshape(-1, d).to(dt)
+        out["bias"] = ((self.bq.to(dt), self.bk.to(dt), self.bv.to(dt))
                        if cfg.qkv_bias else None)
+        return out
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
                 window: int = 0, causal: bool = True,
-                cache: Optional[Dict[str, torch.Tensor]] = None):
-        cfg = self.cfg
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                tiles: Optional[dict] = None):
+        cfg, c = self.cfg, self.weights()
         b, s = x.shape[:2]
         h = rmsnorm(x, self.norm, cfg.rms_eps)
-        q = (h @ self.c_wq).reshape(b, s, cfg.n_heads, cfg.hd)
-        k = (h @ self.c_wk).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-        v = (h @ self.c_wv).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-        if self.c_bias is not None:
-            q = q + self.c_bias[0]
-            k = k + self.c_bias[1]
-            v = v + self.c_bias[2]
+        q = (h @ c.wq).reshape(b, s, cfg.n_heads, cfg.hd)
+        k = (h @ c.wk).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+        v = (h @ c.wv).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+        if c.bias is not None:
+            q = q + c.bias[0]
+            k = k + c.bias[1]
+            v = v + c.bias[2]
         sin, cos = rope_tables(positions, cfg.hd, cfg.rope_theta)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
@@ -100,7 +129,8 @@ class AttnBlock(nn.Module):
                     skip=cfg.attn_skip)
 
         if cache is None or s > 1:
-            o = attention(q, k, v, positions, positions, **opts)
+            o = attention(q, k, v, positions, positions, tiles=tiles,
+                          **opts)
         if cache is not None:
             ck, cv, cp = cache["k"], cache["v"], cache["pos"]
             clen = ck.shape[1]
@@ -123,7 +153,7 @@ class AttnBlock(nn.Module):
                 cp[bi, slot] = pos0.to(torch.int32)
                 o = attention(q, ck.to(q.dtype), cv.to(q.dtype), positions,
                               cp, **opts)
-        out = o.reshape(b, s, -1) @ self.c_wo
+        out = o.reshape(b, s, -1) @ c.wo
         return x + out.to(x.dtype), cache
 
 
@@ -134,42 +164,40 @@ def cross_attn_spec(cfg: ModelConfig) -> Spec:
             "norm": ((d,), "zeros"), "gate": ((1,), "zeros")}
 
 
-class CrossAttnBlock(nn.Module):
+class CrossAttnBlock(_Block):
     """Pre-norm cross-attention to a fixed memory (patch, frame or encoder
     states) with a ``tanh(gate)`` residual gate, zero at init:
     ``forward(x, memory) -> x_out``.  Non-causal, every query and key at
     position 0 (no RoPE, no mask).  K/V are projected from the memory at
     every call, as the JAX package does."""
 
-    def __init__(self, cfg: ModelConfig, w: Dict[str, torch.Tensor]):
-        super().__init__()
-        self.cfg = cfg
-        _params(self, w)
-        self.cast_weights()
 
-    def cast_weights(self) -> None:
+    def _casts(self):
         dt, d = self.cfg.dtype, self.cfg.d_model
-        self.c_wq, self.c_wk, self.c_wv = (
-            getattr(self, n).reshape(d, -1).to(dt) for n in ("wq", "wk", "wv"))
-        self.c_wo = self.wo.reshape(-1, d).to(dt)
-        self.c_gate = torch.tanh(self.gate.float()).to(dt)
+        out = {n: getattr(self, n).reshape(d, -1).to(dt)
+               for n in ("wq", "wk", "wv")}
+        out["wo"] = self.wo.reshape(-1, d).to(dt)
+        out["gate"] = torch.tanh(self.gate.float()).to(dt)
+        return out
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
+        cfg, c = self.cfg, self.weights()
         b, sq = x.shape[:2]
         sk = memory.shape[1]
         h = rmsnorm(x, self.norm, cfg.rms_eps)
         mem = memory.to(h.dtype)
-        q = (h @ self.c_wq).reshape(b, sq, cfg.n_heads, cfg.hd)
-        k = (mem @ self.c_wk).reshape(b, sk, cfg.n_kv_heads, cfg.hd)
-        v = (mem @ self.c_wv).reshape(b, sk, cfg.n_kv_heads, cfg.hd)
+        q = (h @ c.wq).reshape(b, sq, cfg.n_heads, cfg.hd)
+        k = (mem @ c.wk).reshape(b, sk, cfg.n_kv_heads, cfg.hd)
+        v = (mem @ c.wv).reshape(b, sk, cfg.n_kv_heads, cfg.hd)
         zeros = functools.partial(torch.zeros, dtype=torch.int32,
                                   device=x.device)
+        # every position 0, no causal mask and no window: no tile is ever
+        # skipped, so the tile table is not read (no host sync)
         o = attention(q, k, v, zeros((b, sq)), zeros((b, sk)), causal=False,
                       window=0, cap=None, impl=cfg.attn_impl,
-                      chunk=cfg.attn_chunk, skip=cfg.attn_skip)
-        out = o.reshape(b, sq, -1) @ self.c_wo
-        return x + self.c_gate * out.to(x.dtype)
+                      chunk=cfg.attn_chunk, skip=False)
+        out = o.reshape(b, sq, -1) @ c.wo
+        return x + c.gate * out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -242,35 +270,29 @@ def _butterfly_mix(theta: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-class MLPBlock(nn.Module):
+class MLPBlock(_Block):
     """Pre-norm MLP with a residual: SwiGLU, GeGLU or GELU, optionally
     after the butterfly mixing (``cfg.butterfly_mlp``)."""
 
-    def __init__(self, cfg: ModelConfig, w: Dict[str, torch.Tensor]):
-        super().__init__()
-        self.cfg = cfg
-        _params(self, w)
-        self.cast_weights()
 
-    def cast_weights(self) -> None:
+    def _casts(self):
         dt = self.cfg.dtype
-        self.c_gate = (self.w_gate.to(dt)
-                       if self.cfg.mlp_type in ("swiglu", "geglu") else None)
-        self.c_up = self.w_up.to(dt)
-        self.c_down = self.w_down.to(dt)
+        return {"gate": (self.w_gate.to(dt) if self.cfg.mlp_type
+                         in ("swiglu", "geglu") else None),
+                "up": self.w_up.to(dt), "down": self.w_down.to(dt)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
+        cfg, c = self.cfg, self.weights()
         h = rmsnorm(x, self.norm, cfg.rms_eps)
         if cfg.butterfly_mlp:
             h = _butterfly_mix(self.bf_theta, h)
         if cfg.mlp_type == "swiglu":
-            z = F.silu(h @ self.c_gate) * (h @ self.c_up)
+            z = F.silu(h @ c.gate) * (h @ c.up)
         elif cfg.mlp_type == "geglu":
-            z = F.gelu(h @ self.c_gate, approximate="tanh") * (h @ self.c_up)
+            z = F.gelu(h @ c.gate, approximate="tanh") * (h @ c.up)
         else:
-            z = F.gelu(h @ self.c_up, approximate="tanh")
-        out = z @ self.c_down
+            z = F.gelu(h @ c.up, approximate="tanh")
+        out = z @ c.down
         return x + out.to(x.dtype)
 
 
@@ -306,7 +328,7 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-class MoEBlock(nn.Module):
+class MoEBlock(_Block):
     """Pre-norm token-choice top-k mixture of SwiGLU experts with a
     residual, the JAX ``moe_block`` exactly: groups of ``moe_groups``
     tokens (all of a call's B x S tokens in order, as the JAX reshape
@@ -324,23 +346,19 @@ class MoEBlock(nn.Module):
     ``routes`` and ``kept`` keep the last call's top-k expert ids and
     which pairs fit, (groups, gsz, k), on the device (no host read)."""
 
-    def __init__(self, cfg: ModelConfig, w: Dict[str, torch.Tensor]):
-        super().__init__()
-        self.cfg = cfg
-        _params(self, w)
-        self.cast_weights()
+    def __init__(self, cfg: ModelConfig, w: Dict[str, torch.Tensor],
+                 live: bool = False):
+        super().__init__(cfg, w, live)
         self.routes: Optional[torch.Tensor] = None
         self.kept: Optional[torch.Tensor] = None
 
-    def cast_weights(self) -> None:
+    def _casts(self):
         dt = self.cfg.dtype
-        self.c_router = self.router.to(dt)
-        self.c_gate = self.w_gate.to(dt)
-        self.c_up = self.w_up.to(dt)
-        self.c_down = self.w_down.to(dt)
+        return {"router": self.router.to(dt), "gate": self.w_gate.to(dt),
+                "up": self.w_up.to(dt), "down": self.w_down.to(dt)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
+        cfg, c = self.cfg, self.weights()
         b, s, d = x.shape
         e, k = cfg.n_experts, cfg.top_k
         dev = x.device
@@ -348,7 +366,7 @@ class MoEBlock(nn.Module):
         gsz, cap = moe_groups(cfg, b, s)
         g = b * s // gsz
         hg = h.reshape(g, gsz, d)
-        probs = torch.softmax((hg @ self.c_router).float(), dim=-1)
+        probs = torch.softmax((hg @ c.router).float(), dim=-1)
         top_p, top_e = top_k(probs, k)                        # (g, gsz, k)
         top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
 
@@ -375,9 +393,9 @@ class MoEBlock(nn.Module):
         hpad = torch.cat([hg, hg.new_zeros(g, 1, d)], dim=1)
         gi = torch.arange(g, device=dev)[:, None]
         xin = hpad[gi, table[:, :e * cap]].reshape(g, e, cap, d)
-        a = F.silu(torch.einsum("gecd,edf->gecf", xin, self.c_gate))
-        u = torch.einsum("gecd,edf->gecf", xin, self.c_up)
-        y = torch.einsum("gecf,efd->gecd", a * u, self.c_down)
+        a = F.silu(torch.einsum("gecd,edf->gecf", xin, c.gate))
+        u = torch.einsum("gecd,edf->gecf", xin, c.up)
+        y = torch.einsum("gecf,efd->gecd", a * u, c.down)
 
         # combine: each token's kept slots, weighted, by ascending expert
         ypad = torch.cat([y.reshape(g, e * cap, d), y.new_zeros(g, 1, d)],
@@ -435,7 +453,7 @@ def _segsum(t: torch.Tensor) -> torch.Tensor:
     return diff.masked_fill(~mask, -math.inf)
 
 
-class SSDBlock(nn.Module):
+class SSDBlock(_Block):
     """Mamba-2 SSD with a residual: ``forward(x, cache) -> (x_out,
     cache)``.  Without a cache or with S > 1 it runs the chunked form
     (quadratic within chunks of ``ssm_chunk``, the prompt zero-padded to
@@ -444,38 +462,33 @@ class SSDBlock(nn.Module):
     layer's ``{"conv": (B, W-1, d_in + 2N), "state": (B, H, P, N) f32}``,
     written in place."""
 
-    def __init__(self, cfg: ModelConfig, w: Dict[str, torch.Tensor]):
-        super().__init__()
-        self.cfg = cfg
-        _params(self, w)
-        self.cast_weights()
 
-    def cast_weights(self) -> None:
+    def _casts(self):
         dt = self.cfg.dtype
-        for name in ("in_xz", "in_bc", "in_dt", "dt_bias", "conv_x",
-                     "conv_b", "conv_c", "out"):
-            setattr(self, f"c_{name}", getattr(self, name).to(dt))
+        return {name: getattr(self, name).to(dt)
+                for name in ("in_xz", "in_bc", "in_dt", "dt_bias", "conv_x",
+                             "conv_b", "conv_c", "out")}
 
     def forward(self, x: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None):
-        cfg = self.cfg
+        cfg, c = self.cfg, self.weights()
         b, s, _ = x.shape
         d_in = cfg.ssm_expand * cfg.d_model
         p, n = cfg.ssm_head_dim, cfg.ssm_state
         hs = d_in // p
         h = rmsnorm(x, self.norm, cfg.rms_eps)
-        xc, z = (h @ self.c_in_xz).split(d_in, dim=-1)
-        bmat, cmat = (h @ self.c_in_bc).split(n, dim=-1)
-        dt = F.softplus(h @ self.c_in_dt + self.c_dt_bias)      # (b, s, hs)
+        xc, z = (h @ c.in_xz).split(d_in, dim=-1)
+        bmat, cmat = (h @ c.in_bc).split(n, dim=-1)
+        dt = F.softplus(h @ c.in_dt + c.dt_bias)                # (b, s, hs)
         a = -torch.exp(self.a_log.float())
 
         conv = None if cache is None else cache["conv"]
         parts = ((None,) * 3 if conv is None else
                  (conv[..., :d_in], conv[..., d_in:d_in + n],
                   conv[..., d_in + n:]))
-        xc, ncx = _causal_conv(F.silu(xc), self.c_conv_x, parts[0])
-        bmat, ncb = _causal_conv(bmat, self.c_conv_b, parts[1])
-        cmat, ncc = _causal_conv(cmat, self.c_conv_c, parts[2])
+        xc, ncx = _causal_conv(F.silu(xc), c.conv_x, parts[0])
+        bmat, ncb = _causal_conv(bmat, c.conv_b, parts[1])
+        cmat, ncc = _causal_conv(cmat, c.conv_c, parts[2])
 
         xh = xc.reshape(b, s, hs, p)
         dta = dt.float() * a                                   # (b, s, hs)
@@ -500,7 +513,7 @@ class SSDBlock(nn.Module):
         if cache is not None:
             conv.copy_(torch.cat([ncx, ncb, ncc], dim=-1))
         y = y.to(x.dtype) * F.silu(z)
-        out = y @ self.c_out
+        out = y @ c.out
         return x + out.to(x.dtype), cache
 
     def _chunked(self, dtx, bmat, cmat, dta, st):
@@ -566,7 +579,7 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
-class RGLRUBlock(nn.Module):
+class RGLRUBlock(_Block):
     """recurrentgemma's RG-LRU block with a residual: ``forward(x, cache)
     -> (x_out, cache)``.  S > 1 (or no cache) scans the recurrence with
     ``linear_scan`` and folds in the carried state; a cache and S == 1
@@ -575,28 +588,23 @@ class RGLRUBlock(nn.Module):
 
     C_CONST = 8.0
 
-    def __init__(self, cfg: ModelConfig, w: Dict[str, torch.Tensor]):
-        super().__init__()
-        self.cfg = cfg
-        _params(self, w)
-        self.cast_weights()
 
-    def cast_weights(self) -> None:
+    def _casts(self):
         dt = self.cfg.dtype
-        for name in ("in_x", "in_y", "conv", "w_r", "w_i", "out"):
-            setattr(self, f"c_{name}", getattr(self, name).to(dt))
+        return {name: getattr(self, name).to(dt)
+                for name in ("in_x", "in_y", "conv", "w_r", "w_i", "out")}
 
     def forward(self, x: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None):
-        cfg = self.cfg
+        cfg, c = self.cfg, self.weights()
         s = x.shape[1]
         h = rmsnorm(x, self.norm, cfg.rms_eps)
-        xb = h @ self.c_in_x
-        yb = F.gelu(h @ self.c_in_y, approximate="tanh")
+        xb = h @ c.in_x
+        yb = F.gelu(h @ c.in_y, approximate="tanh")
         xb, new_conv = _causal_conv(
-            xb, self.c_conv, None if cache is None else cache["conv"])
-        r = torch.sigmoid(xb @ self.c_w_r).float()
-        i = torch.sigmoid(xb @ self.c_w_i).float()
+            xb, c.conv, None if cache is None else cache["conv"])
+        r = torch.sigmoid(xb @ c.w_r).float()
+        i = torch.sigmoid(xb @ c.w_i).float()
         log_a0 = -self.C_CONST * F.softplus(self.lam.float())
         log_a = log_a0 * r
         a = torch.exp(log_a)
@@ -612,5 +620,5 @@ class RGLRUBlock(nn.Module):
                 cache["h"].copy_(hidden[:, -1])
         if cache is not None:
             cache["conv"].copy_(new_conv)
-        out = (hidden.to(x.dtype) * yb) @ self.c_out
+        out = (hidden.to(x.dtype) * yb) @ c.out
         return x + out.to(x.dtype), cache

@@ -16,6 +16,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 
 @dataclass(frozen=True)
@@ -160,8 +161,30 @@ def _mask(q_pos, k_pos, causal: bool, window: int):
     return m  # (B, Sq, Sk)
 
 
+def checkpointed(fn, *args):
+    """``fn(*args)`` under an activation checkpoint (``jax.checkpoint``):
+    its activations are recomputed in the backward."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _tile_table(posp, qpos_p, b, n_chunks, chunk, n_qb, qb, causal, window):
+    """Which (query block, KV chunk) tiles attend: the tile rule of the JAX
+    package's lax.cond, over the whole batch, read to the host."""
+    pc = posp.reshape(b, n_chunks, chunk)
+    qc = qpos_p.reshape(b, n_qb, qb)
+    pmin, pmax = pc.amin(dim=(0, 2)), pc.amax(dim=(0, 2))
+    qmin, qmax = qc.amin(dim=(0, 2)), qc.amax(dim=(0, 2))
+    need = (pmin < PAD_POS)[None, :].expand(n_qb, n_chunks)
+    if causal:
+        need = need & (pmin[None, :] <= qmax[:, None])
+    if window > 0:
+        need = need & (pmax[None, :] > qmin[:, None] - window)
+    return need.tolist()
+
+
 def attention(q, k, v, q_pos, k_pos, *, causal=True, window=0, cap=None,
-              impl="chunked", chunk=1024, skip=True):
+              impl="chunked", chunk=1024, skip=True, tiles=None):
     """GQA attention.
 
     q: (B, Sq, H, hd), k/v: (B, Sk, KV, hd); q_pos (B, Sq), k_pos (B, Sk)
@@ -169,7 +192,13 @@ def attention(q, k, v, q_pos, k_pos, *, causal=True, window=0, cap=None,
     KV in chunks of ``chunk`` with an online softmax, over query blocks of
     at most ``chunk`` rows; ``skip`` leaves out a (query block, KV chunk)
     tile that is entirely in the future, outside the window or padding,
-    decided for all tiles of the call in one read on the host.
+    decided for all tiles of the call in one read on the host.  ``tiles``:
+    a dict that the calls of one forward share, over the same positions as
+    queries and keys; the tables read are kept in it, so that a layer's
+    recomputation in a checkpointed backward reads none (no host sync in
+    the backward).  Where a gradient is wanted, each KV
+    step and each of several query blocks is checkpointed, as the JAX
+    package checkpoints them.
     """
     b, sq, h, hd = q.shape
     kv = k.shape[2]
@@ -198,42 +227,49 @@ def attention(q, k, v, q_pos, k_pos, *, causal=True, window=0, cap=None,
 
     needed = None
     if skip:
-        # the tile rule of the JAX package's lax.cond, over the whole batch
-        pc = posp.reshape(b, n_chunks, chunk)
-        qc = qpos_p.reshape(b, n_qb, qb)
-        pmin, pmax = pc.amin(dim=(0, 2)), pc.amax(dim=(0, 2))
-        qmin, qmax = qc.amin(dim=(0, 2)), qc.amax(dim=(0, 2))
-        need = (pmin < PAD_POS)[None, :].expand(n_qb, n_chunks)
-        if causal:
-            need = need & (pmin[None, :] <= qmax[:, None])
-        if window > 0:
-            need = need & (pmax[None, :] > qmin[:, None] - window)
-        needed = need.tolist()
+        key = (causal, window, chunk)
+        needed = None if tiles is None else tiles.get(key)
+        if needed is None:
+            needed = _tile_table(posp, qpos_p, b, n_chunks, chunk, n_qb, qb,
+                                 causal, window)
+            if tiles is not None:
+                tiles[key] = needed
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
 
-    outs = []
-    for i in range(n_qb):
-        qgb = qp_[:, i * qb:(i + 1) * qb]              # (B,qb,KV,R,hd)
-        qposb = qpos_p[:, i * qb:(i + 1) * qb]
+    def kv_step(m_run, l_run, acc, qgb, qposb, kch, vch, pch):
+        s = _scores(qgb, kch, scale, cap)              # (B,KV,R,qb,C)
+        msk = _mask(qposb, pch, causal, window)
+        s = torch.where(msk[:, None, None], s, _MASK_VALUE)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        alpha = torch.exp(m_run - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_run = l_run * alpha + p.sum(dim=-1)
+        pv = _mix(p.to(vch.dtype), vch)
+        acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv
+        return m_new, l_run, acc
+
+    def q_block(i, qgb, qposb):
         m_run = torch.full((b, kv, rep, qb), -math.inf, device=q.device)
         l_run = torch.zeros((b, kv, rep, qb), device=q.device)
         acc = torch.zeros((b, qb, kv, rep, hd), device=q.device)
         for c in range(n_chunks):
             if needed is not None and not needed[i][c]:
                 continue
-            kch = kp[:, c * chunk:(c + 1) * chunk]
-            vch = vp[:, c * chunk:(c + 1) * chunk]
-            pch = posp[:, c * chunk:(c + 1) * chunk]
-            s = _scores(qgb, kch, scale, cap)          # (B,KV,R,qb,C)
-            msk = _mask(qposb, pch, causal, window)
-            s = torch.where(msk[:, None, None], s, _MASK_VALUE)
-            m_new = torch.maximum(m_run, s.amax(dim=-1))
-            alpha = torch.exp(m_run - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l_run = l_run * alpha + p.sum(dim=-1)
-            pv = _mix(p.to(vch.dtype), vch)
-            acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv
-            m_run = m_new
+            args = (m_run, l_run, acc, qgb, qposb,
+                    kp[:, c * chunk:(c + 1) * chunk],
+                    vp[:, c * chunk:(c + 1) * chunk],
+                    posp[:, c * chunk:(c + 1) * chunk])
+            m_run, l_run, acc = (checkpointed(kv_step, *args) if grad
+                                 else kv_step(*args))
         denom = l_run.permute(0, 3, 1, 2)[..., None]
-        outs.append((acc / torch.clamp_min(denom, 1e-30)).to(q.dtype))
+        return (acc / torch.clamp_min(denom, 1e-30)).to(q.dtype)
+
+    outs = []
+    for i in range(n_qb):
+        args = (i, qp_[:, i * qb:(i + 1) * qb],         # (B,qb,KV,R,hd)
+                qpos_p[:, i * qb:(i + 1) * qb])
+        outs.append(checkpointed(q_block, *args) if grad and n_qb > 1
+                    else q_block(*args))
     out = torch.cat(outs, dim=1)[:, :sq]
     return out.reshape(b, sq, h, hd)

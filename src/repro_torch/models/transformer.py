@@ -29,21 +29,34 @@ leaves into one module per super-layer (views, no copy) and serves:
 audio family's frame embeddings (B, F, D); ``prefill`` returns it in the
 compute dtype, encoded for audio, for the decode steps to reuse.
 Caches are written in place (and returned, as the JAX functions return
-theirs).  Layers run in a Python loop (no ``lax.scan``, no remat:
-serving does not differentiate).
+theirs).  Layers run in a Python loop (no ``lax.scan``).
+
+Training (the JAX ``loss_fn`` under ``jax.value_and_grad``):
+
+  model = Transformer(cfg, params, live=True)
+  loss_fn(model, cfg, batch, remat, loss_chunk)      -> (loss, metrics)
+  value_and_grad(model, cfg, batch, ...)             -> ((loss, metrics),
+                                                        model.grads)
+
+A live model casts its weights in the graph at every call and collects
+the gradients in ``model.grads``, in the stacked layout of ``params``;
+``remat`` checkpoints the layers as the JAX ``_scan_group`` does.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .blocks import (AttnBlock, CrossAttnBlock, MLPBlock, MoEBlock,
                      RGLRUBlock, SSDBlock, attn_spec, cross_attn_spec,
                      mlp_spec, moe_spec, rglru_spec, ssd_spec)
-from .common import PAD_POS, ModelConfig, rmsnorm, scaled, softcap
+from .common import (PAD_POS, ModelConfig, checkpointed,
+                     rmsnorm, scaled, softcap)
 
 Params = Dict[str, Any]
 
@@ -195,24 +208,27 @@ _CACHED = ("attn", "rec", "ssd")
 
 class SuperLayer(nn.Module):
     """One super-layer of a group (``_GROUPS``), its blocks run in the
-    JAX ``_super_layer`` order.  ``forward(x, positions, cache, memory)``:
-    ``cache`` is this layer's part of the group's cache (None: no cache),
-    ``memory`` the cross-attention blocks' memory in the compute dtype."""
+    JAX ``_super_layer`` order.  ``forward(x, positions, cache, memory,
+    tiles)``: ``cache`` is this layer's part of the group's cache (None:
+    no cache), ``memory`` the cross-attention blocks' memory in the
+    compute dtype, ``tiles`` the forward's tile tables (``attention``)."""
 
-    def __init__(self, name: str, cfg: ModelConfig, w: Params):
+    def __init__(self, name: str, cfg: ModelConfig, w: Params,
+                 live: bool = False):
         super().__init__()
         self.name, self.cfg = name, cfg
         for key, leaves in w.items():
-            self.add_module(key, _BLOCKS[_kind(key)][0](cfg, leaves))
+            self.add_module(key, _BLOCKS[_kind(key)][0](cfg, leaves, live))
 
-    def forward(self, x, positions, cache=None, memory=None):
+    def forward(self, x, positions, cache=None, memory=None, tiles=None):
         for key in _GROUPS[self.name]:
             block, kind = getattr(self, key), _kind(key)
             c = None if cache is None or kind not in _CACHED else cache[key]
             if kind == "attn":
                 window = self.cfg.local_window if _local(self.name, key) else 0
                 x = block(x, positions, window=window,
-                          causal=self.name != "enc", cache=c)[0]
+                          causal=self.name != "enc", cache=c,
+                          tiles=tiles)[0]
             elif kind in ("rec", "ssd"):
                 x = block(x, c)[0]
             elif kind == "cross":
@@ -233,36 +249,82 @@ def _stack(layers, spec: Params, device, dtype) -> Params:
 
 class Transformer(nn.Module):
     """The LM over a parameter tree (see the module docstring).  The
-    tree's tensors are kept (per-layer views); the compute-dtype copies
-    are made once here, and the embedding is gathered in
-    ``param_dtype`` and cast per row, which is bitwise the JAX package's
-    cast of the whole table on every call."""
+    tree's tensors are kept (the per-layer parameters are views of the
+    stacked leaves).
 
-    def __init__(self, cfg: ModelConfig, params: Params):
+    Serving (``live=False``): the compute-dtype copies are made once
+    here, and the embedding is gathered in ``param_dtype`` and cast per
+    row, which is bitwise the JAX package's cast of the whole table on
+    every call.
+
+    Training (``live=True``): the parameters take gradients and every
+    weight is cast in the graph from the live parameter at every call,
+    the embedding table cast whole and then gathered (the JAX order, so
+    that a repeated token's gradient adds in the compute dtype).  The
+    gradients land in ``grads``, a tree of the stacked layout beside
+    ``params`` (each parameter's ``.grad`` is a view of it, added into in
+    place: no restacking); ``zero_grad`` zeroes it.  The optimizer
+    updates ``params`` in place and the model sees the new values."""
+
+    def __init__(self, cfg: ModelConfig, params: Params, live: bool = False):
         super().__init__()
         spec = param_spec(cfg)
         _check_tree(params, spec)
         self.cfg = cfg
+        self.live = live
         self.plan = group_plan(cfg)
         self._spec = spec
-        singles = ["embed", "final_norm", "lm_head"]
+        self._singles = ["embed", "final_norm", "lm_head"]
         if cfg.is_encdec:
-            singles.append("enc_norm")
-        for name in singles:
+            self._singles.append("enc_norm")
+        for name in self._singles:
             self.register_parameter(name, nn.Parameter(params[name],
-                                                       requires_grad=False))
+                                                       requires_grad=live))
         self.groups = nn.ModuleDict({
             name: nn.ModuleList(SuperLayer(name, cfg,
-                                           _layer(params["groups"][name], i))
+                                           _layer(params["groups"][name], i),
+                                           live)
                                 for i in range(count))
             for name, count in self.plan})
         self.encoder = nn.ModuleList(
-            SuperLayer("enc", cfg, _layer(params["encoder"], i))
+            SuperLayer("enc", cfg, _layer(params["encoder"], i), live)
             for i in range(cfg.n_enc_layers if cfg.is_encdec else 0))
         #: a cross-attention block needs the request's memory
         self.needs_memory = any("cross" in _GROUPS[name]
                                 for name, _ in self.plan)
-        self.c_lm_head = self.lm_head.to(cfg.dtype)
+        self.c_lm_head = None if live else self.lm_head.to(cfg.dtype)
+        self.params = params if live else None
+        self.grads = None
+        if live:
+            self._bind_grads()
+
+    def _stacked_params(self):
+        """(stacked tree path, layer index or None, parameter) of every
+        parameter: the tree leaf a parameter is (a view of)."""
+        for name in self._singles:
+            yield (name,), None, getattr(self, name)
+        stacks = [(("groups", name), self.groups[name])
+                  for name, _ in self.plan]
+        if self.cfg.is_encdec:
+            stacks.append((("encoder",), self.encoder))
+        for path, layers in stacks:
+            for i, layer in enumerate(layers):
+                for key, blk in layer.named_children():
+                    for leaf, p in blk.named_parameters(recurse=False):
+                        yield path + (key, leaf), i, p
+
+    def _bind_grads(self) -> None:
+        self.grads = tree_map(torch.zeros_like, self.params)
+        for path, i, p in self._stacked_params():
+            g = self.grads
+            for k in path:
+                g = g[k]
+            p.grad = g if i is None else g[i]
+
+    def zero_grad(self, set_to_none: bool = False) -> None:
+        """Zero ``grads`` in place (the parameters' ``.grad`` stay views
+        of it)."""
+        tree_map(lambda g: g.zero_(), self.grads)
 
     @property
     def device(self) -> torch.device:
@@ -291,34 +353,75 @@ class Transformer(nn.Module):
         return torch.as_tensor(tokens, device=self.device).long()
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens].to(self.cfg.dtype)
+        if self.live:   # the JAX order: cast the table, then gather
+            x = self.embed.to(self.cfg.dtype)[tokens]
+        else:
+            x = self.embed[tokens].to(self.cfg.dtype)
         return scaled(x, math.sqrt(self.cfg.d_model))
 
-    def _layers(self, x, positions, cache=None, memory=None):
+    def _head(self) -> torch.Tensor:
+        return self.c_lm_head if not self.live else self.lm_head.to(
+            self.cfg.dtype)
+
+    def _stack_run(self, layers, x, positions, cache=None, memory=None,
+                   remat: bool = False, tiles=None):
+        """One group's layers in order (the JAX ``_scan_group``).  With
+        ``remat`` (and no cache): where ``cfg.remat_block`` = k > 1
+        divides the count, nested checkpoints, one a block of k layers
+        and one each layer inside it; otherwise one checkpoint a layer.
+        ``tiles``: the forward's tile tables, shared by its layers."""
+        if cache is not None or not remat:
+            for i, layer in enumerate(layers):
+                c = None if cache is None else _layer(cache, i)
+                x = layer(x, positions, c, memory, tiles)
+            return x
+        k = max(int(self.cfg.remat_block), 1)
+
+        def one(layer):
+            def run(xc, pos, mem):
+                return layer(xc, pos, None, mem, tiles)
+            return run
+
+        if k > 1 and len(layers) % k == 0:
+            def block(sub):
+                def run(xc, pos, mem):
+                    for layer in sub:
+                        xc = checkpointed(one(layer), xc, pos, mem)
+                    return xc
+                return run
+
+            for j in range(0, len(layers), k):
+                x = checkpointed(block(layers[j:j + k]), x, positions, memory)
+            return x
+        for layer in layers:
+            x = checkpointed(one(layer), x, positions, memory)
+        return x
+
+    def _layers(self, x, positions, cache=None, memory=None,
+                remat: bool = False, tiles=None):
         for name, _count in self.plan:
-            for i, layer in enumerate(self.groups[name]):
-                c = None if cache is None else _layer(cache[name], i)
-                x = layer(x, positions, c, memory)
+            x = self._stack_run(self.groups[name], x, positions,
+                                None if cache is None else cache[name],
+                                memory, remat, tiles)
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(x, self.final_norm, self.cfg.rms_eps)
-        return softcap(x @ self.c_lm_head, self.cfg.logit_softcap)
+        return softcap(x @ self._head(), self.cfg.logit_softcap)
 
     def _positions(self, b: int, s: int) -> torch.Tensor:
         return torch.arange(s, dtype=torch.int32,
                             device=self.device)[None].expand(b, s)
 
-    def encode(self, frames) -> torch.Tensor:
+    def encode(self, frames, remat: bool = False) -> torch.Tensor:
         """The audio encoder: a bidirectional stack over frame embeddings
         (B, F, D), then ``enc_norm``; the memory in the compute dtype."""
         x = torch.as_tensor(frames, device=self.device).to(self.cfg.dtype)
-        positions = self._positions(*x.shape[:2])
-        for layer in self.encoder:
-            x = layer(x, positions)
+        x = self._stack_run(self.encoder, x, self._positions(*x.shape[:2]),
+                            remat=remat, tiles={})
         return rmsnorm(x, self.enc_norm, self.cfg.rms_eps)
 
-    def _memory(self, memory, encoded: bool = False):
+    def _memory(self, memory, encoded: bool = False, remat: bool = False):
         """The memory the cross-attention blocks read, in the compute
         dtype: the audio frames encoded unless ``encoded``."""
         if memory is None:
@@ -327,22 +430,27 @@ class Transformer(nn.Module):
                                  f"{self.cfg.family!r}) needs a memory")
             return None
         if self.cfg.is_encdec and not encoded:
-            return self.encode(memory)
+            return self.encode(memory, remat)
         return torch.as_tensor(memory, device=self.device).to(self.cfg.dtype)
 
-    def forward_hidden(self, tokens, memory=None) -> torch.Tensor:
-        """Final-normed hidden states (B, S, D) of tokens (B, S)."""
+    def forward_hidden(self, tokens, memory=None,
+                       remat: bool = False) -> torch.Tensor:
+        """Final-normed hidden states (B, S, D) of tokens (B, S).
+        ``remat``: checkpoint the layers (``_stack_run``), for a
+        training forward."""
         tokens = self._tokens(tokens)
         b, s = tokens.shape
         x = self._layers(self._embed(tokens), self._positions(b, s),
-                         memory=self._memory(memory))
+                         memory=self._memory(memory, remat=remat),
+                         remat=remat, tiles={})
         return rmsnorm(x, self.final_norm, self.cfg.rms_eps)
 
-    def forward(self, tokens, memory=None) -> torch.Tensor:
+    def forward(self, tokens, memory=None, remat: bool = False
+                ) -> torch.Tensor:
         """Logits (B, S, V) in ``cfg.dtype`` of tokens (B, S) (and, for
         the vision and audio families, their memory (B, P, D))."""
-        x = self.forward_hidden(tokens, memory)
-        return softcap(x @ self.c_lm_head, self.cfg.logit_softcap)
+        x = self.forward_hidden(tokens, memory, remat)
+        return softcap(x @ self._head(), self.cfg.logit_softcap)
 
     def prefill(self, cache, tokens, memory=None):
         """Run a prompt (B, S) and write it into ``cache`` (the tail where
@@ -366,6 +474,83 @@ class Transformer(nn.Module):
         x = self._layers(self._embed(token), positions, cache,
                          self._memory(memory, encoded=True))
         return self._logits(x), cache
+
+
+# ---------------------------------------------------------------------------
+# Loss and gradients
+# ---------------------------------------------------------------------------
+
+_LOSS_CHUNK = 1024
+
+
+def _chunk_nll(cap, head, xx, tt, mm):
+    """One chunk's masked NLL sum and mask count: the projection in the
+    compute dtype, softcap, f32 log-softmax, the targets' entries."""
+    logits = softcap(xx @ head.to(xx.dtype), cap).float()
+    lp = torch.log_softmax(logits, dim=-1)
+    nll = -lp.gather(-1, tt[..., None])[..., 0]
+    return (nll * mm).sum(), mm.sum()
+
+
+def _model(model, cfg: ModelConfig) -> "Transformer":
+    return (model if isinstance(model, Transformer)
+            else Transformer(cfg, model, live=True))
+
+
+def loss_fn(model, cfg: ModelConfig, batch: Dict[str, Any],
+            remat: bool = True, loss_chunk: int = _LOSS_CHUNK):
+    """Next-token NLL, the JAX ``loss_fn``: hidden state t predicts token
+    t + 1, weighted by ``batch["mask"]`` (default all ones), over chunks
+    of ``loss_chunk`` positions (the sequence zero-padded to a multiple),
+    each chunk's projection, softcap, f32 log-softmax and gather under a
+    checkpoint, so that the (B, S, V) f32 logits are never held whole.
+
+    ``model``: a live ``Transformer`` or a parameter tree (a live model
+    is built over it); ``batch``: {"tokens" (B, S), optional "memory",
+    "mask" (B, S)}.  Returns (loss, {"loss", "ppl_proxy"}), 0-d f32
+    tensors on the model's device."""
+    model = _model(model, cfg)
+    x = model.forward_hidden(batch["tokens"], batch.get("memory"), remat)
+    tokens = model._tokens(batch["tokens"])
+    b, s = tokens.shape
+    mask = batch.get("mask")
+    mask = (torch.ones((b, s), device=x.device) if mask is None else
+            torch.as_tensor(mask, device=x.device).float())
+    x, targets, mask = x[:, :-1], tokens[:, 1:], mask[:, 1:]
+    sm = s - 1
+    c = min(loss_chunk, sm)
+    pad = (-sm) % c
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tot = torch.zeros((), device=x.device)
+    cnt = torch.zeros((), device=x.device)
+    for i in range(0, sm + pad, c):
+        t_i, c_i = checkpointed(
+            functools.partial(_chunk_nll, cfg.logit_softcap), model.lm_head,
+            x[:, i:i + c], targets[:, i:i + c], mask[:, i:i + c])
+        tot, cnt = tot + t_i, cnt + c_i
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss, {"loss": loss,
+                  "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
+
+
+def value_and_grad(model, cfg: ModelConfig, batch: Dict[str, Any],
+                   remat: bool = True, loss_chunk: int = _LOSS_CHUNK):
+    """``jax.value_and_grad(loss_fn, has_aux=True)``: ((loss, metrics),
+    grads) with ``grads`` the live model's gradient tree (the stacked
+    parameter layout; zeroed, then filled by the backward).  ``model``:
+    a live ``Transformer`` or a parameter tree."""
+    model = _model(model, cfg)
+    if not model.live:
+        raise ValueError("gradients need a live Transformer "
+                         "(Transformer(cfg, params, live=True))")
+    model.zero_grad()
+    loss, metrics = loss_fn(model, cfg, batch, remat, loss_chunk)
+    loss.backward()
+    return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
+            model.grads)
 
 
 # ---------------------------------------------------------------------------

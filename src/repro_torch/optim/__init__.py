@@ -1,4 +1,4 @@
-"""Optimizer-side features of the port: butterfly gradient compression
-with error feedback (``compress``).  The JAX package's ``adamw`` comes
-with the LM training slice."""
-from . import compress
+"""Optimizer-side features of the port: AdamW with clipping and the
+warmup-cosine schedule (``adamw``) and butterfly gradient compression
+with error feedback (``compress``)."""
+from . import adamw, compress

@@ -1,0 +1,2 @@
+"""Step functions of the port: the train step, its state, and thin
+prefill and decode wrappers (``steps``)."""

@@ -52,9 +52,9 @@ def _tables(n, batch, g, device):
     return fwd, adj, sfwd, sadj, diag
 
 
-def _close(got, want):
+def _close(got, want, floor=1.0):
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
-    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    tol = 1e-4 * max(floor, float(want.abs().max()))
     assert float((got - want).abs().max()) <= tol
 
 
@@ -1285,3 +1285,118 @@ def test_lm_family_decode_step_on_the_card(cuda, arch):
         out[where] = (lp.cpu(), ld.cpu())
     for g, w in zip(out["card"], out["cpu"]):
         _close(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the LM training path (loss_fn, value_and_grad, AdamW, the train step)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def no_tf32():
+    """f32 products in f32 on the card (TF32 off) for card-vs-CPU checks."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _train_batch(cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+             "mask": (rng.random((b, s)) < 0.8).astype(np.float32)}
+    if cfg.family == "vlm":
+        shape = (b, cfg.num_patches, cfg.d_model)
+    elif cfg.is_encdec:
+        shape = (b, max(s // cfg.enc_ratio, 1), cfg.d_model)
+    else:
+        return batch
+    batch["memory"] = (rng.standard_normal(shape) * 0.02).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma2-27b"] + FAMILY_ARCHS)
+def test_train_loss_and_gradients_on_the_card(cuda, no_tf32, arch):
+    """Each family's smoke config (f32, cross-attention gates at 1): the
+    loss and every gradient leaf (within 1e-4 of its own scale, floored
+    at 1e-3) on the card against the CPU, on
+    parameters made on the CPU and copied, over S = 80 > attn_chunk (the
+    chunked attention's checkpoints) with loss chunks of 32 under a mask;
+    an MoE model's top-k sets must agree first."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.blocks import MoEBlock
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = get_config(arch, smoke=True).replace(dtype=torch.float32)
+    tree = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for grp in tree["groups"].values():
+        if "cross" in grp:
+            grp["cross"]["gate"].fill_(1.0)
+    batch = _train_batch(cfg, 2, 80, seed=0)
+    out = {}
+    for where, device in (("card", cuda), ("cpu", "cpu")):
+        model = tfm.Transformer(cfg, _family_tree(tree, device), live=True)
+        (loss, _), grads = tfm.value_and_grad(model, cfg, batch,
+                                              loss_chunk=32)
+        routes = [m.routes.cpu() for m in model.modules()
+                  if isinstance(m, MoEBlock)]
+        out[where] = (loss.cpu(), [g.cpu() for g in tree_leaves(grads)],
+                      routes)
+    for g, w in zip(out["card"][2], out["cpu"][2]):
+        assert torch.equal(g.sort(-1).values, w.sort(-1).values)
+    _close(out["card"][0], out["cpu"][0])
+    assert len(out["card"][1]) == len(out["cpu"][1])
+    for g, w in zip(out["card"][1], out["cpu"][1]):
+        _close(g, w, floor=1e-3)
+
+
+def test_train_step_on_the_card(cuda, no_tf32):
+    """Three steps of ``make_train_step`` (with gradient compression: the
+    spec's angles are drawn on the CPU for either device) on the card
+    against the CPU: losses and the parameters after."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw, compress
+    from repro_torch.runtime import steps
+    cfg = get_config("qwen2-1.5b", smoke=True).replace(dtype=torch.float32)
+    tree = tfm.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    pipe = SyntheticLM(cfg, 48, 4, seed=1)
+    out = {}
+    for where, device in (("card", cuda), ("cpu", "cpu")):
+        params = _family_tree(tree, device)
+        bundle = steps.make_train_step(
+            cfg, seq_len=48, global_batch=4, peak_lr=1e-3, warmup=1,
+            total_steps=3, grad_compress_ratio=0.25, device=device)
+        state = steps.TrainState(params, adamw.init(params),
+                                 compress.init_error(params))
+        losses = []
+        for k in range(3):
+            state, metrics = bundle.fn(state, pipe.batch(k))
+            losses.append(metrics["loss"].cpu())
+        out[where] = (torch.stack(losses),
+                      [p.cpu() for p in adamw.tree_leaves(state.params)])
+    _close(out["card"][0], out["cpu"][0])
+    for g, w in zip(out["card"][1], out["cpu"][1]):
+        _close(g, w)
+
+
+def test_train_cli_resume_on_the_card(cuda, tmp_path):
+    """The smoke CLI on the card: 3 steps, ``--resume auto`` to 6, against
+    6 at once (warmup 20 covers all six steps): the same parameters."""
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+
+    def run(directory, n, *extra):
+        return train.run(train.parse_args([
+            "--arch", "qwen2-1.5b", "--smoke", "--steps", str(n),
+            "--seq-len", "32", "--global-batch", "4", "--log-every", "3",
+            "--ckpt-dir", str(directory), *extra]))
+
+    run(tmp_path / "a", 3)
+    resumed = run(tmp_path / "a", 6, "--resume", "auto")
+    whole = run(tmp_path / "b", 6)
+    assert resumed["start_step"] == 3
+    assert resumed["final_loss"] == whole["final_loss"]
+    for a, b in zip(tree_leaves(resumed["state"].params),
+                    tree_leaves(whole["state"].params)):
+        assert torch.equal(a, b)
