@@ -337,6 +337,34 @@ each), so that the run stays well inside its time limit:
              parameters bitwise), and ``--grad-compress-ratio 0.25``.
              None of the 12 entry points may launch (``train_launches``
              of each ``kernels`` row).  The phase's seconds are printed.
+5k. main-placed — fleet placement (after [main-train]; PLACED; no fit
+             at full width), each part driven with the counts zeroed just
+             before and read just after (comparisons not counted): a. the
+             [main] basis served by ``FGFTServeEngine(placement=
+             single_bucket_placement(mesh, 64))`` on ``make_local_mesh()``
+             (one device on a one-card machine) and on 4 logical devices
+             of the card (``logical_devices``): every tier's ``step``
+             (lowpass) and ``step_versioned`` and the F = 7 bank bitwise
+             the unplaced engine's, one launch per shard per dispatch, ms
+             per placed dispatch beside the unplaced one.  b. the same on
+             the [main-directed] basis (T family).  c. ``pad_batch`` of
+             both bases' tables 64 -> 96 rows through chain, operator and
+             bank at f32 and bf16 tables: the real rows bitwise the
+             unpadded launch, pad rows bitwise their input through the
+             chain and exactly 0 through the operator and the bank.
+             d. [main-ragged]'s saved router loaded with
+             ``placement="auto"`` on ``make_local_mesh()`` and on 4
+             logical devices, every tier of every bucket bitwise the
+             saved router's; the placed router saved (``placement.json``)
+             and loaded back placed, tables and steps bitwise.  e/f. a
+             small fleet (B = 8, n = 64, g = 384) fitted unplaced and with
+             ``fit(mesh=)`` on 4 logical devices (factors, spectrum and
+             objective bitwise), then dynamic engines on both fits, one
+             placed on the logical devices: a forced REFRESH (no new plan,
+             no new entry stream) and a forced EXTEND, tick for tick the
+             unplaced engine's, every tier bitwise after each swap.  Each
+             ``kernels`` row carries ``placed_launches``; the phase's
+             seconds are printed.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
              graph (n = 256, g = 2048, n_iter = 2), then analysis, synthesis,
              project and the bank; ``shear_apply``, ``gen_operator_apply``
@@ -387,7 +415,8 @@ signal (``signal``); launches per path: ``launches`` on the batched or
 single-graph path, on [main-bf16] for a bf16-table form and on
 [main-bf16x] for a bf16-signal form, ``ragged_launches``,
 ``dynamic_launches``, ``async_launches``, ``core_launches``,
-``lm_launches``, ``lm_families_launches``, ``train_launches``), the
+``lm_launches``, ``lm_families_launches``, ``train_launches``,
+``placed_launches``), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -4427,6 +4456,384 @@ def phase_main_train(card) -> dict:
             "part_s": secs}
 
 
+#: [main-placed]: logical devices the one card is split into, the padded
+#: batch of part c (64 -> 96 rows), and part e's small dynamic fleet
+PLACED = dict(devices=4, pad_to=96, small=dict(graphs=8, n=64, g=384),
+              reps=20)
+
+
+def placed_engines(tag, basis, laps, family, counts) -> dict:
+    """[main-placed] a/b: ``basis`` served unplaced and through
+    ``single_bucket_placement`` on ``make_local_mesh()`` (one device on a
+    one-card machine) and on PLACED["devices"] logical devices of the
+    card.  Every tier's ``step`` (lowpass) and ``step_versioned``, and the
+    F = 7 bank, bitwise the unplaced engine's; each dispatch launched once
+    per shard (counts zeroed just before, read just after); ms per
+    dispatch, placed beside unplaced."""
+    import torch
+    from repro_torch.kernels import launcher
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import logical_devices, make_local_mesh
+    from repro_torch.runtime.sharding import single_bucket_placement
+    tiers = serve.parse_tiers(MAIN["tiers"])
+    common = dict(basis=basis, tiers=tiers, filters=MAIN["filters"],
+                  kind=family, device=DEVICE)
+    flat = serve.FGFTServeEngine(laps, **common)
+    b, n = int(basis.spectrum.shape[0]), basis.n
+    gen = torch.Generator(device=DEVICE).manual_seed(71)
+    x = torch.randn((b, MAIN["signals"], n), generator=gen, device=DEVICE)
+    op = ("batched_sym_operator_apply" if family == "sym"
+          else "batched_gen_operator_apply")
+    bank = ("batched_sym_filter_bank_apply" if family == "sym"
+            else "batched_gen_filter_bank_apply")
+    with logical_devices(PLACED["devices"], DEVICE):
+        logical = make_local_mesh(device=DEVICE)
+    out = {}
+    for name, mesh in (("1 device", make_local_mesh(device=DEVICE)),
+                       (f"{PLACED['devices']} logical", logical)):
+        pl = single_bucket_placement(mesh, b)
+        placed = serve.FGFTServeEngine(laps, placement=pl, **common)
+        shards = pl.num_devices
+        for tier in tiers:
+            want = flat.step(x, lowpass, tier=tier)
+            launcher.reset_launch_counts()
+            got = placed.step(x, lowpass, tier=tier)
+            sync()
+            seen = launcher.entry_launch_counts()
+            counts.update(seen)
+            check(seen[op] == shards, f"[{tag}] {name}, tier {tier}: "
+                  f"{seen[op]} operator launches for {shards} shards")
+            check(torch.equal(got, want), f"[{tag}] {name}, tier {tier}: "
+                  "placed step differs from unplaced")
+            got_v, ver = placed.step_versioned(x, tier=tier)
+            check(torch.equal(got_v, flat.step_versioned(x, tier=tier)[0])
+                  and ver == 0, f"[{tag}] {name}, tier {tier}: "
+                  "step_versioned differs")
+        want = flat.step_bank(x)
+        launcher.reset_launch_counts()
+        got = placed.step_bank(x)
+        sync()
+        seen = launcher.entry_launch_counts()
+        counts.update(seen)
+        check(seen[bank] == shards, f"[{tag}] {name}: {seen[bank]} bank "
+              f"launches for {shards} shards")
+        check(torch.equal(got, want), f"[{tag}] {name}: placed bank "
+              "differs from unplaced")
+        with uncounted():
+            ms = {"placed": time_ms(lambda: placed.step(x, lowpass),
+                                    reps=PLACED["reps"]),
+                  "unplaced": time_ms(lambda: flat.step(x, lowpass),
+                                      reps=PLACED["reps"]),
+                  "placed_bank": time_ms(lambda: placed.step_bank(x),
+                                         reps=PLACED["reps"]),
+                  "unplaced_bank": time_ms(lambda: flat.step_bank(x),
+                                           reps=PLACED["reps"])}
+        out[name] = {"shards": shards, **ms}
+        log(f"[{tag}] {name} ({shards} shard{'s' * (shards > 1)} of "
+            f"{pl.rows} graphs): {len(tiers)} tiers, step_versioned and "
+            f"the F = {len(flat.bank)} bank bitwise the unplaced engine's, "
+            f"{shards} launch{'es' * (shards > 1)} per dispatch; full tier "
+            f"{ms['placed']:.4f} ms per placed dispatch vs "
+            f"{ms['unplaced']:.4f} unplaced, bank {ms['placed_bank']:.4f} "
+            f"vs {ms['unplaced_bank']:.4f} (R = {MAIN['signals']})")
+    return out
+
+
+def placed_pad_rows(tag, basis, family, counts) -> dict:
+    """[main-placed] c: ``pad_batch`` of ``basis``'s tables to
+    PLACED["pad_to"] rows through chain, operator and bank, f32 and bf16
+    tables: the real rows bitwise the unpadded launch, pad rows bitwise
+    their input through the chain and exactly 0 through the operator and
+    the bank (zero spectrum and gain rows)."""
+    import torch
+    from repro_torch.core.staging import pad_batch, with_precision
+    from repro_torch.kernels import launcher
+    from repro_torch.kernels.plan import ApplyPlan
+    from repro_torch.spectral import SpectralFilterBank, named_responses
+    b, n, r = int(basis.spectrum.shape[0]), basis.n, MAIN["signals"]
+    bp = PLACED["pad_to"]
+    gen = torch.Generator(device=DEVICE).manual_seed(72)
+    x = torch.randn((bp, r, n), generator=gen, device=DEVICE)
+    spec = torch.cat([basis.spectrum, basis.spectrum.new_zeros(bp - b, n)])
+    real = SpectralFilterBank(basis, named_responses(MAIN["filters"])).gains()
+    gains = torch.cat([real, real.new_zeros((bp - b,) + real.shape[1:])])
+    out = {}
+    for precision in ("f32", "bf16"):
+        kw = dict(family=family, n=n, batched=True, precision=precision,
+                  device=DEVICE)
+        fwd = with_precision(basis.fwd, precision)
+        bwd = with_precision(basis.bwd, precision)
+        pf, pb = pad_batch(fwd, bp), pad_batch(bwd, bp)
+        a_keep = "head" if family == "sym" else "tail"
+        chain = ApplyPlan(mode="apply", keep=a_keep, **kw)
+        op, bk = ApplyPlan(mode="operator", **kw), ApplyPlan(mode="bank",
+                                                              **kw)
+        with uncounted():
+            want = (chain.apply(bwd, x[:b].contiguous()),
+                    op.operator(fwd, bwd, basis.spectrum, x[:b].contiguous()),
+                    bk.bank(fwd, bwd, gains[:b].contiguous(),
+                            x[:b].contiguous()))
+        launcher.reset_launch_counts()
+        got = (chain.apply(pb, x), op.operator(pf, pb, spec, x),
+               bk.bank(pf, pb, gains, x))
+        sync()
+        seen = launcher.entry_launch_counts()
+        counts.update(seen)
+        forms = {k for k, v in seen.items() if v}
+        check(len(forms) == 3 and all(
+            k.endswith("_bf16") == (precision == "bf16") for k in forms),
+            f"[{tag}] pad rows {precision}: launched {seen}")
+        for what, g, w in zip(("chain", "operator", "bank"), got, want):
+            check(torch.equal(g[:b], w), f"[{tag}] pad rows {precision}: "
+                  f"{what}'s real rows differ from the unpadded launch")
+        check(torch.equal(got[0][b:], x[b:]), f"[{tag}] pad rows "
+              f"{precision}: the chain does not pass pad rows through")
+        check(not bool(got[1][b:].any()) and not bool(got[2][b:].any()),
+              f"[{tag}] pad rows {precision}: operator or bank pad rows "
+              "are not 0")
+        out[precision] = {k: v for k, v in seen.items() if v}
+    log(f"[{tag}] pad rows ({family}, {b} -> {bp} rows, R = {r}): chain, "
+        f"operator and bank at f32 and bf16 tables: real rows bitwise the "
+        f"unpadded launches, pad rows bitwise their input through the "
+        f"chain and exactly 0 through the operator and the bank; launches "
+        f"{out}")
+    return out
+
+
+def placed_ragged(tag, ragged, counts) -> dict:
+    """[main-placed] d: [main-ragged]'s saved router loaded with
+    ``placement="auto"`` on ``make_local_mesh()`` and on PLACED["devices"]
+    logical devices: every tier and bucket bitwise the saved (unplaced)
+    router's; the placed router saved (``placement.json`` written) and
+    loaded back, its tables and steps bitwise."""
+    import json as _json
+    import shutil
+    import torch
+    from repro_torch.core.staging import table_arrays
+    from repro_torch.kernels import launcher
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import logical_devices, make_local_mesh
+    ckpt = ROOT / "build" / "ragged_checkpoint"
+    flat = ragged["out"]["router"]
+    x = ragged["out"]["signals"]
+    tiers = list(flat.engines[max(flat.engines)].tiers)
+    with logical_devices(PLACED["devices"], DEVICE):
+        logical = make_local_mesh(device=DEVICE)
+    out = {}
+    for name, mesh in (("1 device", make_local_mesh(device=DEVICE)),
+                       (f"{PLACED['devices']} logical", logical)):
+        t0 = time.perf_counter()
+        placed = serve.RaggedFGFTServeEngine.load(
+            ckpt, placement="auto", mesh=mesh, device=DEVICE)
+        sync()
+        load_s = time.perf_counter() - t0
+        launcher.reset_launch_counts()
+        for tier in tiers:
+            with uncounted():
+                want = flat.step(x, lowpass, tier=tier)
+                sync()
+            for pos, (a, b) in enumerate(zip(
+                    placed.step(x, lowpass, tier=tier), want)):
+                check(torch.equal(a, b), f"[{tag}] ragged {name}, tier "
+                      f"{tier}: graph {pos} differs from unplaced")
+        sync()
+        seen = launcher.entry_launch_counts()
+        counts.update(seen)
+        shards = sum(p.num_devices for _, p in placed.placement.items())
+        op = seen["batched_sym_operator_apply"]
+        check(op == len(tiers) * shards, f"[{tag}] ragged {name}: {op} "
+              f"operator launches for {len(tiers)} tiers of {shards} "
+              "shards")
+        out[name] = {"manifest": placed.placement.manifest(),
+                     "load_s": load_s}
+        log(f"[{tag}] ragged router re-placed on {name}: "
+            f"{placed.placement.manifest()['buckets']}; every tier of "
+            f"every bucket bitwise the unplaced router's; loaded in "
+            f"{load_s:.2f}s")
+    saved = ROOT / "build" / "placed_router"
+    shutil.rmtree(saved, ignore_errors=True)
+    placed.save(saved)
+    manifest = _json.loads((saved / "placement.json").read_text())
+    check(manifest == placed.placement.manifest(),
+          f"[{tag}] placement.json {manifest}")
+    with logical_devices(PLACED["devices"], DEVICE):
+        back = serve.RaggedFGFTServeEngine.load(saved, device=DEVICE)
+    check(back.placement is not None and back.placement.manifest()
+          == manifest, f"[{tag}] the placed router did not load placed")
+    for w, eng in placed.engines.items():
+        for leg in ("fwd", "bwd"):
+            for a, b in zip(table_arrays(getattr(eng.basis, leg)),
+                            table_arrays(getattr(back.engines[w].basis,
+                                                 leg))):
+                check(torch.equal(a, b), f"[{tag}] bucket {w}: restored "
+                      f"{leg} tables differ")
+    with uncounted():
+        for a, b in zip(back.step(x, lowpass), placed.step(x, lowpass)):
+            check(torch.equal(a, b), f"[{tag}] restored placed router "
+                  "serves differently")
+    shutil.rmtree(saved)
+    log(f"[{tag}] placed router saved (placement.json {manifest}) and "
+        f"loaded back placed: tables and steps bitwise")
+    return out
+
+
+def placed_dynamic(tag, counts) -> dict:
+    """[main-placed] e/f: a small fleet (PLACED["small"]) fitted unplaced
+    and with ``fit(mesh=)`` on PLACED["devices"] logical devices (factors
+    bitwise), then a dynamic engine on each, the second placed on the
+    logical devices: one forced REFRESH and one forced EXTEND (the placed
+    EXTEND splits over the devices), tick for tick the same actions,
+    drift and versions and every served tier bitwise; no new plan and no
+    new entry stream across the REFRESH swap."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ApproxEigenbasis, laplacian
+    from repro_torch.graphs import community_graph
+    from repro_torch.kernels import launcher
+    from repro_torch.kernels.plan import plan_cache_stats
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import logical_devices, make_local_mesh
+    from repro_torch.runtime.sharding import single_bucket_placement
+    small = PLACED["small"]
+    b, n, g = small["graphs"], small["n"], small["g"]
+    laps = np.stack([laplacian(community_graph(n, seed=300 + s))
+                     for s in range(b)])
+    with logical_devices(PLACED["devices"], DEVICE):
+        mesh = make_local_mesh(device=DEVICE)
+    t0 = time.perf_counter()
+    flat_basis = ApproxEigenbasis.fit(laps, g, n_iter=1, device=DEVICE)
+    sync()
+    t1 = time.perf_counter()
+    mesh_basis = ApproxEigenbasis.fit(laps, g, n_iter=1, mesh=mesh,
+                                      device=DEVICE)
+    sync()
+    t2 = time.perf_counter()
+    for a, c in zip(flat_basis.factors + (flat_basis.spectrum,
+                                          flat_basis.objective),
+                    mesh_basis.factors + (mesh_basis.spectrum,
+                                          mesh_basis.objective)):
+        check(torch.equal(a, c), f"[{tag}] fit(mesh=) differs from the "
+              "unplaced fit")
+    log(f"[{tag}] fit(mesh=) of {b} graphs, n = {n}, g = {g} on "
+        f"{PLACED['devices']} logical devices: factors, spectrum and "
+        f"objective bitwise the unplaced fit's ({t2 - t1:.2f}s vs "
+        f"{t1 - t0:.2f}s unplaced)")
+    tiers = serve.parse_tiers(MAIN["tiers"])
+    flat = serve.FGFTServeEngine(laps, basis=flat_basis, tiers=tiers,
+                                 dynamic=True, device=DEVICE)
+    placed = serve.FGFTServeEngine(
+        laps, basis=mesh_basis, tiers=tiers, dynamic=True, device=DEVICE,
+        placement=single_bucket_placement(mesh, b))
+    gen = torch.Generator(device=DEVICE).manual_seed(73)
+    x = torch.randn((b, 32, n), generator=gen, device=DEVICE)
+    rng = np.random.default_rng(74)
+    ticks = []
+    for rnd, (action, mult) in enumerate((("refresh", (0.1, 1e6, 2e6)),
+                                          ("extend", (0.01, 0.1, 1e6)))):
+        delta = rng.standard_normal((n, n)).astype(np.float32) * 0.05
+        delta = delta + delta.T
+        res, streams = {}, {}
+        for key, eng in (("flat", flat), ("placed", placed)):
+            eng.apply_updates(rnd, delta)
+            pol = eng.controller.policy
+            eng.controller.policy = replace_policy(pol, 1e9, 1e9, 1e9)
+            check(eng.maintain()["action"] == "reuse", f"[{tag}] quiet tick")
+            d = float(eng.drift().max())
+            eng.controller.policy = replace_policy(
+                pol, *(m * d for m in mult))
+            misses = plan_cache_stats()["misses"]
+            launcher.reset_stream_cache_counts()
+            launcher.reset_launch_counts()
+            res[key] = eng.maintain()
+            sync()
+            if eng is placed:
+                counts.update(launcher.entry_launch_counts())
+            streams[key] = (plan_cache_stats()["misses"] - misses,
+                            launcher.stream_cache_counts())
+        check(res["flat"]["action"] == res["placed"]["action"] == action,
+              f"[{tag}] ticks took {res['flat']['action']} and "
+              f"{res['placed']['action']}, want {action}")
+        for k in ("drift", "post_drift", "versions"):
+            check(np.array_equal(res["flat"][k], res["placed"][k]),
+                  f"[{tag}] {action}: {k} differs")
+        if action == "refresh":
+            check(streams["placed"][0] == 0
+                  and streams["placed"][1]["misses"] == 0,
+                  f"[{tag}] the placed REFRESH built plans or streams: "
+                  f"{streams['placed']}")
+        launcher.reset_launch_counts()
+        for tier in tiers:
+            with uncounted():
+                want = flat.step(x, lowpass, tier=tier)
+            got = placed.step(x, lowpass, tier=tier)
+            check(torch.equal(got, want), f"[{tag}] after {action}, tier "
+                  f"{tier}: placed step differs")
+        sync()
+        counts.update(launcher.entry_launch_counts())
+        ticks.append({"action": action, "plan_misses_and_streams": streams})
+        log(f"[{tag}] placed dynamic engine, forced {action.upper()}: "
+            f"drift, post-action drift and versions "
+            f"{res['placed']['versions'].tolist()} equal to the unplaced "
+            f"engine's, every tier bitwise after the swap; new plans / "
+            f"entry-stream cache (placed) {streams['placed']}, (unplaced) "
+            f"{streams['flat']}")
+    return {"ticks": ticks, "fit_s": t1 - t0, "mesh_fit_s": t2 - t1}
+
+
+def replace_policy(policy, refresh, extend, refit):
+    from dataclasses import replace
+    return replace(policy, refresh=refresh, extend=extend, refit=refit)
+
+
+def phase_main_placed(errs, main, main_dir, ragged) -> dict:
+    """[main-placed]: fleet placement (runtime/sharding.py) on the tables
+    the earlier phases fitted; every part driven with the counts zeroed
+    just before and read just after (comparisons not counted).  a. the
+    [main] basis (B = 64, n = 256, g = 4096) served through
+    ``single_bucket_placement`` on ``make_local_mesh()`` and on 4 logical
+    devices of the card, bitwise the unplaced engine; b. the same on the
+    [main-directed] basis; c. pad rows through all six kernels, f32 and
+    bf16 tables; d. [main-ragged]'s saved router re-placed and saved
+    placed; e/f. a small placed dynamic engine and ``fit(mesh=)``."""
+    from collections import Counter
+    t_phase = time.perf_counter()
+    counts: Counter = Counter()
+    tag = "main-placed"
+    secs = {}
+    t0 = time.perf_counter()
+    m_out, d_out = main["out"], main_dir["out"]
+    out = {"a": placed_engines(tag, m_out["engine"].basis, m_out["laps"],
+                               "sym", counts)}
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"] = placed_engines(f"{tag} directed", d_out["engine"].basis,
+                              d_out["laps"], "general", counts)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["c"] = {"sym": placed_pad_rows(tag, m_out["engine"].basis, "sym",
+                                       counts),
+                "general": placed_pad_rows(tag, d_out["engine"].basis,
+                                           "general", counts)}
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["d"] = placed_ragged(tag, ragged, counts)
+    secs["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["e"] = placed_dynamic(tag, counts)
+    secs["e"] = time.perf_counter() - t0
+    for entry in ("batched_sym_operator_apply", "batched_gen_operator_apply",
+                  "batched_sym_filter_bank_apply",
+                  "batched_gen_filter_bank_apply", "batched_butterfly_apply",
+                  "batched_shear_apply"):
+        check(counts[entry] > 0, f"[{tag}] never launched {entry}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[{tag}] {phase_s:.1f}s in all ("
+        + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
+        + f"); launches {dict(counts)}")
+    return {"launches": dict(counts), **out, "phase_s": phase_s,
+            "part_s": secs}
+
+
 #: the async front end of [main-async]: R-row requests from closed-loop
 #: tenants through AsyncFGFTService on the tables the earlier phases
 #: fitted (no fit at full width); the dynamic part's churn and refresh
@@ -5225,6 +5632,7 @@ def main() -> int:
     lm = phase_main_lm(card)
     lm_families = phase_main_lm_families(card)
     trained = phase_main_train(card)
+    placed = phase_main_placed(errs, main_rec, main_dir, ragged)
     # phase 7 for the bf16 forms, then for the bf16-signal forms on f32
     # and on bf16 tables
     for at in (("bf16", bf16["launches"]),
@@ -5256,6 +5664,7 @@ def main() -> int:
         row["lm_families_launches"] = lm_families["launches"].get(
             row["entry"], 0)
         row["train_launches"] = trained["launches"].get(row["entry"], 0)
+        row["placed_launches"] = placed["launches"].get(row["entry"], 0)
         row["max_abs_err"] = errs[row["entry"]]
     if args.baseline:
         turns = phase_turns(args.baseline, main_rec, single, main_dir,

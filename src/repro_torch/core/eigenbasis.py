@@ -15,11 +15,18 @@ chain acting as the identity on its padding coordinates.  ``extend``
 grows a fit without refitting its prefix, and ``save``/``load`` persist
 a basis through the checkpoint store in the JAX package's format, so
 either package restores the other's bases.
+
+Meshes: ``fit``/``extend`` with ``mesh=`` (launch/mesh.py) split the batch
+over the mesh's data devices (runtime/sharding.py::batch_shard_ids) and
+fit each shard on its own device; the factors come back to the fit's
+device and the whole batch is packed once, as unplaced.  ``shard(mesh)``
+returns the basis with a ``placement`` over those devices, through which
+``apply``/``project`` then run (one launch per shard).
 """
 from __future__ import annotations
 
 import warnings
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -105,6 +112,53 @@ def _normalize_sizes(sizes, batched: bool, n: int, batch: int):
     return int(sizes) if not batched else sizes
 
 
+def _shard_devices(mesh, batch: int) -> list:
+    """The torch devices a (batch, n, n) fit splits over on ``mesh``."""
+    from repro_torch.runtime.sharding import batch_shard_ids
+    return [mesh.device(i) for i in batch_shard_ids(mesh, batch)]
+
+
+def _rows(a, lo: int, hi: int, dev):
+    """Rows [lo, hi) of a batched operand, copied to ``dev``: a tensor, a
+    factor tuple of them, a numpy array (host metadata) or None."""
+    if a is None:
+        return None
+    if isinstance(a, np.ndarray):
+        return a[lo:hi]
+    if isinstance(a, tuple):
+        return type(a)(*(_rows(t, lo, hi, dev) for t in a))
+    return a[lo:hi].to(dev, copy=True)
+
+
+def _cat(parts, home):
+    """The shards' results back on ``home``, concatenated on the batch
+    axis (factor tuples field by field)."""
+    first = parts[0]
+    if isinstance(first, tuple):
+        return type(first)(*(_cat([p[k] for p in parts], home)
+                             for k in range(len(first))))
+    return torch.cat([p.to(home) for p in parts])
+
+
+def _fit_sharded(core, devices, home, rows: tuple, static: tuple, sizes):
+    """``core(*rows, *static, sizes)`` (a batched fit or extend core)
+    over one batch shard per device, each on its own device, one after
+    the other from this thread; the results concatenated on ``home``."""
+    if len(devices) <= 1:
+        return core(*rows, *static, sizes)
+    from repro_torch.kernels.plan import _on_device
+    bsz = rows[0].shape[0]
+    per = bsz // len(devices)
+    outs = []
+    for k, dev in enumerate(devices):
+        lo, hi = k * per, (k + 1) * per
+        with _on_device(dev):
+            outs.append(core(*(_rows(a, lo, hi, dev) for a in rows),
+                             *static, _rows(sizes, lo, hi, dev)))
+    return tuple(_cat([o[q] for o in outs], home)
+                 for q in range(len(outs[0])))
+
+
 def _pack(kind: str, batched: bool, factors, n: int, cuts, stage_pad,
           device):
     """(fwd, bwd) staged tables of a chain, packed by the port."""
@@ -136,6 +190,9 @@ class ApproxEigenbasis:
         bucket.  A masked basis is the identity on coordinates >=
         sizes[b]: ``apply`` passes them through and ``project`` zeroes
         them.
+      placement: the ``BucketPlacement`` of ``shard(mesh)``, over whose
+        devices ``apply``/``project`` split the batch, or None (the
+        tables and spectrum themselves stay whole on ``device``).
     """
 
     kind: str
@@ -148,6 +205,7 @@ class ApproxEigenbasis:
     objective: Optional[torch.Tensor] = None
     info: Dict[str, Any] = field(default_factory=dict)
     sizes: Optional[Any] = None
+    placement: Optional[Any] = None
 
     @property
     def device(self) -> torch.device:
@@ -160,7 +218,7 @@ class ApproxEigenbasis:
             hint: Optional[str] = None, n_iter: int = 8, eps: float = 1e-3,
             update_spectrum: bool = True, spectrum=None,
             score: Optional[str] = None, sizes=None,
-            stage_pad: Optional[tuple] = None,
+            mesh=None, stage_pad: Optional[tuple] = None,
             device="cuda") -> "ApproxEigenbasis":
         """Factor one matrix (n, n) or a batch (B, n, n) — Algorithm 1.
 
@@ -173,7 +231,12 @@ class ApproxEigenbasis:
         ``gtransform.approximate_symmetric`` (``score`` applies to the
         symmetric family only).  ``stage_pad``: optional
         (depth_quantum, width_quantum) staged-table shape quantization
-        for batched fits.
+        for batched fits.  ``mesh`` (launch/mesh.py): a batch splits over
+        the mesh's data devices (the largest subset of its data axes
+        whose size divides B; an unbatched fit or an awkward B runs on
+        ``device``), each shard fitted on its own device; the factors
+        come back to ``device`` and pack once, so the basis equals the
+        unplaced fit's.
 
         Heterogeneous fleets: ``mats`` may be a LIST of square matrices
         of different sides; they are zero-padded into one (B, n, n)
@@ -223,22 +286,27 @@ class ApproxEigenbasis:
                     f"spectrum shape {tuple(spectrum.shape)} does not match "
                     f"the fitted batch: expected {want}")
         stack = mats if batched else mats.unsqueeze(0)
+        devices = (_shard_devices(mesh, stack.shape[0])
+                   if mesh is not None and batched else [dev])
         info = {"stage_pad": stage_pad}
         if kind == SYMMETRIC:
             if score is None:
                 score = "paper" if spectrum is not None else "gamma"
             sbar0 = (spectrum if spectrum is not None
                      else gt.default_sbar(mats, sizes))
-            factors, sbar, obj, hist, iters = gt._approx_sym_core(
-                stack, sbar0.reshape(stack.shape[:2]), num_transforms,
-                n_iter, update_spectrum, eps, score, sizes)
+            factors, sbar, obj, hist, iters = _fit_sharded(
+                gt._approx_sym_core, devices, dev,
+                (stack, sbar0.reshape(stack.shape[:2])),
+                (num_transforms, n_iter, update_spectrum, eps, score),
+                sizes)
             info["score"] = score
         else:
             cbar0 = (spectrum if spectrum is not None
                      else tt.default_cbar(mats, sizes))
-            factors, sbar, obj, hist, iters = tt._approx_gen_core(
-                stack, cbar0.reshape(stack.shape[:2]), num_transforms,
-                n_iter, update_spectrum, eps, sizes)
+            factors, sbar, obj, hist, iters = _fit_sharded(
+                tt._approx_gen_core, devices, dev,
+                (stack, cbar0.reshape(stack.shape[:2])),
+                (num_transforms, n_iter, update_spectrum, eps), sizes)
         if not batched:
             factors = type(factors)(*(f[0] for f in factors))
             sbar, obj, hist, iters = sbar[0], obj[0], hist[0], iters[0]
@@ -267,7 +335,7 @@ class ApproxEigenbasis:
 
     def extend(self, mats, num_transforms: int, *, n_iter: int = 0,
                eps: float = 1e-3, update_spectrum: bool = True,
-               score: Optional[str] = None,
+               score: Optional[str] = None, mesh=None,
                stage_pad: Optional[tuple] = None) -> "ApproxEigenbasis":
         """Grow this fit to ``num_transforms`` components WITHOUT
         refitting the prefix: new Theorem-1/3 components are fitted
@@ -281,7 +349,9 @@ class ApproxEigenbasis:
         keeps its mask).  The new cut ladder carries the original g, so
         the pre-extension basis stays selectable as a serving tier.
         ``score`` defaults to the score the fit resolved; like ``fit``
-        it is rejected for the general family."""
+        it is rejected for the general family.  ``mesh``: as in ``fit``
+        (each batch shard extends on its own device).  The extended basis
+        keeps this one's ``placement``."""
         dev = self.device
         mats = torch.as_tensor(mats, dtype=torch.float32).to(dev)
         if mats.dim() != (3 if self.batched else 2):
@@ -311,17 +381,19 @@ class ApproxEigenbasis:
         factors0 = (self.factors if self.batched else type(self.factors)(
             *(f.unsqueeze(0) for f in self.factors)))
         spec0 = self.spectrum.reshape(stack.shape[:2])
+        devices = (_shard_devices(mesh, stack.shape[0])
+                   if mesh is not None and self.batched else [dev])
         if self.kind == SYMMETRIC:
             if score is None:
                 score = self.info.get("score", "gamma")
             info["score"] = score  # chained extends keep the criterion
-            factors, sbar, obj, hist, iters = gt._extend_sym_core(
-                stack, factors0, spec0, extra, n_iter, update_spectrum,
-                eps, score, self.sizes)
+            factors, sbar, obj, hist, iters = _fit_sharded(
+                gt._extend_sym_core, devices, dev, (stack, factors0, spec0),
+                (extra, n_iter, update_spectrum, eps, score), self.sizes)
         else:
-            factors, sbar, obj, hist, iters = tt._extend_gen_core(
-                stack, factors0, spec0, extra, n_iter, update_spectrum,
-                eps, self.sizes)
+            factors, sbar, obj, hist, iters = _fit_sharded(
+                tt._extend_gen_core, devices, dev, (stack, factors0, spec0),
+                (extra, n_iter, update_spectrum, eps), self.sizes)
         if not self.batched:
             factors = type(factors)(*(f[0] for f in factors))
             sbar, obj, hist, iters = sbar[0], obj[0], hist[0], iters[0]
@@ -330,7 +402,8 @@ class ApproxEigenbasis:
         info.update(history=hist, iterations=iters)
         return type(self)(kind=self.kind, n=self.n, batched=self.batched,
                           factors=factors, spectrum=sbar, fwd=fwd, bwd=bwd,
-                          objective=obj, info=info, sizes=self.sizes)
+                          objective=obj, info=info, sizes=self.sizes,
+                          placement=self.placement)
 
     # -- application -------------------------------------------------------
 
@@ -342,7 +415,7 @@ class ApproxEigenbasis:
                          batched=self.batched, backend=backend,
                          num_stages=num_stages, keep=keep,
                          precision=precision, fused=fused,
-                         device=str(self.device))
+                         device=str(self.device), placement=self.placement)
 
     def _signal(self, x) -> torch.Tensor:
         return as_signal(x, self.device)
@@ -407,6 +480,26 @@ class ApproxEigenbasis:
         diff = (torch.as_tensor(mats, dtype=torch.float32).to(self.device)
                 - self.reconstruct())
         return (diff * diff).sum((-2, -1))
+
+    def shard(self, mesh) -> "ApproxEigenbasis":
+        """This basis with a ``placement`` over ``mesh``'s data devices
+        (the largest subset of its data axes whose size divides B):
+        ``apply``/``project`` on (B, ..., n) signals then run one launch
+        per device shard and gather the answer on ``device``.  An
+        unbatched basis, or a batch that splits over one device, is
+        returned as it is."""
+        if not self.batched:
+            return self
+        from repro_torch.runtime.sharding import (BucketPlacement,
+                                                  batch_shard_ids)
+        batch = int(self.spectrum.shape[0])
+        ids = batch_shard_ids(mesh, batch)
+        if len(ids) <= 1:
+            return self
+        placement = BucketPlacement(
+            device_ids=ids, batch=batch,
+            devices=tuple(str(mesh.device(i)) for i in ids))
+        return replace(self, placement=placement)
 
     # -- persistence (repro_torch/checkpoint, the JAX package's format) ---
 

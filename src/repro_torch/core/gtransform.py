@@ -419,9 +419,19 @@ def lemma1_spectrum(s_mat: torch.Tensor, factors: GFactors) -> torch.Tensor:
     return torch.diagonal(g_conjugated(s_mat, factors), dim1=-2, dim2=-1)
 
 
+def _sq_sum(d: torch.Tensor) -> torch.Tensor:
+    """Sum of squares over the last two axes, one axis at a time.  A
+    single reduction over the n^2 entries of each matrix lets CUDA split
+    a long row over several warps when the batch is small, so its bits
+    would depend on how many matrices are reduced together; two passes
+    of n keep each matrix's sum order fixed, so a batch shard's fit
+    (``ApproxEigenbasis.fit(mesh=)``) reports the whole batch's bits."""
+    return (d * d).sum(-1).sum(-1)
+
+
 def _objective_of(w: torch.Tensor, sbar: torch.Tensor) -> torch.Tensor:
     d = w - torch.diag_embed(sbar.to(w.dtype))
-    return (d * d).sum((-2, -1))
+    return _sq_sum(d)
 
 
 def g_objective(s_mat: torch.Tensor, factors: GFactors,

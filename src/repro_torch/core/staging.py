@@ -134,6 +134,43 @@ def with_precision(staged, precision: str):
                               for f in values})
 
 
+_G_PAD_VALUES = (None, None, 1.0, 0.0, 1.0)   # idx fields use n
+_T_PAD_VALUES = (None, None, 1.0, 0.0)
+
+
+def pad_batch(staged, quantum: int):
+    """Pad the leading batch axis of (B, S, P) tables up to a multiple of
+    ``quantum`` with whole no-op rows (the per-device batch quantum of a
+    placement, runtime/sharding.py).
+
+    Every entry of a pad row is the structural no-op (out-of-bounds index
+    ``n`` and identity values: G (c, s, sigma) = (1, 0, 1), T
+    (alpha, beta) = (1, 0)), so a pad row applies as the identity on its
+    signal row, and padded tables on padded signals equal the original
+    tables on the original signals.  ``cuts`` and ``n`` are
+    batch-independent and survive unchanged.  Bitwise the JAX package's
+    tables, at either value precision."""
+    if quantum < 1:
+        raise ValueError(f"pad_batch: quantum must be >= 1, got {quantum}")
+    tables = table_arrays(staged)
+    if tables[0].dim() != 3:
+        raise ValueError("pad_batch expects batched (B, S, P) tables, got "
+                         f"ndim={tables[0].dim()}")
+    b = tables[0].shape[0]
+    b_pad = -(-b // quantum) * quantum
+    if b_pad == b:
+        return staged
+    pads = _T_PAD_VALUES if isinstance(staged, StagedT) else _G_PAD_VALUES
+    upd = {}
+    for field, pad_val in zip(_table_fields(staged), pads):
+        arr = getattr(staged, field)
+        fill = staged.n if pad_val is None else pad_val
+        block = torch.full((b_pad - b,) + tuple(arr.shape[1:]), fill,
+                           dtype=arr.dtype, device=arr.device)
+        upd[field] = torch.cat([arr, block])
+    return staged._replace(**upd)
+
+
 # ---------------------------------------------------------------------------
 # Prefix metadata helpers
 # ---------------------------------------------------------------------------

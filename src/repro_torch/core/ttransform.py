@@ -158,7 +158,7 @@ def t_objective(c_mat: torch.Tensor, factors: TFactors,
                 cbar: torch.Tensor) -> torch.Tensor:
     """||C - Tbar diag(cbar) Tbar^{-1}||_F^2, scalar or (B,)."""
     d = c_mat - t_reconstruct(factors, cbar.to(c_mat.dtype))
-    return (d * d).sum((-2, -1))
+    return gt._sq_sum(d)
 
 
 def _t_objectives(c_mat, factors: TFactors, cbars) -> torch.Tensor:
@@ -548,7 +548,7 @@ def t_polish(c_mat: torch.Tensor, factors: TFactors,
         conj = _rank2_conj(a_mat, a_inv,
                            _scale_candidates_vecs(b_mat, i, cands))
         diff = chat0[:, None] - conj
-        vals = (diff * diff).sum((-2, -1))
+        vals = gt._sq_sum(diff)
         vals = torch.where(cands.abs() < _A_MIN_SCALE,
                            math.inf, vals)
         a_sc = torch.gather(cands, 1, torch.argmin(vals, dim=1,

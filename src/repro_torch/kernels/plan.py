@@ -47,9 +47,21 @@ same answer.
 (analysis apply, diagonal scale, synthesis apply as separate calls), the
 parity oracle of the fused path; a bank then runs F such three-pass
 operators, re-running the analysis per filter.
+
+Placement: a batched plan may carry a ``BucketPlacement``
+(runtime/sharding.py).  ``prepare`` then pads the batch to the
+placement's quantum with structural no-op rows (``staging.pad_batch``)
+and splits every table into one shard per device, kept beside the
+tables it came from (so a hot swap that keeps its tables keeps its
+shards and their entry streams); ``place`` pads a per-graph operand
+with zero rows and splits it; the program runs the unplaced program
+once per shard, each under its device, and gathers the answers onto the
+bucket's first device; ``crop`` drops the pad rows.  Placed operands are
+tuples indexed by shard.  The placement is part of the plan's cache key.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass, replace
 from typing import Optional
@@ -58,9 +70,9 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.staging import (TABLE_PRECISIONS, StagedG, StagedT,
-                                      table_arrays)
+                                      pad_batch, table_arrays)
 from . import butterfly as _bf
-from .launcher import cast_tables, leg_orientation
+from .launcher import _kept, cast_tables, leg_orientation
 from . import ref as _ref
 from . import shear as _sh
 from . import spectral as _sp
@@ -69,11 +81,6 @@ PLAN_FAMILIES = ("sym", "general")
 PLAN_MODES = ("apply", "operator", "bank")
 PLAN_BACKENDS = ("cuda", "torch")
 PLAN_PRECISIONS = TABLE_PRECISIONS
-
-
-def _not_ported(what: str, slice_name: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet: it comes with the "
-                      f"{slice_name} slice of repro_torch")
 
 
 @dataclass(frozen=True)
@@ -87,7 +94,8 @@ class ApplyPlan:
     ``device``: where the tables and signals live.  ``backend``: None
     resolves from the device.  ``block_b``: the CUDA tile's signal rows
     (None: the persisted autotune choice, else the launcher's geometry;
-    see module docstring)."""
+    see module docstring).  ``placement``: a ``BucketPlacement`` over
+    whose devices a batched plan splits its batch (module docstring)."""
 
     family: str
     mode: str
@@ -100,12 +108,11 @@ class ApplyPlan:
     fused: bool = True
     device: str = "cuda"
     block_b: Optional[int] = None
-    #: not ported yet (raises when set): mesh placement
+    #: optional mesh placement (runtime/sharding.py::BucketPlacement):
+    #: frozen and hashable, so a placed plan is an ordinary cache key
     placement: Optional[object] = None
 
     def __post_init__(self):
-        if self.placement is not None:
-            raise _not_ported("placement=", "multi-GPU placement")
         if self.family not in PLAN_FAMILIES:
             raise ValueError(f"family must be one of {PLAN_FAMILIES}, "
                              f"got {self.family!r}")
@@ -123,6 +130,10 @@ class ApplyPlan:
         if self.block_b is not None and self.block_b <= 0:
             raise ValueError(f"block_b must be positive, "
                              f"got {self.block_b}")
+        if self.placement is not None and not self.batched:
+            raise ValueError("placement requires batched=True (the batch "
+                             "axis is what partitions over the bucket's "
+                             "devices)")
         dev = torch.device(self.device)
         object.__setattr__(self, "device", str(dev))
         if self.backend is None:
@@ -152,11 +163,34 @@ class ApplyPlan:
         """The table tuple a program takes, on the plan's device, under
         the plan's precision policy (``core/staging.py::with_precision``;
         the cast is kept beside the tables it came from,
-        ``launcher.cast_tables``, so repeated one-shot calls share it)."""
+        ``launcher.cast_tables``, so repeated one-shot calls share it).
+        With a placement: one table tuple per shard, the batch padded to
+        the placement's quantum, kept beside the tables as the cast is."""
         dev = torch.device(self.device)
         staged = type(staged)(*(t.to(dev) for t in table_arrays(staged)),
                               staged.cuts, staged.n)
-        return table_arrays(cast_tables(staged, self.precision))
+        staged = cast_tables(staged, self.precision)
+        if self.placement is None:
+            return table_arrays(staged)
+        pl = self.placement
+        return _kept(_PLACED.setdefault((pl, self.precision), {}),
+                     table_arrays(staged),
+                     staged.n, lambda: pl.place_leaves(table_arrays(
+                         pad_batch(staged, pl.batch_padded))))
+
+    def place(self, arr):
+        """A per-graph operand (spectrum, gains, signal block) padded with
+        zero rows and split over the placement's devices; ``arr`` itself
+        when the plan carries no placement."""
+        if self.placement is None:
+            return arr
+        return self.placement.place(arr)
+
+    def crop(self, y):
+        """A program's answer without the placement's pad rows."""
+        if self.placement is None:
+            return y
+        return self.placement.crop(y)
 
     def program(self):
         """The plan's program: ONE process-wide cache entry per plan (two
@@ -175,16 +209,20 @@ class ApplyPlan:
                 "backend": self.backend, "n": self.n}
 
     def apply(self, staged, x: torch.Tensor) -> torch.Tensor:
-        return self.program()(self.prepare(staged), x)
+        return self.crop(self.program()(self.prepare(staged),
+                                        self.place(x)))
 
     def operator(self, fwd, bwd, diag: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
-        return self.program()(self.prepare(fwd), self.prepare(bwd), diag, x)
+        return self.crop(self.program()(self.prepare(fwd),
+                                        self.prepare(bwd),
+                                        self.place(diag), self.place(x)))
 
     def bank(self, fwd, bwd, gains: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
-        return self.program()(self.prepare(fwd), self.prepare(bwd), gains,
-                              x)
+        return self.crop(self.program()(self.prepare(fwd),
+                                        self.prepare(bwd),
+                                        self.place(gains), self.place(x)))
 
     # -- dispatch ----------------------------------------------------------
 
@@ -293,6 +331,37 @@ _ENTRY = {
 }
 
 
+def _on_device(device: torch.device):
+    """The CUDA device context of a shard's launches (a kernel launches
+    on its device's stream only under that device)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _per_shard(op, placement):
+    """``op`` run once per shard of placed operands (tuples indexed by
+    shard), each under its shard's device, and the answers gathered onto
+    the placement's first device.  Every launch is enqueued on its
+    device's current stream; nothing waits on the host between the
+    shards."""
+    devices = placement.torch_devices()
+
+    def placed(*args):
+        outs = []
+        for k, dev in enumerate(devices):
+            with _on_device(dev):
+                outs.append(op(*(a[k] for a in args)))
+        return placement.gather(outs)
+    return placed
+
+
+#: (placement, precision) -> {id(first table) -> its placed shards}:
+#: ``prepare``'s shards kept beside the tables they split (a basis's f32
+#: and bf16 table sets share their index tables, so one dict each)
+_PLACED: dict = {}
+
+
 def _accumulate_f32(op):
     """The bf16 policy around a program: the walk runs on the signal
     raised to f32 (the tables stay bf16 and are widened entry by entry),
@@ -330,11 +399,17 @@ def _compile(plan: ApplyPlan):
             args={**labels, "fused": plan.fused,
                   "num_stages": plan.num_stages,
                   "precision": plan.precision}):
+        # a placed plan runs its unplaced program on every shard
+        base = replace(plan, placement=None)
         if plan.mode != "apply" and not plan.fused:
-            op = plan._three_pass()
+            op = base._three_pass()
         else:
-            op = plan._dispatch()
-        return op if plan.precision == "f32" else _accumulate_f32(op)
+            op = base._dispatch()
+        if plan.precision != "f32":
+            op = _accumulate_f32(op)
+        if plan.placement is None:
+            return op
+        return _per_shard(op, plan.placement)
 
 
 def plan_cache_size() -> int:

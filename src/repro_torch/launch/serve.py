@@ -99,6 +99,7 @@ import torch
 from repro_torch import obs
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.types import as_signal
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import transformer as tfm
 
 DEFAULT_TIERS = {"full": 1.0, "balanced": 0.5, "draft": 0.25}
@@ -133,6 +134,8 @@ class _LiveVersion:
     bank: Any = None           # SpectralFilterBank over the basis, or None
     bank_gains: Any = None     # its (B, F, n) / (F, n) gains
     bank_fn: Any = None        # the bank plan's program
+    placement: Any = None      # the BucketPlacement it is served over
+    pad_mask: Any = None       # pad coordinates (placed: per shard), or None
 
 
 def parse_tiers(spec: str) -> Dict[str, float]:
@@ -175,17 +178,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
-def _not_ported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"the {slice_name} slice of repro_torch")
-
-
-def _refuse_unported(placement, mesh) -> None:
-    """The engines' arguments that belong to later slices."""
-    if placement is not None:
-        raise _not_ported("placement=", "multi-GPU placement")
-    if mesh is not None:
-        raise _not_ported("mesh=", "multi-GPU placement")
+def _sync_all(devices) -> None:
+    """``_sync`` on each distinct device of ``devices``."""
+    for dev in dict.fromkeys(devices):
+        _sync(dev)
 
 
 class FGFTServeEngine:
@@ -211,8 +207,21 @@ class FGFTServeEngine:
     tables; "bf16" casts the value tables once per serving version
     (``_install``) and accumulates in f32, while the tier refits, the
     drift probe and the Lemma-1 refresh stay on the basis's f32 tables,
-    as the JAX engine does.  ``placement`` and ``mesh`` are refused with
-    the name of the slice that brings them.
+    as the JAX engine does.
+
+    PLACEMENT (runtime/sharding.py): ``placement`` (a ``BucketPlacement``
+    sized for the fleet's batch) pins the engine's graphs onto its own
+    devices.  The engine lives on the placement's first device (its
+    basis, tracked Laplacians and answers; ``device`` is then ignored);
+    the served tables, tier spectra, bank gains and each step's signals
+    are padded to the placement's quantum and split into one shard per
+    device, every dispatch launches once per shard and gathers the
+    answer onto the first device, cropped to the true batch.  Fits and
+    refits split the batch over the placement's devices (``placement``
+    overrides ``mesh``).  ``mesh`` alone (launch/mesh.py) splits the fit
+    over the mesh's data devices and serves through the basis's
+    ``shard(mesh)`` placement (none on one device).  Placed answers are
+    bitwise the unplaced engine's.
 
     DYNAMIC mode (``dynamic=True``): the engine tracks the current
     Laplacians on its device, accepts streaming deltas through
@@ -241,10 +250,24 @@ class FGFTServeEngine:
         from repro_torch.core import ApproxEigenbasis
         from repro_torch.core.gtransform import _valid_mask
         from repro_torch.core.staging import TABLE_PRECISIONS
-        _refuse_unported(placement, mesh)
         if precision not in TABLE_PRECISIONS:
             raise ValueError(f"precision must be one of "
                              f"{TABLE_PRECISIONS}, got {precision!r}")
+        self.placement = placement
+        if placement is not None:
+            shape = tuple(np.shape(laps))
+            if len(shape) != 3:
+                raise ValueError("placement requires a batched (B, n, n) "
+                                 "Laplacian stack")
+            if placement.batch != shape[0]:
+                raise ValueError(f"placement.batch={placement.batch} != "
+                                 f"fleet batch {shape[0]}")
+            # placement OVERRIDES mesh: fits and refits split over the
+            # bucket's own devices, so a refit never occupies another
+            # bucket's
+            mesh = placement.mesh()
+            device = placement.torch_devices()[0]
+        self.mesh = mesh
         self.device = _resolve(device)
         self.backend = backend
         self._tier_spec = dict(tiers or {"full": 1.0})
@@ -264,12 +287,14 @@ class FGFTServeEngine:
                                  "no prefit basis is given")
             basis = ApproxEigenbasis.fit(laps, num_transforms,
                                          n_iter=n_iter, kind=kind,
-                                         hint=hint, sizes=sizes,
+                                         hint=hint, sizes=sizes, mesh=mesh,
                                          stage_pad=self._stage_pad,
                                          device=self.device)
         elif basis.device != self.device:
             raise ValueError(f"basis lives on {basis.device}, engine on "
                              f"{self.device}")
+        if mesh is not None:
+            basis = basis.shard(mesh)
         self._g0 = basis.num_transforms
         self._kind = basis.kind
         # pad coordinates of a ragged bucket: h(0) need not be 0
@@ -372,10 +397,22 @@ class FGFTServeEngine:
         kept beside the f32 tables (``launcher.cast_tables``), so a swap
         that keeps its tables (a spectrum refresh) keeps its cast and its
         entry streams."""
-        from repro_torch.core.staging import table_arrays
         from repro_torch.dynamic.refit import prefix_spectrum
-        from repro_torch.kernels.launcher import cast_tables
         from repro_torch.kernels.plan import ApplyPlan
+
+        placement = self._serving_placement(basis)
+
+        def plan(mode, num_stages=None):
+            return ApplyPlan(family=basis.kind, mode=mode, n=basis.n,
+                             batched=basis.batched, backend=self.backend,
+                             num_stages=num_stages,
+                             precision=self._precision, fused=self._fused,
+                             device=str(self.device), placement=placement)
+
+        def place(arr):
+            # per-graph operands pad with zero rows to the placement's
+            # quantum and split over its devices, as the tables do
+            return arr if placement is None else placement.place(arr)
 
         full_stages = int(basis.fwd.num_stages)
         tiers: Dict[str, dict] = {}
@@ -388,12 +425,8 @@ class FGFTServeEngine:
             spec = (basis.spectrum if cut is None or basis.kind != "sym"
                     else prefix_spectrum(basis, laps, cut))
             tiers[name] = {"num_stages": n_stages,
-                           "num_transforms": n_comp, "spectrum": spec}
-            fns[name] = ApplyPlan(
-                family=basis.kind, mode="operator", n=basis.n,
-                batched=basis.batched, backend=self.backend,
-                num_stages=cut, precision=self._precision,
-                fused=self._fused, device=str(self.device)).program()
+                           "num_transforms": n_comp, "spectrum": place(spec)}
+            fns[name] = plan("operator", cut).program()
         bank = bank_gains = bank_fn = None
         if self._filters:
             from repro_torch.spectral import (SpectralFilterBank,
@@ -401,24 +434,27 @@ class FGFTServeEngine:
             # gains come from the (possibly refreshed) spectrum on every
             # swap; the bank program itself is shape-cached
             bank = SpectralFilterBank(basis, named_responses(self._filters))
-            bank_gains = bank.gains().contiguous()
-            bank_fn = ApplyPlan(
-                family=basis.kind, mode="bank", n=basis.n,
-                batched=basis.batched, backend=self.backend,
-                precision=self._precision, fused=self._fused,
-                device=str(self.device)).program()
+            bank_gains = place(bank.gains().contiguous())
+            bank_fn = plan("bank").program()
         version = 0 if self._live is None else self._live.version + 1
+        # the served tables through the plan's prepare: the cast (and, when
+        # placed, the padded shards) kept beside the basis's tables, so a
+        # swap that keeps its tables keeps them and their entry streams
+        prep = plan("operator")
+        mask = self._pad_mask
+        if mask is not None and placement is not None:
+            # pad rows of the placement: every coordinate masked
+            mask = tuple(~v for v in placement.place(~mask))
         live = _LiveVersion(
-            basis=basis,
-            fwd=table_arrays(cast_tables(basis.fwd, self._precision)),
-            bwd=table_arrays(cast_tables(basis.bwd, self._precision)),
-            tiers=tiers, fns=fns,
+            basis=basis, fwd=prep.prepare(basis.fwd),
+            bwd=prep.prepare(basis.bwd), tiers=tiers, fns=fns,
             version=version, bank=bank, bank_gains=bank_gains,
-            bank_fn=bank_fn)
+            bank_fn=bank_fn, placement=placement, pad_mask=mask)
         # the version's tables, spectra and gains are written on this
-        # thread's stream (a service's maintenance stream) and read on
+        # thread's streams (a service's maintenance streams) and read on
         # the dispatcher's: they are complete before anyone can see them
-        _sync(self.device)
+        _sync_all((self.device,) if placement is None
+                  else placement.torch_devices())
         self._live = live
         _OBS_VERSION.set(version, family=basis.kind)
         if version > 0:
@@ -473,17 +509,39 @@ class FGFTServeEngine:
         _sync(self.device)
         return y
 
+    def _serving_placement(self, basis):
+        """The placement the engine serves ``basis`` over: its own, else
+        the basis's ``shard(mesh)`` one, else None."""
+        return (self.placement if self.placement is not None
+                else basis.placement)
+
+    @property
+    def devices(self) -> tuple:
+        """The torch devices the engine works on: its placement's (the
+        first is ``device``), else ``device`` alone."""
+        pl = self.placement
+        if pl is None and self._live is not None:
+            pl = self._live.placement
+        return (self.device,) if pl is None else pl.torch_devices()
+
     def _step_on(self, live: _LiveVersion, signals, h,
                  tier: Optional[str]) -> torch.Tensor:
         tier = tier if tier is not None else self.default_tier
-        t = live.tiers[tier]
-        d = t["spectrum"] if h is None else h(t["spectrum"])
-        if h is not None and self._pad_mask is not None:
-            d = d.masked_fill(self._pad_mask, 0.0)
+        d, pl = live.tiers[tier]["spectrum"], live.placement
+        if h is not None:
+            def gains(spec, mask):
+                g = h(spec)
+                return g if mask is None else g.masked_fill(mask, 0.0)
+            # a placed spectrum is one (padded) part per shard: h maps
+            # each, and pad rows are masked out whole
+            d = (gains(d, live.pad_mask) if pl is None else tuple(map(
+                gains, d, live.pad_mask or (None,) * len(d))))
         self.stats["steps"][tier] += 1
         _OBS_STEPS.inc(tier=tier)
         x = as_signal(signals, self.device)
-        return live.fns[tier](live.fwd, live.bwd, d, x)
+        if pl is None:
+            return live.fns[tier](live.fwd, live.bwd, d, x)
+        return pl.crop(live.fns[tier](live.fwd, live.bwd, d, pl.place(x)))
 
     def step(self, signals, h=None, tier: Optional[str] = None
              ) -> torch.Tensor:
@@ -515,7 +573,11 @@ class FGFTServeEngine:
             raise ValueError("engine was built without filters (--filter)")
         _OBS_STEPS.inc(tier="bank")
         x = as_signal(signals, self.device)
-        return live.bank_fn(live.fwd, live.bwd, live.bank_gains, x)
+        pl = live.placement
+        if pl is None:
+            return live.bank_fn(live.fwd, live.bwd, live.bank_gains, x)
+        return pl.crop(live.bank_fn(live.fwd, live.bwd, live.bank_gains,
+                                    pl.place(x)))
 
     # -- streaming updates + drift-triggered refits ------------------------
 
@@ -702,21 +764,23 @@ class FGFTServeEngine:
             p = self.controller.policy
             extra = max(int(round(p.extend_fraction * self._g0)), 1)
             basis = basis.extend(laps, basis.num_transforms + extra,
-                                 n_iter=0)
+                                 n_iter=0, mesh=self.mesh)
         elif action is Action.REFIT:
             # keep the fit's RESOLVED greedy criterion: refitting under
             # the default score would switch the criterion mid-stream
             score = basis.info.get("score") if self._kind == "sym" else None
             basis = ApproxEigenbasis.fit(
                 laps, self._g0, n_iter=self._n_iter, kind=self._kind,
-                score=score, sizes=basis.sizes, stage_pad=self._stage_pad,
-                device=self.device)
+                score=score, sizes=basis.sizes, mesh=self.mesh,
+                stage_pad=self._stage_pad, device=self.device)
+            if self.mesh is not None:
+                basis = basis.shard(self.mesh)
         else:
             raise ValueError(f"not an executable action: {action}")
         if action in (Action.EXTEND, Action.REFIT):
             # re-baseline at the new structural fit (exact objective)
             self._baseline = relative_objective(basis.objective, laps)
-        _sync(self.device)
+        _sync_all(self.devices)
         t1 = time.perf_counter()
         self._install(basis, laps)
         self.maintain_ms["action"] = (t1 - t0) * 1e3
@@ -734,14 +798,16 @@ class FGFTServeEngine:
     # -- persistence (repro_torch/checkpoint, the JAX package's format) ---
 
     def save(self, directory, step: int = 0, extra_metadata=None,
-             shards: int = 1):
+             shards: Optional[int] = None):
         """Persist the live basis and the serving state: the tracked
         Laplacians ride as the ``laps`` leaf, the tier spec, filters and
         fit settings as the ``serve`` metadata block, the swap counter as
         the basis version, and a dynamic engine's per-graph versions,
         update count, drift baselines, controller state and pending
         (dirty) flags as the ``dynamic`` block.  ``extra_metadata``
-        merges more top-level keys."""
+        merges more top-level keys.  ``shards``: table files the leading
+        axis splits over; a placed engine defaults to one per owning
+        device and records its placement in the ``serve`` block."""
         live = self._live
         basis = replace(live.basis, info={**live.basis.info,
                                           "version": int(live.version)})
@@ -752,6 +818,13 @@ class FGFTServeEngine:
                       "num_transforms": int(self._g0),
                       "precision": self._precision,
                       "fused": self._fused}}
+        if shards is None:
+            shards = (self.placement.num_devices
+                      if self.placement is not None else 1)
+        if self.placement is not None:
+            meta["serve"]["placement"] = {
+                "device_ids": list(self.placement.device_ids),
+                "batch": int(self.placement.batch)}
         if extra_metadata:
             overlap = {"serve", "dynamic"} & set(extra_metadata)
             if overlap:
@@ -788,11 +861,14 @@ class FGFTServeEngine:
         dynamic engine restores its per-graph versions, baselines,
         controller state and pending flags (a checkpoint without them
         restores with every version at 0 and fresh counters), under
-        ``policy`` (default ``RefitPolicy()``)."""
+        ``policy`` (default ``RefitPolicy()``).  ``placement`` pins the
+        restored engine onto a ``BucketPlacement`` (its first device then
+        holds the basis) and ``mesh`` shards it, as in the constructor:
+        the checkpoint holds whole arrays whatever shard count wrote it,
+        so a fleet saved on 4 devices loads on 1 or 8."""
         from repro_torch.checkpoint import (latest_step, read_metadata,
                                             restore_checkpoint)
         from repro_torch.core import ApproxEigenbasis
-        _refuse_unported(placement, mesh)
         if step is None:
             step = latest_step(directory)
             if step is None:
@@ -802,7 +878,8 @@ class FGFTServeEngine:
         dyn_meta = meta.get("dynamic")
         if dynamic is None:
             dynamic = dyn_meta is not None
-        dev = _resolve(device)
+        dev = _resolve(device if placement is None
+                       else placement.torch_devices()[0])
         basis = ApproxEigenbasis.load(directory, step, device=dev)
         serve_meta = meta.get("serve", {})
         if laps is None:
@@ -830,7 +907,7 @@ class FGFTServeEngine:
                                 else serve_meta.get("precision", "f32")),
                      fused=(fused if fused is not None
                             else serve_meta.get("fused", True)),
-                     device=dev)
+                     placement=placement, mesh=mesh, device=dev)
         engine._live = replace(engine._live,
                                version=int(basis.info.get("version", 0)))
         # the ORIGINAL fitted budget, not the (maybe extended) chain:
@@ -884,6 +961,7 @@ def serve_fgft(args) -> dict:
     engine = FGFTServeEngine(laps, g, backend=args.backend, kind=kind,
                              tiers=args.tier_map, fused=args.fused,
                              filters=args.filter, precision=args.precision,
+                             mesh=make_local_mesh(device=device),
                              device=device)
     _sync(device)
     fit_s = time.perf_counter() - t0
@@ -965,6 +1043,80 @@ def bucket_width(n: int, min_width: int = 8) -> int:
     return w
 
 
+def _resolve_fleet_placement(placement, mesh, bucket_of):
+    """Normalize the router's ``placement`` argument.
+
+    ``None`` -> unplaced; ``"auto"`` -> work-weighted partition of the
+    mesh's data-axis devices over the buckets (weight ~ members * w log
+    w, the per-bucket apply cost); a ``FleetPlacement`` is validated
+    against the router's bucket geometry, so that a stale one fails
+    loudly instead of mis-routing."""
+    if placement is None:
+        return None
+    from repro_torch.runtime.sharding import FleetPlacement, fleet_placement
+    if isinstance(placement, str):
+        if placement != "auto":
+            raise ValueError(f"placement must be None, 'auto' or a "
+                             f"FleetPlacement, got {placement!r}")
+        if mesh is None:
+            raise ValueError("placement='auto' requires a mesh to "
+                             "partition (pass mesh=)")
+        sizes = {w: len(m) for w, m in bucket_of.items()}
+        weights = {w: len(m) * w * float(np.log2(max(w, 2)))
+                   for w, m in bucket_of.items()}
+        return fleet_placement(mesh, sizes, weights=weights)
+    if not isinstance(placement, FleetPlacement):
+        raise TypeError(f"placement must be None, 'auto' or a "
+                        f"FleetPlacement, got {type(placement).__name__}")
+    missing = sorted(set(bucket_of) - {k for k, _ in placement.items()})
+    if missing:
+        raise ValueError(f"placement has no entry for bucket(s) "
+                         f"{missing}")
+    for w, members in bucket_of.items():
+        if placement[w].batch != len(members):
+            raise ValueError(
+                f"placement bucket {w} sized for batch "
+                f"{placement[w].batch}, fleet has {len(members)} graphs "
+                f"there — re-place with fleet_placement on the current "
+                f"fleet")
+    return placement
+
+
+def _read_placement_manifest(path, bucket_of):
+    """Parse and validate a saved placement.json; None if absent.
+
+    The manifest is advisory (a reader re-places on its own mesh) but its
+    SHAPE is checked: a truncated or hand-mangled file raises a clear
+    ValueError instead of silently loading an unplaced fleet."""
+    path = pathlib.Path(path)
+    if not path.exists():
+        return None
+    try:
+        pm = json.loads(path.read_text())
+        num_devices = int(pm["num_devices"])
+        buckets = {int(k): {"device_ids": [int(i) for i in
+                                           v["device_ids"]],
+                            "batch": int(v["batch"])}
+                   for k, v in pm["buckets"].items()}
+        if num_devices < 1 or not buckets:
+            raise ValueError("num_devices < 1 or no buckets")
+        for k, v in buckets.items():
+            if not v["device_ids"] or v["batch"] < 1:
+                raise ValueError(f"bucket {k} has empty device_ids or "
+                                 f"non-positive batch")
+    except (KeyError, TypeError, ValueError,
+            json.JSONDecodeError) as exc:
+        raise ValueError(
+            f"corrupt placement manifest {path}: {exc} — re-save the "
+            f"fleet or delete the file to load unplaced") from exc
+    missing = sorted(set(bucket_of) - set(buckets))
+    if missing:
+        raise ValueError(
+            f"placement manifest {path} missing bucket(s) {missing} "
+            f"present in router.json — checkpoint is inconsistent")
+    return buckets
+
+
 class RaggedFGFTServeEngine:
     """Size-bucketed serving of a HETEROGENEOUS graph fleet.
 
@@ -986,8 +1138,14 @@ class RaggedFGFTServeEngine:
     its own controller tick and hot swap (``maintain``), so a burst of
     updates to small graphs never blocks the big bucket's serving
     version.  ``precision`` and ``fused`` go to every bucket engine.
-    ``placement`` and ``mesh`` are refused with the name of the slice
-    that brings them."""
+
+    ``placement``: ``"auto"`` partitions ``mesh``'s data-axis devices
+    over the buckets (whole buckets on disjoint device subsets,
+    work-weighted; ``runtime.sharding.fleet_placement``), or pass a
+    prebuilt ``FleetPlacement``.  A placed router serves each bucket on
+    its OWN devices (its engine lives on the bucket's first device), and
+    a dirty bucket's refit occupies only that bucket's devices.
+    ``mesh`` goes to every bucket engine (placement overrides it)."""
 
     def __init__(self, laps, num_transforms: int = 0, n_iter: int = 3,
                  backend: Optional[str] = None,
@@ -1000,7 +1158,6 @@ class RaggedFGFTServeEngine:
                  _engines: Optional[Dict[int, FGFTServeEngine]] = None,
                  _widths: Optional[List[int]] = None):
         from repro_torch.core import pad_ragged
-        _refuse_unported(placement, mesh)
         self.device = _resolve(device)
         self.dynamic = bool(dynamic)
         laps = [torch.as_tensor(lap, dtype=torch.float32) for lap in laps]
@@ -1017,6 +1174,14 @@ class RaggedFGFTServeEngine:
         self.bucket_of: Dict[int, List[int]] = {}
         for pos, w in enumerate(self.widths):
             self.bucket_of.setdefault(w, []).append(pos)
+        self.placement = _resolve_fleet_placement(placement, mesh,
+                                                  self.bucket_of)
+        # bucket -> the device its engine lives on: the first of its
+        # placement's devices, else the router's
+        self._device_of = {
+            w: (self.device if self.placement is None
+                else _resolve(self.placement[w].torch_devices()[0]))
+            for w in self.bucket_of}
         # bucket -> [(size, its rows in the bucket, the same on the
         # device, their positions in request order)]: step() moves one
         # group of equal sizes at a time
@@ -1026,7 +1191,7 @@ class RaggedFGFTServeEngine:
             for row, pos in enumerate(members):
                 rows.setdefault(self.sizes[pos], []).append(row)
             self._groups[w] = [
-                (size, r, torch.tensor(r, device=self.device),
+                (size, r, torch.tensor(r, device=self._device_of[w]),
                  [members[row] for row in r]) for size, r in rows.items()]
         if _engines is not None:                # load() restores prefit
             self.engines = _engines
@@ -1042,13 +1207,16 @@ class RaggedFGFTServeEngine:
         self.engines: Dict[int, FGFTServeEngine] = {}
         for w, members in sorted(self.bucket_of.items()):
             stack, sizes = pad_ragged([laps[p] for p in members], width=w,
-                                      device=self.device)
+                                      device=self._device_of[w])
             self.engines[w] = FGFTServeEngine(
                 stack, scaled_g(w), n_iter=n_iter, backend=backend,
                 filters=filters, kind=kind, hint=hint, tiers=tiers,
                 sizes=None if np.all(sizes == w) else sizes,
                 dynamic=dynamic, policy=policy, precision=precision,
-                fused=fused, device=self.device)
+                fused=fused, mesh=mesh,
+                placement=(None if self.placement is None
+                           else self.placement[w]),
+                device=self._device_of[w])
 
     def __len__(self) -> int:
         return len(self.sizes)
@@ -1069,9 +1237,9 @@ class RaggedFGFTServeEngine:
                 out[pos] = obj[row] / self._denoms[pos]
         return out
 
-    def _stack(self, signals, positions, rows: int, size: int):
+    def _stack(self, signals, positions, rows: int, size: int, device):
         """The (k, R, size) f32 stack of the graphs at ``positions`` on
-        the engines' device; a block of another shape raises."""
+        ``device``; a block of another shape raises."""
         try:
             xs = torch.stack([x if isinstance(x, torch.Tensor)
                               else torch.as_tensor(x)
@@ -1085,13 +1253,13 @@ class RaggedFGFTServeEngine:
                     raise ValueError(f"signal block {pos} must be ({rows}, "
                                      f"{size}), got {got}")
             xs = torch.stack([torch.as_tensor(signals[p], dtype=torch.float32
-                                              ).to(self.device)
+                                              ).to(device)
                               for p in positions])
-        return xs.to(self.device, torch.float32)
+        return xs.to(device, torch.float32)
 
     def _scatter(self, signals) -> Dict[int, torch.Tensor]:
         """Per-graph (R, n_i) blocks -> a zero-padded (B_w, R, w) block per
-        bucket, built on the engines' device: one stack and one indexed
+        bucket, built on its engine's device: one stack and one indexed
         copy per size, nothing per graph."""
         if len(signals) != len(self.sizes):
             raise ValueError(f"expected {len(self.sizes)} signal blocks "
@@ -1099,14 +1267,15 @@ class RaggedFGFTServeEngine:
         blocks = {}
         for w, groups in self._groups.items():
             rows = int(np.shape(signals[groups[0][3][0]])[0])
+            dev = self._device_of[w]
             if len(groups) == 1 and groups[0][0] == w:  # fills its bucket
-                blocks[w] = self._stack(signals, groups[0][3], rows, w)
+                blocks[w] = self._stack(signals, groups[0][3], rows, w, dev)
                 continue
             block = torch.zeros((len(self.bucket_of[w]), rows, w),
-                                dtype=torch.float32, device=self.device)
+                                dtype=torch.float32, device=dev)
             for size, _, idx, positions in groups:
                 block[idx, :, :size] = self._stack(signals, positions, rows,
-                                                   size)
+                                                   size, dev)
             blocks[w] = block
         return blocks
 
@@ -1176,8 +1345,10 @@ class RaggedFGFTServeEngine:
     def maintain(self, buckets=None, dirty_only: bool = False) -> dict:
         """One controller tick per bucket; buckets refit and swap
         independently.  ``buckets`` restricts the tick to those widths;
-        ``dirty_only`` skips buckets with no pending updates entirely.
-        Returns {width: that engine's maintain result}."""
+        ``dirty_only`` skips buckets with no pending updates entirely: on
+        a placed router maintenance then touches only the devices that
+        own dirty buckets.  Returns {width: that engine's maintain
+        result}."""
         sel = (sorted(self.engines) if buckets is None
                else [int(w) for w in buckets])
         out = {}
@@ -1204,7 +1375,8 @@ class RaggedFGFTServeEngine:
     def save(self, directory, step: int = 0):
         """Persist every bucket engine (basis and dynamic state) plus the
         routing geometry, so that ``load`` rebuilds the fleet without
-        refitting."""
+        refitting; a placed router also writes its placement manifest
+        (``placement.json``: which device ids owned which bucket)."""
         directory = pathlib.Path(directory)
         directory.mkdir(parents=True, exist_ok=True)
         for w, eng in self.engines.items():
@@ -1214,6 +1386,12 @@ class RaggedFGFTServeEngine:
         tmp.write_text(json.dumps(
             {"sizes": self.sizes, "widths": self.widths, "step": step}))
         os.replace(tmp, directory / "router.json")
+        if self.placement is not None:
+            # advisory on load (a reader with other devices re-places),
+            # but its shape is checked, so it is replaced atomically too
+            tmp = directory / "placement.json.tmp"
+            tmp.write_text(json.dumps(self.placement.manifest()))
+            os.replace(tmp, directory / "placement.json")
         return directory
 
     @classmethod
@@ -1228,18 +1406,19 @@ class RaggedFGFTServeEngine:
         per-bucket checkpoints, with the persisted widths and buckets;
         ``dynamic``/``policy`` as in ``FGFTServeEngine.load`` for every
         bucket (``dynamic=True`` makes a static router's checkpoint
-        dynamic).  A checkpoint with a placement manifest
-        (``placement.json``) loads only with ``placement=False``
-        (unplaced): placement comes with a later slice of the port."""
+        dynamic).
+
+        ``placement``: ``None`` re-uses a saved placement manifest
+        (``placement.json``), if any, by RE-PLACING onto the devices of
+        ``mesh`` (default: every device of ``device``'s platform that the
+        process has, as one "data" axis): a fleet saved on 4 devices
+        loads on 1 or 8, the manifest's ids are provenance, not a
+        requirement.  ``"auto"`` or a ``FleetPlacement`` force a
+        placement; ``placement=False`` loads unplaced even with a
+        manifest.  A corrupt manifest raises."""
+        from repro_torch.launch.mesh import Mesh, process_devices
         directory = pathlib.Path(directory)
         manifest = json.loads((directory / "router.json").read_text())
-        if placement is False:
-            placement = None
-        elif (directory / "placement.json").exists():
-            raise _not_ported("restoring a placed fleet (placement.json; "
-                              "pass placement=False to load it unplaced)",
-                              "multi-GPU placement")
-        _refuse_unported(placement, mesh)
         if step is None:
             step = int(manifest["step"])
         sizes = [int(s) for s in manifest["sizes"]]
@@ -1247,10 +1426,24 @@ class RaggedFGFTServeEngine:
         bucket_of: Dict[int, List[int]] = {}
         for pos, w in enumerate(widths):
             bucket_of.setdefault(w, []).append(pos)
+        saved = _read_placement_manifest(directory / "placement.json",
+                                         bucket_of)
+        if placement is False:
+            placement = None
+        elif placement is None and saved is not None:
+            # a saved manifest and no override: re-place on the devices
+            # THIS process has (the bucket checkpoints hold whole arrays,
+            # so any device count works)
+            if mesh is None:
+                devs = process_devices(torch.device(device).type)
+                mesh = Mesh(np.array(sorted(devs)), ("data",), devs)
+            placement = "auto"
+        fp = _resolve_fleet_placement(placement, mesh, bucket_of)
         engines = {w: FGFTServeEngine.load(
             directory / f"bucket_{w:05d}", step, backend=backend,
             filters=filters, tiers=tiers, dynamic=dynamic, policy=policy,
-            precision=precision, fused=fused, device=device)
+            precision=precision, fused=fused, mesh=mesh,
+            placement=None if fp is None else fp[w], device=device)
             for w in sorted(bucket_of)}
         # request-order Laplacians from the restored buckets (pads are
         # zero, so the per-graph denominators crop for free)
@@ -1260,7 +1453,8 @@ class RaggedFGFTServeEngine:
                 n_i = sizes[pos]
                 laps[pos] = engines[w]._laps[row, :n_i, :n_i]
         return cls(laps, dynamic=any(e.dynamic for e in engines.values()),
-                   _engines=engines, _widths=widths, device=device)
+                   placement=fp, _engines=engines, _widths=widths,
+                   device=device)
 
 
 def serve_fgft_ragged(args) -> dict:
@@ -1283,7 +1477,8 @@ def serve_fgft_ragged(args) -> dict:
     router = RaggedFGFTServeEngine(
         laps, args.transforms, backend=args.backend, kind=kind,
         filters=args.filter, tiers=args.tier_map, fused=args.fused,
-        precision=args.precision, device=device)
+        precision=args.precision, mesh=make_local_mesh(device=device),
+        device=device)
     _sync(device)
     fit_s = time.perf_counter() - t0
     rel = router.rel_errors()
@@ -1367,13 +1562,14 @@ def serve_fgft_dynamic(args, on_round=None) -> dict:
     stream = GraphStream(adjs, directed=args.directed)
     laps = stream.laplacians()
     kind = "general" if args.directed else "auto"
+    mesh = make_local_mesh(device=device)
     t0 = time.perf_counter()
     if args.ragged:
         engine = RaggedFGFTServeEngine(
             laps, args.transforms, backend=args.backend, kind=kind,
             filters=args.filter, tiers=args.tier_map, dynamic=True,
             policy=args.policy, fused=args.fused, precision=args.precision,
-            device=device)
+            mesh=mesh, device=device)
         engines = engine.engines
     else:
         g = args.transforms or int(2 * args.graph_n * np.log2(args.graph_n))
@@ -1381,7 +1577,7 @@ def serve_fgft_dynamic(args, on_round=None) -> dict:
             np.stack(laps), g, backend=args.backend, kind=kind,
             filters=args.filter, tiers=args.tier_map, dynamic=True,
             policy=args.policy, fused=args.fused, precision=args.precision,
-            device=device)
+            mesh=mesh, device=device)
         engines = {args.graph_n: engine}
     _sync(device)
     fit_s = time.perf_counter() - t0

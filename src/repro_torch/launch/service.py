@@ -274,6 +274,15 @@ class _Route:
     batched: bool
 
 
+def _engine_devices(engine) -> list:
+    """The distinct torch devices a uniform engine or a ragged router
+    works on, its own device first."""
+    engines = (list(engine.engines.values()) if hasattr(engine, "engines")
+               else [engine])
+    return list(dict.fromkeys([engine.device] + [
+        d for e in engines for d in e.devices]))
+
+
 def _build_routes(engine) -> List[_Route]:
     """Per-graph dispatch routes for a uniform engine or a ragged router
     (deferred import: serve.py is the module that defines the engines)."""
@@ -306,8 +315,14 @@ class AsyncFGFTService:
     ``request_maintain()``/``maintain_now()``).  ``clock``: injectable
     monotonic clock for all SLO timestamps.  ``auto_start=False`` skips
     the threads; tests then pump the queue inline with ``drain_once()``.
-    On a CUDA engine every maintenance tick runs on ``maintain_stream``,
-    a stream of the service's own."""
+    On a CUDA engine every maintenance tick runs on streams of the
+    service's own: ``maintain_streams`` holds one for each device the
+    engine works on (a placed engine or router owns several; one card,
+    one stream), and ``maintain_stream`` is the engine's first device's.
+    A placed router's tick maintains only its dirty buckets
+    (``maintain(dirty_only=True)``), so the work lands only on the
+    devices that own them; its placement manifest rides in
+    ``stats()``."""
 
     def __init__(self, engine, *, h: Optional[Callable] = None,
                  max_queue: int = 128, max_batch: int = 8,
@@ -329,8 +344,11 @@ class AsyncFGFTService:
         self._h = h
         self._clock = clock
         self._routes = _build_routes(engine)
-        self.maintain_stream = (torch.cuda.Stream(engine.device)
-                                if engine.device.type == "cuda" else None)
+        self.maintain_streams = {dev: torch.cuda.Stream(dev)
+                                 for dev in _engine_devices(engine)
+                                 if dev.type == "cuda"}
+        self.maintain_stream = self.maintain_streams.get(
+            engine.device, next(iter(self.maintain_streams.values()), None))
         self.latency = LatencyRecorder(max_samples=latency_window)
         # hot-path obs handles: label children resolved ONCE here —
         # per-request label kwargs would cost more than the recording
@@ -682,12 +700,24 @@ class AsyncFGFTService:
         before = self._swap_version()
         try:
             # on the card the tick's probes, refreshes and fits run on
-            # the service's own stream; the engine finishes that stream
-            # before it publishes a version (FGFTServeEngine._install)
-            with (torch.cuda.stream(self.maintain_stream)
-                  if self.maintain_stream is not None
-                  else contextlib.nullcontext()):
-                res = self.engine.maintain()
+            # the service's own streams, one per device; the engine
+            # finishes them before it publishes a version
+            # (FGFTServeEngine._install)
+            with contextlib.ExitStack() as streams:
+                # the engine's own device last: entering a stream's
+                # context also makes its device the current one
+                for dev, stream in sorted(
+                        self.maintain_streams.items(),
+                        key=lambda item: item[0] == self.engine.device):
+                    streams.enter_context(torch.cuda.stream(stream))
+                if (getattr(self.engine, "placement", None) is not None
+                        and hasattr(self.engine, "engines")):
+                    # a placed router ticks ONLY its dirty buckets: the
+                    # refit work lands on the devices that own them while
+                    # the others keep serving
+                    res = self.engine.maintain(dirty_only=True)
+                else:
+                    res = self.engine.maintain()
         except Exception as exc:  # noqa: BLE001 — a failed refit must not kill serving
             with self._cond:
                 self._maintain_errors += 1
@@ -760,6 +790,12 @@ class AsyncFGFTService:
                     "swaps": self._swaps,
                 },
             }
+            fp = getattr(self.engine, "placement", None)
+            if fp is not None:
+                snap["placement"] = (
+                    fp.manifest() if hasattr(fp, "manifest")
+                    else {"device_ids": list(fp.device_ids),
+                          "batch": int(fp.batch)})
         snap["latency"] = self.latency.summary()
         # the obs registry rides along, persisted with the slo payload by
         # save() so a checkpoint carries the telemetry of the run that
@@ -885,6 +921,7 @@ def serve_fgft_async(args) -> dict:
     from repro_torch.core.fgft import laplacian
     from repro_torch.graphs import (community_graph, directed_variant,
                                     edge_perturbation)
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.serve import (FGFTServeEngine,
                                           RaggedFGFTServeEngine, _resolve)
 
@@ -901,7 +938,8 @@ def serve_fgft_async(args) -> dict:
     common = dict(backend=args.backend, kind=kind, filters=args.filter,
                   tiers=args.tier_map, dynamic=args.dynamic,
                   policy=args.policy, precision=args.precision,
-                  fused=args.fused, device=device)
+                  fused=args.fused, mesh=make_local_mesh(device=device),
+                  device=device)
     if args.ragged:
         engine = RaggedFGFTServeEngine(laps, args.transforms, **common)
     else:

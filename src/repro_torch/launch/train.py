@@ -15,9 +15,13 @@ Resume:      add --resume auto   (restores the newest committed checkpoint
   * per-step watchdog: a step slower than --straggler-factor x the
     rolling median is logged as a straggler.
 
-One card: ``--model-axis`` other than 1 (a model-parallel mesh) is
-refused.  The default checkpoint directory is ``repro_torch_ckpt_<arch>``
-under the temporary directory, apart from the JAX package's.
+One device: ``--model-axis`` goes through ``launch/mesh.py::
+make_local_mesh`` as in the JAX driver, so an axis the devices cannot
+hold raises its ``ValueError``; a model axis above 1 that they could
+hold raises ``NotImplementedError`` (model-parallel training comes with
+the model half of ``runtime/sharding.py``, ROADMAP A6d).  The default
+checkpoint directory is ``repro_torch_ckpt_<arch>`` under the temporary
+directory, apart from the JAX package's.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_NAMES, get_config, get_recipe
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.runtime import steps as steps_lib
 
 
@@ -69,10 +74,14 @@ def run(args) -> dict:
     """The training loop of ``main``; returns {"final_loss", "state",
     "step_s" (each step's seconds), "save_s" (the last save's seconds from
     its call to its commit), "ckpt_dir", "start_step", "bundle"}."""
-    if args.model_axis != 1:
-        raise SystemExit(
-            f"--model-axis {args.model_axis}: the port trains on one card "
-            f"(a model-parallel mesh is ROADMAP A4)")
+    # the JAX driver's mesh: its ValueError when the devices cannot hold
+    # the model axis
+    mesh = make_local_mesh(args.model_axis, device=args.device)
+    if mesh.shape["model"] > 1:
+        raise NotImplementedError(
+            f"--model-axis {args.model_axis}: model-parallel training needs "
+            "the model half of runtime/sharding.py (ROADMAP A6d); the port "
+            "trains on one device")
     cfg = get_config(args.arch, smoke=args.smoke)
     recipe = get_recipe(args.arch)
     device = torch.device(args.device)

@@ -1,0 +1,310 @@
+"""Fleet placement: whole ragged-router buckets on disjoint device subsets
+(the placement half of the JAX package's ``runtime/sharding.py``).
+
+Serving wants the opposite of a fit's "spread one batch over
+everything": each bucket, and each graph within it, lives end to end on
+ONE device, so a served step needs no cross-device collective.  A
+``BucketPlacement`` is a frozen, hashable record of the device ids that
+own a bucket; it rides inside an ``ApplyPlan`` as part of the plan-cache
+key (kernels/plan.py).  Graphs partition along the batch axis over the
+bucket's devices; a batch that does not divide the device count is
+padded with structural no-op rows (core/staging.py::pad_batch).
+
+In the port one Python process drives every device: a placed tensor is
+a tuple of per-device shards, ``batch_padded // D`` rows each, each its
+own contiguous tensor on its device; a placed program launches once per
+shard, on that device's current stream, with no host sync between the
+shards, and ``gather`` concatenates the answers onto the bucket's first
+device.  No collective exists in this design.
+
+Device ids resolve through a ``launch/mesh.py::Mesh`` (``cuda:k`` on the
+card, the CPU's id 0, or ``logical_devices``).  A placement built from a
+mesh (``fleet_placement``) carries the torch device of each id, so it
+keeps working after a ``logical_devices`` block ends; one built by hand
+resolves its ids through the process's CUDA devices.
+
+The model half of the JAX module (``make_rules``, ``spec_for``,
+``sharding_tree``, ``batch_sharding``, ``check_divisibility``) is not
+here: it comes with ROADMAP A6d.
+"""
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.launch.mesh import Mesh, process_devices
+
+
+def dp_axes(mesh: Mesh) -> Tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+class BatchSharding(NamedTuple):
+    """How a leading matrix-batch axis splits over a mesh: ``axes``, the
+    data-parallel axes it spreads over (None: replicated), and
+    ``shards``, the product of their sizes."""
+    axes: Optional[Tuple[str, ...]]
+    shards: int
+
+
+def matrix_batch_sharding(mesh: Mesh, ndim: int,
+                          batch: Optional[int] = None) -> BatchSharding:
+    """The split of a leading matrix-batch axis (B matrices, tables or
+    signal blocks) over the mesh's data-parallel axes; every other axis
+    of the ``ndim``-d operand stays whole.
+
+    ``batch``: the leading-dim size; the largest (order-preserving)
+    subset of data-parallel axes whose product divides it is used, so an
+    awkward B degrades to partial sharding or replication instead of
+    raising (e.g. (pod=4, data=2) with B=6 shards over "data" alone)."""
+    del ndim                        # the JAX signature's; every axis but 0
+    dp = dp_axes(mesh)
+    if batch is not None:
+        best, best_p = (), 1
+        for r in range(len(dp), 0, -1):
+            for combo in itertools.combinations(dp, r):
+                p = int(np.prod([mesh.shape[a] for a in combo]))
+                if p > best_p and batch % p == 0:
+                    best, best_p = combo, p
+        dp = best
+    shards = int(np.prod([mesh.shape[a] for a in dp])) if dp else 1
+    return BatchSharding(tuple(dp) or None, shards)
+
+
+def batch_shard_ids(mesh: Mesh, batch: int) -> Tuple[int, ...]:
+    """The device ids a (batch, ...) operand's shards go to, in batch
+    order: the mesh's devices along ``matrix_batch_sharding``'s axes,
+    every other axis at index 0 (one id when replicated)."""
+    axes = matrix_batch_sharding(mesh, 3, batch=batch).axes or ()
+    idx = tuple(slice(None) if a in axes else 0 for a in mesh.axis_names)
+    return tuple(int(i) for i in np.asarray(mesh.device_ids[idx]).ravel())
+
+
+def assign_buckets(num_devices: int, bucket_sizes: Mapping[Any, int],
+                   weights: Optional[Mapping[Any, float]] = None,
+                   ) -> Dict[Any, Tuple[int, ...]]:
+    """Pure assignment logic: bucket key -> device *indices* 0..D-1.
+
+    Deterministic greedy proportional allocation (largest
+    weight-per-allocated-device next), contiguous disjoint ranges, each
+    bucket at least one device, never more devices than the bucket has
+    graphs (extra devices would only serve padding).  With more buckets
+    than devices, buckets share devices round-robin.  ``weights``
+    defaults to the bucket batch sizes; the ragged router passes
+    batch x width so wide buckets get proportionally more devices."""
+    if num_devices <= 0:
+        raise ValueError(f"assign_buckets: num_devices={num_devices} "
+                         "must be positive")
+    keys = sorted(bucket_sizes)
+    if not keys:
+        return {}
+    if any(bucket_sizes[k] <= 0 for k in keys):
+        bad = {k: bucket_sizes[k] for k in keys if bucket_sizes[k] <= 0}
+        raise ValueError(f"assign_buckets: empty buckets {bad}")
+    if len(keys) > num_devices:
+        return {k: (i % num_devices,) for i, k in enumerate(keys)}
+    w = np.array([float((weights or bucket_sizes)[k]) for k in keys])
+    w = np.maximum(w, 1e-9)
+    cap = np.array([int(bucket_sizes[k]) for k in keys])
+    alloc = np.ones(len(keys), dtype=int)
+    for _ in range(num_devices - len(keys)):
+        score = w / alloc
+        score[alloc >= cap] = -1.0
+        i = int(np.argmax(score))
+        if score[i] < 0:
+            break  # every bucket saturated: surplus devices stay idle
+        alloc[i] += 1
+    out: Dict[Any, Tuple[int, ...]] = {}
+    nxt = 0
+    for k, a in zip(keys, alloc):
+        out[k] = tuple(range(nxt, nxt + int(a)))
+        nxt += int(a)
+    return out
+
+
+def data_devices(mesh: Mesh) -> list:
+    """The mesh's data-parallel device ids (non-DP axes indexed at 0):
+    the pool ``fleet_placement`` carves bucket subsets out of."""
+    idx = tuple(slice(None) if a in ("pod", "data") else 0
+                for a in mesh.axis_names)
+    return [int(i) for i in np.asarray(mesh.device_ids[idx]).ravel()]
+
+
+def _submesh(device_ids: Tuple[int, ...],
+             devices: Optional[Tuple[str, ...]] = None) -> Mesh:
+    """A one-axis ("data",) mesh over ``device_ids``: their given torch
+    devices, else the process's CUDA devices of those ids."""
+    if devices is not None:
+        by_id = {i: torch.device(d) for i, d in zip(device_ids, devices)}
+    else:
+        by_id = process_devices("cuda")
+        missing = [i for i in device_ids if i not in by_id]
+        if missing:
+            raise ValueError(
+                f"placement names device ids {missing} but this process "
+                f"has {len(by_id)} device(s) (ids {sorted(by_id)}); "
+                "re-place with fleet_placement on the current mesh")
+    return Mesh(np.array(device_ids), ("data",), by_id)
+
+
+@dataclass(frozen=True)
+class BucketPlacement:
+    """Which global device ids own one bucket, and its true batch size.
+
+    Frozen and tuple-valued, so hashable: plans carrying a placement stay
+    valid cache keys.  ``batch_padded`` is the serving-time leading dim:
+    the smallest multiple of the device count >= batch (pad rows are
+    structural no-ops, see staging.pad_batch).  ``devices``: the torch
+    device of each id (None: resolved through the process's CUDA devices
+    when used)."""
+    device_ids: Tuple[int, ...]
+    batch: int
+    devices: Optional[Tuple[str, ...]] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "device_ids",
+                           tuple(int(i) for i in self.device_ids))
+        if not self.device_ids:
+            raise ValueError("BucketPlacement needs at least one device")
+        if self.batch <= 0:
+            raise ValueError(f"BucketPlacement: batch={self.batch}")
+        if self.devices is not None:
+            devs = tuple(str(torch.device(d)) for d in self.devices)
+            if len(devs) != len(self.device_ids):
+                raise ValueError(f"BucketPlacement: {len(devs)} devices for "
+                                 f"{len(self.device_ids)} device ids")
+            object.__setattr__(self, "devices", devs)
+
+    @property
+    def num_devices(self) -> int:
+        return len(self.device_ids)
+
+    @property
+    def batch_padded(self) -> int:
+        d = self.num_devices
+        return -(-self.batch // d) * d
+
+    @property
+    def rows(self) -> int:
+        """Batch rows of each device's shard."""
+        return self.batch_padded // self.num_devices
+
+    def mesh(self) -> Mesh:
+        return _submesh(self.device_ids, self.devices)
+
+    def torch_devices(self) -> Tuple[torch.device, ...]:
+        """The torch device of each shard, in shard order."""
+        if self.devices is not None:
+            return tuple(torch.device(d) for d in self.devices)
+        mesh = self.mesh()
+        return tuple(mesh.device(i) for i in self.device_ids)
+
+    def place(self, arr) -> tuple:
+        """Pad axis 0 with zero rows to ``batch_padded`` and split it into
+        one shard per device.
+
+        For staged tables use staging.pad_batch first (pads are identity
+        transforms there, not zeros) and place the leaves with
+        ``place_leaf``/``place_leaves``."""
+        arr = torch.as_tensor(arr)
+        pad = self.batch_padded - arr.shape[0]
+        if pad > 0:
+            arr = torch.cat([arr, arr.new_zeros((pad,) + arr.shape[1:])])
+        elif arr.shape[0] != self.batch_padded:
+            raise ValueError(
+                f"place: leading dim {arr.shape[0]} exceeds "
+                f"batch_padded={self.batch_padded}")
+        return self._split(arr)
+
+    def place_leaf(self, arr) -> tuple:
+        """Split an already padded leaf into its shards (no shape
+        change)."""
+        arr = torch.as_tensor(arr)
+        if arr.shape[0] != self.batch_padded:
+            raise ValueError(
+                f"place_leaf: leading dim {arr.shape[0]} != "
+                f"batch_padded={self.batch_padded}")
+        return self._split(arr)
+
+    def place_leaves(self, leaves) -> tuple:
+        """A tuple of padded leaves (a table tuple) as one tuple of leaves
+        per shard: ``out[k]`` is shard k's table tuple."""
+        split = [self.place_leaf(a) for a in leaves]
+        return tuple(tuple(s[k] for s in split)
+                     for k in range(self.num_devices))
+
+    def _split(self, arr: torch.Tensor) -> tuple:
+        # every shard is a copy of its own, also where it stays on the
+        # array's device: the launcher keeps entry streams, casts and
+        # extents beside the tensors they come from, one set per shard
+        r = self.rows
+        return tuple(arr[k * r:(k + 1) * r].to(dev, copy=True).contiguous()
+                     for k, dev in enumerate(self.torch_devices()))
+
+    def gather(self, shards) -> torch.Tensor:
+        """The shards' answers concatenated on the bucket's first device
+        (padded: crop with ``crop``)."""
+        first = self.torch_devices()[0]
+        return torch.cat([s.to(first) for s in shards])
+
+    def crop(self, y):
+        """Drop the pad rows of a gathered answer."""
+        return y if self.batch_padded == self.batch else y[:self.batch]
+
+
+class FleetPlacement:
+    """Bucket key -> BucketPlacement over one serving mesh (disjoint
+    device subsets; a bucket's refit can only occupy its own devices)."""
+
+    def __init__(self, buckets: Mapping[Any, BucketPlacement],
+                 num_devices: int):
+        self.buckets = dict(buckets)
+        self.num_devices = int(num_devices)
+
+    def __getitem__(self, key) -> BucketPlacement:
+        return self.buckets[key]
+
+    def __contains__(self, key) -> bool:
+        return key in self.buckets
+
+    def items(self):
+        return self.buckets.items()
+
+    def manifest(self) -> Dict[str, Any]:
+        """JSON-serializable placement record for shard-aware checkpoints
+        (the JAX package's dict)."""
+        return {
+            "num_devices": self.num_devices,
+            "buckets": {str(k): {"device_ids": list(p.device_ids),
+                                 "batch": p.batch}
+                        for k, p in self.buckets.items()},
+        }
+
+
+def fleet_placement(mesh: Mesh, bucket_sizes: Mapping[Any, int],
+                    weights: Optional[Mapping[Any, float]] = None,
+                    ) -> FleetPlacement:
+    """Assign whole ragged-router buckets to the mesh's data-axis devices.
+
+    Each bucket gets a contiguous, disjoint device subset sized by
+    ``weights`` (default: batch count; the router passes batch x width).
+    Within a bucket, whole graphs partition along the batch axis over the
+    subset; no tensor is ever split across devices."""
+    devs = data_devices(mesh)
+    assignment = assign_buckets(len(devs), bucket_sizes, weights)
+    buckets = {
+        k: BucketPlacement(
+            device_ids=tuple(devs[i] for i in idxs),
+            batch=int(bucket_sizes[k]),
+            devices=tuple(str(mesh.device(devs[i])) for i in idxs))
+        for k, idxs in assignment.items()}
+    return FleetPlacement(buckets, num_devices=len(devs))
+
+
+def single_bucket_placement(mesh: Mesh, batch: int) -> BucketPlacement:
+    """All data-axis devices as one bucket (the non-ragged engine)."""
+    return fleet_placement(mesh, {"all": batch})["all"]

@@ -344,11 +344,21 @@ def test_engine_load_overrides_and_refusals(tmp_path):
     static = FGFTServeEngine.load(tmp_path / "dyn", dynamic=False,
                                   device="cpu")
     torch.testing.assert_close(static.step(x), teng.step(x), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="placement"):
-        FGFTServeEngine(laps, basis=teng.basis, placement=object(),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="placement"):
-        FGFTServeEngine(laps, basis=teng.basis, mesh=object(), device="cpu")
+    # placement is ported: the JAX engine's rules on a placement that
+    # does not fit the fleet, with its messages
+    from repro.runtime.sharding import BucketPlacement as JaxPlacement
+    from repro_torch.runtime.sharding import BucketPlacement
+    for cls, place, stack in ((JaxEngine, JaxPlacement, jnp.asarray),
+                              (FGFTServeEngine, BucketPlacement, np.asarray)):
+        with pytest.raises(ValueError, match=r"placement\.batch=3 != fleet "
+                           r"batch 2"):
+            cls(stack(laps), basis=teng.basis if cls is FGFTServeEngine
+                else None, num_transforms=G, placement=place((0,), 3),
+                **({"device": "cpu"} if cls is FGFTServeEngine else {}))
+        with pytest.raises(ValueError, match=r"placement requires a "
+                           r"batched \(B, n, n\) Laplacian stack"):
+            cls(stack(laps[0]), num_transforms=G, placement=place((0,), 1),
+                **({"device": "cpu"} if cls is FGFTServeEngine else {}))
     # bf16 table storage is ported: the restored engine serves bf16
     # tables, within the bf16 rounding of the f32 engine
     half = FGFTServeEngine.load(tmp_path / "eng", precision="bf16",

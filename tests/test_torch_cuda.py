@@ -965,6 +965,142 @@ def test_async_service_on_the_card(cuda):
 
 
 # ---------------------------------------------------------------------------
+# fleet placement: pad rows and batch shards through the kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("family", ["sym", "general"])
+def test_pad_rows_through_the_kernels(cuda, family, precision):
+    """``pad_batch`` tables (5 -> 8 rows) through chain, operator and bank
+    kernels: the real rows bitwise the unpadded launch, a pad row bitwise
+    its input through the chain and exactly 0 through the operator and
+    the bank on a zero spectrum and zero gains (a row of no real entry:
+    an empty entry stream and zero stage extents)."""
+    make = _tables if family == "sym" else _t_tables
+    fwd, bwd, _, _, diag = make(48, 5, 200, cuda)
+    fwd, bwd = (tst.with_precision(t, precision) for t in (fwd, bwd))
+    pf, pb = tst.pad_batch(fwd, 8), tst.pad_batch(bwd, 8)
+    words, offsets = launcher.entry_stream(pf)
+    assert bool((offsets[5:] == offsets[5:, :1]).all())
+    assert int(launcher.stage_extents(pf)[5:].abs().sum()) == 0
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((8, 40, 48), generator=gen, device=cuda)
+    dpad = torch.cat([diag, diag.new_zeros(3, 48)])
+    gains = torch.cat([_gains((5, 7, 48), cuda, 4),
+                       torch.zeros((3, 7, 48), device=cuda)])
+    kw = dict(family=family, n=48, batched=True, precision=precision,
+              device="cuda")
+    ap = ApplyPlan(mode="apply", **kw)
+    launcher.reset_launch_counts()
+    y = ap.apply(pf, x)
+    form = launcher.form("batched_butterfly_apply" if family == "sym"
+                         else "batched_shear_apply", precision)
+    assert launcher.entry_launch_counts()[form] == 1
+    _equal(y[:5], ap.apply(fwd, x[:5].contiguous()))
+    _equal(y[5:], x[5:])
+    op = ApplyPlan(mode="operator", **kw)
+    y = op.operator(pf, pb, dpad, x)
+    _equal(y[:5], op.operator(fwd, bwd, diag, x[:5].contiguous()))
+    assert not bool(y[5:].any())
+    bk = ApplyPlan(mode="bank", **kw)
+    y = bk.bank(pf, pb, gains, x)
+    _equal(y[:5], bk.bank(fwd, bwd, gains[:5].contiguous(),
+                          x[:5].contiguous()))
+    assert not bool(y[5:].any())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("family", ["sym", "general"])
+def test_fit_on_a_mesh_is_bitwise_on_the_card(cuda, family):
+    """``fit(mesh=)`` on 4 logical devices of the card: each shard of 2
+    graphs fitted alone gives the whole batch's factors, spectrum and
+    objective bitwise.  The objective's sum of squares runs as two passes
+    of n (``gtransform._sq_sum``), each row's order independent of the
+    number of rows reduced together."""
+    from repro_torch.core import ApproxEigenbasis
+    from repro_torch.core import gtransform as gt
+    from repro_torch.core.fgft import laplacian
+    from repro_torch.graphs import community_graph, directed_variant
+    from repro_torch.launch.mesh import logical_devices, make_local_mesh
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for n in (64, 256):
+        d = torch.randn((8, n, n), generator=gen, device=cuda)
+        for lo in range(0, 8, 2):
+            _equal(gt._sq_sum(d[lo:lo + 2].clone()), gt._sq_sum(d)[lo:lo + 2])
+    n, g = (64, 256) if family == "sym" else (32, 64)
+    adjs = [community_graph(n, seed=40 + s) for s in range(8)]
+    if family == "general":
+        adjs = [directed_variant(a, seed=s) for s, a in enumerate(adjs)]
+    laps = np.stack([laplacian(a) for a in adjs])
+    with logical_devices(4, "cuda"):
+        mesh = make_local_mesh()
+    flat = ApproxEigenbasis.fit(laps, g, n_iter=1, kind=family, device=cuda)
+    placed = ApproxEigenbasis.fit(laps, g, n_iter=1, kind=family,
+                                  mesh=mesh, device=cuda)
+    for a, b in zip(flat.factors + (flat.spectrum, flat.objective),
+                    placed.factors + (placed.spectrum, placed.objective)):
+        _equal(b, a)
+    ext_flat, ext = flat.extend(laps, g + 32), flat.extend(laps, g + 32,
+                                                          mesh=mesh)
+    for a, b in zip(ext_flat.factors + (ext_flat.spectrum,),
+                    ext.factors + (ext.spectrum,)):
+        _equal(b, a)
+
+
+@pytest.mark.parametrize("family", ["sym", "general"])
+def test_placed_engine_on_logical_shards_of_the_card(cuda, family):
+    """An engine placed on 4 logical devices of the one card: every tier,
+    ``step_versioned`` and the bank bitwise the unplaced engine's, one
+    launch per shard per dispatch, every shard's tables their own
+    contiguous tensors."""
+    from repro_torch.core import ApproxEigenbasis
+    from repro_torch.core.fgft import laplacian
+    from repro_torch.graphs import community_graph, directed_variant
+    from repro_torch.launch.mesh import logical_devices, make_local_mesh
+    from repro_torch.launch.serve import FGFTServeEngine
+    from repro_torch.runtime.sharding import single_bucket_placement
+    adjs = [community_graph(32, seed=s) for s in range(6)]
+    if family == "general":
+        adjs = [directed_variant(a, seed=s) for s, a in enumerate(adjs)]
+    laps = np.stack([laplacian(a) for a in adjs])
+    basis = ApproxEigenbasis.fit(laps, 64, n_iter=1, kind=family,
+                                 device=cuda)
+    tiers = {"full": 1.0, "balanced": 0.5, "draft": 0.25}
+    flat = FGFTServeEngine(laps, basis=basis, tiers=tiers,
+                           filters="heat,tikhonov", device=cuda)
+    with logical_devices(4, "cuda"):
+        mesh = make_local_mesh()
+    placed = FGFTServeEngine(laps, basis=basis, tiers=tiers,
+                             filters="heat,tikhonov", device=cuda,
+                             placement=single_bucket_placement(mesh, 6))
+    ptrs = [t.data_ptr() for shard in placed._live.fwd for t in shard]
+    assert len(set(ptrs)) == len(ptrs) == 4 * len(placed._live.fwd[0])
+    assert all(t.is_contiguous() for shard in placed._live.fwd
+               for t in shard)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((6, 24, 32), generator=gen, device=cuda)
+    op = "batched_sym_operator_apply" if family == "sym" else \
+        "batched_gen_operator_apply"
+    bank = "batched_sym_filter_bank_apply" if family == "sym" else \
+        "batched_gen_filter_bank_apply"
+    lowpass = lambda lam: 1.0 / (1.0 + lam)  # noqa: E731
+    for tier in tiers:
+        want = flat.step(x, lowpass, tier=tier)
+        launcher.reset_launch_counts()
+        got = placed.step(x, lowpass, tier=tier)
+        assert launcher.entry_launch_counts()[op] == 4
+        _equal(got, want)
+        _equal(placed.step_versioned(x, tier=tier)[0],
+               flat.step_versioned(x, tier=tier)[0])
+    want = flat.step_bank(x)
+    launcher.reset_launch_counts()
+    got = placed.step_bank(x)
+    assert launcher.entry_launch_counts()[bank] == 4
+    _equal(got, want)
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
 # the rest of repro.core: compressed linear, baselines, butterfly layer;
 # the tile dial
 # ---------------------------------------------------------------------------

@@ -74,18 +74,23 @@ def test_cuda_plan_resolves_to_cuda_backend():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mode="bank", placement=object()), "placement"),
+    pytest.param(dict(mode="bank", placement=object()),
+                 r"placement requires batched=True \(the batch axis",
+                 id="kwargs0-placement"),
     (dict(family="general", mode="bank", block_b=0), "block_b must be "
      "positive"),
     (dict(precision="bf16", block_b=-64), "block_b must be positive"),
-    (dict(placement=object()), "placement"),
+    pytest.param(dict(placement=object()),
+                 r"placement requires batched=True \(the batch axis",
+                 id="kwargs3-placement"),
     (dict(block_b=0), "block_b must be positive"),
     (dict(backend="pallas"), "backend"),
 ])
 def test_plan_rejects_unported_options(kwargs, match):
-    """Unported options and bad values raise; ``block_b`` is ported (the
-    tile dial), and a non-positive one raises with the JAX package's
-    message."""
+    """Bad values raise with the JAX package's messages: a non-positive
+    ``block_b`` (the tile dial), a placement on an unbatched plan (the
+    batch axis is what a placement splits; ``placement=`` is ported), a
+    backend the port has not."""
     base = dict(family="sym", mode="apply", n=16, device="cpu")
     with pytest.raises(ValueError, match=match):
         ApplyPlan(**{**base, **kwargs})

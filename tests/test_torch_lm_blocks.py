@@ -79,8 +79,21 @@ def _to_torch(tree):
 
 def _x(rng, b, s, d, dtype):
     x = rng.standard_normal((b, s, d)).astype(np.float32)
-    return (jnp.asarray(x, DTYPES[dtype][0]),
-            torch.from_numpy(x).to(DTYPES[dtype][1]))
+    return (jnp.asarray(x.copy(), DTYPES[dtype][0]),
+            _leaf(x, "cpu").to(DTYPES[dtype][1]))
+
+
+def _caches(arrays: dict, jcfg, tcfg, cast=("conv",)):
+    """Each package's OWN copy of every cache array: the port's blocks
+    write their caches in place, and on the CPU ``jnp.asarray`` may alias
+    a numpy buffer that ``torch.from_numpy`` shares, so a shared array
+    would let the port's call overwrite the JAX cache before JAX's
+    asynchronous step has read it."""
+    jcache = {k: jnp.asarray(a.copy(), jcfg.dtype if k in cast else None)
+              for k, a in arrays.items()}
+    tcache = {k: _leaf(a, "cpu").to(tcfg.dtype) if k in cast
+              else _leaf(a, "cpu") for k, a in arrays.items()}
+    return jcache, tcache
 
 
 # ---------------------------------------------------------------------------
@@ -160,14 +173,15 @@ def _run_modes(jfn, tfn, jx, tx, jcache, tcache, s, steps, tol):
     ``steps`` single-token decodes, caches compared after each call (at
     bf16 within 2e-2: the f32 states sum bf16 inputs, dt and the gates,
     that the two packages round an ulp apart now and then)."""
-    want, _ = jfn(jx, None)
+    # each JAX call is finished before the port's call runs
+    want, _ = jax.block_until_ready(jfn(jx, None))
     got, _ = tfn(tx, None)
     _close(got, want, tol)
-    want, jcache = jfn(jx[:, :s], jcache)
+    want, jcache = jax.block_until_ready(jfn(jx[:, :s], jcache))
     got, tcache = tfn(tx[:, :s], tcache)
     _close(got, want, tol)
     for t in range(s, s + steps):
-        want, jcache = jfn(jx[:, t:t + 1], jcache)
+        want, jcache = jax.block_until_ready(jfn(jx[:, t:t + 1], jcache))
         got, tcache = tfn(tx[:, t:t + 1], tcache)
         _close(got, want, tol)
         for key in tcache:
@@ -185,12 +199,10 @@ def test_ssd_block_modes_match_jax(dtype, s):
     jx, tx = _x(rng, 2, s + 3, tcfg.d_model, dtype)
     d_in = tcfg.ssm_expand * tcfg.d_model
     hs, p, n = d_in // tcfg.ssm_head_dim, tcfg.ssm_head_dim, tcfg.ssm_state
-    conv = np.zeros((2, tcfg.conv_width - 1, d_in + 2 * n), np.float32)
-    state = np.zeros((2, hs, p, n), np.float32)
-    jcache = {"conv": jnp.asarray(conv, jcfg.dtype),
-              "state": jnp.asarray(state)}
-    tcache = {"conv": torch.from_numpy(conv).to(tcfg.dtype),
-              "state": torch.from_numpy(state)}
+    jcache, tcache = _caches(
+        {"conv": np.zeros((2, tcfg.conv_width - 1, d_in + 2 * n),
+                          np.float32),
+         "state": np.zeros((2, hs, p, n), np.float32)}, jcfg, tcfg)
     blk = blocks.SSDBlock(tcfg, _to_torch(w))
     _run_modes(lambda x, c: jblocks.ssd_block(jw, x, jcfg, c),
                lambda x, c: blk(x, c), jx, tx, jcache, tcache, s, 3,
@@ -205,11 +217,10 @@ def test_rglru_block_modes_match_jax(dtype, s):
     w = _weights(blocks.rglru_spec(tcfg), rng)
     jw = jax.tree.map(jnp.asarray, w)
     jx, tx = _x(rng, 2, s + 3, tcfg.d_model, dtype)
-    conv = np.zeros((2, tcfg.conv_width - 1, tcfg.lru_width), np.float32)
-    h = np.zeros((2, tcfg.lru_width), np.float32)
-    jcache = {"conv": jnp.asarray(conv, jcfg.dtype), "h": jnp.asarray(h)}
-    tcache = {"conv": torch.from_numpy(conv).to(tcfg.dtype),
-              "h": torch.from_numpy(h)}
+    jcache, tcache = _caches(
+        {"conv": np.zeros((2, tcfg.conv_width - 1, tcfg.lru_width),
+                          np.float32),
+         "h": np.zeros((2, tcfg.lru_width), np.float32)}, jcfg, tcfg)
     blk = blocks.RGLRUBlock(tcfg, _to_torch(w))
     _run_modes(lambda x, c: jblocks.rglru_block(jw, x, jcfg, c),
                lambda x, c: blk(x, c), jx, tx, jcache, tcache, s, 3,

@@ -356,18 +356,34 @@ def test_router_restores_persisted_geometry_and_refuses_placement(tmp_path):
     router.save(tmp_path)
     back = RaggedFGFTServeEngine.load(tmp_path, device="cpu")
     assert back.widths == [16, 16] and back.bucket_of == {16: [0, 1]}
+    # placement is ported: a corrupt manifest raises the JAX router's
+    # ValueError, word for word, also under placement=False (as the JAX
+    # router reads it first); a sound one is skipped by placement=False
     (tmp_path / "placement.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="placement"):
+    with pytest.raises(ValueError, match="corrupt placement manifest") as got:
         RaggedFGFTServeEngine.load(tmp_path, device="cpu")
+    with pytest.raises(ValueError) as want:
+        JaxRouter.load(tmp_path)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="corrupt placement manifest"):
+        RaggedFGFTServeEngine.load(tmp_path, placement=False, device="cpu")
+    (tmp_path / "placement.json").write_text(json.dumps(
+        {"num_devices": 2, "buckets": {"16": {"device_ids": [0, 1],
+                                              "batch": 2}}}))
     unplaced = RaggedFGFTServeEngine.load(tmp_path, placement=False,
                                           device="cpu")
-    assert unplaced.widths == [16, 16]
+    assert unplaced.widths == [16, 16] and unplaced.placement is None
     dyn = RaggedFGFTServeEngine(laps, 24, n_iter=0, min_width=16,
                                 dynamic=True, device="cpu")
     assert dyn.dynamic and dyn.versions.tolist() == [0, 0]
     assert dyn.maintain()[16]["action"] == "reuse"
-    with pytest.raises(NotImplementedError, match="placement"):
+    # placement="auto" without a mesh: the JAX router's rule
+    with pytest.raises(ValueError, match="placement='auto' requires a "
+                       "mesh"):
         RaggedFGFTServeEngine(laps, 24, placement="auto", device="cpu")
+    with pytest.raises(ValueError, match="placement='auto' requires a "
+                       "mesh"):
+        JaxRouter(laps, 24, placement="auto")
 
 
 @pytest.mark.parametrize("extra", [[], ["--directed"],

@@ -306,9 +306,16 @@ def test_prefill_and_decode_steps_wrap_the_model():
 
 
 def test_refusals():
-    with pytest.raises(SystemExit, match="A4"):
+    # --model-axis goes through make_local_mesh, as in the JAX driver: on
+    # one device an axis of 2 raises its ValueError
+    from repro.launch.mesh import make_local_mesh as jax_local_mesh
+    with pytest.raises(ValueError) as want:
+        jax_local_mesh(2)
+    with pytest.raises(ValueError, match="cannot be factored into a model "
+                       "axis of 2") as got:
         train.main(["--arch", ARCH, "--smoke", "--model-axis", "2",
                     "--device", "cpu"])
+    assert str(got.value) == str(want.value)
     with pytest.raises(NotImplementedError, match="A6d"):
         steps.make_pod_compressed_train_step(_cfgs()[1], seq_len=8,
                                              global_batch=2)
