@@ -365,6 +365,27 @@ each), so that the run stays well inside its time limit:
              unplaced engine's, every tier bitwise after each swap.  Each
              ``kernels`` row carries ``placed_launches``; the phase's
              seconds are printed.
+5l. main-dryrun — the dry run (after [main-placed]; DRYRUN), the counts
+             zeroed just before and read just after: a.
+             ``launch/dryrun.py::run_cell`` of qwen2-1.5b train_4k on
+             both production meshes (256 and 512 ids on ``meta``; one
+             global and one data-shard trace serve both): per-device GB
+             against the card's ``total_memory`` and the dominant term.
+             b. [main-train]'s configuration (qwen2-1.5b at full size,
+             B 8 x S 256, ``remat_block`` 4) predicted on a 1x1 mesh and
+             held to one real step on the card: the predicted argument
+             bytes equal to the bytes of the state and batch tensors, the
+             predicted dot FLOPs within 1% of a ``torch.profiler``
+             ``with_flops`` count of the product events (mm, addmm, bmm,
+             baddbmm) that launched a kernel, what else the profiler
+             counts printed; the predicted peak (arguments + temp) beside
+             ``max_memory_allocated`` (not gated).  c. that state and
+             batch placed on 4 logical devices of the card, a (2, 2)
+             ("data", "model") mesh, through ``sharding_tree``: each
+             id's shard bytes equal to the dry run's per-device argument
+             bytes, every leaf gathered back bitwise.  None of the 12
+             entry points may launch (``dryrun_launches`` of each
+             ``kernels`` row); the phase's seconds are printed.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
              graph (n = 256, g = 2048, n_iter = 2), then analysis, synthesis,
              project and the bank; ``shear_apply``, ``gen_operator_apply``
@@ -416,7 +437,7 @@ single-graph path, on [main-bf16] for a bf16-table form and on
 [main-bf16x] for a bf16-signal form, ``ragged_launches``,
 ``dynamic_launches``, ``async_launches``, ``core_launches``,
 ``lm_launches``, ``lm_families_launches``, ``train_launches``,
-``placed_launches``), the
+``placed_launches``, ``dryrun_launches``), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -4846,6 +4867,246 @@ ASYNC = dict(requests=4096, bank_requests=1024, directed_requests=1024,
                   "--graph-n", "64", "--load-requests", "256",
                   "--load-workers", "4"])
 
+#: [main-dryrun]: the dry run on the production meshes (a), its one-device
+#: prediction against [main-train]'s configuration on the card (b), and
+#: the argument bytes of that state placed on 4 logical devices (c);
+#: ``seq``, ``batch``: [main-train]'s CLI step (TRAIN)
+DRYRUN = dict(arch=TRAIN["arch"], shape="train_4k", seq=256, batch=8,
+              logical=4, model_axis=2, flop_tol=0.01,
+              products=("aten::mm", "aten::addmm", "aten::bmm",
+                        "aten::baddbmm"))
+
+
+def dryrun_cells(prefix: str, card) -> dict:
+    """a: ``run_cell`` of qwen2-1.5b train_4k on both production meshes,
+    on ``meta`` (one global and one data-shard trace serve both)."""
+    import torch
+    from repro_torch.launch import dryrun
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    for kind in ("single", "multi"):
+        t0 = time.perf_counter()
+        res = dryrun.run_cell(DRYRUN["arch"], DRYRUN["shape"], kind)
+        mem, r = res["memory"], res["roofline"]
+        check(res["n_chips"] == (256 if kind == "single" else 512)
+              and mem["argument_size_in_bytes"] > 0
+              and r["collective_s"] is None
+              and r["dominant"] in ("compute", "memory"),
+              f"{prefix} a. {kind}: {res['n_chips']} chips, {mem}, {r}")
+        log(f"{prefix} a. {DRYRUN['arch']} {DRYRUN['shape']} {kind} "
+            f"({res['n_chips']} chips, meta): per device "
+            f"{mem['per_device_bytes'] / 1e9:.3f} GB (arguments "
+            f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB exact, temp "
+            f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB at batch "
+            f"{res['temp_batch']}, {res['temp_basis']}: an upper bound) "
+            f"against this card's total_memory {total / 1e9:.3f} GB; "
+            f"compute {r['compute_s']:.4e} s, memory {r['memory_s']:.4e} "
+            f"s, dominant {r['dominant']}, useful_flop_frac "
+            f"{res['useful_flop_frac']:.4f} (H100 constants: reckoned, "
+            f"not measured); traces {res['lower_s']} s + "
+            f"{res['compile_s']} s, cell {time.perf_counter() - t0:.1f} s "
+            f"[{card}]")
+        out[kind] = {"per_device_gb": mem["per_device_bytes"] / 1e9,
+                     "dominant": r["dominant"], "cell_s":
+                     time.perf_counter() - t0}
+    return out
+
+
+def _train_setup():
+    """[main-train]'s step at full size: (config, recipe, shape, a fresh
+    state on the card, the step, a batch on the card)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_recipe
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime import steps
+    cfg = get_config(DRYRUN["arch"])
+    recipe = get_recipe(DRYRUN["arch"])
+    shape = Shape("main-train", DRYRUN["seq"], DRYRUN["batch"], "train")
+    state = steps.concrete_train_state(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE,
+        moment_dtype=recipe["moment_dtype"])
+    bundle = steps.make_train_step(
+        cfg, seq_len=shape.seq_len, global_batch=shape.global_batch,
+        moment_dtype=recipe["moment_dtype"], device=DEVICE)
+    host = SyntheticLM(cfg, shape.seq_len, shape.global_batch,
+                       seed=0).batch(0)
+    batch = {k: torch.as_tensor(np.asarray(v)).to(DEVICE)
+             for k, v in host.items()}
+    return cfg, recipe, shape, state, bundle, batch
+
+
+def dryrun_one_device(prefix: str, card, setup) -> dict:
+    """b: the dry run's prediction on a 1x1 mesh against one real step:
+    argument bytes exactly the state's and batch's tensors, dot FLOPs
+    within 1% of the profiler's product events that launched a kernel,
+    the predicted peak beside ``max_memory_allocated``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh, process_devices
+    from repro_torch.optim.adamw import tree_leaves
+    cfg, recipe, shape, state, bundle, batch = setup
+    mesh = Mesh([[0]], ("data", "model"), process_devices("meta", 1))
+    t0 = time.perf_counter()
+    pred = dryrun.analyze(cfg, recipe, shape, mesh)
+    pred_s = time.perf_counter() - t0
+    held = sum(t.numel() * t.element_size()
+               for t in tree_leaves(state) + list(batch.values()))
+    mem = pred["memory"]
+    check(mem["argument_size_in_bytes"] == held,
+          f"{prefix} b. predicted argument bytes "
+          f"{mem['argument_size_in_bytes']:.0f} != {held} held on the card")
+    bundle.fn(state, batch)                     # builds the live model
+    torch.cuda.synchronize()
+    best = None
+    for _attempt in range(3):       # a trace now and then drops events
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     with_flops=True) as prof:
+            bundle.fn(state, batch)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        flops = product_flops(prof)
+        want = pred["roofline"]["hlo_flops"]
+        rel = flops["launched"] / want - 1 if want else float("inf")
+        if best is None or abs(rel) < abs(best[0]):
+            best = (rel, flops, peak)
+        if abs(rel) <= DRYRUN["flop_tol"]:
+            break
+    rel, flops, peak = best
+    measured = flops["launched"]
+    check(abs(rel) <= DRYRUN["flop_tol"],
+          f"{prefix} b. profiler product FLOPs {measured} against the "
+          f"prediction {want:.0f} ({rel:+.4%}): {flops}")
+    traced = pred["trace"]["flops_by_op"]
+    peak_pred = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    log(f"{prefix} b. {DRYRUN['arch']} B {shape.global_batch} x S "
+        f"{shape.seq_len}, remat_block {cfg.remat_block}, 1x1 mesh: "
+        f"predicted argument bytes {mem['argument_size_in_bytes']:.0f} == "
+        f"{held} held by the state and batch on the card; dot FLOPs "
+        f"predicted {want:.6e} (trace {traced}) against the profiler's "
+        f"product events that launched a kernel {measured:.6e} "
+        f"({flops['by_op']}), {rel:+.4%}; the profiler also gives "
+        f"{flops['aborted']:.6e} to {flops['aborted_events']} product "
+        f"events that launched nothing (a checkpoint's recomputation "
+        f"stops early, after the op's inputs are saved and before its "
+        f"kernel) and {flops['other']:.6e} to elementwise events "
+        f"({flops['other_ops']}); predicted peak (arguments + temp) "
+        f"{peak_pred / 1e9:.3f} GB, per device "
+        f"{mem['per_device_bytes'] / 1e9:.3f} GB, against "
+        f"max_memory_allocated {peak / 1e9:.3f} GB in the step (not "
+        f"gated); prediction {pred_s:.1f} s [{card}]")
+    return {"argument_bytes": held, "flops_pred": want,
+            "flops_profiler": measured, "flops_rel": rel, "flops": flops,
+            "peak_pred": peak_pred, "peak": peak}
+
+
+def product_flops(prof) -> dict:
+    """The FLOPs of a ``with_flops`` trace: of the product events
+    (DRYRUN["products"]) that launched a kernel, by op; of those that
+    launched none; and of every other event with FLOPs."""
+    out = {"launched": 0, "by_op": {}, "aborted": 0, "aborted_events": 0,
+           "other": 0, "other_ops": {}}
+    for ev in prof.events():
+        if not ev.flops:
+            continue
+        if ev.name not in DRYRUN["products"]:
+            out["other"] += int(ev.flops)
+            out["other_ops"][ev.name] = out["other_ops"].get(ev.name, 0) + 1
+        elif ev.device_time_total > 0:
+            out["launched"] += int(ev.flops)
+            out["by_op"][ev.name] = out["by_op"].get(ev.name, 0) + int(
+                ev.flops)
+        else:
+            out["aborted"] += int(ev.flops)
+            out["aborted_events"] += 1
+    return out
+
+
+def _bitwise(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).contiguous().view(torch.uint8),
+        b.reshape(-1).contiguous().view(torch.uint8))
+
+
+def dryrun_logical(prefix: str, card, setup) -> dict:
+    """c: the full-width state and batch placed on 4 logical devices of
+    the card, a (2, 2) ("data", "model") mesh, through ``sharding_tree``:
+    each id's shard bytes the dry run's per-device argument bytes, the
+    shards gathered back bitwise, one leaf at a time."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import logical_devices, make_local_mesh
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    cfg, recipe, shape, state, _bundle, batch = setup
+    with logical_devices(DRYRUN["logical"], DEVICE):
+        mesh = make_local_mesh(DRYRUN["model_axis"], device=DEVICE)
+    want = dryrun.argument_bytes(cfg, recipe, shape, mesh)
+    rules = shd.make_rules(mesh, cfg, fsdp=recipe["fsdp"],
+                           global_batch=shape.global_batch)
+    shardings = {"state": steps.state_shardings(cfg, mesh, rules),
+                 "batch": shd.batch_sharding(mesh, rules, mode="train")}
+    held = dict.fromkeys(range(mesh.size), 0)
+    leaves = 0
+    for t, s in dryrun._pairs({"state": state, "batch": batch}, shardings):
+        parts = s.shard(t)
+        check(all(p.device == t.device for p in parts.values()),
+              f"{prefix} c. shards off the card")
+        for i, p in parts.items():
+            held[i] += p.numel() * p.element_size()
+        check(_bitwise(s.gather(parts), t),
+              f"{prefix} c. the gather of a {tuple(t.shape)} leaf "
+              f"({s.spec}) is not the leaf")
+        leaves += 1
+        del parts
+    torch.cuda.empty_cache()
+    check(all(v == want for v in held.values()),
+          f"{prefix} c. shard bytes per device id {held} != the dry run's "
+          f"{want:.0f}")
+    log(f"{prefix} c. the state and batch ({leaves} leaves) on "
+        f"{mesh.size} logical devices of the card, mesh "
+        f"{dict(mesh.shape)}: every id holds {want / 1e9:.4f} GB, equal to "
+        f"the dry run's per-device argument bytes; every leaf gathered "
+        f"back bitwise [{card}]")
+    return {"bytes_per_device": want, "leaves": leaves}
+
+
+def phase_main_dryrun(card) -> dict:
+    """[main-dryrun]: the dry run (launch/dryrun.py on meta) and its
+    prediction held to the card (DRYRUN); none of the 12 entry points
+    launches."""
+    import torch
+    from repro_torch.kernels import launcher
+    prefix = "[main-dryrun]"
+    t_phase = time.perf_counter()
+    launcher.reset_launch_counts()
+    secs, out = {}, {}
+    t0 = time.perf_counter()
+    out["a"] = dryrun_cells(prefix, card)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    setup = _train_setup()
+    out["b"] = dryrun_one_device(prefix, card, setup)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["c"] = dryrun_logical(prefix, card, setup)
+    secs["c"] = time.perf_counter() - t0
+    del setup
+    torch.cuda.empty_cache()
+    launches = launcher.entry_launch_counts()
+    check(not any(launches.values()), f"{prefix} launched {launches}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"{prefix} {phase_s:.1f}s in all ("
+        + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
+        + f"); none of the 12 entry points launched [{card}]")
+    return {"launches": launches, **out, "phase_s": phase_s,
+            "part_s": secs}
+
 
 def span_clock():
     """time.monotonic rounded to 2^-20 s: differences and sums of its
@@ -5633,6 +5894,7 @@ def main() -> int:
     lm_families = phase_main_lm_families(card)
     trained = phase_main_train(card)
     placed = phase_main_placed(errs, main_rec, main_dir, ragged)
+    dry = phase_main_dryrun(card)
     # phase 7 for the bf16 forms, then for the bf16-signal forms on f32
     # and on bf16 tables
     for at in (("bf16", bf16["launches"]),
@@ -5665,6 +5927,7 @@ def main() -> int:
             row["entry"], 0)
         row["train_launches"] = trained["launches"].get(row["entry"], 0)
         row["placed_launches"] = placed["launches"].get(row["entry"], 0)
+        row["dryrun_launches"] = dry["launches"].get(row["entry"], 0)
         row["max_abs_err"] = errs[row["entry"]]
     if args.baseline:
         turns = phase_turns(args.baseline, main_rec, single, main_dir,

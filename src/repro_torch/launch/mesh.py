@@ -8,9 +8,10 @@ visible CUDA device itself (no ``torch.distributed``, no NCCL).  A
 axes, and resolves each id to the ``torch.device`` it stands for: on the
 card, id k is ``cuda:k``; on the CPU there is one device, id 0.
 
-``make_production_mesh`` (the 16x16 and 2x16x16 pod meshes of the dry
-run) is not here: it comes with the model half of
-``runtime/sharding.py`` (ROADMAP A6d).
+``make_production_mesh`` gives the dry run's 16x16 and 2x16x16 pod
+meshes; their device ids are abstract, every one on the ``meta`` device
+(``process_devices("meta", count)``), so that a dry run never touches a
+card.
 
 ``logical_devices(count, device)`` is a helper for tests and the smoke
 script, never called on the main path: inside it, the process has
@@ -53,11 +54,15 @@ def logical_devices(count: int, device="cuda") -> Iterator[None]:
         _LOGICAL = prev
 
 
-def process_devices(platform: str = "cuda") -> Dict[int, torch.device]:
-    """id -> torch.device of every device of ``platform`` ("cuda" or
-    "cpu") this process can use: the logical ones inside a
+def process_devices(platform: str = "cuda",
+                    count: Optional[int] = None) -> Dict[int, torch.device]:
+    """id -> torch.device of every device of ``platform`` ("cuda", "cpu"
+    or "meta") this process can use: the logical ones inside a
     ``logical_devices`` block of that platform, else ``cuda:0..`` (none
-    without a card) or the one CPU."""
+    without a card) or the one CPU.  "meta": ``count`` abstract devices,
+    ids ``0..count-1``, each the ``meta`` device (no memory, no card)."""
+    if platform == "meta":
+        return {i: torch.device("meta") for i in range(int(count or 1))}
     if _LOGICAL is not None and _LOGICAL[1].type == platform:
         count, dev = _LOGICAL
         return {i: dev for i in range(count)}
@@ -116,6 +121,17 @@ class Mesh:
     def __repr__(self) -> str:
         return (f"Mesh({dict(self.shape)}, ids={self.device_ids.tolist()}, "
                 f"{self.platform})")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16x16 ("data","model") single pod; 2x16x16 ("pod","data","model")
+    for the 512-chip two-pod configuration.  Its ids are abstract, on the
+    ``meta`` platform: the dry run's shardings read its shape and names."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    return Mesh(np.arange(n).reshape(shape), axes,
+                process_devices("meta", n))
 
 
 def make_local_mesh(model_axis: int = 1, device="cuda") -> Mesh:

@@ -19,7 +19,7 @@ One device: ``--model-axis`` goes through ``launch/mesh.py::
 make_local_mesh`` as in the JAX driver, so an axis the devices cannot
 hold raises its ``ValueError``; a model axis above 1 that they could
 hold raises ``NotImplementedError`` (model-parallel training comes with
-the model half of ``runtime/sharding.py``, ROADMAP A6d).  The default
+the sharded execution, ROADMAP A6d-2).  The default
 checkpoint directory is ``repro_torch_ckpt_<arch>`` under the temporary
 directory, apart from the JAX package's.
 """
@@ -80,8 +80,8 @@ def run(args) -> dict:
     if mesh.shape["model"] > 1:
         raise NotImplementedError(
             f"--model-axis {args.model_axis}: model-parallel training needs "
-            "the model half of runtime/sharding.py (ROADMAP A6d); the port "
-            "trains on one device")
+            "a sharded train step (ROADMAP A6d-2); the port trains on one "
+            "device")
     cfg = get_config(args.arch, smoke=args.smoke)
     recipe = get_recipe(args.arch)
     device = torch.device(args.device)

@@ -13,7 +13,9 @@ A block built ``live`` (training) casts in the graph at every call
 instead, from parameters that take gradients.
 
 ``<block>_spec`` gives each block's leaves as (shape, init) or (shape,
-init, scale) for ``transformer.init_params``.
+init, scale) for ``transformer.init_params``, and ``<BLOCK>_AXES`` each
+leaf's logical axes, the JAX ``param(...)`` axes that
+``runtime/sharding.py`` maps onto a mesh.
 
 The MoE dispatch, the SSD chunked scan and the RG-LRU scan are plain
 XLA in the JAX package (no ``pallas_call``), so they are plain torch
@@ -83,6 +85,15 @@ def attn_spec(cfg: ModelConfig) -> Spec:
         out.update(bq=((h, hd), "zeros"), bk=((kv, hd), "zeros"),
                    bv=((kv, hd), "zeros"))
     return out
+
+
+#: each leaf's logical axes (the JAX ``param`` axes)
+ATTN_AXES = {"wq": ("embed", "heads", None),
+             "wk": ("embed", "kv_heads", None),
+             "wv": ("embed", "kv_heads", None),
+             "wo": ("heads", None, "embed"), "norm": (None,),
+             "bq": ("heads", None), "bk": ("kv_heads", None),
+             "bv": ("kv_heads", None)}
 
 
 class AttnBlock(_Block):
@@ -164,6 +175,12 @@ def cross_attn_spec(cfg: ModelConfig) -> Spec:
             "norm": ((d,), "zeros"), "gate": ((1,), "zeros")}
 
 
+#: each leaf's logical axes (the JAX ``param`` axes)
+CROSS_AXES = {**{k: ATTN_AXES[k]
+                 for k in ("wq", "wk", "wv", "wo", "norm")},
+              "gate": (None,)}
+
+
 class CrossAttnBlock(_Block):
     """Pre-norm cross-attention to a fixed memory (patch, frame or encoder
     states) with a ``tanh(gate)`` residual gate, zero at init:
@@ -215,6 +232,12 @@ def mlp_spec(cfg: ModelConfig) -> Spec:
         depth = max(int(np.ceil(np.log2(d))), 1)
         out["bf_theta"] = ((depth, d // 2), "zeros")
     return out
+
+
+#: each leaf's logical axes (the JAX ``param`` axes)
+MLP_AXES = {"norm": (None,), "w_gate": ("embed", "ff"),
+            "w_up": ("embed", "ff"), "w_down": ("ff", "embed"),
+            "bf_theta": (None, None)}
 
 
 @functools.lru_cache(maxsize=16)
@@ -306,6 +329,13 @@ def moe_spec(cfg: ModelConfig) -> Spec:
     return {"norm": ((d,), "zeros"), "router": ((d, e), "normal"),
             "w_gate": ((e, d, f), "normal"), "w_up": ((e, d, f), "normal"),
             "w_down": ((e, f, d), "normal")}
+
+
+#: each leaf's logical axes (the JAX ``param`` axes)
+MOE_AXES = {"norm": (None,), "router": ("embed", None),
+            "w_gate": ("expert", "embed", "ff"),
+            "w_up": ("expert", "embed", "ff"),
+            "w_down": ("expert", "ff", "embed")}
 
 
 def moe_groups(cfg: ModelConfig, b: int, s: int) -> Tuple[int, int]:
@@ -426,6 +456,15 @@ def ssd_spec(cfg: ModelConfig) -> Spec:
             "conv_c": ((cw, n), "normal", 0.2),
             "a_log": ((hs,), "zeros"), "dt_bias": ((hs,), "zeros"),
             "d_skip": ((hs,), "ones"), "out": ((d_in, d), "normal")}
+
+
+#: each leaf's logical axes (the JAX ``param`` axes)
+SSD_AXES = {"norm": (None,), "in_xz": ("embed", "inner"),
+            "in_bc": ("embed", None), "in_dt": ("embed", "inner"),
+            "conv_x": (None, "inner"), "conv_b": (None, None),
+            "conv_c": (None, None), "a_log": ("inner",),
+            "dt_bias": ("inner",), "d_skip": ("inner",),
+            "out": ("inner", "embed")}
 
 
 def _causal_conv(x: torch.Tensor, kernel: torch.Tensor,
@@ -563,6 +602,13 @@ def rglru_spec(cfg: ModelConfig) -> Spec:
             "conv": ((cfg.conv_width, w), "normal", 0.2),
             "w_r": ((w, w), "normal"), "w_i": ((w, w), "normal"),
             "lam": ((w,), "ones"), "out": ((w, d), "normal")}
+
+
+#: each leaf's logical axes (the JAX ``param`` axes)
+RGLRU_AXES = {"norm": (None,), "in_x": ("embed", "inner"),
+              "in_y": ("embed", "inner"), "conv": (None, "inner"),
+              "w_r": ("inner", None), "w_i": ("inner", None),
+              "lam": ("inner",), "out": ("inner", "embed")}
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor):

@@ -82,6 +82,24 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+class Axes:
+    """A leaf holding one tensor's logical axis names (the JAX package's
+    ``Axes``): an axes tree (``transformer.param_axes``, ``cache_axes``)
+    has the structure of the tensors' tree, with one ``Axes`` where each
+    tensor is; ``runtime/sharding.py`` maps it onto a mesh."""
+
+    __slots__ = ("axes",)
+
+    def __init__(self, axes):
+        self.axes = tuple(axes)
+
+    def __eq__(self, other):
+        return isinstance(other, Axes) and self.axes == other.axes
+
+    def __repr__(self):
+        return f"Axes{self.axes}"
+
+
 # ---------------------------------------------------------------------------
 # Primitives
 # ---------------------------------------------------------------------------
@@ -170,7 +188,12 @@ def checkpointed(fn, *args):
 
 def _tile_table(posp, qpos_p, b, n_chunks, chunk, n_qb, qb, causal, window):
     """Which (query block, KV chunk) tiles attend: the tile rule of the JAX
-    package's lax.cond, over the whole batch, read to the host."""
+    package's lax.cond, over the whole batch, read to the host.  A
+    ``meta`` trace has no positions to read: every tile counts as
+    computed, as the JAX package's cost walk sums both branches of the
+    cond (a skipped tile's branch is trivial)."""
+    if posp.device.type == "meta":
+        return [[True] * n_chunks for _ in range(n_qb)]
     pc = posp.reshape(b, n_chunks, chunk)
     qc = qpos_p.reshape(b, n_qb, qb)
     pmin, pmax = pc.amin(dim=(0, 2)), pc.amax(dim=(0, 2))

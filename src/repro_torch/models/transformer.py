@@ -52,10 +52,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import (AttnBlock, CrossAttnBlock, MLPBlock, MoEBlock,
+from .blocks import (ATTN_AXES, CROSS_AXES, MLP_AXES, MOE_AXES, RGLRU_AXES,
+                     SSD_AXES, AttnBlock, CrossAttnBlock, MLPBlock, MoEBlock,
                      RGLRUBlock, SSDBlock, attn_spec, cross_attn_spec,
                      mlp_spec, moe_spec, rglru_spec, ssd_spec)
-from .common import (PAD_POS, ModelConfig, checkpointed,
+from .common import (PAD_POS, Axes, ModelConfig, checkpointed,
                      rmsnorm, scaled, softcap)
 
 Params = Dict[str, Any]
@@ -93,13 +94,16 @@ class Leaf(NamedTuple):
     shape: tuple
     init: str          # "normal" | "zeros" | "ones"
     scale: float = 0.02
+    axes: tuple = ()   # logical axis names, one a dimension
 
 
-#: block key -> (module, spec); a key is matched by its longest prefix
-_BLOCKS = {"attn": (AttnBlock, attn_spec), "mlp": (MLPBlock, mlp_spec),
-           "moe": (MoEBlock, moe_spec), "rec": (RGLRUBlock, rglru_spec),
-           "cross": (CrossAttnBlock, cross_attn_spec),
-           "ssd": (SSDBlock, ssd_spec)}
+#: block kind -> (module, spec, axes); a key is matched by its prefix
+_BLOCKS = {"attn": (AttnBlock, attn_spec, ATTN_AXES),
+           "mlp": (MLPBlock, mlp_spec, MLP_AXES),
+           "moe": (MoEBlock, moe_spec, MOE_AXES),
+           "rec": (RGLRUBlock, rglru_spec, RGLRU_AXES),
+           "cross": (CrossAttnBlock, cross_attn_spec, CROSS_AXES),
+           "ssd": (SSDBlock, ssd_spec, SSD_AXES)}
 
 #: group -> its super-layer's blocks, in the JAX ``_init_group`` order
 _GROUPS = {
@@ -122,28 +126,43 @@ def _kind(key: str) -> str:
 
 
 def _group_spec(name: str, cfg: ModelConfig) -> Dict[str, Any]:
-    return {key: _BLOCKS[_kind(key)][1](cfg) for key in _GROUPS[name]}
+    """A super-layer's blocks as ``Leaf``s, each with its axes."""
+    out = {}
+    for key in _GROUPS[name]:
+        _module, spec, axes = _BLOCKS[_kind(key)]
+        out[key] = {k: Leaf(*entry)._replace(axes=axes[k])
+                    for k, entry in spec(cfg).items()}
+    return out
 
 
 def _stacked(count: int, spec) -> Dict[str, Any]:
-    return {blk: {k: Leaf((count,) + shape, *rest)
-                  for k, (shape, *rest) in leaves.items()}
+    """A group's leaves stacked on a leading "layers" axis."""
+    return {blk: {k: leaf._replace(shape=(count,) + leaf.shape,
+                                   axes=("layers",) + leaf.axes)
+                  for k, leaf in leaves.items()}
             for blk, leaves in spec.items()}
 
 
 def param_spec(cfg: ModelConfig) -> Params:
     """The parameter tree as ``Leaf``s: the JAX ``init_params`` tree's
-    structure, shapes (stacked per group) and initializers."""
+    structure, shapes (stacked per group), initializers and logical
+    axes."""
     d, v = cfg.d_model, cfg.vocab
-    out = {"embed": Leaf((v, d), "normal", 0.01),
-           "final_norm": Leaf((d,), "zeros"),
-           "lm_head": Leaf((d, v), "normal", 0.01),
+    out = {"embed": Leaf((v, d), "normal", 0.01, ("vocab", "embed")),
+           "final_norm": Leaf((d,), "zeros", axes=(None,)),
+           "lm_head": Leaf((d, v), "normal", 0.01, ("embed", "vocab")),
            "groups": {name: _stacked(count, _group_spec(name, cfg))
                       for name, count in group_plan(cfg)}}
     if cfg.is_encdec:
         out["encoder"] = _stacked(cfg.n_enc_layers, _group_spec("enc", cfg))
-        out["enc_norm"] = Leaf((d,), "zeros")
+        out["enc_norm"] = Leaf((d,), "zeros", axes=(None,))
     return out
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """The parameters' logical axes as a tree of ``Axes`` (the JAX
+    ``init_params(cfg, mode="axes")`` tree)."""
+    return tree_map(lambda leaf: Axes(leaf.axes), param_spec(cfg))
 
 
 def tree_map(fn, tree, *rest):
@@ -596,6 +615,27 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     return {name: {key: entry(name, key, count) for key in _GROUPS[name]
                    if _kind(key) in _CACHED}
             for name, count in group_plan(cfg)}
+
+
+#: each cache leaf's logical axes, by block kind (the JAX ``_cache_entry``)
+_CACHE_AXES = {
+    "attn": {"k": ("layers", "batch", "kv_seq", "kv_heads", None),
+             "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+             "pos": ("layers", "batch", "kv_seq")},
+    "rec": {"conv": ("layers", "batch", None, "inner"),
+            "h": ("layers", "batch", "inner")},
+    "ssd": {"conv": ("layers", "batch", None, "inner"),
+            "state": ("layers", "batch", "inner", None, None)}}
+
+
+def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The decode cache's logical axes as a tree of ``Axes``, in
+    ``init_cache``'s structure (the JAX ``init_cache(..., mode="axes")``
+    tree); ``init_cache(..., device="meta")`` gives the shapes."""
+    return {name: {key: {k: Axes(a) for k, a in
+                         _CACHE_AXES[_kind(key)].items()}
+                   for key in _GROUPS[name] if _kind(key) in _CACHED}
+            for name, _count in group_plan(cfg)}
 
 
 def clear_cache(cache) -> None:

@@ -21,6 +21,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.models.common import Axes
+
 
 class AdamWState(NamedTuple):
     step: torch.Tensor   # () int32
@@ -70,6 +72,13 @@ def init_abstract(params, moment_dtype=torch.float32) -> AdamWState:
 
     return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
                       mu=tree_map(empty, params), nu=tree_map(empty, params))
+
+
+def state_axes(params_axes) -> AdamWState:
+    """The optimizer state's axes tree: the moments mirror the
+    parameters' logical axes, the step is a scalar (``Axes(())``)."""
+    return AdamWState(step=Axes(()), mu=tree_map(lambda a: a, params_axes),
+                      nu=tree_map(lambda a: a, params_axes))
 
 
 def global_norm(tree) -> torch.Tensor:

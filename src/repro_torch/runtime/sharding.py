@@ -1,5 +1,27 @@
-"""Fleet placement: whole ragged-router buckets on disjoint device subsets
-(the placement half of the JAX package's ``runtime/sharding.py``).
+"""Logical-axis -> mesh-axis sharding rules, and fleet placement: whole
+ragged-router buckets on disjoint device subsets (the JAX package's
+``runtime/sharding.py``).
+
+The model half.  Logical axes of the model zoo (``transformer.param_axes``,
+``cache_axes``):
+  batch     -> data parallel axes ("pod","data") / ("data",)
+  vocab, heads, ff, expert, inner -> tensor/expert parallel axis ("model")
+  kv_heads  -> "model" when divisible, else replicated (GQA with few KV
+               heads)
+  embed     -> "data" when FSDP is on; else replicated across data
+  kv_seq    -> decode-time sequence parallelism for underfilled batches
+  layers    -> never sharded (scan axis)
+``make_rules``, ``spec_for``, ``sharding_tree``, ``batch_sharding`` and
+``check_divisibility`` are the JAX functions' logic; ``PartitionSpec`` is a
+tuple equal element by element to JAX's ``P(...)`` and ``NamedSharding``
+gives JAX's ``shard_shape`` (a dimension its spec splits must divide, or
+``ValueError``: JAX refuses such a sharding for a jitted argument too).
+The port runs no partitioned step (one process, no collective): the dry
+run (``launch/dryrun.py``) reads shard shapes from these shardings, and
+``NamedSharding.shard``/``gather`` place a tensor's shards on a mesh's
+devices and bring them back.
+
+The placement half.
 
 Serving wants the opposite of a fit's "spread one batch over
 everything": each bucket, and each graph within it, lives end to end on
@@ -22,10 +44,6 @@ card, the CPU's id 0, or ``logical_devices``).  A placement built from a
 mesh (``fleet_placement``) carries the torch device of each id, so it
 keeps working after a ``logical_devices`` block ends; one built by hand
 resolves its ids through the process's CUDA devices.
-
-The model half of the JAX module (``make_rules``, ``spec_for``,
-``sharding_tree``, ``batch_sharding``, ``check_divisibility``) is not
-here: it comes with ROADMAP A6d.
 """
 from __future__ import annotations
 
@@ -41,6 +59,246 @@ from repro_torch.launch.mesh import Mesh, process_devices
 
 def dp_axes(mesh: Mesh) -> Tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+# ---------------------------------------------------------------------------
+# The model half: logical axes -> mesh axes
+# ---------------------------------------------------------------------------
+
+class PartitionSpec(tuple):
+    """One entry a tensor dimension: None (whole), a mesh axis name, or a
+    tuple of names (split over their product, the first the major one);
+    dimensions past its length are whole.  Equal element by element to the
+    JAX ``PartitionSpec``, which keeps a one-name tuple as the name and an
+    empty one as None."""
+
+    def __new__(cls, *parts):
+        def canon(p):
+            if isinstance(p, (tuple, list)):
+                p = tuple(p)
+                return None if not p else p[0] if len(p) == 1 else p
+            return p
+        return super().__new__(cls, (canon(p) for p in parts))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}".replace(",)", ")")
+
+
+P = PartitionSpec
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+class NamedSharding:
+    """A ``PartitionSpec`` over a ``Mesh``: which part of a tensor each of
+    the mesh's device ids holds."""
+
+    def __init__(self, mesh: Mesh, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = PartitionSpec(*spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding(mesh={self.mesh!r}, spec={self.spec!r})"
+
+    def _parts(self, ndim: int) -> list:
+        if len(self.spec) > ndim:
+            raise ValueError(f"{self.spec!r} has {len(self.spec)} entries "
+                             f"for a tensor of {ndim} dimensions")
+        shape = self.mesh.shape
+        return [int(np.prod([shape[a] for a in _entry_axes(e)]))
+                for e in self.spec] + [1] * (ndim - len(self.spec))
+
+    def shard_shape(self, global_shape) -> Tuple[int, ...]:
+        """The shape of the part of a ``global_shape`` tensor one device
+        holds (JAX's ``NamedSharding.shard_shape``)."""
+        global_shape = tuple(int(s) for s in global_shape)
+        partitions = self._parts(len(global_shape))
+        out = []
+        for dim, (s, p) in enumerate(zip(global_shape, partitions)):
+            quotient, remainder = divmod(s, p)
+            if remainder != 0:
+                raise ValueError(
+                    f"Sharding {self} implies that array axis {dim} is "
+                    f"partitioned {p} times, but the dimension size is {s} "
+                    f"(full shape: {global_shape}, per-dimension tiling "
+                    f"factors: {partitions} should evenly divide the shape)")
+            out.append(quotient)
+        return tuple(out)
+
+    def shard_nbytes(self, tensor: torch.Tensor) -> int:
+        """Bytes of one device's part of ``tensor`` (a ``meta`` tensor
+        will do)."""
+        return int(np.prod(self.shard_shape(tensor.shape))) * \
+            tensor.element_size()
+
+    def index(self, device_id: int) -> Tuple[int, ...]:
+        """Which part of each split dimension ``device_id`` holds, one k
+        for each spec entry: the id's coordinates on the entry's mesh axes
+        read as one number, the first axis the major digit."""
+        where = np.argwhere(self.mesh.device_ids == int(device_id))
+        if not len(where):
+            raise ValueError(f"device id {device_id} is not in {self.mesh}")
+        coord = dict(zip(self.mesh.axis_names, where[0].tolist()))
+        shape = self.mesh.shape
+        out = []
+        for entry in self.spec:
+            k = 0
+            for a in _entry_axes(entry):
+                k = k * shape[a] + coord[a]
+            out.append(k)
+        return tuple(out)
+
+    def shard(self, tensor: torch.Tensor) -> Dict[int, torch.Tensor]:
+        """device id -> its part of ``tensor``, a contiguous copy on that
+        id's device (every id of the mesh; a replicated dimension whole)."""
+        q = self.shard_shape(tensor.shape)
+        out = {}
+        for i in self.mesh.device_ids.ravel().tolist():
+            part = tensor
+            for dim, k in enumerate(self.index(i)):
+                part = part.narrow(dim, k * q[dim], q[dim])
+            out[i] = part.to(self.mesh.device(i), copy=True).contiguous()
+        return out
+
+    def gather(self, shards: Mapping[int, torch.Tensor]) -> torch.Tensor:
+        """The tensor ``shard`` split, put together on the first id's
+        device from one holder of each part."""
+        ids = self.mesh.device_ids.ravel().tolist()
+        first = shards[ids[0]]
+        parts = self._parts(first.dim())
+        out = torch.empty([s * p for s, p in zip(first.shape, parts)],
+                          dtype=first.dtype, device=first.device)
+        done = set()
+        for i in ids:
+            where = self.index(i)
+            if where in done:
+                continue
+            done.add(where)
+            view = out
+            for dim, k in enumerate(where):
+                q = first.shape[dim]
+                view = view.narrow(dim, k * q, q)
+            view.copy_(shards[i])
+        return out
+
+
+def make_rules(mesh: Mesh, cfg, *, fsdp: bool = False,
+               seq_shard: bool = False,
+               global_batch: Optional[int] = None) -> Dict[Any, Any]:
+    """Logical axis -> mesh axis (or tuple of axes, or None) for ``cfg`` on
+    ``mesh``, the JAX ``make_rules``."""
+    tp = mesh.shape.get("model", 1)
+    dp = dp_axes(mesh)
+    fsdp_n = mesh.shape.get("data", 1)
+
+    def fits(dim: int) -> bool:
+        return dim > 0 and dim % tp == 0
+
+    # batch: drop data-parallel axes until the global batch divides (decode
+    # at batch=1 falls back to a replicated batch + KV-seq sharding)
+    batch_rule: Any = dp
+    if global_batch is not None:
+        while batch_rule and global_batch % int(
+                np.prod([mesh.shape[a] for a in batch_rule])) != 0:
+            batch_rule = batch_rule[:-1]
+        batch_rule = batch_rule or None
+
+    return {
+        "batch": batch_rule,
+        "vocab": "model" if fits(cfg.vocab) else None,
+        "heads": "model" if fits(cfg.n_heads) else None,
+        "kv_heads": "model" if fits(cfg.n_kv_heads) else None,
+        "ff": "model" if fits(cfg.d_ff) else None,
+        "expert": "model" if fits(cfg.n_experts) else None,
+        "inner": "model",
+        "embed": ("data" if fsdp and cfg.d_model % fsdp_n == 0 else None),
+        "kv_seq": "data" if seq_shard else None,
+        "layers": None,
+        None: None,
+    }
+
+
+def spec_for(axes, rules) -> PartitionSpec:
+    """Map logical axes to a PartitionSpec, deduplicating mesh axes.
+
+    A mesh axis may appear at most once in a spec; the first logical axis
+    (left-to-right) claims it (e.g. MoE expert weights ("expert", "embed",
+    "ff") -> P("model", ..., None): "expert" wins the "model" axis and the
+    per-expert ff dim stays unsharded)."""
+    used = set()
+    out = []
+    for a in axes:
+        r = rules.get(a)
+        items = r if isinstance(r, tuple) else (r,) if r else ()
+        if any(m in used for m in items):
+            out.append(None)
+        else:
+            used.update(items)
+            out.append(r)
+    return PartitionSpec(*out)
+
+
+def _tree_map(fn, tree):
+    """fn over the ``Axes`` leaves of nested dicts, named tuples, tuples
+    and lists; None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def sharding_tree(axes_tree, mesh: Mesh, rules) -> Any:
+    """Map an Axes-leaf tree to a NamedSharding tree (same structure)."""
+    return _tree_map(lambda leaf: NamedSharding(mesh, spec_for(leaf.axes,
+                                                               rules)),
+                     axes_tree)
+
+
+def batch_sharding(mesh: Mesh, rules, *, with_memory=False,
+                   mode: str = "train") -> Dict[str, NamedSharding]:
+    """Shardings for input batches."""
+    bsp = rules["batch"]
+    tok = NamedSharding(mesh, P(bsp, None))
+    if mode in ("train", "prefill"):
+        out = {"tokens": tok}
+        if with_memory:
+            out["memory"] = NamedSharding(mesh, P(bsp, None, None))
+        return out
+    out = {"token": tok, "pos": NamedSharding(mesh, P(bsp))}
+    if with_memory:
+        out["memory"] = NamedSharding(mesh, P(bsp, None, None))
+    return out
+
+
+def check_divisibility(cfg, mesh: Mesh, global_batch: int, mode: str):
+    """Human-readable divisibility report (surfaced by the dry-run)."""
+    tp = mesh.shape.get("model", 1)
+    dp = int(np.prod([mesh.shape[a] for a in dp_axes(mesh)]))
+    notes = []
+    if global_batch % dp != 0:
+        notes.append(f"batch {global_batch} not divisible by dp={dp}: "
+                     "falls back to sequence/KV sharding where possible")
+    if cfg.n_heads and cfg.n_heads % tp != 0:
+        notes.append(f"heads {cfg.n_heads} % tp={tp} != 0 (padded shards)")
+    if cfg.n_kv_heads and cfg.n_kv_heads % tp != 0:
+        notes.append(f"kv_heads {cfg.n_kv_heads} < tp={tp}: KV replicated")
+    if cfg.n_experts and cfg.n_experts % tp != 0:
+        notes.append(f"experts {cfg.n_experts} % tp={tp} != 0")
+    return notes
+
+
+# ---------------------------------------------------------------------------
+# The placement half: whole ragged-router buckets -> disjoint device subsets
+# ---------------------------------------------------------------------------
 
 
 class BatchSharding(NamedTuple):

@@ -1,8 +1,13 @@
 """Step functions: the train step with its state, and thin prefill and
 decode wrappers, at the JAX package's ``runtime/steps.py`` names.
 
-One card, no mesh: the JAX step functions' shardings, ``fsdp`` placement and
-buffer donation become plain tensors on one device, updated in place.
+One card, no partitioner: the step runs on one device, its state plain
+tensors updated in place (the JAX step's buffer donation); ``fsdp`` is
+accepted and does nothing.  The shardings the JAX steps are built with
+are here for the dry run: ``state_shardings`` (the train state's, the JAX
+``_state_shardings``), from the logical axes and ``runtime/sharding.py``'s
+rules.
+
 The step's order is the JAX step's: ``loss_fn`` and its gradients (a live
 ``Transformer`` over the state's parameters, remat as the config asks),
 then the error-feedback butterfly compression of the gradients where
@@ -18,6 +23,7 @@ import torch
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import adamw, compress
+from repro_torch.runtime import sharding as shd
 
 
 class TrainState(NamedTuple):
@@ -33,6 +39,15 @@ class StepBundle(NamedTuple):
     fn: Callable
     abstract_state: Any
     abstract_batch: Any
+
+
+def state_shardings(cfg: ModelConfig, mesh, rules) -> TrainState:
+    """The train state's ``NamedSharding`` tree on ``mesh`` (the JAX
+    ``_state_shardings`` without compression): the parameters' by their
+    logical axes, the moments the parameters', the step replicated."""
+    axes = tfm.param_axes(cfg)
+    return TrainState(shd.sharding_tree(axes, mesh, rules),
+                      shd.sharding_tree(adamw.state_axes(axes), mesh, rules))
 
 
 def _meta_params(cfg: ModelConfig):
@@ -148,13 +163,13 @@ def make_train_step(cfg: ModelConfig, *, seq_len: int, global_batch: int,
                       input_specs(cfg, seq_len, global_batch, "train"))
 
 
-def make_pod_compressed_train_step(cfg: ModelConfig, **kwargs):
+def make_pod_compressed_train_step(cfg: ModelConfig, *args, **kwargs):
     """The JAX package's cross-pod step reduces compressed gradients over
-    a ``pod`` mesh axis; one card has no pod axis.  Not ported (ROADMAP
-    A6d, with the placement of A4)."""
+    a ``pod`` mesh axis; the port runs no sharded step.  Not ported
+    (ROADMAP A6d-2, the sharded execution)."""
     raise NotImplementedError(
         "make_pod_compressed_train_step needs a pod axis across cards "
-        "(ROADMAP A6d, with the placement of A4); use make_train_step "
+        "(ROADMAP A6d-2, the sharded execution); use make_train_step "
         "with grad_compress_ratio for compression on one card")
 
 

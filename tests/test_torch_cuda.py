@@ -1536,3 +1536,82 @@ def test_train_cli_resume_on_the_card(cuda, tmp_path):
     for a, b in zip(tree_leaves(resumed["state"].params),
                     tree_leaves(whole["state"].params)):
         assert torch.equal(a, b)
+
+
+def _dryrun_setup(cuda, layers: int = 2):
+    """qwen2-1.5b at full width, ``layers`` layers, B 8 x S 256 (the
+    smoke script's [main-train] step): the config, recipe, shape, a fresh
+    state and a batch on the card, and the step."""
+    from repro_torch.configs import get_config, get_recipe
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.runtime import steps
+    cfg = get_config("qwen2-1.5b").replace(n_layers=layers)
+    recipe = get_recipe("qwen2-1.5b")
+    shape = Shape("card", 256, 8, "train")
+    state = steps.concrete_train_state(
+        cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda,
+        moment_dtype=recipe["moment_dtype"])
+    bundle = steps.make_train_step(cfg, seq_len=256, global_batch=8,
+                                   moment_dtype=recipe["moment_dtype"],
+                                   device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (8, 256), generator=g,
+                                     device=cuda, dtype=torch.int32)}
+    return cfg, recipe, shape, state, bundle, batch
+
+
+def test_dryrun_prediction_on_the_card(cuda, no_tf32):
+    """The dry run's one-device prediction (a 1x1 mesh of meta devices)
+    against one real step: the argument bytes are the state's and batch's
+    tensors exactly, the dot FLOPs within 1% of the profiler's product
+    events that launched a kernel (an event whose op a checkpoint's early
+    stop aborted before its kernel launches none)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh, process_devices
+    from repro_torch.optim.adamw import tree_leaves
+    cfg, recipe, shape, state, bundle, batch = _dryrun_setup(cuda)
+    mesh = Mesh([[0]], ("data", "model"), process_devices("meta", 1))
+    pred = dryrun.analyze(cfg, recipe, shape, mesh)
+    held = sum(t.numel() * t.element_size()
+               for t in tree_leaves(state) + list(batch.values()))
+    assert pred["memory"]["argument_size_in_bytes"] == held
+    bundle.fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=True) as prof:
+        bundle.fn(state, batch)
+        torch.cuda.synchronize()
+    products = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+    launched = sum(int(ev.flops) for ev in prof.events()
+                   if ev.name in products and ev.flops
+                   and ev.device_time_total > 0)
+    want = pred["roofline"]["hlo_flops"]
+    assert abs(launched / want - 1) <= 0.01, (launched, want)
+
+
+def test_dryrun_shards_on_logical_devices_of_the_card(cuda):
+    """The state and batch on 4 logical devices of the card, a (2, 2)
+    mesh, through ``sharding_tree``: each id's shard bytes are the dry
+    run's per-device argument bytes; every leaf gathers back bitwise."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import logical_devices, make_local_mesh
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    cfg, recipe, shape, state, _bundle, batch = _dryrun_setup(cuda)
+    with logical_devices(4, "cuda"):
+        mesh = make_local_mesh(2, device="cuda")
+    want = dryrun.argument_bytes(cfg, recipe, shape, mesh)
+    rules = shd.make_rules(mesh, cfg, fsdp=recipe["fsdp"], global_batch=8)
+    shardings = {"state": steps.state_shardings(cfg, mesh, rules),
+                 "batch": shd.batch_sharding(mesh, rules, mode="train")}
+    held = dict.fromkeys(range(4), 0)
+    for t, s in dryrun._pairs({"state": state, "batch": batch}, shardings):
+        parts = s.shard(t)
+        for i, p in parts.items():
+            assert p.is_cuda
+            held[i] += p.numel() * p.element_size()
+        back = s.gather(parts)
+        assert torch.equal(back.reshape(-1).view(torch.uint8),
+                           t.reshape(-1).contiguous().view(torch.uint8))
+    assert set(held.values()) == {want}

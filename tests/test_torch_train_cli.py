@@ -316,7 +316,7 @@ def test_refusals():
         train.main(["--arch", ARCH, "--smoke", "--model-axis", "2",
                     "--device", "cpu"])
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="A6d"):
+    with pytest.raises(NotImplementedError, match="A6d-2"):
         steps.make_pod_compressed_train_step(_cfgs()[1], seq_len=8,
                                              global_batch=2)
 
