@@ -312,7 +312,7 @@ each), so that the run stays well inside its time limit:
              of each ``kernels`` row).  The phase's seconds are printed.
 5j. main-train — the LM training path (after [main-lm-families]; TRAIN;
              random weights from a seed): a. ``train --arch qwen2-1.5b
-             --steps 8 --seq-len 256 --global-batch 8 --warmup 2
+             --steps 6 --seq-len 256 --global-batch 8 --warmup 2
              --log-every 2 --ckpt-every 1000`` at full size through
              ``train.run``, the checkpoint under ``build/`` (removed
              after): finite logged losses, the median step ms of steps
@@ -386,8 +386,40 @@ each), so that the run stays well inside its time limit:
              bytes, every leaf gathered back bitwise.  None of the 12
              entry points may launch (``dryrun_launches`` of each
              ``kernels`` row); the phase's seconds are printed.
+5m. main-sharded — the sharded train step (after [main-dryrun]; SHARDED)
+             on logical devices of the card, the counts zeroed just before
+             and read just after: a. qwen2-1.5b at full width, 2 layers,
+             f32, TF32 off, B 8 x S 256: one step of ``make_train_step``
+             on a (2, 2) and a (1, 4) ("data", "model") mesh (at 4 the two
+             KV heads are replicated) against the unsharded step on the
+             card: the loss within 1e-6 relative, every gradient leaf
+             within 1e-5 x max(1e-3, max|g|), the global norm within 1e-5
+             relative, each parameter after AdamW (lr 1e-5) within
+             ``adamw.first_step_tolerance`` of those bounds, and of the
+             unsharded AdamW update of the step's own gradients (the
+             parameters against 1e-6 x max(1, max|p|) printed, not
+             gated).  b. the full model (28 layers, ``remat_block``
+             4, bf16 compute) on the (2, 2) mesh, 3 steps from
+             ``placed_train_state``: finite losses, the median step ms
+             beside [main-train]'s, kernel launches and device-busy ms a
+             step (torch.profiler), each id's state and batch bytes equal
+             to the dry run's ``argument_size_in_bytes`` for that mesh,
+             ``max_memory_allocated``, one step's collective result bytes
+             per id by kind and axes and the JAX terms' per-device
+             ``collective_bytes``.  c. the cross-pod compressed step
+             (``make_pod_compressed_train_step``) at full width, 2 layers,
+             ratio 0.125, 3 steps, on (2, 1, 2) and (2, 2, 2) ("pod",
+             "data", "model") meshes: finite losses, ``cross_pod_bytes``
+             equal to the count from the leaves' shard shapes and under
+             half of the uncompressed reduction's, and on (2, 2, 2) under
+             half of ``collective_bytes`` (the JAX test's gate).  d. ``train
+             --smoke --model-axis 2`` on 4 logical devices: 3 steps,
+             ``--resume auto`` to 6, against 6 at once, every state leaf
+             bitwise.  None of the 12 entry points may launch
+             (``sharded_launches`` of each ``kernels`` row); the phase's
+             seconds are printed.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
-             graph (n = 256, g = 2048, n_iter = 2), then analysis, synthesis,
+             graph (n = 256, g = 2048, n_iter = 1), then analysis, synthesis,
              project and the bank; ``shear_apply``, ``gen_operator_apply``
              and ``gen_filter_bank_apply`` must have launched; relative
              error < 0.05.
@@ -437,7 +469,7 @@ single-graph path, on [main-bf16] for a bf16-table form and on
 [main-bf16x] for a bf16-signal form, ``ragged_launches``,
 ``dynamic_launches``, ``async_launches``, ``core_launches``,
 ``lm_launches``, ``lm_families_launches``, ``train_launches``,
-``placed_launches``, ``dryrun_launches``), the
+``placed_launches``, ``dryrun_launches``, ``sharded_launches``), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -1653,7 +1685,7 @@ def phase_fgft_directed(errs) -> dict:
     x = torch.randn((MAIN["signals"], n), generator=gen, device=DEVICE)
     launcher.reset_launch_counts()
     t0 = time.perf_counter()
-    f = build_fgft(lap, g, directed=True, n_iter=2, device=DEVICE)
+    f = build_fgft(lap, g, directed=True, n_iter=1, device=DEVICE)
     fit_s = time.perf_counter() - t0
     xh = f.analysis(x)
     xr = f.synthesis(xh)
@@ -4188,7 +4220,7 @@ def phase_main_lm_families(card) -> dict:
 #: gate); c: card against CPU at full width; d: remat against none; e: the
 #: smoke CLI's resume and compression on the card
 TRAIN = dict(arch="qwen2-1.5b",
-             cli=["--steps", "8", "--seq-len", "256", "--global-batch", "8",
+             cli=["--steps", "6", "--seq-len", "256", "--global-batch", "8",
                   "--warmup", "2", "--log-every", "2", "--ckpt-every",
                   "1000"],
              learn=dict(layers=2, steps=30, lr=3e-3, batch=4, seq=64,
@@ -5829,6 +5861,382 @@ def reuse_g_greedy() -> None:
     gt._approx_sym_core = core
 
 
+#: [main-sharded]: the sharded train step on logical devices of the card
+#: (a: 2 layers at full width in f32 against the unsharded step, on two
+#: meshes; b: the full model, 3 steps; c: the pod step; d: the CLI).  a's
+#: lr: AdamW's first update is g / (|g| + eps) x lr, so a summation-order
+#: difference of a gradient entry near eps moves the parameter by a part
+#: of lr (4.8e-6 apart at lr 1e-4 on the H100, gradients within 1.3e-6
+#: of their scale); the parameter bound of 1e-6 holds at lr 1e-5
+SHARDED = dict(arch=TRAIN["arch"], logical=4, seq=256, batch=8,
+               check=dict(layers=2, meshes=((2, 2), (1, 4)), lr=1e-5),
+               full=dict(mesh=(2, 2), steps=3),
+               pod=dict(layers=2, meshes=((2, 1, 2), (2, 2, 2)),
+                        ratio=0.125, steps=3),
+               cli=dict(steps=6, cut=3, model_axis=2),
+               loss_tol=1e-6, grad_tol=1e-5, grad_floor=1e-3,
+               param_tol=1e-6, own_norm_tol=1e-6)
+
+
+def moved_ratio(got, want, bound) -> float:
+    """max over the entries of |got - want| / bound (tensor lists)."""
+    return max(float(((g.float() - w.float()).abs() / b).max())
+               for g, w, b in zip(got, want, bound))
+
+
+def _logical_mesh(shape, axes=("data", "model")):
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import Mesh, logical_devices, \
+        process_devices
+    n = int(np.prod(shape))
+    with logical_devices(n, DEVICE):
+        return Mesh(np.arange(n).reshape(shape), axes,
+                    process_devices(torch.device(DEVICE).type))
+
+
+def _sharded_batch(cfg, seed: int):
+    from repro_torch.data.pipeline import SyntheticLM
+    return SyntheticLM(cfg, SHARDED["seq"], SHARDED["batch"],
+                       seed=seed).batch(0)
+
+
+def sharded_check(prefix: str, card) -> dict:
+    """a: one step of the sharded step against the unsharded step on the
+    card, f32 (TF32 off), 2 layers at full width, on a (2, 2) and a
+    (1, 4) mesh of logical devices (at 4 the two KV heads are replicated
+    and each rank reads the one its three query heads use).  The
+    parameters after the step at lr 1e-5 are held entry by entry within
+    ``adamw.first_step_tolerance`` of the gradient and norm bounds: a
+    bound on the parameters' scale would not see an update of 1e-5, and
+    where a gradient entry is near AdamW's eps a rounding difference of
+    it moves the update by a part of lr."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    c = SHARDED["check"]
+    cfg = get_config(SHARDED["arch"]).replace(n_layers=c["layers"],
+                                              dtype=torch.float32)
+    hyper = dict(seq_len=SHARDED["seq"], global_batch=SHARDED["batch"],
+                 peak_lr=c["lr"], warmup=0, total_steps=10)
+    tree = tfm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        7), DEVICE)
+    batch = _sharded_batch(cfg, 7)
+
+    def fresh():
+        params = tfm.tree_map(lambda t: t.clone(), tree)
+        return steps.TrainState(params, adamw.init(params))
+
+    state = fresh()
+    model = tfm.Transformer(cfg, state.params, live=True)
+    (loss, _), grads = tfm.value_and_grad(model, cfg, batch)
+    want_g = [g.clone() for g in tree_leaves(grads)]
+    del model, grads
+    plain = steps.make_train_step(cfg, device=DEVICE, **hyper)
+    state, want_m = plain.fn(state, batch)
+    want_p, want_norm = tree_leaves(state.params), want_m["grad_norm"]
+    out = {}
+    for shape in c["meshes"]:
+        mesh = _logical_mesh(shape)
+        bundle = steps.make_train_step(cfg, mesh, **hyper)
+        placed = shd.place_tree(fresh(), bundle.state_shardings)
+        metrics, g = bundle.fn.gradients(placed, batch)
+        g = tfm.tree_map(lambda t: t.clone(), shd.gather_tree(
+            g, bundle.state_shardings.params))
+        placed, m = bundle.fn(placed, batch)
+        got_p = tree_leaves(shd.gather_tree(placed, bundle.state_shardings)
+                            .params)
+        # the update path alone: the unsharded AdamW of the step's own
+        # gradients, its norm added in another order
+        own = fresh()
+        _, _, om = adamw.update(g, own.opt, own.params, lr=c["lr"])
+        got_g, own_p = tree_leaves(g), tree_leaves(own.params)
+        r_own = moved_ratio(got_p, own_p, adamw.first_step_tolerance(
+            got_g, own_p, om["grad_norm"], lr=c["lr"], grad_tol=0.0,
+            norm_tol=SHARDED["own_norm_tol"]))
+        del g, own, own_p
+        r_loss = abs(float(m["loss"]) - float(loss)) / (
+            SHARDED["loss_tol"] * abs(float(loss)))
+        r_grad, n = worst_ratio(got_g, want_g, SHARDED["grad_tol"],
+                                SHARDED["grad_floor"])
+        r_par, _ = worst_ratio(got_p, want_p, SHARDED["param_tol"])
+        r_upd = moved_ratio(got_p, want_p, adamw.first_step_tolerance(
+            want_g, want_p, want_norm, lr=c["lr"],
+            grad_tol=SHARDED["grad_tol"], norm_tol=SHARDED["grad_tol"]))
+        r_norm = abs(float(m["grad_norm"]) - float(want_norm)) / (
+            SHARDED["grad_tol"] * float(want_norm))
+        log(f"{prefix} a. {SHARDED['arch']} (f32, {c['layers']} layers at "
+            f"full width, B {SHARDED['batch']} x S {SHARDED['seq']}, TF32 "
+            f"off) on a {'x'.join(map(str, shape))} mesh of logical devices "
+            f"against the unsharded step: loss {float(m['loss']):.7f} vs "
+            f"{float(loss):.7f}; max|d| / bound: loss {r_loss:.3e} (bound "
+            f"{SHARDED['loss_tol']} relative), {n} gradient leaves "
+            f"{r_grad:.3e} ({SHARDED['grad_tol']} x max("
+            f"{SHARDED['grad_floor']}, max|g|)), the global norm "
+            f"{r_norm:.3e} ({SHARDED['grad_tol']} relative), parameters "
+            f"after one AdamW update at lr {c['lr']} {r_upd:.3e} "
+            f"(adamw.first_step_tolerance of those gradient and norm "
+            f"bounds), and against the unsharded AdamW of the step's own "
+            f"gradients {r_own:.3e} (the same, no gradient term, the norm "
+            f"{SHARDED['own_norm_tol']} relative); not gated: the "
+            f"parameters against {SHARDED['param_tol']} x max(1, max|p|) "
+            f"{r_par:.3e} [{card}]")
+        check(max(r_loss, r_grad, r_norm, r_upd, r_own) <= 1.0,
+              f"{prefix} a. {shape}: sharded vs unsharded over the bound "
+              f"({r_loss}, {r_grad}, {r_norm}, {r_upd}, {r_own})")
+        out["x".join(map(str, shape))] = {"loss": r_loss, "grads": r_grad,
+                                          "norm": r_norm, "params": r_upd,
+                                          "update": r_own,
+                                          "params_scale": r_par}
+        del placed, bundle, got_g, got_p
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_full(prefix: str, card, trained) -> dict:
+    """b: the full model on a (2, 2) mesh of 4 logical devices: 3 steps,
+    the state placed by ``placed_train_state``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_recipe
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import dryrun
+    from repro_torch.runtime import hlo_analysis as hlo
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    c = SHARDED["full"]
+    cfg = get_config(SHARDED["arch"])
+    recipe = get_recipe(SHARDED["arch"])
+    mesh = _logical_mesh(c["mesh"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = steps.make_train_step(
+        cfg, mesh, seq_len=SHARDED["seq"], global_batch=SHARDED["batch"],
+        fsdp=recipe["fsdp"], moment_dtype=recipe["moment_dtype"], warmup=2,
+        total_steps=c["steps"])
+    state = steps.placed_train_state(
+        bundle, torch.Generator(device=DEVICE).manual_seed(0))
+    pipe = SyntheticLM(cfg, SHARDED["seq"], SHARDED["batch"], seed=0)
+    losses, step_ms = [], []
+    for k in range(c["steps"]):
+        batch = pipe.batch(k)
+        bundle.collectives.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = bundle.fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    coll = bundle.collectives.by_id()
+    terms = hlo.collective_terms(bundle.collectives)
+    held = shd.placed_nbytes(state)
+    placed_batch = shd.placed_nbytes(shd.place_tree(
+        {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()},
+        bundle.batch_shardings))
+    want = dryrun.argument_bytes(cfg, recipe, Shape(
+        "main-train", SHARDED["seq"], SHARDED["batch"], "train"), mesh)
+    n_kernels, busy_ms, wall_ms = kernel_trace(
+        lambda: bundle.fn(state, batch), 1, host=False)
+    med = statistics.median(step_ms[1:])
+    log(f"{prefix} b. {SHARDED['arch']} at full size ({cfg.n_layers} "
+        f"layers, remat_block {cfg.remat_block}, {str(cfg.dtype)[6:]}), "
+        f"B {SHARDED['batch']} x S {SHARDED['seq']} on a "
+        f"{'x'.join(map(str, c['mesh']))} mesh of {mesh.size} logical "
+        f"devices of one card: losses {[round(v, 4) for v in losses]}; "
+        f"median step {med:.1f} ms (steps 2-{c['steps']}, first "
+        f"{step_ms[0]:.1f} ms) against [main-train]'s unsharded "
+        f"{trained['a']['step_ms']:.1f} ms; one step {n_kernels:.0f} kernel "
+        f"launches, device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
+        f"(torch.profiler); max_memory_allocated {peak / 2 ** 30:.2f} GiB "
+        f"[{card}]")
+    per_id = {i: held[i] + placed_batch[i] for i in held}
+    log(f"{prefix} b. state and batch bytes per id {per_id} against the "
+        f"dry run's argument_size_in_bytes {want:.0f} for this mesh "
+        f"[{card}]")
+    log(f"{prefix} b. one step's collective result bytes per id by kind "
+        f"and axes {coll}; per device (JAX's measure: an all-reduce "
+        f"twice) {terms['collective_bytes']} B, "
+        f"{terms['collective_counts']} ops, {terms['collective_s']:.4e} s "
+        f"at NVLink's {hlo.NVLINK_BW / 1e9:.0f} GB/s a direction "
+        f"(reckoned: logical devices move nothing over a link) [{card}]")
+    check(all(np.isfinite(losses)), f"{prefix} b. losses {losses}")
+    check(set(per_id.values()) == {want},
+          f"{prefix} b. bytes per id {per_id} != {want}")
+    out = {"losses": losses, "step_ms": med, "first_ms": step_ms[0],
+           "launches_a_step": n_kernels, "busy_ms": busy_ms,
+           "wall_ms": wall_ms, "peak": peak, "bytes_per_id": want,
+           "collectives": coll, "collective_bytes":
+           terms["collective_bytes"]}
+    del state, bundle
+    torch.cuda.empty_cache()
+    return out
+
+
+def pod_cross_bytes(bundle, compressed: bool = True) -> int:
+    """One pod step's cross-pod result bytes on an id, counted from the
+    leaves' shard shapes (an all-reduce twice, as JAX counts it): each
+    leaf's compact block (ceil(n / width) x keep f32) or, below the
+    compressor's 2^14 entries a shard, its f32 shard; the pods' mean of
+    ``loss`` and ``ppl_proxy``; the global norm's scalar, added over the
+    whole mesh.  ``compressed`` False: every shard whole (the bytes an
+    uncompressed cross-pod reduction would move)."""
+    from repro_torch.optim.adamw import tree_leaves
+    spec = bundle.fn.spec
+    total = 0
+    for meta, sh in zip(tree_leaves(bundle.abstract_state.params),
+                        tree_leaves(bundle.state_shardings.params)):
+        n = 1
+        for d in sh.shard_shape(meta.shape):
+            n *= d
+        small = n < 1 << 14 or not compressed
+        total += n if small else -(-n // spec.width) * spec.keep
+    return 2 * 4 * (total + 2 + 1)
+
+
+def sharded_pod(prefix: str, card) -> dict:
+    """c: the cross-pod compressed step at full width, 2 layers, on a
+    (2, 1, 2) ("pod", "data", "model") mesh of 4 logical devices and on
+    the JAX test's (2, 2, 2) of 8.  Gated on each: finite losses, the
+    cross-pod bytes equal to the count from the leaves' shard shapes and
+    under half of what the uncompressed reduction would move across the
+    pods; on (2, 2, 2) also the JAX test's gate, under half of all the
+    collective bytes (on (2, 1, 2) printed: with a data axis of 1 the
+    pod's only other collectives are the model axis's activation sums)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime import hlo_analysis as hlo
+    from repro_torch.runtime import steps
+    c = SHARDED["pod"]
+    cfg = get_config(SHARDED["arch"]).replace(n_layers=c["layers"])
+    out = {}
+    for shape in c["meshes"]:
+        mesh = _logical_mesh(shape, ("pod", "data", "model"))
+        bundle = steps.make_pod_compressed_train_step(
+            cfg, mesh, seq_len=SHARDED["seq"],
+            global_batch=SHARDED["batch"], compress_ratio=c["ratio"],
+            warmup=1, total_steps=c["steps"])
+        state = steps.placed_train_state(
+            bundle, torch.Generator(device=DEVICE).manual_seed(2))
+        pipe = SyntheticLM(cfg, SHARDED["seq"], SHARDED["batch"], seed=2)
+        losses = []
+        t0 = time.perf_counter()
+        for k in range(c["steps"]):
+            state, metrics = bundle.fn(state, pipe.batch(k))
+            losses.append(float(metrics["loss"]))
+        ms = (time.perf_counter() - t0) * 1e3 / c["steps"]
+        terms = hlo.collective_terms(bundle.collectives)
+        want = c["steps"] * pod_cross_bytes(bundle)
+        whole = c["steps"] * pod_cross_bytes(bundle, compressed=False)
+        cross, total = terms["cross_pod_bytes"], terms["collective_bytes"]
+        tag = "x".join(map(str, shape))
+        jax_gate = shape[1] > 1
+        log(f"{prefix} c. pod step, {SHARDED['arch']} at full width, "
+            f"{c['layers']} layers, {tag} (pod, data, model) mesh of "
+            f"{mesh.size} logical devices, compress_ratio {c['ratio']}, "
+            f"{c['steps']} steps: losses {[round(v, 4) for v in losses]}, "
+            f"{ms:.1f} ms a step; cross_pod_bytes {cross}, counted from the "
+            f"leaves' shard shapes {want}, uncompressed {whole} ("
+            f"{cross / whole:.4f}; gate < 0.5); of collective_bytes {total} "
+            f"{cross / total:.4f} (the JAX test's gate < 0.5: "
+            f"{'gated' if jax_gate else 'not gated at a data axis of 1'}) "
+            f"[{card}]")
+        check(all(np.isfinite(losses)), f"{prefix} c. {tag} losses {losses}")
+        check(cross == want, f"{prefix} c. {tag} cross-pod bytes {cross} != "
+              f"{want}")
+        check(0 < cross < 0.5 * whole, f"{prefix} c. {tag} cross-pod "
+              f"{cross} of {whole} uncompressed")
+        if jax_gate:
+            check(cross < 0.5 * total, f"{prefix} c. {tag} cross-pod "
+                  f"{cross} of {total}")
+        out[tag] = {"losses": losses, "cross_pod_bytes": cross,
+                    "uncompressed": whole, "collective_bytes": total,
+                    "ms": ms}
+        del state, bundle
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_cli(prefix: str, card) -> dict:
+    """d: ``train --smoke --model-axis 2`` on 4 logical devices of the
+    card: 3 steps, ``--resume auto`` to 6, against 6 at once."""
+    import shutil
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import logical_devices
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import sharding as shd
+    c = SHARDED["cli"]
+    root = ROOT / "build" / "train_sharded"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(name, n, *extra):
+        argv = ["--arch", SHARDED["arch"], "--smoke", "--steps", str(n),
+                "--seq-len", "32", "--global-batch", "4", "--log-every",
+                "3", "--model-axis", str(c["model_axis"]), "--device",
+                DEVICE, "--ckpt-dir", str(root / name), *extra]
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed), \
+                logical_devices(SHARDED["logical"], DEVICE):
+            out = train.run(train.parse_args(argv))
+        return out, printed.getvalue()
+
+    run("a", c["cut"])
+    resumed, text = run("a", c["steps"], "--resume", "auto")
+    whole, _ = run("b", c["steps"])
+    shutil.rmtree(root)
+    check(f"resumed from step {c['cut']} (saved on {SHARDED['logical']} "
+          "devices)" in text, f"{prefix} d. no resume line")
+    got, want = (tree_leaves(shd.gather_tree(r["state"],
+                                             r["bundle"].state_shardings))
+                 for r in (resumed, whole))
+    same = [torch.equal(a, b) for a, b in zip(got, want)]
+    log(f"{prefix} d. train --smoke --model-axis {c['model_axis']} on "
+        f"{SHARDED['logical']} logical devices (mesh "
+        f"{dict(resumed['mesh'].shape)}): {c['cut']} steps, --resume auto "
+        f"to {c['steps']}, against {c['steps']} at once: final loss "
+        f"{resumed['final_loss']:.6f} vs {whole['final_loss']:.6f}, "
+        f"{sum(same)} of {len(same)} state leaves bitwise [{card}]")
+    check(all(same) and len(got) == len(want)
+          and resumed["final_loss"] == whole["final_loss"],
+          f"{prefix} d. the resumed run differs from the uninterrupted one")
+    return {"resumed": resumed["final_loss"], "whole": whole["final_loss"]}
+
+
+def phase_main_sharded(card, trained) -> dict:
+    """[main-sharded]: the sharded train step (SHARDED) on logical devices
+    of the card; none of the 12 entry points launches."""
+    import torch
+    from repro_torch.kernels import launcher
+    prefix = "[main-sharded]"
+    t_phase = time.perf_counter()
+    launcher.reset_launch_counts()
+    secs, out = {}, {}
+    for part, fn in (("a", sharded_check),
+                     ("b", lambda p, c: sharded_full(p, c, trained)),
+                     ("c", sharded_pod), ("d", sharded_cli)):
+        t0 = time.perf_counter()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out[part] = fn(prefix, card)
+        torch.cuda.empty_cache()
+        secs[part] = time.perf_counter() - t0
+    launches = launcher.entry_launch_counts()
+    check(not any(launches.values()), f"{prefix} launched {launches}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"{prefix} {phase_s:.1f}s in all ("
+        + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
+        + f"); none of the 12 entry points launched [{card}]")
+    return {"launches": launches, **out, "phase_s": phase_s,
+            "part_s": secs}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5895,6 +6303,7 @@ def main() -> int:
     trained = phase_main_train(card)
     placed = phase_main_placed(errs, main_rec, main_dir, ragged)
     dry = phase_main_dryrun(card)
+    sharded = phase_main_sharded(card, trained)
     # phase 7 for the bf16 forms, then for the bf16-signal forms on f32
     # and on bf16 tables
     for at in (("bf16", bf16["launches"]),
@@ -5928,6 +6337,7 @@ def main() -> int:
         row["train_launches"] = trained["launches"].get(row["entry"], 0)
         row["placed_launches"] = placed["launches"].get(row["entry"], 0)
         row["dryrun_launches"] = dry["launches"].get(row["entry"], 0)
+        row["sharded_launches"] = sharded["launches"].get(row["entry"], 0)
         row["max_abs_err"] = errs[row["entry"]]
     if args.baseline:
         turns = phase_turns(args.baseline, main_rec, single, main_dir,

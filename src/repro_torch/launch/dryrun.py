@@ -20,8 +20,12 @@ meshes (``launch/mesh.py::make_production_mesh``: 16x16 single pod,
                   unsplit: an upper bound
   FLOPs, bytes    the traced global step's dot FLOPs and operand/result
                   bytes over n_chips
-  collectives     not available (None): the port runs no sharded step
-                  until ROADMAP A6d-2
+  collectives     not available (None): they are counted where the
+                  sharded step runs (``runtime/steps.py`` on logical
+                  devices, ``hlo_analysis.collective_terms``); one
+                  process tracing a step over 256 or 512 shards is not
+                  feasible (ROADMAP A6d-3), nor is the ``pod_compress``
+                  override's pod step, which needs that run
 
 One trace at the global batch and one at the data shard's batch serve
 both meshes (both have a data axis of 16): only the shardings differ.
@@ -111,11 +115,16 @@ def trace_step(cfg, shape, batch: int, *, moment_dtype=torch.float32,
     for old in [k for k in _TRACES if k[:2] != key[:2]]:
         del _TRACES[old]
     t0 = time.perf_counter()
+    if pod_compress:
+        raise NotImplementedError(
+            "the pod step's dry run needs the sharded step run over the "
+            "production mesh's shards in one process, which is not "
+            "feasible at 512 ids (ROADMAP A6d-3); make_pod_compressed_"
+            "train_step runs on a local mesh")
     if shape.mode == "train":
-        make = (steps_lib.make_pod_compressed_train_step if pod_compress
-                else steps_lib.make_train_step)
-        bundle = make(cfg, seq_len=shape.seq_len, global_batch=batch,
-                      moment_dtype=moment_dtype, device="meta")
+        bundle = steps_lib.make_train_step(
+            cfg, seq_len=shape.seq_len, global_batch=batch,
+            moment_dtype=moment_dtype, device="meta")
         state = bundle.abstract_state
         out, cost = hlo.step_cost(bundle.fn, state, bundle.abstract_batch)
     else:

@@ -1,5 +1,6 @@
 """Training CLI: --arch config, synthetic data, checkpoint/restart and
-a straggler watchdog, the JAX package's ``launch/train.py`` on one card.
+a straggler watchdog, the JAX package's ``launch/train.py`` on one card or
+a mesh of devices.
 
 CPU smoke:   python -m repro_torch.launch.train --arch qwen2-1.5b --smoke \\
                  --steps 6 --seq-len 32 --global-batch 4 --device cpu
@@ -15,13 +16,26 @@ Resume:      add --resume auto   (restores the newest committed checkpoint
   * per-step watchdog: a step slower than --straggler-factor x the
     rolling median is logged as a straggler.
 
-One device: ``--model-axis`` goes through ``launch/mesh.py::
-make_local_mesh`` as in the JAX driver, so an axis the devices cannot
-hold raises its ``ValueError``; a model axis above 1 that they could
-hold raises ``NotImplementedError`` (model-parallel training comes with
-the sharded execution, ROADMAP A6d-2).  The default
-checkpoint directory is ``repro_torch_ckpt_<arch>`` under the temporary
-directory, apart from the JAX package's.
+The mesh: ``--model-axis k`` goes through ``launch/mesh.py::
+make_local_mesh`` as in the JAX package's CLI, a ("data", "model") mesh
+over every device of ``--device``'s kind the process has (an axis they
+cannot hold raises its ``ValueError``).  On one device the step is the
+unsharded one; on more it is the sharded step (``runtime/steps.py``:
+data and tensor parallelism, the state in shards on the mesh's ids).  A
+sharded run saves its state gathered into host memory (no device holds
+it whole), in the same one-file format as an unsharded run, so the JAX
+store and an unsharded port read it; ``--resume auto`` restores it into
+host memory and places it on the reader's mesh, whatever device count
+wrote it (the JAX CLI's elastic restart).  In the tests and the
+smoke script the devices are logical ones of one card or the CPU
+(``logical_devices``):
+
+  with logical_devices(4, "cpu"):
+      train.main(["--arch", "qwen2-1.5b", "--smoke", "--model-axis", "2",
+                  "--device", "cpu", ...])
+
+The default checkpoint directory is ``repro_torch_ckpt_<arch>`` under
+the temporary directory, apart from the JAX package's.
 """
 from __future__ import annotations
 
@@ -40,6 +54,7 @@ from repro_torch.configs import ARCH_NAMES, get_config, get_recipe
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.runtime import steps as steps_lib
+from repro_torch.runtime.sharding import gather_tree, place_tree
 
 
 def parse_args(argv=None):
@@ -65,31 +80,32 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices) -> None:
+    for device in set(devices):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def run(args) -> dict:
-    """The training loop of ``main``; returns {"final_loss", "state",
+    """The training loop of ``main``; returns {"final_loss", "state"
+    (placed, mesh id -> its shards, on a mesh of several devices),
     "step_s" (each step's seconds), "save_s" (the last save's seconds from
-    its call to its commit), "ckpt_dir", "start_step", "bundle"}."""
+    its call to its commit), "ckpt_dir", "start_step", "bundle",
+    "mesh"}."""
     # the JAX driver's mesh: its ValueError when the devices cannot hold
     # the model axis
     mesh = make_local_mesh(args.model_axis, device=args.device)
-    if mesh.shape["model"] > 1:
-        raise NotImplementedError(
-            f"--model-axis {args.model_axis}: model-parallel training needs "
-            "a sharded train step (ROADMAP A6d-2); the port trains on one "
-            "device")
+    sharded = mesh.size > 1
     cfg = get_config(args.arch, smoke=args.smoke)
     recipe = get_recipe(args.arch)
-    device = torch.device(args.device)
-    print(f"arch={cfg.name} device={device}")
+    device = (mesh.device(int(mesh.device_ids.min())) if sharded
+              else torch.device(args.device))
+    print(f"arch={cfg.name} device={device} mesh={dict(mesh.shape)}")
 
     use_comp = args.grad_compress_ratio > 0
     bundle = steps_lib.make_train_step(
-        cfg, seq_len=args.seq_len, global_batch=args.global_batch,
+        cfg, mesh if sharded else None, seq_len=args.seq_len,
+        global_batch=args.global_batch,
         fsdp=recipe["fsdp"] and not args.smoke,
         moment_dtype=recipe["moment_dtype"],
         peak_lr=args.peak_lr, warmup=args.warmup, total_steps=args.steps,
@@ -101,6 +117,8 @@ def run(args) -> dict:
 
     def fresh():
         gen = torch.Generator(device=device).manual_seed(args.seed)
+        if sharded:
+            return steps_lib.placed_train_state(bundle, gen)
         return steps_lib.concrete_train_state(
             cfg, gen, device, use_compression=use_comp,
             moment_dtype=recipe["moment_dtype"])
@@ -108,8 +126,13 @@ def run(args) -> dict:
     start_step = 0
     if args.resume == "auto" and pathlib.Path(ckpt_dir).exists():
         try:
+            # a sharded state comes through host memory, leaf by leaf
+            # to its shards: no device holds it whole
             state, start_step, meta = mgr.restore_latest(
-                bundle.abstract_state, map_location=device)
+                bundle.abstract_state,
+                map_location="cpu" if sharded else device)
+            if sharded:
+                state = place_tree(state, bundle.state_shardings)
             print(f"resumed from step {start_step} "
                   f"(saved on {meta.get('mesh', '?')} devices)")
         except FileNotFoundError:
@@ -127,7 +150,7 @@ def run(args) -> dict:
             batch = next(it)
             t0 = time.time()
             state, metrics = bundle.fn(state, batch)
-            _sync(device)
+            _sync(mesh.devices() if sharded else [device])
             dt = time.time() - t0
             step_times.append(dt)
             med = float(np.median(step_times[-50:]))
@@ -144,8 +167,11 @@ def run(args) -> dict:
                 t_log = time.time()
             if (step + 1) % args.ckpt_every == 0 or step + 1 == args.steps:
                 t_save = time.time()
-                mgr.save(step + 1, state,
-                         metadata={"mesh": 1, "arch": cfg.name})
+                whole = (gather_tree(state, bundle.state_shardings,
+                                     host=True)
+                         if sharded else state)
+                mgr.save(step + 1, whole,
+                         metadata={"mesh": mesh.size, "arch": cfg.name})
         mgr.wait()
         if t_save is not None:
             save_s = time.time() - t_save
@@ -156,7 +182,7 @@ def run(args) -> dict:
     print(json.dumps({"final_step": args.steps, "final_loss": final_loss}))
     return {"final_loss": final_loss, "state": state, "step_s": step_times,
             "save_s": save_s, "ckpt_dir": ckpt_dir,
-            "start_step": start_step, "bundle": bundle}
+            "start_step": start_step, "bundle": bundle, "mesh": mesh}
 
 
 def main(argv=None):

@@ -122,9 +122,23 @@ class AttnBlock(_Block):
                 window: int = 0, causal: bool = True,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 tiles: Optional[dict] = None):
+        h = rmsnorm(x, self.norm, self.cfg.rms_eps)
+        out, cache = self.attend(h, positions, window=window, causal=causal,
+                                 cache=cache, tiles=tiles)
+        return x + out.to(x.dtype), cache
+
+    def attend(self, h: torch.Tensor, positions: torch.Tensor, *,
+               window: int = 0, causal: bool = True,
+               cache: Optional[Dict[str, torch.Tensor]] = None,
+               tiles: Optional[dict] = None,
+               kv_heads: Optional[torch.Tensor] = None):
+        """The block's output of the normed input ``h`` without the
+        residual (``forward`` adds it), and the cache.  ``kv_heads``: the
+        KV heads (indices into this block's) that the query heads read,
+        in their order, for a tensor-parallel rank that holds every KV
+        head but a part of the query heads (no cache)."""
         cfg, c = self.cfg, self.weights()
-        b, s = x.shape[:2]
-        h = rmsnorm(x, self.norm, cfg.rms_eps)
+        b, s = h.shape[:2]
         q = (h @ c.wq).reshape(b, s, cfg.n_heads, cfg.hd)
         k = (h @ c.wk).reshape(b, s, cfg.n_kv_heads, cfg.hd)
         v = (h @ c.wv).reshape(b, s, cfg.n_kv_heads, cfg.hd)
@@ -132,6 +146,8 @@ class AttnBlock(_Block):
             q = q + c.bias[0]
             k = k + c.bias[1]
             v = v + c.bias[2]
+        if kv_heads is not None:
+            k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
         sin, cos = rope_tables(positions, cfg.hd, cfg.rope_theta)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
@@ -150,7 +166,7 @@ class AttnBlock(_Block):
                 tail = min(s, clen)
                 p_t = positions[:, -tail:]
                 slot = (p_t % clen).long()
-                bi = torch.arange(b, device=x.device)[:, None]
+                bi = torch.arange(b, device=h.device)[:, None]
                 ck[bi, slot] = k[:, -tail:].to(ck.dtype)
                 cv[bi, slot] = v[:, -tail:].to(cv.dtype)
                 cp[bi, slot] = p_t.to(torch.int32)
@@ -158,14 +174,13 @@ class AttnBlock(_Block):
                 # decode: insert one token, attend to the cache
                 pos0 = positions[:, 0]
                 slot = (pos0 % clen).long()
-                bi = torch.arange(b, device=x.device)
+                bi = torch.arange(b, device=h.device)
                 ck[bi, slot] = k[:, 0].to(ck.dtype)
                 cv[bi, slot] = v[:, 0].to(cv.dtype)
                 cp[bi, slot] = pos0.to(torch.int32)
                 o = attention(q, ck.to(q.dtype), cv.to(q.dtype), positions,
                               cp, **opts)
-        out = o.reshape(b, s, -1) @ c.wo
-        return x + out.to(x.dtype), cache
+        return o.reshape(b, s, -1) @ c.wo, cache
 
 
 def cross_attn_spec(cfg: ModelConfig) -> Spec:
@@ -305,18 +320,27 @@ class MLPBlock(_Block):
                 "up": self.w_up.to(dt), "down": self.w_down.to(dt)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cfg, c = self.cfg, self.weights()
-        h = rmsnorm(x, self.norm, cfg.rms_eps)
-        if cfg.butterfly_mlp:
+        return x + self.project(self.normed(x)).to(x.dtype)
+
+    def normed(self, x: torch.Tensor) -> torch.Tensor:
+        """The input the projections read: normed, then mixed where
+        ``cfg.butterfly_mlp``."""
+        h = rmsnorm(x, self.norm, self.cfg.rms_eps)
+        if self.cfg.butterfly_mlp:
             h = _butterfly_mix(self.bf_theta, h)
+        return h
+
+    def project(self, h: torch.Tensor) -> torch.Tensor:
+        """The block's output of ``normed``'s without the residual (over
+        this block's ``ff`` columns: a tensor-parallel rank's part)."""
+        cfg, c = self.cfg, self.weights()
         if cfg.mlp_type == "swiglu":
             z = F.silu(h @ c.gate) * (h @ c.up)
         elif cfg.mlp_type == "geglu":
             z = F.gelu(h @ c.gate, approximate="tanh") * (h @ c.up)
         else:
             z = F.gelu(h @ c.up, approximate="tanh")
-        out = z @ c.down
-        return x + out.to(x.dtype)
+        return z @ c.down
 
 
 

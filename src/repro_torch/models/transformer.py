@@ -175,7 +175,7 @@ def tree_map(fn, tree, *rest):
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device="cuda") -> Params:
+                device="cuda", place=None) -> Params:
     """Random parameters with the JAX package's distributions: normal x
     0.02, the embedding and the LM head x 0.01, the convolutions x 0.2,
     norms, biases, gates, SSD ``a_log``/``dt_bias`` zero, SSD ``d_skip``
@@ -183,20 +183,29 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     drawn in f32 from ``generator`` (default: seed 0 on ``device``) and
     stored in ``cfg.param_dtype``.  The draws are torch's, not
     ``jax.random``'s: carry weights across with
-    ``interop.lm_params_from_numpy`` to compare the two packages."""
+    ``interop.lm_params_from_numpy`` to compare the two packages.
+
+    ``place``: a tree of ``NamedSharding``s; each leaf is split into its
+    shards (``NamedSharding.shard``) as soon as it is drawn, so that no
+    more than one whole leaf is held: the tree's leaves are then
+    {mesh id: shard}."""
     dev = torch.device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
 
-    def draw(leaf: Leaf) -> torch.Tensor:
+    def draw(leaf: Leaf, sharding=None):
         if leaf.init in ("zeros", "ones"):
             fill = torch.zeros if leaf.init == "zeros" else torch.ones
-            return fill(leaf.shape, dtype=cfg.param_dtype, device=dev)
-        t = torch.randn(leaf.shape, generator=generator, dtype=torch.float32,
-                        device=dev)
-        return t.mul_(leaf.scale).to(cfg.param_dtype)
+            t = fill(leaf.shape, dtype=cfg.param_dtype, device=dev)
+        else:
+            t = torch.randn(leaf.shape, generator=generator,
+                            dtype=torch.float32, device=dev)
+            t = t.mul_(leaf.scale).to(cfg.param_dtype)
+        return t if sharding is None else sharding.shard(t)
 
-    return tree_map(draw, param_spec(cfg))
+    spec = param_spec(cfg)
+    return (tree_map(draw, spec) if place is None
+            else tree_map(draw, spec, place))
 
 
 def _check_tree(params: Params, spec: Params, path: str = "") -> None:
@@ -264,6 +273,33 @@ def _stack(layers, spec: Params, device, dtype) -> Params:
         return tree_map(lambda leaf: torch.empty(leaf.shape, dtype=dtype,
                                                  device=device), spec)
     return tree_map(lambda *ts: torch.stack(ts), *layers)
+
+
+def remat_layers(steps, xs: tuple, extra: tuple, remat: bool,
+                 block: int) -> tuple:
+    """``steps`` in order, each ``step(*xs, *extra) -> xs`` (a tuple of
+    activations; ``extra`` inputs every step reads).  With ``remat``:
+    where ``block`` = k > 1 divides their count, nested checkpoints, one
+    a run of k steps and one each step inside it; otherwise one
+    checkpoint a step."""
+    if not remat:
+        for step in steps:
+            xs = step(*xs, *extra)
+        return xs
+    k = max(int(block), 1)
+    if k > 1 and len(steps) % k == 0:
+        def run_of(sub):
+            def run(*args):
+                xc, ex = args[:len(xs)], args[len(xs):]
+                for step in sub:
+                    xc = checkpointed(step, *xc, *ex)
+                return xc
+            return run
+
+        steps = [run_of(steps[j:j + k]) for j in range(0, len(steps), k)]
+    for step in steps:
+        xs = checkpointed(step, *xs, *extra)
+    return xs
 
 
 class Transformer(nn.Module):
@@ -384,37 +420,22 @@ class Transformer(nn.Module):
 
     def _stack_run(self, layers, x, positions, cache=None, memory=None,
                    remat: bool = False, tiles=None):
-        """One group's layers in order (the JAX ``_scan_group``).  With
-        ``remat`` (and no cache): where ``cfg.remat_block`` = k > 1
-        divides the count, nested checkpoints, one a block of k layers
-        and one each layer inside it; otherwise one checkpoint a layer.
+        """One group's layers in order (the JAX ``_scan_group``), with
+        ``remat`` (and no cache) under ``remat_layers``' checkpoints.
         ``tiles``: the forward's tile tables, shared by its layers."""
-        if cache is not None or not remat:
+        if cache is not None:
             for i, layer in enumerate(layers):
-                c = None if cache is None else _layer(cache, i)
-                x = layer(x, positions, c, memory, tiles)
+                x = layer(x, positions, _layer(cache, i), memory, tiles)
             return x
-        k = max(int(self.cfg.remat_block), 1)
 
         def one(layer):
             def run(xc, pos, mem):
-                return layer(xc, pos, None, mem, tiles)
+                return (layer(xc, pos, None, mem, tiles),)
             return run
 
-        if k > 1 and len(layers) % k == 0:
-            def block(sub):
-                def run(xc, pos, mem):
-                    for layer in sub:
-                        xc = checkpointed(one(layer), xc, pos, mem)
-                    return xc
-                return run
-
-            for j in range(0, len(layers), k):
-                x = checkpointed(block(layers[j:j + k]), x, positions, memory)
-            return x
-        for layer in layers:
-            x = checkpointed(one(layer), x, positions, memory)
-        return x
+        return remat_layers([one(layer) for layer in layers], (x,),
+                            (positions, memory), remat,
+                            self.cfg.remat_block)[0]
 
     def _layers(self, x, positions, cache=None, memory=None,
                 remat: bool = False, tiles=None):
@@ -516,6 +537,61 @@ def _model(model, cfg: ModelConfig) -> "Transformer":
             else Transformer(cfg, model, live=True))
 
 
+def _shifted(x, tokens, mask, loss_chunk: int):
+    """The hidden states (B, S, D) shifted against their targets and
+    zero-padded to a multiple of the chunk: (x, targets, mask, chunk,
+    padded length)."""
+    b, s = tokens.shape
+    mask = (torch.ones((b, s), device=x.device) if mask is None else
+            torch.as_tensor(mask, device=x.device).float())
+    x, targets, mask = x[:, :-1], tokens[:, 1:], mask[:, 1:]
+    sm = s - 1
+    c = min(loss_chunk, sm)
+    pad = (-sm) % c
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    return x, targets, mask, c, sm + pad
+
+
+def _chunk_sums(chunk_nll, heads, shifted) -> list:
+    """The loss's chunk loop over the ranks' shifted hidden states
+    (``_shifted``, one a rank): ``chunk_nll(*heads, *xs, *targets,
+    *masks)`` of one chunk under a checkpoint gives each rank's (sum,
+    count), flat.  Returns each rank's (sum, count)."""
+    c, length = shifted[0][3], shifted[0][4]
+    sums = [(torch.zeros((), device=sh[0].device),) * 2 for sh in shifted]
+    for i in range(0, length, c):
+        got = checkpointed(chunk_nll, *heads, *(sh[k][:, i:i + c]
+                                                for k in range(3)
+                                                for sh in shifted))
+        sums = [(tot + got[2 * r], cnt + got[2 * r + 1])
+                for r, (tot, cnt) in enumerate(sums)]
+    return sums
+
+
+def nll_sums(model, cfg: ModelConfig, batch: Dict[str, Any],
+             remat: bool = True, loss_chunk: int = _LOSS_CHUNK):
+    """``loss_fn``'s masked NLL sum and mask count over the batch, before
+    the division: (sum, count), 0-d f32 tensors.  A data-parallel step
+    adds them over its shards first (a mean of per-shard means is
+    another function)."""
+    model = _model(model, cfg)
+    x = model.forward_hidden(batch["tokens"], batch.get("memory"), remat)
+    shifted = _shifted(x, model._tokens(batch["tokens"]), batch.get("mask"),
+                       loss_chunk)
+    return _chunk_sums(functools.partial(_chunk_nll, cfg.logit_softcap),
+                       [model.lm_head], [shifted])[0]
+
+
+def mean_loss(tot: torch.Tensor, cnt: torch.Tensor):
+    """(loss, {"loss", "ppl_proxy"}) of an NLL sum and its mask count."""
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss, {"loss": loss,
+                  "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
+
+
 def loss_fn(model, cfg: ModelConfig, batch: Dict[str, Any],
             remat: bool = True, loss_chunk: int = _LOSS_CHUNK):
     """Next-token NLL, the JAX ``loss_fn``: hidden state t predicts token
@@ -528,31 +604,7 @@ def loss_fn(model, cfg: ModelConfig, batch: Dict[str, Any],
     is built over it); ``batch``: {"tokens" (B, S), optional "memory",
     "mask" (B, S)}.  Returns (loss, {"loss", "ppl_proxy"}), 0-d f32
     tensors on the model's device."""
-    model = _model(model, cfg)
-    x = model.forward_hidden(batch["tokens"], batch.get("memory"), remat)
-    tokens = model._tokens(batch["tokens"])
-    b, s = tokens.shape
-    mask = batch.get("mask")
-    mask = (torch.ones((b, s), device=x.device) if mask is None else
-            torch.as_tensor(mask, device=x.device).float())
-    x, targets, mask = x[:, :-1], tokens[:, 1:], mask[:, 1:]
-    sm = s - 1
-    c = min(loss_chunk, sm)
-    pad = (-sm) % c
-    if pad:
-        x = F.pad(x, (0, 0, 0, pad))
-        targets = F.pad(targets, (0, pad))
-        mask = F.pad(mask, (0, pad))
-    tot = torch.zeros((), device=x.device)
-    cnt = torch.zeros((), device=x.device)
-    for i in range(0, sm + pad, c):
-        t_i, c_i = checkpointed(
-            functools.partial(_chunk_nll, cfg.logit_softcap), model.lm_head,
-            x[:, i:i + c], targets[:, i:i + c], mask[:, i:i + c])
-        tot, cnt = tot + t_i, cnt + c_i
-    loss = tot / torch.clamp(cnt, min=1.0)
-    return loss, {"loss": loss,
-                  "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
+    return mean_loss(*nll_sums(model, cfg, batch, remat, loss_chunk))
 
 
 def value_and_grad(model, cfg: ModelConfig, batch: Dict[str, Any],
@@ -570,6 +622,192 @@ def value_and_grad(model, cfg: ModelConfig, batch: Dict[str, Any],
     loss.backward()
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
             model.grads)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over a "model" group (the dense and local/global groups)
+# ---------------------------------------------------------------------------
+
+#: the groups whose super-layers have a tensor-parallel form
+TP_GROUPS = ("dense", "lg")
+
+
+class TPLayout(NamedTuple):
+    """Which dimensions the mesh's rules split over "model": query heads
+    (and then the attention blocks are tensor parallel), KV heads (else
+    every rank holds them all and reads the ones its query heads use),
+    the MLP's ``ff`` and the vocabulary (embedding rows, LM-head
+    columns).  A block whose dimension is not split is computed whole on
+    every rank and summed nowhere."""
+    heads: bool
+    kv_heads: bool
+    ff: bool
+    vocab: bool
+
+
+def tp_layout(rules) -> TPLayout:
+    return TPLayout(*(rules.get(a) == "model"
+                      for a in ("heads", "kv_heads", "ff", "vocab")))
+
+
+def local_config(cfg: ModelConfig, layout: TPLayout, tp: int) -> ModelConfig:
+    """The config of one rank's parameters: the split counts over ``tp``,
+    the head width kept."""
+    def part(n: int, split: bool) -> int:
+        return n // tp if split else n
+
+    return cfg.replace(head_dim=cfg.hd,
+                       n_heads=part(cfg.n_heads, layout.heads),
+                       n_kv_heads=part(cfg.n_kv_heads, layout.kv_heads),
+                       d_ff=part(cfg.d_ff, layout.ff),
+                       vocab=part(cfg.vocab, layout.vocab))
+
+
+def kv_select(cfg: ModelConfig, layout: TPLayout, tp: int, rank: int,
+              device) -> Optional[torch.Tensor]:
+    """The KV heads rank ``rank``'s query heads read, where the query
+    heads are split and the KV heads are not (GQA with fewer KV heads
+    than ranks): the distinct heads where each serves an equal run of
+    the rank's query heads, else one a query head.  None: nothing to
+    select."""
+    if not layout.heads or layout.kv_heads:
+        return None
+    hl, rep = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
+    idx = [(rank * hl + j) // rep for j in range(hl)]
+    uniq = sorted(set(idx))
+    if hl % len(uniq) == 0 and idx == [u for u in uniq
+                                        for _ in range(hl // len(uniq))]:
+        idx = uniq
+    return torch.tensor(idx, dtype=torch.long, device=device)
+
+
+def tp_partial_leaves(cfg: ModelConfig, layout: TPLayout) -> list:
+    """Paths of the leaves whose gradient each rank holds only in part,
+    to be added over "model": the KV projections every rank holds whole
+    while each reads them for its own query heads."""
+    if not layout.heads or layout.kv_heads:
+        return []
+    names = ("wk", "wv", "bk", "bv") if cfg.qkv_bias else ("wk", "wv")
+    return [("groups", g, key, leaf) for g, _ in group_plan(cfg)
+            for key in _GROUPS[g] if _kind(key) == "attn" for leaf in names]
+
+
+def _tp_layer(cfg, layout, group, layers, xs, positions, tiles, kvsel):
+    """One super-layer on every rank of ``group``: a split block's normed
+    input opened (``group.copy``), each rank's part of its output added
+    (``group.sum``), then the residual; a whole block on every rank."""
+    name = layers[0].name
+    for key in _GROUPS[name]:
+        blocks = [getattr(layer, key) for layer in layers]
+        if _kind(key) == "attn":
+            window = cfg.local_window if _local(name, key) else 0
+            if layout.heads:
+                hs = group.copy([rmsnorm(x, b.norm, cfg.rms_eps)
+                                 for x, b in zip(xs, blocks)])
+                outs = group.sum([
+                    b.attend(h, p, window=window, tiles=t, kv_heads=kv)[0]
+                    for b, h, p, t, kv in zip(blocks, hs, positions, tiles,
+                                              kvsel)])
+                xs = [x + o.to(x.dtype) for x, o in zip(xs, outs)]
+            else:
+                xs = [b(x, p, window=window, tiles=t)[0]
+                      for b, x, p, t in zip(blocks, xs, positions, tiles)]
+        elif layout.ff:
+            hs = group.copy([b.normed(x) for x, b in zip(xs, blocks)])
+            outs = group.sum([b.project(h) for b, h in zip(blocks, hs)])
+            xs = [x + o.to(x.dtype) for x, o in zip(xs, outs)]
+        else:
+            xs = [b(x) for b, x in zip(blocks, xs)]
+    return xs
+
+
+def _tp_stack_run(cfg, layout, group, stacks, xs, positions, tiles, kvsel,
+                  remat: bool):
+    """One group's layers on every rank (``remat_layers``' checkpoints,
+    each spanning the ranks)."""
+    def one(i):
+        def run(*xc):
+            return tuple(_tp_layer(cfg, layout, group, [s[i] for s in stacks],
+                                   list(xc), positions, tiles, kvsel))
+        return run
+
+    return list(remat_layers([one(i) for i in range(len(stacks[0]))],
+                             tuple(xs), (), remat, cfg.remat_block))
+
+
+def _tp_chunk_nll(cap, group, vl: int, *args):
+    """One chunk's NLL on every rank of ``group`` from its vocabulary
+    columns: the maximum over the ranks, then the sum of exponentials
+    added over them, then the target's logit from the rank that owns it.
+    ``args``: the ranks' heads, hidden chunks, targets and masks, each a
+    run of len(group).  Returns (sum, count) of each rank, flat."""
+    n = len(group)
+    heads, xxs, tts, mms = (args[k * n:(k + 1) * n] for k in range(4))
+    logits = [softcap(xx @ h.to(xx.dtype), cap).float()
+              for h, xx in zip(heads, xxs)]
+    ms = group.max([z.amax(-1) for z in logits])
+    es = group.sum([torch.exp(z - m[..., None]).sum(-1)
+                    for z, m in zip(logits, ms)])
+    picks = []
+    for r, (z, tt) in enumerate(zip(logits, tts)):
+        local = tt - r * vl
+        own = (local >= 0) & (local < vl)
+        hit = z.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+        picks.append(torch.where(own, hit, torch.zeros((), device=z.device)))
+    ts = group.sum(picks)
+    out = []
+    for e, m, t, mm in zip(es, ms, ts, mms):
+        nll = torch.log(e) + m - t
+        out += [(nll * mm).sum(), mm.sum()]
+    return tuple(out)
+
+
+def tp_nll_sums(models, cfg: ModelConfig, layout: TPLayout, group, batches,
+                remat: bool = True, loss_chunk: int = _LOSS_CHUNK) -> list:
+    """``nll_sums`` of one batch over the ranks of a "model" group:
+    ``models`` the ranks' live ``Transformer``s over their parameters (of
+    ``local_config``), in ``group``'s order, ``batches`` each rank's copy
+    of the batch.  The embedding is split by vocabulary (each rank
+    gathers its rows, zeros the rest, and the ranks add), the attention
+    and MLP blocks Megatron-style (``_tp_layer``), and the loss is
+    vocabulary-parallel (``_tp_chunk_nll``) in ``loss_fn``'s checkpointed
+    chunks: no rank holds the (B, S, V) logits.  Returns each rank's
+    (sum, count), equal on all of them."""
+    tp = len(models)
+    toks = [m._tokens(bt["tokens"]) for m, bt in zip(models, batches)]
+    if layout.vocab:
+        vl = models[0].cfg.vocab
+        parts = []
+        for r, (m, t) in enumerate(zip(models, toks)):
+            local = t - r * vl
+            own = (local >= 0) & (local < vl)
+            e = m.embed.to(cfg.dtype)[local.clamp(0, vl - 1)]
+            parts.append(torch.where(own[..., None], e,
+                                     torch.zeros((), dtype=e.dtype,
+                                                 device=e.device)))
+        xs = [scaled(x, math.sqrt(cfg.d_model)) for x in group.sum(parts)]
+    else:
+        xs = [m._embed(t) for m, t in zip(models, toks)]
+    positions = [m._positions(*t.shape) for m, t in zip(models, toks)]
+    tiles = [{} for _ in models]
+    kvsel = [kv_select(cfg, layout, tp, r, t.device)
+             for r, t in enumerate(toks)]
+    for name, _count in group_plan(cfg):
+        xs = _tp_stack_run(cfg, layout, group,
+                           [m.groups[name] for m in models], xs, positions,
+                           tiles, kvsel, remat)
+    xs = [rmsnorm(x, m.final_norm, cfg.rms_eps) for x, m in zip(xs, models)]
+    if layout.vocab:
+        xs = group.copy(xs)
+    shifted = [_shifted(x, t, bt.get("mask"), loss_chunk)
+               for x, t, bt in zip(xs, toks, batches)]
+    heads = [m.lm_head for m in models]
+    if layout.vocab:
+        return _chunk_sums(functools.partial(
+            _tp_chunk_nll, cfg.logit_softcap, group, vl), heads, shifted)
+    whole = functools.partial(_chunk_nll, cfg.logit_softcap)
+    return [_chunk_sums(whole, [h], [sh])[0]
+            for h, sh in zip(heads, shifted)]
 
 
 # ---------------------------------------------------------------------------

@@ -81,13 +81,23 @@ def state_axes(params_axes) -> AdamWState:
                       nu=tree_map(lambda a: a, params_axes))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the leaves' f32 squared sums, added in the JAX tree order."""
-    total = 0
+def squared_sum(tree, start=0) -> torch.Tensor:
+    """The leaves' f32 squared sums, added in the JAX tree order to
+    ``start`` (a zero tensor where the tree may be empty: a mesh id that
+    owns no shard)."""
+    total = start
     for x in tree_leaves(tree):
         xf = x.float()
         total = total + (xf * xf).sum()
-    return torch.sqrt(total)
+    return total
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the leaves' f32 squared sums, added in the JAX tree order.
+    Over a placed tree, each distinct shard counts once: a sharded step
+    adds the ``squared_sum`` of the shards each mesh id owns over the
+    mesh and takes the root (``runtime/steps.py``)."""
+    return torch.sqrt(squared_sum(tree))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -117,11 +127,13 @@ def warmup_cosine(step, *, peak_lr: float, warmup: int, total: int,
 @torch.no_grad()
 def update(grads, state: AdamWState, params, *, lr, b1: float = 0.9,
            b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
-           max_grad_norm: float = 1.0):
+           max_grad_norm: float = 1.0, norm=None):
     """One AdamW step, in place: returns (params, new state, {"grad_norm"})
     with the parameters and moments written into the given tensors.
-    ``lr``: a float or an f32 tensor (``warmup_cosine``)."""
-    gnorm = global_norm(grads)
+    ``lr``: a float or an f32 tensor (``warmup_cosine``).  ``norm``: the
+    gradients' global norm where the trees are one mesh id's shards (the
+    norm of the whole tree, computed over the mesh); None: theirs."""
+    gnorm = global_norm(grads) if norm is None else norm
     scale = _clip_scale(gnorm, max_grad_norm)
     step = state.step + 1
     stepf = step.float()
@@ -147,3 +159,40 @@ def update(grads, state: AdamWState, params, *, lr, b1: float = 0.9,
 
     tree_map(upd, grads, state.mu, state.nu, params)
     return params, AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm}
+
+
+@torch.no_grad()
+def first_step_tolerance(grads, new_params, norm, *, lr, grad_tol: float,
+                         grad_floor: float = 1e-3, norm_tol: float,
+                         eps: float = 1e-8, max_grad_norm: float = 1.0
+                         ) -> list:
+    """How far apart two first ``update`` steps (zero moments, the same
+    parameters) may put each parameter entry, when their gradients lie
+    within ``grad_tol`` max(``grad_floor``, max|g|) a leaf of ``grads``
+    and their global norms within ``norm_tol`` relative of ``norm``.
+
+    The first step moves a parameter by lr (u(c g) + weight_decay p), the
+    direction u(x) = x / (|x| + eps) of the clipped gradient c g.  Over
+    the gradients' interval c g +- d, d = c (grad_tol max(grad_floor,
+    max|g|) + norm_tol |g|), u moves by u(c g + d) - u(c g - d): up to 2
+    where |g| is near eps, nothing where |g| >> d.  The tolerance is lr
+    times that, plus 2^-16 lr for the update's own rounding and two f32
+    spacings of the new parameter (``new_params``: the reference's) for
+    the two results' roundings to f32 (half a spacing each, a spacing
+    twice as wide across a power of two).  A list of f32 tensors in
+    ``tree_leaves`` order."""
+    c = min(1.0, max_grad_norm / max(float(norm), 1e-9))
+
+    def u(x):
+        return x / (x.abs() + eps)
+
+    out = []
+    for g, p in zip(tree_leaves(grads), tree_leaves(new_params)):
+        g = g.float()
+        d = c * (grad_tol * max(grad_floor, float(g.abs().max()))
+                 + norm_tol * g.abs())
+        spread = u(c * g + d).sub_(u(c * g - d))
+        pa = p.float().abs()
+        ulp = torch.nextafter(pa, torch.full_like(pa, math.inf)).sub_(pa)
+        out.append(spread.add_(2.0 ** -16).mul_(float(lr)).add_(ulp, alpha=2))
+    return out

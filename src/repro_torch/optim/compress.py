@@ -132,6 +132,19 @@ def residual(spec: CompressSpec, leaf: torch.Tensor, step=0) -> torch.Tensor:
     return err.reshape(-1)[:n].reshape(leaf.shape).to(leaf.dtype)
 
 
+def _ef_compact(spec: CompressSpec, grad: torch.Tensor, err: torch.Tensor,
+                step=0):
+    g_ef = grad.float() + err.float()
+    return compress(spec, g_ef, step), g_ef
+
+
+def _ef_expand(spec: CompressSpec, compact: torch.Tensor, g_ef, grad, err,
+               step=0):
+    out = decompress(spec, compact, grad.shape, torch.float32, step)
+    new_err = residual(spec, g_ef, step)
+    return out.to(grad.dtype), new_err.to(err.dtype)
+
+
 def ef_roundtrip(spec: CompressSpec, grad: torch.Tensor,
                  err: torch.Tensor, reduce_fn=None, step=0):
     """Error-feedback compression of one leaf.
@@ -140,13 +153,10 @@ def ef_roundtrip(spec: CompressSpec, grad: torch.Tensor,
     acts on the compact coefficient block — the only thing that crosses
     replicas.
     """
-    g_ef = grad.float() + err.float()
-    compact = compress(spec, g_ef, step)
+    compact, g_ef = _ef_compact(spec, grad, err, step)
     if reduce_fn is not None:
         compact = reduce_fn(compact)
-    out = decompress(spec, compact, grad.shape, torch.float32, step)
-    new_err = residual(spec, g_ef, step)
-    return out.to(grad.dtype), new_err.to(err.dtype)
+    return _ef_expand(spec, compact, g_ef, grad, err, step)
 
 
 def _tree_map(fn, tree, *rest):
@@ -188,3 +198,31 @@ def tree_ef_compress(spec: CompressSpec, grads, err_tree, reduce_fn=None,
     pairs = _tree_map(one, grads, err_tree)
     return (_tree_map(lambda _, p: p[0], grads, pairs),
             _tree_map(lambda _, p: p[1], grads, pairs))
+
+
+def group_ef_compress(spec: CompressSpec, grads, errs, reduce_fn,
+                      min_size: int = 1 << 14, step=0):
+    """``tree_ef_compress`` on every member of a reduction group at once:
+    ``grads`` and ``errs`` hold one tree a member, each of its own shard
+    of every leaf (the JAX package compresses inside a ``shard_map``, so
+    a leaf is a device's shard and ``min_size`` is compared with the
+    shard's size).  ``reduce_fn`` maps the members' compact blocks (a
+    small shard: the shards whole) to the members' reduced blocks, e.g. a
+    mean over the pods.  Returns (new grads, new errs), a tree a
+    member."""
+    n = len(grads)
+
+    def one(*leaves):
+        gs, es = leaves[:n], leaves[n:]
+        if int(np.prod(gs[0].shape)) < min_size:
+            return list(zip(reduce_fn(list(gs)), es))
+        parts = [_ef_compact(spec, g, e, step) for g, e in zip(gs, es)]
+        reduced = reduce_fn([p[0] for p in parts])
+        return [_ef_expand(spec, c, p[1], g, e, step)
+                for c, p, g, e in zip(reduced, parts, gs, es)]
+
+    done = _tree_map(one, *grads, *errs)
+    return ([_tree_map(lambda _, d, k=k: d[k][0], grads[0], done)
+             for k in range(n)],
+            [_tree_map(lambda _, d, k=k: d[k][1], grads[0], done)
+             for k in range(n)])

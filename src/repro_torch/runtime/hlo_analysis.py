@@ -22,13 +22,20 @@ and the terms are
 
   compute term    = flops_per_device / PEAK_FLOPS_BF16
   memory term     = bytes_per_device / HBM_BW
-  collective term = not available: the port runs no sharded step (ROADMAP
-                    A6d-2), so no collective is there to count.
+  collective term = collective_bytes_per_device / NVLINK_BW
 
-The collective keys of the JAX terms (``collective_bytes``,
-``cross_pod_bytes``, ``collective_s``, ``cross_pod_s``,
-``collective_by_kind``, ``collective_counts``) are None and named in
-``unavailable``; ``dominant`` is taken over the terms there are.
+The collective bytes are counted where a sharded step runs
+(``runtime/collectives.py``: the result bytes each collective delivers on
+each mesh id, by kind and axes; ``collective_terms`` applies the JAX
+walker's factor of 2 for an all-reduce and takes the largest id).  A
+placed step run on logical devices gives them (``roofline_terms(...,
+collectives=bundle.collectives)``).  A dry-run cell on the 256- or
+512-id production meshes has no such run: a single-controller step over
+256 shards is not feasible to trace, so there the collective keys
+(``collective_bytes``, ``cross_pod_bytes``, ``collective_s``,
+``cross_pod_s``, ``collective_by_kind``, ``collective_counts``) are None
+and named in ``unavailable`` (ROADMAP A6d-3), and ``dominant`` is taken
+over the terms there are.
 """
 from __future__ import annotations
 
@@ -41,16 +48,22 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 # NVIDIA H100 80GB HBM3 (SXM5, 700 W) data sheet: dense bf16 tensor-core
-# peak (no sparsity), HBM3 bandwidth, HBM capacity.  Per card.
+# peak (no sparsity), HBM3 bandwidth, HBM capacity, NVLink 4 (900 GB/s in
+# both directions together: 450 GB/s a direction).  Per card.
 PEAK_FLOPS_BF16 = 989.4e12
 HBM_BW = 3.35e12
 HBM_BYTES = 80e9
+NVLINK_BW = 450e9
 
-#: the JAX terms' collective keys: the port has no sharded step to count
+#: the JAX terms' collective keys, None without a run of the sharded step
 UNAVAILABLE = ("collective_bytes", "cross_pod_bytes", "collective_s",
                "cross_pod_s", "collective_by_kind", "collective_counts")
-UNAVAILABLE_WHY = ("the port runs no sharded step and so no collective "
-                   "until ROADMAP A6d-2")
+UNAVAILABLE_WHY = ("counted only on a sharded step run on logical devices; "
+                   "a single-controller trace of a production mesh's 256 or "
+                   "512 shards is not feasible (ROADMAP A6d-3)")
+#: the kinds the JAX walker reports (the port runs the first three)
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
 
 #: ops that allocate without writing (their results move no bytes)
 _ALLOCS = {"empty", "empty_like", "empty_strided", "new_empty",
@@ -167,30 +180,69 @@ def memory_summary(*, argument: float, output: float, temp: float,
     return out
 
 
-def roofline_terms(cost: Dict[str, Any], *,
-                   n_chips: int = 1) -> Dict[str, Any]:
+def collective_terms(counter, pod_axis: str = "pod") -> Dict[str, Any]:
+    """The JAX terms' collective keys from a sharded step's
+    ``collectives.Counter``: per device (the largest id's), the result
+    bytes by kind (an all-reduce's twice, the JAX walker's ring factor),
+    their sum, the part over a group that spans ``pod_axis``, the op
+    counts by kind, and their seconds at ``NVLINK_BW``."""
+    by_id, counts = {}, {}
+    for i, tally in counter.bytes.items():
+        kinds = dict.fromkeys(COLLECTIVES, 0)
+        pod = 0
+        for (kind, axes), b in tally.items():
+            b *= 2 if kind == "all-reduce" else 1
+            kinds[kind] += b
+            if pod_axis in axes.split(","):
+                pod += b
+        by_id[i] = (sum(kinds.values()), pod, kinds)
+        ops = dict.fromkeys(COLLECTIVES, 0)
+        for (kind, _axes), n in counter.ops[i].items():
+            ops[kind] += n
+        counts[i] = ops
+    if not by_id:
+        zero = dict.fromkeys(COLLECTIVES, 0)
+        return {"collective_bytes": 0, "cross_pod_bytes": 0,
+                "collective_s": 0.0, "cross_pod_s": 0.0,
+                "collective_by_kind": zero, "collective_counts": dict(zero)}
+    top = max(by_id, key=lambda i: (by_id[i][0], -i))
+    total, pod, kinds = by_id[top]
+    return {"collective_bytes": total, "cross_pod_bytes": pod,
+            "collective_s": total / NVLINK_BW, "cross_pod_s": pod / NVLINK_BW,
+            "collective_by_kind": kinds, "collective_counts": counts[top]}
+
+
+def roofline_terms(cost: Dict[str, Any], *, n_chips: int = 1,
+                   collectives=None) -> Dict[str, Any]:
     """The roofline terms (seconds) and the dominant one, the JAX
     function's keys: a device's FLOPs and bytes are the traced step's
-    over ``n_chips``, at the H100's rates."""
+    over ``n_chips``, at the H100's rates.  ``collectives``: the counter
+    of a run of the sharded step (``StepBundle.collectives``), which
+    fills the collective keys; None leaves them None (``unavailable``)."""
     flops = cost["flops"] / n_chips
     nbytes = cost["bytes"] / n_chips
     terms = {"compute_s": flops / PEAK_FLOPS_BF16,
              "memory_s": nbytes / HBM_BW}
+    coll = (dict.fromkeys(UNAVAILABLE) if collectives is None
+            else collective_terms(collectives))
+    if collectives is not None:
+        terms["collective_s"] = coll["collective_s"]
     dominant = max(terms, key=terms.get)
     return {
         **terms,
-        "collective_s": None,
+        "collective_s": coll["collective_s"],
         "dominant": dominant.replace("_s", ""),
         "hlo_flops": flops,
         "hlo_bytes": nbytes,
-        "collective_bytes": None,
-        "cross_pod_bytes": None,
-        "cross_pod_s": None,
-        "collective_by_kind": None,
-        "collective_counts": None,
+        "collective_bytes": coll["collective_bytes"],
+        "cross_pod_bytes": coll["cross_pod_bytes"],
+        "cross_pod_s": coll["cross_pod_s"],
+        "collective_by_kind": coll["collective_by_kind"],
+        "collective_counts": coll["collective_counts"],
         "naive_cost_analysis": cost_summary(cost),
-        "unavailable": list(UNAVAILABLE),
-        "unavailable_why": UNAVAILABLE_WHY,
+        "unavailable": [] if collectives is not None else list(UNAVAILABLE),
+        "unavailable_why": None if collectives is not None
+        else UNAVAILABLE_WHY,
     }
 
 

@@ -16,10 +16,12 @@ The model half.  Logical axes of the model zoo (``transformer.param_axes``,
 tuple equal element by element to JAX's ``P(...)`` and ``NamedSharding``
 gives JAX's ``shard_shape`` (a dimension its spec splits must divide, or
 ``ValueError``: JAX refuses such a sharding for a jitted argument too).
-The port runs no partitioned step (one process, no collective): the dry
-run (``launch/dryrun.py``) reads shard shapes from these shardings, and
-``NamedSharding.shard``/``gather`` place a tensor's shards on a mesh's
-devices and bring them back.
+The dry run (``launch/dryrun.py``) reads shard shapes from these
+shardings; ``NamedSharding.shard``/``gather`` place a tensor's shards on
+a mesh's devices and bring them back, and ``place_tree``/``gather_tree``
+do so for a whole tree (a train state: mesh id -> that id's tree of
+shards).  The sharded train step (``runtime/steps.py``) keeps its state
+so and runs its collectives through ``runtime/collectives.py``.
 
 The placement half.
 
@@ -37,7 +39,7 @@ a tuple of per-device shards, ``batch_padded // D`` rows each, each its
 own contiguous tensor on its device; a placed program launches once per
 shard, on that device's current stream, with no host sync between the
 shards, and ``gather`` concatenates the answers onto the bucket's first
-device.  No collective exists in this design.
+device.  Serving needs no collective.
 
 Device ids resolve through a ``launch/mesh.py::Mesh`` (``cuda:k`` on the
 card, the CPU's id 0, or ``logical_devices``).  A placement built from a
@@ -87,7 +89,7 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
-def _entry_axes(entry) -> Tuple[str, ...]:
+def entry_axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
     return tuple(entry) if isinstance(entry, tuple) else (entry,)
@@ -109,7 +111,7 @@ class NamedSharding:
             raise ValueError(f"{self.spec!r} has {len(self.spec)} entries "
                              f"for a tensor of {ndim} dimensions")
         shape = self.mesh.shape
-        return [int(np.prod([shape[a] for a in _entry_axes(e)]))
+        return [int(np.prod([shape[a] for a in entry_axes(e)]))
                 for e in self.spec] + [1] * (ndim - len(self.spec))
 
     def shard_shape(self, global_shape) -> Tuple[int, ...]:
@@ -147,31 +149,41 @@ class NamedSharding:
         out = []
         for entry in self.spec:
             k = 0
-            for a in _entry_axes(entry):
+            for a in entry_axes(entry):
                 k = k * shape[a] + coord[a]
             out.append(k)
         return tuple(out)
 
+    def dim_of(self, axis: str) -> Optional[int]:
+        """The dimension the mesh axis ``axis`` splits (None: none)."""
+        for dim, entry in enumerate(self.spec):
+            if axis in entry_axes(entry):
+                return dim
+        return None
+
+    def part(self, tensor: torch.Tensor, device_id: int) -> torch.Tensor:
+        """``device_id``'s part of the whole ``tensor``, a view."""
+        q = self.shard_shape(tensor.shape)
+        for dim, k in enumerate(self.index(device_id)):
+            tensor = tensor.narrow(dim, k * q[dim], q[dim])
+        return tensor
+
     def shard(self, tensor: torch.Tensor) -> Dict[int, torch.Tensor]:
         """device id -> its part of ``tensor``, a contiguous copy on that
         id's device (every id of the mesh; a replicated dimension whole)."""
-        q = self.shard_shape(tensor.shape)
-        out = {}
-        for i in self.mesh.device_ids.ravel().tolist():
-            part = tensor
-            for dim, k in enumerate(self.index(i)):
-                part = part.narrow(dim, k * q[dim], q[dim])
-            out[i] = part.to(self.mesh.device(i), copy=True).contiguous()
-        return out
+        return {i: self.part(tensor, i).to(self.mesh.device(i), copy=True)
+                .contiguous() for i in self.mesh.device_ids.ravel().tolist()}
 
-    def gather(self, shards: Mapping[int, torch.Tensor]) -> torch.Tensor:
+    def gather(self, shards: Mapping[int, torch.Tensor],
+               host: bool = False) -> torch.Tensor:
         """The tensor ``shard`` split, put together on the first id's
-        device from one holder of each part."""
+        device (``host``: in host memory) from one holder of each part."""
         ids = self.mesh.device_ids.ravel().tolist()
         first = shards[ids[0]]
         parts = self._parts(first.dim())
         out = torch.empty([s * p for s, p in zip(first.shape, parts)],
-                          dtype=first.dtype, device=first.device)
+                          dtype=first.dtype,
+                          device="cpu" if host else first.device)
         done = set()
         for i in ids:
             where = self.index(i)
@@ -277,6 +289,82 @@ def batch_sharding(mesh: Mesh, rules, *, with_memory=False,
     if with_memory:
         out["memory"] = NamedSharding(mesh, P(bsp, None, None))
     return out
+
+
+def _first_sharding(shardings) -> Optional[NamedSharding]:
+    if isinstance(shardings, NamedSharding):
+        return shardings
+    if isinstance(shardings, dict):
+        shardings = list(shardings.values())
+    if isinstance(shardings, (list, tuple)):
+        for s in shardings:
+            found = _first_sharding(s)
+            if found is not None:
+                return found
+    return None
+
+
+def place_tree(tree, shardings) -> Dict[int, Any]:
+    """A tree of tensors placed by a tree of ``NamedSharding``s of the
+    same structure (dicts, named tuples, tuples, lists; None stays None):
+    mesh id -> that id's tree of shards (``NamedSharding.shard``: each
+    its own contiguous copy on its id's device, also where several ids
+    share one device, so that an in-place update of one id's shard never
+    writes another's).  The leaves are placed one at a time."""
+    ids = _first_sharding(shardings).mesh.device_ids.ravel().tolist()
+
+    def rec(values, sh):
+        if values is None:
+            return dict.fromkeys(ids)
+        if isinstance(values, dict):
+            parts = {k: rec(values[k], sh[k]) for k in values}
+            return {i: {k: parts[k][i] for k in values} for i in ids}
+        if isinstance(values, (list, tuple)):
+            parts = [rec(v, s) for v, s in zip(values, sh)]
+            build = (type(values) if hasattr(values, "_fields")
+                     else lambda *xs: type(values)(xs))
+            return {i: build(*(p[i] for p in parts)) for i in ids}
+        return sh.shard(torch.as_tensor(values))
+
+    return rec(tree, shardings)
+
+
+def gather_tree(placed: Mapping[int, Any], shardings,
+                host: bool = False) -> Any:
+    """The tree ``place_tree`` split, put together on the first id's
+    device (``host``: in host memory; ``NamedSharding.gather``, leaf by
+    leaf)."""
+    ids = sorted(placed)
+
+    def rec(parts, sh):
+        first = parts[ids[0]]
+        if first is None:
+            return None
+        if isinstance(first, dict):
+            return {k: rec({i: parts[i][k] for i in ids}, sh[k])
+                    for k in first}
+        if isinstance(first, (list, tuple)):
+            out = [rec({i: parts[i][j] for i in ids}, sh[j])
+                   for j in range(len(first))]
+            return (type(first)(*out) if hasattr(first, "_fields")
+                    else type(first)(out))
+        return sh.gather(parts, host)
+
+    return rec(placed, shardings)
+
+
+def placed_nbytes(placed: Mapping[int, Any]) -> Dict[int, int]:
+    """mesh id -> bytes of the tensors its tree holds."""
+    def nbytes(tree) -> int:
+        if tree is None:
+            return 0
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        if isinstance(tree, (list, tuple)):
+            return sum(nbytes(v) for v in tree)
+        return tree.numel() * tree.element_size()
+
+    return {i: nbytes(t) for i, t in placed.items()}
 
 
 def check_divisibility(cfg, mesh: Mesh, global_batch: int, mode: str):

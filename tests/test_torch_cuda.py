@@ -1615,3 +1615,134 @@ def test_dryrun_shards_on_logical_devices_of_the_card(cuda):
         assert torch.equal(back.reshape(-1).view(torch.uint8),
                            t.reshape(-1).contiguous().view(torch.uint8))
     assert set(held.values()) == {want}
+
+
+def _logical_mesh(shape, axes=("data", "model")):
+    from repro_torch.launch.mesh import Mesh, logical_devices, \
+        process_devices
+    n = int(np.prod(shape))
+    with logical_devices(n, "cuda"):
+        return Mesh(np.arange(n).reshape(shape), axes,
+                    process_devices("cuda"))
+
+
+def _ratio(got, want, tol, floor):
+    return max(float((g.float() - w.float()).abs().max())
+               / (tol * max(floor, float(w.float().abs().max())))
+               for g, w in zip(got, want))
+
+
+def _moved(got, want, bound):
+    """max over the entries of |got - want| / bound."""
+    return max(float(((g.float() - w.float()).abs() / b).max())
+               for g, w, b in zip(got, want, bound))
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4)],
+                         ids=["2x2", "1x4"])
+def test_sharded_train_step_on_logical_devices_of_the_card(
+        cuda, no_tf32, mesh_shape):
+    """``chip_smoke.py``'s [main-sharded] a at 1 layer and B 4 x S 64:
+    qwen2-1.5b at full width, f32, one step of the sharded step on 4
+    logical devices of the card against the unsharded step on the card:
+    the loss within 1e-6 relative, every gradient leaf within 1e-5
+    max(1e-3, max|g|), the global norm within 1e-5 relative, and each
+    parameter after AdamW at lr 1e-5 within ``adamw.first_step_tolerance``
+    of those gradient and norm bounds (AdamW's g / (|g| + eps) turns a
+    rounding difference of a gradient entry near eps into a part of lr:
+    the tolerance allows that there and ~2^-16 lr elsewhere); the update
+    path alone within the same tolerance, with no gradient term and the
+    norm within 1e-6, of the unsharded AdamW update of the step's own
+    gradients.  At (1, 4) the two KV heads are replicated."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    cfg = get_config("qwen2-1.5b").replace(n_layers=1, dtype=torch.float32)
+    hyper = dict(seq_len=64, global_batch=4, peak_lr=1e-5, warmup=0,
+                 total_steps=10)
+    tree = tfm.init_params(cfg, torch.Generator(device=cuda).manual_seed(7),
+                           cuda)
+    batch = SyntheticLM(cfg, 64, 4, seed=7).batch(0)
+
+    def fresh():
+        params = tfm.tree_map(lambda t: t.clone(), tree)
+        return steps.TrainState(params, adamw.init(params))
+
+    state = fresh()
+    model = tfm.Transformer(cfg, state.params, live=True)
+    (loss, _), grads = tfm.value_and_grad(model, cfg, batch)
+    want_g = [g.clone() for g in adamw.tree_leaves(grads)]
+    del model, grads
+    state, want = steps.make_train_step(cfg, device=cuda, **hyper).fn(
+        state, batch)
+    bundle = steps.make_train_step(cfg, _logical_mesh(mesh_shape), **hyper)
+    placed = shd.place_tree(fresh(), bundle.state_shardings)
+    _, got_g = bundle.fn.gradients(placed, batch)
+    got_g = tfm.tree_map(lambda g: g.clone(), shd.gather_tree(
+        got_g, bundle.state_shardings.params))
+    placed, metrics = bundle.fn(placed, batch)
+    got_p = adamw.tree_leaves(shd.gather_tree(
+        placed, bundle.state_shardings).params)
+    assert all(t.is_cuda for i in placed
+               for t in adamw.tree_leaves(placed[i]))
+    assert abs(float(metrics["loss"]) - float(loss)) <= 1e-6 * abs(
+        float(loss))
+    assert _ratio(adamw.tree_leaves(got_g), want_g, 1e-5, 1e-3) <= 1.0
+    assert abs(float(metrics["grad_norm"]) - float(want["grad_norm"])) <= \
+        1e-5 * float(want["grad_norm"])
+    want_p = adamw.tree_leaves(state.params)
+    assert _moved(got_p, want_p, adamw.first_step_tolerance(
+        want_g, want_p, want["grad_norm"], lr=hyper["peak_lr"],
+        grad_tol=1e-5, norm_tol=1e-5)) <= 1.0
+    own = fresh()
+    _, _, om = adamw.update(got_g, own.opt, own.params, lr=hyper["peak_lr"])
+    own_p = adamw.tree_leaves(own.params)
+    assert _moved(got_p, own_p, adamw.first_step_tolerance(
+        got_g, own_p, om["grad_norm"], lr=hyper["peak_lr"], grad_tol=0.0,
+        norm_tol=1e-6)) <= 1.0
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 1, 2), (2, 2, 2)],
+                         ids=["2x1x2", "2x2x2"])
+def test_pod_step_on_logical_devices_of_the_card(cuda, mesh_shape):
+    """``chip_smoke.py``'s [main-sharded] c at one layer: the cross-pod
+    compressed step at full width, ratio 0.125, two steps: finite losses;
+    ``cross_pod_bytes`` equal to the count from the leaves' shard shapes
+    and under half of what the uncompressed reduction would move; with a
+    data axis also under half of ``collective_bytes`` (the JAX test's
+    gate: at a data axis of 1 the pod's only other collectives are the
+    model axis's activation sums, and the cross-pod blocks are most of
+    the traffic)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import hlo_analysis as hlo
+    from repro_torch.runtime import steps
+    cfg = get_config("qwen2-1.5b").replace(n_layers=1)
+    bundle = steps.make_pod_compressed_train_step(
+        cfg, _logical_mesh(mesh_shape, ("pod", "data", "model")),
+        seq_len=64, global_batch=4, compress_ratio=0.125, warmup=1,
+        total_steps=2)
+    state = steps.placed_train_state(
+        bundle, torch.Generator(device=cuda).manual_seed(5))
+    pipe = SyntheticLM(cfg, 64, 4, seed=5)
+    losses = []
+    for k in range(2):
+        state, metrics = bundle.fn(state, pipe.batch(k))
+        losses.append(float(metrics["loss"]))
+    assert np.isfinite(losses).all()
+    spec, kept, whole = bundle.fn.spec, 0, 0
+    for meta, sh in zip(tree_leaves(bundle.abstract_state.params),
+                        tree_leaves(bundle.state_shardings.params)):
+        n = int(np.prod(sh.shard_shape(meta.shape)))
+        kept += n if n < 1 << 14 else -(-n // spec.width) * spec.keep
+        whole += n
+    terms = hlo.collective_terms(bundle.collectives)
+    cross = terms["cross_pod_bytes"]
+    assert cross == 2 * 2 * 4 * (kept + 2 + 1)
+    assert 0 < cross < 0.5 * 2 * 2 * 4 * (whole + 2 + 1)
+    if mesh_shape[1] > 1:
+        assert cross < 0.5 * terms["collective_bytes"]

@@ -400,7 +400,7 @@ def test_dot_flops_are_the_jax_loop_aware_count(arch, mode):
 
 def test_cli_writes_the_jax_keys(tmp_path, monkeypatch, capsys):
     """A small cell on both meshes with an override, a cached rerun, the
-    ``pod_compress`` override recorded as a failure (A6d-2), and the
+    ``pod_compress`` override recorded as a failure (A6d-3), and the
     skips of ``--all`` printed."""
     monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
     argv = ["--arch", "mamba2-780m", "--shape", "decode_32k", "--mesh",
@@ -433,8 +433,8 @@ def test_cli_writes_the_jax_keys(tmp_path, monkeypatch, capsys):
     bad = ["--arch", "qwen2-1.5b", "--shape", "train_4k", "--override",
            "pod_compress=true"]
     assert dryrun.main(bad) == 1
-    assert "FAIL qwen2-1.5b train_4k single: make_pod_compressed_train_" \
-        "step needs a pod axis across cards (ROADMAP A6d-2" in \
+    assert "FAIL qwen2-1.5b train_4k single: the pod step's dry run needs " \
+        "the sharded step run over the production mesh's shards" in \
         capsys.readouterr().out
 
 

@@ -35,6 +35,7 @@ from repro_torch.interop import (compress_spec_from_numpy,
                                  train_state_from_numpy,
                                  train_state_to_numpy)
 from repro_torch.launch import train
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import init_error
@@ -316,8 +317,10 @@ def test_refusals():
         train.main(["--arch", ARCH, "--smoke", "--model-axis", "2",
                     "--device", "cpu"])
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="A6d-2"):
-        steps.make_pod_compressed_train_step(_cfgs()[1], seq_len=8,
+    # the pod step takes a mesh with a "pod" axis
+    mesh = make_local_mesh(1, device="cpu")
+    with pytest.raises(ValueError, match="multi-pod mesh required"):
+        steps.make_pod_compressed_train_step(_cfgs()[1], mesh, seq_len=8,
                                              global_batch=2)
 
 
