@@ -64,8 +64,10 @@ each), so that the run stays well inside its time limit:
              the bank equal to its plain version.
 5. main-directed — the directed main path, through the CLI entry point:
              ``serve --fgft --directed`` with B = 64 directed community
-             graphs, n = 256, g = 4096, R = 256, the same tiers.  Counters
-             are zeroed just before; then ``basis.apply(x, inverse=True)``
+             graphs, n = 256, g = 4096, R = 256, the same tiers, the T fit
+             at ``n_iter`` 2 (the engine's default 3 is the run's largest
+             phase).  Counters are zeroed just before; then
+             ``basis.apply(x, inverse=True)``
              and ``basis.apply(.)`` round-trip the signals; counters are
              read just after: ``batched_gen_operator_apply`` and
              ``batched_shear_apply`` must have launched.  Mean full-tier
@@ -399,7 +401,7 @@ each), so that the run stays well inside its time limit:
              unsharded AdamW update of the step's own gradients (the
              parameters against 1e-6 x max(1, max|p|) printed, not
              gated).  b. the full model (28 layers, ``remat_block``
-             4, bf16 compute) on the (2, 2) mesh, 3 steps from
+             4, bf16 compute) on the (2, 2) mesh, 2 steps from
              ``placed_train_state``: finite losses, the median step ms
              beside [main-train]'s, kernel launches and device-busy ms a
              step (torch.profiler), each id's state and batch bytes equal
@@ -415,9 +417,23 @@ each), so that the run stays well inside its time limit:
              half of ``collective_bytes`` (the JAX test's gate).  d. ``train
              --smoke --model-axis 2`` on 4 logical devices: 3 steps,
              ``--resume auto`` to 6, against 6 at once, every state leaf
+             bitwise.  e. one train step of each family beyond the dense
+             ones at full width and the least depth its layer pattern
+             takes (``SHARDED_FAMILIES``: qwen3-moe-30b-a3b expert-parallel
+             and mamba2-780m on (1, 4), recurrentgemma-2b on (2, 2),
+             seamless-m4t-large-v2 on (1, 4), llama-3.2-vision-90b on (1,
+             4), its loss and gradients only, at B 2), f32, TF32 off, the
+             cross-attention gates at 0.5, against the unsharded step on
+             the card, its results parked in host memory: a's bounds (the
+             gradients of mamba2-780m and llama-3.2-vision-90b held in
+             f64, where the unsharded f32 step is itself farther than the
+             bound from an f64 step), each id's bytes the dry run's, the
+             MoE routes and kept pairs against the unsharded step's; then
+             ``train --arch mamba2-780m --smoke --model-axis 2`` resumed
              bitwise.  None of the 12 entry points may launch
-             (``sharded_launches`` of each ``kernels`` row); the phase's
-             seconds are printed.
+             (``sharded_launches``, and ``sharded_families_launches`` for
+             e, of each ``kernels`` row); the phase's seconds are
+             printed.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
              graph (n = 256, g = 2048, n_iter = 1), then analysis, synthesis,
              project and the bank; ``shear_apply``, ``gen_operator_apply``
@@ -476,6 +492,8 @@ card's name and power limit, and as the last line
 from __future__ import annotations
 
 import contextlib
+import functools
+import gc
 import io
 import json
 import os
@@ -499,7 +517,8 @@ DEVICE = "cuda"
 #: run's time limit
 MAIN = dict(graphs=64, n=256, signals=256, steps=5,
             tiers="full:1.0,balanced:0.5,draft:0.25",
-            filters="heat,tikhonov,wavelets:4", single_g=2048)
+            filters="heat,tikhonov,wavelets:4", single_g=2048,
+            directed_n_iter=2)
 #: the heterogeneous fleet of [main-ragged]: sizes cycled over the graphs,
 #: the largest bucket at the main path's width and half its g (its fits
 #: took 146.6 s of a 1131.5 s run at 4096 on a slow host); the directed
@@ -1562,6 +1581,21 @@ def check_round_trip(tag, xr, x, t_dense, num_stages: int) -> float:
     return err
 
 
+@contextlib.contextmanager
+def fit_iterations(n_iter: int):
+    """The fleets the serve CLI builds fit with ``n_iter`` polish passes
+    while open (the CLI, as the JAX package's, has no flag for it; the
+    engine's default is 3)."""
+    from repro_torch.launch import serve
+    init = serve.FGFTServeEngine.__init__
+    serve.FGFTServeEngine.__init__ = functools.partialmethod(init,
+                                                             n_iter=n_iter)
+    try:
+        yield
+    finally:
+        serve.FGFTServeEngine.__init__ = init
+
+
 def phase_main_directed() -> dict:
     """The directed main path through the CLI, then an analysis /
     synthesis round trip through ``ApproxEigenbasis.apply``."""
@@ -1577,7 +1611,8 @@ def phase_main_directed() -> dict:
             "--device", DEVICE]
     launcher.reset_launch_counts()
     t0 = time.perf_counter()
-    out = serve.main(argv)
+    with fit_iterations(MAIN["directed_n_iter"]):
+        out = serve.main(argv)
     basis = out["engine"].basis
     x = out["signals"]
     xr = basis.apply(basis.apply(x, inverse=True))
@@ -1607,6 +1642,9 @@ def phase_main_directed() -> dict:
           f"dense relative error {mean_dense} != objective {mean_rel}")
     trip_err = check_round_trip("main-directed", xr, x, t_dense,
                                 basis.fwd.num_stages)
+    log(f"[main-directed] the fleet's T fit at n_iter "
+        f"{MAIN['directed_n_iter']}: {basis.fwd.num_stages} stages, mean "
+        f"relative error {mean_rel:.6f} (gate < 0.05)")
     for name, ts in out["tiers"].items():
         log(f"[main-directed] tier {name}: {ts['transforms_per_s']:.1f} "
             f"graph-transforms/s, {ts['num_transforms']} components, "
@@ -3660,6 +3698,12 @@ def moe_drops(model) -> int:
     from repro_torch.models.blocks import MoEBlock
     return sum(int((~m.kept).sum()) for m in model.modules()
                if isinstance(m, MoEBlock) and m.kept is not None)
+
+
+def moe_kept(model) -> list:
+    """Each MoE block's kept pairs of the last call (on the device)."""
+    from repro_torch.models.blocks import MoEBlock
+    return [m.kept for m in model.modules() if isinstance(m, MoEBlock)]
 
 
 def moe_routes(model) -> list:
@@ -5863,19 +5907,49 @@ def reuse_g_greedy() -> None:
 
 #: [main-sharded]: the sharded train step on logical devices of the card
 #: (a: 2 layers at full width in f32 against the unsharded step, on two
-#: meshes; b: the full model, 3 steps; c: the pod step; d: the CLI).  a's
+#: meshes; b: the full model, 2 steps; c: the pod step; d: the CLI).  a's
 #: lr: AdamW's first update is g / (|g| + eps) x lr, so a summation-order
 #: difference of a gradient entry near eps moves the parameter by a part
 #: of lr (4.8e-6 apart at lr 1e-4 on the H100, gradients within 1.3e-6
 #: of their scale); the parameter bound of 1e-6 holds at lr 1e-5
 SHARDED = dict(arch=TRAIN["arch"], logical=4, seq=256, batch=8,
                check=dict(layers=2, meshes=((2, 2), (1, 4)), lr=1e-5),
-               full=dict(mesh=(2, 2), steps=3),
+               full=dict(mesh=(2, 2), steps=2),
                pod=dict(layers=2, meshes=((2, 1, 2), (2, 2, 2)),
                         ratio=0.125, steps=3),
                cli=dict(steps=6, cut=3, model_axis=2),
                loss_tol=1e-6, grad_tol=1e-5, grad_floor=1e-3,
                param_tol=1e-6, own_norm_tol=1e-6)
+
+
+#: [main-sharded] e: one train step of each family beyond the dense ones
+#: on logical devices of the card, f32 (TF32 off), at full width and the
+#: smallest depth its layer pattern takes (seamless: as many encoder
+#: layers), seed-0 weights drawn leaf by leaf, the cross-attention gates
+#: at 0.5 (at their init, 0, the cross-attention weights take no
+#: gradient), against the unsharded step on the card with a's bounds;
+#: llama-3.2-vision-90b (6.4 B parameters) holds its loss and gradients
+#: only, at B 2: AdamW's moments would take the card past its 80 GB.
+#: ``f64``: where the unsharded f32 step's own gradients lie farther
+#: than a's bound from an f64 step's at this width (mamba2-780m's
+#: lm_head 1.31 of it, llama-3.2-vision-90b's leaves 4.50 at d 8192 on
+#: an H100: a K = 28672 f32 product alone rounds ~1e-5 of its scale),
+#: the gradients are held to a's bound in f64 (the port's f32
+#: statistics, softmax and SSD decays stay f32), with these changes to
+#: the config (llama: ff and vocabulary cut so that the f64 state fits);
+#: the f32 run's gradient reading is printed beside it.  A differing MoE
+#: route fails unless that token's top-k margin (the k-th largest router
+#: probability less the next) is below ``margin``.  Then the CLI of
+#: mamba2-780m on a model axis of 2, resumed bitwise.
+SHARDED_FAMILIES = dict(
+    runs=(dict(arch="qwen3-moe-30b-a3b", layers=2, mesh=(1, 4)),
+          dict(arch="mamba2-780m", layers=2, mesh=(1, 4), f64={}),
+          dict(arch="recurrentgemma-2b", layers=3, mesh=(2, 2)),
+          dict(arch="seamless-m4t-large-v2", layers=2, mesh=(1, 4)),
+          dict(arch="llama-3.2-vision-90b", layers=5, mesh=(1, 4), batch=2,
+               update=False, f64=dict(d_ff=8192, vocab=32768))),
+    gate=0.5, lr=1e-5, margin=1e-6,
+    cli=dict(arch="mamba2-780m", steps=4, cut=2, model_axis=2))
 
 
 def moved_ratio(got, want, bound) -> float:
@@ -5998,7 +6072,7 @@ def sharded_check(prefix: str, card) -> dict:
 
 
 def sharded_full(prefix: str, card, trained) -> dict:
-    """b: the full model on a (2, 2) mesh of 4 logical devices: 3 steps,
+    """b: the full model on a (2, 2) mesh of 4 logical devices: 2 steps,
     the state placed by ``placed_train_state``."""
     import numpy as np
     import torch
@@ -6163,21 +6237,22 @@ def sharded_pod(prefix: str, card) -> dict:
     return out
 
 
-def sharded_cli(prefix: str, card) -> dict:
+def sharded_cli(prefix: str, card, arch: str = SHARDED["arch"],
+                c: dict = SHARDED["cli"], part: str = "d") -> dict:
     """d: ``train --smoke --model-axis 2`` on 4 logical devices of the
-    card: 3 steps, ``--resume auto`` to 6, against 6 at once."""
+    card: 3 steps, ``--resume auto`` to 6, against 6 at once (e: another
+    ``arch``'s, at ``c``'s steps)."""
     import shutil
     import torch
     from repro_torch.launch import train
     from repro_torch.launch.mesh import logical_devices
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.runtime import sharding as shd
-    c = SHARDED["cli"]
     root = ROOT / "build" / "train_sharded"
     shutil.rmtree(root, ignore_errors=True)
 
     def run(name, n, *extra):
-        argv = ["--arch", SHARDED["arch"], "--smoke", "--steps", str(n),
+        argv = ["--arch", arch, "--smoke", "--steps", str(n),
                 "--seq-len", "32", "--global-batch", "4", "--log-every",
                 "3", "--model-axis", str(c["model_axis"]), "--device",
                 DEVICE, "--ckpt-dir", str(root / name), *extra]
@@ -6192,12 +6267,13 @@ def sharded_cli(prefix: str, card) -> dict:
     whole, _ = run("b", c["steps"])
     shutil.rmtree(root)
     check(f"resumed from step {c['cut']} (saved on {SHARDED['logical']} "
-          "devices)" in text, f"{prefix} d. no resume line")
+          "devices)" in text, f"{prefix} {part}. no resume line")
     got, want = (tree_leaves(shd.gather_tree(r["state"],
                                              r["bundle"].state_shardings))
                  for r in (resumed, whole))
     same = [torch.equal(a, b) for a, b in zip(got, want)]
-    log(f"{prefix} d. train --smoke --model-axis {c['model_axis']} on "
+    log(f"{prefix} {part}. train --arch {arch} --smoke --model-axis "
+        f"{c['model_axis']} on "
         f"{SHARDED['logical']} logical devices (mesh "
         f"{dict(resumed['mesh'].shape)}): {c['cut']} steps, --resume auto "
         f"to {c['steps']}, against {c['steps']} at once: final loss "
@@ -6205,8 +6281,421 @@ def sharded_cli(prefix: str, card) -> dict:
         f"{sum(same)} of {len(same)} state leaves bitwise [{card}]")
     check(all(same) and len(got) == len(want)
           and resumed["final_loss"] == whole["final_loss"],
-          f"{prefix} d. the resumed run differs from the uninterrupted one")
+          f"{prefix} {part}. the resumed run differs from the uninterrupted "
+          "one")
     return {"resumed": resumed["final_loss"], "whole": whole["final_loss"]}
+
+
+class HostPark:
+    """One block of pinned host memory that part e parks the unsharded
+    step's results in, each family's in turn: an H100 host copies to and
+    from pinned memory at ~47 GB/s and to pageable memory at ~1.8 GB/s
+    (pinning costs ~1 s a 4 GB, once)."""
+
+    ALIGN = 64
+
+    def __init__(self, nbytes: int):
+        import torch
+        self.block = torch.empty(nbytes, dtype=torch.uint8,
+                                 pin_memory=DEVICE == "cuda")
+        self.used = 0
+
+    @classmethod
+    def need(cls, leaves, itemsize: int, copies: int = 1) -> int:
+        """Bytes of ``copies`` parked copies of tensors of these shapes."""
+        import math
+        return copies * sum(-(-math.prod(shape) * itemsize // cls.ALIGN)
+                            * cls.ALIGN for shape in leaves)
+
+    def clear(self) -> None:
+        """Start over: what was parked must not be read again."""
+        self.used = 0
+
+    def park(self, t):
+        """A copy of ``t`` in the block."""
+        n = t.numel() * t.element_size()
+        view = self.block[self.used:self.used + n].view(t.dtype).view(
+            t.shape)
+        self.used += -(-n // self.ALIGN) * self.ALIGN
+        return view.copy_(t)
+
+
+class RouterInputs:
+    """Keeps each MoE block's last normed input (``MoEBlock.project``'s
+    ``h``) while open, to read the router's top-k margin of a token whose
+    route differs."""
+
+    def __enter__(self):
+        from repro_torch.models.blocks import MoEBlock
+        self.inputs, self._project = {}, MoEBlock.project
+
+        def project(block, h, first=0):
+            self.inputs[id(block)] = h.detach()
+            return self._project(block, h, first)
+
+        MoEBlock.project = project
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.blocks import MoEBlock
+        MoEBlock.project = self._project
+
+    def margins(self, model) -> list:
+        """Each MoE block's top-k margin per token, (groups, gsz)."""
+        import torch
+        from repro_torch.models.blocks import MoEBlock, moe_groups
+        out = []
+        for m in model.modules():
+            if isinstance(m, MoEBlock):
+                h = self.inputs[id(m)]
+                gsz, _ = moe_groups(m.cfg, *h.shape[:2])
+                probs = torch.softmax((h.reshape(-1, gsz, h.shape[-1])
+                                       @ m.router.to(h.dtype)).float(), -1)
+                top = probs.sort(-1, descending=True).values
+                k = m.cfg.top_k
+                out.append((top[..., k - 1] - top[..., k]).cpu())
+        return out
+
+
+def family_step(prefix: str, card, run: dict, park: HostPark) -> dict:
+    """e, one family: the unsharded step's loss, gradients (and with an
+    update its global norm and parameters after AdamW) moved to host
+    memory, then the sharded step on ``run``'s mesh of logical devices
+    from the same weights, each leaf gathered and held to its host copy
+    one at a time.  Also: every id holds the dry run's argument bytes
+    (the state's shards and the batch, the memory counted in bf16 as the
+    dry run's input specs give it; without an update the moments are
+    reckoned from their shardings, not allocated), the collective result
+    bytes per id by kind and axes, the peak device bytes, the host bytes
+    the check holds, and for an MoE the routes and kept pairs against
+    the unsharded step's.  ``park``: the pinned block the results are
+    parked in."""
+    import torch
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import hlo_analysis as hlo
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    c = SHARDED_FAMILIES
+    t0 = time.perf_counter()
+    arch, update = run["arch"], run.get("update", True)
+    cfg = family_config(run)
+    seq, rows = SHARDED["seq"], run.get("batch", SHARDED["batch"])
+    hyper = dict(seq_len=seq, global_batch=rows, peak_lr=c["lr"], warmup=0,
+                 total_steps=10)
+    specs = steps.input_specs(cfg, seq, rows)
+    batch = {k: torch.from_numpy(v).to(specs[k].dtype) for k, v in
+             SyntheticLM(cfg, seq, rows, seed=0).batch(0).items()}
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    tree = open_gates(tfm.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE),
+        c["gate"])
+    n_params = sum(t.numel() for t in tree_leaves(tree))
+    with RouterInputs() as spy:
+        model = tfm.Transformer(cfg, tree, live=True)
+        (loss, _), grads = tfm.value_and_grad(model, cfg, batch)
+        routes, kept = moe_routes(model), [m.cpu() for m in moe_kept(model)]
+        margins = spy.margins(model)
+    park.clear()
+    want_g = [park.park(g) for g in tree_leaves(grads)]
+    want_p = None
+    if update:   # the rest of the unsharded step's calls, in place
+        opt = adamw.init(tree)
+        _, _, om = adamw.update(grads, opt, tree, lr=adamw.warmup_cosine(
+            opt.step, peak_lr=c["lr"], warmup=0, total=10))
+        want_norm = float(om["grad_norm"])
+        want_p = [park.park(p) for p in tree_leaves(tree)]
+        del opt
+    else:
+        want_norm = sum(float(torch.linalg.vector_norm(g)) ** 2
+                        for g in tree_leaves(grads)) ** 0.5
+    del model, grads
+    t_plain = time.perf_counter() - t0
+    host = sum(t.numel() * t.element_size() for t in want_g + (want_p or []))
+    mesh = _logical_mesh(run["mesh"])
+    bundle = steps.make_train_step(cfg, mesh, **hyper)
+    ids, sh = bundle.fn.ids, bundle.state_shardings
+    if update:   # the update wrote ``tree``: the same draws, leaf by leaf
+        del tree
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        placed = steps.placed_train_state(
+            bundle, torch.Generator(device=DEVICE).manual_seed(0))
+        for st in placed.values():
+            open_gates(st.params, c["gate"])
+    else:
+        params = shd.place_tree(tree, sh.params)
+        del tree
+        placed = {i: steps.TrainState(params[i], None) for i in ids}
+        del params
+    run_fn, got = bundle.fn, {}
+    if update:   # one step, its gradients kept as it reduced them
+        def gradients(state, bt, inner=run_fn.gradients):
+            got["g"] = inner(state, bt)
+            return got["g"]
+
+        run_fn.gradients = gradients
+        bundle.collectives.reset()
+        placed, m = run_fn(placed, batch)
+        del run_fn.gradients   # the class's method again (no cycle)
+        metrics, g = got.pop("g")
+        step_norm = float(m["grad_norm"])
+    else:
+        bundle.collectives.reset()
+        metrics, g = run_fn.gradients(placed, batch)
+    coll = bundle.collectives.by_id()
+    terms = hlo.collective_terms(bundle.collectives)
+    got_loss = float(metrics[ids[0]]["loss"])
+    model = run_fn.live[ids[0]][1]
+    got_routes = moe_routes(model)
+    got_kept = [m.cpu() for m in moe_kept(model)]
+    del model
+    held = shd.placed_nbytes(placed)
+    # the checks read the gradients and, after an update, the parameters:
+    # the moments (and without an update the parameters) go first
+    after = {i: placed[i].params for i in ids} if update else None
+    del placed
+    run_fn.live.clear()
+    r_upd, each = None, None
+    if update:   # each parameter after the step, held beside its gradient
+        shardings = tree_leaves(sh.params)
+        per_id = {i: tree_leaves(after[i]) for i in ids}
+        upd = []
+
+        def each(k, gw):
+            got = shardings[k].gather({i: per_id[i][k] for i in ids})
+            pw = want_p[k].to(got.device)
+            bound = adamw.first_step_tolerance(
+                [gw], [pw], want_norm, lr=c["lr"],
+                grad_tol=SHARDED["grad_tol"], norm_tol=SHARDED["grad_tol"])
+            upd.append(moved_ratio([got], [pw], bound))
+
+    r_grad, worst, got_norm = gradient_ratio(sh.params, g, ids, want_g, each)
+    n_leaves = len(want_g)
+    del g, after
+    r_loss = abs(got_loss - float(loss)) / (SHARDED["loss_tol"]
+                                            * abs(float(loss)))
+    r_norm = abs(got_norm - want_norm) / (SHARDED["grad_tol"] * want_norm)
+    if update:
+        r_upd = max(upd)
+        r_norm = max(r_norm, abs(step_norm - want_norm) / (
+            SHARDED["grad_tol"] * want_norm))
+        del per_id
+    if not update:   # the moments and step, reckoned from their shardings
+        abstract = bundle.abstract_state
+        extra = sum(s.shard_nbytes(t) for t, s in zip(
+            tree_leaves(abstract.opt), tree_leaves(sh.opt)))
+        held = {i: b + extra for i, b in held.items()}
+    placed_batch = shd.placed_nbytes(shd.place_tree(
+        batch, bundle.batch_shardings))
+    per_id_bytes = {i: held[i] + placed_batch[i] for i in ids}
+    t_sharded = time.perf_counter() - t0 - t_plain
+    want_bytes = dryrun.argument_bytes(
+        cfg, {"fsdp": False, "moment_dtype": torch.float32},
+        Shape("sharded-e", seq, rows, "train"), mesh)
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    del bundle, run_fn
+    flips = [(a != b).any(-1) for a, b in zip(got_routes, routes)]
+    n_flip = sum(int(f.sum()) for f in flips)
+    n_kept = sum(int((a != b).sum()) for a, b in zip(got_kept, kept))
+    flip_margins = [float(x) for f, mg in zip(flips, margins)
+                    for x in mg[f].tolist()]
+    secs = time.perf_counter() - t0
+    tag = "x".join(map(str, run["mesh"]))
+    log(f"{prefix} e. {arch} (f32, {cfg.n_layers} layers"
+        f"{f' + {cfg.n_enc_layers} encoder layers' if cfg.is_encdec else ''}"
+        f" at full width, {n_params} parameters, "
+        f"B {rows} x S {seq}, TF32 off, gates {c['gate']}) on a {tag} mesh "
+        f"of logical devices against the unsharded step: loss "
+        f"{got_loss:.7f} vs {float(loss):.7f}; max|d| / bound: loss "
+        f"{r_loss:.3e} ({SHARDED['loss_tol']} relative), "
+        f"{n_leaves} gradient leaves {r_grad:.3e} (at {worst}) "
+        f"({SHARDED['grad_tol']} x max({SHARDED['grad_floor']}, max|g|)"
+        f"{'; held in f64 below' if 'f64' in run else ''}), "
+        f"the global norm {r_norm:.3e} ({SHARDED['grad_tol']} relative)"
+        + (f", parameters after one AdamW update at lr {c['lr']} "
+           f"{r_upd:.3e} (adamw.first_step_tolerance)" if update
+           else ", no update (loss and gradients only)")
+        + f"; {secs:.1f} s (the unsharded step and its host copies "
+        f"{t_plain:.1f} s, the sharded step and the leaf checks "
+        f"{t_sharded:.1f} s, the dry run's trace "
+        f"{secs - t_plain - t_sharded:.1f} s) [{card}]")
+    log(f"{prefix} e. {arch}: state and batch bytes per id {per_id_bytes} "
+        f"against the dry run's argument bytes {want_bytes}"
+        f"{'' if update else ' (moments and step reckoned)'}; peak device "
+        f"bytes {peak} (max_memory_allocated; {base} of them allocated "
+        f"before the family), host bytes held by the check "
+        f"{host}; one {'step' if update else 'gradient pass'}'s collective "
+        f"result bytes per id by "
+        f"kind and axes {coll}, per device (an all-reduce twice) "
+        f"{terms['collective_bytes']} B [{card}]")
+    if routes:
+        log(f"{prefix} e. {arch}: MoE routes differing from the unsharded "
+            f"step's {n_flip} tokens of {sum(r.shape[0] * r.shape[1] for r in routes)} "
+            f"(their top-k margins {flip_margins}), kept pairs differing "
+            f"{n_kept} [{card}]")
+    del want_g, want_p
+    exact = (family_exact(prefix, card, run, seq, rows, park)
+             if "f64" in run else None)
+    r_held = exact["grads"] if exact else r_grad
+    check(max(r_loss, r_held, r_norm, r_upd or 0.0) <= 1.0,
+          f"{prefix} e. {arch} {tag}: sharded vs unsharded over the bound "
+          f"({r_loss}, {r_held}, {r_norm}, {r_upd})")
+    check(set(per_id_bytes.values()) == {want_bytes},
+          f"{prefix} e. {arch}: bytes per id {per_id_bytes} != {want_bytes}")
+    check(all(mg < c["margin"] for mg in flip_margins),
+          f"{prefix} e. {arch}: {n_flip} routes differ, margins "
+          f"{flip_margins}")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"loss": r_loss, "grads": r_grad, "f64": exact, "norm": r_norm,
+            "params": r_upd, "bytes_per_id": want_bytes, "peak": peak,
+            "base": base,
+            "host_bytes": host, "collectives": coll,
+            "collective_bytes": terms["collective_bytes"],
+            "route_flips": n_flip, "kept_flips": n_kept, "seconds": secs,
+            "n_params": n_params}
+
+
+def gradient_ratio(shardings, g, ids, wants, each=None) -> tuple:
+    """Each gradient leaf of a sharded step (``g``: id -> its tree of
+    shards) gathered and held to its copy in ``wants`` (host tensors in
+    ``tree_leaves`` order), one leaf at a time: (max over the leaves of
+    max|d| / (a's gradient bound), the worst leaf's path, the gathered
+    gradients' global norm).  ``each(k, want)``: called with leaf k's
+    copy on the device, before the next leaf."""
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.steps import _leaf_paths
+    ratio, worst, sq = 0.0, None, 0.0
+    per_id = {i: tree_leaves(g[i]) for i in ids}
+    for k, ((path, s), want) in enumerate(zip(_leaf_paths(shardings),
+                                              wants)):
+        got = s.gather({i: per_id[i][k] for i in ids})
+        w = want.to(got.device)
+        sq += float(torch.linalg.vector_norm(got)) ** 2
+        r = float((got - w).abs().max()) / (
+            SHARDED["grad_tol"] * max(SHARDED["grad_floor"],
+                                      float(w.abs().max())))
+        if r >= ratio:
+            ratio, worst = r, ".".join(path)
+        del got
+        if each is not None:
+            each(k, w)
+        del w
+    return ratio, worst, sq ** 0.5
+
+
+def family_config(run: dict, f64: bool = False):
+    """A part e run's config: full width at ``run``'s depth (as many
+    encoder layers), f32; ``f64``: f64 with ``run["f64"]``'s changes."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(run["arch"])
+    cfg = cfg.replace(n_layers=run["layers"], dtype=torch.float32,
+                      n_enc_layers=run["layers"] if cfg.is_encdec else 0)
+    if f64:
+        cfg = cfg.replace(dtype=torch.float64, param_dtype=torch.float64,
+                          **run["f64"])
+    return cfg
+
+
+def park_bytes(runs) -> int:
+    """The pinned bytes part e's largest parking takes: a run's
+    gradients (and with an update its parameters), or its f64
+    gradients."""
+    from repro_torch.models import transformer as tfm
+    need = 0
+    for run in runs:
+        for f64, copies in ((False, 1 + run.get("update", True)),
+                            (True, 1)):
+            if f64 and "f64" not in run:
+                continue
+            shapes = []
+            tfm.tree_map(lambda leaf: shapes.append(leaf.shape),
+                         tfm.param_spec(family_config(run, f64)))
+            need = max(need, HostPark.need(shapes, 8 if f64 else 4, copies))
+    return need
+
+
+def family_exact(prefix: str, card, run: dict, seq: int, rows: int,
+                 park: HostPark) -> dict:
+    """e, a family's gradients in f64 (``run["f64"]``: the config's
+    changes): the unsharded step's, parked in host memory, then the
+    sharded step's on the same mesh, each leaf held to a's bound."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    t0 = time.perf_counter()
+    cfg = family_config(run, f64=True)
+    specs = steps.input_specs(cfg, seq, rows)
+    batch = {k: torch.from_numpy(v).to(specs[k].dtype) for k, v in
+             SyntheticLM(cfg, seq, rows, seed=0).batch(0).items()}
+    tree = open_gates(tfm.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE),
+        SHARDED_FAMILIES["gate"])
+    model = tfm.Transformer(cfg, tree, live=True)
+    (loss, _), grads = tfm.value_and_grad(model, cfg, batch)
+    park.clear()
+    want = [park.park(t) for t in tree_leaves(grads)]
+    del model, grads
+    bundle = steps.make_train_step(cfg, _logical_mesh(run["mesh"]),
+                                   seq_len=seq, global_batch=rows)
+    params = shd.place_tree(tree, bundle.state_shardings.params)
+    del tree
+    placed = {i: steps.TrainState(params[i], None) for i in params}
+    del params
+    metrics, g = bundle.fn.gradients(placed, batch)
+    ids = bundle.fn.ids
+    ratio, worst, _ = gradient_ratio(bundle.state_shardings.params, g, ids,
+                                     want)
+    got = float(metrics[ids[0]]["loss"])
+    r_loss = abs(got - float(loss)) / (SHARDED["loss_tol"]
+                                       * abs(float(loss)))
+    del placed, bundle, g, want
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"{prefix} e. {run['arch']} in f64 ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, ff {cfg.d_ff}, vocab {cfg.vocab}; the "
+        f"port's f32 statistics, softmax and SSD decays stay f32) on the "
+        f"same mesh against the unsharded step in f64: loss {got!r} vs "
+        f"{float(loss)!r}, max|d| / bound: loss {r_loss:.3e}, gradient "
+        f"leaves {ratio:.3e} (at {worst}) ({SHARDED['grad_tol']} x max("
+        f"{SHARDED['grad_floor']}, max|g|)); {secs:.1f} s [{card}]")
+    check(max(r_loss, ratio) <= 1.0, f"{prefix} e. {run['arch']} f64: "
+          f"sharded vs unsharded over the bound ({r_loss}, {ratio})")
+    return {"loss": r_loss, "grads": ratio, "worst": worst, "seconds": secs}
+
+
+def sharded_families(prefix: str, card) -> dict:
+    """e: ``family_step`` for each of SHARDED_FAMILIES' runs, then the
+    CLI of mamba2-780m on a model axis of 2 resumed bitwise."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = SHARDED_FAMILIES
+    t0 = time.perf_counter()
+    park = HostPark(park_bytes(c["runs"]))
+    log(f"{prefix} e. {park.block.numel()} B of pinned host memory for the "
+        f"unsharded steps' results, pinned in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    out = {f"{r['arch']} {'x'.join(map(str, r['mesh']))}":
+           family_step(prefix, card, r, park) for r in c["runs"]}
+    del park
+    out["cli"] = sharded_cli(prefix, card, c["cli"]["arch"], c["cli"], "e")
+    return out
 
 
 def phase_main_sharded(card, trained) -> dict:
@@ -6220,21 +6709,26 @@ def phase_main_sharded(card, trained) -> dict:
     secs, out = {}, {}
     for part, fn in (("a", sharded_check),
                      ("b", lambda p, c: sharded_full(p, c, trained)),
-                     ("c", sharded_pod), ("d", sharded_cli)):
+                     ("c", sharded_pod), ("d", sharded_cli),
+                     ("e", sharded_families)):
+        if part == "e":   # the families' own count of the entry points
+            launches = launcher.entry_launch_counts()
+            launcher.reset_launch_counts()
         t0 = time.perf_counter()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         out[part] = fn(prefix, card)
         torch.cuda.empty_cache()
         secs[part] = time.perf_counter() - t0
-    launches = launcher.entry_launch_counts()
-    check(not any(launches.values()), f"{prefix} launched {launches}")
+    families = launcher.entry_launch_counts()
+    check(not any(launches.values()) and not any(families.values()),
+          f"{prefix} launched {launches}, e {families}")
     phase_s = time.perf_counter() - t_phase
     log(f"{prefix} {phase_s:.1f}s in all ("
         + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
         + f"); none of the 12 entry points launched [{card}]")
-    return {"launches": launches, **out, "phase_s": phase_s,
-            "part_s": secs}
+    return {"launches": launches, "families_launches": families, **out,
+            "phase_s": phase_s, "part_s": secs}
 
 
 def main() -> int:
@@ -6338,6 +6832,8 @@ def main() -> int:
         row["placed_launches"] = placed["launches"].get(row["entry"], 0)
         row["dryrun_launches"] = dry["launches"].get(row["entry"], 0)
         row["sharded_launches"] = sharded["launches"].get(row["entry"], 0)
+        row["sharded_families_launches"] = sharded["families_launches"].get(
+            row["entry"], 0)
         row["max_abs_err"] = errs[row["entry"]]
     if args.baseline:
         turns = phase_turns(args.baseline, main_rec, single, main_dir,

@@ -24,7 +24,7 @@ meshes (``launch/mesh.py::make_production_mesh``: 16x16 single pod,
                   sharded step runs (``runtime/steps.py`` on logical
                   devices, ``hlo_analysis.collective_terms``); one
                   process tracing a step over 256 or 512 shards is not
-                  feasible (ROADMAP A6d-3), nor is the ``pod_compress``
+                  feasible (ROADMAP A6d-3b), nor is the ``pod_compress``
                   override's pod step, which needs that run
 
 One trace at the global batch and one at the data shard's batch serve
@@ -119,7 +119,7 @@ def trace_step(cfg, shape, batch: int, *, moment_dtype=torch.float32,
         raise NotImplementedError(
             "the pod step's dry run needs the sharded step run over the "
             "production mesh's shards in one process, which is not "
-            "feasible at 512 ids (ROADMAP A6d-3); make_pod_compressed_"
+            "feasible at 512 ids (ROADMAP A6d-3b); make_pod_compressed_"
             "train_step runs on a local mesh")
     if shape.mode == "train":
         bundle = steps_lib.make_train_step(

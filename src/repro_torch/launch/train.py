@@ -21,7 +21,8 @@ make_local_mesh`` as in the JAX package's CLI, a ("data", "model") mesh
 over every device of ``--device``'s kind the process has (an axis they
 cannot hold raises its ``ValueError``).  On one device the step is the
 unsharded one; on more it is the sharded step (``runtime/steps.py``:
-data and tensor parallelism, the state in shards on the mesh's ids).  A
+data, tensor and expert parallelism for every ``--arch``, the state in
+shards on the mesh's ids).  A
 sharded run saves its state gathered into host memory (no device holds
 it whole), in the same one-file format as an unsharded run, so the JAX
 store and an unsharded port read it; ``--resume auto`` restores it into

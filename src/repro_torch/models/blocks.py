@@ -71,6 +71,10 @@ class _Block(nn.Module):
     def weights(self) -> SimpleNamespace:
         return SimpleNamespace(**self._casts()) if self.live else self._cast
 
+    def normed(self, x: torch.Tensor) -> torch.Tensor:
+        """The input the block's projections read (its pre-norm)."""
+        return rmsnorm(x, self.norm, self.cfg.rms_eps)
+
 
 # ---------------------------------------------------------------------------
 # Self-attention (global / local) with GQA + RoPE
@@ -122,7 +126,7 @@ class AttnBlock(_Block):
                 window: int = 0, causal: bool = True,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 tiles: Optional[dict] = None):
-        h = rmsnorm(x, self.norm, self.cfg.rms_eps)
+        h = self.normed(x)
         out, cache = self.attend(h, positions, window=window, causal=causal,
                                  cache=cache, tiles=tiles)
         return x + out.to(x.dtype), cache
@@ -213,23 +217,33 @@ class CrossAttnBlock(_Block):
         return out
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-        cfg, c = self.cfg, self.weights()
-        b, sq = x.shape[:2]
+        c = self.weights()
+        out = self.attend(self.normed(x), memory, c=c)
+        return x + c.gate * out.to(x.dtype)
+
+    def attend(self, h: torch.Tensor, memory: torch.Tensor,
+               kv_heads: Optional[torch.Tensor] = None, c=None):
+        """The block's output of the normed input ``h`` before the gate
+        and the residual (``forward`` applies both).  ``kv_heads`` as
+        ``AttnBlock.attend``'s, for a tensor-parallel rank."""
+        cfg = self.cfg
+        c = self.weights() if c is None else c
+        b, sq = h.shape[:2]
         sk = memory.shape[1]
-        h = rmsnorm(x, self.norm, cfg.rms_eps)
         mem = memory.to(h.dtype)
         q = (h @ c.wq).reshape(b, sq, cfg.n_heads, cfg.hd)
         k = (mem @ c.wk).reshape(b, sk, cfg.n_kv_heads, cfg.hd)
         v = (mem @ c.wv).reshape(b, sk, cfg.n_kv_heads, cfg.hd)
+        if kv_heads is not None:
+            k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
         zeros = functools.partial(torch.zeros, dtype=torch.int32,
-                                  device=x.device)
+                                  device=h.device)
         # every position 0, no causal mask and no window: no tile is ever
         # skipped, so the tile table is not read (no host sync)
         o = attention(q, k, v, zeros((b, sq)), zeros((b, sk)), causal=False,
                       window=0, cap=None, impl=cfg.attn_impl,
                       chunk=cfg.attn_chunk, skip=False)
-        out = o.reshape(b, sq, -1) @ c.wo
-        return x + c.gate * out.to(x.dtype)
+        return o.reshape(b, sq, -1) @ c.wo
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +339,7 @@ class MLPBlock(_Block):
     def normed(self, x: torch.Tensor) -> torch.Tensor:
         """The input the projections read: normed, then mixed where
         ``cfg.butterfly_mlp``."""
-        h = rmsnorm(x, self.norm, self.cfg.rms_eps)
+        h = super().normed(x)
         if self.cfg.butterfly_mlp:
             h = _butterfly_mix(self.bf_theta, h)
         return h
@@ -349,8 +363,8 @@ class MLPBlock(_Block):
 # ---------------------------------------------------------------------------
 
 def moe_spec(cfg: ModelConfig) -> Spec:
-    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {"norm": ((d,), "zeros"), "router": ((d, e), "normal"),
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.local_experts
+    return {"norm": ((d,), "zeros"), "router": ((d, cfg.n_experts), "normal"),
             "w_gate": ((e, d, f), "normal"), "w_up": ((e, d, f), "normal"),
             "w_down": ((e, f, d), "normal")}
 
@@ -398,7 +412,15 @@ class MoEBlock(_Block):
     CPU, the JAX package's order of the compute-dtype sums.
 
     ``routes`` and ``kept`` keep the last call's top-k expert ids and
-    which pairs fit, (groups, gsz, k), on the device (no host read)."""
+    which pairs fit, (groups, gsz, k), on the device (no host read).
+
+    A tensor-parallel rank (``project``'s ``first``) routes every token
+    and computes the capacity and the drops as the whole block does, so
+    its dispatch is the global one; it fills and runs only its own
+    experts' part of the (e, cap) table and combines only their slots
+    (expert parallelism), or runs every expert over its ``ff`` columns
+    (each expert Megatron-split); the ranks' parts add up to the
+    block's output."""
 
     def __init__(self, cfg: ModelConfig, w: Dict[str, torch.Tensor],
                  live: bool = False):
@@ -412,11 +434,17 @@ class MoEBlock(_Block):
                 "up": self.w_up.to(dt), "down": self.w_down.to(dt)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.project(self.normed(x)).to(x.dtype)
+
+    def project(self, h: torch.Tensor, first: int = 0) -> torch.Tensor:
+        """The block's output of the normed input ``h`` without the
+        residual, over this block's experts: ``cfg.local_experts`` of
+        them from expert ``first`` on, over their ``ff`` columns (a
+        tensor-parallel rank's part)."""
         cfg, c = self.cfg, self.weights()
-        b, s, d = x.shape
-        e, k = cfg.n_experts, cfg.top_k
-        dev = x.device
-        h = rmsnorm(x, self.norm, cfg.rms_eps)
+        b, s, d = h.shape
+        e, k, el = cfg.n_experts, cfg.top_k, cfg.local_experts
+        dev = h.device
         gsz, cap = moe_groups(cfg, b, s)
         g = b * s // gsz
         hg = h.reshape(g, gsz, d)
@@ -446,22 +474,26 @@ class MoEBlock(_Block):
         table.scatter_(1, slot.reshape(g, -1), tok.reshape(g, -1))
         hpad = torch.cat([hg, hg.new_zeros(g, 1, d)], dim=1)
         gi = torch.arange(g, device=dev)[:, None]
-        xin = hpad[gi, table[:, :e * cap]].reshape(g, e, cap, d)
+        xin = hpad[gi, table[:, first * cap:(first + el) * cap]].reshape(
+            g, el, cap, d)
         a = F.silu(torch.einsum("gecd,edf->gecf", xin, c.gate))
         u = torch.einsum("gecd,edf->gecf", xin, c.up)
         y = torch.einsum("gecf,efd->gecd", a * u, c.down)
 
         # combine: each token's kept slots, weighted, by ascending expert
-        ypad = torch.cat([y.reshape(g, e * cap, d), y.new_zeros(g, 1, d)],
+        # (another rank's slot: the zero row)
+        ypad = torch.cat([y.reshape(g, el * cap, d), y.new_zeros(g, 1, d)],
                          dim=1)
         slot, perm = torch.sort(slot, dim=-1)
         wts = top_p.gather(-1, perm).to(y.dtype)
+        own = slot - first * cap
+        own = torch.where((own >= 0) & (own < el * cap), own, el * cap)
         out = None
         for j in range(k):
-            yj = ypad[gi, slot[..., j]] * wts[..., j, None]
+            yj = ypad[gi, own[..., j]] * wts[..., j, None]
             out = yj if out is None else out + yj
         self.routes, self.kept = top_e, keep
-        return x + out.reshape(b, s, d).to(x.dtype)
+        return out.reshape(b, s, d)
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +502,7 @@ class MoEBlock(_Block):
 
 def ssd_spec(cfg: ModelConfig) -> Spec:
     d = cfg.d_model
-    d_in = cfg.ssm_expand * d
+    d_in = cfg.ssm_inner
     hs = d_in // cfg.ssm_head_dim
     n, cw = cfg.ssm_state, cfg.conv_width
     return {"norm": ((d,), "zeros"), "in_xz": ((d, 2 * d_in), "normal"),
@@ -506,14 +538,24 @@ def _causal_conv(x: torch.Tensor, kernel: torch.Tensor,
 
 
 def _segsum(t: torch.Tensor) -> torch.Tensor:
-    """(..., L) -> (..., L, L) lower-triangular cumulative sums (SSD
-    decays; -inf above the diagonal)."""
+    """(..., L) -> (..., L, L) segment sums, entry (i, j) the sum of t
+    over j < k <= i (SSD decays; -inf above the diagonal).
+
+    Each segment is summed directly (a cumulative sum down the rows of
+    t masked to k > j), the Mamba-2 reference's stable form.  The JAX
+    package takes differences of one cumulative sum, cs_i - cs_j, which
+    loses the digits of |cs| that a short segment does not have: at a
+    chunk of 128 steps of decay ~0.7, a rounding of the inputs comes back
+    ~90 times larger in the segment, and two f32 runs that add the same
+    terms in another order (a tensor-parallel step) part by more than
+    1e-5 of the decay parameters' gradients.  The two forms agree within
+    the f32 rounding of the sums."""
     length = t.shape[-1]
-    cs = torch.cumsum(t, dim=-1)
-    diff = cs[..., :, None] - cs[..., None, :]
-    mask = torch.tril(torch.ones(length, length, dtype=torch.bool,
-                                 device=t.device))
-    return diff.masked_fill(~mask, -math.inf)
+    ones = torch.ones(length, length, dtype=torch.bool, device=t.device)
+    terms = t[..., :, None].expand(*t.shape, length).masked_fill(
+        ~torch.tril(ones, diagonal=-1), 0)              # [k, j]: t_k, k > j
+    seg = torch.cumsum(terms, dim=-2)
+    return seg.masked_fill(~torch.tril(ones), -math.inf)
 
 
 class SSDBlock(_Block):
@@ -523,7 +565,10 @@ class SSDBlock(_Block):
     a multiple with zero decays, recurrent across chunks in a loop); with
     a cache and S == 1 the single-step recurrence.  ``cache`` is one
     layer's ``{"conv": (B, W-1, d_in + 2N), "state": (B, H, P, N) f32}``,
-    written in place."""
+    written in place.
+
+    A tensor-parallel rank (``project``) holds the heads of its part of
+    the inner width (``cfg.ssm_inner``) and B, C whole."""
 
 
     def _casts(self):
@@ -534,13 +579,24 @@ class SSDBlock(_Block):
 
     def forward(self, x: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None):
-        cfg, c = self.cfg, self.weights()
-        b, s, _ = x.shape
-        d_in = cfg.ssm_expand * cfg.d_model
+        c = self.weights()
+        h = self.normed(x)
+        xc, z = (h @ c.in_xz).split(self.cfg.ssm_inner, dim=-1)
+        out, cache = self.project(h, xc, z, cache, c)
+        return x + out.to(x.dtype), cache
+
+    def project(self, h: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
+                cache: Optional[Dict[str, torch.Tensor]] = None, c=None):
+        """The block's output of the normed input ``h`` without the
+        residual, and the cache: ``xc`` and ``z`` are the x and z columns
+        of ``h @ in_xz`` over this block's heads (a tensor-parallel rank
+        gathers them: its ``in_xz`` columns are not its heads')."""
+        cfg = self.cfg
+        c = self.weights() if c is None else c
+        b, s, _ = h.shape
+        d_in = cfg.ssm_inner
         p, n = cfg.ssm_head_dim, cfg.ssm_state
         hs = d_in // p
-        h = rmsnorm(x, self.norm, cfg.rms_eps)
-        xc, z = (h @ c.in_xz).split(d_in, dim=-1)
         bmat, cmat = (h @ c.in_bc).split(n, dim=-1)
         dt = F.softplus(h @ c.in_dt + c.dt_bias)                # (b, s, hs)
         a = -torch.exp(self.a_log.float())
@@ -567,7 +623,7 @@ class SSDBlock(_Block):
             y = y.reshape(b, 1, d_in)
         else:
             st0 = (cache["state"] if cache is not None else
-                   torch.zeros((b, hs, p, n), device=x.device))
+                   torch.zeros((b, hs, p, n), device=h.device))
             y, st = self._chunked(dtx, bmat, cmat, dta, st0)
             y = y + self.d_skip.float()[None, None, :, None] * xh.float()
             y = y.reshape(b, s, d_in)
@@ -575,9 +631,8 @@ class SSDBlock(_Block):
                 cache["state"].copy_(st)
         if cache is not None:
             conv.copy_(torch.cat([ncx, ncb, ncc], dim=-1))
-        y = y.to(x.dtype) * F.silu(z)
-        out = y @ c.out
-        return x + out.to(x.dtype), cache
+        y = y.to(h.dtype) * F.silu(z)
+        return y @ c.out, cache
 
     def _chunked(self, dtx, bmat, cmat, dta, st):
         """The chunked scan: (y (B, S, H, P) f32, the final state)."""
@@ -620,11 +675,11 @@ class SSDBlock(_Block):
 
 def rglru_spec(cfg: ModelConfig) -> Spec:
     d = cfg.d_model
-    w = cfg.lru_width or d
+    w, full = cfg.lru_inner, cfg.lru_width or d
     return {"norm": ((d,), "zeros"), "in_x": ((d, w), "normal"),
             "in_y": ((d, w), "normal"),
             "conv": ((cfg.conv_width, w), "normal", 0.2),
-            "w_r": ((w, w), "normal"), "w_i": ((w, w), "normal"),
+            "w_r": ((w, full), "normal"), "w_i": ((w, full), "normal"),
             "lam": ((w,), "ones"), "out": ((w, d), "normal")}
 
 
@@ -654,7 +709,12 @@ class RGLRUBlock(_Block):
     -> (x_out, cache)``.  S > 1 (or no cache) scans the recurrence with
     ``linear_scan`` and folds in the carried state; a cache and S == 1
     take one step h = h a + gated.  ``cache`` is one layer's ``{"conv":
-    (B, W-1, width), "h": (B, width) f32}``, written in place."""
+    (B, W-1, width), "h": (B, width) f32}``, written in place.
+
+    A tensor-parallel rank holds its part of the width (``cfg.lru_inner``)
+    and the rows of ``w_r`` and ``w_i`` it reads, the gates' columns
+    whole: its ``branches`` give a partial sum of each whole gate, and
+    ``recur`` takes the rank's own columns of the sums."""
 
     C_CONST = 8.0
 
@@ -666,15 +726,34 @@ class RGLRUBlock(_Block):
 
     def forward(self, x: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None):
-        cfg, c = self.cfg, self.weights()
-        s = x.shape[1]
-        h = rmsnorm(x, self.norm, cfg.rms_eps)
+        c = self.weights()
+        xb, yb, new_conv = self.branches(self.normed(x), cache, c)
+        out = self.recur(xb, yb, xb @ c.w_r, xb @ c.w_i, cache, new_conv, c)
+        return x + out.to(x.dtype), cache
+
+    def branches(self, h: torch.Tensor,
+                 cache: Optional[Dict[str, torch.Tensor]] = None, c=None):
+        """The normed input's x branch (convolved), its y branch (gelu)
+        and the convolution's new tail."""
+        c = self.weights() if c is None else c
         xb = h @ c.in_x
         yb = F.gelu(h @ c.in_y, approximate="tanh")
         xb, new_conv = _causal_conv(
             xb, c.conv, None if cache is None else cache["conv"])
-        r = torch.sigmoid(xb @ c.w_r).float()
-        i = torch.sigmoid(xb @ c.w_i).float()
+        return xb, yb, new_conv
+
+    def recur(self, xb: torch.Tensor, yb: torch.Tensor, r_in: torch.Tensor,
+              i_in: torch.Tensor,
+              cache: Optional[Dict[str, torch.Tensor]] = None,
+              new_conv: Optional[torch.Tensor] = None,
+              c=None) -> torch.Tensor:
+        """The block's output without the residual, the cache written:
+        ``r_in`` and ``i_in`` are ``xb @ w_r`` and ``xb @ w_i`` over this
+        block's width."""
+        c = self.weights() if c is None else c
+        s = xb.shape[1]
+        r = torch.sigmoid(r_in).float()
+        i = torch.sigmoid(i_in).float()
         log_a0 = -self.C_CONST * F.softplus(self.lam.float())
         log_a = log_a0 * r
         a = torch.exp(log_a)
@@ -690,5 +769,4 @@ class RGLRUBlock(_Block):
                 cache["h"].copy_(hidden[:, -1])
         if cache is not None:
             cache["conv"].copy_(new_conv)
-        out = (hidden.to(x.dtype) * yb) @ c.out
-        return x + out.to(x.dtype), cache
+        return (hidden.to(yb.dtype) * yb) @ c.out

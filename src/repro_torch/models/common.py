@@ -68,6 +68,28 @@ class ModelConfig:
     # paper integration
     butterfly_mlp: bool = False    # ButterflyLinear fast mixing in MLP blocks
 
+    #: the parts a tensor-parallel rank's config (``RankConfig``) cuts the
+    #: "inner" (SSD and RG-LRU) widths and the experts into; 1 for a
+    #: whole model.  Not fields, so that a config compares field for
+    #: field with the JAX package's.
+    inner_parts = 1
+    expert_parts = 1
+
+    @property
+    def ssm_inner(self) -> int:
+        """The SSD inner width the parameters hold (a rank's part)."""
+        return self.ssm_expand * self.d_model // self.inner_parts
+
+    @property
+    def lru_inner(self) -> int:
+        """The RG-LRU width the parameters hold (a rank's part)."""
+        return (self.lru_width or self.d_model) // self.inner_parts
+
+    @property
+    def local_experts(self) -> int:
+        """The experts the parameters hold (a rank's part)."""
+        return self.n_experts // self.expert_parts
+
     @property
     def hd(self) -> int:
         if self.head_dim:
@@ -80,6 +102,16 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """One tensor-parallel rank's config (``transformer.local_config``):
+    the whole model's fields with the split counts cut, and the parts its
+    "inner" widths and experts are cut into.  ``d_model``, the router's
+    expert count and the RG-LRU gates' output width stay whole."""
+    inner_parts: int = 1
+    expert_parts: int = 1
 
 
 class Axes:

@@ -44,6 +44,7 @@ the gradients in ``model.grads``, in the stacked layout of ``params``;
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional
@@ -56,7 +57,7 @@ from .blocks import (ATTN_AXES, CROSS_AXES, MLP_AXES, MOE_AXES, RGLRU_AXES,
                      SSD_AXES, AttnBlock, CrossAttnBlock, MLPBlock, MoEBlock,
                      RGLRUBlock, SSDBlock, attn_spec, cross_attn_spec,
                      mlp_spec, moe_spec, rglru_spec, ssd_spec)
-from .common import (PAD_POS, Axes, ModelConfig, checkpointed,
+from .common import (PAD_POS, Axes, ModelConfig, RankConfig, checkpointed,
                      rmsnorm, scaled, softcap)
 
 Params = Dict[str, Any]
@@ -250,20 +251,24 @@ class SuperLayer(nn.Module):
 
     def forward(self, x, positions, cache=None, memory=None, tiles=None):
         for key in _GROUPS[self.name]:
-            block, kind = getattr(self, key), _kind(key)
-            c = None if cache is None or kind not in _CACHED else cache[key]
-            if kind == "attn":
-                window = self.cfg.local_window if _local(self.name, key) else 0
-                x = block(x, positions, window=window,
-                          causal=self.name != "enc", cache=c,
-                          tiles=tiles)[0]
-            elif kind in ("rec", "ssd"):
-                x = block(x, c)[0]
-            elif kind == "cross":
-                x = block(x, memory)
-            else:
-                x = block(x)
+            x = self.run_block(key, x, positions, cache, memory, tiles)
         return x
+
+    def run_block(self, key: str, x, positions, cache=None, memory=None,
+                  tiles=None):
+        """Block ``key`` on ``x``, with its residual (``forward``'s
+        arguments)."""
+        block, kind = getattr(self, key), _kind(key)
+        c = None if cache is None or kind not in _CACHED else cache[key]
+        if kind == "attn":
+            window = self.cfg.local_window if _local(self.name, key) else 0
+            return block(x, positions, window=window,
+                         causal=self.name != "enc", cache=c, tiles=tiles)[0]
+        if kind in ("rec", "ssd"):
+            return block(x, c)[0]
+        if kind == "cross":
+            return block(x, memory)
+        return block(x)
 
 
 def _stack(layers, spec: Params, device, dtype) -> Params:
@@ -625,42 +630,55 @@ def value_and_grad(model, cfg: ModelConfig, batch: Dict[str, Any],
 
 
 # ---------------------------------------------------------------------------
-# Tensor parallelism over a "model" group (the dense and local/global groups)
+# Tensor and expert parallelism over a "model" group (every block kind)
 # ---------------------------------------------------------------------------
 
-#: the groups whose super-layers have a tensor-parallel form
-TP_GROUPS = ("dense", "lg")
-
-
 class TPLayout(NamedTuple):
-    """Which dimensions the mesh's rules split over "model": query heads
-    (and then the attention blocks are tensor parallel), KV heads (else
-    every rank holds them all and reads the ones its query heads use),
-    the MLP's ``ff`` and the vocabulary (embedding rows, LM-head
-    columns).  A block whose dimension is not split is computed whole on
-    every rank and summed nowhere."""
+    """Which dimensions the mesh's rules split over "model", as the JAX
+    ``spec_for`` splits the leaves (the first logical axis of a leaf
+    claims the mesh axis): query heads (then the attention and
+    cross-attention blocks are tensor parallel), KV heads (else every
+    rank holds them all and reads the ones its query heads use), the
+    dense MLPs' ``ff``, the vocabulary (embedding rows, LM-head columns),
+    the MoE experts (expert parallelism), each expert's ``ff`` where the
+    experts do not divide the axis and ``ff`` does (each expert
+    Megatron-split), and the SSD and RG-LRU ``inner`` widths.  A block
+    whose dimension is not split is computed whole on every rank and
+    summed nowhere."""
     heads: bool
     kv_heads: bool
     ff: bool
     vocab: bool
+    expert: bool = False
+    expert_ff: bool = False
+    inner: bool = False
 
 
 def tp_layout(rules) -> TPLayout:
-    return TPLayout(*(rules.get(a) == "model"
-                      for a in ("heads", "kv_heads", "ff", "vocab")))
+    on = {a: rules.get(a) == "model"
+          for a in ("heads", "kv_heads", "ff", "vocab", "expert", "inner")}
+    return TPLayout(on["heads"], on["kv_heads"], on["ff"], on["vocab"],
+                    on["expert"], on["ff"] and not on["expert"], on["inner"])
 
 
-def local_config(cfg: ModelConfig, layout: TPLayout, tp: int) -> ModelConfig:
-    """The config of one rank's parameters: the split counts over ``tp``,
-    the head width kept."""
+def local_config(cfg: ModelConfig, layout: TPLayout, tp: int) -> RankConfig:
+    """The config of one rank's parameters: the split counts over ``tp``
+    (heads, KV heads, the dense or expert ``ff``, the vocabulary), the
+    head width and ``d_model`` kept, and the parts the SSD and RG-LRU
+    widths (``inner_parts``) and the experts (``expert_parts``) are cut
+    into."""
     def part(n: int, split: bool) -> int:
         return n // tp if split else n
 
-    return cfg.replace(head_dim=cfg.hd,
-                       n_heads=part(cfg.n_heads, layout.heads),
-                       n_kv_heads=part(cfg.n_kv_heads, layout.kv_heads),
-                       d_ff=part(cfg.d_ff, layout.ff),
-                       vocab=part(cfg.vocab, layout.vocab))
+    ff = layout.expert_ff if cfg.n_experts else layout.ff
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(ModelConfig)}
+    fields.update(head_dim=cfg.hd,
+                  n_heads=part(cfg.n_heads, layout.heads),
+                  n_kv_heads=part(cfg.n_kv_heads, layout.kv_heads),
+                  d_ff=part(cfg.d_ff, ff), vocab=part(cfg.vocab, layout.vocab))
+    return RankConfig(**fields, inner_parts=tp if layout.inner else 1,
+                      expert_parts=tp if layout.expert else 1)
 
 
 def kv_select(cfg: ModelConfig, layout: TPLayout, tp: int, rank: int,
@@ -681,58 +699,155 @@ def kv_select(cfg: ModelConfig, layout: TPLayout, tp: int, rank: int,
     return torch.tensor(idx, dtype=torch.long, device=device)
 
 
+def _split(kind: str, layout: TPLayout) -> bool:
+    """Whether the blocks of ``kind`` are split over "model"."""
+    return {"attn": layout.heads, "cross": layout.heads, "mlp": layout.ff,
+            "moe": layout.expert or layout.expert_ff, "ssd": layout.inner,
+            "rec": layout.inner}[kind]
+
+
+def _stacks(cfg: ModelConfig) -> list:
+    """(tree path, group name) of every stacked group, the encoder's
+    too."""
+    out = [(("groups", g), g) for g, _ in group_plan(cfg)]
+    if cfg.is_encdec:
+        out.append((("encoder",), "enc"))
+    return out
+
+
 def tp_partial_leaves(cfg: ModelConfig, layout: TPLayout) -> list:
-    """Paths of the leaves whose gradient each rank holds only in part,
-    to be added over "model": the KV projections every rank holds whole
-    while each reads them for its own query heads."""
-    if not layout.heads or layout.kv_heads:
-        return []
-    names = ("wk", "wv", "bk", "bv") if cfg.qkv_bias else ("wk", "wv")
-    return [("groups", g, key, leaf) for g, _ in group_plan(cfg)
-            for key in _GROUPS[g] if _kind(key) == "attn" for leaf in names]
+    """Paths of the leaves every rank holds whole but uses inside a split
+    block, so that each rank holds only part of their gradient, to be
+    added over "model": the KV projections of the self- and
+    cross-attention blocks whose query heads are split and KV heads are
+    not (each rank reads them for its own query heads), the router of a
+    split MoE block (each rank combines its own slots' weights) and the
+    SSD's B and C projections and convolutions (each rank's heads read
+    them)."""
+    kv = layout.heads and not layout.kv_heads
+    names = {"attn": (("wk", "wv", "bk", "bv") if cfg.qkv_bias
+                      else ("wk", "wv")) if kv else (),
+             "cross": ("wk", "wv") if kv else (),
+             "moe": ("router",) if _split("moe", layout) else (),
+             "ssd": ("in_bc", "conv_b", "conv_c") if layout.inner else (),
+             "mlp": (), "rec": ()}
+    return [path + (key, leaf) for path, g in _stacks(cfg)
+            for key in _GROUPS[g] for leaf in names[_kind(key)]]
 
 
-def _tp_layer(cfg, layout, group, layers, xs, positions, tiles, kvsel):
+def _ssd_parts(cfg, group, blocks, hs) -> list:
+    """Each rank's part of an SSD block's output.  ``in_xz``'s "inner"
+    split gives rank r the r-th run of its 2 d_in columns, not the x and
+    z columns of its heads (at a model axis of 2 rank 0 holds every x
+    column and rank 1 every z column), so the ranks' products are
+    gathered (``group.gather``: B x S x 2 d_in a rank, reduce-scattered
+    back in the backward) and each takes the x and z columns of its
+    heads."""
+    ws = [b.weights() for b in blocks]
+    whole = group.gather([h @ c.in_xz for h, c in zip(hs, ws)], dim=-1)
+    d_in, dl = cfg.ssm_inner, blocks[0].cfg.ssm_inner
+    return [b.project(h, xz[..., r * dl:(r + 1) * dl],
+                      xz[..., d_in + r * dl:d_in + (r + 1) * dl], c=c)[0]
+            for r, (b, h, xz, c) in enumerate(zip(blocks, hs, whole, ws))]
+
+
+def _rec_parts(group, blocks, hs) -> list:
+    """Each rank's part of an RG-LRU block's output.  ``w_r`` and ``w_i``
+    are split by rows, the gates' columns whole, so a rank's product is a
+    partial sum of each whole gate, of which it needs its own columns: a
+    reduce-scatter (``group.sum_scatter``, all-gathered back in the
+    backward), not a sum every rank then slices."""
+    ws = [b.weights() for b in blocks]
+    br = [b.branches(h, c=c) for b, h, c in zip(blocks, hs, ws)]
+    rs = group.sum_scatter([xb @ c.w_r for (xb, _, _), c in zip(br, ws)],
+                           dim=-1)
+    gs = group.sum_scatter([xb @ c.w_i for (xb, _, _), c in zip(br, ws)],
+                           dim=-1)
+    return [b.recur(xb, yb, r, i, c=c)
+            for b, (xb, yb, _), r, i, c in zip(blocks, br, rs, gs, ws)]
+
+
+def _tp_layer(cfg, layout, group, layers, xs, positions, tiles, kvsel,
+              mems):
     """One super-layer on every rank of ``group``: a split block's normed
     input opened (``group.copy``), each rank's part of its output added
-    (``group.sum``), then the residual; a whole block on every rank."""
+    (``group.sum``), then the residual (a cross-attention block's through
+    its ``tanh(gate)``, after the sum); a whole block on every rank."""
     name = layers[0].name
     for key in _GROUPS[name]:
+        kind = _kind(key)
+        if not _split(kind, layout):
+            xs = [layer.run_block(key, x, p, memory=m, tiles=t)
+                  for layer, x, p, m, t in zip(layers, xs, positions, mems,
+                                               tiles)]
+            continue
         blocks = [getattr(layer, key) for layer in layers]
-        if _kind(key) == "attn":
+        hs = group.copy([b.normed(x) for x, b in zip(xs, blocks)])
+        gates = [None] * len(blocks)
+        if kind == "attn":
             window = cfg.local_window if _local(name, key) else 0
-            if layout.heads:
-                hs = group.copy([rmsnorm(x, b.norm, cfg.rms_eps)
-                                 for x, b in zip(xs, blocks)])
-                outs = group.sum([
-                    b.attend(h, p, window=window, tiles=t, kv_heads=kv)[0]
-                    for b, h, p, t, kv in zip(blocks, hs, positions, tiles,
-                                              kvsel)])
-                xs = [x + o.to(x.dtype) for x, o in zip(xs, outs)]
-            else:
-                xs = [b(x, p, window=window, tiles=t)[0]
-                      for b, x, p, t in zip(blocks, xs, positions, tiles)]
-        elif layout.ff:
-            hs = group.copy([b.normed(x) for x, b in zip(xs, blocks)])
-            outs = group.sum([b.project(h) for b, h in zip(blocks, hs)])
-            xs = [x + o.to(x.dtype) for x, o in zip(xs, outs)]
+            parts = [b.attend(h, p, window=window, causal=name != "enc",
+                              tiles=t, kv_heads=kv)[0]
+                     for b, h, p, t, kv in zip(blocks, hs, positions, tiles,
+                                               kvsel)]
+        elif kind == "cross":
+            ws = [b.weights() for b in blocks]
+            parts = [b.attend(h, m, kv, c) for b, h, m, kv, c in
+                     zip(blocks, hs, mems, kvsel, ws)]
+            gates = [c.gate for c in ws]
+        elif kind == "mlp":
+            parts = [b.project(h) for b, h in zip(blocks, hs)]
+        elif kind == "moe":
+            parts = [b.project(h, r * b.cfg.local_experts
+                               if layout.expert else 0)
+                     for r, (b, h) in enumerate(zip(blocks, hs))]
+        elif kind == "ssd":
+            parts = _ssd_parts(cfg, group, blocks, hs)
         else:
-            xs = [b(x) for b, x in zip(blocks, xs)]
+            parts = _rec_parts(group, blocks, hs)
+        xs = [x + (o.to(x.dtype) if g is None else g * o.to(x.dtype))
+              for x, o, g in zip(xs, group.sum(parts), gates)]
     return xs
 
 
 def _tp_stack_run(cfg, layout, group, stacks, xs, positions, tiles, kvsel,
-                  remat: bool):
+                  mems, remat: bool):
     """One group's layers on every rank (``remat_layers``' checkpoints,
-    each spanning the ranks)."""
+    each spanning the ranks); ``mems`` each rank's memory (or None)."""
+    n = len(xs)
+
     def one(i):
-        def run(*xc):
+        def run(*args):
             return tuple(_tp_layer(cfg, layout, group, [s[i] for s in stacks],
-                                   list(xc), positions, tiles, kvsel))
+                                   list(args[:n]), positions, tiles, kvsel,
+                                   list(args[n:])))
         return run
 
     return list(remat_layers([one(i) for i in range(len(stacks[0]))],
-                             tuple(xs), (), remat, cfg.remat_block))
+                             tuple(xs), tuple(mems), remat,
+                             cfg.remat_block))
+
+
+def _tp_memory(models, cfg, layout, group, batches, kvsel, remat) -> list:
+    """Each rank's memory for the cross-attention blocks (None where the
+    family has none): the vision patches as given, or the audio frames
+    through the encoder, run on the ranks as a dense stack is (its
+    attention non-causal), then ``enc_norm``.  Where the cross-attention
+    is split, the encoded memory passes ``group.copy``: each rank's
+    cross-attention adds only part of the memory's gradient, and the
+    copy adds those parts together."""
+    if not models[0].needs_memory:
+        return [None] * len(models)
+    mems = [m._memory(bt.get("memory"), encoded=True)
+            for m, bt in zip(models, batches)]
+    if not cfg.is_encdec:
+        return mems
+    positions = [m._positions(*x.shape[:2]) for m, x in zip(models, mems)]
+    xs = _tp_stack_run(cfg, layout, group, [m.encoder for m in models], mems,
+                       positions, [{} for _ in models], kvsel,
+                       [None] * len(models), remat)
+    mems = [rmsnorm(x, m.enc_norm, cfg.rms_eps) for x, m in zip(xs, models)]
+    return group.copy(mems) if layout.heads else mems
 
 
 def _tp_chunk_nll(cap, group, vl: int, *args):
@@ -767,12 +882,13 @@ def tp_nll_sums(models, cfg: ModelConfig, layout: TPLayout, group, batches,
     """``nll_sums`` of one batch over the ranks of a "model" group:
     ``models`` the ranks' live ``Transformer``s over their parameters (of
     ``local_config``), in ``group``'s order, ``batches`` each rank's copy
-    of the batch.  The embedding is split by vocabulary (each rank
-    gathers its rows, zeros the rest, and the ranks add), the attention
-    and MLP blocks Megatron-style (``_tp_layer``), and the loss is
-    vocabulary-parallel (``_tp_chunk_nll``) in ``loss_fn``'s checkpointed
-    chunks: no rank holds the (B, S, V) logits.  Returns each rank's
-    (sum, count), equal on all of them."""
+    of the batch (its vision or audio memory too).  The embedding is
+    split by vocabulary (each rank gathers its rows, zeros the rest, and
+    the ranks add), every block as ``_tp_layer`` splits it (the audio
+    encoder's too, ``_tp_memory``), and the loss is vocabulary-parallel
+    (``_tp_chunk_nll``) in ``loss_fn``'s checkpointed chunks: no rank
+    holds the (B, S, V) logits.  Returns each rank's (sum, count), equal
+    on all of them."""
     tp = len(models)
     toks = [m._tokens(bt["tokens"]) for m, bt in zip(models, batches)]
     if layout.vocab:
@@ -792,10 +908,11 @@ def tp_nll_sums(models, cfg: ModelConfig, layout: TPLayout, group, batches,
     tiles = [{} for _ in models]
     kvsel = [kv_select(cfg, layout, tp, r, t.device)
              for r, t in enumerate(toks)]
+    mems = _tp_memory(models, cfg, layout, group, batches, kvsel, remat)
     for name, _count in group_plan(cfg):
         xs = _tp_stack_run(cfg, layout, group,
                            [m.groups[name] for m in models], xs, positions,
-                           tiles, kvsel, remat)
+                           tiles, kvsel, mems, remat)
     xs = [rmsnorm(x, m.final_norm, cfg.rms_eps) for x, m in zip(xs, models)]
     if layout.vocab:
         xs = group.copy(xs)

@@ -14,13 +14,17 @@ do, and each its own storage.  A group of one member is no collective:
 its result is its input, and nothing is counted (XLA drops a collective
 over one device too).
 
-Two of them take gradients, Megatron's conjugate pair for tensor
+Four of them take gradients.  Megatron's conjugate pair for tensor
 parallelism: ``Group.sum`` (an all-reduce in the forward, the identity in
-the backward) closes a block whose members computed partial sums, and
-``Group.copy`` (the identity in the forward, an all-reduce of the
-gradients in the backward) opens one, after the replicated norm.  The
-rest act on values without gradients: ``Group.max``, ``all_reduce`` of
-gradients, ``all_gather`` and ``reduce_scatter`` (FSDP).
+the backward) closes a block whose members computed partial sums that
+each then uses whole, and ``Group.copy`` (the identity in the forward, an
+all-reduce of the gradients in the backward) opens one, after the
+replicated norm.  And a second pair, for a block whose members each need
+their own part of a result: ``Group.gather`` (an all-gather whose
+backward is a reduce-scatter of the gradients) and ``Group.sum_scatter``
+(a reduce-scatter whose backward is an all-gather).  The rest act on
+values without gradients: ``Group.max``, ``all_reduce`` of gradients,
+``all_gather`` and ``reduce_scatter`` (FSDP).
 
 ``Counter`` records, for every mesh id, the bytes each collective
 delivers there, by kind and by the axes it ran over: an all-reduce's and
@@ -172,6 +176,35 @@ class Group:
             return list(xs)
         return list(_Copy.apply(self, *xs))
 
+    def gather(self, xs: Sequence[torch.Tensor],
+               dim: int) -> List[torch.Tensor]:
+        """``all_gather`` in the forward; in the backward each member's
+        gradient is its own part of the members' gradients added (a
+        reduce-scatter)."""
+        if len(xs) == 1:
+            return list(xs)
+        return list(_Gather.apply(self, dim, *xs))
+
+    def sum_scatter(self, xs: Sequence[torch.Tensor],
+                    dim: int) -> List[torch.Tensor]:
+        """``reduce_scatter`` in the forward (member k keeps the k-th part
+        of the sum); in the backward every member's gradient is the
+        members' gradients concatenated (an all-gather)."""
+        if len(xs) == 1:
+            return list(xs)
+        return list(_SumScatter.apply(self, dim, *xs))
+
+
+def _filled(grads, meta) -> list:
+    """The gradients of a collective's results, a zero tensor where a
+    result took none."""
+    return [torch.zeros(shape, dtype=dtype, device=dev) if g is None else g
+            for g, (shape, dtype, dev) in zip(grads, meta)]
+
+
+def _meta(xs) -> list:
+    return [(x.shape, x.dtype, x.device) for x in xs]
+
 
 class _Sum(torch.autograd.Function):
     @staticmethod
@@ -188,15 +221,38 @@ class _Sum(torch.autograd.Function):
 class _Copy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group: Group, *xs):
-        ctx.group = group
-        ctx.meta = [(x.shape, x.dtype, x.device) for x in xs]
+        ctx.group, ctx.meta = group, _meta(xs)
         return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
     def backward(ctx, *grads):
-        filled = [torch.zeros(shape, dtype=dtype, device=dev) if g is None
-                  else g for g, (shape, dtype, dev) in zip(grads, ctx.meta)]
-        return (None, *ctx.group.all_reduce(filled))
+        return (None, *ctx.group.all_reduce(_filled(grads, ctx.meta)))
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group: Group, dim: int, *xs):
+        out = group.all_gather(xs, dim)
+        ctx.group, ctx.dim, ctx.meta = group, dim, _meta(out)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *ctx.group.reduce_scatter(
+            _filled(grads, ctx.meta), ctx.dim))
+
+
+class _SumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group: Group, dim: int, *xs):
+        out = group.reduce_scatter(xs, dim)
+        ctx.group, ctx.dim, ctx.meta = group, dim, _meta(out)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *ctx.group.all_gather(
+            _filled(grads, ctx.meta), ctx.dim))
 
 
 def mesh_groups(mesh, axes: Sequence[str],

@@ -34,7 +34,7 @@ collectives=bundle.collectives)``).  A dry-run cell on the 256- or
 256 shards is not feasible to trace, so there the collective keys
 (``collective_bytes``, ``cross_pod_bytes``, ``collective_s``,
 ``cross_pod_s``, ``collective_by_kind``, ``collective_counts``) are None
-and named in ``unavailable`` (ROADMAP A6d-3), and ``dominant`` is taken
+and named in ``unavailable`` (ROADMAP A6d-3b), and ``dominant`` is taken
 over the terms there are.
 """
 from __future__ import annotations
@@ -60,7 +60,7 @@ UNAVAILABLE = ("collective_bytes", "cross_pod_bytes", "collective_s",
                "cross_pod_s", "collective_by_kind", "collective_counts")
 UNAVAILABLE_WHY = ("counted only on a sharded step run on logical devices; "
                    "a single-controller trace of a production mesh's 256 or "
-                   "512 shards is not feasible (ROADMAP A6d-3)")
+                   "512 shards is not feasible (ROADMAP A6d-3b)")
 #: the kinds the JAX walker reports (the port runs the first three)
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")

@@ -16,14 +16,17 @@ controller does:
   forward and backward on its rows, and the loss is the global masked
   mean (each group's NLL sum and mask count added over the data axes
   before the division);
-* the model axis is Megatron-style tensor parallelism for the dense and
-  local/global groups (``transformer.tp_nll_sums``: heads, ``ff`` and the
-  vocabulary split as the rules split them); other families take a data
-  axis only (a model axis above 1 raises, ROADMAP A6d-3);
+* the model axis is tensor and expert parallelism for every group of
+  every family (``transformer.tp_nll_sums``): attention and
+  cross-attention heads, ``ff``, the vocabulary, the MoE experts (or each
+  expert's ``ff``) and the SSD and RG-LRU widths split as the rules split
+  them, the audio encoder like a dense stack; each rank's config is
+  ``transformer.local_config``'s;
 * with ``fsdp`` the leaves the rules split over "data" are all-gathered
   at the step's start and their gradients reduce-scattered back; the
-  other gradients are added over the data axes (and a KV projection
-  every rank holds whole over "model");
+  other gradients are added over the data axes (and a leaf every rank
+  holds whole but uses inside a split block, over "model":
+  ``transformer.tp_partial_leaves``);
 * the global norm counts each distinct shard once; AdamW runs per shard.
 
 The collectives are the port's own (``runtime/collectives.py``) and count
@@ -320,12 +323,6 @@ class _MeshStep:
                  global_batch: int, hyper: dict, ratio: float = 0.0,
                  pod: bool = False):
         tp = mesh.shape.get("model", 1)
-        other = [g for g, _ in tfm.group_plan(cfg) if g not in tfm.TP_GROUPS]
-        if tp > 1 and (other or cfg.is_encdec):
-            raise NotImplementedError(
-                f"{cfg.name}: a model axis of {tp} needs tensor parallelism "
-                f"of its {other + ['enc'] * cfg.is_encdec} groups (ROADMAP "
-                "A6d-3); its data axis works (a model axis of 1)")
         self.cfg, self.mesh, self.hyper, self.pod = cfg, mesh, hyper, pod
         self.ids = sorted(int(i) for i in mesh.device_ids.ravel())
         self.counter = col.Counter()
@@ -432,10 +429,11 @@ class _MeshStep:
         return out
 
     def _reduce(self, models):
-        """id -> its gradient tree of shards: a KV projection held whole
-        added over "model", an fsdp leaf reduce-scattered over "data", the
-        rest added over the gradient axes and written back into the
-        model's gradient (one leaf's reduction alive at a time)."""
+        """id -> its gradient tree of shards: a leaf held whole but used
+        in a split block added over "model", an fsdp leaf reduce-scattered
+        over "data", the rest added over the gradient axes and written
+        back into the model's gradient (one leaf's reduction alive at a
+        time)."""
         grads = {i: models[i].grads for i in self.ids}
         out = {i: tfm.tree_map(lambda t: t, grads[i]) for i in self.ids}
         for path in self.param_sh:

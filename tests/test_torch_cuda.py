@@ -1655,12 +1655,34 @@ def test_sharded_train_step_on_logical_devices_of_the_card(
     norm within 1e-6, of the unsharded AdamW update of the step's own
     gradients.  At (1, 4) the two KV heads are replicated."""
     from repro_torch.configs import get_config
+    _sharded_step_on_the_card(cuda, get_config("qwen2-1.5b").replace(
+        n_layers=1, dtype=torch.float32), mesh_shape)
+
+
+def test_sharded_families_on_logical_devices_of_the_card(cuda, no_tf32):
+    """``chip_smoke.py``'s [main-sharded] e at a reduced width: mamba2-780m
+    (d_model 512: 16 SSD heads, 4 a rank, ``in_xz``'s runs rank 0-1 x and
+    2-3 z) and qwen3-moe-30b-a3b (d_model 512, 32 experts: 8 a rank) at 2
+    layers, B 4 x S 64, one step on a (1, 4) mesh of logical devices
+    against the unsharded step on the card, within the bounds above."""
+    from repro_torch.configs import get_config
+    for arch, width in (("mamba2-780m", dict(d_model=512)),
+                        ("qwen3-moe-30b-a3b", dict(d_model=512,
+                                                   n_experts=32))):
+        _sharded_step_on_the_card(cuda, get_config(arch).replace(
+            n_layers=2, dtype=torch.float32, **width), (1, 4))
+
+
+def _sharded_step_on_the_card(cuda, cfg, mesh_shape):
+    """One step of ``cfg``'s sharded step at B 4 x S 64 on a mesh of
+    ``mesh_shape`` logical devices of the card against the unsharded
+    step on the card (the bounds of
+    ``test_sharded_train_step_on_logical_devices_of_the_card``)."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import adamw
     from repro_torch.runtime import sharding as shd
     from repro_torch.runtime import steps
-    cfg = get_config("qwen2-1.5b").replace(n_layers=1, dtype=torch.float32)
     hyper = dict(seq_len=64, global_batch=4, peak_lr=1e-5, warmup=0,
                  total_steps=10)
     tree = tfm.init_params(cfg, torch.Generator(device=cuda).manual_seed(7),

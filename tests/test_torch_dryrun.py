@@ -400,7 +400,7 @@ def test_dot_flops_are_the_jax_loop_aware_count(arch, mode):
 
 def test_cli_writes_the_jax_keys(tmp_path, monkeypatch, capsys):
     """A small cell on both meshes with an override, a cached rerun, the
-    ``pod_compress`` override recorded as a failure (A6d-3), and the
+    ``pod_compress`` override recorded as a failure (A6d-3b), and the
     skips of ``--all`` printed."""
     monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
     argv = ["--arch", "mamba2-780m", "--shape", "decode_32k", "--mesh",

@@ -66,8 +66,8 @@ def _one_thread():
     torch.set_num_threads(threads)
 
 
-def _cfg():
-    return configs.get_config("qwen2-1.5b", smoke=True).replace(
+def _cfg(arch="qwen2-1.5b"):
+    return configs.get_config(arch, smoke=True).replace(
         dtype=torch.float32, vocab=VOCAB)
 
 
@@ -107,10 +107,10 @@ def _compiled(fn, *args):
         {"xla_backend_optimization_level": 0})
 
 
-def _oracle(tree, batch, bundle, spec):
+def _oracle(tree, batch, bundle, spec, arch="qwen2-1.5b"):
     """(loss, parameter leaves, error-feedback leaves (npod, *leaf)) of
     one pod step composed of the JAX package's unsharded calls."""
-    jcfg = jconfigs.get_config("qwen2-1.5b", smoke=True).replace(
+    jcfg = jconfigs.get_config(arch, smoke=True).replace(
         dtype=jnp.float32, vocab=VOCAB)
     params = jax.tree.map(jnp.asarray, tree)
     npod = bundle.fn.mesh.shape["pod"]
@@ -186,14 +186,21 @@ def _worst(got, want, tol, floor):
 
 
 def test_pod_step_matches_a_jax_composed_oracle():
-    cfg = _cfg()
+    against_oracle("qwen2-1.5b", (2, 2, 2))
+
+
+def against_oracle(arch, mesh_shape):
+    """One pod step of ``arch``'s smoke config on a ("pod", "data",
+    "model") mesh of ``mesh_shape`` against ``_oracle``, within the
+    bounds above."""
+    cfg = _cfg(arch)
     tree = _tree(cfg)
-    bundle = _bundle(_mesh())
+    bundle = _bundle(_mesh(mesh_shape), cfg)
     batch = SyntheticLM(cfg, S, B, seed=1).batch(0)
     state, metrics = bundle.fn(_placed(bundle, tree), batch)
     whole = shd.gather_tree(state, bundle.state_shardings)
     loss, params, mu, efs, grads, norm = _oracle(tree, batch, bundle,
-                                                 bundle.fn.spec)
+                                                 bundle.fn.spec, arch)
     assert abs(float(metrics["loss"]) - loss) <= 1e-5 * max(1.0, abs(loss))
     assert abs(float(metrics["grad_norm"]) - norm) <= 1e-4 * norm
     got = [p.numpy() for p in adamw.tree_leaves(whole.params)]
