@@ -65,8 +65,9 @@ each), so that the run stays well inside its time limit:
 5. main-directed — the directed main path, through the CLI entry point:
              ``serve --fgft --directed`` with B = 64 directed community
              graphs, n = 256, g = 4096, R = 256, the same tiers, the T fit
-             at ``n_iter`` 2 (the engine's default 3 is the run's largest
-             phase).  Counters are zeroed just before; then
+             at ``n_iter`` 1 (the engine's default 3 is the run's largest
+             phase; 2 took 152.2 s on a slow host).  Counters are zeroed
+             just before; then
              ``basis.apply(x, inverse=True)``
              and ``basis.apply(.)`` round-trip the signals; counters are
              read just after: ``batched_gen_operator_apply`` and
@@ -83,10 +84,10 @@ each), so that the run stays well inside its time limit:
              filter the operator kernel, bitwise.
 5b. main-ragged — the heterogeneous fleet through the CLI: ``serve --fgft
              --ragged --graphs 64 --graph-sizes 64,100,180,256 --transforms
-             2048`` (16 community graphs of each size in buckets of width 64,
-             128 and 256 with 16, 16 and 32 graphs, g = 384, 896 and 2048:
-             w log2 w, half the main path's g at the largest width, for the
-             run's time limit), R = 256,
+             1024`` (16 community graphs of each size in buckets of width 64,
+             128 and 256 with 16, 16 and 32 graphs, g = 192, 448 and 1024:
+             w log2 w / 2, a quarter of the main path's g at the largest
+             width, for the run's time limit), R = 256,
              the same tiers.  Counters are zeroed just before and read just
              after; both batched G entry points must have launched.  Each
              graph's relative error equals its dense recomputation on the
@@ -371,8 +372,14 @@ each), so that the run stays well inside its time limit:
              zeroed just before and read just after: a.
              ``launch/dryrun.py::run_cell`` of qwen2-1.5b train_4k on
              both production meshes (256 and 512 ids on ``meta``; one
-             global and one data-shard trace serve both): per-device GB
-             against the card's ``total_memory`` and the dominant term.
+             global and one data-shard trace serve both; each mesh's
+             collectives from the sharded step traced for one id, every
+             id counted as it): per-device GB against the card's
+             ``total_memory``, ``collective_bytes``, ``cross_pod_bytes``,
+             the bytes by kind and the dominant of the three terms
+             (every collective key filled); then the ``pod_compress``
+             cell on the multi mesh, its cross-pod bytes under half of
+             its collective bytes (the JAX test's gate).
              b. [main-train]'s configuration (qwen2-1.5b at full size,
              B 8 x S 256, ``remat_block`` 4) predicted on a 1x1 mesh and
              held to one real step on the card: the predicted argument
@@ -408,9 +415,12 @@ each), so that the run stays well inside its time limit:
              to the dry run's ``argument_size_in_bytes`` for that mesh,
              ``max_memory_allocated``, one step's collective result bytes
              per id by kind and axes and the JAX terms' per-device
-             ``collective_bytes``.  c. the cross-pod compressed step
-             (``make_pod_compressed_train_step``) at full width, 2 layers,
-             ratio 0.125, 3 steps, on (2, 1, 2) and (2, 2, 2) ("pod",
+             ``collective_bytes``, and that count equal id by id to the
+             representative trace's (the step traced on ``meta`` for one
+             id of a (2, 2) mesh, ``dryrun.collective_count``).  c. the
+             cross-pod compressed step
+             (``make_pod_compressed_train_step``) at full width, 2
+             layers, ratio 0.125, 2 steps, on (2, 1, 2) and (2, 2, 2) ("pod",
              "data", "model") meshes: finite losses, ``cross_pod_bytes``
              equal to the count from the leaves' shard shapes and under
              half of the uncompressed reduction's, and on (2, 2, 2) under
@@ -430,10 +440,21 @@ each), so that the run stays well inside its time limit:
              bound from an f64 step), each id's bytes the dry run's, the
              MoE routes and kept pairs against the unsharded step's; then
              ``train --arch mamba2-780m --smoke --model-axis 2`` resumed
-             bitwise.  None of the 12 entry points may launch
-             (``sharded_launches``, and ``sharded_families_launches`` for
-             e, of each ``kernels`` row); the phase's seconds are
-             printed.
+             bitwise.  f. the sharded prefill and decode steps
+             (``make_prefill_step`` / ``make_decode_step`` on a mesh,
+             SHARDED_SERVE), f32, TF32 off, an f32 cache: qwen2-1.5b at
+             full size, B 8, a prompt of 256 and 3 decode steps, on (2, 2)
+             and (1, 4), and recurrentgemma-2b at full width, 3 layers,
+             B 1 on (2, 2) (``seq_shard``: the local-attention caches'
+             slots split over "data"; a prompt of 2112 wraps its 2048-slot
+             ring), against the unsharded steps on the card: the logits
+             and every gathered cache leaf within 1e-4 x max(1, max|x|);
+             the prefill's and a decode step's collective counts equal id
+             by id to their representative traces'; each call's ms.
+             None of the 12 entry points may launch
+             (``sharded_launches``, ``sharded_families_launches`` for e
+             and ``sharded_serve_launches`` for f, of each ``kernels``
+             row); each part's seconds are printed.
 6. fgft-directed — ``build_fgft(directed=True)`` on one directed community
              graph (n = 256, g = 2048, n_iter = 1), then analysis, synthesis,
              project and the bank; ``shear_apply``, ``gen_operator_apply``
@@ -485,8 +506,9 @@ single-graph path, on [main-bf16] for a bf16-table form and on
 [main-bf16x] for a bf16-signal form, ``ragged_launches``,
 ``dynamic_launches``, ``async_launches``, ``core_launches``,
 ``lm_launches``, ``lm_families_launches``, ``train_launches``,
-``placed_launches``, ``dryrun_launches``, ``sharded_launches``), the
-card's name and power limit, and as the last line
+``placed_launches``, ``dryrun_launches``, ``sharded_launches``,
+``sharded_families_launches``, ``sharded_serve_launches``), the card's
+name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -518,14 +540,14 @@ DEVICE = "cuda"
 MAIN = dict(graphs=64, n=256, signals=256, steps=5,
             tiers="full:1.0,balanced:0.5,draft:0.25",
             filters="heat,tikhonov,wavelets:4", single_g=2048,
-            directed_n_iter=2)
+            directed_n_iter=1)
 #: the heterogeneous fleet of [main-ragged]: sizes cycled over the graphs,
-#: the largest bucket at the main path's width and half its g (its fits
-#: took 146.6 s of a 1131.5 s run at 4096 on a slow host); the directed
-#: check's small fleet
-RAGGED = dict(graphs=64, sizes="64,100,180,256", transforms=2048,
+#: the largest bucket at the main path's width and a quarter of its g (its
+#: fits took 146.6 s of a 1131.5 s run at 4096 on a slow host, 82.2 s of
+#: 1169.3 s at 2048); the directed check's small fleet
+RAGGED = dict(graphs=64, sizes="64,100,180,256", transforms=1024,
               buckets={64: 16, 128: 16, 256: 32},
-              g={64: 384, 128: 896, 256: 2048},
+              g={64: 192, 128: 448, 256: 1024},
               directed_sizes="12,20,32", directed_graphs=6)
 #: the evolving fleet of [main-dynamic]: the main path's fleet under the
 #: CLI's update rounds, then forced rounds at 10x the churn, a small fleet
@@ -4955,21 +4977,37 @@ DRYRUN = dict(arch=TRAIN["arch"], shape="train_4k", seq=256, batch=8,
 
 def dryrun_cells(prefix: str, card) -> dict:
     """a: ``run_cell`` of qwen2-1.5b train_4k on both production meshes,
-    on ``meta`` (one global and one data-shard trace serve both)."""
+    on ``meta`` (one global and one data-shard trace serve both; each
+    mesh's collectives from the sharded step traced for one id), then
+    the ``pod_compress`` cell on the multi mesh: its cross-pod bytes
+    under half of all its collective bytes (the JAX test's gate)."""
     import torch
     from repro_torch.launch import dryrun
+    from repro_torch.runtime import hlo_analysis as hlo
     total = torch.cuda.get_device_properties(0).total_memory
     out = {}
-    for kind in ("single", "multi"):
+    cells = (("single", None), ("multi", None),
+             ("multi", {"pod_compress": True}))
+    for kind, over in cells:
         t0 = time.perf_counter()
-        res = dryrun.run_cell(DRYRUN["arch"], DRYRUN["shape"], kind)
+        res = dryrun.run_cell(DRYRUN["arch"], DRYRUN["shape"], kind, over)
         mem, r = res["memory"], res["roofline"]
+        terms = {k: r[f"{k}_s"] for k in ("compute", "memory",
+                                           "collective")}
+        tag = kind + (" pod_compress" if over else "")
         check(res["n_chips"] == (256 if kind == "single" else 512)
               and mem["argument_size_in_bytes"] > 0
-              and r["collective_s"] is None
-              and r["dominant"] in ("compute", "memory"),
-              f"{prefix} a. {kind}: {res['n_chips']} chips, {mem}, {r}")
-        log(f"{prefix} a. {DRYRUN['arch']} {DRYRUN['shape']} {kind} "
+              and r["unavailable"] == []
+              and all(r[k] is not None for k in hlo.UNAVAILABLE)
+              and r["collective_bytes"] > 0
+              and r["dominant"] == max(terms, key=terms.get),
+              f"{prefix} a. {tag}: {res['n_chips']} chips, {mem}, {r}")
+        if over:
+            check(0 < r["cross_pod_bytes"] < 0.5 * r["collective_bytes"],
+                  f"{prefix} a. {tag}: cross-pod bytes "
+                  f"{r['cross_pod_bytes']} of {r['collective_bytes']}")
+        kinds = {k: v for k, v in r["collective_by_kind"].items() if v}
+        log(f"{prefix} a. {DRYRUN['arch']} {DRYRUN['shape']} {tag} "
             f"({res['n_chips']} chips, meta): per device "
             f"{mem['per_device_bytes'] / 1e9:.3f} GB (arguments "
             f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB exact, temp "
@@ -4977,14 +5015,24 @@ def dryrun_cells(prefix: str, card) -> dict:
             f"{res['temp_batch']}, {res['temp_basis']}: an upper bound) "
             f"against this card's total_memory {total / 1e9:.3f} GB; "
             f"compute {r['compute_s']:.4e} s, memory {r['memory_s']:.4e} "
-            f"s, dominant {r['dominant']}, useful_flop_frac "
+            f"s, collective {r['collective_s']:.4e} s "
+            f"(collective_bytes {r['collective_bytes']}, cross_pod_bytes "
+            f"{r['cross_pod_bytes']}"
+            + (f", {r['cross_pod_bytes'] / r['collective_bytes']:.4f} of "
+               "them, gate < 0.5" if over else "")
+            + f"; by kind {kinds}, ops {r['collective_counts']}), "
+            f"dominant {r['dominant']}, useful_flop_frac "
             f"{res['useful_flop_frac']:.4f} (H100 constants: reckoned, "
             f"not measured); traces {res['lower_s']} s + "
-            f"{res['compile_s']} s, cell {time.perf_counter() - t0:.1f} s "
-            f"[{card}]")
-        out[kind] = {"per_device_gb": mem["per_device_bytes"] / 1e9,
-                     "dominant": r["dominant"], "cell_s":
-                     time.perf_counter() - t0}
+            f"{res['compile_s']} s (shared by the cells) + "
+            f"{res['collective_trace_s']} s (the representative trace), "
+            f"cell {time.perf_counter() - t0:.1f} s [{card}]")
+        out[tag] = {"per_device_gb": mem["per_device_bytes"] / 1e9,
+                    "dominant": r["dominant"],
+                    "collective_bytes": r["collective_bytes"],
+                    "cross_pod_bytes": r["cross_pod_bytes"],
+                    "by_kind": kinds,
+                    "cell_s": time.perf_counter() - t0}
     return out
 
 
@@ -5916,7 +5964,7 @@ SHARDED = dict(arch=TRAIN["arch"], logical=4, seq=256, batch=8,
                check=dict(layers=2, meshes=((2, 2), (1, 4)), lr=1e-5),
                full=dict(mesh=(2, 2), steps=2),
                pod=dict(layers=2, meshes=((2, 1, 2), (2, 2, 2)),
-                        ratio=0.125, steps=3),
+                        ratio=0.125, steps=2),
                cli=dict(steps=6, cut=3, model_axis=2),
                loss_tol=1e-6, grad_tol=1e-5, grad_floor=1e-3,
                param_tol=1e-6, own_norm_tol=1e-6)
@@ -6108,6 +6156,11 @@ def sharded_full(prefix: str, card, trained) -> dict:
     peak = torch.cuda.max_memory_allocated()
     coll = bundle.collectives.by_id()
     terms = hlo.collective_terms(bundle.collectives)
+    t_rep = time.perf_counter()
+    rep = dryrun.collective_count(cfg, recipe, Shape(
+        "main-sharded", SHARDED["seq"], SHARDED["batch"], "train"), mesh,
+        batch=batch).by_id()
+    rep_s = time.perf_counter() - t_rep
     held = shd.placed_nbytes(state)
     placed_batch = shd.placed_nbytes(shd.place_tree(
         {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()},
@@ -6138,14 +6191,20 @@ def sharded_full(prefix: str, card, trained) -> dict:
         f"{terms['collective_counts']} ops, {terms['collective_s']:.4e} s "
         f"at NVLink's {hlo.NVLINK_BW / 1e9:.0f} GB/s a direction "
         f"(reckoned: logical devices move nothing over a link) [{card}]")
+    log(f"{prefix} b. the representative count (one id of the mesh traced "
+        f"on meta, every id counted as it) equal id by id, kind by kind "
+        f"and axes by axes to the step's count on the card: "
+        f"{rep == coll}; trace {rep_s:.1f} s [{card}]")
     check(all(np.isfinite(losses)), f"{prefix} b. losses {losses}")
     check(set(per_id.values()) == {want},
           f"{prefix} b. bytes per id {per_id} != {want}")
+    check(rep == coll, f"{prefix} b. representative count {rep} != the "
+          f"card's {coll}")
     out = {"losses": losses, "step_ms": med, "first_ms": step_ms[0],
            "launches_a_step": n_kernels, "busy_ms": busy_ms,
            "wall_ms": wall_ms, "peak": peak, "bytes_per_id": want,
            "collectives": coll, "collective_bytes":
-           terms["collective_bytes"]}
+           terms["collective_bytes"], "representative_s": rep_s}
     del state, bundle
     torch.cuda.empty_cache()
     return out
@@ -6698,6 +6757,140 @@ def sharded_families(prefix: str, card) -> dict:
     return out
 
 
+#: [main-sharded] f: the sharded prefill and decode steps on logical
+#: devices of the card, f32 (TF32 off), an f32 cache, seed-0 weights:
+#: qwen2-1.5b at full size on two meshes (at 4 its two KV heads are
+#: replicated) and recurrentgemma-2b at full width, 3 layers (one rrl
+#: super-layer), at batch 1 on (2, 2), where the batch is smaller than
+#: the data shards (``seq_shard``: each local-attention cache's 2048
+#: slots split over "data"); its prompt is longer than the window, so
+#: the ring buffer wraps.  Logits and every cache leaf within ``tol`` x
+#: max(1, max|x|) of the unsharded steps'; each call's collective count
+#: equal to its representative trace's.
+SHARDED_SERVE = dict(
+    runs=(dict(arch=TRAIN["arch"], mesh=(2, 2), batch=8, prompt=256,
+               decode=3),
+          dict(arch=TRAIN["arch"], mesh=(1, 4), batch=8, prompt=256,
+               decode=3),
+          dict(arch="recurrentgemma-2b", layers=3, mesh=(2, 2), batch=1,
+               prompt=2112, decode=3)),
+    tol=1e-4)
+
+
+def serve_ratio(got, want) -> float:
+    """max|got - want| / (SHARDED_SERVE's tol x max(1, max|want|))."""
+    return float((got.float() - want.float()).abs().max()) / (
+        SHARDED_SERVE["tol"] * max(1.0, float(want.float().abs().max())))
+
+
+def sharded_serve(prefix: str, card) -> dict:
+    """f: each of SHARDED_SERVE's runs: a prompt and its decode steps
+    through the unsharded steps on the card, then through
+    ``make_prefill_step`` / ``make_decode_step`` on the run's mesh of
+    logical devices; the logits gathered over the batch shards and the
+    cache gathered leaf by leaf against the unsharded ones; the
+    prefill's and the first decode step's collective counts against the
+    representative trace's."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_recipe
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    out = {}
+    for run in SHARDED_SERVE["runs"]:
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg = get_config(run["arch"]).replace(dtype=torch.float32)
+        if "layers" in run:
+            cfg = cfg.replace(n_layers=run["layers"])
+        b, s, n = run["batch"], run["prompt"], run["decode"]
+        length = s + n
+        toks = np.random.default_rng(0).integers(
+            0, cfg.vocab, (b, length)).astype(np.int32)
+        tree = tfm.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(0), DEVICE)
+        model = tfm.Transformer(cfg, tree)
+        cache = tfm.init_cache(cfg, b, length, DEVICE, torch.float32)
+        batches = [{"tokens": toks[:, :s]}] + [
+            {"token": toks[:, t:t + 1], "pos": np.full((b,), t, np.int32)}
+            for t in range(s, length)]
+        wants = [model.prefill(cache, batches[0]["tokens"])[0]]
+        wants += [model.decode_step(cache, bt["token"], bt["pos"])[0]
+                  for bt in batches[1:]]
+        sync()
+        t_plain = time.perf_counter() - t0
+        del model
+        mesh = _logical_mesh(run["mesh"])
+        recipe = get_recipe(run["arch"])
+        kw = dict(seq_len=length, global_batch=b, fsdp=recipe["fsdp"])
+        pre = steps.make_prefill_step(cfg, mesh, **kw)
+        dec = steps.make_decode_step(cfg, mesh, **kw)
+        params = shd.place_tree(tree, pre.state_shardings[0])
+        del tree
+        placed = shd.place_tree(tfm.init_cache(cfg, b, length, DEVICE,
+                                               torch.float32),
+                                pre.state_shardings[1])
+        ratios, counts, call_ms = [], [], []
+        for k, bt in enumerate(batches):
+            step = pre if k == 0 else dec
+            step.collectives.reset()
+            sync()
+            t1 = time.perf_counter()
+            got, placed = step.fn(params, placed, bt)
+            got = step.fn.out_sharding.gather(got)
+            sync()
+            call_ms.append((time.perf_counter() - t1) * 1e3)
+            ratios.append(serve_ratio(got, wants[k]))
+            if k < 2:
+                counts.append(step.collectives.by_id())
+        r_cache = max(serve_ratio(g, w) for g, w in zip(
+            tree_leaves(shd.gather_tree(placed, dec.state_shardings[1])),
+            tree_leaves(cache)))
+        seq = dec.fn.seq_axes
+        del params, placed, pre, dec, cache, wants
+        t_sharded = time.perf_counter() - t0 - t_plain
+        reps, rep_s = [], 0.0
+        for mode, bt in (("prefill", batches[0]), ("decode", batches[1])):
+            t1 = time.perf_counter()
+            reps.append(dryrun.collective_count(
+                cfg, recipe, Shape("main-sharded-f", length, b, mode), mesh,
+                batch=bt).by_id())
+            rep_s += time.perf_counter() - t1
+        same = [r == c for r, c in zip(reps, counts)]
+        tag = "x".join(map(str, run["mesh"]))
+        secs = time.perf_counter() - t0
+        log(f"{prefix} f. {run['arch']} (f32, {cfg.n_layers} layers at "
+            f"full width, an f32 cache, TF32 off) on a {tag} mesh of "
+            f"logical devices, B {b}, a prompt of {s} and {n} decode "
+            f"steps{' (seq_shard: the caches split over data)' if seq else ''}"
+            f": max|d| / ({SHARDED_SERVE['tol']} x max(1, max|x|)): logits "
+            f"{max(ratios):.3e} (prefill {ratios[0]:.3e}, decode "
+            f"{max(ratios[1:]):.3e}), cache leaves {r_cache:.3e}; sharded "
+            f"call ms {[round(v, 1) for v in call_ms]}; collectives per id "
+            f"of the prefill {counts[0].get(0)} and of a decode step "
+            f"{counts[1].get(0)}, the representative traces equal id by "
+            f"id {same} ({rep_s:.1f} s); {secs:.1f} s (unsharded "
+            f"{t_plain:.1f} s, sharded {t_sharded:.1f} s) [{card}]")
+        check(max(ratios) <= 1.0 and r_cache <= 1.0,
+              f"{prefix} f. {run['arch']} {tag}: sharded serve over the "
+              f"bound (logits {ratios}, cache {r_cache})")
+        check(all(same), f"{prefix} f. {run['arch']} {tag}: representative "
+              f"counts {reps} != the card's {counts}")
+        check(bool(seq) == (b == 1), f"{prefix} f. seq_shard {seq}")
+        out[f"{run['arch']} {tag}"] = {
+            "logits": max(ratios), "cache": r_cache, "call_ms": call_ms,
+            "collectives": counts, "seconds": secs,
+            "representative_s": rep_s}
+    return out
+
+
 def phase_main_sharded(card, trained) -> dict:
     """[main-sharded]: the sharded train step (SHARDED) on logical devices
     of the card; none of the 12 entry points launches."""
@@ -6710,9 +6903,12 @@ def phase_main_sharded(card, trained) -> dict:
     for part, fn in (("a", sharded_check),
                      ("b", lambda p, c: sharded_full(p, c, trained)),
                      ("c", sharded_pod), ("d", sharded_cli),
-                     ("e", sharded_families)):
+                     ("e", sharded_families), ("f", sharded_serve)):
         if part == "e":   # the families' own count of the entry points
             launches = launcher.entry_launch_counts()
+            launcher.reset_launch_counts()
+        if part == "f":   # the serve steps' own count
+            families = launcher.entry_launch_counts()
             launcher.reset_launch_counts()
         t0 = time.perf_counter()
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -6720,15 +6916,17 @@ def phase_main_sharded(card, trained) -> dict:
         out[part] = fn(prefix, card)
         torch.cuda.empty_cache()
         secs[part] = time.perf_counter() - t0
-    families = launcher.entry_launch_counts()
-    check(not any(launches.values()) and not any(families.values()),
-          f"{prefix} launched {launches}, e {families}")
+    serve = launcher.entry_launch_counts()
+    check(not any(launches.values()) and not any(families.values())
+          and not any(serve.values()),
+          f"{prefix} launched {launches}, e {families}, f {serve}")
     phase_s = time.perf_counter() - t_phase
     log(f"{prefix} {phase_s:.1f}s in all ("
         + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
         + f"); none of the 12 entry points launched [{card}]")
-    return {"launches": launches, "families_launches": families, **out,
-            "phase_s": phase_s, "part_s": secs}
+    return {"launches": launches, "families_launches": families,
+            "serve_launches": serve, **out, "phase_s": phase_s,
+            "part_s": secs}
 
 
 def main() -> int:
@@ -6833,6 +7031,8 @@ def main() -> int:
         row["dryrun_launches"] = dry["launches"].get(row["entry"], 0)
         row["sharded_launches"] = sharded["launches"].get(row["entry"], 0)
         row["sharded_families_launches"] = sharded["families_launches"].get(
+            row["entry"], 0)
+        row["sharded_serve_launches"] = sharded["serve_launches"].get(
             row["entry"], 0)
         row["max_abs_err"] = errs[row["entry"]]
     if args.baseline:

@@ -20,15 +20,19 @@ meshes (``launch/mesh.py::make_production_mesh``: 16x16 single pod,
                   unsplit: an upper bound
   FLOPs, bytes    the traced global step's dot FLOPs and operand/result
                   bytes over n_chips
-  collectives     not available (None): they are counted where the
-                  sharded step runs (``runtime/steps.py`` on logical
-                  devices, ``hlo_analysis.collective_terms``); one
-                  process tracing a step over 256 or 512 shards is not
-                  feasible (ROADMAP A6d-3b), nor is the ``pod_compress``
-                  override's pod step, which needs that run
+  collectives     the cell's sharded step (``runtime/steps.py``: train,
+                  prefill or decode on the mesh, the recipe's fsdp; with
+                  ``--override pod_compress=true`` the cross-pod
+                  compressed train step, which needs the multi mesh)
+                  run once on ``meta`` in representative mode: one id
+                  traced, every other id a virtual member of its groups
+                  (``runtime/collectives.Representatives``), its
+                  collectives' result bytes counted for every id
+                  (``hlo_analysis.collective_terms``: the largest id's)
 
 One trace at the global batch and one at the data shard's batch serve
 both meshes (both have a data axis of 16): only the shardings differ.
+The representative trace is each mesh's own.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k \\
@@ -53,9 +57,10 @@ import torch
 
 from repro_torch.configs import ARCH_NAMES, SHAPES, cells, get_config, \
     get_recipe
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.adamw import tree_leaves
+from repro_torch.runtime import collectives as col
 from repro_torch.runtime import hlo_analysis as hlo
 from repro_torch.runtime import sharding as shd
 from repro_torch.runtime import steps as steps_lib
@@ -104,23 +109,17 @@ def _nbytes(tree) -> int:
 _TRACES: Dict[Any, dict] = {}
 
 
-def trace_step(cfg, shape, batch: int, *, moment_dtype=torch.float32,
-               pod_compress: bool = False) -> dict:
+def trace_step(cfg, shape, batch: int, *,
+               moment_dtype=torch.float32) -> dict:
     """The cell's step at ``batch`` traced once on ``meta``: {"cost",
     "state" (train: the TrainState; serve: (params, cache)), "batch",
     "out" (the step's result), "seconds"}."""
-    key = (cfg, tuple(shape), batch, str(moment_dtype), pod_compress)
+    key = (cfg, tuple(shape), batch, str(moment_dtype))
     if key in _TRACES:
         return _TRACES[key]
     for old in [k for k in _TRACES if k[:2] != key[:2]]:
         del _TRACES[old]
     t0 = time.perf_counter()
-    if pod_compress:
-        raise NotImplementedError(
-            "the pod step's dry run needs the sharded step run over the "
-            "production mesh's shards in one process, which is not "
-            "feasible at 512 ids (ROADMAP A6d-3b); make_pod_compressed_"
-            "train_step runs on a local mesh")
     if shape.mode == "train":
         bundle = steps_lib.make_train_step(
             cfg, seq_len=shape.seq_len, global_batch=batch,
@@ -199,15 +198,57 @@ def argument_bytes(cfg, recipe, shape, mesh) -> int:
     return _argument_bytes(cfg, recipe, shape, mesh, glob)[0]
 
 
+def collective_count(cfg, recipe, shape, mesh, *,
+                     pod_compress: bool = False, batch=None, **step_kw):
+    """The cell's sharded step on ``mesh`` (its ids copied onto ``meta``)
+    run once in representative mode (``collectives.Representatives``):
+    the step's ``collectives.Counter``.  ``pod_compress``: the cross-pod
+    compressed train step, which needs a "pod" axis (the JAX step's
+    assertion otherwise).  ``batch``: a host batch whose shapes and
+    dtypes the step is called on (None: ``bundle.abstract_batch``);
+    ``step_kw``: further keywords of the step's maker.  A mesh of one id
+    has no group of two: its count is empty, and nothing is traced."""
+    if pod_compress and "pod" not in mesh.axis_names:
+        raise AssertionError("multi-pod mesh required")
+    if mesh.size == 1:
+        return col.Counter()
+    kw = dict(seq_len=shape.seq_len, global_batch=shape.global_batch,
+              fsdp=recipe["fsdp"], representative=True, **step_kw)
+    mesh = Mesh(mesh.device_ids, mesh.axis_names,       # its ids on meta
+                {int(i): torch.device("meta")
+                 for i in mesh.device_ids.ravel()})
+    if shape.mode == "train":
+        make = (steps_lib.make_pod_compressed_train_step if pod_compress
+                else steps_lib.make_train_step)
+        bundle = make(cfg, mesh, moment_dtype=recipe["moment_dtype"], **kw)
+    else:
+        make = (steps_lib.make_prefill_step if shape.mode == "prefill"
+                else steps_lib.make_decode_step)
+        bundle = make(cfg, mesh, **kw)
+    if batch is None:
+        batch = bundle.abstract_batch
+    else:
+        batch = {k: v if isinstance(v, torch.Tensor)
+                 else torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+        batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                 for k, v in batch.items()}
+    state = steps_lib.placed_abstract(bundle)
+    bundle.fn(*(state if shape.mode != "train" else (state,)), batch)
+    return bundle.collectives
+
+
 def analyze(cfg, recipe, shape, mesh, *,
             pod_compress: bool = False) -> dict:
     """One cell's numbers: ``cfg`` with its recipe (fsdp, moment_dtype)
     at ``shape`` (a ``configs.shapes.Shape``) on ``mesh``; the JSON of
     ``run_cell`` without the names of arch, shape and mesh."""
     n_chips = mesh.size
+    t0 = time.perf_counter()
+    coll = collective_count(cfg, recipe, shape, mesh,
+                            pod_compress=pod_compress)
+    coll_s = time.perf_counter() - t0
     glob = trace_step(cfg, shape, shape.global_batch,
-                      moment_dtype=recipe["moment_dtype"],
-                      pod_compress=pod_compress)
+                      moment_dtype=recipe["moment_dtype"])
     temp_batch = shard_batch(shape.global_batch, mesh)
     part = trace_step(cfg, shape, temp_batch,
                       moment_dtype=recipe["moment_dtype"])
@@ -217,7 +258,8 @@ def analyze(cfg, recipe, shape, mesh, *,
     mem = hlo.memory_summary(argument=argument,
                              output=donated + _nbytes(rest),
                              temp=part["cost"]["temp_bytes"], alias=donated)
-    terms = hlo.roofline_terms(glob["cost"], n_chips=n_chips)
+    terms = hlo.roofline_terms(glob["cost"], n_chips=n_chips,
+                               collectives=coll)
     total_p, active_p = n_params(cfg)
     tokens = shape.global_batch * (shape.seq_len if shape.mode != "decode"
                                    else 1)
@@ -234,6 +276,7 @@ def analyze(cfg, recipe, shape, mesh, *,
         "params_total": total_p, "params_active": active_p,
         "lower_s": round(glob["seconds"], 1),
         "compile_s": round(part["seconds"], 1),
+        "collective_trace_s": round(coll_s, 1),
         "memory": mem,
         "hbm_gb_per_chip": round(mem["per_device_bytes"] / 2**30, 3),
         "roofline": terms,
@@ -253,6 +296,14 @@ def analyze(cfg, recipe, shape, mesh, *,
             "bytes": "traced global operand+result bytes / n_chips",
             "lower_s": "seconds of the global meta trace",
             "compile_s": "seconds of the data shard's meta trace",
+            "collectives": "the sharded "
+                           + ("pod-compressed train" if pod_compress
+                              else shape.mode)
+                           + " step traced on meta for one id of the mesh, "
+                             "every id counted as that id (runtime/"
+                             "collectives.Representatives); per device the "
+                             "largest id's result bytes, an all-reduce "
+                             "twice, over NVLink's 450 GB/s a direction",
         },
         "trace": {"ops": glob["cost"]["ops"],
                   "op_counts": glob["cost"]["op_counts"],
@@ -335,7 +386,8 @@ def main(argv=None):
                   f"compute={_fmt(r['compute_s'])} "
                   f"mem={_fmt(r['memory_s'])} "
                   f"coll={_fmt(r['collective_s'])} dom={r['dominant']} "
-                  f"(trace {res['lower_s']}s + {res['compile_s']}s)",
+                  f"(trace {res['lower_s']}s + {res['compile_s']}s + "
+                  f"{res.get('collective_trace_s', 'n/a')}s)",
                   flush=True)
         except Exception as e:  # noqa: BLE001 — record the failure, continue
             failures += 1

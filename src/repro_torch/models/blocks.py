@@ -33,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ModelConfig, apply_rope, attention, rmsnorm, rope_tables
+from .common import (ModelConfig, apply_rope, attention, attention_partial,
+                     rmsnorm, rope_tables)
 
 Spec = Dict[str, Tuple[tuple, str]]
 
@@ -131,17 +132,11 @@ class AttnBlock(_Block):
                                  cache=cache, tiles=tiles)
         return x + out.to(x.dtype), cache
 
-    def attend(self, h: torch.Tensor, positions: torch.Tensor, *,
-               window: int = 0, causal: bool = True,
-               cache: Optional[Dict[str, torch.Tensor]] = None,
-               tiles: Optional[dict] = None,
-               kv_heads: Optional[torch.Tensor] = None):
-        """The block's output of the normed input ``h`` without the
-        residual (``forward`` adds it), and the cache.  ``kv_heads``: the
-        KV heads (indices into this block's) that the query heads read,
-        in their order, for a tensor-parallel rank that holds every KV
-        head but a part of the query heads (no cache)."""
-        cfg, c = self.cfg, self.weights()
+    def qkv(self, h: torch.Tensor, positions: torch.Tensor, c=None):
+        """The queries, keys and values of the normed input ``h`` (B, S,
+        heads, hd), RoPE applied to the first two."""
+        cfg = self.cfg
+        c = self.weights() if c is None else c
         b, s = h.shape[:2]
         q = (h @ c.wq).reshape(b, s, cfg.n_heads, cfg.hd)
         k = (h @ c.wk).reshape(b, s, cfg.n_kv_heads, cfg.hd)
@@ -150,41 +145,126 @@ class AttnBlock(_Block):
             q = q + c.bias[0]
             k = k + c.bias[1]
             v = v + c.bias[2]
-        if kv_heads is not None:
-            k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
         sin, cos = rope_tables(positions, cfg.hd, cfg.rope_theta)
-        q = apply_rope(q, sin, cos)
-        k = apply_rope(k, sin, cos)
-        opts = dict(causal=causal, window=window, cap=cfg.attn_softcap,
+        return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+
+    def _opts(self, window: int, causal: bool) -> dict:
+        cfg = self.cfg
+        return dict(causal=causal, window=window, cap=cfg.attn_softcap,
                     impl=cfg.attn_impl, chunk=cfg.attn_chunk,
                     skip=cfg.attn_skip)
 
+    def attend(self, h: torch.Tensor, positions: torch.Tensor, *,
+               window: int = 0, causal: bool = True,
+               cache: Optional[Dict[str, torch.Tensor]] = None,
+               tiles: Optional[dict] = None,
+               kv_heads: Optional[torch.Tensor] = None,
+               shard: Tuple[int, int] = (0, 1)):
+        """The block's output of the normed input ``h`` without the
+        residual (``forward`` adds it), and the cache.  ``kv_heads``: the
+        KV heads (indices into this block's) that the query heads read,
+        in their order, for a tensor-parallel rank that holds every KV
+        head but a part of the query heads (its cache holds them all).
+        ``shard`` (k, n): the cache is the k-th of n runs of the whole
+        cache's slots (``kv_write``); a prompt then writes only the slots
+        of this run (decode against such a cache: ``partial``)."""
+        c = self.weights()
+        b, s = h.shape[:2]
+        q, k, v = self.qkv(h, positions, c)
+        opts = self._opts(window, causal)
         if cache is None or s > 1:
-            o = attention(q, k, v, positions, positions, tiles=tiles,
-                          **opts)
+            o = attention(q, _heads(k, kv_heads), _heads(v, kv_heads),
+                          positions, positions, tiles=tiles, **opts)
         if cache is not None:
-            ck, cv, cp = cache["k"], cache["v"], cache["pos"]
-            clen = ck.shape[1]
-            if s > 1:
+            if shard[1] > 1:
+                kv_write(cache, k, v, positions, shard)
+            elif s > 1:
                 # prefill: write the tail of the prompt into the cache
-                tail = min(s, clen)
+                ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+                tail = min(s, ck.shape[1])
                 p_t = positions[:, -tail:]
-                slot = (p_t % clen).long()
+                slot = (p_t % ck.shape[1]).long()
                 bi = torch.arange(b, device=h.device)[:, None]
                 ck[bi, slot] = k[:, -tail:].to(ck.dtype)
                 cv[bi, slot] = v[:, -tail:].to(cv.dtype)
                 cp[bi, slot] = p_t.to(torch.int32)
             else:
                 # decode: insert one token, attend to the cache
+                ck, cv, cp = cache["k"], cache["v"], cache["pos"]
                 pos0 = positions[:, 0]
-                slot = (pos0 % clen).long()
+                slot = (pos0 % ck.shape[1]).long()
                 bi = torch.arange(b, device=h.device)
                 ck[bi, slot] = k[:, 0].to(ck.dtype)
                 cv[bi, slot] = v[:, 0].to(cv.dtype)
                 cp[bi, slot] = pos0.to(torch.int32)
-                o = attention(q, ck.to(q.dtype), cv.to(q.dtype), positions,
-                              cp, **opts)
-        return o.reshape(b, s, -1) @ c.wo, cache
+            if s == 1:
+                o = attention(q, _heads(cache["k"].to(q.dtype), kv_heads),
+                              _heads(cache["v"].to(q.dtype), kv_heads),
+                              positions, cache["pos"], **opts)
+        return self.out(o, c), cache
+
+    def partial(self, h: torch.Tensor, positions: torch.Tensor, *,
+                window: int, cache: Dict[str, torch.Tensor],
+                shard: Tuple[int, int],
+                kv_heads: Optional[torch.Tensor] = None):
+        """One decode token against the ``shard``-th run of a cache split
+        along its slots: the token written where its slot falls in this
+        run, then this run's part of the softmax
+        (``common.attention_partial``), for the runs to combine
+        (``common.combine_partials``) before ``out``."""
+        q, k, v = self.qkv(h, positions)
+        kv_write(cache, k, v, positions, shard)
+        return attention_partial(
+            q, _heads(cache["k"].to(q.dtype), kv_heads),
+            _heads(cache["v"].to(q.dtype), kv_heads), positions,
+            cache["pos"], window=window, cap=self.cfg.attn_softcap)
+
+    def out(self, o: torch.Tensor, c=None) -> torch.Tensor:
+        """The output projection of the attention's (B, S, heads, hd)."""
+        c = self.weights() if c is None else c
+        b, s = o.shape[:2]
+        return o.reshape(b, s, -1) @ c.wo
+
+
+def _heads(t: torch.Tensor, kv_heads: Optional[torch.Tensor]):
+    return t if kv_heads is None else t.index_select(2, kv_heads)
+
+
+def kv_write(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+             v: torch.Tensor, positions: torch.Tensor,
+             shard: Tuple[int, int]) -> None:
+    """Write keys and values (B, S, KV, hd) at ``positions`` (B, S) into
+    the ``shard`` = (k, n)-th run of a cache whose slots (the whole
+    cache's ``n`` x this run's, a ring buffer: slot = pos % length) are
+    split into n runs along ``kv_seq``, as the JAX rules split a cache
+    over "data" for a batch smaller than the data shards.  The run keeps
+    what the whole cache would hold in its slots: a prompt's tail (the
+    last of the consecutive positions that fall in a slot), a decode
+    token where its slot is this run's.  Gathers and one copy a leaf: no
+    host read, no scatter of colliding slots."""
+    ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+    r, n = shard
+    run = ck.shape[1]
+    length = run * n
+    b, s = positions.shape
+    dev = ck.device
+    slots = r * run + torch.arange(run, device=dev)             # (run,)
+    if s > 1:
+        # the prompt position that lands in each slot: the tail of the
+        # prompt covers each slot at most once
+        tail = min(s, length)
+        first = positions[:, s - tail].long()                    # (b,)
+        t = (slots[None] - first[:, None]) % length              # (b, run)
+        hit = t < tail
+        src = (s - tail + torch.clamp(t, max=tail - 1))
+    else:
+        own = (positions[:, 0].long() % length)[:, None] == slots[None]
+        hit, src = own, torch.zeros((b, run), dtype=torch.long, device=dev)
+    bi = torch.arange(b, device=dev)[:, None]
+    for leaf, new in ((ck, k), (cv, v)):
+        got = new[bi, src].to(leaf.dtype)                        # (b,run,..)
+        leaf.copy_(torch.where(hit[..., None, None], got, leaf))
+    cp.copy_(torch.where(hit, positions[bi, src].to(torch.int32), cp))
 
 
 def cross_attn_spec(cfg: ModelConfig) -> Spec:
@@ -591,6 +671,23 @@ class SSDBlock(_Block):
         residual, and the cache: ``xc`` and ``z`` are the x and z columns
         of ``h @ in_xz`` over this block's heads (a tensor-parallel rank
         gathers them: its ``in_xz`` columns are not its heads')."""
+        conv = None if cache is None else cache["conv"]
+        d_in, n = self.cfg.ssm_inner, self.cfg.ssm_state
+        tails = None if conv is None else (conv[..., :d_in],
+                                           conv[..., d_in:d_in + n],
+                                           conv[..., d_in + n:])
+        out, new = self.scan(h, xc, z, tails,
+                             None if cache is None else cache["state"], c)
+        if cache is not None:
+            conv.copy_(torch.cat(new, dim=-1))
+        return out, cache
+
+    def scan(self, h: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
+             tails=None, state: Optional[torch.Tensor] = None, c=None):
+        """``project``'s computation: ``tails`` the convolutions' carried
+        inputs (x, B, C: (B, W-1, width) each) or None, ``state`` the
+        (B, H, P, N) f32 state (updated in place) or None.  Returns (the
+        output, the convolutions' new tails)."""
         cfg = self.cfg
         c = self.weights() if c is None else c
         b, s, _ = h.shape
@@ -601,10 +698,7 @@ class SSDBlock(_Block):
         dt = F.softplus(h @ c.in_dt + c.dt_bias)                # (b, s, hs)
         a = -torch.exp(self.a_log.float())
 
-        conv = None if cache is None else cache["conv"]
-        parts = ((None,) * 3 if conv is None else
-                 (conv[..., :d_in], conv[..., d_in:d_in + n],
-                  conv[..., d_in + n:]))
+        parts = (None,) * 3 if tails is None else tails
         xc, ncx = _causal_conv(F.silu(xc), c.conv_x, parts[0])
         bmat, ncb = _causal_conv(bmat, c.conv_b, parts[1])
         cmat, ncc = _causal_conv(cmat, c.conv_c, parts[2])
@@ -612,8 +706,8 @@ class SSDBlock(_Block):
         xh = xc.reshape(b, s, hs, p)
         dta = dt.float() * a                                   # (b, s, hs)
         dtx = xh * dt[..., None]
-        if cache is not None and s == 1:
-            st = cache["state"]
+        if state is not None and s == 1:
+            st = state
             decay = torch.exp(dta[:, 0])[..., None, None]
             upd = (dtx[:, 0].float()[..., None]
                    * bmat[:, 0].float()[:, None, None, :])
@@ -622,17 +716,15 @@ class SSDBlock(_Block):
             y = y + self.d_skip.float()[None, :, None] * xh[:, 0].float()
             y = y.reshape(b, 1, d_in)
         else:
-            st0 = (cache["state"] if cache is not None else
+            st0 = (state if state is not None else
                    torch.zeros((b, hs, p, n), device=h.device))
             y, st = self._chunked(dtx, bmat, cmat, dta, st0)
             y = y + self.d_skip.float()[None, None, :, None] * xh.float()
             y = y.reshape(b, s, d_in)
-            if cache is not None:
-                cache["state"].copy_(st)
-        if cache is not None:
-            conv.copy_(torch.cat([ncx, ncb, ncc], dim=-1))
+            if state is not None:
+                state.copy_(st)
         y = y.to(h.dtype) * F.silu(z)
-        return y @ c.out, cache
+        return y @ c.out, (ncx, ncb, ncc)
 
     def _chunked(self, dtx, bmat, cmat, dta, st):
         """The chunked scan: (y (B, S, H, P) f32, the final state)."""

@@ -328,3 +328,41 @@ def attention(q, k, v, q_pos, k_pos, *, causal=True, window=0, cap=None,
                     else q_block(*args))
     out = torch.cat(outs, dim=1)[:, :sq]
     return out.reshape(b, sq, h, hd)
+
+
+def attention_partial(q, k, v, q_pos, k_pos, *, window=0, cap=None):
+    """One run of a causal attention's keys, for runs split over several
+    ranks (a decode cache split along ``kv_seq``): (m, l, acc), the run's
+    masked score maximum (B, KV, R, Sq) in f32, the sum of the scores'
+    exponentials less m, and the values weighted by them (B, Sq, KV, R,
+    hd) in f32.  ``combine_partials`` adds the runs as the online
+    softmax adds KV chunks.  A run with no key in the mask gives m at the
+    mask value, and the combination weighs it by exp(mask - max) = 0."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, hd)
+    s = _scores(qg, k, 1.0 / math.sqrt(hd), cap)
+    m = _mask(q_pos, k_pos, True, window)
+    s = torch.where(m[:, None, None], s, _MASK_VALUE)
+    top = s.amax(dim=-1)
+    p = torch.exp(s - top[..., None])
+    return top, p.sum(dim=-1), _mix(p.to(v.dtype), v).float()
+
+
+def combine_partials(group, parts, dtype):
+    """The attention output (B, Sq, H, hd) in ``dtype`` of each member of
+    ``group`` (a ``collectives.Group`` or ``Groups``) from the members'
+    ``attention_partial`` runs: the maximum over the group, each run's
+    sum and weighted values rescaled to it and added over the group,
+    then divided (three all-reduces)."""
+    tops = group.max([m for m, _, _ in parts])
+    scale = [torch.exp(m - t) for (m, _, _), t in zip(parts, tops)]
+    sums = group.all_reduce([lv * w for (_, lv, _), w in zip(parts, scale)])
+    accs = group.all_reduce([acc * w.permute(0, 3, 1, 2)[..., None]
+                             for (_, _, acc), w in zip(parts, scale)])
+    out = []
+    for acc, lv in zip(accs, sums):
+        b, sq, kv, rep, hd = acc.shape
+        denom = torch.clamp_min(lv.permute(0, 3, 1, 2)[..., None], 1e-30)
+        out.append((acc / denom).to(dtype).reshape(b, sq, kv * rep, hd))
+    return out

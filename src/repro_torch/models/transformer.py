@@ -58,7 +58,7 @@ from .blocks import (ATTN_AXES, CROSS_AXES, MLP_AXES, MOE_AXES, RGLRU_AXES,
                      RGLRUBlock, SSDBlock, attn_spec, cross_attn_spec,
                      mlp_spec, moe_spec, rglru_spec, ssd_spec)
 from .common import (PAD_POS, Axes, ModelConfig, RankConfig, checkpointed,
-                     rmsnorm, scaled, softcap)
+                     combine_partials, rmsnorm, scaled, softcap)
 
 Params = Dict[str, Any]
 
@@ -688,7 +688,7 @@ def kv_select(cfg: ModelConfig, layout: TPLayout, tp: int, rank: int,
     than ranks): the distinct heads where each serves an equal run of
     the rank's query heads, else one a query head.  None: nothing to
     select."""
-    if not layout.heads or layout.kv_heads:
+    if layout is None or not layout.heads or layout.kv_heads:
         return None
     hl, rep = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
     idx = [(rank * hl + j) // rep for j in range(hl)]
@@ -699,8 +699,11 @@ def kv_select(cfg: ModelConfig, layout: TPLayout, tp: int, rank: int,
     return torch.tensor(idx, dtype=torch.long, device=device)
 
 
-def _split(kind: str, layout: TPLayout) -> bool:
-    """Whether the blocks of ``kind`` are split over "model"."""
+def _split(kind: str, layout: Optional[TPLayout]) -> bool:
+    """Whether the blocks of ``kind`` are split over "model" (no layout:
+    a model axis of 1, nothing split)."""
+    if layout is None:
+        return False
     return {"attn": layout.heads, "cross": layout.heads, "mlp": layout.ff,
             "moe": layout.expert or layout.expert_ff, "ssd": layout.inner,
             "rec": layout.inner}[kind]
@@ -735,61 +738,124 @@ def tp_partial_leaves(cfg: ModelConfig, layout: TPLayout) -> list:
             for key in _GROUPS[g] for leaf in names[_kind(key)]]
 
 
-def _ssd_parts(cfg, group, blocks, hs) -> list:
+def _ssd_parts(cfg, group, blocks, hs, caches=None) -> list:
     """Each rank's part of an SSD block's output.  ``in_xz``'s "inner"
     split gives rank r the r-th run of its 2 d_in columns, not the x and
     z columns of its heads (at a model axis of 2 rank 0 holds every x
     column and rank 1 every z column), so the ranks' products are
     gathered (``group.gather``: B x S x 2 d_in a rank, reduce-scattered
     back in the backward) and each takes the x and z columns of its
-    heads."""
+    heads.
+
+    ``caches``: each rank's cache of the block (a serve step's).  The
+    rules split the convolution tail's d_in + 2N channels (x, B, C) into
+    runs over "model" that are not the ranks' heads either: the tails
+    are gathered (``group.all_gather``), each rank convolves its heads'
+    x channels and B and C, and writes its run of the whole new tail,
+    whose x channels it has from the gathered product.  The state is
+    split by heads, each rank's its own."""
     ws = [b.weights() for b in blocks]
     whole = group.gather([h @ c.in_xz for h, c in zip(hs, ws)], dim=-1)
     d_in, dl = cfg.ssm_inner, blocks[0].cfg.ssm_inner
-    return [b.project(h, xz[..., r * dl:(r + 1) * dl],
-                      xz[..., d_in + r * dl:d_in + (r + 1) * dl], c=c)[0]
-            for r, (b, h, xz, c) in enumerate(zip(blocks, hs, whole, ws))]
+    if caches is None or caches[0] is None:
+        return [b.project(h, xz[..., r * dl:(r + 1) * dl],
+                          xz[..., d_in + r * dl:d_in + (r + 1) * dl],
+                          c=c)[0]
+                for r, b, h, xz, c in zip(group.ranks, blocks, hs, whole,
+                                          ws)]
+    n, w = cfg.ssm_state, cfg.conv_width
+    tails = group.all_gather([cache["conv"] for cache in caches], dim=-1)
+    out = []
+    for r, b, h, xz, c, cache, tail in zip(group.ranks, blocks, hs, whole,
+                                           ws, caches, tails):
+        own = (tail[..., r * dl:(r + 1) * dl], tail[..., d_in:d_in + n],
+               tail[..., d_in + n:])
+        o, (_, ncb, ncc) = b.scan(
+            h, xz[..., r * dl:(r + 1) * dl],
+            xz[..., d_in + r * dl:d_in + (r + 1) * dl], own, cache["state"],
+            c)
+        x_in = F.silu(xz[..., :d_in])
+        xp = torch.cat([tail[..., :d_in].to(x_in.dtype), x_in], dim=1)
+        new = torch.cat([xp[:, xp.shape[1] - (w - 1):], ncb, ncc], dim=-1)
+        q = cache["conv"].shape[-1]
+        cache["conv"].copy_(new[..., r * q:(r + 1) * q])
+        out.append(o)
+    return out
 
 
-def _rec_parts(group, blocks, hs) -> list:
+def _rec_parts(group, blocks, hs, caches=None) -> list:
     """Each rank's part of an RG-LRU block's output.  ``w_r`` and ``w_i``
     are split by rows, the gates' columns whole, so a rank's product is a
     partial sum of each whole gate, of which it needs its own columns: a
     reduce-scatter (``group.sum_scatter``, all-gathered back in the
-    backward), not a sum every rank then slices."""
+    backward), not a sum every rank then slices.  ``caches``: each
+    rank's cache of the block, split by width as the rank's columns
+    are."""
+    caches = caches or [None] * len(blocks)
     ws = [b.weights() for b in blocks]
-    br = [b.branches(h, c=c) for b, h, c in zip(blocks, hs, ws)]
+    br = [b.branches(h, cache, c) for b, h, c, cache in zip(blocks, hs, ws,
+                                                            caches)]
     rs = group.sum_scatter([xb @ c.w_r for (xb, _, _), c in zip(br, ws)],
                            dim=-1)
     gs = group.sum_scatter([xb @ c.w_i for (xb, _, _), c in zip(br, ws)],
                            dim=-1)
-    return [b.recur(xb, yb, r, i, c=c)
-            for b, (xb, yb, _), r, i, c in zip(blocks, br, rs, gs, ws)]
+    return [b.recur(xb, yb, r, i, cache, conv, c)
+            for b, (xb, yb, conv), r, i, c, cache in zip(blocks, br, rs, gs,
+                                                          ws, caches)]
 
 
 def _tp_layer(cfg, layout, group, layers, xs, positions, tiles, kvsel,
-              mems):
+              mems, caches=None, seq=None, rows=None):
     """One super-layer on every rank of ``group``: a split block's normed
     input opened (``group.copy``), each rank's part of its output added
     (``group.sum``), then the residual (a cross-attention block's through
-    its ``tanh(gate)``, after the sum); a whole block on every rank."""
+    its ``tanh(gate)``, after the sum); a whole block on every rank.
+
+    A serve step's (``tp_serve``): ``caches`` each rank's cache of this
+    layer; ``seq`` the groups over which an attention cache is split
+    along ``kv_seq`` (``collectives.Groups`` over "data": a prompt's
+    tail written into each run, a decode token's softmax combined over
+    the runs, ``common.combine_partials``); ``rows`` the groups over
+    which a batch is split whose MoE dispatch groups span the shards
+    (the MoE's input gathered over them, each rank keeping its rows of
+    the output)."""
     name = layers[0].name
+    caches = caches or [None] * len(layers)
     for key in _GROUPS[name]:
         kind = _kind(key)
-        if not _split(kind, layout):
-            xs = [layer.run_block(key, x, p, memory=m, tiles=t)
-                  for layer, x, p, m, t in zip(layers, xs, positions, mems,
-                                               tiles)]
+        cs = [None if c is None or kind not in _CACHED else c[key]
+              for c in caches]
+        split = _split(kind, layout)
+        runs = seq is not None and kind == "attn" and cs[0] is not None
+        gathered = rows is not None and kind == "moe"
+        if not (split or runs or gathered):
+            xs = [layer.run_block(key, x, p, c, m, t)
+                  for layer, x, p, c, m, t in zip(layers, xs, positions,
+                                                  caches, mems, tiles)]
             continue
         blocks = [getattr(layer, key) for layer in layers]
-        hs = group.copy([b.normed(x) for x, b in zip(xs, blocks)])
+        hs = [b.normed(x) for x, b in zip(xs, blocks)]
+        if split:
+            hs = group.copy(hs)
         gates = [None] * len(blocks)
         if kind == "attn":
             window = cfg.local_window if _local(name, key) else 0
-            parts = [b.attend(h, p, window=window, causal=name != "enc",
-                              tiles=t, kv_heads=kv)[0]
-                     for b, h, p, t, kv in zip(blocks, hs, positions, tiles,
-                                               kvsel)]
+            if runs and hs[0].shape[1] == 1:
+                parts = [b.partial(h, p, window=window, cache=c,
+                                   shard=(r, seq.size), kv_heads=kv)
+                         for b, h, p, c, kv, r in zip(blocks, hs, positions,
+                                                      cs, kvsel, seq.ranks)]
+                parts = [b.out(o) for b, o in zip(blocks, combine_partials(
+                    seq, parts, hs[0].dtype))]
+            else:
+                shards = ([(r, seq.size) for r in seq.ranks] if runs
+                          else [(0, 1)] * len(blocks))
+                parts = [b.attend(h, p, window=window, causal=name != "enc",
+                                  cache=c, tiles=t, kv_heads=kv,
+                                  shard=sh)[0]
+                         for b, h, p, c, t, kv, sh in zip(
+                             blocks, hs, positions, cs, tiles, kvsel,
+                             shards)]
         elif kind == "cross":
             ws = [b.weights() for b in blocks]
             parts = [b.attend(h, m, kv, c) for b, h, m, kv, c in
@@ -798,15 +864,21 @@ def _tp_layer(cfg, layout, group, layers, xs, positions, tiles, kvsel,
         elif kind == "mlp":
             parts = [b.project(h) for b, h in zip(blocks, hs)]
         elif kind == "moe":
-            parts = [b.project(h, r * b.cfg.local_experts
-                               if layout.expert else 0)
-                     for r, (b, h) in enumerate(zip(blocks, hs))]
+            firsts = [r * b.cfg.local_experts if split and layout.expert
+                      else 0 for r, b in zip(group.ranks, blocks)]
+            ins = rows.all_gather(hs, dim=0) if gathered else hs
+            parts = [b.project(h, f) for b, h, f in zip(blocks, ins, firsts)]
+            if gathered:
+                parts = [o.narrow(0, k * h.shape[0], h.shape[0])
+                         for o, h, k in zip(parts, hs, rows.ranks)]
         elif kind == "ssd":
-            parts = _ssd_parts(cfg, group, blocks, hs)
+            parts = _ssd_parts(cfg, group, blocks, hs, cs)
         else:
-            parts = _rec_parts(group, blocks, hs)
+            parts = _rec_parts(group, blocks, hs, cs)
+        if split:
+            parts = group.sum(parts)
         xs = [x + (o.to(x.dtype) if g is None else g * o.to(x.dtype))
-              for x, o, g in zip(xs, group.sum(parts), gates)]
+              for x, o, g in zip(xs, parts, gates)]
     return xs
 
 
@@ -847,7 +919,8 @@ def _tp_memory(models, cfg, layout, group, batches, kvsel, remat) -> list:
                        positions, [{} for _ in models], kvsel,
                        [None] * len(models), remat)
     mems = [rmsnorm(x, m.enc_norm, cfg.rms_eps) for x, m in zip(xs, models)]
-    return group.copy(mems) if layout.heads else mems
+    return group.copy(mems) if layout is not None and layout.heads \
+        else mems
 
 
 def _tp_chunk_nll(cap, group, vl: int, *args):
@@ -864,7 +937,7 @@ def _tp_chunk_nll(cap, group, vl: int, *args):
     es = group.sum([torch.exp(z - m[..., None]).sum(-1)
                     for z, m in zip(logits, ms)])
     picks = []
-    for r, (z, tt) in enumerate(zip(logits, tts)):
+    for r, z, tt in zip(group.ranks, logits, tts):
         local = tt - r * vl
         own = (local >= 0) & (local < vl)
         hit = z.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
@@ -875,6 +948,26 @@ def _tp_chunk_nll(cap, group, vl: int, *args):
         nll = torch.log(e) + m - t
         out += [(nll * mm).sum(), mm.sum()]
     return tuple(out)
+
+
+def _tp_embed(models, cfg: ModelConfig, layout, group, toks) -> list:
+    """Each rank's embedded tokens: split by vocabulary, each rank gathers
+    its rows, zeros the rest, and the ranks add (``group.sum``); else the
+    whole table on every rank."""
+    if layout is None or not layout.vocab:
+        return [m._embed(t) for m, t in zip(models, toks)]
+    vl = models[0].cfg.vocab
+    parts = []
+    for r, m, t in zip(group.ranks, models, toks):
+        local = t - r * vl
+        own = (local >= 0) & (local < vl)
+        idx = local.clamp(0, vl - 1)
+        e = (m.embed.to(cfg.dtype)[idx] if m.live
+             else m.embed[idx].to(cfg.dtype))
+        parts.append(torch.where(own[..., None], e,
+                                 torch.zeros((), dtype=e.dtype,
+                                             device=e.device)))
+    return [scaled(x, math.sqrt(cfg.d_model)) for x in group.sum(parts)]
 
 
 def tp_nll_sums(models, cfg: ModelConfig, layout: TPLayout, group, batches,
@@ -889,25 +982,12 @@ def tp_nll_sums(models, cfg: ModelConfig, layout: TPLayout, group, batches,
     (``_tp_chunk_nll``) in ``loss_fn``'s checkpointed chunks: no rank
     holds the (B, S, V) logits.  Returns each rank's (sum, count), equal
     on all of them."""
-    tp = len(models)
     toks = [m._tokens(bt["tokens"]) for m, bt in zip(models, batches)]
-    if layout.vocab:
-        vl = models[0].cfg.vocab
-        parts = []
-        for r, (m, t) in enumerate(zip(models, toks)):
-            local = t - r * vl
-            own = (local >= 0) & (local < vl)
-            e = m.embed.to(cfg.dtype)[local.clamp(0, vl - 1)]
-            parts.append(torch.where(own[..., None], e,
-                                     torch.zeros((), dtype=e.dtype,
-                                                 device=e.device)))
-        xs = [scaled(x, math.sqrt(cfg.d_model)) for x in group.sum(parts)]
-    else:
-        xs = [m._embed(t) for m, t in zip(models, toks)]
+    xs = _tp_embed(models, cfg, layout, group, toks)
     positions = [m._positions(*t.shape) for m, t in zip(models, toks)]
     tiles = [{} for _ in models]
-    kvsel = [kv_select(cfg, layout, tp, r, t.device)
-             for r, t in enumerate(toks)]
+    kvsel = [kv_select(cfg, layout, group.size, r, t.device)
+             for r, t in zip(group.ranks, toks)]
     mems = _tp_memory(models, cfg, layout, group, batches, kvsel, remat)
     for name, _count in group_plan(cfg):
         xs = _tp_stack_run(cfg, layout, group,
@@ -915,6 +995,7 @@ def tp_nll_sums(models, cfg: ModelConfig, layout: TPLayout, group, batches,
                            tiles, kvsel, mems, remat)
     xs = [rmsnorm(x, m.final_norm, cfg.rms_eps) for x, m in zip(xs, models)]
     if layout.vocab:
+        vl = models[0].cfg.vocab
         xs = group.copy(xs)
     shifted = [_shifted(x, t, bt.get("mask"), loss_chunk)
                for x, t, bt in zip(xs, toks, batches)]
@@ -925,6 +1006,52 @@ def tp_nll_sums(models, cfg: ModelConfig, layout: TPLayout, group, batches,
     whole = functools.partial(_chunk_nll, cfg.logit_softcap)
     return [_chunk_sums(whole, [h], [sh])[0]
             for h, sh in zip(heads, shifted)]
+
+
+def tp_serve(models, cfg: ModelConfig, layout: Optional[TPLayout], group,
+             caches, batches, seq=None, rows=None) -> list:
+    """A prefill or one decode step of each rank's batch over the ranks of
+    ``group`` (a ``collectives.Group`` or ``Groups`` over "model"):
+    ``models`` their ``Transformer``s over their parameters (of
+    ``local_config``; ``layout`` None: a model axis of 1), ``caches``
+    their caches (the rules' shards: KV heads split or replicated as
+    ``cache_axes`` and the rules give, the SSD and RG-LRU widths split),
+    written in place, ``batches`` their batches: {"tokens" (B, S)} a
+    prefill, {"token" (B, 1), "pos" (B,)} a decode step, and the vision
+    or audio memory (raw audio frames in a prefill, encoded in a decode
+    step, as ``Transformer.prefill`` returns them).  The embedding,
+    every block and the audio encoder split as ``tp_nll_sums`` splits
+    them (``_tp_layer``; ``seq`` and ``rows`` as it takes them).
+    Returns each rank's logits of the last position (B, 1, V) in
+    ``cfg.dtype``: a rank's vocabulary columns gathered over "model"
+    (``group.all_gather``)."""
+    decode = "token" in batches[0]
+    toks = [m._tokens(bt["token" if decode else "tokens"])
+            for m, bt in zip(models, batches)]
+    xs = _tp_embed(models, cfg, layout, group, toks)
+    kvsel = [kv_select(cfg, layout, group.size, r, t.device)
+             for r, t in zip(group.ranks, toks)]
+    if decode:
+        positions = [torch.as_tensor(bt["pos"], device=m.device).to(
+            torch.int32)[:, None] for m, bt in zip(models, batches)]
+        mems = [m._memory(bt.get("memory"), encoded=True)
+                for m, bt in zip(models, batches)]
+    else:
+        positions = [m._positions(*t.shape) for m, t in zip(models, toks)]
+        mems = _tp_memory(models, cfg, layout, group, batches, kvsel, False)
+    tiles = [{} for _ in models]
+    for name, count in group_plan(cfg):
+        for i in range(count):
+            xs = _tp_layer(cfg, layout, group,
+                           [m.groups[name][i] for m in models], xs,
+                           positions, tiles, kvsel, mems,
+                           [_layer(c[name], i) for c in caches], seq, rows)
+    logits = [softcap(rmsnorm(x[:, -1:], m.final_norm, cfg.rms_eps)
+                      @ m._head(), cfg.logit_softcap)
+              for x, m in zip(xs, models)]
+    if layout is not None and layout.vocab:
+        logits = group.all_gather(logits, dim=-1)
+    return logits
 
 
 # ---------------------------------------------------------------------------

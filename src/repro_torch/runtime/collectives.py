@@ -32,6 +32,19 @@ a reduce-scatter's result on that id, an all-gather's gathered tensor.
 That is the JAX package's measure (``hlo_analysis.collective_bytes`` sums
 the result shapes of the collective ops of the per-device program;
 ``runtime/hlo_analysis.py`` applies its factor of 2 for an all-reduce).
+
+A representative trace (``Representatives``) runs one id, the one at
+coordinate 0 of every mesh axis, and it stands for every id: all of
+them run the same program on shards of the same shapes (one program for
+every id, as XLA's SPMD partitioner compiles it).  Each group of the
+traced id holds it and, as *virtual* members, the rest of the group: its
+collectives return ``meta`` results of the whole group's shapes (so a
+representative trace runs on ``meta`` tensors), and the traced id's
+result is counted for every id.  ``Counter.by_id`` gives every id of
+the mesh; on a mesh small enough to run whole it equals the whole run's
+count id by id, kind by kind and axes by axes, and the whole run's count
+is the same on every id (``tests/test_torch_collective_count.py``).  The
+dry run traces one id of each production mesh this way.
 """
 from __future__ import annotations
 
@@ -43,11 +56,15 @@ import torch
 
 class Counter:
     """Result bytes and op counts a collective delivered on each mesh id,
-    by (kind, axes): ``bytes[id][(kind, "data,model")]``."""
+    by (kind, axes): ``bytes[id][(kind, "data,model")]``.  ``bytes`` and
+    ``ops`` hold the traced ids; ``stands_for`` (a representative trace's,
+    ``Representatives.stands_for``) names the ids each of them counts for,
+    and ``by_id`` gives them all."""
 
-    def __init__(self):
+    def __init__(self, stands_for: Optional[Dict[int, List[int]]] = None):
         self.bytes: Dict[int, _Tally] = {}
         self.ops: Dict[int, _Tally] = {}
+        self.stands_for = stands_for
 
     def reset(self) -> None:
         self.bytes.clear()
@@ -59,12 +76,14 @@ class Counter:
         self.ops.setdefault(device_id, _Tally())[key] += 1
 
     def by_id(self) -> Dict[int, Dict[str, Dict[str, int]]]:
-        """id -> kind -> axes -> bytes."""
+        """id -> kind -> axes -> bytes, for every id a traced id counts
+        for."""
         out: Dict[int, Dict[str, Dict[str, int]]] = {}
         for i, tally in sorted(self.bytes.items()):
-            for (kind, axes), b in sorted(tally.items()):
-                out.setdefault(i, {}).setdefault(kind, {})[axes] = b
-        return out
+            for j in (self.stands_for or {}).get(i, [i]):
+                for (kind, axes), b in sorted(tally.items()):
+                    out.setdefault(j, {}).setdefault(kind, {})[axes] = b
+        return dict(sorted(out.items()))
 
 
 def groups(mesh, axes: Sequence[str]) -> List[List[int]]:
@@ -80,14 +99,41 @@ def groups(mesh, axes: Sequence[str]) -> List[List[int]]:
     return [[int(i) for i in row] for row in moved.reshape(-1, size)]
 
 
+class Representatives:
+    """The one id a representative trace of a sharded step runs (module
+    docstring): ``ids``, the id at coordinate 0 of every mesh axis;
+    ``stands_for``: that id -> every id of the mesh, sorted."""
+
+    def __init__(self, mesh):
+        first = int(mesh.device_ids[(0,) * mesh.device_ids.ndim])
+        self.ids = [first]
+        self.stands_for = {first: sorted(int(i) for i in
+                                         mesh.device_ids.ravel())}
+
+    def groups(self, mesh, axes: Sequence[str]) -> List[tuple]:
+        """(traced members, every member) of the group of ``mesh`` along
+        ``axes`` that holds the traced id."""
+        return [(self.ids, members) for members in groups(mesh, axes)
+                if self.ids[0] in members]
+
+
 class Group:
     """The members of one group of ``mesh`` along ``axes``, in order, with
-    the counter their collectives write to."""
+    the counter their collectives write to.  ``ids``: the members that run
+    (the lists a collective takes and returns are theirs); ``members``:
+    the whole group (default ``ids``), the rest virtual; ``size``: the
+    whole group's; ``ranks``: each of ``ids``' place in the group."""
 
     def __init__(self, mesh, ids: Sequence[int], axes: Sequence[str],
-                 counter: Optional[Counter] = None):
+                 counter: Optional[Counter] = None,
+                 members: Optional[Sequence[int]] = None):
         self.mesh = mesh
         self.ids = [int(i) for i in ids]
+        self.members = (self.ids if members is None
+                        else [int(i) for i in members])
+        self.size = len(self.members)
+        self.ranks = [self.members.index(i) for i in self.ids]
+        self.virtual = len(self.ids) < self.size
         self.axes = ",".join(a for a in axes if a in mesh.axis_names)
         self.counter = counter
 
@@ -103,6 +149,18 @@ class Group:
         for i, t in zip(self.ids, results):
             self.counter.add(i, kind, self.axes,
                              t.numel() * t.element_size())
+
+    def _stand_ins(self, xs: Sequence[torch.Tensor], dim: int = 0,
+                   times: int = 1, per: int = 1) -> List[torch.Tensor]:
+        """``meta`` results of a group with virtual members: each input's
+        shape, ``dim`` times ``times`` over ``per``."""
+        out = []
+        for x in xs:
+            shape = list(x.shape)
+            if shape:
+                shape[dim] = shape[dim] * times // per
+            out.append(torch.empty(shape, dtype=x.dtype, device="meta"))
+        return out
 
     # -- without gradients ------------------------------------------------
 
@@ -122,10 +180,11 @@ class Group:
                    op: str = "sum") -> List[torch.Tensor]:
         """Each member's result: the members' values added (``op="sum"``)
         or their elementwise maximum (``"max"``)."""
-        if len(xs) == 1:
+        if self.size == 1:
             return list(xs)
         fn = torch.add if op == "sum" else torch.maximum
-        out = self._spread(self._reduce(xs, fn))
+        out = (self._stand_ins(xs) if self.virtual
+               else self._spread(self._reduce(xs, fn)))
         self.count("all-reduce", out)
         return out
 
@@ -138,11 +197,13 @@ class Group:
                    dim: int) -> List[torch.Tensor]:
         """The members' parts concatenated along ``dim``, in group
         order, on every member."""
-        if len(xs) == 1:
+        if self.size == 1:
             return list(xs)
-        dev = xs[0].device
-        whole = torch.cat([x.to(dev) for x in xs], dim=dim)
-        out = self._spread(whole)
+        if self.virtual:
+            out = self._stand_ins(xs, dim, times=self.size)
+        else:
+            dev = xs[0].device
+            out = self._spread(torch.cat([x.to(dev) for x in xs], dim=dim))
         self.count("all-gather", out)
         return out
 
@@ -151,12 +212,15 @@ class Group:
                        dim: int) -> List[torch.Tensor]:
         """The members' values added, then split along ``dim``: member k
         keeps the k-th part."""
-        if len(xs) == 1:
+        if self.size == 1:
             return list(xs)
-        total = self._reduce(xs, torch.add)
-        q = total.shape[dim] // len(xs)
-        out = [total.narrow(dim, k * q, q).to(self.device(k), copy=True)
-               .contiguous() for k in range(len(xs))]
+        if self.virtual:
+            out = self._stand_ins(xs, dim, per=self.size)
+        else:
+            total = self._reduce(xs, torch.add)
+            q = total.shape[dim] // len(xs)
+            out = [total.narrow(dim, k * q, q).to(self.device(k), copy=True)
+                   .contiguous() for k in range(len(xs))]
         self.count("reduce-scatter", out)
         return out
 
@@ -165,14 +229,14 @@ class Group:
     def sum(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """All-reduce in the forward, the identity in the backward: each
         member's gradient is its own result's (Megatron's g)."""
-        if len(xs) == 1:
+        if self.size == 1:
             return list(xs)
         return list(_Sum.apply(self, *xs))
 
     def copy(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The identity in the forward, an all-reduce of the gradients in
         the backward (Megatron's f)."""
-        if len(xs) == 1:
+        if self.size == 1:
             return list(xs)
         return list(_Copy.apply(self, *xs))
 
@@ -181,7 +245,7 @@ class Group:
         """``all_gather`` in the forward; in the backward each member's
         gradient is its own part of the members' gradients added (a
         reduce-scatter)."""
-        if len(xs) == 1:
+        if self.size == 1:
             return list(xs)
         return list(_Gather.apply(self, dim, *xs))
 
@@ -190,7 +254,7 @@ class Group:
         """``reduce_scatter`` in the forward (member k keeps the k-th part
         of the sum); in the backward every member's gradient is the
         members' gradients concatenated (an all-gather)."""
-        if len(xs) == 1:
+        if self.size == 1:
             return list(xs)
         return list(_SumScatter.apply(self, dim, *xs))
 
@@ -209,7 +273,8 @@ def _meta(xs) -> list:
 class _Sum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group: Group, *xs):
-        out = group._spread(group._reduce(xs, torch.add))
+        out = (group._stand_ins(xs) if group.virtual
+               else group._spread(group._reduce(xs, torch.add)))
         group.count("all-reduce", out)
         return tuple(out)
 
@@ -255,19 +320,77 @@ class _SumScatter(torch.autograd.Function):
             _filled(grads, ctx.meta), ctx.dim))
 
 
-def mesh_groups(mesh, axes: Sequence[str],
-                counter: Optional[Counter] = None) -> List[Group]:
-    """Every ``Group`` of ``mesh`` along ``axes`` (``groups``' order)."""
-    return [Group(mesh, ids, axes, counter) for ids in groups(mesh, axes)]
+def mesh_groups(mesh, axes: Sequence[str], counter: Optional[Counter] = None,
+                rep: Optional[Representatives] = None) -> List[Group]:
+    """Every ``Group`` of ``mesh`` along ``axes`` (``groups``' order); with
+    ``rep``, the one with its traced id, the rest of it virtual."""
+    if rep is None:
+        return [Group(mesh, ids, axes, counter) for ids in groups(mesh, axes)]
+    return [Group(mesh, ids, axes, counter, members)
+            for ids, members in rep.groups(mesh, axes)]
 
 
 def per_id(mesh, axes: Sequence[str], values: Dict[int, torch.Tensor],
-           fn, counter: Optional[Counter] = None, **kw
+           fn, counter: Optional[Counter] = None,
+           rep: Optional[Representatives] = None, **kw
            ) -> Dict[int, torch.Tensor]:
     """Run the collective ``fn(group, [values of its members], **kw)``
     (e.g. ``Group.all_reduce``) over every group of ``mesh`` along
-    ``axes``; returns id -> result."""
+    ``axes`` (with ``rep``: over its traced id); returns id ->
+    result."""
     out: Dict[int, torch.Tensor] = {}
-    for g in mesh_groups(mesh, axes, counter):
+    for g in mesh_groups(mesh, axes, counter, rep):
         out.update(zip(g.ids, fn(g, [values[i] for i in g.ids], **kw)))
     return out
+
+
+class Groups:
+    """Every group of one axis set over values listed by id: ``ids`` (each
+    group's members in turn, or any order of them), and a collective of
+    ``Group``'s on a list aligned with ``ids`` runs in each group and
+    returns the list in the same order.  ``ranks``: each id's place in its
+    group; ``size``: a group's size.  It stands in for one ``Group`` where
+    a step runs the groups of an axis together (the serve steps' model
+    and data groups, ``transformer.tp_serve``)."""
+
+    def __init__(self, members: Sequence[Group], ids: Sequence[int]):
+        self.groups = list(members)
+        self.ids = [int(i) for i in ids]
+        where = {i: k for k, i in enumerate(self.ids)}
+        self._at = [[where[i] for i in g.ids] for g in self.groups]
+        self.size = self.groups[0].size
+        self.ranks = [0] * len(self.ids)
+        for g, at in zip(self.groups, self._at):
+            for r, k in zip(g.ranks, at):
+                self.ranks[k] = r
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def _each(self, method: str, xs: Sequence[torch.Tensor], **kw) -> list:
+        out = [None] * len(xs)
+        for g, at in zip(self.groups, self._at):
+            for k, r in zip(at, getattr(g, method)([xs[k] for k in at], **kw)):
+                out[k] = r
+        return out
+
+    def all_reduce(self, xs, op: str = "sum"):
+        return self._each("all_reduce", xs, op=op)
+
+    def max(self, xs):
+        return self._each("max", xs)
+
+    def all_gather(self, xs, dim: int):
+        return self._each("all_gather", xs, dim=dim)
+
+    def sum(self, xs):
+        return self._each("sum", xs)
+
+    def copy(self, xs):
+        return self._each("copy", xs)
+
+    def gather(self, xs, dim: int):
+        return self._each("gather", xs, dim=dim)
+
+    def sum_scatter(self, xs, dim: int):
+        return self._each("sum_scatter", xs, dim=dim)

@@ -29,13 +29,20 @@ The collective bytes are counted where a sharded step runs
 each mesh id, by kind and axes; ``collective_terms`` applies the JAX
 walker's factor of 2 for an all-reduce and takes the largest id).  A
 placed step run on logical devices gives them (``roofline_terms(...,
-collectives=bundle.collectives)``).  A dry-run cell on the 256- or
-512-id production meshes has no such run: a single-controller step over
-256 shards is not feasible to trace, so there the collective keys
-(``collective_bytes``, ``cross_pod_bytes``, ``collective_s``,
-``cross_pod_s``, ``collective_by_kind``, ``collective_counts``) are None
-and named in ``unavailable`` (ROADMAP A6d-3b), and ``dominant`` is taken
-over the terms there are.
+collectives=bundle.collectives)``), and so does a representative trace
+of the step on ``meta`` (``collectives.Representatives``): the dry run
+traces one id of the 256- or 512-id production mesh and counts every id
+as it (``launch/dryrun.py``).
+
+What ``collective_s`` assumes: every byte crosses NVLink at
+``NVLINK_BW``, 450 GB/s a direction, whatever the group; no overlap with
+compute, no latency term, and the ring's factor of 2 only for an
+all-reduce.  An H100 node holds 8 cards on NVLink; a group of 16 ids of
+the production meshes (a "model" row or a "data" column) spans at least
+two nodes and would cross the slower network between them, and a "pod"
+group crosses pods, so the term is a lower bound for those groups.  The
+constant is the card's, not the cluster's: the dry run prices every
+group alike, as the JAX walker prices every group at its one ICI rate.
 """
 from __future__ import annotations
 
@@ -55,12 +62,12 @@ HBM_BW = 3.35e12
 HBM_BYTES = 80e9
 NVLINK_BW = 450e9
 
-#: the JAX terms' collective keys, None without a run of the sharded step
+#: the JAX terms' collective keys, None without a count of the sharded
+#: step's collectives
 UNAVAILABLE = ("collective_bytes", "cross_pod_bytes", "collective_s",
                "cross_pod_s", "collective_by_kind", "collective_counts")
-UNAVAILABLE_WHY = ("counted only on a sharded step run on logical devices; "
-                   "a single-controller trace of a production mesh's 256 or "
-                   "512 shards is not feasible (ROADMAP A6d-3b)")
+UNAVAILABLE_WHY = ("no count of the sharded step's collectives was given "
+                   "(roofline_terms(..., collectives=None))")
 #: the kinds the JAX walker reports (the port runs the first three)
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -185,7 +192,9 @@ def collective_terms(counter, pod_axis: str = "pod") -> Dict[str, Any]:
     ``collectives.Counter``: per device (the largest id's), the result
     bytes by kind (an all-reduce's twice, the JAX walker's ring factor),
     their sum, the part over a group that spans ``pod_axis``, the op
-    counts by kind, and their seconds at ``NVLINK_BW``."""
+    counts by kind, and their seconds at ``NVLINK_BW``.  A representative
+    count holds its traced ids, each standing for the ids it counts
+    for."""
     by_id, counts = {}, {}
     for i, tally in counter.bytes.items():
         kinds = dict.fromkeys(COLLECTIVES, 0)
@@ -217,8 +226,10 @@ def roofline_terms(cost: Dict[str, Any], *, n_chips: int = 1,
     """The roofline terms (seconds) and the dominant one, the JAX
     function's keys: a device's FLOPs and bytes are the traced step's
     over ``n_chips``, at the H100's rates.  ``collectives``: the counter
-    of a run of the sharded step (``StepBundle.collectives``), which
-    fills the collective keys; None leaves them None (``unavailable``)."""
+    of a run or a representative trace of the sharded step
+    (``StepBundle.collectives``), which fills the collective keys, and
+    ``dominant`` is then taken over the three terms; None leaves them
+    None (``unavailable``)."""
     flops = cost["flops"] / n_chips
     nbytes = cost["bytes"] / n_chips
     terms = {"compute_s": flops / PEAK_FLOPS_BF16,

@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -168,11 +168,15 @@ class NamedSharding:
             tensor = tensor.narrow(dim, k * q[dim], q[dim])
         return tensor
 
-    def shard(self, tensor: torch.Tensor) -> Dict[int, torch.Tensor]:
+    def shard(self, tensor: torch.Tensor,
+              ids: Optional[Sequence[int]] = None) -> Dict[int, torch.Tensor]:
         """device id -> its part of ``tensor``, a contiguous copy on that
-        id's device (every id of the mesh; a replicated dimension whole)."""
+        id's device (every id of the mesh, or ``ids``; a replicated
+        dimension whole)."""
+        if ids is None:
+            ids = self.mesh.device_ids.ravel().tolist()
         return {i: self.part(tensor, i).to(self.mesh.device(i), copy=True)
-                .contiguous() for i in self.mesh.device_ids.ravel().tolist()}
+                .contiguous() for i in ids}
 
     def gather(self, shards: Mapping[int, torch.Tensor],
                host: bool = False) -> torch.Tensor:
@@ -304,14 +308,19 @@ def _first_sharding(shardings) -> Optional[NamedSharding]:
     return None
 
 
-def place_tree(tree, shardings) -> Dict[int, Any]:
+def place_tree(tree, shardings, ids: Optional[Sequence[int]] = None
+               ) -> Dict[int, Any]:
     """A tree of tensors placed by a tree of ``NamedSharding``s of the
     same structure (dicts, named tuples, tuples, lists; None stays None):
     mesh id -> that id's tree of shards (``NamedSharding.shard``: each
     its own contiguous copy on its id's device, also where several ids
     share one device, so that an in-place update of one id's shard never
-    writes another's).  The leaves are placed one at a time."""
-    ids = _first_sharding(shardings).mesh.device_ids.ravel().tolist()
+    writes another's).  The leaves are placed one at a time.  ``ids``:
+    only these ids' trees (a representative trace's; a tree of ``meta``
+    tensors gives ``meta`` shards)."""
+    if ids is None:
+        ids = _first_sharding(shardings).mesh.device_ids.ravel().tolist()
+    ids = [int(i) for i in ids]
 
     def rec(values, sh):
         if values is None:
@@ -324,7 +333,7 @@ def place_tree(tree, shardings) -> Dict[int, Any]:
             build = (type(values) if hasattr(values, "_fields")
                      else lambda *xs: type(values)(xs))
             return {i: build(*(p[i] for p in parts)) for i in ids}
-        return sh.shard(torch.as_tensor(values))
+        return sh.shard(torch.as_tensor(values), ids)
 
     return rec(tree, shardings)
 

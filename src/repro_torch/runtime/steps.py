@@ -1,5 +1,5 @@
 """Step functions: the train step with its state, the cross-pod
-compressed train step, and thin prefill and decode wrappers, at the JAX
+compressed train step, and the prefill and decode steps, at the JAX
 package's ``runtime/steps.py`` names.
 
 Without a mesh, the train step runs on one device, its state plain
@@ -33,6 +33,20 @@ The collectives are the port's own (``runtime/collectives.py``) and count
 their bytes per mesh id in ``bundle.collectives`` (read by
 ``hlo_analysis.collective_terms``).  On a 1x1 mesh the step is the
 unsharded step, bit for bit.
+
+The prefill and decode steps on a mesh (``_MeshServe``) are the JAX
+steps' sharding: the parameters by their rules, the cache by
+``cache_axes`` (``seq_shard``: its ``kv_seq`` over "data" where the
+global batch is smaller than the data-parallel shards), the batch by
+``batch_sharding``; each "model" group runs ``transformer.tp_serve``.
+Without a mesh they wrap ``Transformer.prefill`` and ``decode_step``.
+
+Every sharded step also runs as a representative trace
+(``representative=True``; ``collectives.Representatives``): on
+``meta``, one id runs and the others are virtual members of its groups,
+so that a production mesh's collectives are counted from one id
+(``launch/dryrun.py``).  The per-id setup then works on that id alone
+(``_owned`` reads the mesh once a split, ``placed_abstract``).
 
 The step's order is the JAX step's: ``loss_fn`` and its gradients (a live
 ``Transformer`` over the state's parameters, remat as the config asks),
@@ -155,8 +169,8 @@ def make_train_step(cfg: ModelConfig, mesh=None, *, seq_len: int,
                     peak_lr: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10_000, weight_decay: float = 0.1,
                     grad_compress_ratio: float = 0.0,
-                    moment_dtype=torch.float32, device="cuda"
-                    ) -> StepBundle:
+                    moment_dtype=torch.float32, device="cuda",
+                    representative: bool = False) -> StepBundle:
     """``fn(state, batch) -> (state, metrics)``: one training step, the
     JAX ``make_train_step``'s.  The state's parameters, moments and step
     are updated in place (the JAX step donates them); the returned state
@@ -168,7 +182,9 @@ def make_train_step(cfg: ModelConfig, mesh=None, *, seq_len: int,
     nothing (no data axis to shard over).  A ("data", "model") ``Mesh``:
     the state is placed (``shd.place_tree(state, bundle.state_shardings)``
     or ``placed_train_state``), the batch a host batch of the global
-    rows, placed by the step (module docstring)."""
+    rows, placed by the step (module docstring).  ``representative``:
+    a representative trace (one id runs, ``collectives.Representatives``)
+    on a mesh of ``meta`` ids, its state ``placed_abstract(bundle)``."""
     use_comp = grad_compress_ratio > 0
     abstract = abstract_train_state(cfg, use_comp, moment_dtype)
     specs = input_specs(cfg, seq_len, global_batch, "train")
@@ -178,7 +194,8 @@ def make_train_step(cfg: ModelConfig, mesh=None, *, seq_len: int,
         rules = shd.make_rules(mesh, cfg, fsdp=fsdp,
                                global_batch=global_batch)
         run = _MeshStep(cfg, mesh, rules, seq_len, global_batch, hyper,
-                        ratio=grad_compress_ratio)
+                        ratio=grad_compress_ratio,
+                        representative=representative)
         return StepBundle(run, run.state_sh, run.batch_sh, abstract, specs,
                           run.counter)
     del fsdp
@@ -219,7 +236,8 @@ def make_pod_compressed_train_step(
         fsdp: bool = False, compress_ratio: float = 0.125,
         moment_dtype=torch.float32, peak_lr: float = 3e-4,
         warmup: int = 100, total_steps: int = 10_000,
-        weight_decay: float = 0.1) -> StepBundle:
+        weight_decay: float = 0.1,
+        representative: bool = False) -> StepBundle:
     """Train step whose CROSS-POD gradient reduction runs in the compressed
     butterfly basis with error feedback (the JAX function's).
 
@@ -230,7 +248,7 @@ def make_pod_compressed_train_step(
     (``min_size`` compared with the shard's size: a small shard is
     averaged whole); ``loss`` and ``ppl_proxy`` are the pods' means.  The
     error-feedback buffers are bf16 of shape (npod, *leaf), each pod's
-    row sharded like the leaf."""
+    row sharded like the leaf.  ``representative``: ``make_train_step``'s."""
     if "pod" not in mesh.axis_names:
         raise ValueError("make_pod_compressed_train_step: multi-pod mesh "
                          f"required, got axes {mesh.axis_names}")
@@ -239,7 +257,8 @@ def make_pod_compressed_train_step(
     hyper = dict(peak_lr=peak_lr, warmup=warmup, total=total_steps,
                  weight_decay=weight_decay)
     run = _MeshStep(cfg, mesh, rules, seq_len, global_batch, hyper,
-                    ratio=compress_ratio, pod=True)
+                    ratio=compress_ratio, pod=True,
+                    representative=representative)
     params = _meta_params(cfg)
     ef = tfm.tree_map(lambda p: torch.empty((npod,) + tuple(p.shape),
                                             dtype=torch.bfloat16,
@@ -287,6 +306,19 @@ def placed_train_state(bundle: StepBundle,
             for i in run.ids}
 
 
+def placed_abstract(bundle: StepBundle):
+    """A sharded step's abstract state placed on the ids it runs, as
+    ``meta`` shards, what a representative trace runs on
+    (``launch/dryrun.py``): train, id -> ``TrainState``; serve, (id ->
+    parameters, id -> cache)."""
+    placed = shd.place_tree(bundle.abstract_state, bundle.state_shardings,
+                            bundle.fn.ids)
+    if isinstance(bundle.fn, _MeshServe):
+        return ({i: v[0] for i, v in placed.items()},
+                {i: v[1] for i, v in placed.items()})
+    return placed
+
+
 def _lr(step, hyper):
     return adamw.warmup_cosine(step, peak_lr=hyper["peak_lr"],
                                warmup=hyper["warmup"], total=hyper["total"])
@@ -314,80 +346,79 @@ def _put(tree, path, value) -> None:
     tree[path[-1]] = value
 
 
-class _MeshStep:
-    """The sharded train step (``make_train_step`` on a mesh, and with
-    ``pod`` the cross-pod compressed step): ``__call__(state, batch)``
-    with ``state`` mesh id -> ``TrainState`` of shards."""
+def _owned(shardings: Dict[tuple, Any], mesh, ids) -> Dict[int, list]:
+    """id -> the paths of the shards it counts in the global norm: the
+    first id (in id order) holding each distinct shard.  Which ids hold
+    one shard depends only on the mesh axes its spec splits over, so
+    each such set is worked out once, over the whole mesh."""
+    owners: Dict[tuple, set] = {}
+    out: Dict[int, list] = {i: [] for i in ids}
+    every = sorted(int(i) for i in mesh.device_ids.ravel())
+    for path, s in shardings.items():
+        key = tuple(a for e in s.spec for a in shd.entry_axes(e))
+        if key not in owners:
+            seen, first = set(), set()
+            for i in every:
+                if s.index(i) not in seen:
+                    seen.add(s.index(i))
+                    first.add(i)
+            owners[key] = first
+        for i in ids:
+            if i in owners[key]:
+                out[i].append(path)
+    return out
 
-    def __init__(self, cfg: ModelConfig, mesh, rules, seq_len: int,
-                 global_batch: int, hyper: dict, ratio: float = 0.0,
-                 pod: bool = False):
+
+def _place_batch(batch, shardings, ids):
+    """A host batch (numpy arrays or tensors, a ``meta`` one too) placed
+    on ``ids`` by the batch shardings (a key without its own, e.g. a
+    mask, as the tokens)."""
+    tok = shardings["tokens" if "tokens" in shardings else "token"]
+    sh = {k: shardings.get(k, tok) for k in batch}
+    return shd.place_tree({k: v if isinstance(v, torch.Tensor)
+                           else torch.as_tensor(np.asarray(v))
+                           for k, v in batch.items()}, sh, ids)
+
+
+class _MeshRun:
+    """What the sharded train and serve steps share: the ids they run
+    (every id of the mesh; with ``representative`` the one id of a
+    representative trace, ``collectives.Representatives``), the counter
+    of their collectives, the batch axes and their shards, the model
+    axis's layout and a rank's config, the leaves split over "data"
+    (fsdp; ``param_sh``: path -> sharding) and each id's ``Transformer``
+    (``_models``)."""
+
+    def __init__(self, cfg: ModelConfig, mesh, rules, param_sh: dict,
+                 representative: bool):
         tp = mesh.shape.get("model", 1)
-        self.cfg, self.mesh, self.hyper, self.pod = cfg, mesh, hyper, pod
-        self.ids = sorted(int(i) for i in mesh.device_ids.ravel())
-        self.counter = col.Counter()
-        batch_axes = tuple(shd.entry_axes(rules["batch"]))
-        shards = int(np.prod([mesh.shape[a] for a in batch_axes]))
-        if cfg.n_experts and moe_groups(cfg, global_batch, seq_len) != \
-                moe_groups(cfg, global_batch // shards, seq_len):
-            raise ValueError(
-                f"{cfg.name}: a data shard of {global_batch // shards} rows "
-                f"x {seq_len} does not hold whole MoE dispatch groups of the "
-                f"global batch ({moe_groups(cfg, global_batch, seq_len)} "
-                "tokens and capacity a group)")
-        # the pod step reduces within a pod; its pods meet in the compressor
-        self.grad_axes = tuple(a for a in batch_axes
-                               if not (pod and a == "pod"))
-        self.state_sh = state_shardings(cfg, mesh, rules,
-                                        ratio > 0 and not pod)
-        if pod:
-            self.state_sh = self.state_sh._replace(ef_err=tfm.tree_map(
-                lambda s: shd.NamedSharding(mesh, shd.P("pod", *s.spec)),
-                self.state_sh.params))
-        self.batch_sh = shd.batch_sharding(
-            mesh, rules, with_memory=cfg.family in ("vlm", "audio"))
-        self.spec = (compress.make_spec(ratio=ratio, device=mesh.device(
-            self.ids[0])) if ratio > 0 else None)
+        self.cfg, self.mesh = cfg, mesh
+        self.rep = col.Representatives(mesh) if representative else None
+        self.ids = (self.rep.ids if self.rep else
+                    sorted(int(i) for i in mesh.device_ids.ravel()))
+        self.counter = col.Counter(self.rep.stands_for if self.rep
+                                   else None)
+        self.batch_axes = tuple(shd.entry_axes(rules["batch"]))
+        self.shards = int(np.prod([mesh.shape[a] for a in self.batch_axes]))
         self.layout = tfm.tp_layout(rules) if tp > 1 else None
         self.local_cfg = (tfm.local_config(cfg, self.layout, tp) if tp > 1
                           else cfg)
-        self.param_sh = dict(_leaf_paths(self.state_sh.params))
-        self.fsdp = {p: s.dim_of("data") for p, s in self.param_sh.items()
+        self.fsdp = {p: s.dim_of("data") for p, s in param_sh.items()
                      if s.dim_of("data") is not None}
-        if self.fsdp and "data" not in self.grad_axes:
-            raise ValueError(f"fsdp needs the batch split over 'data' (the "
-                             f"global batch {global_batch}, rules {rules})")
-        self.partial = set(tfm.tp_partial_leaves(cfg, self.layout)
-                           if tp > 1 else ())
-        # the first id holding each distinct shard counts it in the norm
-        self.owned = {i: [] for i in self.ids}
-        for path, s in self.param_sh.items():
-            seen = set()
-            for i in self.ids:
-                if s.index(i) not in seen:
-                    seen.add(s.index(i))
-                    self.owned[i].append(path)
         self.live: Dict[int, tuple] = {}
 
     def _groups(self, axes):
-        return col.mesh_groups(self.mesh, axes, self.counter)
+        return col.mesh_groups(self.mesh, axes, self.counter, self.rep)
 
     def _each(self, axes, values, fn, **kw):
-        return col.per_id(self.mesh, axes, values, fn, self.counter, **kw)
+        return col.per_id(self.mesh, axes, values, fn, self.counter,
+                          self.rep, **kw)
 
-    def _batch(self, batch):
-        """The host batch placed: tokens (and a mask) split over the batch
-        axes, a vision or audio memory likewise."""
-        tok = self.batch_sh["tokens"]
-        sh = {k: self.batch_sh.get(k, tok) for k in batch}
-        return shd.place_tree({k: v if isinstance(v, torch.Tensor)
-                               else torch.as_tensor(np.asarray(v))
-                               for k, v in batch.items()}, sh)
-
-    def _models(self, state):
-        """id -> the live model over its parameters: its shards, the
-        leaves split over "data" (fsdp) all-gathered first."""
-        params = {i: state[i].params for i in self.ids}
+    def _models(self, params, live: bool) -> Dict[int, tfm.Transformer]:
+        """id -> the ``Transformer`` over its parameters (``live``: the
+        train step's): its shards, the leaves split over "data" (fsdp)
+        all-gathered first, at every call; without fsdp built once a
+        tree."""
         if self.fsdp:
             params = {i: tfm.tree_map(lambda t: t, params[i])
                       for i in self.ids}
@@ -401,9 +432,54 @@ class _MeshStep:
                  for i in self.ids):
             return {i: self.live[i][1] for i in self.ids}
         self.live = {i: (params[i], tfm.Transformer(self.local_cfg,
-                                                    params[i], live=True))
+                                                    params[i], live=live))
                      for i in self.ids}
         return {i: m for i, (_, m) in self.live.items()}
+
+
+class _MeshStep(_MeshRun):
+    """The sharded train step (``make_train_step`` on a mesh, and with
+    ``pod`` the cross-pod compressed step): ``__call__(state, batch)``
+    with ``state`` mesh id -> ``TrainState`` of shards."""
+
+    def __init__(self, cfg: ModelConfig, mesh, rules, seq_len: int,
+                 global_batch: int, hyper: dict, ratio: float = 0.0,
+                 pod: bool = False, representative: bool = False):
+        self.hyper, self.pod = hyper, pod
+        self.state_sh = state_shardings(cfg, mesh, rules,
+                                        ratio > 0 and not pod)
+        if pod:
+            self.state_sh = self.state_sh._replace(ef_err=tfm.tree_map(
+                lambda s: shd.NamedSharding(mesh, shd.P("pod", *s.spec)),
+                self.state_sh.params))
+        self.param_sh = dict(_leaf_paths(self.state_sh.params))
+        super().__init__(cfg, mesh, rules, self.param_sh, representative)
+        shards = self.shards
+        if cfg.n_experts and moe_groups(cfg, global_batch, seq_len) != \
+                moe_groups(cfg, global_batch // shards, seq_len):
+            raise ValueError(
+                f"{cfg.name}: a data shard of {global_batch // shards} rows "
+                f"x {seq_len} does not hold whole MoE dispatch groups of the "
+                f"global batch ({moe_groups(cfg, global_batch, seq_len)} "
+                "tokens and capacity a group)")
+        # the pod step reduces within a pod; its pods meet in the compressor
+        self.grad_axes = tuple(a for a in self.batch_axes
+                               if not (pod and a == "pod"))
+        self.batch_sh = shd.batch_sharding(
+            mesh, rules, with_memory=cfg.family in ("vlm", "audio"))
+        self.spec = (compress.make_spec(ratio=ratio, device=mesh.device(
+            self.ids[0])) if ratio > 0 else None)
+        if self.fsdp and "data" not in self.grad_axes:
+            raise ValueError(f"fsdp needs the batch split over 'data' (the "
+                             f"global batch {global_batch}, rules {rules})")
+        self.partial = set(tfm.tp_partial_leaves(cfg, self.layout)
+                           if self.layout else ())
+        self.owned = _owned(self.param_sh, mesh, self.ids)
+
+    def _batch(self, batch):
+        """The host batch placed: tokens (and a mask) split over the batch
+        axes, a vision or audio memory likewise."""
+        return _place_batch(batch, self.batch_sh, self.ids)
 
     def _sums(self, models, batch):
         """id -> its data group's (NLL sum, mask count)."""
@@ -495,8 +571,7 @@ class _MeshStep:
         parts = [adamw.squared_sum(
             [_at(grads[i], p) for p in self.owned[i]],
             torch.zeros((), device=self.mesh.device(i))) for i in self.ids]
-        total = col.Group(self.mesh, self.ids, self.mesh.axis_names,
-                          self.counter).all_reduce(parts)
+        total = self._groups(self.mesh.axis_names)[0].all_reduce(parts)
         return {i: torch.sqrt(t) for i, t in zip(self.ids, total)}
 
     def gradients(self, state, batch):
@@ -504,7 +579,7 @@ class _MeshStep:
         its gradients over the mesh, reduced as the step reduces them
         before any compression; the state is not changed."""
         placed = self._batch(batch)
-        models = self._models(state)
+        models = self._models({i: state[i].params for i in self.ids}, True)
         for m in models.values():
             m.zero_grad()
         losses = self._losses(self._sums(models, placed))
@@ -541,13 +616,94 @@ class _MeshStep:
         return new, metrics[self.ids[0]]
 
 
-def make_prefill_step(cfg: ModelConfig, *, seq_len: int, global_batch: int,
-                      fsdp: bool = False) -> StepBundle:
-    """``fn(model, cache, batch) -> (logits, cache)``: ``model.prefill``
-    of batch {"tokens", optional "memory"} (``model``: a
-    ``Transformer``).  ``abstract_state``: (parameters, cache) as
-    ``meta`` tensors."""
-    del fsdp
+class _MeshServe(_MeshRun):
+    """The sharded prefill or decode step (``make_prefill_step`` /
+    ``make_decode_step`` on a mesh): ``__call__(params, cache, batch)``
+    with ``params`` and ``cache`` mesh id -> that id's tree of shards
+    (``shd.place_tree(tree, bundle.state_shardings[k])``, or
+    ``placed_abstract``), ``batch`` a host batch of the global rows,
+    placed by the step.  Returns (id -> the logits of its rows (B, 1, V)
+    in ``cfg.dtype``, gathered over "model"; the cache, written in
+    place); ``out_sharding`` gathers the logits
+    (``NamedSharding.gather``); ``models`` holds the last call's
+    ``Transformer`` of each id.
+
+    One process drives every id, as the train step does.  The leaves
+    the rules split over "data" (fsdp) are all-gathered at each call;
+    every id's ``Transformer`` is of ``transformer.local_config`` and the
+    ranks of each "model" group run ``transformer.tp_serve``.  Where the
+    global batch is smaller than the data-parallel shards (``seq_shard``:
+    the batch replicated), each cache's ``kv_seq`` is split over "data"
+    and a decode token's attention is combined over the data groups;
+    where a data shard does not hold whole MoE dispatch groups of the
+    global call, the MoE blocks' input is gathered over the batch axes."""
+
+    def __init__(self, cfg: ModelConfig, mesh, rules, mode: str,
+                 seq_len: int, global_batch: int,
+                 representative: bool = False):
+        self.param_sh = shd.sharding_tree(tfm.param_axes(cfg), mesh, rules)
+        super().__init__(cfg, mesh, rules, dict(_leaf_paths(self.param_sh)),
+                         representative)
+        self.cache_sh = shd.sharding_tree(tfm.cache_axes(cfg), mesh, rules)
+        self.batch_sh = shd.batch_sharding(
+            mesh, rules, with_memory=cfg.family in ("vlm", "audio"),
+            mode=mode)
+        self.out_sharding = shd.NamedSharding(
+            mesh, shd.P(rules["batch"], None, None))
+        tokens = seq_len if mode == "prefill" else 1
+        self.seq_axes = ("data",) if rules["kv_seq"] == "data" else None
+        self.row_axes = (self.batch_axes if cfg.n_experts and moe_groups(
+            cfg, global_batch, tokens) != moe_groups(
+                cfg, global_batch // self.shards, tokens) else None)
+        self.models: Dict[int, tfm.Transformer] = {}
+
+    def _all(self, axes) -> col.Groups:
+        return col.Groups(self._groups(axes), self.ids)
+
+    def __call__(self, params, cache, batch):
+        placed = _place_batch(batch, self.batch_sh, self.ids)
+        with torch.no_grad():
+            models = self.models = self._models(params, False)
+            logits = tfm.tp_serve(
+                [models[i] for i in self.ids], self.cfg, self.layout,
+                self._all(("model",)), [cache[i] for i in self.ids],
+                [placed[i] for i in self.ids],
+                self._all(self.seq_axes) if self.seq_axes else None,
+                self._all(self.row_axes) if self.row_axes else None)
+        return dict(zip(self.ids, logits)), cache
+
+
+def _serve_bundle(cfg: ModelConfig, mesh, mode: str, seq_len: int,
+                  global_batch: int, fsdp: bool,
+                  representative: bool) -> StepBundle:
+    """The JAX serve steps' rules (``seq_shard`` where the global batch is
+    smaller than the data-parallel shards) and a ``_MeshServe``."""
+    seq_shard = global_batch < int(np.prod(
+        [mesh.shape[a] for a in shd.dp_axes(mesh)]))
+    rules = shd.make_rules(mesh, cfg, fsdp=fsdp, seq_shard=seq_shard,
+                           global_batch=global_batch)
+    run = _MeshServe(cfg, mesh, rules, mode, seq_len, global_batch,
+                     representative)
+    return StepBundle(run, (run.param_sh, run.cache_sh), run.batch_sh,
+                      (_meta_params(cfg), tfm.init_cache(
+                          cfg, global_batch, seq_len, device="meta")),
+                      input_specs(cfg, seq_len, global_batch, mode),
+                      run.counter)
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None, *, seq_len: int,
+                      global_batch: int, fsdp: bool = False,
+                      representative: bool = False) -> StepBundle:
+    """Without a mesh: ``fn(model, cache, batch) -> (logits, cache)``,
+    ``model.prefill`` of batch {"tokens", optional "memory"} (``model``:
+    a ``Transformer``).  On a ("data", "model") or ("pod", "data",
+    "model") mesh: the JAX step's sharding, ``fn(params, cache, batch)``
+    (``_MeshServe``), ``state_shardings`` (parameters, cache).
+    ``abstract_state``: (parameters, cache) as ``meta`` tensors.
+    ``representative``: ``make_train_step``'s."""
+    if mesh is not None:
+        return _serve_bundle(cfg, mesh, "prefill", seq_len, global_batch,
+                             fsdp, representative)
 
     def fn(model, cache, batch):
         logits, cache, _memory = model.prefill(cache, batch["tokens"],
@@ -559,12 +715,16 @@ def make_prefill_step(cfg: ModelConfig, *, seq_len: int, global_batch: int,
         input_specs(cfg, seq_len, global_batch, "prefill"))
 
 
-def make_decode_step(cfg: ModelConfig, *, seq_len: int, global_batch: int,
-                     fsdp: bool = False) -> StepBundle:
-    """``fn(model, cache, batch) -> (logits, cache)``: one token against
-    a cache of ``seq_len``, ``model.decode_step`` of batch {"token" (B, 1),
-    "pos" (B,), optional encoded "memory"}."""
-    del fsdp
+def make_decode_step(cfg: ModelConfig, mesh=None, *, seq_len: int,
+                     global_batch: int, fsdp: bool = False,
+                     representative: bool = False) -> StepBundle:
+    """One token against a cache of ``seq_len``: without a mesh
+    ``fn(model, cache, batch) -> (logits, cache)``, ``model.decode_step``
+    of batch {"token" (B, 1), "pos" (B,), optional encoded "memory"}; on
+    a mesh as ``make_prefill_step``'s."""
+    if mesh is not None:
+        return _serve_bundle(cfg, mesh, "decode", seq_len, global_batch,
+                             fsdp, representative)
 
     def fn(model, cache, batch):
         return model.decode_step(cache, batch["token"], batch["pos"],

@@ -1768,3 +1768,70 @@ def test_pod_step_on_logical_devices_of_the_card(cuda, mesh_shape):
     assert 0 < cross < 0.5 * 2 * 2 * 4 * (whole + 2 + 1)
     if mesh_shape[1] > 1:
         assert cross < 0.5 * terms["collective_bytes"]
+
+
+@pytest.mark.parametrize("arch,mesh_shape,b", [
+    ("qwen2-1.5b", (2, 2), 4), ("qwen2-1.5b", (1, 4), 4),
+    ("recurrentgemma-2b", (2, 2), 1)], ids=["qwen2-2x2", "qwen2-1x4",
+                                            "recurrentgemma-seq"])
+def test_sharded_serve_on_logical_devices_of_the_card(cuda, no_tf32, arch,
+                                                      mesh_shape, b):
+    """``chip_smoke.py``'s [main-sharded] f at 1 layer (recurrentgemma: its
+    3-layer pattern) and a prompt of 64 (recurrentgemma at batch 1: the
+    caches split over "data"): the sharded prefill and 2 decode steps on
+    4 logical devices of the card, f32, an f32 cache, against the
+    unsharded steps on the card: the logits and the gathered cache within
+    1e-4 max(1, max|x|); each call's collective count equal to its
+    representative trace's on ``meta``."""
+    from repro_torch.configs import get_config, get_recipe
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    cfg = get_config(arch).replace(
+        dtype=torch.float32, n_layers=3 if arch == "recurrentgemma-2b" else 1)
+    s, n = 64, 2
+    length = s + n
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (b, length))
+    batches = [{"tokens": toks[:, :s].astype(np.int32)}] + [
+        {"token": toks[:, t:t + 1].astype(np.int32),
+         "pos": np.full((b,), t, np.int32)} for t in range(s, length)]
+    tree = tfm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    model = tfm.Transformer(cfg, tree)
+    cache = tfm.init_cache(cfg, b, length, cuda, torch.float32)
+    wants = [model.prefill(cache, batches[0]["tokens"])[0]] + [
+        model.decode_step(cache, bt["token"], bt["pos"])[0]
+        for bt in batches[1:]]
+    recipe = get_recipe(arch)
+    kw = dict(seq_len=length, global_batch=b, fsdp=recipe["fsdp"])
+    mesh = _logical_mesh(mesh_shape)
+    pre = steps.make_prefill_step(cfg, mesh, **kw)
+    dec = steps.make_decode_step(cfg, mesh, **kw)
+    params = shd.place_tree(tree, pre.state_shardings[0])
+    placed = shd.place_tree(tfm.init_cache(cfg, b, length, cuda,
+                                           torch.float32),
+                            pre.state_shardings[1])
+
+    def bound(got, want):
+        return 1e-4 * max(1.0, float(want.abs().max())), float(
+            (got - want).abs().max())
+
+    for k, bt in enumerate(batches):
+        step = pre if k == 0 else dec
+        step.collectives.reset()
+        got, placed = step.fn(params, placed, bt)
+        limit, err = bound(step.fn.out_sharding.gather(got), wants[k])
+        assert err <= limit, (k, err, limit)
+        rep = dryrun.collective_count(
+            cfg, recipe, Shape(
+                "sharded", length, b, "prefill" if k == 0 else "decode"),
+            mesh, batch=bt)
+        assert rep.by_id() == step.collectives.by_id()
+    assert (dec.fn.seq_axes is not None) == (b == 1)
+    for got, want in zip(tree_leaves(shd.gather_tree(
+            placed, dec.state_shardings[1])), tree_leaves(cache)):
+        limit, err = bound(got, want)
+        assert err <= limit

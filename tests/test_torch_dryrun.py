@@ -399,9 +399,11 @@ def test_dot_flops_are_the_jax_loop_aware_count(arch, mode):
 # ---------------------------------------------------------------------------
 
 def test_cli_writes_the_jax_keys(tmp_path, monkeypatch, capsys):
-    """A small cell on both meshes with an override, a cached rerun, the
-    ``pod_compress`` override recorded as a failure (A6d-3b), and the
-    skips of ``--all`` printed."""
+    """A small cell on both meshes with an override, a cached rerun, and
+    the ``pod_compress`` override on the single-pod mesh recorded as a
+    failure with the JAX step's assertion.  Every collective key is
+    filled, from the sharded decode step traced for one id of each
+    production mesh, and ``dominant`` is taken over the three terms."""
     monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
     argv = ["--arch", "mamba2-780m", "--shape", "decode_32k", "--mesh",
             "both", "--override", "attn_chunk=512"]
@@ -421,9 +423,18 @@ def test_cli_writes_the_jax_keys(tmp_path, monkeypatch, capsys):
         assert res["overrides"] == {"attn_chunk": 512}
         assert res["flops_basis"] == "global/n_chips"
         assert res["temp_basis"] == "one data shard, model axis unsplit"
-        assert res["roofline"]["unavailable"] == list(hlo.UNAVAILABLE)
-        assert all(res["roofline"][k] is None for k in hlo.UNAVAILABLE)
-        assert res["roofline"]["dominant"] in ("compute", "memory")
+        roof = res["roofline"]
+        assert roof["unavailable"] == [] and roof["unavailable_why"] is None
+        assert all(roof[k] is not None for k in hlo.UNAVAILABLE)
+        assert roof["collective_bytes"] > 0 and roof["collective_s"] > 0
+        assert roof["cross_pod_bytes"] == 0     # no group crosses a pod
+        assert set(roof["collective_by_kind"]) == set(hlo.COLLECTIVES)
+        assert sum(roof["collective_by_kind"].values()) == \
+            roof["collective_bytes"]
+        terms = {k: roof[f"{k}_s"] for k in ("compute", "memory",
+                                               "collective")}
+        assert roof["dominant"] == max(terms, key=terms.get)
+        assert "collectives" in res["basis"]
         assert res["memory"]["per_device_bytes"] > 0
         assert res["moment_dtype"] == "float32"
         assert (res["params_total"], res["params_active"]) == \
@@ -433,8 +444,44 @@ def test_cli_writes_the_jax_keys(tmp_path, monkeypatch, capsys):
     bad = ["--arch", "qwen2-1.5b", "--shape", "train_4k", "--override",
            "pod_compress=true"]
     assert dryrun.main(bad) == 1
-    assert "FAIL qwen2-1.5b train_4k single: the pod step's dry run needs " \
-        "the sharded step run over the production mesh's shards" in \
+    assert "FAIL qwen2-1.5b train_4k single: multi-pod mesh required\n" in \
+        capsys.readouterr().out
+
+
+def test_cli_pod_compress_cell_on_a_small_multi_mesh(tmp_path, monkeypatch,
+                                                     capsys):
+    """``--override pod_compress=true`` runs the cross-pod compressed
+    step's trace on the multi mesh (here a (2, 2, 2) one and a smoke
+    config at S 32 x B 8, a vocabulary of 1024 so that the embedding's
+    and the head's shards are compressed): cross-pod bytes above 0 and
+    under half of all collective bytes (the JAX test's gate); on the
+    single mesh the JAX step's assertion."""
+    monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
+    monkeypatch.setattr(dryrun, "SHAPES", {"train_4k": Shape(
+        "train_4k", 32, 8, "train")})
+    monkeypatch.setattr(dryrun, "get_config", lambda arch: get_config(
+        arch, smoke=True).replace(vocab=1024))
+    small = {True: ((2, 2, 2), ("pod", "data", "model")),
+             False: ((2, 4), ("data", "model"))}
+
+    def mesh(multi_pod=False):
+        shape, axes = small[multi_pod]
+        return Mesh(np.arange(8).reshape(shape), axes,
+                    process_devices("meta", 8))
+
+    monkeypatch.setattr(dryrun, "make_production_mesh", mesh)
+    argv = ["--arch", "qwen2-1.5b", "--shape", "train_4k", "--override",
+            "pod_compress=true"]
+    assert dryrun.main(argv + ["--mesh", "multi"]) == 0
+    res = json.loads((tmp_path / "qwen2-1.5b__train_4k__multi.json")
+                     .read_text())
+    roof = res["roofline"]
+    assert 0 < roof["cross_pod_bytes"] < 0.5 * roof["collective_bytes"]
+    assert roof["cross_pod_s"] == roof["cross_pod_bytes"] / hlo.NVLINK_BW
+    assert "pod-compressed" in res["basis"]["collectives"]
+    assert res["overrides"] == {"pod_compress": True}
+    assert dryrun.main(argv + ["--mesh", "single"]) == 1
+    assert "FAIL qwen2-1.5b train_4k single: multi-pod mesh required\n" in \
         capsys.readouterr().out
 
 
