@@ -159,7 +159,7 @@ each), so that the run stays well inside its time limit:
              driven with the counts zeroed just before and read just
              after, comparisons not counted: a. [main]'s basis with its
              tiers and the F = 7 bank behind ``AsyncFGFTService(
-             max_queue=128, max_batch=8)``, 4096 tier and 1024 bank
+             max_queue=128, max_batch=8)``, 2048 tier and 512 bank
              requests of R = 8 rows from 16 closed-loop tenants: every
              answer equal to ``step_versioned`` / ``step_bank_versioned``
              on the request's rows alone (G within the G tolerance, the
@@ -174,9 +174,9 @@ each), so that the run stays well inside its time limit:
              exact); requests/s, p50/p99 of queue, service and total per
              tier, mean occupancy, and the traced/untraced requests/s
              ratio (the same load with ``obs.configure(enabled=False)``,
-             printed, not gated).  b. [main-directed]'s basis, 1024
+             printed, not gated).  b. [main-directed]'s basis, 512
              requests, bitwise.  c. [main-ragged]'s saved router (no
-             fit), 1024 requests over its three buckets, one launch per
+             fit), 512 requests over its three buckets, one launch per
              dispatch, pads 0 in every bucket output.  d. a dynamic
              engine on [main]'s basis, a churn thread at 0.002 and the
              maintainer at a 0.05 s interval (refresh threshold 0.002,
@@ -298,19 +298,31 @@ each), so that the run stays well inside its time limit:
              layers and llama-3.2-vision-90b at 5 (one cross5
              super-layer), all at full width, bf16 and f32 (f32 cache),
              on a drawn memory for vision and audio; each model's
-             parameters and ``max_memory_allocated`` printed.  c. six
+             parameters and ``max_memory_allocated`` printed.  c. four
              requests through 4 slots against each alone in 1 slot on
-             the same memory.  d. each family (mamba2 2 layers,
-             recurrentgemma 3, seamless 2 + 2, qwen3-moe 2, vision 5) in
-             f32 with an f32 cache on the card against the CPU.  e.
+             the same memory.  d. each family (mamba2 2
+             layers, recurrentgemma 3, seamless 2 + 2, qwen3-moe 2,
+             vision 5) in f32 with an f32 cache on the card against the
+             CPU, the CPU's copy in one pinned host block.  kimi-k2-1t-a32b
+             (KIMI, ROADMAP A6e): one layer at full width, all 384 experts
+             in the recipe's bf16 parameters (38.8 GB; the f32 draw of
+             each leaf peaks at 61.3 GB, printed beside the arithmetic;
+             its compute copies are the parameters, 0 B, checked): b and
+             c in bf16, the decode step's ms, launches and busy ms beside
+             its bytes bound, and the bytes its dispatch reads (every
+             expert's); then one f32 draw at 16 experts (12.7 GB) for b in
+             f32 (gated on the rows whose compared token routes alike on
+             both sides, the only rows whose logits read no other token's
+             MoE output at one layer) and d.  e.
              mamba2-780m and recurrentgemma-2b at 2 layers, f32: a
              256-token ``forward`` (chunked SSD / scanned RG-LRU) against
              256 single-token decode steps, and their states.  Bounds as
-             [main-lm]'s; MoE is printed, not gated, in b and c (forward,
-             prefill and decode group tokens differently, and capacity
-             couples the slots of a decode step; the dropped (token,
-             expert) pairs are printed), and d gates an MoE call only
-             where the card's and the CPU's top-k sets all agree.  None
+             [main-lm]'s; MoE is printed, not gated, in b (beyond one
+             layer) and c (forward, prefill and decode group tokens
+             differently, and capacity couples the slots of a decode
+             step; the dropped (token, expert) pairs are printed), and d
+             gates an MoE call only where the card's and the CPU's top-k
+             sets all agree.  None
              of the 12 entry points may launch (``lm_families_launches``
              of each ``kernels`` row).  The phase's seconds are printed.
 5j. main-train — the LM training path (after [main-lm-families]; TRAIN;
@@ -338,6 +350,21 @@ each), so that the run stays well inside its time limit:
              both peaks printed.  e. the ``--smoke`` CLI on the card: 3
              steps and ``--resume auto`` to 6 against 6 at once (the
              parameters bitwise), and ``--grad-compress-ratio 0.25``.
+             kimi-k2-1t-a32b (KIMI, ROADMAP A6e), one layer at full
+             width: f. (i) c's check in f32 at 16 experts, B 2 x S 64,
+             no remat on either side, the host's MemAvailable read first
+             (the CPU side holds ~54 GB; short of it, the gradients
+             alone): the loss and every gradient leaf at c's bounds, both
+             sides updated leaf by leaf, each parameter entry within
+             ``adamw.first_step_tolerance`` of c's gradient and norm
+             bounds (its reading on the parameters' scale printed).  g.
+             (ii) the recipe's step at 64 experts (bf16 parameters and
+             moments, 5.3 B parameters), 2 steps of ``make_train_step``
+             at B 8 x S 256: every gradient and moment leaf finite, the
+             moments bf16, the first loss within 2e-2 x max(1, |loss|) of
+             an f32 forward's on the same parameters and batch; step ms,
+             tok/s, the second step's launches and busy ms beside 6 N T,
+             the peak beside the arithmetic (~70.6 GB).
              None of the 12 entry points may launch (``train_launches``
              of each ``kernels`` row).  The phase's seconds are printed.
 5k. main-placed — fleet placement (after [main-train]; PLACED; no fit
@@ -360,7 +387,8 @@ each), so that the run stays well inside its time limit:
              logical devices, every tier of every bucket bitwise the
              saved router's; the placed router saved (``placement.json``)
              and loaded back placed, tables and steps bitwise.  e/f. a
-             small fleet (B = 8, n = 64, g = 384) fitted unplaced and with
+             small fleet (B = 8, n = 64, g = 192) fitted unplaced and
+             with
              ``fit(mesh=)`` on 4 logical devices (factors, spectrum and
              objective bitwise), then dynamic engines on both fits, one
              placed on the logical devices: a forced REFRESH (no new plan,
@@ -372,14 +400,16 @@ each), so that the run stays well inside its time limit:
              zeroed just before and read just after: a.
              ``launch/dryrun.py::run_cell`` of qwen2-1.5b train_4k on
              both production meshes (256 and 512 ids on ``meta``; one
-             global and one data-shard trace serve both; each mesh's
-             collectives from the sharded step traced for one id, every
-             id counted as it): per-device GB against the card's
-             ``total_memory``, ``collective_bytes``, ``cross_pod_bytes``,
-             the bytes by kind and the dominant of the three terms
-             (every collective key filled); then the ``pod_compress``
-             cell on the multi mesh, its cross-pod bytes under half of
-             its collective bytes (the JAX test's gate).
+             global and one data-shard trace serve both; each cell's
+             collectives from its step traced for one id, every id
+             counted as it): the single mesh's cell, per-device GB
+             against the card's ``total_memory``, ``collective_bytes``,
+             ``cross_pod_bytes``, the bytes by kind and the dominant of
+             the three terms (every collective key filled); then the
+             multi mesh's ``pod_compress`` cell, its cross-pod bytes
+             under half of its collective bytes (the JAX test's gate;
+             the multi mesh's plain cell is left out for the run's time
+             limit).
              b. [main-train]'s configuration (qwen2-1.5b at full size,
              B 8 x S 256, ``remat_block`` 4) predicted on a 1x1 mesh and
              held to one real step on the card: the predicted argument
@@ -429,7 +459,13 @@ each), so that the run stays well inside its time limit:
              ``--resume auto`` to 6, against 6 at once, every state leaf
              bitwise.  e. one train step of each family beyond the dense
              ones at full width and the least depth its layer pattern
-             takes (``SHARDED_FAMILIES``: qwen3-moe-30b-a3b expert-parallel
+             takes (``SHARDED_FAMILIES``: kimi-k2-1t-a32b at one layer and
+             16 experts in f32, fsdp and expert-parallel on (2, 2), its
+             loss and gradients only, its values the recipe's bf16 ones,
+             then C12's bf16 line: the bf16 sharded step's gradients
+             against the unsharded bf16 step's beside twice the unsharded
+             bf16 step's distance from the f32 one, printed;
+             qwen3-moe-30b-a3b expert-parallel
              and mamba2-780m on (1, 4), recurrentgemma-2b on (2, 2),
              seamless-m4t-large-v2 on (1, 4), llama-3.2-vision-90b on (1,
              4), its loss and gradients only, at B 2), f32, TF32 off, the
@@ -3619,6 +3655,10 @@ LM = dict(arch="qwen2-1.5b", wide="gemma2-27b", wide_layers=2, cpu_layers=2,
           tol={"bfloat16": 2e-2, "float32": 1e-4})
 
 
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
 def lm_bound(logits, dtype) -> float:
     return LM["tol"][str(dtype).split(".")[-1]] * max(
         1.0, float(logits.float().abs().max()))
@@ -3736,6 +3776,29 @@ def moe_routes(model) -> list:
             if isinstance(m, MoEBlock)]
 
 
+def moe_token_routes(model) -> list:
+    """Each MoE block's last call, per token in the call's B x S order:
+    its top-k set (expert ids ascending) and which of those pairs were
+    kept, on the host."""
+    from repro_torch.models.blocks import MoEBlock
+    out = []
+    for m in model.modules():
+        if isinstance(m, MoEBlock):
+            k = m.routes.shape[-1]
+            ids, order = m.routes.reshape(-1, k).sort(-1)
+            out.append((ids.cpu(), m.kept.reshape(-1, k).gather(
+                -1, order).cpu()))
+    return out
+
+
+def same_routes(a: list, i: int, b: list, j: int) -> bool:
+    """Whether token i of one call (``moe_token_routes``) and token j of
+    another have the same top-k sets and kept pairs in every block."""
+    import torch
+    return all(torch.equal(x[0][i], y[0][j]) and torch.equal(x[1][i], y[1][j])
+               for x, y in zip(a, b))
+
+
 def tree_leaves(tree):
     """The leaves of nested dicts."""
     for v in tree.values():
@@ -3771,7 +3834,11 @@ def decode_consistency(tag, model, card, cache_dtype=None, note: str = "",
     """b: prefill + one decode against ``forward`` of the extended
     sequence (the JAX package's tests/test_models.py check), on
     ``memory`` where the family reads one.  An MoE model's dropped
-    (token, expert) pairs are counted on each side."""
+    (token, expert) pairs are counted on each side.  ``gate_err``: what
+    the gate holds: every row of a dense model; of a one-layer MoE model
+    the rows whose compared token has the same top-k sets and kept pairs
+    on both sides (its logits then read no other token's MoE output, so
+    they differ by rounding alone); of a deeper one none."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as tfm
@@ -3782,25 +3849,45 @@ def decode_consistency(tag, model, card, cache_dtype=None, note: str = "",
     cache = tfm.init_cache(cfg, b, c["max_len"], DEVICE, **kw)
     logits_p, cache, mem = model.prefill(cache, toks, memory)
     drops = {"prefill": moe_drops(model)}
+    routes = {"prefill": moe_token_routes(model)}
     tok = logits_p[:, -1].argmax(-1)[:, None]
     logits_d, _ = model.decode_step(cache, tok, torch.full((b,), s), mem)
     drops["decode"] = moe_drops(model)
+    routes["decode"] = moe_token_routes(model)
     logits_f = model.forward(np.concatenate([toks, tok.cpu().numpy()], 1),
                              memory)
     drops["forward"] = moe_drops(model)
+    routes["forward"] = moe_token_routes(model)
     for t in (logits_p, logits_d, logits_f):
         check(bool(torch.isfinite(t.float()).all()),
               f"{prefix} b. {tag}: non-finite logits")
     bound = lm_bound(logits_f, cfg.dtype)
     err_p = lm_err(logits_f[:, s - 1], logits_p[:, 0])
     err_d = lm_err(logits_f[:, s], logits_d[:, 0])
+    gated = [(err_p, b), (err_d, b)]
     cache_name = str((cache_dtype or torch.bfloat16)).split(".")[-1]
     if cfg.n_experts:
+        gated = [(0.0, 0), (0.0, 0)]
+        if cfg.n_layers == 1:   # rows whose compared token routes alike
+            # (side, its logits, row i's token in its call, its position)
+            sides = (("prefill", logits_p, lambda i: i * s + s - 1, s - 1),
+                     ("decode", logits_d, lambda i: i, s))
+            gated = []
+            for side, got, at, pos in sides:
+                rows = [i for i in range(b) if same_routes(
+                    routes[side], at(i), routes["forward"],
+                    i * (s + 1) + pos)]
+                gated.append((max((lm_err(logits_f[i, pos], got[i, 0])
+                                   for i in rows), default=0.0), len(rows)))
         note += (f"; dropped (token, expert) pairs: forward "
                  f"{drops['forward']}, prefill {drops['prefill']}, decode "
-                 f"{drops['decode']} (printed, not gated: forward, prefill "
-                 f"and decode group the tokens differently, so capacity "
-                 f"drops differ)")
+                 f"{drops['decode']} (forward, prefill and decode group the "
+                 f"tokens differently, so capacity drops differ: "
+                 + (f"gated on the rows whose compared token has the same "
+                    f"top-k sets and kept pairs on both sides, prefill "
+                    f"{gated[0][1]} of {b} at {gated[0][0]:.3e}, decode "
+                    f"{gated[1][1]} of {b} at {gated[1][0]:.3e})"
+                    if cfg.n_layers == 1 else "printed, not gated)"))
     depth = (f"{cfg.n_layers} layers" if not cfg.is_encdec else
              f"{cfg.n_enc_layers} + {cfg.n_layers} layers")
     log(f"{prefix} b. {tag} ({str(cfg.dtype).split('.')[-1]}, {depth}, "
@@ -3808,31 +3895,41 @@ def decode_consistency(tag, model, card, cache_dtype=None, note: str = "",
         f"forward {err_d:.3e}, bound {bound:.3e} (max|logits| "
         f"{float(logits_f.float().abs().max()):.4f}){note} [{card}]")
     return {"prefill": err_p, "decode": err_d, "bound": bound,
-            "drops": drops, "gated": not cfg.n_experts}
+            "drops": drops, "gate_err": max(e for e, _ in gated),
+            "gated_rows": [n for _, n in gated]}
 
 
 def lm_card_vs_cpu(card, arch=None, layers=None, prefix="[main-lm]",
-                   made_on="cpu", cache_dtypes=None, gate=None) -> dict:
+                   made_on="cpu", cache_dtypes=None, gate=None, cut=None,
+                   tree=None, park=None) -> dict:
     """d: parameters made once (seed 0, on ``made_on``) and copied to the
     other device; prefill and two decodes on the card against the port on
     the CPU (f32, full width, ``layers`` layers; an encoder-decoder as
-    many encoder layers).  ``cache_dtypes``: the caches to run (default:
-    bf16, printed, then f32, gated).  An MoE model's top-k sets are
-    compared call by call: a call whose sets differ anywhere is printed
-    and left out of the gate."""
+    many encoder layers).  ``cut``: further changes to the config (named
+    in the line); ``tree``: that config's parameters already drawn on
+    the card; ``park``: a ``HostPark`` the CPU's copy is made in (pinned:
+    ~47 GB/s from the card, pageable ~1.8).  ``cache_dtypes``: the
+    caches to run (default: bf16, printed, then f32, gated).  An MoE
+    model's top-k sets are compared call by call: a call whose sets
+    differ anywhere is printed and left out of the gate."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
     arch, layers = arch or LM["arch"], layers or LM["cpu_layers"]
-    cfg = get_config(arch).replace(n_layers=layers, dtype=torch.float32)
+    cfg = get_config(arch).replace(n_layers=layers, dtype=torch.float32,
+                                   **(cut or {}))
     if cfg.is_encdec:
         cfg = cfg.replace(n_enc_layers=layers)
-    tree = tfm.init_params(cfg, torch.Generator(device=made_on).manual_seed(
-        0), made_on)
+    if tree is None:
+        tree = tfm.init_params(cfg, torch.Generator(
+            device=made_on).manual_seed(0), made_on)
     if gate is not None:
         open_gates(tree, gate)
-    on = {where: tfm.tree_map(lambda t: t.to(dev), tree)
+    if park is not None:
+        park.clear()
+    on = {where: tfm.tree_map(lambda t: t.to(dev) if park is None
+                              or where != "cpu" else park.park(t), tree)
           for where, dev in (("cpu", "cpu"), ("card", DEVICE))}
     del tree
     models = {where: tfm.Transformer(cfg, t) for where, t in on.items()}
@@ -3871,8 +3968,10 @@ def lm_card_vs_cpu(card, arch=None, layers=None, prefix="[main-lm]",
                       f" (the gate covers the {len(agree)} of "
                       f"{len(errs)} calls whose sets all agree)"))
         log(f"{prefix} d. {arch} (f32, {layers} layers"
-            f"{' + ' + str(layers) + ' encoder' if cfg.is_encdec else ''}, "
-            f"{name} cache) card vs CPU: prefill {errs[0]:.3e}, decode "
+            f"{' + ' + str(layers) + ' encoder' if cfg.is_encdec else ''}"
+            + "".join(f", {k} {dtype_name(v) if k.endswith('dtype') else v}"
+                      for k, v in (cut or {}).items())
+            + f", {name} cache) card vs CPU: prefill {errs[0]:.3e}, decode "
             f"{max(errs[1:]):.3e}, bound {bound:.3e}{moe}"
             f"{'' if gated else ' (printed, not gated)'} [{card}]")
         if gated:
@@ -4083,7 +4182,7 @@ LMF = dict(cli=("mamba2-780m", "recurrentgemma-2b"),
                       "seamless-m4t-large-v2": 2, "qwen3-moe-30b-a3b": 2,
                       "llama-3.2-vision-90b": 5},
            dual=("mamba2-780m", "recurrentgemma-2b"), dual_layers=2,
-           dual_tokens=256, requests=6, gen=6, gate=1.0)
+           dual_tokens=256, requests=4, gen=6, gate=1.0)
 
 
 def lm_slot_locality(prefix, tag, model, card, gated: bool) -> dict:
@@ -4179,6 +4278,199 @@ def lm_duality(prefix, arch, card) -> dict:
     return {"err": err, "bound": bound, "state": state}
 
 
+#: kimi-k2-1t-a32b on the card (ROADMAP A6e): one layer at the config's
+#: full width (d 7168, 64 heads, 8 KV heads, vocabulary 163840, 384
+#: experts of ff 2048, top-8), seed-0 weights.  ``experts``: the named
+#: cuts of the parts that cannot hold all 384 experts: ``f32``, the f32
+#: checks (at 384 the f32 compute copies alone would add 77.6 GB to the
+#: 38.8 GB of bf16 parameters), and ``train``, the recipe's bf16 step
+#: (parameters, gradients and two bf16 moments at 8 B a parameter, plus
+#: AdamW's f32 transients on the 1.17 B-entry embedding); ``step``: that
+#: step's batch and steps (PERF.md §4).
+KIMI = dict(arch="kimi-k2-1t-a32b", layers=1,
+            experts=dict(f32=16, train=64),
+            step=dict(batch=8, seq=256, steps=2))
+
+
+def kimi_config(experts=None, f32: bool = False):
+    """KIMI's config: the recipe's (bf16 parameters and compute) at one
+    layer, with ``experts`` experts (None: all 384); ``f32``: f32
+    parameters and compute."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(KIMI["arch"]).replace(n_layers=KIMI["layers"])
+    if experts is not None:
+        cfg = cfg.replace(n_experts=experts)
+    if f32:
+        cfg = cfg.replace(dtype=torch.float32, param_dtype=torch.float32)
+    return cfg
+
+
+def leaf_shapes(cfg) -> list:
+    """The shapes of ``cfg``'s parameter leaves."""
+    from repro_torch.models import transformer as tfm
+    return [leaf.shape for leaf in tree_leaves(tfm.param_spec(cfg))]
+
+
+def reckoned_params(cfg) -> dict:
+    """The memory arithmetic of ``cfg``'s parameters, from the shapes
+    alone: their count, their bytes at the parameter dtype, the largest
+    leaf, and the peak of drawing them (``init_params`` draws each leaf
+    in f32 and then casts it: every leaf drawn before it, the f32 draw
+    and its cast)."""
+    import math
+    import torch
+    from repro_torch.models import transformer as tfm
+    size = torch.empty((), dtype=cfg.param_dtype).element_size()
+    held = peak = largest = count = 0
+    leaves = list(tree_leaves(tfm.param_spec(cfg)))
+    for leaf in leaves:
+        n = math.prod(leaf.shape)
+        draw = (4 * n + (n * size if size != 4 else 0)
+                if leaf.init == "normal" else n * size)
+        peak = max(peak, held + draw)
+        held += n * size
+        largest, count = max(largest, n), count + n
+    return {"params": count, "bytes": held, "largest": largest,
+            "draw_peak": peak, "leaves": len(leaves)}
+
+
+def kimi_decode(prefix, model, card) -> dict:
+    """A 4-slot decode step of the kimi model: ms a step (host clock to
+    the step's token read), its kernel launches and device-busy ms
+    (torch.profiler), its bytes bound (``decode_bytes``: of the experts,
+    those the step routed to), and the bytes of expert weights the
+    dispatch reads: every expert's, since its (experts, capacity) table
+    is run whole."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models.blocks import MoEBlock, moe_groups
+    cfg = model.cfg
+    engine = serve.ServeEngine(cfg, LM["slots"], LM["max_len"], model=model)
+    rng = np.random.default_rng(8)
+    for slot in range(engine.b):
+        engine.prefill_slot(slot, rng.integers(0, cfg.vocab, LM["prompt"]))
+    toks = np.zeros(engine.b, np.int32)
+    engine.decode(toks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        engine.decode(toks)
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    n_kernels, busy_ms, wall_ms = decode_kernels(engine, toks)
+    step_bytes = decode_bytes(engine)
+    moe = [m for m in model.modules() if isinstance(m, MoEBlock)]
+    experts = sum(t.numel() * t.element_size() for m in moe
+                  for t in (m.c_gate, m.c_up, m.c_down))
+    used = sorted({int(e) for m in moe for e in m.routes.unique()})
+    gsz, cap = moe_groups(cfg, engine.b, 1)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    read_ms = (step_bytes + experts * (1 - len(used) / cfg.n_experts)
+               ) / HBM_BYTES_PER_S * 1e3
+    log(f"{prefix} b. {cfg.name} decode step ({engine.b} slots, "
+        f"{cfg.n_layers} layer): {step_ms:.3f} ms a step (host clock, "
+        f"mean of 3), {n_kernels:.0f} kernel launches, device busy "
+        f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall (torch.profiler); bound "
+        f"{bound_ms:.4f} ms ({step_bytes / 1e9:.3f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, the {len(used)} routed "
+        f"experts of {cfg.n_experts}: reckoned, not measured); the "
+        f"dispatch reads every expert's weights each decode step "
+        f"({experts / 1e9:.3f} GB: a group of {gsz} tokens at capacity "
+        f"{cap} runs the whole (experts, capacity) table), "
+        f"{read_ms:.4f} ms at that rate [{card}]")
+    del engine
+    return {"step_ms": step_ms, "launches_a_step": n_kernels,
+            "busy_ms": busy_ms, "wall_ms": wall_ms, "bound_ms": bound_ms,
+            "bytes": step_bytes, "expert_bytes": experts,
+            "routed": len(used), "read_ms": read_ms}
+
+
+def kimi_serving(prefix, card, secs, park=None) -> dict:
+    """[main-lm-families]' kimi-k2 rows (KIMI), each part's seconds added
+    to ``secs``: b (decode against forward, bf16) and c (slot locality)
+    at all 384 experts in the recipe's bf16 parameters, read by the
+    products as they lie (a bf16 model's compute copies are the
+    parameters: checked, no byte allocated), the decode step's ms,
+    launches, busy ms and bytes, printed, not gated (capacity drops
+    differ: at a decode step's group capacity is 1); then one f32 draw at
+    KIMI's f32 cut for b in f32 (gated per token where the routes agree)
+    and d (card against CPU, f32 cache; ``park``: its host copy's
+    pinned block)."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    arch = KIMI["arch"]
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = kimi_config()
+    want = reckoned_params(cfg)
+    tree = tfm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        0), DEVICE)
+    drawn = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    model = tfm.Transformer(cfg, tree)
+    copies = torch.cuda.memory_allocated() - base - held
+    log(f"{prefix} {arch}: {cfg.n_layers} layer at full width (d "
+        f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.n_experts} experts, top "
+        f"{cfg.top_k}), {want['params']} parameters in "
+        f"{dtype_name(cfg.param_dtype)} (the recipe's), computed in "
+        f"{dtype_name(cfg.dtype)}: held {held / 1e9:.3f} GB against "
+        f"{want['bytes'] / 1e9:.3f} GB reckoned; the draw's peak "
+        f"{drawn / 1e9:.3f} GB against {want['draw_peak'] / 1e9:.3f} GB "
+        f"reckoned (each leaf drawn in f32, the largest "
+        f"{want['largest'] * 4 / 1e9:.3f} GB, then cast); the compute "
+        f"copies took {copies} B (they are the parameters) [{card}]")
+    # the allocator rounds each leaf up to 512 B; a second copy of the
+    # weights would take ~38.8 GB
+    check(0 <= held - want["bytes"] <= 512 * want["leaves"]
+          and copies < 2 ** 20, f"{prefix} {arch}: held {held} B (want "
+          f"{want['bytes']}), copies {copies} B")
+    cons = {"bf16": decode_consistency(arch, model, card, prefix=prefix)}
+    dec = kimi_decode(prefix, model, card)
+    secs["b"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slots = lm_slot_locality(prefix, arch, model, card, gated=False)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"{prefix} {arch}: max_memory_allocated {peak / 1e9:.3f} GB above "
+        f"the {base / 1e9:.3f} GB held before (b and c: parameters, "
+        f"caches, activations) [{card}]")
+    del model, tree
+    torch.cuda.empty_cache()
+    secs["c"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    e = KIMI["experts"]["f32"]
+    cfg32 = kimi_config(e, f32=True)
+    tree = tfm.init_params(cfg32, torch.Generator(
+        device=DEVICE).manual_seed(0), DEVICE)
+    cons["f32"] = decode_consistency(f"{arch} at {e} experts", tfm.Transformer(
+        cfg32, tree), card, torch.float32, prefix=prefix)
+    secs["b"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = lm_card_vs_cpu(card, arch, KIMI["layers"], prefix, made_on=DEVICE,
+                         cache_dtypes=(torch.float32,),
+                         cut=dict(n_experts=e, param_dtype=torch.float32),
+                         tree=tree, park=park)
+    f32_peak = torch.cuda.max_memory_allocated() - base
+    log(f"{prefix} {arch} at {e} experts (f32): {reckoned_params(cfg32)['params']} "
+        f"parameters, {reckoned_params(cfg32)['bytes'] / 1e9:.3f} GB "
+        f"reckoned (and as much again on the host for d); "
+        f"max_memory_allocated {f32_peak / 1e9:.3f} GB above the "
+        f"{base / 1e9:.3f} GB held before [{card}]")
+    del tree
+    torch.cuda.empty_cache()
+    secs["d"] += time.perf_counter() - t0
+    for key, rec in cons.items():
+        check(rec["gate_err"] <= rec["bound"],
+              f"{prefix} b. {arch} {key}: {rec} over the bound")
+    return {"consistency": cons, "decode": dec, "slots": slots, "cpu": cpu,
+            "reckoned": want, "held": held, "draw_peak": drawn,
+            "peak": peak, "f32_peak": f32_peak}
+
+
 def phase_main_lm_families(card) -> dict:
     """[main-lm-families]: the serving path of the MoE, SSM, hybrid,
     vision and audio families (LMF)."""
@@ -4242,26 +4534,38 @@ def phase_main_lm_families(card) -> dict:
             f"{' + ' + str(cfg.n_enc_layers) + ' encoder' if cfg.is_encdec else ''}"
             f" at full width (d {cfg.d_model}, vocab {cfg.vocab}), "
             f"{n_params / 1e9:.3f} B parameters; max_memory_allocated "
-            f"{peaks[arch] / 2 ** 30:.2f} GiB (f32 parameters, bf16 "
-            f"copies, caches) [{card}]")
+            f"{peaks[arch] / 2 ** 30:.2f} GiB ({dtype_name(cfg.param_dtype)} "
+            f"parameters, their {dtype_name(cfg.dtype)} copies, caches) "
+            f"[{card}]")
         del model, f32, tree
         torch.cuda.empty_cache()
         for key, rec in cons[arch].items():
-            if rec["gated"]:
-                check(max(rec["prefill"], rec["decode"]) <= rec["bound"],
-                      f"{prefix} b. {arch} {key}: {rec} over the bound")
+            check(rec["gate_err"] <= rec["bound"],
+                  f"{prefix} b. {arch} {key}: {rec} over the bound")
         secs["b"] += time.perf_counter() - t0 - c_s
 
-    # d. card against CPU, f32 with f32 caches
+    # d. card against CPU, f32 with f32 caches, the CPU's copies in one
+    # pinned block (the largest family's f32 tree, kimi-k2's included)
+    t0 = time.perf_counter()
+    park = HostPark(max(HostPark.need(leaf_shapes(cfg), 4) for cfg in [
+        get_config(arch).replace(n_layers=layers, n_enc_layers=layers)
+        for arch, layers in LMF["cpu_depth"].items()] + [
+        kimi_config(KIMI["experts"]["f32"], f32=True)]))
+    log(f"{prefix} d. {park.block.numel()} B of pinned host memory for the "
+        f"CPU's copies, pinned in {time.perf_counter() - t0:.1f} s [{card}]")
+    secs["d"] += time.perf_counter() - t0
     cpu = {}
     for arch, layers in LMF["cpu_depth"].items():
         t0 = time.perf_counter()
         cpu[arch] = lm_card_vs_cpu(card, arch, layers, prefix,
                                    made_on=DEVICE,
                                    cache_dtypes=(torch.float32,),
-                                   gate=LMF["gate"])
+                                   gate=LMF["gate"], park=park)
         torch.cuda.empty_cache()
         secs["d"] += time.perf_counter() - t0
+
+    kimi = kimi_serving(prefix, card, secs, park)
+    del park
 
     # e. the recurrences' duality
     dual = {}
@@ -4278,7 +4582,7 @@ def phase_main_lm_families(card) -> dict:
         + f"); none of the 12 entry points launched [{card}]")
     return {"launches": launches, "cli": cli, "consistency": cons,
             "slots": slots, "cpu": cpu, "duality": dual, "peaks": peaks,
-            "phase_s": phase_s, "part_s": secs}
+            "kimi": kimi, "phase_s": phase_s, "part_s": secs}
 
 
 #: [main-train]: the LM training path.  a: the CLI at full size (the
@@ -4547,6 +4851,230 @@ def train_smoke(prefix: str, card) -> dict:
             "compressed": comp["final_loss"]}
 
 
+def host_available() -> int:
+    """The host's MemAvailable in bytes (``/proc/meminfo``)."""
+    for line in pathlib.Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise SmokeFailure("no MemAvailable in /proc/meminfo")
+
+
+#: entries of one piece of ``leafwise_update`` (256 MiB in f32)
+UPDATE_PIECE = 2 ** 26
+
+
+def leafwise_update(grads, params, lr, norm) -> None:
+    """``adamw.update`` of one first step (zero f32 moments) on pieces of
+    at most UPDATE_PIECE entries of each leaf, with the whole tree's
+    global norm: the same elementwise arithmetic as the tree's update
+    (its moments per entry, its norm given), written into the f32
+    parameters in place, with the moments and transients of one piece
+    alive at a time."""
+    from repro_torch.optim import adamw
+    for g, p in zip(adamw.tree_leaves(grads), adamw.tree_leaves(params)):
+        for gp, pp in zip(g.view(-1).split(UPDATE_PIECE),
+                          p.view(-1).split(UPDATE_PIECE)):
+            adamw.update(gp, adamw.init(pp), pp, lr=lr, norm=norm)
+
+
+def kimi_card_vs_cpu(prefix: str, card) -> dict:
+    """f: kimi-k2 (i): loss, every gradient leaf and the parameters
+    after one AdamW update, card against CPU, f32 (TF32 off), one layer
+    at full width with KIMI's f32 expert cut, TRAIN's batch and
+    tolerances.  The CPU side runs first and keeps its parameters and
+    gradients (8 B a parameter); the card then computes its own and
+    holds each leaf to the CPU's, moved over one at a time; both sides
+    update piece by piece (``leafwise_update``).  Where the host's
+    available memory cannot hold the CPU side, the gradients alone are
+    compared, and the line says so."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    c = TRAIN["cpu"]
+    e = KIMI["experts"]["f32"]
+    cfg = kimi_config(e, f32=True)
+    want = reckoned_params(cfg)
+    # CPU: parameters and gradients, and one piece of the update (two
+    # moments and at most six f32 transients)
+    need = 2 * want["bytes"] + 8 * 4 * UPDATE_PIECE
+    avail = host_available()
+    update = avail >= need
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tree = tfm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        0), DEVICE)
+    host = tfm.tree_map(lambda t: t.to("cpu", copy=True), tree)
+    batch = SyntheticLM(cfg, c["seq"], c["batch"], seed=5).batch(0)
+    lr = adamw.warmup_cosine(torch.zeros((), dtype=torch.int32),
+                             peak_lr=c["lr"], warmup=0, total=10)
+    # no remat on either side: the same sums, one forward fewer
+    t0 = time.perf_counter()
+    model = tfm.Transformer(cfg, host, live=True)
+    (loss_c, _), grads_c = tfm.value_and_grad(model, cfg, batch, remat=False)
+    del model
+    norm_c = adamw.global_norm(grads_c)
+    if update:
+        leafwise_update(grads_c, host, lr, norm_c)
+    cpu_s = time.perf_counter() - t0
+    model = tfm.Transformer(cfg, tree, live=True)
+    (loss, _), grads = tfm.value_and_grad(model, cfg, batch, remat=False)
+    del model
+    r_loss, _ = worst_ratio([loss.cpu()], [loss_c], TRAIN["tol"])
+    if update:
+        leafwise_update(grads, tree, lr, adamw.global_norm(grads))
+    # each leaf of the CPU's moved over once: its gradient, and after the
+    # update its parameter, held entry by entry within how far the
+    # gradients' and norm's tolerance can move AdamW's first step (lr x
+    # the spread of g / (|g| + eps), up to 2 lr where |g| is near eps: a
+    # sparse MoE gradient has many such entries), as [main-sharded] a
+    # holds it; the reading on the parameters' scale printed beside it
+    r_grad = n = 0
+    r_par = r_scale = 0.0 if update else None
+    for g, p, g_c, p_c in zip(tree_leaves(grads), tree_leaves(tree),
+                              tree_leaves(grads_c), tree_leaves(host)):
+        g_c = g_c.to(DEVICE)
+        r_grad = max(r_grad, worst_ratio([g], [g_c], TRAIN["tol"],
+                                         TRAIN["grad_floor"])[0])
+        n += 1
+        if update:
+            p_c = p_c.to(DEVICE)
+            bound = adamw.first_step_tolerance(
+                [g_c], [p_c], norm_c, lr=lr, grad_tol=TRAIN["tol"],
+                grad_floor=TRAIN["grad_floor"], norm_tol=TRAIN["tol"])
+            r_par = max(r_par, moved_ratio([p], [p_c], bound))
+            r_scale = max(r_scale, worst_ratio([p], [p_c], TRAIN["tol"])[0])
+            del p_c, bound
+        del g_c
+    del grads_c
+    peak = torch.cuda.max_memory_allocated() - base
+    del tree, grads, host
+    torch.cuda.empty_cache()
+    log(f"{prefix} f. {KIMI['arch']} (i) (f32, {cfg.n_layers} layer at "
+        f"full width, {e} of 384 experts, top {cfg.top_k}, B {c['batch']} "
+        f"x S {c['seq']}, TF32 off) card vs CPU: loss {float(loss):.6f} vs "
+        f"{float(loss_c):.6f}; max|d| / bound: loss {r_loss:.3e}, {n} "
+        f"gradient leaves {r_grad:.3e}"
+        + (f", parameters after one AdamW update (lr {c['lr']}) "
+           f"{r_par:.3e} (adamw.first_step_tolerance of the gradient and "
+           f"norm bounds; on the parameters' scale, {TRAIN['tol']} x "
+           f"max(1, max|p|), {r_scale:.3e}, printed, not gated)"
+           if update else
+           ", no update: the host's available memory cannot hold the CPU "
+           "side's update")
+        + f" (bound {TRAIN['tol']} x max(1, |loss|) for the loss, "
+        f"{TRAIN['tol']} x max({TRAIN['grad_floor']}, max|g|) a gradient "
+        f"leaf); {want['params']} parameters; host MemAvailable "
+        f"{avail / 1e9:.3f} GB before, the CPU side needs "
+        f"{need / 1e9:.3f} GB reckoned; the CPU's step {cpu_s:.1f} s; "
+        f"max_memory_allocated {peak / 1e9:.3f} GB above the "
+        f"{base / 1e9:.3f} GB held before [{card}]")
+    check(max(r_loss, r_grad, r_par or 0.0) <= 1.0, f"{prefix} f. "
+          f"card vs CPU over the bound ({r_loss}, {r_grad}, {r_par})")
+    return {"loss": r_loss, "grads": r_grad, "params": r_par,
+            "params_scale": r_scale, "host_available": avail,
+            "host_need": need, "peak": peak}
+
+
+def kimi_recipe_step(prefix: str, card) -> dict:
+    """g: kimi-k2 (ii): the recipe's step on the card, bf16 parameters
+    and moments, one layer at full width with KIMI's train expert cut,
+    ``KIMI["step"]`` steps of ``make_train_step``: every gradient and
+    moment leaf finite, the moments bf16, the first step's loss within
+    the bf16 LM bound of an f32 ``forward``'s loss on the same
+    parameters and batch; step ms, tok/s, the second step's launches
+    and busy ms beside 6 N T at 989 TFLOP/s, the peak beside the
+    arithmetic."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_recipe
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import steps
+    k = KIMI["step"]
+    e = KIMI["experts"]["train"]
+    cfg = kimi_config(e)
+    recipe = get_recipe(KIMI["arch"])
+    moment = recipe["moment_dtype"]
+    want = reckoned_params(cfg)
+    n = want["params"]
+    # parameters, gradients and two moments at 2 B, and the update's six
+    # f32 copies of the largest leaf (g, m, v, the step, the decay term)
+    reckoned = 8 * n + 6 * 4 * want["largest"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = tfm.init_params(cfg, torch.Generator(
+        device=DEVICE).manual_seed(0), DEVICE)
+    batches = [SyntheticLM(cfg, k["seq"], k["batch"], seed=0).batch(i)
+               for i in range(k["steps"])]
+    with torch.no_grad():   # f32 compute copies of the same parameters
+        f32 = tfm.Transformer(cfg.replace(dtype=torch.float32), params)
+        loss32 = float(tfm.loss_fn(f32, f32.cfg, batches[0])[0])
+        del f32
+    torch.cuda.empty_cache()
+    state = steps.TrainState(params, adamw.init(params, moment), None)
+    bundle = steps.make_train_step(cfg, seq_len=k["seq"],
+                                   global_batch=k["batch"],
+                                   moment_dtype=moment, device=DEVICE,
+                                   peak_lr=3e-4, warmup=0, total_steps=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = bundle.fn(state, batches[0])
+    loss = float(m["loss"])
+    first_ms = (time.perf_counter() - t0) * 1e3
+    grads = tree_leaves(bundle.fn.live["model"].grads)
+    finite = [bool(torch.isfinite(t).all()) for t in
+              grads + tree_leaves(state.opt.mu) + tree_leaves(state.opt.nu)]
+    dtypes = {str(t.dtype) for t in tree_leaves(state.opt.mu)
+              + tree_leaves(state.opt.nu)}
+    del grads
+    n_kernels, busy_ms, step_ms = kernel_trace(
+        lambda: bundle.fn(state, batches[1]), 1, host=False)
+    peak = torch.cuda.max_memory_allocated() - base
+    tokens = k["batch"] * k["seq"]
+    active = n - cfg.vocab * cfg.d_model - (e - cfg.top_k) * 3 * (
+        cfg.d_model * cfg.d_ff)
+    bound_ms = 6 * active * tokens / BF16_FLOPS_PER_S * 1e3
+    lm_tol = LM["tol"]["bfloat16"] * max(1.0, abs(loss32))
+    log(f"{prefix} g. {KIMI['arch']} (ii) the recipe's step "
+        f"(bf16 parameters and {dtype_name(moment)} moments, bf16 compute, "
+        f"{cfg.n_layers} layer at full width, {e} of 384 experts, B "
+        f"{k['batch']} x S {k['seq']}, {k['steps']} steps of "
+        f"make_train_step): first loss {loss:.6f} against an f32 forward's "
+        f"{loss32:.6f} on the same parameters and batch, |d| "
+        f"{abs(loss - loss32):.3e} (bound {lm_tol:.3e}); {sum(finite)} of "
+        f"{len(finite)} gradient and moment leaves finite, moments "
+        f"{sorted(dtypes)}; first step {first_ms:.1f} ms, second "
+        f"{step_ms:.1f} ms traced ({tokens / step_ms * 1e3:.1f} tok/s), "
+        f"{n_kernels:.0f} kernel launches, device busy {busy_ms:.2f} ms "
+        f"(torch.profiler, kernels only); FLOP bound {bound_ms:.2f} ms (6 N "
+        f"T, N = {active / 1e9:.4f} B active a token without the embedding "
+        f"table, at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s dense bf16: "
+        f"reckoned, not measured); {n} parameters, max_memory_allocated "
+        f"{peak / 1e9:.3f} GB above the {base / 1e9:.3f} GB held before "
+        f"against {reckoned / 1e9:.3f} GB reckoned (8 B a parameter and "
+        f"AdamW's six f32 copies of the {want['largest']}-entry leaf) "
+        f"[{card}]")
+    check(all(finite) and dtypes == {str(moment)}
+          and abs(loss - loss32) <= lm_tol and np.isfinite(loss),
+          f"{prefix} g. kimi-k2 recipe step: finite {sum(finite)} of "
+          f"{len(finite)}, moments {dtypes}, loss {loss} vs {loss32}")
+    del state, bundle
+    torch.cuda.empty_cache()
+    return {"loss": loss, "loss_f32": loss32, "first_ms": first_ms,
+            "step_ms": step_ms, "tok_s": tokens / step_ms * 1e3,
+            "launches_a_step": n_kernels, "busy_ms": busy_ms,
+            "bound_ms": bound_ms, "peak": peak, "reckoned": reckoned,
+            "params": n}
+
+
 def phase_main_train(card) -> dict:
     """[main-train]: the LM training path (TRAIN)."""
     import torch
@@ -4558,7 +5086,8 @@ def phase_main_train(card) -> dict:
     out = {}
     for part, fn in (("a", train_cli), ("b", train_learns),
                      ("c", train_card_vs_cpu), ("d", train_remat),
-                     ("e", train_smoke)):
+                     ("e", train_smoke), ("f", kimi_card_vs_cpu),
+                     ("g", kimi_recipe_step)):
         t0 = time.perf_counter()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -4577,7 +5106,7 @@ def phase_main_train(card) -> dict:
 
 #: [main-placed]: logical devices the one card is split into, the padded
 #: batch of part c (64 -> 96 rows), and part e's small dynamic fleet
-PLACED = dict(devices=4, pad_to=96, small=dict(graphs=8, n=64, g=384),
+PLACED = dict(devices=4, pad_to=96, small=dict(graphs=8, n=64, g=192),
               reps=20)
 
 
@@ -4957,8 +5486,11 @@ def phase_main_placed(errs, main, main_dir, ragged) -> dict:
 #: tenants through AsyncFGFTService on the tables the earlier phases
 #: fitted (no fit at full width); the dynamic part's churn and refresh
 #: threshold; the CLI at a small size for the wiring
-ASYNC = dict(requests=4096, bank_requests=1024, directed_requests=1024,
-             ragged_requests=1024, dynamic_requests=2048, rows=8,
+#: [main-async]: request counts of parts a-d (a's tier load and its
+#: bank load, b, c and d; a-c cut to half for the run's time limit, d
+#: not: its ticks must swap while it runs)
+ASYNC = dict(requests=2048, bank_requests=512, directed_requests=512,
+             ragged_requests=512, dynamic_requests=2048, rows=8,
              workers=16, max_queue=128, max_batch=8, churn=0.002,
              maintain_interval=0.05, refresh=0.002,
              cli=["--fgft", "--serve-async", "--dynamic", "--graphs", "8",
@@ -4968,27 +5500,30 @@ ASYNC = dict(requests=4096, bank_requests=1024, directed_requests=1024,
 #: [main-dryrun]: the dry run on the production meshes (a), its one-device
 #: prediction against [main-train]'s configuration on the card (b), and
 #: the argument bytes of that state placed on 4 logical devices (c);
-#: ``seq``, ``batch``: [main-train]'s CLI step (TRAIN)
+#: ``seq``, ``batch``: [main-train]'s CLI step (TRAIN); ``cells``: a's
+#: cells, the single mesh's and the multi mesh's ``pod_compress`` one
+#: (the multi mesh's plain cell, the same traces and one more
+#: representative trace, ~17 s, is left out for the run's time limit)
 DRYRUN = dict(arch=TRAIN["arch"], shape="train_4k", seq=256, batch=8,
+              cells=(("single", None), ("multi", {"pod_compress": True})),
               logical=4, model_axis=2, flop_tol=0.01,
               products=("aten::mm", "aten::addmm", "aten::bmm",
                         "aten::baddbmm"))
 
 
 def dryrun_cells(prefix: str, card) -> dict:
-    """a: ``run_cell`` of qwen2-1.5b train_4k on both production meshes,
-    on ``meta`` (one global and one data-shard trace serve both; each
-    mesh's collectives from the sharded step traced for one id), then
-    the ``pod_compress`` cell on the multi mesh: its cross-pod bytes
-    under half of all its collective bytes (the JAX test's gate)."""
+    """a: ``run_cell`` of qwen2-1.5b train_4k on both production meshes
+    (DRYRUN's cells), on ``meta`` (one global and one data-shard trace
+    serve both; each cell's collectives from its step traced for one
+    id): the single mesh's cell, then the multi mesh's ``pod_compress``
+    cell: its cross-pod bytes under half of all its collective bytes
+    (the JAX test's gate)."""
     import torch
     from repro_torch.launch import dryrun
     from repro_torch.runtime import hlo_analysis as hlo
     total = torch.cuda.get_device_properties(0).total_memory
     out = {}
-    cells = (("single", None), ("multi", None),
-             ("multi", {"pod_compress": True}))
-    for kind, over in cells:
+    for kind, over in DRYRUN["cells"]:
         t0 = time.perf_counter()
         res = dryrun.run_cell(DRYRUN["arch"], DRYRUN["shape"], kind, over)
         mem, r = res["memory"], res["roofline"]
@@ -5469,14 +6004,14 @@ def phase_main_async(errs, main, main_dir) -> dict:
     the earlier phases fitted, each part driven with the counts zeroed
     just before and read just after (comparisons not counted).  a. the
     [main] basis with its tiers and the F = 7 bank behind
-    ``AsyncFGFTService(max_queue=128, max_batch=8)``: 4096 tier requests
-    and 1024 bank requests of R = 8 rows from 16 closed-loop tenants,
+    ``AsyncFGFTService(max_queue=128, max_batch=8)``: 2048 tier requests
+    and 512 bank requests of R = 8 rows from 16 closed-loop tenants,
     every answer against ``step_versioned`` on the request alone, one
     kernel launch per fused dispatch, compile spans equal to plan-cache
     misses, each request's spans sharing their endpoints exactly; the
     same tier load untraced (``obs.configure(enabled=False)``) for the
-    traced/untraced ratio.  b. the [main-directed] basis, 1024 requests
-    bitwise.  c. [main-ragged]'s saved router, 1024 requests over its
+    traced/untraced ratio.  b. the [main-directed] basis, 512 requests
+    bitwise.  c. [main-ragged]'s saved router, 512 requests over its
     three buckets, pads 0 in every bucket output.  d. a dynamic engine on
     the [main] basis under a churn thread, 2048 requests while the
     maintainer ticks on its own CUDA stream: swaps, non-decreasing
@@ -5987,10 +6522,22 @@ SHARDED = dict(arch=TRAIN["arch"], logical=4, seq=256, batch=8,
 #: the config (llama: ff and vocabulary cut so that the f64 state fits);
 #: the f32 run's gradient reading is printed beside it.  A differing MoE
 #: route fails unless that token's top-k margin (the k-th largest router
-#: probability less the next) is below ``margin``.  Then the CLI of
-#: mamba2-780m on a model axis of 2, resumed bitwise.
+#: probability less the next) is below ``margin``.  kimi-k2-1t-a32b
+#: (ROADMAP A6e): one layer, KIMI's f32 expert cut (``cut``, f32
+#: parameters in place of the recipe's bf16) with fsdp (``fsdp``) and
+#: expert parallelism on (2, 2), 4 experts a rank, gradients only (both
+#: copies share one HBM), its draws rounded to bf16 values (``values``:
+#: the recipe's parameters, held in f32), so that ``split_bf16`` can
+#: then print C12's distance: the bf16 sharded step's gradients against
+#: the unsharded bf16 step's beside twice the unsharded bf16 step's
+#: distance from the f32 one.  Then the CLI of mamba2-780m on a model
+#: axis of 2, resumed bitwise.
 SHARDED_FAMILIES = dict(
-    runs=(dict(arch="qwen3-moe-30b-a3b", layers=2, mesh=(1, 4)),
+    runs=(dict(arch="kimi-k2-1t-a32b", layers=1, mesh=(2, 2), fsdp=True,
+               update=False, cut=dict(n_experts=KIMI["experts"]["f32"],
+                                      param_dtype="float32"),
+               values="bfloat16", split_bf16=True),
+          dict(arch="qwen3-moe-30b-a3b", layers=2, mesh=(1, 4)),
           dict(arch="mamba2-780m", layers=2, mesh=(1, 4), f64={}),
           dict(arch="recurrentgemma-2b", layers=3, mesh=(2, 2)),
           dict(arch="seamless-m4t-large-v2", layers=2, mesh=(1, 4)),
@@ -6454,9 +7001,7 @@ def family_step(prefix: str, card, run: dict, park: HostPark) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
-    tree = open_gates(tfm.init_params(
-        cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE),
-        c["gate"])
+    tree = family_tree(cfg, run)
     n_params = sum(t.numel() for t in tree_leaves(tree))
     with RouterInputs() as spy:
         model = tfm.Transformer(cfg, tree, live=True)
@@ -6480,7 +7025,8 @@ def family_step(prefix: str, card, run: dict, park: HostPark) -> dict:
     t_plain = time.perf_counter() - t0
     host = sum(t.numel() * t.element_size() for t in want_g + (want_p or []))
     mesh = _logical_mesh(run["mesh"])
-    bundle = steps.make_train_step(cfg, mesh, **hyper)
+    fsdp = run.get("fsdp", False)
+    bundle = steps.make_train_step(cfg, mesh, fsdp=fsdp, **hyper)
     ids, sh = bundle.fn.ids, bundle.state_shardings
     if update:   # the update wrote ``tree``: the same draws, leaf by leaf
         del tree
@@ -6517,6 +7063,10 @@ def family_step(prefix: str, card, run: dict, park: HostPark) -> dict:
     got_routes = moe_routes(model)
     got_kept = [m.cpu() for m in moe_kept(model)]
     del model
+    # the first id routes its data shard's rows: the unsharded call's
+    # first dispatch groups (a shard holds whole groups)
+    routes, kept, margins = ([r[:len(x)] for r, x in zip(v, got_routes)]
+                             for v in (routes, kept, margins))
     held = shd.placed_nbytes(placed)
     # the checks read the gradients and, after an update, the parameters:
     # the moments (and without an update the parameters) go first
@@ -6558,7 +7108,7 @@ def family_step(prefix: str, card, run: dict, park: HostPark) -> dict:
     per_id_bytes = {i: held[i] + placed_batch[i] for i in ids}
     t_sharded = time.perf_counter() - t0 - t_plain
     want_bytes = dryrun.argument_bytes(
-        cfg, {"fsdp": False, "moment_dtype": torch.float32},
+        cfg, {"fsdp": fsdp, "moment_dtype": torch.float32},
         Shape("sharded-e", seq, rows, "train"), mesh)
     peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
     del bundle, run_fn
@@ -6571,7 +7121,7 @@ def family_step(prefix: str, card, run: dict, park: HostPark) -> dict:
     tag = "x".join(map(str, run["mesh"]))
     log(f"{prefix} e. {arch} (f32, {cfg.n_layers} layers"
         f"{f' + {cfg.n_enc_layers} encoder layers' if cfg.is_encdec else ''}"
-        f" at full width, {n_params} parameters, "
+        f" at full width{run_cuts(run)}, {n_params} parameters, "
         f"B {rows} x S {seq}, TF32 off, gates {c['gate']}) on a {tag} mesh "
         f"of logical devices against the unsharded step: loss "
         f"{got_loss:.7f} vs {float(loss):.7f}; max|d| / bound: loss "
@@ -6598,12 +7148,15 @@ def family_step(prefix: str, card, run: dict, park: HostPark) -> dict:
         f"{terms['collective_bytes']} B [{card}]")
     if routes:
         log(f"{prefix} e. {arch}: MoE routes differing from the unsharded "
-            f"step's {n_flip} tokens of {sum(r.shape[0] * r.shape[1] for r in routes)} "
+            f"step's {n_flip} of the first id's "
+            f"{sum(r.shape[0] * r.shape[1] for r in routes)} tokens "
             f"(their top-k margins {flip_margins}), kept pairs differing "
             f"{n_kept} [{card}]")
     del want_g, want_p
     exact = (family_exact(prefix, card, run, seq, rows, park)
              if "f64" in run else None)
+    split = (split_bf16(prefix, card, run, seq, rows, park)
+             if run.get("split_bf16") else None)
     r_held = exact["grads"] if exact else r_grad
     check(max(r_loss, r_held, r_norm, r_upd or 0.0) <= 1.0,
           f"{prefix} e. {arch} {tag}: sharded vs unsharded over the bound "
@@ -6615,7 +7168,8 @@ def family_step(prefix: str, card, run: dict, park: HostPark) -> dict:
           f"{flip_margins}")
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
-    return {"loss": r_loss, "grads": r_grad, "f64": exact, "norm": r_norm,
+    return {"loss": r_loss, "grads": r_grad, "f64": exact,
+            "split_bf16": split, "norm": r_norm,
             "params": r_upd, "bytes_per_id": want_bytes, "peak": peak,
             "base": base,
             "host_bytes": host, "collectives": coll,
@@ -6653,14 +7207,18 @@ def gradient_ratio(shardings, g, ids, wants, each=None) -> tuple:
     return ratio, worst, sq ** 0.5
 
 
-def family_config(run: dict, f64: bool = False):
+def family_config(run: dict, f64: bool = False, dtype="float32"):
     """A part e run's config: full width at ``run``'s depth (as many
-    encoder layers), f32; ``f64``: f64 with ``run["f64"]``'s changes."""
+    encoder layers) with ``run["cut"]``'s changes, computed in ``dtype``
+    (f32); ``f64``: f64 with ``run["f64"]``'s changes."""
     import torch
     from repro_torch.configs import get_config
     cfg = get_config(run["arch"])
-    cfg = cfg.replace(n_layers=run["layers"], dtype=torch.float32,
-                      n_enc_layers=run["layers"] if cfg.is_encdec else 0)
+    cut = {k: getattr(torch, v) if k.endswith("dtype") else v
+           for k, v in run.get("cut", {}).items()}
+    cfg = cfg.replace(n_layers=run["layers"], dtype=getattr(torch, dtype),
+                      n_enc_layers=run["layers"] if cfg.is_encdec else 0,
+                      **cut)
     if f64:
         cfg = cfg.replace(dtype=torch.float64, param_dtype=torch.float64,
                           **run["f64"])
@@ -6669,20 +7227,163 @@ def family_config(run: dict, f64: bool = False):
 
 def park_bytes(runs) -> int:
     """The pinned bytes part e's largest parking takes: a run's
-    gradients (and with an update its parameters), or its f64
-    gradients."""
+    gradients (and with an update its parameters), its f64 gradients, or
+    its f32 and bf16 gradients (``split_bf16``)."""
     from repro_torch.models import transformer as tfm
     need = 0
     for run in runs:
-        for f64, copies in ((False, 1 + run.get("update", True)),
-                            (True, 1)):
-            if f64 and "f64" not in run:
-                continue
+        parkings = [(False, [(4, 1 + run.get("update", True))])]
+        if "f64" in run:
+            parkings.append((True, [(8, 1)]))
+        if run.get("split_bf16"):   # the f32 and the bf16 gradients
+            parkings.append((False, [(4, 1), (2, 1)]))
+        for f64, parts in parkings:
             shapes = []
             tfm.tree_map(lambda leaf: shapes.append(leaf.shape),
                          tfm.param_spec(family_config(run, f64)))
-            need = max(need, HostPark.need(shapes, 8 if f64 else 4, copies))
+            need = max(need, sum(HostPark.need(shapes, size, copies)
+                                 for size, copies in parts))
     return need
+
+
+def run_cuts(run: dict) -> str:
+    """A part e run's cuts and layout, as its line names them."""
+    out = "".join(f", {k} {v}" for k, v in run.get("cut", {}).items())
+    if run.get("fsdp"):
+        out += ", fsdp"
+    if run.get("values"):
+        out += f", values rounded to {run['values']}"
+    return out
+
+
+def family_tree(cfg, run: dict):
+    """A part e run's parameters: seed 0 on the card, the cross-attention
+    gates opened, each leaf rounded to ``run["values"]`` where given."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    tree = open_gates(tfm.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE),
+        SHARDED_FAMILIES["gate"])
+    if run.get("values"):
+        dt = getattr(torch, run["values"])
+        tfm.tree_map(lambda t: t.copy_(t.to(dt)), tree)
+    return tree
+
+
+#: split_bf16's serve steps: the batch, the prompt and the decode steps
+SPLIT_SERVE = dict(batch=4, prompt=32, decode=2)
+
+
+def split_bf16(prefix: str, card, run: dict, seq: int, rows: int,
+               park: HostPark) -> dict:
+    """e, C12 on the card: from the same values, the unsharded steps in
+    f32 and in bf16 (the recipe's: bf16 parameters and compute): the
+    train step's loss and gradients (parked), a prompt's prefill and
+    decode steps' logits (SPLIT_SERVE; the cache in the compute dtype);
+    then the bf16 sharded train, prefill and decode steps on ``run``'s
+    mesh.  Each sharded reading beside twice the unsharded bf16 step's
+    distance from the f32 one (the bound of
+    ``tests/test_torch_bf16_partials.py``), printed, not gated.
+    Distances: the loss, relative; gradients, max over leaves of max|d|
+    / max(1e-3, max|g|); logits, max over the calls of max|d| / max(1,
+    max|logits|)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    t0 = time.perf_counter()
+    floor = SHARDED["grad_floor"]
+
+    def dist(got, want, least=floor) -> float:
+        return float((got.float() - want.float()).abs().max()) / max(
+            least, float(want.float().abs().max()))
+
+    cfg32 = family_config(run)
+    cfg16 = family_config(run, dtype="bfloat16").replace(
+        param_dtype=torch.bfloat16)
+    host = SyntheticLM(cfg32, seq, rows, seed=0).batch(0)
+    batch = {k: torch.from_numpy(v) for k, v in host.items()}
+    b, s, n = (SPLIT_SERVE[k] for k in ("batch", "prompt", "decode"))
+    toks = np.random.default_rng(0).integers(
+        0, cfg32.vocab, (b, s + n)).astype(np.int32)
+    calls = [{"tokens": toks[:, :s]}] + [
+        {"token": toks[:, t:t + 1], "pos": np.full((b,), t, np.int32)}
+        for t in range(s, s + n)]
+    park.clear()
+    wants, losses, logits = {}, {}, {}
+    for name, cfg in (("f32", cfg32), ("bf16", cfg16)):
+        tree = tfm.tree_map(lambda t: t.to(cfg.param_dtype),
+                            family_tree(cfg32, run))
+        model = tfm.Transformer(cfg, tree, live=True)
+        (loss, _), grads = tfm.value_and_grad(model, cfg, batch)
+        losses[name] = float(loss)
+        wants[name] = [park.park(g) for g in tree_leaves(grads)]
+        del model, grads
+        model = tfm.Transformer(cfg, tree)
+        cache = tfm.init_cache(cfg, b, s + n, DEVICE, cfg.dtype)
+        logits[name] = [model.prefill(cache, calls[0]["tokens"])[0]] + [
+            model.decode_step(cache, c["token"], c["pos"])[0]
+            for c in calls[1:]]
+        del model, cache
+        if name == "bf16":   # the sharded steps' parameters
+            params = tree
+        del tree
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    d = {"loss": abs(losses["bf16"] - losses["f32"]) / abs(losses["f32"]),
+         "grads": max(dist(x.to(DEVICE), y.to(DEVICE))
+                      for x, y in zip(wants["bf16"], wants["f32"])),
+         "logits": max(dist(x, y, 1.0) for x, y in zip(logits["bf16"],
+                                                        logits["f32"]))}
+    mesh = _logical_mesh(run["mesh"])
+    fsdp = run.get("fsdp", False)
+    bundle = steps.make_train_step(cfg16, mesh, seq_len=seq,
+                                   global_batch=rows, fsdp=fsdp)
+    placed = shd.place_tree(params, bundle.state_shardings.params)
+    placed = {i: steps.TrainState(placed[i], None) for i in placed}
+    metrics, g = bundle.fn.gradients(placed, batch)
+    ratio, _, _ = gradient_ratio(bundle.state_shardings.params, g,
+                                 bundle.fn.ids, wants["bf16"])
+    got = {"loss": abs(float(metrics[bundle.fn.ids[0]]["loss"])
+                       - losses["bf16"]) / abs(losses["bf16"]),
+           # a's bound is grad_tol x the scale
+           "grads": ratio * SHARDED["grad_tol"]}
+    del placed, bundle, g, wants, metrics
+    kw = dict(seq_len=s + n, global_batch=b, fsdp=fsdp)
+    pre = steps.make_prefill_step(cfg16, mesh, **kw)
+    dec = steps.make_decode_step(cfg16, mesh, **kw)
+    weights = shd.place_tree(params, pre.state_shardings[0])
+    del params
+    cache = shd.place_tree(tfm.init_cache(cfg16, b, s + n, DEVICE,
+                                          cfg16.dtype),
+                           pre.state_shardings[1])
+    got["logits"] = 0.0
+    for k, c in enumerate(calls):
+        step = pre if k == 0 else dec
+        out, cache = step.fn(weights, cache, c)
+        got["logits"] = max(got["logits"], dist(
+            step.fn.out_sharding.gather(out), logits["bf16"][k], 1.0))
+    del weights, cache, pre, dec, logits
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    tag = "x".join(map(str, run["mesh"]))
+    log(f"{prefix} e. {run['arch']} C12 in bf16 (bf16 parameters and "
+        f"compute{run_cuts(run).replace(', param_dtype float32', '')}; "
+        f"serve: B {b}, a prompt of {s} and {n} decode steps, a bf16 "
+        f"cache): the {tag} sharded steps against the unsharded bf16 "
+        f"ones, beside the unsharded bf16 steps' distance from the f32 "
+        f"ones (the bound, twice that): "
+        + ", ".join(f"{k} {got[k]:.3e} ({d[k]:.3e}, bound {2 * d[k]:.3e})"
+                    for k in ("loss", "grads", "logits"))
+        + f" (the loss relative, a gradient leaf max|d| / max({floor}, "
+        f"max|g|), logits max|d| / max(1, max|logits|)), printed, not "
+        f"gated; {secs:.1f} s [{card}]")
+    return {"sharded": got, "unsharded_vs_f32": d,
+            "bound": {k: 2 * v for k, v in d.items()}, "seconds": secs}
 
 
 def family_exact(prefix: str, card, run: dict, seq: int, rows: int,
@@ -6701,16 +7402,15 @@ def family_exact(prefix: str, card, run: dict, seq: int, rows: int,
     specs = steps.input_specs(cfg, seq, rows)
     batch = {k: torch.from_numpy(v).to(specs[k].dtype) for k, v in
              SyntheticLM(cfg, seq, rows, seed=0).batch(0).items()}
-    tree = open_gates(tfm.init_params(
-        cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE),
-        SHARDED_FAMILIES["gate"])
+    tree = family_tree(cfg, run)
     model = tfm.Transformer(cfg, tree, live=True)
     (loss, _), grads = tfm.value_and_grad(model, cfg, batch)
     park.clear()
     want = [park.park(t) for t in tree_leaves(grads)]
     del model, grads
     bundle = steps.make_train_step(cfg, _logical_mesh(run["mesh"]),
-                                   seq_len=seq, global_batch=rows)
+                                   seq_len=seq, global_batch=rows,
+                                   fsdp=run.get("fsdp", False))
     params = shd.place_tree(tree, bundle.state_shardings.params)
     del tree
     placed = {i: steps.TrainState(params[i], None) for i in params}

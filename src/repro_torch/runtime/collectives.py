@@ -8,11 +8,12 @@ member's device.  On several cards it is a device-to-device copy plus
 adds; on logical devices of one card or the CPU it is the same code.
 
 Every result is computed once, in the group's order (the first member's
-device, members added one after the other), and copied to each member,
-so every member holds the same bits, as the members of a real all-reduce
-do, and each its own storage.  A group of one member is no collective:
-its result is its input, and nothing is counted (XLA drops a collective
-over one device too).
+device, members added one after the other; bf16 or f16 values added in
+f32 and rounded once, as the reference's CPU program adds them), and
+copied to each member, so every member holds the same bits, as the
+members of a real all-reduce do, and each its own storage.  A group of
+one member is no collective: its result is its input, and nothing is
+counted (XLA drops a collective over one device too).
 
 Four of them take gradients.  Megatron's conjugate pair for tensor
 parallelism: ``Group.sum`` (an all-reduce in the forward, the identity in
@@ -53,6 +54,10 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+#: the dtypes whose sums are added in f32 (``Group._reduce``)
+_NARROW = (torch.bfloat16, torch.float16)
+
 
 class Counter:
     """Result bytes and op counts a collective delivered on each mesh id,
@@ -165,11 +170,18 @@ class Group:
     # -- without gradients ------------------------------------------------
 
     def _reduce(self, xs: Sequence[torch.Tensor], op) -> torch.Tensor:
-        dev = xs[0].device
-        total = xs[0]
+        """The members' values combined in group order on the first
+        member's device.  A sum of values narrower than f32 (bf16, f16)
+        is added in f32 and rounded once to their dtype: the JAX
+        program's all-reduce and reduce-scatter take the partials in
+        their own dtype, and XLA's CPU backend, where the reference runs,
+        promotes such a sum to f32 (its ``all-reduce-promotion`` pass)."""
+        dev, dtype = xs[0].device, xs[0].dtype
+        wide = op is torch.add and dtype in _NARROW
+        total = xs[0].float() if wide else xs[0]
         for x in xs[1:]:
             total = op(total, x.to(dev))
-        return total
+        return total.to(dtype) if wide else total
 
     def _spread(self, total: torch.Tensor) -> List[torch.Tensor]:
         return [total.to(self.device(k), copy=True)

@@ -228,6 +228,9 @@ def make_train_step(cfg: ModelConfig, mesh=None, *, seq_len: int,
         metrics["lr"] = lr
         return TrainState(state.params, new_opt, ef_err), metrics
 
+    #: {"model": the live model of the last step's parameters (its
+    #: ``grads``, that step's gradients before the update), "params"}
+    step.live = live
     return StepBundle(step, None, None, abstract, specs)
 
 

@@ -1835,3 +1835,17 @@ def test_sharded_serve_on_logical_devices_of_the_card(cuda, no_tf32, arch,
             placed, dec.state_shardings[1])), tree_leaves(cache)):
         limit, err = bound(got, want)
         assert err <= limit
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "kimi-k2-1t-a32b"])
+def test_bf16_sharded_steps_on_logical_devices_of_the_card(cuda, no_tf32,
+                                                           arch):
+    """ROADMAP C12 on the card: the bf16 sharded train step (gradients)
+    and prefill and decode steps of the smoke config on (2, 2) logical
+    devices, against the unsharded bf16 steps on the card, within twice
+    the unsharded bf16 steps' distance from the f32 ones on the same
+    inputs (``tests/test_torch_bf16_partials.py``, whose helpers import
+    neither JAX nor the JAX package)."""
+    from test_torch_bf16_partials import held_within_split, split_distances
+    held_within_split(arch, split_distances(arch, _logical_mesh((2, 2)),
+                                            cuda))
